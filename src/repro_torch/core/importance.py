@@ -1,0 +1,116 @@
+"""Neuron importance (paper Eq. 4) and Importance Pruning (Algorithm 2),
+element granularity. Host numpy, as in the reference.
+
+Importance of neuron j in layer l is its graph *strength*:
+
+    I_j = sum_{i in Gamma_j} |w_ij|
+
+i.e. the L1 norm of the incoming-weight column. The block half comes with
+the block slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.sparsity import ElementTopology
+
+__all__ = [
+    "element_degrees",
+    "neuron_importance_element",
+    "importance_prune_element",
+    "ImportancePruneResult",
+    "PruningSchedule",
+]
+
+
+class ImportancePruneResult(NamedTuple):
+    topology: object
+    values: np.ndarray
+    momentum: Optional[np.ndarray]
+    pruned_neurons: np.ndarray  # neuron (column) ids that were pruned
+    removed_params: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PruningSchedule:
+    """Algorithm 2 schedule: prune every ``period`` epochs once epoch >= tau."""
+
+    tau: int = 200
+    period: int = 10
+    threshold: Optional[float] = None
+    percentile: Optional[float] = None  # e.g. 5.0 for the 5th percentile
+    enabled: bool = True
+
+    def should_prune(self, epoch: int) -> bool:
+        return self.enabled and epoch >= self.tau and epoch % self.period == 0
+
+    def resolve_threshold(self, importance: np.ndarray) -> float:
+        if self.threshold is not None:
+            return float(self.threshold)
+        if self.percentile is not None:
+            return float(np.percentile(importance, self.percentile))
+        raise ValueError("PruningSchedule needs threshold or percentile")
+
+
+def element_degrees(topo: ElementTopology) -> Tuple[np.ndarray, np.ndarray]:
+    """(out_degree per input row, in_degree per output column).
+
+    A hidden neuron with in-degree 0 computes ``act(bias)`` (a constant) and
+    one with out-degree 0 feeds nothing downstream — both are what
+    deployment-time compaction (serve/compact.py) physically eliminates."""
+    row_deg = np.bincount(topo.rows, minlength=topo.in_dim)
+    col_deg = np.bincount(topo.cols, minlength=topo.out_dim)
+    return row_deg, col_deg
+
+
+def neuron_importance_element(
+    topo: ElementTopology, values: np.ndarray
+) -> np.ndarray:
+    """I_j per output neuron (length out_dim)."""
+    imp = np.zeros(topo.out_dim, np.float64)
+    np.add.at(imp, topo.cols, np.abs(np.asarray(values, np.float64)))
+    return imp.astype(np.float32)
+
+
+def importance_prune_element(
+    topo: ElementTopology,
+    values: np.ndarray,
+    schedule: PruningSchedule,
+    momentum: Optional[np.ndarray] = None,
+    protected: Optional[np.ndarray] = None,
+) -> ImportancePruneResult:
+    """Remove all incoming weights of neurons with importance below threshold.
+
+    ``protected`` marks columns that must never be pruned (e.g. output units).
+    """
+    values = np.asarray(values, np.float32)
+    imp = neuron_importance_element(topo, values)
+    # only columns with at least one incoming connection are prunable —
+    # zero-degree neurons have nothing to remove and must not be reported
+    # in pruned_neurons (they would over-count the prune)
+    live = np.zeros(topo.out_dim, bool)
+    live[topo.cols] = True
+    t = schedule.resolve_threshold(imp[live])
+    prune_mask = (imp < t) & live
+    if protected is not None:
+        prune_mask[protected] = False
+    # never prune ALL live neurons
+    if prune_mask[live].all() and live.any():
+        keep_one = int(np.flatnonzero(live)[np.argmax(imp[live])])
+        prune_mask[keep_one] = False
+    pruned = np.flatnonzero(prune_mask)
+    keep = ~np.isin(topo.cols, pruned)
+    removed = int(topo.nnz - keep.sum())
+    new_topo = ElementTopology(
+        topo.in_dim, topo.out_dim, topo.rows[keep], topo.cols[keep]
+    )
+    return ImportancePruneResult(
+        new_topo,
+        values[keep],
+        momentum[keep] if momentum is not None else None,
+        pruned,
+        removed,
+    )

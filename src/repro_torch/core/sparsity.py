@@ -1,0 +1,365 @@
+"""Truly sparse weight representations, element (COO) granularity.
+
+PyTorch twin of ``repro.core.sparsity`` for the paper-faithful SET-MLP path:
+``ElementTopology`` keeps the topology in host numpy with the same lexsort
+and the same Erdős–Rényi draw as the reference, so a seed gives the same
+connections bit for bit; ``ElemTopoArrays`` holds its dual-order views as
+int32 tensors on the device.
+
+The product primitive :func:`coo_matmul_T` is kernel A
+(``csrc/coo_matmul_T.cu``) for CUDA tensors and its plain PyTorch version
+for CPU tensors. The block granularity comes with the block slice.
+"""
+from __future__ import annotations
+
+import ctypes
+import weakref
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = [
+    "ElemTopoArrays",
+    "ElementTopology",
+    "coo_matmul_T",
+    "coo_matmul_T_plain",
+    "density_from_epsilon",
+    "element_spmm",
+    "element_spmm_segment",
+    "erdos_renyi_nnz",
+    "segment_offsets",
+    "spmm_chunk_for",
+]
+
+
+def density_from_epsilon(epsilon: float, n_in: int, n_out: int) -> float:
+    """SET's Erdős–Rényi density: p = eps * (n_in + n_out) / (n_in * n_out)."""
+    return min(1.0, float(epsilon) * (n_in + n_out) / (n_in * n_out))
+
+
+def erdos_renyi_nnz(epsilon: float, n_in: int, n_out: int) -> int:
+    return max(1, int(round(density_from_epsilon(epsilon, n_in, n_out) * n_in * n_out)))
+
+
+def _first_flags(keys: np.ndarray) -> np.ndarray:
+    first = np.ones_like(keys, dtype=np.int32)
+    if keys.size > 1:
+        first[1:] = (keys[1:] != keys[:-1]).astype(np.int32)
+    return first
+
+
+class ElemTopoArrays(NamedTuple):
+    """Device-side dual-order COO topology. All int32 tensors, shape (nnz,).
+
+    Canonical order is sorted by (col, row), so ``cols`` is non-decreasing
+    and the forward product is a sorted segment reduction. The ``*_r``
+    fields are the same connections sorted by (row, col) for the dX pass of
+    the training slice; ``perm_r[j]`` maps row-ordered slot j back to the
+    canonical slot owning its value. ``first_col``/``first_row`` are 1 where
+    the sort key changes.
+    """
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    first_col: torch.Tensor
+    rows_r: torch.Tensor
+    cols_r: torch.Tensor
+    first_row: torch.Tensor
+    perm_r: torch.Tensor
+
+
+class ElementTopology:
+    """Host-side COO topology for the paper's SET-MLP path.
+
+    rows/cols are int32 (nnz,) with unique positions, sorted by (col, row).
+    """
+
+    def __init__(self, in_dim: int, out_dim: int, rows: np.ndarray, cols: np.ndarray):
+        self.in_dim = int(in_dim)
+        self.out_dim = int(out_dim)
+        order = np.lexsort((rows, cols))
+        self.rows = np.asarray(rows, np.int32)[order]
+        self.cols = np.asarray(cols, np.int32)[order]
+        # kernel A gathers and writes through these indices unchecked
+        if self.rows.size and not (
+            0 <= self.rows.min() and self.rows.max() < self.in_dim
+            and 0 <= self.cols.min() and self.cols.max() < self.out_dim
+        ):
+            raise ValueError(
+                f"connections out of range for a {self.in_dim}x{self.out_dim} layer"
+            )
+        flat = self.rows.astype(np.int64) * out_dim + self.cols
+        if np.unique(flat).size != flat.size:
+            raise ValueError("duplicate connections")
+
+    @classmethod
+    def erdos_renyi(
+        cls, in_dim: int, out_dim: int, epsilon: float, rng: np.random.Generator
+    ) -> "ElementTopology":
+        nnz = erdos_renyi_nnz(epsilon, in_dim, out_dim)
+        nnz = min(nnz, in_dim * out_dim)
+        flat = rng.choice(in_dim * out_dim, size=nnz, replace=False).astype(np.int64)
+        return cls(in_dim, out_dim, (flat // out_dim), (flat % out_dim))
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def density(self) -> float:
+        return self.nnz / (self.in_dim * self.out_dim)
+
+    def device_arrays(self, device: torch.device) -> ElemTopoArrays:
+        rows, cols = self.rows, self.cols
+        perm_r = np.lexsort((cols, rows)).astype(np.int32)
+        rows_r = rows[perm_r]
+        cols_r = cols[perm_r]
+        return ElemTopoArrays(*(
+            torch.as_tensor(a, device=device)
+            for a in (rows, cols, _first_flags(cols), rows_r, cols_r,
+                      _first_flags(rows_r), perm_r)
+        ))
+
+    def col_ptr(self) -> np.ndarray:
+        """int64 (out_dim + 1,) offsets of each column's slot range in the
+        canonical order: kernel A's ``seg_ptr`` for the forward product."""
+        return np.searchsorted(self.cols, np.arange(self.out_dim + 1)).astype(np.int64)
+
+    def init_values(
+        self, rng: np.random.Generator, *, dtype: torch.dtype = torch.float32,
+        scheme: str = "he_uniform", device: torch.device,
+    ) -> torch.Tensor:
+        vals = _init_numpy(rng, (self.nnz,), fan_in_dense=self.in_dim, scheme=scheme)
+        return torch.as_tensor(vals, device=device).to(dtype)
+
+
+def element_spmm(
+    x: torch.Tensor, values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+    out_dim: int,
+) -> torch.Tensor:
+    """Truly sparse y = x @ W for COO W by gather and scatter-add.
+
+    Materializes the (batch, nnz) contribution array; the CPU plain path
+    takes it for small problems (``SPMM_INFER_*``)."""
+    contrib = x[..., rows.long()] * values
+    y = torch.zeros(x.shape[:-1] + (out_dim,), dtype=contrib.dtype, device=x.device)
+    return y.index_add_(-1, cols.long(), contrib)
+
+
+# Batch-aware chunk policy of the plain version: target a fixed
+# (batch * chunk) temp-element budget so the peak intermediate is the same
+# number of bytes whatever the batch. Kernel A needs no chunks.
+SPMM_TEMP_BUDGET_ELEMS = 2 * 1024 * 1024
+SPMM_CHUNK_MIN = 512
+
+# The reference's dispatch thresholds, calibrated on XLA:CPU, kept as
+# configuration of the CPU plain path only: on the card kernel A serves
+# every size.
+SPMM_AUTO_NNZ = 2048
+SPMM_AUTO_ELEMS = 512 * 1024
+SPMM_INFER_NNZ = 65536
+SPMM_INFER_ELEMS = 4 * 1024 * 1024
+
+
+def spmm_chunk_for(batch: int, nnz: int, chunk: Optional[int] = None) -> int:
+    """Chunk width for the chunked plain passes.
+
+    ``chunk=None`` picks the batch-aware width targeting
+    ``SPMM_TEMP_BUDGET_ELEMS`` temp elements; an explicit ``chunk`` is only
+    clamped to [1, nnz].
+    """
+    if chunk is None:
+        chunk = max(SPMM_CHUNK_MIN, SPMM_TEMP_BUDGET_ELEMS // max(1, int(batch)))
+    return max(1, min(int(chunk), max(1, int(nnz))))
+
+
+def element_spmm_segment(
+    x: torch.Tensor, values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+    out_dim: int, *, chunk: Optional[int] = None,
+    col_ptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Col-sorted segment-sum SpMM over :func:`coo_matmul_T`, in the
+    reference's layout: one transpose of the operand on the way in, one of
+    the result on the way out. Requires the canonical (col, row) order.
+
+    ``col_ptr`` (int64 (out_dim + 1,)) are the column offsets kernel A walks;
+    they are computed on the device when not given.
+    """
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    yT = coo_matmul_T(
+        x2.T.contiguous(), values, rows, cols, out_dim, chunk=chunk, seg_ptr=col_ptr
+    )
+    return yT.T.contiguous().reshape(*lead, out_dim)
+
+
+def segment_offsets(segment_idx: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """int64 (n_segments + 1,) offsets of each segment's slot range in a
+    non-decreasing ``segment_idx``, computed where the indices live."""
+    bounds = torch.arange(n_segments + 1, dtype=segment_idx.dtype,
+                          device=segment_idx.device)
+    return torch.searchsorted(segment_idx, bounds)
+
+
+def coo_matmul_T(
+    srcT: torch.Tensor,
+    values: torch.Tensor,
+    gather_idx: torch.Tensor,
+    segment_idx: torch.Tensor,
+    n_segments: int,
+    *,
+    chunk: Optional[int] = None,
+    acc: Optional[torch.Tensor] = None,
+    seg_ptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``accT[segment_idx[j], :] += srcT[gather_idx[j], :] * values[j]``.
+
+    ``srcT`` is (src_dim, B); returns (n_segments, B). ``segment_idx`` must
+    be non-decreasing. ``acc`` (optional, (n_segments, B)) is a carry-in
+    accumulator. A CUDA tensor launches kernel A, which sums each segment
+    left to right in slot order (``chunk`` does not apply). Kernel A walks
+    ``seg_ptr``, the segment offsets; when they are not given they are
+    computed from ``segment_idx``, after checking that it is sorted. A CPU
+    tensor takes the plain version.
+    """
+    if srcT.device.type == "cpu":
+        return coo_matmul_T_plain(
+            srcT, values, gather_idx, segment_idx, n_segments, chunk=chunk, acc=acc
+        )
+    if srcT.device.type != "cuda":
+        raise ValueError(f"coo_matmul_T runs on cuda or cpu tensors, not {srcT.device}")
+    return _coo_matmul_T_cuda(srcT, values, gather_idx, segment_idx, seg_ptr, n_segments, acc)
+
+
+coo_matmul_T.launches = 0  # kernel A launches, so a run can show it went through the kernel
+
+_COO_MATMUL_T_ARGTYPES = [ctypes.c_void_p] * 6 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+]
+
+# Offsets already checked, by tensor identity. The engine freezes one
+# offsets tensor per layer, so each costs one device sync, on first use.
+_CHECKED_SEG_PTRS: Dict[int, weakref.ref] = {}
+
+
+def _check_seg_ptr(seg_ptr: torch.Tensor, nnz: int) -> None:
+    """Raise unless ``seg_ptr`` runs from 0 to ``nnz`` without decreasing,
+    so that kernel A reads only slots [0, nnz). A tensor is checked the
+    first time it is given; it is frozen topology and must not change."""
+    key = id(seg_ptr)
+    seen = _CHECKED_SEG_PTRS.get(key)
+    if seen is not None and seen() is seg_ptr:
+        return
+    ok = (seg_ptr[0] == 0) & (seg_ptr[-1] == nnz) & (seg_ptr.diff() >= 0).all()
+    if not bool(ok):
+        raise ValueError(f"seg_ptr must run from 0 to nnz={nnz} without decreasing")
+    _CHECKED_SEG_PTRS[key] = weakref.ref(
+        seg_ptr, lambda _, k=key: _CHECKED_SEG_PTRS.pop(k, None)
+    )
+
+
+def _checked_offsets(segment_idx: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """``segment_offsets`` after checking that ``segment_idx`` is sorted
+    and lies in [0, n_segments); one device sync."""
+    if segment_idx.numel():
+        ok = ((segment_idx.diff() >= 0).all() & (segment_idx[0] >= 0)
+              & (segment_idx[-1] < n_segments))
+        if not bool(ok):
+            raise ValueError(
+                f"segment_idx must be non-decreasing and in [0, {n_segments})"
+            )
+    return segment_offsets(segment_idx, n_segments)
+
+
+def _coo_matmul_T_cuda(
+    srcT: torch.Tensor, values: torch.Tensor, gather_idx: torch.Tensor,
+    segment_idx: torch.Tensor, seg_ptr: Optional[torch.Tensor], n_segments: int,
+    acc: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Validate, allocate and launch kernel A on the caller's stream."""
+    device = srcT.device
+    if srcT.dim() != 2:
+        raise ValueError(f"srcT must be (src_dim, B), got shape {tuple(srcT.shape)}")
+    batch = srcT.shape[1]
+    nnz = values.shape[0]
+    f32 = torch.float32
+    build.check_tensor(srcT, "srcT", dtype=f32, shape=srcT.shape, device=device)
+    build.check_tensor(values, "values", dtype=f32, shape=(nnz,), device=device)
+    build.check_tensor(gather_idx, "gather_idx", dtype=torch.int32, shape=(nnz,),
+                       device=device)
+    build.check_tensor(segment_idx, "segment_idx", dtype=torch.int32, shape=(nnz,),
+                       device=device)
+    if seg_ptr is None:
+        seg_ptr = _checked_offsets(segment_idx, n_segments)
+    else:
+        build.check_tensor(seg_ptr, "seg_ptr", dtype=torch.int64,
+                           shape=(n_segments + 1,), device=device)
+        _check_seg_ptr(seg_ptr, nnz)
+    if acc is not None:
+        build.check_tensor(acc, "acc", dtype=f32, shape=(n_segments, batch),
+                           device=device)
+    out = torch.empty((n_segments, batch), dtype=f32, device=device)
+    if out.numel() == 0:
+        return out
+    fn = build.kernel("coo_matmul_T", "coo_matmul_T_f32", _COO_MATMUL_T_ARGTYPES)
+    rc = fn(
+        srcT.data_ptr(), values.data_ptr(), gather_idx.data_ptr(),
+        seg_ptr.data_ptr(), None if acc is None else acc.data_ptr(),
+        out.data_ptr(), n_segments, batch, *build.stream_args(device),
+    )
+    build.check_launch(rc, "coo_matmul_T kernel")
+    coo_matmul_T.launches += 1
+    return out
+
+
+def coo_matmul_T_plain(
+    srcT: torch.Tensor,
+    values: torch.Tensor,
+    gather_idx: torch.Tensor,
+    segment_idx: torch.Tensor,
+    n_segments: int,
+    *,
+    chunk: Optional[int] = None,
+    acc: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel A: chunked gather, scale and
+    ``index_add_``, peak temp O(B * chunk). Runs on any device; on the CPU
+    ``index_add_`` adds in slot order, so the sum order is kernel A's."""
+    nnz = int(values.shape[0])
+    batch = srcT.shape[-1]
+    dtype = torch.promote_types(srcT.dtype, values.dtype)
+    if acc is None:
+        out = torch.zeros((n_segments, batch), dtype=dtype, device=srcT.device)
+    else:
+        out = acc.to(dtype, copy=True)
+    chunk = spmm_chunk_for(batch, nnz, chunk)
+    for lo in range(0, nnz, chunk):
+        g = gather_idx[lo:lo + chunk].long()
+        v = values[lo:lo + chunk].to(dtype)
+        out.index_add_(0, segment_idx[lo:lo + chunk].long(), srcT[g].to(dtype) * v[:, None])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def _init_numpy(
+    rng: np.random.Generator, shape, *, fan_in_dense: int, scheme: str
+) -> np.ndarray:
+    """Weight init. fan_in follows the paper (dense fan-in based scaling)."""
+    if scheme == "normal":
+        return rng.standard_normal(shape).astype(np.float32) * 0.05
+    if scheme == "he_uniform":
+        limit = np.sqrt(6.0 / max(1, fan_in_dense))
+        return rng.uniform(-limit, limit, size=shape).astype(np.float32)
+    if scheme == "xavier":
+        limit = np.sqrt(3.0 / max(1, fan_in_dense))
+        return rng.uniform(-limit, limit, size=shape).astype(np.float32)
+    if scheme == "zeros":
+        return np.zeros(shape, np.float32)
+    raise ValueError(f"unknown init scheme {scheme!r}")

@@ -1,0 +1,60 @@
+"""Fused bias + All-ReLU epilogue: kernel B (``csrc/bias_all_relu.cu``).
+
+``y = where(x + b > 0, x + b, s * (x + b))`` over (rows, N) with the bias
+along N, ``s = -alpha`` for even ``layer_index`` and ``+alpha`` for odd
+(paper Eq. 3). Twin of the Pallas kernel
+``repro.kernels.all_relu_fused.bias_all_relu``; the Pallas version's
+``block_rows`` padding is a TPU tiling concern and has no counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import all_relu_ref, slope_for
+
+__all__ = ["bias_all_relu", "bias_all_relu_plain"]
+
+
+def bias_all_relu_plain(
+    x: torch.Tensor, bias: torch.Tensor, *, alpha: float, layer_index: int
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel B, on any device."""
+    return all_relu_ref(x + bias, alpha, layer_index)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def bias_all_relu(
+    x: torch.Tensor, bias: torch.Tensor, *, alpha: float, layer_index: int
+) -> torch.Tensor:
+    """x: (..., N), bias: (N,). A CUDA tensor launches kernel B (f32,
+    contiguous); a CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return bias_all_relu_plain(x, bias, alpha=alpha, layer_index=layer_index)
+    if x.device.type != "cuda":
+        raise ValueError(f"bias_all_relu runs on cuda or cpu tensors, not {x.device}")
+    if x.dim() == 0:
+        raise ValueError("x must have a feature axis")
+    n = x.shape[-1]
+    build.check_tensor(x, "x", dtype=torch.float32, shape=x.shape, device=x.device)
+    build.check_tensor(bias, "bias", dtype=torch.float32, shape=(n,), device=x.device)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    fn = build.kernel("bias_all_relu", "bias_all_relu_f32", _ARGTYPES)
+    rc = fn(
+        x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // n, n,
+        slope_for(alpha, layer_index), *build.stream_args(x.device),
+    )
+    build.check_launch(rc, "bias_all_relu kernel")
+    bias_all_relu.launches += 1
+    return y
+
+
+bias_all_relu.launches = 0  # kernel B launches, so a run can show it went through the kernel
