@@ -1,29 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the port's SET-MLP serving path on one NVIDIA card and check it.
+"""Drive the port's SET-MLP serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases, one line each (any failure exits non-zero):
 
-1. device   — the card's name, count, and nvidia-smi's name and power limit;
-2. build    — every kernel of the path built from ``src/repro_torch/csrc``;
-3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the full-width SET-MLP's shapes and at the compacted shapes
-              the engine serves, on the forward's own activations;
-4. main     — ``SparseInferenceEngine.classify`` at full width
-              (3072-4000-1000-4000-10, epsilon 20) with deployment-time
-              compaction, held against the same model served on the CPU by
-              the plain versions, compaction held bit-equal, and the kernels'
-              launch counts;
-5. timings  — per-bucket classify latency (host clock, ends in a
-              synchronise) and per-kernel device time (CUDA events) beside
-              its bound, its plain version and one PyTorch library call.
+1. device        — the card's name, count, and nvidia-smi's name and power
+                   limit;
+2. build         — every kernel built from ``src/repro_torch/csrc``, one
+                   ``nvcc`` per source, all started together;
+3. kernels       — kernels A and B against their plain PyTorch versions on
+                   the card, at the full-width SET-MLP's shapes and at the
+                   compacted shapes the engine serves;
+4. block_kernels — kernels C, D and E against their plain versions at the
+                   four layers of the full-width block model (batch 128 and
+                   a ragged 100) and at 8x8 and 32x16 tiles; uncovered dx
+                   block-rows held exactly 0;
+5. main          — the serving path: ``SparseInferenceEngine.classify`` at
+                   full width (3072-4000-1000-4000-10, epsilon 20) with
+                   deployment-time compaction, against the same model served
+                   on the CPU, and kernels A and B's launch counts;
+6. train         — the training path: ``SequentialTrainer.run`` of the
+                   full-width block model (128x128 tiles) for 3 epochs with
+                   SET and importance pruning, against the same run on the
+                   CPU through the plain versions (topology and n_params
+                   equal after every epoch, loss and accuracy within
+                   tolerance), kernels C, D and E's launch counts, and a
+                   run at the paper's dropout whose loss must fall;
+7. timings       — classify latency per bucket and per-kernel device time
+                   for A and B (CUDA events) beside bound, plain version and
+                   one PyTorch library call;
+8. train_timings — the training step's time and device idle share, the
+                   epochs' seconds, and per-kernel rows for C, D and E.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Without a card it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -41,9 +57,14 @@ from repro_torch.configs.set_mlp import mlp_config  # noqa: E402
 from repro_torch.core import sparsity  # noqa: E402
 from repro_torch.core.importance import PruningSchedule  # noqa: E402
 from repro_torch.data.datasets import load  # noqa: E402
+from repro_torch.core.all_relu import activation_fn  # noqa: E402
 from repro_torch.kernels import all_relu_fused, build, ref  # noqa: E402
-from repro_torch.models.mlp import SparseMLP  # noqa: E402
+from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
+from repro_torch.launch.steps import make_mlp_train_step  # noqa: E402
+from repro_torch.models.mlp import SparseMLP, block_meta  # noqa: E402
+from repro_torch.optim.sgd import MomentumSGD  # noqa: E402
 from repro_torch.serve import SparseInferenceEngine, importance_prune_mlp  # noqa: E402
+from repro_torch.train.trainer import SequentialTrainer, TrainerConfig  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32
 # (non-tensor-core) rate. The bound of a call is the larger of its bytes over
@@ -55,6 +76,7 @@ SIZES = (1, 5, 32, 128, 300)  # 300 is above the largest bucket: chunked
 SCHEDULE = PruningSchedule(tau=0, period=1, percentile=30.0)
 SEED = 0
 REPS = 100
+CARD = torch.device("cuda")  # where the block phases run
 
 KERNEL_A = dict(
     name="coo_matmul_T", route="cuda", source="src/repro_torch/csrc/coo_matmul_T.cu",
@@ -64,6 +86,33 @@ KERNEL_B = dict(
     name="bias_all_relu", route="cuda", source="src/repro_torch/csrc/bias_all_relu.cu",
     replaces="src/repro/kernels/all_relu_fused.py:23",
 )
+KERNEL_C = dict(
+    name="bsmm_fwd", route="cuda", source="src/repro_torch/csrc/bsmm_fwd.cu",
+    replaces="src/repro/kernels/block_sparse_matmul.py:64",
+)
+KERNEL_D = dict(
+    name="bsmm_dx", route="cuda", source="src/repro_torch/csrc/bsmm_dx.cu",
+    replaces="src/repro/kernels/block_sparse_matmul.py:127",
+)
+KERNEL_E = dict(
+    name="bsmm_dw", route="cuda", source="src/repro_torch/csrc/bsmm_dw.cu",
+    replaces="src/repro/kernels/block_sparse_matmul.py:186",
+)
+WRAPPERS = {
+    "coo_matmul_T": sparsity.coo_matmul_T, "bias_all_relu": all_relu_fused.bias_all_relu,
+    "bsmm_fwd": bsm.bsmm_fwd, "bsmm_dx": bsm.bsmm_dx, "bsmm_dw": bsm.bsmm_dw,
+}
+# Kernels C, D and E sum up to K = 4096 products per output in another order
+# than the plain versions' einsums.
+BLOCK_RTOL = BLOCK_ATOL = 1e-4
+# The training run: 1,000 training samples (7 steps of 128 an epoch), 200 test.
+TRAIN_SCALE = 0.02
+TRAIN_EPOCHS = 3
+# Card run vs CPU run of the same 3 epochs: per-epoch mean loss within
+# TRAIN_LOSS_RTOL (the kernels' sums differ from the plain versions' in the
+# last bits, and 21 SGD steps carry that forward); test accuracy within one
+# of the 200 test samples.
+TRAIN_LOSS_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -369,22 +418,315 @@ def phase_timings(out: dict) -> str:
     for r in rows:
         print(json.dumps({"kernel_timing": r}))
 
-    kernels = []
-    for meta in (KERNEL_A, KERNEL_B):
+    out["kernels"] = [
         # one classify call at the largest bucket: the sum over its launches
-        mine = [r for r in rows if r["kernel"] == meta["name"] and r["batch"] == 128]
-        total = {k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms")}
-        lib = [r["library_ms"] for r in mine]
-        kernels.append(dict(
-            meta, launches=out["launches"][meta["name"]], max_abs_err=out["err"][meta["name"]],
-            **total,
-            bound_by=bound(sum(r["bytes"] for r in mine), sum(r["ops"] for r in mine))["bound_by"],
-            library_ms=None if None in lib else sum(lib),
-        ))
-    out["kernels"] = kernels
+        kernel_entry(meta, [r for r in rows if r["kernel"] == meta["name"] and r["batch"] == 128],
+                     out["launches"][meta["name"]], out["err"][meta["name"]])
+        for meta in (KERNEL_A, KERNEL_B)
+    ]
     return "classify median ms by bucket " + ", ".join(
         f"{b}: {latency[b]['median']:.3f}" for b in latency
     ) + "; profiles and per-kernel rows above"
+
+
+# -- the block-sparse training path (kernels C, D, E) -------------------------
+
+
+def block_model(device, dropout: float = 0.0) -> SparseMLP:
+    """The full-width CIFAR-10 block SET-MLP (128x128 tiles), seeded."""
+    cfg = dataclasses.replace(mlp_config("cifar10", impl="block"), dropout=dropout)
+    return SparseMLP(cfg, seed=SEED, device=device)
+
+
+def train_config() -> TrainerConfig:
+    """3 epochs with SET after epochs 0 and 1 and importance pruning at
+    epochs 1 and 2, host evolution (device evolution is a later slice)."""
+    return TrainerConfig(
+        epochs=TRAIN_EPOCHS, batch_size=128, lr=0.01, zeta=0.3, device_evolution=False,
+        pruning=PruningSchedule(tau=1, period=1, percentile=5.0),
+    )
+
+
+def block_layer_inputs(model: SparseMLP, x: np.ndarray, rng: np.random.Generator):
+    """Per layer: (meta, host topology, device arrays, values, padded input
+    activation, a seeded output gradient), the activations carried from
+    ``x`` through the plain forward."""
+    cfg, dev = model.config, model.device
+    act = activation_fn(cfg.activation, alpha=cfg.alpha)
+    h = torch.as_tensor(x, device=dev)
+    layers = []
+    for l in range(cfg.n_layers):
+        meta = block_meta(cfg, l)
+        t = model.topos[l].device_arrays(dev)
+        xp = F.pad(h, (0, meta.padded_in - meta.in_dim)).contiguous()
+        dy = torch.as_tensor(
+            (0.01 * rng.standard_normal((len(x), meta.padded_out))).astype(np.float32),
+            device=dev)
+        layers.append((meta, model.topos[l], t, model.values[l], xp, dy))
+        y = bsm.bsmm_fwd_plain(xp, model.values[l], t.rows, t.cols, t.first_col,
+                               grid_n=meta.grid_n)[:, : meta.out_dim] + model.biases[l]
+        h = act(y, l + 1) if l < cfg.n_layers - 1 else y
+    return layers
+
+
+def phase_block_kernels(out: dict) -> str:
+    model = block_model(CARD)
+    x_train = load("cifar10", scale=TRAIN_SCALE).x_train
+    rng = np.random.default_rng(SEED)
+    err = {k: 0.0 for k in ("bsmm_fwd", "bsmm_dx", "bsmm_dw")}
+    n_checks, n_uncovered = 0, []
+
+    def compare(name, got, want):
+        nonlocal n_checks
+        torch.testing.assert_close(got, want, rtol=BLOCK_RTOL, atol=BLOCK_ATOL)
+        err[name] = max(err[name], float((got - want).abs().max()))
+        n_checks += 1
+
+    def check_layer(meta, host, t, v, x, dy):
+        y = bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+        dx = bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
+        dw = bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m, block_n=meta.block_n)
+        torch.cuda.synchronize()
+        compare("bsmm_fwd", y, bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col,
+                                                  grid_n=meta.grid_n))
+        compare("bsmm_dx", dx, bsm.bsmm_dx_plain(dy, v, t.rows_r, t.cols_r, t.first_row,
+                                                 t.perm_r, grid_m=meta.grid_m))
+        compare("bsmm_dw", dw, bsm.bsmm_dw_plain(x, dy, t.rows, t.cols, block_m=meta.block_m,
+                                                 block_n=meta.block_n))
+        uncovered = np.setdiff1d(np.arange(meta.grid_m), host.rows)
+        tiles = dx.reshape(dx.shape[0], meta.grid_m, meta.block_m)
+        check(not tiles[:, torch.as_tensor(uncovered, device=dx.device).long()].any(),
+              f"kernel D wrote nonzeros into {len(uncovered)} uncovered block-rows")
+        n_uncovered.append(len(uncovered))
+
+    for batch in (128, 100):
+        for layer in block_layer_inputs(model, x_train[:batch], rng):
+            check_layer(*layer)
+    # 8x8 and a non-square 32x16 with padded features, full and ragged batches
+    for in_dim, out_dim, bm, bn, eps in ((64, 48, 8, 8, 6), (100, 70, 32, 16, 8)):
+        meta = sparsity.BlockMeta(in_dim, out_dim, bm, bn)
+        small = sparsity.BlockTopology.from_epsilon(meta, eps, rng)
+        v = small.init_values(rng, device=CARD)
+        t = small.device_arrays(CARD)
+        for batch in (128, 100):
+            x = np.zeros((batch, meta.padded_in), np.float32)
+            x[:, :in_dim] = rng.standard_normal((batch, in_dim))
+            dy = rng.standard_normal((batch, meta.padded_out)).astype(np.float32)
+            check_layer(meta, small, t, v, torch.as_tensor(x, device=CARD),
+                        torch.as_tensor(dy, device=CARD))
+    out["err"].update(err)
+    return (
+        f"{n_checks} comparisons: 4 full-width block layers (128x128 tiles, "
+        f"{[tp.n_blocks for tp in model.topos]} tiles) at batch 128 and 100, 8x8 and 32x16 "
+        f"tiles at batch 128 and 100; max_abs_err C {err['bsmm_fwd']:.3g}, D "
+        f"{err['bsmm_dx']:.3g}, E {err['bsmm_dw']:.3g} (rtol {BLOCK_RTOL}, atol {BLOCK_ATOL}); "
+        f"uncovered dx block-rows exactly 0 ({n_uncovered[:4]} per full-width layer)"
+    )
+
+
+def trainer_for(device, dropout: float = 0.0):
+    """A trainer of the full-width block model and the list its epoch hook
+    fills with each epoch's topology."""
+    trainer = SequentialTrainer(block_model(device, dropout), load("cifar10", scale=TRAIN_SCALE),
+                                train_config())
+    topologies = []
+    trainer.epoch_end_hook = lambda tr, epoch: topologies.append(
+        [(t.rows.copy(), t.cols.copy()) for t in tr.model.topos])
+    return trainer, topologies
+
+
+def phase_train(out: dict) -> str:
+    card, card_topos = trainer_for(CARD)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    hist = card.run()
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    cfg = card.model.config
+    steps = TRAIN_EPOCHS * (len(card.data.x_train) // 128)
+    evals = TRAIN_EPOCHS * -(-len(card.data.x_test) // 512)
+    want = {"coo_matmul_T": 0, "bias_all_relu": 0,
+            "bsmm_fwd": (steps + evals) * cfg.n_layers,
+            "bsmm_dx": steps * (cfg.n_layers - 1), "bsmm_dw": steps * cfg.n_layers}
+    check(launches == want, f"launch counts {launches}, expected {want}")
+    check(bool(np.isfinite(hist["train_loss"]).all()), f"non-finite loss {hist['train_loss']}")
+
+    # the same run on the CPU, through the plain versions
+    cpu, cpu_topos = trainer_for("cpu")
+    cpu_hist = cpu.run()
+    check(hist["n_params"] == cpu_hist["n_params"],
+          f"n_params {hist['n_params']} on the card, {cpu_hist['n_params']} on the CPU")
+    check(len(card_topos) == len(cpu_topos) == TRAIN_EPOCHS, "an epoch hook did not fire")
+    for epoch, (a, b) in enumerate(zip(card_topos, cpu_topos)):
+        for l, ((ra, ca), (rb, cb)) in enumerate(zip(a, b)):
+            check(np.array_equal(ra, rb) and np.array_equal(ca, cb),
+                  f"topology of layer {l} differs after epoch {epoch}")
+    np.testing.assert_allclose(hist["train_loss"], cpu_hist["train_loss"], rtol=TRAIN_LOSS_RTOL)
+    n_test = len(card.data.y_test)
+    np.testing.assert_allclose(hist["test_acc"], cpu_hist["test_acc"], atol=1.0 / n_test + 1e-9)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(hist["train_loss"], cpu_hist["train_loss"]))
+
+    # the paper's dropout: the loss must be finite and fall
+    drop, _ = trainer_for(CARD, dropout=0.3)
+    drop_hist = drop.run()
+    check(bool(np.isfinite(drop_hist["train_loss"]).all())
+          and drop_hist["train_loss"][-1] < drop_hist["train_loss"][0],
+          f"dropout 0.3 run: loss {drop_hist['train_loss']} is not finite and falling")
+    out.update(train_hist=hist, train_launches=launches)
+    print(json.dumps({"train_history": {"card": hist, "cpu": cpu_hist, "dropout_0.3": drop_hist}}))
+    return (
+        f"3 epochs x {steps // TRAIN_EPOCHS} steps of 128 at dims {cfg.layer_dims}, tiles "
+        f"{[t.n_blocks for t in card.model.topos]} after pruning; loss {hist['train_loss']}, "
+        f"acc {hist['test_acc']}, n_params {hist['n_params']}; card vs CPU: topology and "
+        f"n_params equal every epoch, loss rel err {loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); "
+        f"launches {launches}; dropout 0.3 loss {drop_hist['train_loss']}"
+    )
+
+
+def block_bound(kind: str, meta, host, batch: int) -> dict:
+    """The least time for one launch: each input read once (x only at the
+    block-rows some tile reads), each output written once; 2 flops per
+    multiply-add of the live tiles."""
+    nb, bm, bn = host.n_blocks, meta.block_m, meta.block_n
+    rows_read = len(np.unique(host.rows))
+    w, idx = 4 * nb * bm * bn, 4 * 2 * nb
+    x_read = 4 * batch * rows_read * bm
+    dy_read = 4 * batch * meta.padded_out  # every block-column is covered
+    n_bytes = {
+        "bsmm_fwd": x_read + w + idx + 8 * (meta.grid_n + 1) + 4 * batch * meta.padded_out,
+        "bsmm_dx": dy_read + w + idx + 8 * (meta.grid_m + 1) + 4 * batch * meta.padded_in,
+        "bsmm_dw": x_read + dy_read + idx + w,
+    }[kind]
+    return bound(n_bytes, 2 * batch * nb * bm * bn)
+
+
+def profile_train_step(one_step, step_ms: float, steps: int = 10) -> dict:
+    """Where a training step's time goes (torch.profiler over ``steps``
+    steps): device busy time by kernel, the device's idle share of the
+    unprofiled median step time, and the host's own time by operator (the
+    twelve largest, with their calls per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name: dict = {}
+    host: list = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key[:200]] = by_name.get(e.key[:200], 0.0) + e.self_device_time_total / steps
+        elif e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:
+            host.append((e.self_cpu_time_total / steps, e.count / steps, e.key[:120]))
+    busy_us = sum(by_name.values())
+    check(busy_us > 0, "the profiler saw no device time")
+    host.sort(reverse=True)
+    return dict(step_ms=step_ms, profiled_step_ms=profiled_ms, device_busy_us=busy_us,
+                device_idle_share=1.0 - busy_us / (step_ms * 1e3), device_us_by_name=by_name,
+                host_self_us_total=sum(h[0] for h in host),
+                host_self_us_top=[dict(op=k, us=us, calls=n) for us, n, k in host[:12]])
+
+
+def phase_train_timings(out: dict) -> str:
+    model = block_model(CARD)
+    cfg, dev = model.config, model.device
+    data = load("cifar10", scale=TRAIN_SCALE)
+    xb = torch.as_tensor(data.x_train[:128], device=dev)
+    yb = torch.as_tensor(data.y_train[:128], device=dev).long()
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+    step = make_mlp_train_step(cfg, opt)
+    topo = model.topo_arrays()
+    lr = torch.tensor(0.01, device=dev)
+    state = {"params": model.params(), "opt": opt.init(model.params())}
+
+    def one_step():
+        state["params"], state["opt"], _ = step(state["params"], state["opt"], topo, xb, yb,
+                                                lr, None)
+
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    q25, q50, q75 = np.percentile(ts, [25, 50, 75])
+    print(json.dumps({"train_step_ms": dict(median=float(q50), q25=float(q25), q75=float(q75))}))
+    prof = profile_train_step(one_step, float(q50))
+    print(json.dumps({"train_step_profile": prof}))
+    print(json.dumps({"epoch_seconds": out["train_hist"]["epoch_seconds"]}))
+
+    rows = []
+    rng = np.random.default_rng(SEED)
+    for l, (meta, host, t, v, x, dy) in enumerate(
+            block_layer_inputs(model, data.x_train[:128], rng)):
+        batch = x.shape[0]
+        dense = ref.blocks_to_dense(v, t.rows, t.cols, meta.grid_m, meta.grid_n)
+        xg = x.reshape(batch, meta.grid_m, meta.block_m)[:, t.rows.long()].permute(1, 2, 0)
+        dyg = dy.reshape(batch, meta.grid_n, meta.block_n)[:, t.cols.long()].transpose(0, 1)
+        xg, dyg = xg.contiguous(), dyg.contiguous()
+        common = dict(layer=l, batch=batch, shape=[meta.in_dim, meta.out_dim],
+                      block=[meta.block_m, meta.block_n], n_blocks=host.n_blocks)
+        rows.append(dict(
+            kernel="bsmm_fwd", **common,
+            ms=device_ms(lambda: bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
+                                              grid_n=meta.grid_n)),
+            plain_ms=device_ms(lambda: bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col,
+                                                          grid_n=meta.grid_n)),
+            library_ms=library_ms(lambda: torch.matmul(x, dense)),
+            **block_bound("bsmm_fwd", meta, host, batch),
+        ))
+        if l > 0:  # the step needs no gradient of the data
+            rows.append(dict(
+                kernel="bsmm_dx", **common,
+                ms=device_ms(lambda: bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row,
+                                                 t.perm_r, grid_m=meta.grid_m)),
+                plain_ms=device_ms(lambda: bsm.bsmm_dx_plain(
+                    dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)),
+                library_ms=library_ms(lambda: torch.matmul(dy, dense.t())),
+                **block_bound("bsmm_dx", meta, host, batch),
+            ))
+        rows.append(dict(
+            kernel="bsmm_dw", **common,
+            ms=device_ms(lambda: bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m,
+                                             block_n=meta.block_n)),
+            plain_ms=device_ms(lambda: bsm.bsmm_dw_plain(x, dy, t.rows, t.cols,
+                                                         block_m=meta.block_m,
+                                                         block_n=meta.block_n)),
+            # the tiles gathered beforehand: the gather is not timed
+            library_ms=library_ms(lambda: torch.bmm(xg, dyg)),
+            **block_bound("bsmm_dw", meta, host, batch),
+        ))
+    for r in rows:
+        print(json.dumps({"kernel_timing": r}))
+    for meta in (KERNEL_C, KERNEL_D, KERNEL_E):
+        # one training step: the sum over its launches
+        mine = [r for r in rows if r["kernel"] == meta["name"]]
+        out["kernels"].append(kernel_entry(meta, mine, out["train_launches"][meta["name"]],
+                                           out["err"][meta["name"]]))
+    return (
+        f"train step median {q50:.3f} ms (q25 {q25:.3f}, q75 {q75:.3f}), device busy "
+        f"{prof['device_busy_us']:.1f} us, idle share {prof['device_idle_share']:.3f}; "
+        f"epoch_seconds {out['train_hist']['epoch_seconds']}; per-kernel rows above"
+    )
+
+
+def kernel_entry(meta: dict, rows: list, launches: int, max_abs_err: float) -> dict:
+    """A ``kernels``-line entry: device times summed over ``rows`` (the
+    launches of one call of the path), its bound, and the library's."""
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in rows]
+    return dict(
+        meta, launches=launches, max_abs_err=max_abs_err, **total,
+        bound_by=bound(sum(r["bytes"] for r in rows), sum(r["ops"] for r in rows))["bound_by"],
+        library_ms=None if None in lib else sum(lib),
+    )
 
 
 def main() -> int:
@@ -394,7 +736,8 @@ def main() -> int:
     out: dict = {}
     for name, phase in (
         ("device", phase_device), ("build", phase_build), ("kernels", phase_kernels),
-        ("main", phase_main), ("timings", phase_timings),
+        ("block_kernels", phase_block_kernels), ("main", phase_main), ("train", phase_train),
+        ("timings", phase_timings), ("train_timings", phase_train_timings),
     ):
         t0 = time.perf_counter()
         try:

@@ -1,1 +1,1 @@
-"""Element (COO) sparsity, All-ReLU and importance pruning."""
+"""Sparsity (element and block), All-ReLU, topology evolution and importance pruning."""

@@ -1,12 +1,11 @@
 """Neuron importance (paper Eq. 4) and Importance Pruning (Algorithm 2),
-element granularity. Host numpy, as in the reference.
+element and block granularity. Host numpy, as in the reference.
 
 Importance of neuron j in layer l is its graph *strength*:
 
     I_j = sum_{i in Gamma_j} |w_ij|
 
-i.e. the L1 norm of the incoming-weight column. The block half comes with
-the block slice.
+i.e. the L1 norm of the incoming-weight column.
 """
 from __future__ import annotations
 
@@ -15,12 +14,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.sparsity import ElementTopology
+from repro_torch.core.sparsity import BlockTopology, ElementTopology
 
 __all__ = [
     "element_degrees",
     "neuron_importance_element",
+    "neuron_importance_block",
     "importance_prune_element",
+    "importance_prune_block",
     "ImportancePruneResult",
     "PruningSchedule",
 ]
@@ -107,6 +108,73 @@ def importance_prune_element(
     new_topo = ElementTopology(
         topo.in_dim, topo.out_dim, topo.rows[keep], topo.cols[keep]
     )
+    return ImportancePruneResult(
+        new_topo,
+        values[keep],
+        momentum[keep] if momentum is not None else None,
+        pruned,
+        removed,
+    )
+
+
+# ---------------------------------------------------------------------------
+# block granularity
+# ---------------------------------------------------------------------------
+
+
+def neuron_importance_block(topo: BlockTopology, values: np.ndarray) -> np.ndarray:
+    """Per-neuron strength from block storage (length padded_out)."""
+    meta = topo.meta
+    col_strength = np.abs(np.asarray(values, np.float64)).sum(axis=1)  # (nb, bn)
+    imp = np.zeros((meta.grid_n, meta.block_n), np.float64)
+    np.add.at(imp, topo.cols, col_strength)
+    return imp.reshape(-1).astype(np.float32)
+
+
+def importance_prune_block(
+    topo: BlockTopology,
+    values: np.ndarray,
+    schedule: PruningSchedule,
+    momentum: Optional[np.ndarray] = None,
+    protected: Optional[np.ndarray] = None,
+) -> ImportancePruneResult:
+    """Zero pruned neurons' columns; free blocks that become empty.
+
+    Freed capacity is dropped from the arrays (the truly-sparse claim: memory
+    shrinks), except that each block-column keeps >= 1 slot (the coverage
+    invariant, so every output tile has a slot that writes it).
+    """
+    meta = topo.meta
+    values = np.asarray(values, np.float32).copy()
+    imp = neuron_importance_block(topo, values)
+    live = imp > 0
+    t = schedule.resolve_threshold(imp[live]) if live.any() else 0.0
+    prune_mask = imp < t
+    if protected is not None:
+        prune_mask[protected[: prune_mask.size]] = False
+    prune_mask[meta.out_dim:] = False  # padding cols are not neurons
+    if prune_mask.all():
+        prune_mask[int(np.argmax(imp))] = False
+    pruned = np.flatnonzero(prune_mask)
+
+    nnz_before = int(np.count_nonzero(values))
+    pm = prune_mask.reshape(meta.grid_n, meta.block_n)
+    values[:, :, :] = np.where(pm[topo.cols][:, None, :], 0.0, values)
+    if momentum is not None:
+        momentum = np.asarray(momentum, np.float32).copy()
+        momentum[:, :, :] = np.where(pm[topo.cols][:, None, :], 0.0, momentum)
+    removed = nnz_before - int(np.count_nonzero(values))
+
+    # free all-zero blocks (keep one slot per column for coverage)
+    empty = np.abs(values).sum(axis=(1, 2)) == 0
+    col_counts = np.bincount(topo.cols, minlength=meta.grid_n)
+    keep = np.ones(topo.n_blocks, bool)
+    for i in np.flatnonzero(empty):
+        c = topo.cols[i]
+        if col_counts[c] > 1:
+            keep[i] = False
+            col_counts[c] -= 1
+    new_topo = BlockTopology(meta, topo.rows[keep], topo.cols[keep])
     return ImportancePruneResult(
         new_topo,
         values[keep],

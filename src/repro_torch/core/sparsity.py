@@ -1,20 +1,25 @@
-"""Truly sparse weight representations, element (COO) granularity.
+"""Truly sparse weight representations, at two granularities.
 
-PyTorch twin of ``repro.core.sparsity`` for the paper-faithful SET-MLP path:
-``ElementTopology`` keeps the topology in host numpy with the same lexsort
-and the same Erdős–Rényi draw as the reference, so a seed gives the same
-connections bit for bit; ``ElemTopoArrays`` holds its dual-order views as
-int32 tensors on the device.
+PyTorch twin of ``repro.core.sparsity``. Topology lives in host numpy with
+the same lexsort and the same Erdős–Rényi draws as the reference, so a seed
+gives the same connections (and the same initial values) bit for bit:
 
-The product primitive :func:`coo_matmul_T` is kernel A
-(``csrc/coo_matmul_T.cu``) for CUDA tensors and its plain PyTorch version
-for CPU tensors. The block granularity comes with the block slice.
+* ``ElementTopology`` — COO connections, the paper-faithful path;
+  ``ElemTopoArrays`` holds its dual-order views as int32 tensors on the
+  device. The product primitive :func:`coo_matmul_T` is kernel A
+  (``csrc/coo_matmul_T.cu``) for CUDA tensors and its plain PyTorch
+  version for CPU tensors.
+* ``BlockTopology`` — live (block_m, block_n) tiles stored as a compact
+  ``(n_blocks, bm, bn)`` stack plus int32 block coordinates;
+  ``BlockTopoArrays`` holds the same dual-order views. Its products are
+  kernels C, D and E (``kernels/block_sparse_matmul.py``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import weakref
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +27,9 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = [
+    "BlockMeta",
+    "BlockTopoArrays",
+    "BlockTopology",
     "ElemTopoArrays",
     "ElementTopology",
     "coo_matmul_T",
@@ -49,6 +57,216 @@ def _first_flags(keys: np.ndarray) -> np.ndarray:
     if keys.size > 1:
         first[1:] = (keys[1:] != keys[:-1]).astype(np.int32)
     return first
+
+
+# ---------------------------------------------------------------------------
+# Block sparsity
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockMeta:
+    """Static metadata of a block-sparse matrix."""
+
+    in_dim: int
+    out_dim: int
+    block_m: int = 128
+    block_n: int = 128
+
+    @property
+    def grid_m(self) -> int:
+        return -(-self.in_dim // self.block_m)
+
+    @property
+    def grid_n(self) -> int:
+        return -(-self.out_dim // self.block_n)
+
+    @property
+    def padded_in(self) -> int:
+        return self.grid_m * self.block_m
+
+    @property
+    def padded_out(self) -> int:
+        return self.grid_n * self.block_n
+
+    @property
+    def total_blocks(self) -> int:
+        return self.grid_m * self.grid_n
+
+
+class BlockTopoArrays(NamedTuple):
+    """Device-side block topology. All int32 tensors, shape (n_blocks,).
+
+    Canonical order is sorted by (col, row), so each output block-column's
+    slots are one contiguous range (kernels C and E). The ``*_r`` fields are
+    the same tiles sorted by (row, col) for kernel D; ``perm_r[i]`` maps
+    row-ordered slot i back to the canonical slot owning its values.
+    ``first_col``/``first_row`` are 1 where the sort key changes; the
+    kernels walk offsets instead and do not read them.
+    """
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    first_col: torch.Tensor
+    rows_r: torch.Tensor
+    cols_r: torch.Tensor
+    first_row: torch.Tensor
+    perm_r: torch.Tensor
+
+
+class BlockTopology:
+    """Host-side (numpy) block topology with SET bookkeeping.
+
+    Invariants, checked at construction (the kernels index through these
+    coordinates unchecked):
+      * slots sorted by (col, row); positions unique and inside the grid;
+      * every block-column in [0, grid_n) is covered by >= 1 slot, so every
+        output neuron has a tile that writes it.
+    """
+
+    def __init__(self, meta: BlockMeta, rows: np.ndarray, cols: np.ndarray):
+        self.meta = meta
+        order = np.lexsort((rows, cols))
+        self.rows = np.asarray(rows, np.int32)[order]
+        self.cols = np.asarray(cols, np.int32)[order]
+        self._check()
+
+    @classmethod
+    def erdos_renyi(
+        cls, meta: BlockMeta, density: float, rng: np.random.Generator
+    ) -> "BlockTopology":
+        """Sample an ER block topology with ~density fraction of live blocks."""
+        total = meta.total_blocks
+        n_blocks = int(np.clip(round(density * total), meta.grid_n, total))
+        flat = rng.choice(total, size=n_blocks, replace=False).astype(np.int64)
+        rows = (flat // meta.grid_n).astype(np.int32)
+        cols = (flat % meta.grid_n).astype(np.int32)
+        rows, cols = _ensure_coverage(meta, rows, cols, rng)
+        return cls(meta, rows, cols)
+
+    @classmethod
+    def from_epsilon(
+        cls, meta: BlockMeta, epsilon: float, rng: np.random.Generator
+    ) -> "BlockTopology":
+        return cls.erdos_renyi(
+            meta, density_from_epsilon(epsilon, meta.in_dim, meta.out_dim), rng
+        )
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def density(self) -> float:
+        return self.n_blocks / self.meta.total_blocks
+
+    @property
+    def n_params(self) -> int:
+        return self.n_blocks * self.meta.block_m * self.meta.block_n
+
+    def _check(self) -> None:
+        m = self.meta
+        if self.rows.shape != self.cols.shape:
+            raise ValueError("rows and cols differ in shape")
+        if self.rows.size and not (
+            0 <= self.rows.min() and self.rows.max() < m.grid_m
+            and 0 <= self.cols.min() and self.cols.max() < m.grid_n
+        ):
+            raise ValueError(
+                f"block coordinates out of range for a {m.grid_m}x{m.grid_n} grid"
+            )
+        flat = self.rows.astype(np.int64) * m.grid_n + self.cols
+        if np.unique(flat).size != flat.size:
+            raise ValueError("duplicate block positions")
+        if np.unique(self.cols).size != m.grid_n:
+            raise ValueError(
+                "coverage invariant violated: some output block-column has no slot"
+            )
+
+    def device_arrays(self, device: torch.device) -> BlockTopoArrays:
+        rows, cols = self.rows, self.cols
+        perm_r = np.lexsort((cols, rows)).astype(np.int32)
+        rows_r = rows[perm_r]
+        cols_r = cols[perm_r]
+        return BlockTopoArrays(*(
+            torch.as_tensor(a, device=device)
+            for a in (rows, cols, _first_flags(cols), rows_r, cols_r,
+                      _first_flags(rows_r), perm_r)
+        ))
+
+    def init_values(
+        self, rng: np.random.Generator, *, dtype: torch.dtype = torch.float32,
+        scheme: str = "he_uniform", device: torch.device,
+    ) -> torch.Tensor:
+        """(n_blocks, bm, bn) values, the reference's draw. As there, the
+        part of a tile that lies in a padded grid's margin is drawn too: the
+        padded inputs are zeros and the padded outputs are sliced away, so
+        it never reaches the product."""
+        m = self.meta
+        shape = (self.n_blocks, m.block_m, m.block_n)
+        vals = _init_numpy(rng, shape, fan_in_dense=m.in_dim, scheme=scheme)
+        return torch.as_tensor(vals, device=device).to(dtype)
+
+    def to_dense(self, values: torch.Tensor) -> torch.Tensor:
+        """Scatter block values into the dense (in_dim, out_dim) matrix."""
+        m = self.meta
+        dense = torch.zeros(
+            (m.grid_m, m.block_m, m.grid_n, m.block_n),
+            dtype=values.dtype, device=values.device,
+        )
+        rows = torch.as_tensor(self.rows, device=values.device).long()
+        cols = torch.as_tensor(self.cols, device=values.device).long()
+        dense[rows, :, cols, :] = values
+        dense = dense.reshape(m.padded_in, m.padded_out)
+        return dense[: m.in_dim, : m.out_dim]
+
+
+def _ensure_coverage(
+    meta: BlockMeta, rows: np.ndarray, cols: np.ndarray, rng: np.random.Generator
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Swap surplus slots into uncovered block-columns (keeps slot count).
+    The reference's algorithm and draws, so a seed gives the same tiles."""
+    covered = np.zeros(meta.grid_n, bool)
+    covered[cols] = True
+    missing = np.flatnonzero(~covered)
+    if missing.size == 0:
+        return rows, cols
+    # donate slots from columns having > 1 block
+    order = np.argsort(cols, kind="stable")
+    counts = np.bincount(cols, minlength=meta.grid_n)
+    donors = [i for i in order if counts[cols[i]] > 1]
+    if len(donors) < missing.size:
+        raise ValueError(
+            f"cannot cover {missing.size} empty block-columns with "
+            f"{len(donors)} donor slots; raise density"
+        )
+    di = 0
+    rows = rows.copy()
+    cols = cols.copy()
+    for c in missing:
+        while True:
+            slot = donors[di]
+            di += 1
+            if counts[cols[slot]] > 1:
+                counts[cols[slot]] -= 1
+                break
+        cols[slot] = c
+        rows[slot] = rng.integers(meta.grid_m)
+    # dedupe (rare): if the random row collides within the column, redraw it
+    flat = rows.astype(np.int64) * meta.grid_n + cols
+    while np.unique(flat).size != flat.size:
+        uniq, _, cnt = np.unique(flat, return_index=True, return_counts=True)
+        for f, c0 in zip(uniq, cnt):
+            if c0 > 1:
+                for d in np.flatnonzero(flat == f)[1:]:
+                    rows[d] = rng.integers(meta.grid_m)
+        flat = rows.astype(np.int64) * meta.grid_n + cols
+    return rows, cols
+
+
+# ---------------------------------------------------------------------------
+# Element sparsity (paper-faithful COO)
+# ---------------------------------------------------------------------------
 
 
 class ElemTopoArrays(NamedTuple):

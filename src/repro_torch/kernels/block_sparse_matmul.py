@@ -1,0 +1,305 @@
+"""Block-sparse products for truly sparse linear layers: kernels C, D and E.
+
+The sparse weight is a compact stack of tiles ``values: (nb, bm, bn)`` with
+int32 block coordinates (``BlockTopoArrays``), as in the reference:
+
+Forward   y[b, cols[i]] += x[b, rows[i]] @ values[i]           kernel C, ``csrc/bsmm_fwd.cu``
+dX        dx[b, rows_r[i]] += dy[b, cols_r[i]] @ values[perm_r[i]]^T   kernel D, ``csrc/bsmm_dx.cu``
+dW        dw[i] = sum_b x[b, rows[i]]^T @ dy[b, cols[i]]       kernel E, ``csrc/bsmm_dw.cu``
+
+Twins of ``repro.kernels.block_sparse_matmul.bsmm_fwd`` / ``bsmm_dx`` /
+``bsmm_dw``, with these differences: a batch of any size is taken (the
+kernels mask a ragged batch tile where the Pallas kernels need it padded),
+there is no ``block_b``, and ``first_col``/``first_row`` are accepted but not
+read: each kernel block owns an output tile and walks that tile's slot range,
+whose offsets (``col_ptr``, ``row_ptr``) the wrappers compute on the device
+with ``torch.searchsorted``. An input block-row that no slot covers gets an
+exact-zero gradient from both kernel D and its plain version.
+
+Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, block
+sizes 1..128) or raises, and takes its plain version for a CPU tensor. It
+counts its launches. Topology arrays are checked once per tensor (one device
+sync on first use): every coordinate inside the grid and the slot order
+sorted, so the kernels never index out of bounds.
+"""
+from __future__ import annotations
+
+import ctypes
+import weakref
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core.sparsity import segment_offsets
+from repro_torch.kernels import build
+
+__all__ = [
+    "MAX_BLOCK",
+    "bsmm_dw",
+    "bsmm_dw_plain",
+    "bsmm_dx",
+    "bsmm_dx_plain",
+    "bsmm_fwd",
+    "bsmm_fwd_plain",
+]
+
+MAX_BLOCK = 128  # the kernels take block sizes 1..128
+
+
+# ---------------------------------------------------------------------------
+# plain versions (any device; the wrappers take them for CPU tensors)
+# ---------------------------------------------------------------------------
+
+
+def bsmm_fwd_plain(
+    x: torch.Tensor, values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+    first_col: torch.Tensor, *, grid_n: int,
+) -> torch.Tensor:
+    """Plain version of kernel C: gather the x tiles, one einsum, and an
+    ``index_add_`` into the output block-columns. x: (B, grid_m*bm) ->
+    (B, grid_n*bn)."""
+    B = x.shape[0]
+    _, bm, bn = values.shape
+    xg = x.reshape(B, -1, bm)[:, rows.long()]                 # (B, nb, bm)
+    yb = torch.einsum("bnm,nmo->bno", xg, values)              # (B, nb, bn)
+    y = torch.zeros((B, grid_n, bn), dtype=yb.dtype, device=x.device)
+    return y.index_add_(1, cols.long(), yb).reshape(B, grid_n * bn)
+
+
+def bsmm_dx_plain(
+    dy: torch.Tensor, values: torch.Tensor, rows_r: torch.Tensor, cols_r: torch.Tensor,
+    first_row: torch.Tensor, perm_r: torch.Tensor, *, grid_m: int,
+) -> torch.Tensor:
+    """Plain version of kernel D over the row-sorted order. dy:
+    (B, grid_n*bn) -> (B, grid_m*bm); uncovered block-rows are zero."""
+    B = dy.shape[0]
+    _, bm, bn = values.shape
+    dyg = dy.reshape(B, -1, bn)[:, cols_r.long()]             # (B, nb, bn)
+    xb = torch.einsum("bno,nmo->bnm", dyg, values[perm_r.long()])
+    dx = torch.zeros((B, grid_m, bm), dtype=xb.dtype, device=dy.device)
+    return dx.index_add_(1, rows_r.long(), xb).reshape(B, grid_m * bm)
+
+
+def bsmm_dw_plain(
+    x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+    *, block_m: int, block_n: int,
+) -> torch.Tensor:
+    """Plain version of kernel E: (nb, bm, bn) tile gradients."""
+    B = x.shape[0]
+    xg = x.reshape(B, -1, block_m)[:, rows.long()]            # (B, nb, bm)
+    dyg = dy.reshape(B, -1, block_n)[:, cols.long()]          # (B, nb, bn)
+    return torch.einsum("bnm,bno->nmo", xg, dyg)
+
+
+# ---------------------------------------------------------------------------
+# checks shared by the three wrappers
+# ---------------------------------------------------------------------------
+
+# Topology tensors already checked, by kernel, grid and the identities of
+# the tensors checked. A trainer builds its topology arrays once per epoch,
+# so each costs one device sync, on first use; they are frozen and must not
+# change after.
+_CHECKED: Dict[tuple, Tuple[weakref.ref, ...]] = {}
+
+
+def _check_once(what: str, grid: Tuple[int, ...], tensors: Tuple[torch.Tensor, ...],
+                check) -> None:
+    key = (what, grid) + tuple(id(t) for t in tensors)
+    seen = _CHECKED.get(key)
+    if seen is not None and all(r() is t for r, t in zip(seen, tensors)):
+        return
+    check()
+    refs = tuple(
+        weakref.ref(t, lambda _, k=key: _CHECKED.pop(k, None)) for t in tensors
+    )
+    _CHECKED[key] = refs
+
+
+def _in_range(t: torch.Tensor, hi: int) -> torch.Tensor:
+    if not t.numel():
+        return torch.tensor(True, device=t.device)
+    return (t.min() >= 0) & (t.max() < hi)
+
+
+def _sorted(t: torch.Tensor) -> torch.Tensor:
+    return (t.diff() >= 0).all() if t.numel() > 1 else torch.tensor(True, device=t.device)
+
+
+def _check_block_sizes(bm: int, bn: int) -> None:
+    if not (1 <= bm <= MAX_BLOCK and 1 <= bn <= MAX_BLOCK):
+        raise ValueError(
+            f"block size {bm}x{bn}: the block kernels take block_m and block_n "
+            f"from 1 to {MAX_BLOCK}"
+        )
+
+
+def _check_index(t: torch.Tensor, name: str, nb: int, device: torch.device) -> None:
+    build.check_tensor(t, name, dtype=torch.int32, shape=(nb,), device=device)
+
+
+def _require_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, not {t.device}")
+
+
+_I64 = ctypes.c_int64
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [_I64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_DX_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [_I64] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+# ---------------------------------------------------------------------------
+# kernel C
+# ---------------------------------------------------------------------------
+
+
+def bsmm_fwd(
+    x: torch.Tensor, values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+    first_col: torch.Tensor, *, grid_n: int,
+) -> torch.Tensor:
+    """x: (B, grid_m*bm) @ block-sparse W -> (B, grid_n*bn). ``cols`` must
+    be non-decreasing (canonical order). A CUDA tensor launches kernel C; a
+    CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return bsmm_fwd_plain(x, values, rows, cols, first_col, grid_n=grid_n)
+    _require_cuda(x, "bsmm_fwd")
+    nb, bm, bn = values.shape
+    _check_block_sizes(bm, bn)
+    if x.dim() != 2 or x.shape[1] % bm or x.shape[1] == 0:
+        raise ValueError(f"x must be (B, grid_m*{bm}), got shape {tuple(x.shape)}")
+    batch, grid_m = x.shape[0], x.shape[1] // bm
+    dev = x.device
+    f32 = torch.float32
+    build.check_tensor(x, "x", dtype=f32, shape=x.shape, device=dev)
+    build.check_tensor(values, "values", dtype=f32, shape=(nb, bm, bn), device=dev)
+    _check_index(rows, "rows", nb, dev)
+    _check_index(cols, "cols", nb, dev)
+
+    def check():
+        if not bool(_in_range(rows, grid_m) & _in_range(cols, grid_n) & _sorted(cols)):
+            raise ValueError(
+                f"rows must lie in [0, {grid_m}) and cols be non-decreasing in [0, {grid_n})"
+            )
+
+    _check_once("fwd", (grid_m, grid_n), (rows, cols), check)
+    col_ptr = segment_offsets(cols, grid_n)
+    y = torch.empty((batch, grid_n * bn), dtype=f32, device=dev)
+    fn = build.kernel("bsmm_fwd", "bsmm_fwd_f32", _FWD_ARGTYPES)
+    rc = fn(
+        x.data_ptr(), values.data_ptr(), rows.data_ptr(), col_ptr.data_ptr(),
+        y.data_ptr(), batch, grid_m, grid_n, bm, bn, *build.stream_args(dev),
+    )
+    build.check_launch(rc, "bsmm_fwd kernel")
+    bsmm_fwd.launches += 1
+    return y
+
+
+bsmm_fwd.launches = 0  # kernel C launches, so a run can show it went through the kernel
+
+
+# ---------------------------------------------------------------------------
+# kernel D
+# ---------------------------------------------------------------------------
+
+
+def bsmm_dx(
+    dy: torch.Tensor, values: torch.Tensor, rows_r: torch.Tensor, cols_r: torch.Tensor,
+    first_row: torch.Tensor, perm_r: torch.Tensor, *, grid_m: int,
+) -> torch.Tensor:
+    """dy: (B, grid_n*bn) -> dx = dy @ W^T, (B, grid_m*bm), over the
+    row-sorted order (``rows_r`` non-decreasing). Input block-rows that no
+    slot covers come out as exact zeros. A CUDA tensor launches kernel D; a
+    CPU tensor takes the plain version."""
+    if dy.device.type == "cpu":
+        return bsmm_dx_plain(dy, values, rows_r, cols_r, first_row, perm_r, grid_m=grid_m)
+    _require_cuda(dy, "bsmm_dx")
+    nb, bm, bn = values.shape
+    _check_block_sizes(bm, bn)
+    if dy.dim() != 2 or dy.shape[1] % bn or dy.shape[1] == 0:
+        raise ValueError(f"dy must be (B, grid_n*{bn}), got shape {tuple(dy.shape)}")
+    if grid_m < 1:
+        raise ValueError(f"grid_m must be positive, got {grid_m}")
+    batch, grid_n = dy.shape[0], dy.shape[1] // bn
+    dev = dy.device
+    f32 = torch.float32
+    build.check_tensor(dy, "dy", dtype=f32, shape=dy.shape, device=dev)
+    build.check_tensor(values, "values", dtype=f32, shape=(nb, bm, bn), device=dev)
+    _check_index(rows_r, "rows_r", nb, dev)
+    _check_index(cols_r, "cols_r", nb, dev)
+    _check_index(perm_r, "perm_r", nb, dev)
+
+    def check():
+        ok = (_in_range(rows_r, grid_m) & _sorted(rows_r) & _in_range(cols_r, grid_n)
+              & _in_range(perm_r, nb))
+        if not bool(ok):
+            raise ValueError(
+                f"rows_r must be non-decreasing in [0, {grid_m}), cols_r lie in "
+                f"[0, {grid_n}) and perm_r in [0, {nb})"
+            )
+
+    _check_once("dx", (grid_m, grid_n, nb), (rows_r, cols_r, perm_r), check)
+    row_ptr = segment_offsets(rows_r, grid_m)
+    dx = torch.empty((batch, grid_m * bm), dtype=f32, device=dev)
+    fn = build.kernel("bsmm_dx", "bsmm_dx_f32", _DX_ARGTYPES)
+    rc = fn(
+        dy.data_ptr(), values.data_ptr(), cols_r.data_ptr(), perm_r.data_ptr(),
+        row_ptr.data_ptr(), dx.data_ptr(), batch, grid_m, grid_n, bm, bn,
+        *build.stream_args(dev),
+    )
+    build.check_launch(rc, "bsmm_dx kernel")
+    bsmm_dx.launches += 1
+    return dx
+
+
+bsmm_dx.launches = 0  # kernel D launches
+
+
+# ---------------------------------------------------------------------------
+# kernel E
+# ---------------------------------------------------------------------------
+
+
+def bsmm_dw(
+    x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+    *, block_m: int, block_n: int,
+) -> torch.Tensor:
+    """Tile gradients ``dw[i] = x_tile(rows[i])^T @ dy_tile(cols[i])``,
+    (nb, bm, bn), summed over the whole batch. A CUDA tensor launches kernel
+    E; a CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return bsmm_dw_plain(x, dy, rows, cols, block_m=block_m, block_n=block_n)
+    _require_cuda(x, "bsmm_dw")
+    bm, bn = block_m, block_n
+    _check_block_sizes(bm, bn)
+    if x.dim() != 2 or x.shape[1] % bm or x.shape[1] == 0:
+        raise ValueError(f"x must be (B, grid_m*{bm}), got shape {tuple(x.shape)}")
+    if dy.dim() != 2 or dy.shape[0] != x.shape[0] or dy.shape[1] % bn or dy.shape[1] == 0:
+        raise ValueError(
+            f"dy must be ({x.shape[0]}, grid_n*{bn}), got shape {tuple(dy.shape)}"
+        )
+    batch, grid_m, grid_n = x.shape[0], x.shape[1] // bm, dy.shape[1] // bn
+    nb = rows.numel()
+    dev = x.device
+    f32 = torch.float32
+    build.check_tensor(x, "x", dtype=f32, shape=x.shape, device=dev)
+    build.check_tensor(dy, "dy", dtype=f32, shape=dy.shape, device=dev)
+    _check_index(rows, "rows", nb, dev)
+    _check_index(cols, "cols", nb, dev)
+
+    def check():
+        if not bool(_in_range(rows, grid_m) & _in_range(cols, grid_n)):
+            raise ValueError(f"rows must lie in [0, {grid_m}) and cols in [0, {grid_n})")
+
+    _check_once("dw", (grid_m, grid_n), (rows, cols), check)
+    dw = torch.empty((nb, bm, bn), dtype=f32, device=dev)
+    fn = build.kernel("bsmm_dw", "bsmm_dw_f32", _DW_ARGTYPES)
+    rc = fn(
+        x.data_ptr(), dy.data_ptr(), rows.data_ptr(), cols.data_ptr(), dw.data_ptr(),
+        nb, batch, grid_m, grid_n, bm, bn, *build.stream_args(dev),
+    )
+    build.check_launch(rc, "bsmm_dw kernel")
+    bsmm_dw.launches += 1
+    return dw
+
+
+bsmm_dw.launches = 0  # kernel E launches

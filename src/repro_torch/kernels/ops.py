@@ -1,23 +1,133 @@
-"""Public ops for sparse linear layers: the forward-only (serving) entry of
-the element (COO) path. The training entries (``espmm`` with its
-hand-derived backward) come with the training slice, the block entries with
-the block slice."""
+"""Public ops for sparse linear layers.
+
+Block granularity — two implementations of the same math on the same
+topology arrays:
+
+* ``bsmm_kernel`` — kernels C, D and E (``kernels/block_sparse_matmul.py``)
+                    joined by a ``torch.autograd.Function``: the forward is
+                    kernel C, the backward kernel D (only where dx is
+                    needed) and kernel E. On CPU tensors each runs its plain
+                    version. Twin of the reference's ``bsmm_pallas``.
+* ``bsmm_xla``    — plain PyTorch gather / einsum / ``index_add``,
+                    natively differentiable: the oracle of the whole op.
+                    The name is the reference's.
+
+Element granularity: the forward-only (serving) entry ``espmm_infer``. The
+element training entry (``espmm`` with its hand-derived backward) comes
+with the element training slice.
+"""
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.sparsity import (
     SPMM_INFER_ELEMS,
     SPMM_INFER_NNZ,
+    BlockMeta,
+    BlockTopoArrays,
     ElemTopoArrays,
     element_spmm,
     element_spmm_segment,
 )
+from repro_torch.kernels import block_sparse_matmul as _k
 
-__all__ = ["espmm_infer"]
+__all__ = ["bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm_infer"]
+
+
+# ---------------------------------------------------------------------------
+# Block path: kernels C, D, E behind one autograd Function
+# ---------------------------------------------------------------------------
+
+
+class _BsmmCore(torch.autograd.Function):
+    """``y = x @ W`` on padded operands: x (B, padded_in) -> (B, padded_out).
+    The topology and meta are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, values, topo: BlockTopoArrays, meta: BlockMeta):
+        ctx.save_for_backward(x, values)
+        ctx.topo, ctx.meta = topo, meta
+        return _k.bsmm_fwd(x, values, topo.rows, topo.cols, topo.first_col,
+                           grid_n=meta.grid_n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values = ctx.saved_tensors
+        topo, meta = ctx.topo, ctx.meta
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:  # layer 0's input needs none: no kernel D
+            dx = _k.bsmm_dx(dy, values, topo.rows_r, topo.cols_r, topo.first_row,
+                            topo.perm_r, grid_m=meta.grid_m)
+        if ctx.needs_input_grad[1]:
+            dw = _k.bsmm_dw(x, dy, topo.rows, topo.cols,
+                            block_m=meta.block_m, block_n=meta.block_n)
+        return dx, dw, None, None
+
+
+def bsmm_kernel(
+    x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta
+) -> torch.Tensor:
+    """Block-sparse ``y = x @ W`` for x of shape (..., in_dim), on kernels
+    C, D and E. Twin of the reference's ``bsmm_pallas``: it pads the
+    features to the block grid and slices the output; the batch needs no
+    padding, since the kernels mask a ragged batch tile."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    pad_m = meta.padded_in - meta.in_dim
+    if pad_m:
+        x2 = F.pad(x2, (0, pad_m))
+    y = _BsmmCore.apply(x2.contiguous(), values, topo, meta)
+    return y[:, : meta.out_dim].reshape(*lead, meta.out_dim)
+
+
+def bsmm_xla(
+    x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta
+) -> torch.Tensor:
+    """Block-sparse ``y = x @ W`` as plain PyTorch: gather the x tiles,
+    einsum with the live tiles, ``index_add`` into the output block-columns.
+    Autograd differentiates it; FLOPs scale with the live tiles."""
+    lead = x.shape[:-1]
+    pad_m = meta.padded_in - meta.in_dim
+    if pad_m:
+        x = F.pad(x, (0, pad_m))
+    xr = x.reshape(*lead, meta.grid_m, meta.block_m)
+    xg = xr.index_select(-2, topo.rows.long())                  # (..., nb, bm)
+    yb = torch.einsum("...nm,nmo->...no", xg, values)
+    y = torch.zeros((*lead, meta.grid_n, meta.block_n), dtype=yb.dtype, device=x.device)
+    y = y.index_add(-2, topo.cols.long(), yb)
+    return y.reshape(*lead, meta.padded_out)[..., : meta.out_dim]
+
+
+def bsmm(
+    x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta,
+    *, impl: str = "kernel",
+) -> torch.Tensor:
+    """``impl="kernel"``: kernels C, D, E (``bsmm_kernel``); ``impl="xla"``:
+    the plain autograd path (``bsmm_xla``)."""
+    if impl == "kernel":
+        return bsmm_kernel(x, values, topo, meta)
+    if impl == "xla":
+        return bsmm_xla(x, values, topo, meta)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def bsmm_infer(
+    x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta
+) -> torch.Tensor:
+    """Block-sparse ``y = x @ W`` for serving (``mlp_forward(infer=True)``):
+    kernel C alone, with autograd off."""
+    with torch.no_grad():
+        return bsmm_kernel(x, values, topo, meta)
+
+
+# ---------------------------------------------------------------------------
+# Element path, forward only (serving)
+# ---------------------------------------------------------------------------
 
 
 def espmm_infer(

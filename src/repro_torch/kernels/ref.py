@@ -1,8 +1,37 @@
-"""Plain PyTorch oracles for the kernels. The block oracles come with the
-block slice."""
+"""Plain PyTorch oracles for the kernels: densify-then-matmul for the block
+products (kernels C, D, E), and All-ReLU (kernel B). Twins of
+``repro.kernels.ref``."""
 from __future__ import annotations
 
 import torch
+
+
+def blocks_to_dense(
+    values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, grid_m: int, grid_n: int
+) -> torch.Tensor:
+    """Scatter (nb, bm, bn) blocks into the dense padded matrix."""
+    _, bm, bn = values.shape
+    dense = torch.zeros((grid_m, bm, grid_n, bn), dtype=values.dtype, device=values.device)
+    dense[rows.long(), :, cols.long(), :] = values
+    return dense.reshape(grid_m * bm, grid_n * bn)
+
+
+def bsmm_ref(x, values, rows, cols, *, grid_m: int, grid_n: int) -> torch.Tensor:
+    """y = x @ dense(W).   x: (B, grid_m*bm) -> (B, grid_n*bn)."""
+    return x @ blocks_to_dense(values, rows, cols, grid_m, grid_n).to(x.dtype)
+
+
+def bsmm_dx_ref(dy, values, rows, cols, *, grid_m: int, grid_n: int) -> torch.Tensor:
+    """dX = dY @ W^T."""
+    return dy @ blocks_to_dense(values, rows, cols, grid_m, grid_n).T.to(dy.dtype)
+
+
+def bsmm_dw_ref(x, dy, rows, cols, *, block_m: int, block_n: int) -> torch.Tensor:
+    """dW_blocks[i] = x_tile(rows[i])^T @ dy_tile(cols[i])."""
+    B = x.shape[0]
+    xg = x.reshape(B, -1, block_m)[:, rows.long()]     # (B, nb, bm)
+    dyg = dy.reshape(B, -1, block_n)[:, cols.long()]   # (B, nb, bn)
+    return torch.einsum("bnm,bno->nmo", xg, dyg)
 
 
 def slope_for(alpha: float, layer_index: int) -> float:

@@ -1,0 +1,82 @@
+"""Step functions of the SET-MLP training loop. Twin of the MLP part of
+``repro.launch.steps`` (the LM steps come with the LM stack).
+
+A step is loss -> gradients (autograd; on a block model the backward runs
+kernels D and E) -> momentum-SGD update. PyTorch runs eagerly, so the
+reference's jitted ``lax.scan`` over an epoch becomes a Python loop that
+keeps every per-step loss on the device: an epoch costs the host one
+synchronisation, when it reads the losses.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.models.mlp import SparseMLPConfig, cross_entropy_loss, mlp_forward
+from repro_torch.optim.sgd import MomentumSGD, SGDState, tree_map
+
+__all__ = ["make_mlp_step_core", "make_mlp_train_step", "scan_segment"]
+
+
+def make_mlp_step_core(config: SparseMLPConfig, opt: MomentumSGD, topo_arrays,
+                       x_all: Optional[torch.Tensor] = None,
+                       y_all: Optional[torch.Tensor] = None):
+    """The one SET-MLP minibatch step body (loss -> gradients -> momentum-SGD
+    update), shaped for :func:`scan_segment`.
+
+    With ``x_all``/``y_all`` (the dataset, resident on the device) the step
+    input is ``(idx, lr)`` and the batch is gathered on the device; without
+    them the input is ``(x, y, lr)``. ``rng`` is the ``torch.Generator`` the
+    dropout masks draw from.
+    """
+
+    def step_core(p, s: SGDState, inp, rng: Optional[torch.Generator]):
+        if x_all is None:
+            xb, yb, lr = inp
+        else:
+            idx, lr = inp
+            xb = x_all.index_select(0, idx)
+            yb = y_all.index_select(0, idx)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        logits = mlp_forward(leaves, topo_arrays, xb, config, train=True, rng=rng)
+        loss = cross_entropy_loss(logits, yb)
+        flat = [t for k in leaves for t in leaves[k]]
+        grads_flat = torch.autograd.grad(loss, flat)
+        grads, i = {}, 0
+        for k in leaves:
+            n = len(leaves[k])
+            grads[k] = tuple(grads_flat[i:i + n])
+            i += n
+        p, s = opt.update(grads, s, p, lr)
+        return p, s, loss.detach()
+
+    return step_core
+
+
+def make_mlp_train_step(config: SparseMLPConfig, opt: MomentumSGD):
+    """Single-minibatch SET-MLP train step: ``step(params, opt_state,
+    topo_arrays, x, y, lr, rng) -> (params, opt_state, loss)``. Topology
+    arrays are inputs, so SET evolution between calls changes nothing
+    here."""
+
+    def step(params, opt_state, topo_arrays, x, y, lr, rng):
+        core = make_mlp_step_core(config, opt, topo_arrays)
+        return core(params, opt_state, (x, y, lr), rng)
+
+    return step
+
+
+def scan_segment(
+    step_core: Callable, params, opt_state, key: Any, step_inputs: Tuple[torch.Tensor, ...]
+):
+    """Run a multi-step train segment: thread (params, opt_state) through
+    ``step_core`` once per leading index of ``step_inputs`` and stack the
+    per-step metrics on the device (no host sync). ``key`` is the
+    ``torch.Generator`` every step draws from; it advances in place and is
+    returned, as the reference returns its split key."""
+    metrics = []
+    for i in range(step_inputs[0].shape[0]):
+        params, opt_state, m = step_core(params, opt_state, tuple(t[i] for t in step_inputs), key)
+        metrics.append(m)
+    return params, opt_state, key, torch.stack(metrics)

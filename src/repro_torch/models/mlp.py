@@ -1,15 +1,22 @@
-"""The paper's SET-MLP: truly sparse multilayer perceptron (element path).
+"""The paper's SET-MLP: truly sparse multilayer perceptron.
 
 Layer l computes  h = act_l(h @ W_l + b_l)  where W_l is stored ONLY as its
-live connections (``ElementTopology`` COO). The activation is All-ReLU with
-the paper's 1-based hidden-layer parity; the output layer is linear.
+live connections (``ElementTopology`` COO, the paper-faithful path) or as
+live tiles (``BlockTopology``). The activation is All-ReLU with the paper's
+1-based hidden-layer parity; the output layer is linear.
 
-PyTorch twin of ``repro.models.mlp`` for serving: the same config, the same
-seeded topology and init (bit-equal), and the inference forward. On the card
-a hidden layer is kernel A (``espmm_infer``) then kernel B (bias + All-ReLU);
-on the CPU both are their plain versions. Training (``espmm`` with its
-backward, dropout), the block/masked/dense impls and ``return_preacts`` come
-with later slices and raise ``NotImplementedError`` here.
+PyTorch twin of ``repro.models.mlp``: the same config, the same seeded
+topology and init (bit-equal). What each impl runs:
+
+* ``element`` — the inference forward (``infer=True``): on the card a hidden
+  layer is kernel A (``espmm_infer``) then kernel B (bias + All-ReLU). Its
+  training forward comes with the element training slice.
+* ``block`` — training and inference: the block product on kernels C (and,
+  under autograd, D and E), then ``+ bias`` and the plain All-ReLU, as the
+  reference does; dropout draws from an explicit ``torch.Generator``.
+
+The masked and dense impls and ``return_preacts`` come with later slices and
+raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -18,14 +25,15 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.all_relu import activation_fn
-from repro_torch.core.sparsity import ElementTopology
+from repro_torch.core.sparsity import BlockMeta, BlockTopology, ElementTopology
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.all_relu_fused import bias_all_relu
 
-__all__ = ["SparseMLPConfig", "SparseMLP", "mlp_forward"]
+__all__ = ["SparseMLPConfig", "SparseMLP", "mlp_forward", "cross_entropy_loss"]
 
 DeviceLike = Optional[Union[str, torch.device]]
 
@@ -50,12 +58,18 @@ class SparseMLPConfig:
         return len(self.layer_dims) - 1
 
 
-def _require_element(config: SparseMLPConfig) -> None:
-    if config.impl != "element":
+def _require_sparse(config: SparseMLPConfig) -> None:
+    if config.impl not in ("element", "block"):
         raise NotImplementedError(
-            f"impl={config.impl!r}: the port serves the element (COO) path; "
-            "the block, masked and dense impls come with later slices"
+            f"impl={config.impl!r}: the port has the element (COO) and block "
+            "impls; the masked and dense impls come with a later slice"
         )
+
+
+def block_meta(config: SparseMLPConfig, layer: int) -> BlockMeta:
+    """The block grid of a block model's ``layer``."""
+    return BlockMeta(config.layer_dims[layer], config.layer_dims[layer + 1],
+                     config.block_m, config.block_n)
 
 
 def _on(a, device: torch.device) -> torch.Tensor:
@@ -72,17 +86,20 @@ class SparseMLP:
     ``device="cpu"`` for the plain versions)."""
 
     def __init__(self, config: SparseMLPConfig, seed: int = 0, device: DeviceLike = None):
-        _require_element(config)
+        _require_sparse(config)
         self.config = config
         self.device = resolve_device(device)
         rng = np.random.default_rng(seed)
         dtype = getattr(torch, config.dtype)
-        self.topos: List[ElementTopology] = []
+        self.topos: List[Union[ElementTopology, BlockTopology]] = []
         self.values: List[torch.Tensor] = []
         self.biases: List[torch.Tensor] = []
         for l in range(config.n_layers):
             n_in, n_out = config.layer_dims[l], config.layer_dims[l + 1]
-            topo = ElementTopology.erdos_renyi(n_in, n_out, config.epsilon, rng)
+            if config.impl == "element":
+                topo = ElementTopology.erdos_renyi(n_in, n_out, config.epsilon, rng)
+            else:
+                topo = BlockTopology.from_epsilon(block_meta(config, l), config.epsilon, rng)
             self.topos.append(topo)
             self.values.append(topo.init_values(
                 rng, dtype=dtype, scheme=config.init, device=self.device
@@ -93,7 +110,7 @@ class SparseMLP:
     def from_state(
         cls,
         config: SparseMLPConfig,
-        topos: Sequence[ElementTopology],
+        topos: Sequence[Union[ElementTopology, BlockTopology]],
         values: Sequence,
         biases: Sequence,
         device: DeviceLike = None,
@@ -101,7 +118,7 @@ class SparseMLP:
         """Rebuild a model from explicit state (numpy arrays or tensors) —
         deployment-time compaction and interop construct models whose
         topologies are not the seeded Erdős–Rényi draw."""
-        _require_element(config)
+        _require_sparse(config)
         if not len(topos) == len(values) == len(biases) == config.n_layers:
             raise ValueError(
                 f"expected {config.n_layers} layers of topology, values and "
@@ -123,9 +140,19 @@ class SparseMLP:
     def topo_arrays(self):
         return tuple(t.device_arrays(self.device) for t in self.topos)
 
+    def set_params(self, params) -> None:
+        self.values = list(params["values"])
+        self.biases = list(params["biases"])
+
     @property
     def n_params(self) -> int:
-        return sum(int(b.numel()) for b in self.biases) + sum(t.nnz for t in self.topos)
+        """Biases plus live connections. A block layer counts its nonzero
+        values, the padded margin of its tiles included, as the reference
+        does."""
+        total = sum(int(b.numel()) for b in self.biases)
+        if self.config.impl == "element":
+            return total + sum(t.nnz for t in self.topos)
+        return total + sum(int(torch.count_nonzero(v)) for v in self.values)
 
 
 def mlp_forward(
@@ -135,30 +162,37 @@ def mlp_forward(
     config: SparseMLPConfig,
     *,
     train: bool = False,
-    rng=None,
+    rng: Optional[torch.Generator] = None,
     infer: bool = False,
     return_preacts: bool = False,
     col_ptrs: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Forward; returns logits. ``infer=True`` is the serving entry, the
-    only one this slice has.
+    """Forward; returns logits.
+
+    ``infer=True`` is the serving entry. A block model also runs with
+    ``infer=False`` (training and evaluation), differentiable through
+    kernels C, D and E; ``train=True`` applies dropout, drawn from ``rng``,
+    a ``torch.Generator`` on the input's device.
 
     ``col_ptrs`` (per layer, int64 (out_dim + 1,)) are the column offsets
-    kernel A walks; the serving engine computes them once when it freezes
-    the topology, and they are computed per call when not given.
+    kernel A walks on the element path; the serving engine computes them
+    once when it freezes the topology, and they are computed per call when
+    not given.
     """
-    _require_element(config)
-    if not infer:
-        raise NotImplementedError(
-            "the training forward (espmm with its backward) comes with the "
-            "training slice; pass infer=True"
-        )
-    if train and config.dropout > 0:
-        raise NotImplementedError("dropout comes with the training slice")
+    _require_sparse(config)
     if return_preacts:
         raise NotImplementedError("return_preacts comes with the probes slice")
     if x.shape[-1] != config.layer_dims[0]:
         raise ValueError(f"x has {x.shape[-1]} features, the model takes {config.layer_dims[0]}")
+    if config.impl == "block":
+        return _block_forward(params, topo_arrays, x, config, train=train, rng=rng, infer=infer)
+    if not infer:
+        raise NotImplementedError(
+            "the element training forward (espmm with its backward) comes with "
+            "the element training slice; pass infer=True, or train impl='block'"
+        )
+    if train and config.dropout > 0:
+        raise NotImplementedError("element dropout comes with the element training slice")
     act = activation_fn(config.activation, alpha=config.alpha)
     h = x
     n_layers = config.n_layers
@@ -176,3 +210,30 @@ def mlp_forward(
         else:
             h = act(h + bias, l + 1)
     return h
+
+
+def _block_forward(params, topo_arrays, x, config, *, train, rng, infer):
+    """Block layers as the reference runs them: the block product, ``+ bias``,
+    then the activation under autograd, and dropout in training."""
+    act = activation_fn(config.activation, alpha=config.alpha)
+    product = kops.bsmm_infer if infer else kops.bsmm_kernel
+    dropout = train and config.dropout > 0
+    if dropout and rng is None:
+        raise ValueError("dropout needs rng, a torch.Generator on the input's device")
+    h = x
+    n_layers = config.n_layers
+    for l in range(n_layers):
+        h = product(h, params["values"][l], topo_arrays[l], block_meta(config, l))
+        h = h + params["biases"][l]
+        if l < n_layers - 1:  # hidden layers only (paper: exclude output)
+            h = act(h, l + 1)  # paper's 1-based layer parity
+            if dropout:
+                keep = 1.0 - config.dropout
+                mask = torch.rand(h.shape, generator=rng, device=h.device) < keep
+                h = torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+    return h
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under softmax(logits), in f32."""
+    return F.cross_entropy(logits.float(), labels.long())

@@ -1,0 +1,132 @@
+"""Momentum SGD and LR schedules. Twin of ``repro.optim.sgd`` (AdamW, which
+only the LM driver uses, comes with the LM stack).
+
+Momentum SGD implements paper Eq. (1):
+
+    W_{t+1} = W_t + mu * (W_t - W_{t-1}) - eta * grad_t
+
+in velocity form (v_t = W_t - W_{t-1}):  v <- mu*v - eta*g;  W <- W + v.
+Weight decay is added to the gradient (coupled, the paper's classic
+formulation). It operates on the model's parameter dict
+``{"values": (...), "biases": (...)}`` — a dict of tuples of tensors — and
+returns new tensors; ``lr`` may be a float or a 0-d tensor on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Sequence, Tuple
+
+import torch
+
+__all__ = [
+    "MomentumSGD",
+    "SGDState",
+    "constant_lr",
+    "cosine_lr",
+    "large_then_fixed_lr",
+    "replace_values_velocity",
+    "step_decay_lr",
+    "warmup_linear_scaled_lr",
+]
+
+Params = Dict[str, Tuple[torch.Tensor, ...]]
+
+
+def tree_map(fn: Callable, *trees: Params) -> Params:
+    """Map ``fn`` over matching leaves of dicts of tuples of tensors."""
+    return {k: tuple(fn(*leaves) for leaves in zip(*(t[k] for t in trees)))
+            for k in trees[0]}
+
+
+class SGDState(NamedTuple):
+    velocity: Params
+    step: torch.Tensor  # int32, 0-d
+
+
+def replace_values_velocity(state: SGDState, new_values_vel: Sequence[torch.Tensor]) -> SGDState:
+    """Rebuild an SGDState whose ``velocity['values']`` entries were remapped
+    by a topology change (SET evolution / importance pruning): momentum is
+    kept on surviving connections and reset on regrown ones, paper Alg. 1."""
+    velocity = dict(state.velocity)
+    velocity["values"] = tuple(new_values_vel)
+    return SGDState(velocity=velocity, step=state.step)
+
+
+@dataclasses.dataclass(frozen=True)
+class MomentumSGD:
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+
+    def init(self, params: Params) -> SGDState:
+        vel = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        device = next(iter(params.values()))[0].device
+        return SGDState(velocity=vel, step=torch.zeros((), dtype=torch.int32, device=device))
+
+    def update(
+        self, grads: Params, state: SGDState, params: Params, lr: Any
+    ) -> Tuple[Params, SGDState]:
+        mu, wd = self.momentum, self.weight_decay
+
+        def upd(v, g, p):
+            g = g.float() + wd * p.float()
+            return mu * v - lr * g
+
+        vel = tree_map(upd, state.velocity, grads, params)
+        new_params = tree_map(lambda p, v: (p.float() + v).to(p.dtype), params, vel)
+        return new_params, SGDState(velocity=vel, step=state.step + 1)
+
+
+# ---------------------------------------------------------------------------
+# LR schedules: step -> lr, in float32 as the reference computes them
+# ---------------------------------------------------------------------------
+
+
+def _f32(step) -> torch.Tensor:
+    return torch.as_tensor(step, dtype=torch.float32)
+
+
+def constant_lr(lr: float) -> Callable[[int], float]:
+    return lambda step: lr
+
+
+def warmup_linear_scaled_lr(
+    base_lr: float, k_workers: int, warmup_steps: int
+) -> Callable[[int], torch.Tensor]:
+    """Goyal et al. (2017): linear scaling rule (lr * K) with gradual warmup.
+    Used by WASSP-SGD (the synchronous variant) per paper §2.3."""
+    target = base_lr * k_workers
+
+    def sched(step):
+        frac = torch.clamp((_f32(step) + 1) / max(1, warmup_steps), max=1.0)
+        return base_lr + frac * (target - base_lr)
+
+    return sched
+
+
+def large_then_fixed_lr(
+    base_lr: float, boost: float, boost_steps: int
+) -> Callable[[int], torch.Tensor]:
+    """WASAP-SGD's observed best recipe (paper §2.3): larger LR for the first
+    few epochs of the async phase, then fixed."""
+
+    def sched(step):
+        return torch.where(_f32(step) < boost_steps, _f32(base_lr * boost), _f32(base_lr))
+
+    return sched
+
+
+def step_decay_lr(base_lr: float, decay: float, every: int) -> Callable[[int], float]:
+    def sched(step):
+        return base_lr * (decay ** (step // every))
+
+    return sched
+
+
+def cosine_lr(base_lr: float, total_steps: int, warmup: int = 0) -> Callable[[int], torch.Tensor]:
+    def sched(step):
+        step = _f32(step)
+        warm = torch.clamp((step + 1) / max(1, warmup), max=1.0) if warmup else 1.0
+        prog = torch.clamp((step - warmup) / max(1, total_steps - warmup), 0.0, 1.0)
+        return base_lr * warm * 0.5 * (1 + torch.cos(torch.pi * prog))
+
+    return sched

@@ -88,6 +88,11 @@ class SparseInferenceEngine:
                 f"unsupported model {type(model)!r}: the port serves SparseMLP; "
                 "the LM kind comes with the LM slice"
             )
+        if model.config.impl != "element":
+            raise NotImplementedError(
+                f"impl={model.config.impl!r}: the engine serves element (COO) "
+                "models; block compaction comes with a later slice"
+            )
         self.device = resolve_device(device)
         self.cfg = engine
         self.report: Optional[CompactionReport] = None

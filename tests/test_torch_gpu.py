@@ -1,22 +1,33 @@
-"""The port's CUDA kernels and its serving path on the card, against their
-plain PyTorch versions. Every test here carries the ``gpu`` marker and skips
-where there is no card; the file imports no JAX, so it runs on a machine
-that has only the port:
+"""The port's CUDA kernels, its serving path and its block training step on
+the card, against their plain PyTorch versions. Every test here carries the
+``gpu`` marker and skips where there is no card; the file imports no JAX,
+so it runs on a machine that has only the port:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Kernel A sums each segment in slot order, the plain version through
 ``index_add_`` (atomics on the card), so they are held at rtol/atol 1e-5;
 kernel B does the plain version's f32 arithmetic and is held bit-equal.
+Kernels C, D and E sum in another order than the plain versions' einsums
+(up to K = 4096 products per output), so they are held at rtol/atol 1e-4;
+uncovered dx block-rows are held exactly 0.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.set_mlp import mlp_config
 from repro_torch.core import sparsity as tsp
 from repro_torch.core.importance import PruningSchedule
+from repro_torch.data.datasets import load
 from repro_torch.kernels import all_relu_fused
+from repro_torch.kernels import block_sparse_matmul as bsm
+from repro_torch.kernels import ops
+from repro_torch.launch.steps import make_mlp_train_step
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig
+from repro_torch.optim.sgd import MomentumSGD
 from repro_torch.serve import EngineConfig, SparseInferenceEngine, importance_prune_mlp
 
 pytestmark = pytest.mark.gpu
@@ -26,6 +37,7 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     return torch.device("cuda")
 
 
@@ -145,3 +157,134 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
     pruned, _ = importance_prune_mlp(_model(cuda), sched)
     pruned_eng = SparseInferenceEngine(pruned, compact=False, engine=ec)
     np.testing.assert_array_equal(pruned_eng.classify(x), got)
+
+
+# -- kernels C, D, E ----------------------------------------------------------
+
+BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)
+
+# (in_dim, out_dim, bm, bn, epsilon, batch): 128x128 tiles at the output
+# layer's shape (one block-column, K = 4096), 8x8, a non-square 32x16 with
+# padded features, and ragged batches
+BLOCK_CASES = [
+    (4000, 10, 128, 128, 20, 128),
+    (1000, 4000, 128, 128, 20, 100),
+    (64, 48, 8, 8, 6, 33),
+    (100, 70, 32, 16, 8, 128),
+    (100, 70, 32, 16, 8, 5),
+]
+
+
+def _block_layer(cuda, case, seed=0):
+    in_dim, out_dim, bm, bn, eps, batch = case
+    rng = np.random.default_rng(seed)
+    meta = tsp.BlockMeta(in_dim, out_dim, bm, bn)
+    topo = tsp.BlockTopology.from_epsilon(meta, eps, rng)
+    values = topo.init_values(rng, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((batch, meta.padded_in)).astype(np.float32),
+                        device=cuda)
+    x[:, in_dim:] = 0
+    dy = torch.as_tensor(rng.standard_normal((batch, meta.padded_out)).astype(np.float32),
+                         device=cuda)
+    return meta, topo, topo.device_arrays(cuda), values, x, dy
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES)
+def test_kernels_c_d_e_match_plain(cuda, case):
+    meta, topo, t, v, x, dy = _block_layer(cuda, case)
+    before = (bsm.bsmm_fwd.launches, bsm.bsmm_dx.launches, bsm.bsmm_dw.launches)
+    y = bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    dx = bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
+    dw = bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m, block_n=meta.block_n)
+    torch.cuda.synchronize()
+    assert (bsm.bsmm_fwd.launches, bsm.bsmm_dx.launches, bsm.bsmm_dw.launches) == tuple(
+        b + 1 for b in before)
+    torch.testing.assert_close(
+        y, bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n),
+        **BLOCK_TOL)
+    want_dx = bsm.bsmm_dx_plain(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                grid_m=meta.grid_m)
+    torch.testing.assert_close(dx, want_dx, **BLOCK_TOL)
+    torch.testing.assert_close(
+        dw, bsm.bsmm_dw_plain(x, dy, t.rows, t.cols, block_m=meta.block_m,
+                              block_n=meta.block_n), **BLOCK_TOL)
+    # uncovered input block-rows: exact zeros
+    uncovered = np.setdiff1d(np.arange(meta.grid_m), topo.rows)
+    tiles = dx.reshape(dx.shape[0], meta.grid_m, meta.block_m)
+    assert not tiles[:, torch.as_tensor(uncovered, device=cuda).long()].any()
+    # deterministic: the same call gives the same bits
+    assert torch.equal(y, bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n))
+    assert torch.equal(dw, bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m,
+                                       block_n=meta.block_n))
+
+
+def test_block_kernels_refuse_what_they_cannot_take(cuda):
+    meta = tsp.BlockMeta(512, 256, 256, 128)  # bm = 256 > 128
+    topo = tsp.BlockTopology(meta, np.array([0, 1]), np.array([0, 1]))
+    t = topo.device_arrays(cuda)
+    v = torch.zeros((2, 256, 128), device=cuda)
+    x = torch.zeros((4, 512), device=cuda)
+    before = bsm.bsmm_fwd.launches
+    with pytest.raises(ValueError, match="block size"):
+        bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=2)
+    with pytest.raises(ValueError, match="block size"):
+        bsm.bsmm_dx(torch.zeros((4, 256), device=cuda), v, t.rows_r, t.cols_r, t.first_row,
+                    t.perm_r, grid_m=2)
+    with pytest.raises(ValueError, match="block size"):
+        bsm.bsmm_dw(x, torch.zeros((4, 256), device=cuda), t.rows, t.cols, block_m=256,
+                    block_n=128)
+    assert bsm.bsmm_fwd.launches == before  # no launch, and no plain fallback
+    meta, topo, t, v, x, dy = _block_layer(cuda, BLOCK_CASES[2])
+    with pytest.raises(ValueError, match="dtype"):
+        bsm.bsmm_fwd(x.double(), v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    with pytest.raises(ValueError, match="contiguous"):
+        bsm.bsmm_dw(x.T.contiguous().T, dy, t.rows, t.cols, block_m=8, block_n=8)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        bsm.bsmm_fwd(x, v, t.rows, t.cols.flip(0).contiguous(), t.first_col,
+                     grid_n=meta.grid_n)
+    with pytest.raises(ValueError, match="rows_r"):
+        bsm.bsmm_dx(dy, v, t.rows_r.flip(0).contiguous(), t.cols_r, t.first_row, t.perm_r,
+                    grid_m=meta.grid_m)
+
+
+def test_block_op_gradients_match_plain_autograd(cuda):
+    meta, topo, t, v, _, _ = _block_layer(cuda, (100, 70, 32, 16, 8, 0))
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.standard_normal((2, 37, 100)).astype(np.float32), device=cuda)
+    g = torch.as_tensor(rng.standard_normal((2, 37, 70)).astype(np.float32), device=cuda)
+    grads = []
+    for impl in ("kernel", "xla"):
+        xx, vv = x.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        (ops.bsmm(xx, vv, t, meta, impl=impl) * g).sum().backward()
+        grads.append((xx.grad, vv.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], **BLOCK_TOL)
+    torch.testing.assert_close(grads[0][1], grads[1][1], **BLOCK_TOL)
+
+
+def test_full_width_block_train_step_matches_cpu(cuda):
+    """One step of the full-width CIFAR-10 block model (3072-4000-1000-4000-10,
+    128x128 tiles) on the card and on the CPU from the same state, and its
+    launches: C 4, D 3 (layer 0's input needs no gradient), E 4."""
+    cfg = mlp_config("cifar10", impl="block")
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    data = load("cifar10", scale=0.003)
+    x, y = data.x_train[:128], data.y_train[:128]
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+    step = make_mlp_train_step(cfg, opt)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = SparseMLP(cfg, seed=0, device=dev)
+        before = (bsm.bsmm_fwd.launches, bsm.bsmm_dx.launches, bsm.bsmm_dw.launches)
+        p, s, loss = step(model.params(), opt.init(model.params()), model.topo_arrays(),
+                          torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev).long(),
+                          torch.tensor(0.01, device=dev), None)
+        launches = tuple(a - b for a, b in zip(
+            (bsm.bsmm_fwd.launches, bsm.bsmm_dx.launches, bsm.bsmm_dw.launches), before))
+        out[dev.type] = (p, s, loss, launches)
+    assert out["cuda"][3] == (4, 3, 4) and out["cpu"][3] == (0, 0, 0)
+    torch.testing.assert_close(out["cuda"][2].cpu(), out["cpu"][2], rtol=1e-5, atol=1e-5)
+    for k in ("values", "biases"):
+        for a, b in zip(out["cuda"][0][k], out["cpu"][0][k]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+        for a, b in zip(out["cuda"][1].velocity[k], out["cpu"][1].velocity[k]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)

@@ -115,8 +115,14 @@ def test_unported_paths_raise():
             tmlp.mlp_forward(tm.params(), tm.topo_arrays(), x, tm.config, **kwargs)
     with pytest.raises(ValueError, match="features"):
         tmlp.mlp_forward(tm.params(), tm.topo_arrays(), torch.zeros((2, 63)), tm.config, infer=True)
-    with pytest.raises(NotImplementedError):
-        tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE, impl="block"), device="cpu")
+    for impl in ("masked", "dense"):
+        with pytest.raises(NotImplementedError):
+            tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE, impl=impl), device="cpu")
+    # the engine serves element models only
+    block = tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE, impl="block", block_m=8, block_n=8),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="element"):
+        SparseInferenceEngine(block, device="cpu")
     with pytest.raises(ValueError, match="layers"):
         tmlp.SparseMLP.from_state(tm.config, tm.topos[:2], tm.values, tm.biases, device="cpu")
 
