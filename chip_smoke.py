@@ -15,8 +15,12 @@ Phases, one line each (any failure exits non-zero):
                    compacted shapes the engine serves;
 4. block_kernels — kernels C, D and E against their plain versions at the
                    four layers of the full-width block model (batch 128 and
-                   a ragged 100) and at 8x8 and 32x16 tiles; uncovered dx
-                   block-rows held exactly 0;
+                   a ragged 100), at 8x8 and 32x16 tiles, and on skewed
+                   block-columns (one column holding every slot; columns of
+                   1, 2, 7 and 33 slots; 128x128 and 5x5 tiles); uncovered
+                   dx block-rows and empty block-columns held exactly 0; C
+                   and E launched twice more on the same inputs, held
+                   bit-equal;
 5. main          — the serving path: ``SparseInferenceEngine.classify`` at
                    full width (3072-4000-1000-4000-10, epsilon 20) with
                    deployment-time compaction, against the same model served
@@ -32,7 +36,9 @@ Phases, one line each (any failure exits non-zero):
                    for A and B (CUDA events) beside bound, plain version and
                    one PyTorch library call;
 8. train_timings — the training step's time and device idle share, the
-                   epochs' seconds, and per-kernel rows for C, D and E.
+                   epochs' seconds, and per-kernel rows for C, D and E (C
+                   and E also with ``bound_tc_ms``, their bound at the
+                   3xTF32 tensor-core rate).
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Without a card it exits non-zero and prints no result.
@@ -58,6 +64,7 @@ from repro_torch.core import sparsity  # noqa: E402
 from repro_torch.core.importance import PruningSchedule  # noqa: E402
 from repro_torch.data.datasets import load  # noqa: E402
 from repro_torch.core.all_relu import activation_fn  # noqa: E402
+from repro_torch.core.topology import block_device_arrays  # noqa: E402
 from repro_torch.kernels import all_relu_fused, build, ref  # noqa: E402
 from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
 from repro_torch.launch.steps import make_mlp_train_step  # noqa: E402
@@ -66,11 +73,15 @@ from repro_torch.optim.sgd import MomentumSGD  # noqa: E402
 from repro_torch.serve import SparseInferenceEngine, importance_prune_mlp  # noqa: E402
 from repro_torch.train.trainer import SequentialTrainer, TrainerConfig  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32
-# (non-tensor-core) rate. The bound of a call is the larger of its bytes over
-# the first and its operations over the second.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32
+# (non-tensor-core) rate and dense TF32 tensor-core rate. The bound of a call
+# is the larger of its bytes over the first and its operations over the
+# second; kernels C and E, which run f32-accurate products as 3xTF32 on the
+# tensor cores, also get the larger of the bytes' time and three times their
+# operations over the third (``bound_tc_ms``).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_TC_FLOPS_PER_S = 495e12
 RTOL = ATOL = 1e-5  # kernel A sums in another order than index_add_
 SIZES = (1, 5, 32, 128, 300)  # 300 is above the largest bucket: chunked
 SCHEDULE = PruningSchedule(tau=0, period=1, percentile=30.0)
@@ -103,7 +114,8 @@ WRAPPERS = {
     "bsmm_fwd": bsm.bsmm_fwd, "bsmm_dx": bsm.bsmm_dx, "bsmm_dw": bsm.bsmm_dw,
 }
 # Kernels C, D and E sum up to K = 4096 products per output in another order
-# than the plain versions' einsums.
+# than the plain versions' einsums (C and E in 3xTF32, as accurate as f32;
+# one TF32 pass would miss this tolerance ~10x, tests/test_torch_tf32.py).
 BLOCK_RTOL = BLOCK_ATOL = 1e-4
 # The training run: 1,000 training samples (7 steps of 128 an epoch), 200 test.
 TRAIN_SCALE = 0.02
@@ -482,26 +494,34 @@ def phase_block_kernels(out: dict) -> str:
         err[name] = max(err[name], float((got - want).abs().max()))
         n_checks += 1
 
-    def check_layer(meta, host, t, v, x, dy):
+    def check_layer(meta, rows, t, v, x, dy):
         y = bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
         dx = bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
         dw = bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m, block_n=meta.block_n)
         torch.cuda.synchronize()
+        for _ in range(2):  # C and E split long sums: the same bits on every launch
+            check(torch.equal(y, bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
+                                               grid_n=meta.grid_n)),
+                  f"kernel C gave other bits on a second launch at {tuple(x.shape)}")
+            check(torch.equal(dw, bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m,
+                                               block_n=meta.block_n)),
+                  f"kernel E gave other bits on a second launch at {tuple(x.shape)}")
         compare("bsmm_fwd", y, bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col,
                                                   grid_n=meta.grid_n))
         compare("bsmm_dx", dx, bsm.bsmm_dx_plain(dy, v, t.rows_r, t.cols_r, t.first_row,
                                                  t.perm_r, grid_m=meta.grid_m))
         compare("bsmm_dw", dw, bsm.bsmm_dw_plain(x, dy, t.rows, t.cols, block_m=meta.block_m,
                                                  block_n=meta.block_n))
-        uncovered = np.setdiff1d(np.arange(meta.grid_m), host.rows)
+        uncovered = np.setdiff1d(np.arange(meta.grid_m), rows)
         tiles = dx.reshape(dx.shape[0], meta.grid_m, meta.block_m)
         check(not tiles[:, torch.as_tensor(uncovered, device=dx.device).long()].any(),
               f"kernel D wrote nonzeros into {len(uncovered)} uncovered block-rows")
         n_uncovered.append(len(uncovered))
+        return y
 
     for batch in (128, 100):
-        for layer in block_layer_inputs(model, x_train[:batch], rng):
-            check_layer(*layer)
+        for meta, host, t, v, x, dy in block_layer_inputs(model, x_train[:batch], rng):
+            check_layer(meta, host.rows, t, v, x, dy)
     # 8x8 and a non-square 32x16 with padded features, full and ragged batches
     for in_dim, out_dim, bm, bn, eps in ((64, 48, 8, 8, 6), (100, 70, 32, 16, 8)):
         meta = sparsity.BlockMeta(in_dim, out_dim, bm, bn)
@@ -512,16 +532,78 @@ def phase_block_kernels(out: dict) -> str:
             x = np.zeros((batch, meta.padded_in), np.float32)
             x[:, :in_dim] = rng.standard_normal((batch, in_dim))
             dy = rng.standard_normal((batch, meta.padded_out)).astype(np.float32)
-            check_layer(meta, small, t, v, torch.as_tensor(x, device=CARD),
+            check_layer(meta, small.rows, t, v, torch.as_tensor(x, device=CARD),
                         torch.as_tensor(dy, device=CARD))
+    # skewed block-columns: kernel C splits the long ones into runs (and
+    # writes zeros for the empty ones), 16-byte copies at 128x128 and 4-byte
+    # copies at 5x5
+    for counts, bm, bn in (([0, 40, 0], 128, 128), ([1, 2, 7, 33], 128, 128),
+                           ([1, 2, 7, 33], 5, 5)):
+        grid_m, grid_n = max(counts) + 2, len(counts)
+        meta = sparsity.BlockMeta(grid_m * bm, grid_n * bn, bm, bn)
+        cols = np.repeat(np.arange(grid_n), counts).astype(np.int32)
+        rows = np.concatenate([np.sort(rng.choice(grid_m, k, replace=False)) for k in counts])
+        t = block_device_arrays(torch.as_tensor(rows.astype(np.int32), device=CARD),
+                                torch.as_tensor(cols, device=CARD), meta=meta)
+        lim = np.sqrt(6.0 / meta.padded_in)  # he-uniform, as the block model's values
+        v = torch.as_tensor(rng.uniform(-lim, lim, (len(cols), bm, bn)).astype(np.float32),
+                            device=CARD)
+        for batch in (128, 100):
+            x = torch.as_tensor(rng.standard_normal((batch, meta.padded_in)).astype(np.float32),
+                                device=CARD)
+            dy = torch.as_tensor(
+                rng.standard_normal((batch, meta.padded_out)).astype(np.float32), device=CARD)
+            y = check_layer(meta, rows, t, v, x, dy)
+            empty = [c for c, k in enumerate(counts) if k == 0]
+            check(not y.reshape(batch, grid_n, bn)[:, empty].any(),
+                  "kernel C wrote nonzeros into a block-column with no slot")
     out["err"].update(err)
+    acc = block_accuracy(rng)
+    print(json.dumps({"block_accuracy": acc}))
     return (
         f"{n_checks} comparisons: 4 full-width block layers (128x128 tiles, "
         f"{[tp.n_blocks for tp in model.topos]} tiles) at batch 128 and 100, 8x8 and 32x16 "
-        f"tiles at batch 128 and 100; max_abs_err C {err['bsmm_fwd']:.3g}, D "
-        f"{err['bsmm_dx']:.3g}, E {err['bsmm_dw']:.3g} (rtol {BLOCK_RTOL}, atol {BLOCK_ATOL}); "
+        f"tiles and skewed columns (slots [0, 40, 0] and [1, 2, 7, 33]; 128x128 and 5x5) at "
+        f"batch 128 and 100; C and E bit-equal over 3 launches each; max_abs_err C "
+        f"{err['bsmm_fwd']:.3g}, D {err['bsmm_dx']:.3g}, E {err['bsmm_dw']:.3g} "
+        f"(rtol {BLOCK_RTOL}, atol {BLOCK_ATOL}); "
         f"uncovered dx block-rows exactly 0 ({n_uncovered[:4]} per full-width layer)"
     )
+
+
+def block_accuracy(rng: np.random.Generator) -> dict:
+    """Kernels C and E against an f64 product where an f32 sum is long and
+    large: unit-normal inputs and values, one block-column of 40 128x128
+    slots (K = 5,120) at batch 128 for C, a batch of 5,120 for E. Beside
+    each, the plain version's error (cuBLAS, f32). A measurement, not a
+    check: it shows whether 3xTF32 sums as an f32 sum does."""
+    bm = bn = 128
+    meta = sparsity.BlockMeta(42 * bm, 3 * bn, bm, bn)
+    t = block_device_arrays(torch.arange(1, 41, dtype=torch.int32, device=CARD),
+                            torch.ones(40, dtype=torch.int32, device=CARD), meta=meta)
+    v = torch.as_tensor(rng.standard_normal((40, bm, bn)).astype(np.float32), device=CARD)
+    res = {}
+    for name, batch in (("bsmm_fwd", 128), ("bsmm_dw", 5120)):
+        x = torch.as_tensor(rng.standard_normal((batch, meta.padded_in)).astype(np.float32),
+                            device=CARD)
+        if name == "bsmm_fwd":
+            args = (x, v, t.rows, t.cols, t.first_col)
+            fns = (bsm.bsmm_fwd, bsm.bsmm_fwd_plain)
+            kw = dict(grid_n=meta.grid_n)
+        else:
+            dy = torch.as_tensor(
+                rng.standard_normal((batch, meta.padded_out)).astype(np.float32), device=CARD)
+            args = (x, dy, t.rows, t.cols)
+            fns = (bsm.bsmm_dw, bsm.bsmm_dw_plain)
+            kw = dict(block_m=bm, block_n=bn)
+        want = fns[1](*(a.double() if a.is_floating_point() else a for a in args), **kw)
+        got = [f(*args, **kw).double() for f in fns]
+        torch.cuda.synchronize()
+        res[name] = dict(k=40 * bm if name == "bsmm_fwd" else batch,
+                         max_abs_ref=float(want.abs().max()),
+                         kernel_max_abs_err=float((got[0] - want).abs().max()),
+                         plain_max_abs_err=float((got[1] - want).abs().max()))
+    return res
 
 
 def trainer_for(device, dropout: float = 0.0):
@@ -596,7 +678,11 @@ def block_bound(kind: str, meta, host, batch: int) -> dict:
         "bsmm_dx": dy_read + w + idx + 8 * (meta.grid_m + 1) + 4 * batch * meta.padded_in,
         "bsmm_dw": x_read + dy_read + idx + w,
     }[kind]
-    return bound(n_bytes, 2 * batch * nb * bm * bn)
+    flops = 2 * batch * nb * bm * bn
+    out = bound(n_bytes, flops)
+    if kind in ("bsmm_fwd", "bsmm_dw"):  # 3xTF32: three tensor-core products per product
+        out["bound_tc_ms"] = max(n_bytes / HBM_BYTES_PER_S, 3 * flops / TF32_TC_FLOPS_PER_S) * 1e3
+    return out
 
 
 def profile_train_step(one_step, step_ms: float, steps: int = 10) -> dict:
@@ -720,7 +806,9 @@ def phase_train_timings(out: dict) -> str:
 def kernel_entry(meta: dict, rows: list, launches: int, max_abs_err: float) -> dict:
     """A ``kernels``-line entry: device times summed over ``rows`` (the
     launches of one call of the path), its bound, and the library's."""
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "bound_ms") + (
+        ("bound_tc_ms",) if all("bound_tc_ms" in r for r in rows) else ())
+    total = {k: sum(r[k] for r in rows) for k in keys}
     lib = [r["library_ms"] for r in rows]
     return dict(
         meta, launches=launches, max_abs_err=max_abs_err, **total,

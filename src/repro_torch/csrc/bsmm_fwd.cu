@@ -5,144 +5,231 @@
 // Replaces src/repro/kernels/block_sparse_matmul.py::bsmm_fwd (the Pallas
 // _fwd_kernel). On the TPU the grid runs in order and an output tile that
 // consecutive slots revisit accumulates in VMEM, zeroed where first_col is 1.
-// Here blocks run in parallel, so each block owns its output tile and walks
-// the tile's slot range itself: the canonical (col, row) order makes the
-// slots of one block-column one contiguous range, given by col_ptr. There are
-// no atomics, and the sum runs slot by slot, k by k, in a fixed order, so the
-// result is deterministic. A block-column with no slot writes zeros.
+// Here blocks run in parallel: the canonical (col, row) order makes the slots
+// of one block-column one contiguous range, given by col_ptr, and each block
+// sums a contiguous run of that range itself. There are no atomics, and every
+// sum runs in a fixed order, so the same inputs give the same bits on every
+// run. A block-column with no slot writes zeros.
 //
-// What bounds it on an H100: 2 * B * nb * bm * bn flops against the bytes of
-// x, the live tiles and y. At batch 128 and 128 x 128 tiles that is about 25
-// flops a byte, so the f32 units (67 TFLOP/s) bound a layer, not memory. This
-// first version issues f32 FMAs from registers, with the x and W tiles staged
-// through shared memory; it does not use the tensor cores (wgmma/TMA is later
-// work). Its known cost is a layer with few block-columns: the output layer
-// of the CIFAR-10 SET-MLP is one column of 32 slots, so only
-// ceil(B/64) * ceil(bn/64) blocks run, each walking all 32 slots.
+// What bounds it on an H100: 2 * B * nb * bm * bn flops (3x that on the
+// tensor cores in 3xTF32) against the bytes of x, the live tiles and y. At
+// batch 128 and 128 x 128 tiles a layer of 32 tiles is 134 MFLOP, 2.0 us at
+// the f32 rate and 0.8 us at the 3xTF32 tensor rate: what sets the time is
+// the latency of one block's chain and how many blocks are in flight, not a
+// peak rate. The scalar version this replaces (f32 FMAs, one barrier-bound
+// 32-deep slice at a time, one block walking a whole column) took 24.5-25.0
+// us on layers 0-2 and 549.7 us on the output layer (one column of 32 slots
+// on 4 blocks), 624 us a training step (NVIDIA H100 80GB HBM3, 700 W).
 //
 // Design:
-//   * One block per (output block-column c, 64-row batch tile, 64-wide slice
-//     of the tile's bn columns); 256 threads as 16 x 16, each owning a 4 x 4
-//     micro-tile at stride 16 (rows ty + 16i, columns tx + 16j).
-//   * The contraction runs over the slot's bm rows in steps of 32: the x
-//     slice (64 x 32) and the W slice (32 x 64) are staged in shared memory,
-//     both read from device memory with consecutive threads on consecutive
-//     addresses, and laid out [k][row] with a pad of one so that the stores
-//     and the compute loop's reads avoid bank conflicts.
-//   * A ragged last batch tile, and tiles narrower than 64, are masked: the
-//     staged values beyond them are zero and their outputs are not stored.
-//     Any bm and bn from 1 to 128 are taken; the wrapper raises on others.
+//   * Split rule. The wrapper cuts each column's range into P contiguous
+//     runs, run p = [lo + len*p/P, lo + len*(p+1)/P), with P chosen on the
+//     host from nb, grid_n, the batch and the tile sizes alone
+//     (block_sparse_matmul.py::fwd_parts: about one wave of blocks on the
+//     132 SMs, at most ceil(nb / grid_n)). P = 1 writes y directly. P > 1
+//     writes each run's partial tile to part (P, B, grid_n*bn) and a second
+//     pass (tf32x3.cuh::sum_parts) adds the P partials in index order.
+//   * One block of 256 threads per (column c, run p, 64-row batch tile,
+//     64-wide column slice); 8 warps as 2 x 4, each a 32 x 16 warp tile of
+//     2 x 2 m16n8k8 products.
+//   * A cp.async ring of 4 stages. A stage is a 32-deep slice of one slot:
+//     the x slice xs[b][k] (64 x 32, row pitch 36) and the W slice ws[k][n]
+//     (32 x 64, row pitch 72); the pitches make the fragment loads free of
+//     bank conflicts. The slices of the run's slots are numbered in order,
+//     so the next slot's first slice loads while this slot's last computes.
+//     16-byte copies where bm and bn are multiples of 4 and x and values are
+//     16-byte aligned, else 4-byte copies. Masked elements (a ragged batch
+//     tile, bm or bn below a slice, the tail of bm) are zero-filled by the
+//     copy's source size, so fragments past the edge read zeros.
+//   * 3xTF32 on mma.sync (tf32x3.cuh). wgmma would need both TF32 operands
+//     K-major in shared memory, and values[i] is stored [k][n] (N-major):
+//     wgmma and TMA are the next step, with a transposed copy or another
+//     parameter layout.
 //
-// Plain C interface for ctypes; returns cudaGetLastError() after the launch.
+// Plain C interface for ctypes; returns cudaGetLastError() after the launches.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kTile = 64;      // output tile: kTile batch rows x kTile columns
-constexpr int kDepth = 32;     // contraction depth staged per step
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kMicro = 4;      // each thread: kMicro x kMicro outputs at stride 16
-constexpr int kPad = kTile + 1;
+constexpr int kTileB = 64;     // batch rows per block
+constexpr int kTileN = 64;     // output columns per block
+constexpr int kDepth = 32;     // contraction depth of one stage
+constexpr int kStages = 4;
+constexpr int kThreads = 256;  // 8 warps as 2 x 4, 32 x 16 each
+constexpr int kLdX = kDepth + 4;
+constexpr int kLdW = kTileN + 8;
+constexpr int kStageFloats = kTileB * kLdX + kDepth * kLdW;
+constexpr int kSmemBytes = kStages * kStageFloats * static_cast<int>(sizeof(float));
 constexpr int kMaxBlock = 128;
 
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 bsmm_fwd_kernel(const float* __restrict__ x,
                 const float* __restrict__ values,
                 const int32_t* __restrict__ rows,
                 const int64_t* __restrict__ col_ptr,
-                float* __restrict__ y,
+                float* __restrict__ out,  // y (parts == 1) or part (parts > 1)
                 int64_t batch, int64_t x_stride, int64_t y_stride,
-                int bm, int bn) {
-  __shared__ float xs[kDepth][kPad];  // xs[k][b] = x[b0 + b, rows[i]*bm + k0 + k]
-  __shared__ float ws[kDepth][kPad];  // ws[k][n] = values[i][k0 + k][n0 + n]
-  const int64_t c = blockIdx.x;
-  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kTile;
-  const int n0 = static_cast<int>(blockIdx.z) * kTile;
+                int bm, int bn, int parts) {
+  extern __shared__ __align__(16) float smem[];
+  const int64_t c = blockIdx.x / parts;
+  const int p = static_cast<int>(blockIdx.x % parts);
+  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kTileB;
+  const int n0 = static_cast<int>(blockIdx.z) * kTileN;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int b_valid = batch - b0 < kTile ? static_cast<int>(batch - b0) : kTile;
-  const int n_valid = min(kTile, bn - n0);
-
-  float acc[kMicro][kMicro];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = (warp / 4) * 32, wn = (warp % 4) * 16;
+  const int b_valid = batch - b0 < kTileB ? static_cast<int>(batch - b0) : kTileB;
+  const int n_valid = min(kTileN, bn - n0);
+  const int k_steps = (bm + kDepth - 1) / kDepth;
 
   const int64_t begin = col_ptr[c];
-  const int64_t end = col_ptr[c + 1];
-  for (int64_t s = begin; s < end; ++s) {
-    const float* xt = x + b0 * x_stride + static_cast<int64_t>(rows[s]) * bm;
-    const float* wt = values + s * bm * bn + n0;
-    for (int k0 = 0; k0 < bm; k0 += kDepth) {
-      const int k_valid = min(kDepth, bm - k0);
-      for (int idx = tid; idx < kTile * kDepth; idx += kThreads) {
-        const int b = idx / kDepth;
-        const int k = idx % kDepth;
-        xs[k][b] = (b < b_valid && k < k_valid) ? __ldg(xt + b * x_stride + k0 + k) : 0.0f;
+  const int64_t len = col_ptr[c + 1] - begin;
+  const int64_t lo = begin + len * p / parts;
+  const int64_t hi = begin + len * (p + 1) / parts;
+  const int64_t n_steps = (hi - lo) * k_steps;
+
+  // Stage `step` of the run: slot lo + step / k_steps, depth slice step % k_steps.
+  auto load = [&](int64_t step) {
+    float* xs = smem + (step % kStages) * kStageFloats;
+    float* ws = xs + kTileB * kLdX;
+    const int64_t s = lo + step / k_steps;
+    const int k0 = static_cast<int>(step % k_steps) * kDepth;
+    const int k_valid = min(kDepth, bm - k0);
+    const float* xt = x + b0 * x_stride + static_cast<int64_t>(rows[s]) * bm + k0;
+    const float* wt = values + s * bm * bn + static_cast<int64_t>(k0) * bn + n0;
+    if constexpr (kVec) {
+      for (int idx = tid; idx < kTileB * (kDepth / 4); idx += kThreads) {
+        const int b = idx / (kDepth / 4), k = (idx % (kDepth / 4)) * 4;
+        const bool ok = b < b_valid && k < k_valid;
+        tf32x3::cp_async16(xs + b * kLdX + k, ok ? xt + b * x_stride + k : x, ok ? 16 : 0);
       }
-      for (int idx = tid; idx < kDepth * kTile; idx += kThreads) {
-        const int k = idx / kTile;
-        const int n = idx % kTile;
-        ws[k][n] = (k < k_valid && n < n_valid)
-                       ? __ldg(wt + static_cast<int64_t>(k0 + k) * bn + n) : 0.0f;
+      for (int idx = tid; idx < kDepth * (kTileN / 4); idx += kThreads) {
+        const int k = idx / (kTileN / 4), n = (idx % (kTileN / 4)) * 4;
+        const bool ok = k < k_valid && n < n_valid;
+        tf32x3::cp_async16(ws + k * kLdW + n, ok ? wt + static_cast<int64_t>(k) * bn + n : values,
+                           ok ? 16 : 0);
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < k_valid; ++k) {
-        float a[kMicro];
-        float w[kMicro];
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i) a[i] = xs[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) w[j] = ws[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    } else {
+      for (int idx = tid; idx < kTileB * kDepth; idx += kThreads) {
+        const int b = idx / kDepth, k = idx % kDepth;
+        const bool ok = b < b_valid && k < k_valid;
+        tf32x3::cp_async4(xs + b * kLdX + k, ok ? xt + b * x_stride + k : x, ok ? 4 : 0);
       }
-      __syncthreads();
+      for (int idx = tid; idx < kDepth * kTileN; idx += kThreads) {
+        const int k = idx / kTileN, n = idx % kTileN;
+        const bool ok = k < k_valid && n < n_valid;
+        tf32x3::cp_async4(ws + k * kLdW + n, ok ? wt + static_cast<int64_t>(k) * bn + n : values,
+                          ok ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_steps) load(st);
+    tf32x3::cp_async_commit();
+  }
+  for (int64_t step = 0; step < n_steps; ++step) {
+    tf32x3::cp_async_wait<kStages - 2>();  // this step's stage has landed
+    __syncthreads();                       // ... for every thread; the oldest buffer is free
+    if (step + kStages - 1 < n_steps) load(step + kStages - 1);
+    tf32x3::cp_async_commit();
+
+    const float* xs = smem + (step % kStages) * kStageFloats;
+    const float* ws = xs + kTileB * kLdX;
+    const int k_valid = min(kDepth, bm - static_cast<int>(step % k_steps) * kDepth);
+#pragma unroll
+    for (int kk = 0; kk < kDepth; kk += 8) {
+      if (kk >= k_valid) break;  // the rest of the slice is zero-filled
+      uint32_t a_hi[2][4], a_lo[2][4], b_hi[2][2], b_lo[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* a = xs + (wm + 16 * i + g) * kLdX + kk + t;
+        tf32x3::split(a[0], a_hi[i][0], a_lo[i][0]);
+        tf32x3::split(a[8 * kLdX], a_hi[i][1], a_lo[i][1]);
+        tf32x3::split(a[4], a_hi[i][2], a_lo[i][2]);
+        tf32x3::split(a[8 * kLdX + 4], a_hi[i][3], a_lo[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* w = ws + (kk + t) * kLdW + wn + 8 * j + g;
+        tf32x3::split(w[0], b_hi[j][0], b_lo[j][0]);
+        tf32x3::split(w[4 * kLdW], b_hi[j][1], b_lo[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) tf32x3::mma3(acc[i][j], a_hi[i], a_lo[i], b_hi[j], b_lo[j]);
     }
   }
+  tf32x3::cp_async_wait<0>();
 
-  float* yt = y + b0 * y_stride + c * bn + n0;
+  float* yt = out + static_cast<int64_t>(p) * batch * y_stride + b0 * y_stride + c * bn + n0;
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int b = ty + 16 * i;
-    if (b >= b_valid) continue;
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int n = tx + 16 * j;
-      if (n < n_valid) yt[b * y_stride + n] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int b = wm + 16 * i + g + 8 * h;
+      if (b >= b_valid) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = wn + 8 * j + 2 * t;
+        if (n < n_valid) yt[b * y_stride + n] = acc[i][j][2 * h];
+        if (n + 1 < n_valid) yt[b * y_stride + n + 1] = acc[i][j][2 * h + 1];
+      }
     }
   }
 }
 
+bool smem_set[2][64];
+
 }  // namespace
 
 extern "C" int bsmm_fwd_f32(const void* x, const void* values, const void* rows,
-                            const void* col_ptr, void* y,
+                            const void* col_ptr, void* y, void* part,
                             int64_t batch, int64_t grid_m, int64_t grid_n,
-                            int bm, int bn, int device, void* stream) {
+                            int bm, int bn, int parts, int device, void* stream) {
   if (bm < 1 || bm > kMaxBlock || bn < 1 || bn > kMaxBlock || batch < 0 ||
-      grid_m < 1 || grid_n < 1 || grid_n > 0x7fffffff) {
+      grid_m < 1 || grid_n < 1 || parts < 1 || grid_n * parts > 0x7fffffff ||
+      (parts > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t batch_tiles = (batch + kTile - 1) / kTile;
+  const int64_t batch_tiles = (batch + kTileB - 1) / kTileB;
   if (batch_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch_tiles > 0) {
-    const dim3 grid(static_cast<unsigned int>(grid_n), static_cast<unsigned int>(batch_tiles),
-                    static_cast<unsigned int>((bn + kTile - 1) / kTile));
-    bsmm_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(values),
-        static_cast<const int32_t*>(rows), static_cast<const int64_t*>(col_ptr),
-        static_cast<float*>(y), batch, grid_m * bm, grid_n * bn, bm, bn);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (batch_tiles == 0) return static_cast<int>(cudaGetLastError());
+  const bool vec = bm % 4 == 0 && bn % 4 == 0 && tf32x3::aligned16(x) &&
+                   tf32x3::aligned16(values);
+  auto kernel = vec ? &bsmm_fwd_kernel<true> : &bsmm_fwd_kernel<false>;
+  err = tf32x3::allow_smem(kernel, device, kSmemBytes, smem_set[vec ? 1 : 0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned int>(grid_n * parts),
+                  static_cast<unsigned int>(batch_tiles),
+                  static_cast<unsigned int>((bn + kTileN - 1) / kTileN));
+  float* out = static_cast<float*>(parts > 1 ? part : y);
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(values),
+      static_cast<const int32_t*>(rows), static_cast<const int64_t*>(col_ptr),
+      out, batch, grid_m * bm, grid_n * bn, bm, bn, parts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  return static_cast<int>(tf32x3::launch_sum_parts(
+      static_cast<const float*>(part), static_cast<float*>(y), batch * grid_n * bn, parts, s));
 }

@@ -16,17 +16,24 @@ whose offsets (``col_ptr``, ``row_ptr``) the wrappers compute on the device
 with ``torch.searchsorted``. An input block-row that no slot covers gets an
 exact-zero gradient from both kernel D and its plain version.
 
+Kernels C and E cut long sums into contiguous runs that separate blocks
+sum, and add the runs' partials in index order in a second pass (no
+atomics: the same inputs give the same bits on every run). How many runs is
+a pure function of host ints (``fwd_parts``, ``dw_splits``), so choosing it
+reads nothing from the device.
+
 Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, block
 sizes 1..128) or raises, and takes its plain version for a CPU tensor. It
-counts its launches. Topology arrays are checked once per tensor (one device
-sync on first use): every coordinate inside the grid and the slot order
-sorted, so the kernels never index out of bounds.
+counts its launches (one per call, the second pass of a split included).
+Topology arrays are checked once per tensor (one device sync on first
+use): every coordinate inside the grid and the slot order sorted, so the
+kernels never index out of bounds.
 """
 from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -35,15 +42,71 @@ from repro_torch.kernels import build
 
 __all__ = [
     "MAX_BLOCK",
+    "SMS",
     "bsmm_dw",
     "bsmm_dw_plain",
     "bsmm_dx",
     "bsmm_dx_plain",
     "bsmm_fwd",
     "bsmm_fwd_plain",
+    "dw_batch_runs",
+    "dw_splits",
+    "fwd_parts",
+    "split_runs",
 ]
 
 MAX_BLOCK = 128  # the kernels take block sizes 1..128
+SMS = 132  # an H100 SXM's streaming multiprocessors: the splits aim at one wave of blocks
+FWD_TILE = 64  # kernel C: a block's 64 batch rows x 64 output columns
+DW_TILE = 64  # kernel E: a block's 64 x 64 part of one slot's tile
+DW_CHUNK = 32  # kernel E: samples per pipeline stage; batch runs are whole chunks
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# split plans (host ints only: choosing them reads nothing from the device)
+# ---------------------------------------------------------------------------
+
+
+def fwd_parts(nb: int, grid_n: int, batch: int, bn: int) -> int:
+    """P, the runs kernel C cuts each block-column's slot range into: enough
+    that the blocks fill about one wave of the SMs, and no more than the
+    mean slots per column. 1 for a layer whose columns already fill the card
+    (the full-width model's layers 0-2); 32 for its output layer (one column
+    of 32 slots) at batch 128."""
+    blocks = grid_n * _cdiv(batch, FWD_TILE) * _cdiv(bn, FWD_TILE)
+    if blocks == 0:
+        return 1
+    return max(1, min(_cdiv(nb, grid_n), SMS // blocks))
+
+
+def split_runs(begin: int, end: int, parts: int) -> List[Tuple[int, int]]:
+    """The ``parts`` contiguous runs of ``[begin, end)``, in order, as
+    kernel C's block p takes them: ``[begin + n*p//parts, begin +
+    n*(p+1)//parts)`` with n = end - begin (a run may be empty)."""
+    n = end - begin
+    return [(begin + n * p // parts, begin + n * (p + 1) // parts) for p in range(parts)]
+
+
+def dw_splits(nb: int, batch: int, bm: int, bn: int) -> int:
+    """S, the runs kernel E cuts the batch into: enough that the blocks fill
+    about one wave of the SMs, at most one run per 32-sample chunk. 1 for a
+    layer of 32 128x128 tiles at batch 128, 4 for a layer of 8."""
+    blocks = nb * _cdiv(bm, DW_TILE) * _cdiv(bn, DW_TILE)
+    if blocks == 0:
+        return 1
+    return max(1, min(_cdiv(batch, DW_CHUNK), SMS // blocks))
+
+
+def dw_batch_runs(batch: int, splits: int) -> List[Tuple[int, int]]:
+    """The ``splits`` contiguous sample runs of kernel E, in order: run s
+    holds chunks ``[C*s//S, C*(s+1)//S)`` of the C = ceil(batch/32)."""
+    chunks = _cdiv(batch, DW_CHUNK)
+    edge = [min(batch, DW_CHUNK * (chunks * s // splits)) for s in range(splits + 1)]
+    return list(zip(edge[:-1], edge[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +178,22 @@ def _check_once(what: str, grid: Tuple[int, ...], tensors: Tuple[torch.Tensor, .
     _CHECKED[key] = refs
 
 
+# Kernel C's column offsets, by index tensor and grid: computed once per
+# (frozen) topology tensor, so that a training step does not launch the two
+# offset kernels again for every forward.
+_COL_PTRS: Dict[tuple, Tuple[weakref.ref, torch.Tensor]] = {}
+
+
+def _col_ptr_once(cols: torch.Tensor, grid_n: int) -> torch.Tensor:
+    key = (id(cols), grid_n)
+    hit = _COL_PTRS.get(key)
+    if hit is not None and hit[0]() is cols:
+        return hit[1]
+    col_ptr = segment_offsets(cols, grid_n)
+    _COL_PTRS[key] = (weakref.ref(cols, lambda _, k=key: _COL_PTRS.pop(k, None)), col_ptr)
+    return col_ptr
+
+
 def _in_range(t: torch.Tensor, hi: int) -> torch.Tensor:
     if not t.numel():
         return torch.tensor(True, device=t.device)
@@ -143,9 +222,9 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
 
 
 _I64 = ctypes.c_int64
-_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [_I64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DX_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [_I64] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_DW_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 # ---------------------------------------------------------------------------
@@ -182,12 +261,15 @@ def bsmm_fwd(
             )
 
     _check_once("fwd", (grid_m, grid_n), (rows, cols), check)
-    col_ptr = segment_offsets(cols, grid_n)
+    col_ptr = _col_ptr_once(cols, grid_n)
     y = torch.empty((batch, grid_n * bn), dtype=f32, device=dev)
+    parts = fwd_parts(nb, grid_n, batch, bn)
+    part = torch.empty((parts, batch, grid_n * bn), dtype=f32, device=dev) if parts > 1 else None
     fn = build.kernel("bsmm_fwd", "bsmm_fwd_f32", _FWD_ARGTYPES)
     rc = fn(
         x.data_ptr(), values.data_ptr(), rows.data_ptr(), col_ptr.data_ptr(),
-        y.data_ptr(), batch, grid_m, grid_n, bm, bn, *build.stream_args(dev),
+        y.data_ptr(), None if part is None else part.data_ptr(), batch, grid_m, grid_n,
+        bm, bn, parts, *build.stream_args(dev),
     )
     build.check_launch(rc, "bsmm_fwd kernel")
     bsmm_fwd.launches += 1
@@ -292,10 +374,13 @@ def bsmm_dw(
 
     _check_once("dw", (grid_m, grid_n), (rows, cols), check)
     dw = torch.empty((nb, bm, bn), dtype=f32, device=dev)
+    splits = dw_splits(nb, batch, bm, bn)
+    part = torch.empty((splits, nb, bm, bn), dtype=f32, device=dev) if splits > 1 else None
     fn = build.kernel("bsmm_dw", "bsmm_dw_f32", _DW_ARGTYPES)
     rc = fn(
         x.data_ptr(), dy.data_ptr(), rows.data_ptr(), cols.data_ptr(), dw.data_ptr(),
-        nb, batch, grid_m, grid_n, bm, bn, *build.stream_args(dev),
+        None if part is None else part.data_ptr(), nb, batch, grid_m, grid_n, bm, bn, splits,
+        *build.stream_args(dev),
     )
     build.check_launch(rc, "bsmm_dw kernel")
     bsmm_dw.launches += 1

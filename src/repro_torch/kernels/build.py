@@ -3,10 +3,11 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Libraries go to ``<repo>/build/kernels/`` and are named by a hash
-of the source and the flags: an edited source builds anew, an unchanged one
-loads what is there. Building happens at first use, from the repository's
-sources only; :func:`build` compiles several sources at once, one ``nvcc``
-process each, all started together.
+of the source, every shared header (``csrc/*.cuh``) and the flags: an edited
+source or header builds anew, an unchanged one loads what is there.
+Building happens at first use, from the repository's sources only;
+:func:`build` compiles several sources at once, one ``nvcc`` process
+each, all started together.
 
 Nothing here runs at import: a machine without ``nvcc`` imports the port and
 runs its plain versions on CPU tensors, and raises only when a CUDA tensor
@@ -56,9 +57,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>.cu`` lives."""
-    text = (CSRC / f"{source}.cu").read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library built from ``csrc/<source>.cu`` lives. The name
+    hashes the headers too, since any source may include them."""
+    h = hashlib.sha256((CSRC / f"{source}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{source}-{digest[:16]}.so"
 
 

@@ -9,8 +9,10 @@ Kernel A sums each segment in slot order, the plain version through
 ``index_add_`` (atomics on the card), so they are held at rtol/atol 1e-5;
 kernel B does the plain version's f32 arithmetic and is held bit-equal.
 Kernels C, D and E sum in another order than the plain versions' einsums
-(up to K = 4096 products per output), so they are held at rtol/atol 1e-4;
-uncovered dx block-rows are held exactly 0.
+(up to K = 4096 products per output; C and E in 3xTF32 on the tensor cores,
+as accurate as f32), so they are held at rtol/atol 1e-4; uncovered dx
+block-rows are held exactly 0, and two launches on the same inputs are held
+bit-equal (C and E split long sums, and add the partials in a fixed order).
 """
 import dataclasses
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.set_mlp import mlp_config
 from repro_torch.core import sparsity as tsp
+from repro_torch.core.topology import block_device_arrays
 from repro_torch.core.importance import PruningSchedule
 from repro_torch.data.datasets import load
 from repro_torch.kernels import all_relu_fused
@@ -288,3 +291,104 @@ def test_full_width_block_train_step_matches_cpu(cuda):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
         for a, b in zip(out["cuda"][1].velocity[k], out["cpu"][1].velocity[k]):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+
+
+def _skewed_layer(cuda, counts, bm, bn, batch, seed=0):
+    """A topology whose block-columns hold ``counts`` slots each (canonical
+    order, distinct rows per column), with seeded inputs and values at the
+    block model's he-uniform scale (fan-in grid_m * bm), so that an output
+    sums up to 5,120 products to O(1), as in the model."""
+    rng = np.random.default_rng(seed)
+    grid_m, grid_n = max(max(counts), 1) + 2, len(counts)
+    meta = tsp.BlockMeta(grid_m * bm, grid_n * bn, bm, bn)
+    cols = np.repeat(np.arange(grid_n), counts).astype(np.int32)
+    rows = np.concatenate([np.sort(rng.choice(grid_m, k, replace=False)) for k in counts])
+    t = block_device_arrays(torch.as_tensor(rows.astype(np.int32), device=cuda),
+                            torch.as_tensor(cols, device=cuda), meta=meta)
+    lim = np.sqrt(6.0 / (grid_m * bm))
+    v = torch.as_tensor(rng.uniform(-lim, lim, (len(cols), bm, bn)).astype(np.float32),
+                        device=cuda)
+    x = torch.as_tensor(rng.standard_normal((batch, grid_m * bm)).astype(np.float32), device=cuda)
+    dy = torch.as_tensor(rng.standard_normal((batch, grid_n * bn)).astype(np.float32),
+                         device=cuda)
+    return meta, rows, t, v, x, dy
+
+
+# slots per block-column: one column holds every slot (the others none), and
+# columns of 1, 2, 7 and 33 slots; block sizes 128 (16-byte copies), 8
+# (16-byte copies, fragments masked at the edge of a 64-wide tile) and 5
+# (4-byte copies)
+SKEWED = [([0, 40, 0], 8, 8), ([0, 40, 0], 128, 128), ([1, 2, 7, 33], 128, 128),
+          ([1, 2, 7, 33], 8, 8), ([1, 2, 7, 33], 5, 5), ([3, 1], 5, 8)]
+
+
+@pytest.mark.parametrize("batch", [1, 100, 128, 300])
+@pytest.mark.parametrize("case", SKEWED)
+def test_kernels_c_e_on_skewed_columns_match_plain_and_repeat_bit_equal(cuda, case, batch):
+    counts, bm, bn = case
+    meta, rows, t, v, x, dy = _skewed_layer(cuda, counts, bm, bn, batch)
+    before = (bsm.bsmm_fwd.launches, bsm.bsmm_dx.launches, bsm.bsmm_dw.launches)
+    y = bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    dx = bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
+    dw = bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=bm, block_n=bn)
+    torch.cuda.synchronize()
+    assert (bsm.bsmm_fwd.launches, bsm.bsmm_dx.launches, bsm.bsmm_dw.launches) == tuple(
+        b + 1 for b in before)
+    want_y = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    torch.testing.assert_close(y, want_y, **BLOCK_TOL)
+    torch.testing.assert_close(
+        dx, bsm.bsmm_dx_plain(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                              grid_m=meta.grid_m), **BLOCK_TOL)
+    torch.testing.assert_close(dw, bsm.bsmm_dw_plain(x, dy, t.rows, t.cols, block_m=bm,
+                                                     block_n=bn), **BLOCK_TOL)
+    # a block-column with no slot: exact zeros
+    empty = [c for c, k in enumerate(counts) if k == 0]
+    assert not y.reshape(batch, meta.grid_n, bn)[:, empty].any()
+    # the same inputs give the same bits, split or not
+    for _ in range(2):
+        assert torch.equal(y, bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
+                                           grid_n=meta.grid_n))
+        assert torch.equal(dw, bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=bm, block_n=bn))
+
+
+def test_kernels_c_e_split_where_the_plan_says(cuda):
+    """The output layer's shape splits C's column 32 ways and a layer of 8
+    tiles splits E's batch 4 ways; the results match the plain versions."""
+    meta, rows, t, v, x, dy = _skewed_layer(cuda, [32], 128, 128, 128)
+    assert bsm.fwd_parts(32, 1, 128, 128) == 32
+    torch.testing.assert_close(
+        bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=1),
+        bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col, grid_n=1), **BLOCK_TOL)
+    meta, rows, t, v, x, dy = _skewed_layer(cuda, [2, 1, 3, 2], 128, 128, 128)
+    assert bsm.dw_splits(8, 128, 128, 128) == 4
+    torch.testing.assert_close(
+        bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=128, block_n=128),
+        bsm.bsmm_dw_plain(x, dy, t.rows, t.cols, block_m=128, block_n=128), **BLOCK_TOL)
+
+
+def test_kernels_c_e_without_slots(cuda):
+    empty = torch.empty((0,), dtype=torch.int32, device=cuda)
+    x = torch.randn((100, 3 * 8), device=cuda)
+    dy = torch.randn((100, 2 * 8), device=cuda)
+    y = bsm.bsmm_fwd(x, torch.empty((0, 8, 8), device=cuda), empty, empty, empty, grid_n=2)
+    dw = bsm.bsmm_dw(x, dy, empty, empty, block_m=8, block_n=8)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.zeros((100, 16), device=cuda))
+    assert dw.shape == (0, 8, 8)
+
+
+def test_kernels_c_e_take_an_unaligned_input(cuda):
+    """A contiguous x whose storage starts 4 bytes past a 16-byte boundary
+    takes the 4-byte copies, with block sizes that would allow 16."""
+    meta, rows, t, v, x, dy = _skewed_layer(cuda, [1, 2, 7, 33], 8, 8, 100)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    xu = flat[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 == 4
+    torch.testing.assert_close(bsm.bsmm_fwd(xu, v, t.rows, t.cols, t.first_col,
+                                            grid_n=meta.grid_n),
+                               bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
+                                            grid_n=meta.grid_n), rtol=0, atol=0)
+    torch.testing.assert_close(bsm.bsmm_dw(xu, dy, t.rows, t.cols, block_m=8, block_n=8),
+                               bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=8, block_n=8),
+                               rtol=0, atol=0)
