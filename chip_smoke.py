@@ -12,13 +12,17 @@ Phases, one line each (any failure exits non-zero):
                    ``nvcc`` per source, all started together;
 3. kernels       — kernels A and B against their plain PyTorch versions on
                    the card, at the full-width SET-MLP's shapes and at the
-                   compacted shapes the engine serves;
+                   compacted shapes the engine serves; at the served output
+                   layer (10 segments of 2,800 slots), kernel A's two routes
+                   held bit-equal, and dropping a third of its slots after
+                   zeroing their values held bit-equal;
 4. block_kernels — kernels C, D and E against their plain versions at the
                    four layers of the full-width block model (batch 128 and
-                   a ragged 100), at 8x8 and 32x16 tiles, and on skewed
+                   a ragged 100), at 8x8 and 32x16 tiles, on skewed
                    block-columns (one column holding every slot; columns of
-                   1, 2, 7 and 33 slots; 128x128 and 5x5 tiles); uncovered
-                   dx block-rows and empty block-columns held exactly 0; C
+                   1, 2, 7 and 33 slots; 128x128 and 5x5 tiles) and, for D,
+                   skewed block-rows (the same counts); uncovered dx
+                   block-rows and empty block-columns held exactly 0; C, D
                    and E launched twice more on the same inputs, held
                    bit-equal;
 5. main          — the serving path: ``SparseInferenceEngine.classify`` at
@@ -34,7 +38,8 @@ Phases, one line each (any failure exits non-zero):
                    run at the paper's dropout whose loss must fall;
 7. timings       — classify latency per bucket and per-kernel device time
                    for A and B (CUDA events) beside bound, plain version and
-                   one PyTorch library call;
+                   one PyTorch library call (A also with its other route's
+                   time);
 8. train_timings — the training step's time and device idle share, the
                    epochs' seconds, and per-kernel rows for C, D and E (C
                    and E also with ``bound_tc_ms``, their bound at the
@@ -236,7 +241,7 @@ def phase_kernels(out: dict) -> str:
         nonlocal n_checks
         topo = m.topos[l]
         t = topo.device_arrays(dev)
-        seg_ptr = torch.as_tensor(topo.col_ptr(), device=dev)
+        seg_ptr = sparsity.offsets_to_device(topo.col_ptr(), dev)
         got = sparsity.coo_matmul_T(
             srcT, m.values[l], t.rows, t.cols, topo.out_dim, acc=acc, seg_ptr=seg_ptr
         )
@@ -287,6 +292,7 @@ def phase_kernels(out: dict) -> str:
     # a ragged width takes kernel B's scalar path
     compare_b("full", torch.as_tensor(rng.standard_normal((5, 1001)).astype(np.float32), device=dev),
               torch.as_tensor(rng.standard_normal((1001,)).astype(np.float32), device=dev), 2)
+    routes = kernel_a_bits(served, x_test, rng)
 
     out.update(model=model, engine=engine, x_test=x_test,
                err={k: err[(k, "served")] for k in ("coo_matmul_T", "bias_all_relu")})
@@ -294,8 +300,41 @@ def phase_kernels(out: dict) -> str:
         f"{n_checks} comparisons at dims {model.config.layer_dims} and served dims "
         f"{served.config.layer_dims}; kernel A max_abs_err {err[('coo_matmul_T', 'full')]:.3g} "
         f"full, {err[('coo_matmul_T', 'served')]:.3g} served (rtol {RTOL}, atol {ATOL}); "
-        f"kernel B bit-equal"
+        f"kernel A routes by layer {routes}; at the served output layer its two routes and "
+        f"its zero-slot elimination bit-equal at batch 1 and 128; kernel B bit-equal"
     )
+
+
+def kernel_a_bits(served: SparseMLP, x_test: np.ndarray, rng: np.random.Generator) -> list:
+    """Kernel A at the served output layer (10 segments of 2,800 slots), at
+    batch 1 and 128: its two routes give the same bits, and so does the
+    layer with a third of its values zeroed and those slots dropped (the
+    compaction contract). Returns the route each served layer takes."""
+    dev = served.device
+    topo, vals = served.topos[-1], served.values[-1]
+    t = topo.device_arrays(dev)
+    seg_ptr = sparsity.offsets_to_device(topo.col_ptr(), dev)
+    zeroed = vals.clone()
+    zeroed[torch.as_tensor(rng.choice(topo.nnz, topo.nnz // 3, replace=False), device=dev)] = 0
+    keep = zeroed != 0
+    kept_ptr = sparsity.offsets_to_device(
+        np.concatenate([[0], np.cumsum(np.bincount(topo.cols[keep.cpu().numpy()],
+                                                   minlength=topo.out_dim))]), dev)
+    for batch in (1, 128):
+        srcT = torch.as_tensor(rng.standard_normal((topo.in_dim, batch)).astype(np.float32),
+                               device=dev)
+        by_route = [sparsity._coo_matmul_T_cuda(srcT, vals, t.rows, t.cols, seg_ptr,
+                                                topo.out_dim, None, route)
+                    for route in (sparsity.COO_THREAD, sparsity.COO_STAGED)]
+        full = sparsity.coo_matmul_T(srcT, zeroed, t.rows, t.cols, topo.out_dim, seg_ptr=seg_ptr)
+        kept = sparsity.coo_matmul_T(srcT, zeroed[keep], t.rows[keep], t.cols[keep],
+                                     topo.out_dim, seg_ptr=kept_ptr)
+        torch.cuda.synchronize()
+        check(torch.equal(by_route[0], by_route[1]),
+              f"kernel A's two routes differ at the served output layer, batch {batch}")
+        check(torch.equal(full, kept),
+              f"kernel A changed its bits when zero slots were dropped, batch {batch}")
+    return [sparsity.coo_route(int(np.diff(tp.col_ptr()).max())) for tp in served.topos]
 
 
 def phase_main(out: dict) -> str:
@@ -394,8 +433,9 @@ def phase_timings(out: dict) -> str:
             vals, bias = engine.model.values[l], engine.model.biases[l]
             host = engine.model.topos[l]
             topo = host.device_arrays(dev)
-            seg_ptr = torch.as_tensor(host.col_ptr(), device=dev)
+            seg_ptr = engine._col_ptrs[l]
             n_out, nnz = host.out_dim, host.nnz
+            route = sparsity.coo_route(int(np.diff(host.col_ptr()).max()))
             srcT = h.T.contiguous()
             csr = torch.sparse_csr_tensor(
                 seg_ptr, topo.rows.long(), vals, (n_out, host.in_dim), check_invariants=True
@@ -403,9 +443,11 @@ def phase_timings(out: dict) -> str:
             nbytes = 4 * (srcT.numel() + 2 * nnz + n_out * batch) + 8 * (n_out + 1)
             rows.append(dict(
                 kernel="coo_matmul_T", layer=l, batch=batch, shape=[host.in_dim, n_out],
-                nnz=nnz,
+                nnz=nnz, route=route,
                 ms=device_ms(lambda: sparsity.coo_matmul_T(
                     srcT, vals, topo.rows, topo.cols, n_out, seg_ptr=seg_ptr)),
+                other_route_ms=device_ms(lambda: sparsity._coo_matmul_T_cuda(
+                    srcT, vals, topo.rows, topo.cols, seg_ptr, n_out, None, 1 - route)),
                 plain_ms=device_ms(lambda: sparsity.coo_matmul_T_plain(
                     srcT, vals, topo.rows, topo.cols, n_out)),
                 library_ms=library_ms(lambda: torch.sparse.mm(csr, srcT)),
@@ -499,10 +541,13 @@ def phase_block_kernels(out: dict) -> str:
         dx = bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
         dw = bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m, block_n=meta.block_n)
         torch.cuda.synchronize()
-        for _ in range(2):  # C and E split long sums: the same bits on every launch
+        for _ in range(2):  # C, D and E split long sums: the same bits on every launch
             check(torch.equal(y, bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
                                                grid_n=meta.grid_n)),
                   f"kernel C gave other bits on a second launch at {tuple(x.shape)}")
+            check(torch.equal(dx, bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                               grid_m=meta.grid_m)),
+                  f"kernel D gave other bits on a second launch at {tuple(dy.shape)}")
             check(torch.equal(dw, bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m,
                                                block_n=meta.block_n)),
                   f"kernel E gave other bits on a second launch at {tuple(x.shape)}")
@@ -557,14 +602,36 @@ def phase_block_kernels(out: dict) -> str:
             empty = [c for c, k in enumerate(counts) if k == 0]
             check(not y.reshape(batch, grid_n, bn)[:, empty].any(),
                   "kernel C wrote nonzeros into a block-column with no slot")
+    # skewed block-rows: kernel D splits the long ones into runs (and writes
+    # exact zeros for the empty ones); the same copies as above
+    for counts, bm, bn in (([0, 40, 0], 128, 128), ([1, 2, 7, 33], 128, 128),
+                           ([1, 2, 7, 33], 5, 5)):
+        grid_m, grid_n = len(counts), max(counts) + 2
+        meta = sparsity.BlockMeta(grid_m * bm, grid_n * bn, bm, bn)
+        rows = np.repeat(np.arange(grid_m), counts)
+        cols = np.concatenate([rng.choice(grid_n, k, replace=False) for k in counts])
+        order = np.lexsort((rows, cols))
+        rows, cols = rows[order].astype(np.int32), cols[order].astype(np.int32)
+        t = block_device_arrays(torch.as_tensor(rows, device=CARD),
+                                torch.as_tensor(cols, device=CARD), meta=meta)
+        lim = np.sqrt(6.0 / meta.padded_out)  # he-uniform over dx's fan-in
+        v = torch.as_tensor(rng.uniform(-lim, lim, (len(cols), bm, bn)).astype(np.float32),
+                            device=CARD)
+        for batch in (128, 100):
+            check(bsm.dx_parts(len(rows), grid_m, batch, bm) > 1, "kernel D did not split")
+            x = torch.as_tensor(rng.standard_normal((batch, meta.padded_in)).astype(np.float32),
+                                device=CARD)
+            dy = torch.as_tensor(
+                rng.standard_normal((batch, meta.padded_out)).astype(np.float32), device=CARD)
+            check_layer(meta, rows, t, v, x, dy)
     out["err"].update(err)
     acc = block_accuracy(rng)
     print(json.dumps({"block_accuracy": acc}))
     return (
         f"{n_checks} comparisons: 4 full-width block layers (128x128 tiles, "
         f"{[tp.n_blocks for tp in model.topos]} tiles) at batch 128 and 100, 8x8 and 32x16 "
-        f"tiles and skewed columns (slots [0, 40, 0] and [1, 2, 7, 33]; 128x128 and 5x5) at "
-        f"batch 128 and 100; C and E bit-equal over 3 launches each; max_abs_err C "
+        f"tiles and skewed columns and rows (slots [0, 40, 0] and [1, 2, 7, 33]; 128x128 and "
+        f"5x5) at batch 128 and 100; C, D and E bit-equal over 3 launches each; max_abs_err C "
         f"{err['bsmm_fwd']:.3g}, D {err['bsmm_dx']:.3g}, E {err['bsmm_dw']:.3g} "
         f"(rtol {BLOCK_RTOL}, atol {BLOCK_ATOL}); "
         f"uncovered dx block-rows exactly 0 ({n_uncovered[:4]} per full-width layer)"

@@ -32,12 +32,15 @@ __all__ = [
     "BlockTopology",
     "ElemTopoArrays",
     "ElementTopology",
+    "COO_LONG_SEGMENT",
     "coo_matmul_T",
     "coo_matmul_T_plain",
+    "coo_route",
     "density_from_epsilon",
     "element_spmm",
     "element_spmm_segment",
     "erdos_renyi_nnz",
+    "offsets_to_device",
     "segment_offsets",
     "spmm_chunk_for",
 ]
@@ -422,6 +425,50 @@ def segment_offsets(segment_idx: torch.Tensor, n_segments: int) -> torch.Tensor:
     return torch.searchsorted(segment_idx, bounds)
 
 
+# Kernel A's routes (csrc/coo_matmul_T.cu): one thread per (segment, batch
+# column), or one staged block per (segment, 32 batch columns) for a layer
+# with a segment of at least COO_LONG_SEGMENT slots. Both run the same f32
+# chain in slot order and give the same bits; the route is chosen from host
+# ints only and changes nothing but the time.
+COO_THREAD, COO_STAGED = 0, 1
+COO_LONG_SEGMENT = 512
+
+
+def coo_route(longest: int) -> int:
+    """Kernel A's route for a layer whose longest segment has ``longest``
+    slots: the staged route where one thread's walk would be long (the
+    served output layer: 2,800 slots), else one thread per output."""
+    return COO_STAGED if longest >= COO_LONG_SEGMENT else COO_THREAD
+
+
+# The longest segment of offsets made on the host, by tensor identity
+# (offsets_to_device): kernel A's route needs it, and reading it from the
+# device would cost a sync per call.
+_LONGEST: Dict[int, Tuple[weakref.ref, int]] = {}
+
+
+def offsets_to_device(seg_ptr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Kernel A's ``seg_ptr`` (int64 (n_segments + 1,)) on ``device`` from
+    the host's offsets (``ElementTopology.col_ptr()``), remembering the
+    longest segment so that :func:`coo_matmul_T` picks its route from a host
+    int. Frozen topology: the tensor must not change after."""
+    seg_ptr = np.asarray(seg_ptr, np.int64)
+    t = torch.as_tensor(seg_ptr, device=device)
+    key = id(t)
+    longest = int(np.diff(seg_ptr).max()) if seg_ptr.size > 1 else 0
+    _LONGEST[key] = (weakref.ref(t, lambda _, k=key: _LONGEST.pop(k, None)), longest)
+    return t
+
+
+def _longest_segment(seg_ptr: Optional[torch.Tensor], nnz: int, n_segments: int) -> int:
+    """The longest segment of ``seg_ptr`` where it came from
+    :func:`offsets_to_device`, else the mean (both host ints)."""
+    hit = _LONGEST.get(id(seg_ptr)) if seg_ptr is not None else None
+    if hit is not None and hit[0]() is seg_ptr:
+        return hit[1]
+    return -(-nnz // max(1, n_segments))
+
+
 def coo_matmul_T(
     srcT: torch.Tensor,
     values: torch.Tensor,
@@ -440,8 +487,10 @@ def coo_matmul_T(
     accumulator. A CUDA tensor launches kernel A, which sums each segment
     left to right in slot order (``chunk`` does not apply). Kernel A walks
     ``seg_ptr``, the segment offsets; when they are not given they are
-    computed from ``segment_idx``, after checking that it is sorted. A CPU
-    tensor takes the plain version.
+    computed from ``segment_idx``, after checking that it is sorted. Its
+    route (:func:`coo_route`) follows the longest segment where ``seg_ptr``
+    came from :func:`offsets_to_device`, else the mean. A CPU tensor takes
+    the plain version.
     """
     if srcT.device.type == "cpu":
         return coo_matmul_T_plain(
@@ -455,7 +504,7 @@ def coo_matmul_T(
 coo_matmul_T.launches = 0  # kernel A launches, so a run can show it went through the kernel
 
 _COO_MATMUL_T_ARGTYPES = [ctypes.c_void_p] * 6 + [
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 
 # Offsets already checked, by tensor identity. The engine freezes one
@@ -495,9 +544,10 @@ def _checked_offsets(segment_idx: torch.Tensor, n_segments: int) -> torch.Tensor
 def _coo_matmul_T_cuda(
     srcT: torch.Tensor, values: torch.Tensor, gather_idx: torch.Tensor,
     segment_idx: torch.Tensor, seg_ptr: Optional[torch.Tensor], n_segments: int,
-    acc: Optional[torch.Tensor],
+    acc: Optional[torch.Tensor], route: Optional[int] = None,
 ) -> torch.Tensor:
-    """Validate, allocate and launch kernel A on the caller's stream."""
+    """Validate, allocate and launch kernel A on the caller's stream, by
+    ``route`` (default: :func:`coo_route` of the longest segment)."""
     device = srcT.device
     if srcT.dim() != 2:
         raise ValueError(f"srcT must be (src_dim, B), got shape {tuple(srcT.shape)}")
@@ -519,6 +569,8 @@ def _coo_matmul_T_cuda(
     if acc is not None:
         build.check_tensor(acc, "acc", dtype=f32, shape=(n_segments, batch),
                            device=device)
+    if route is None:
+        route = coo_route(_longest_segment(seg_ptr, nnz, n_segments))
     out = torch.empty((n_segments, batch), dtype=f32, device=device)
     if out.numel() == 0:
         return out
@@ -526,7 +578,7 @@ def _coo_matmul_T_cuda(
     rc = fn(
         srcT.data_ptr(), values.data_ptr(), gather_idx.data_ptr(),
         seg_ptr.data_ptr(), None if acc is None else acc.data_ptr(),
-        out.data_ptr(), n_segments, batch, *build.stream_args(device),
+        out.data_ptr(), n_segments, batch, route, *build.stream_args(device),
     )
     build.check_launch(rc, "coo_matmul_T kernel")
     coo_matmul_T.launches += 1

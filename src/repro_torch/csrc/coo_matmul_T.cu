@@ -8,27 +8,54 @@
 // order); the training slice runs the same kernel for dX (gather = cols_r,
 // segments = rows_r).
 //
-// What bounds it on an H100: 2 flops per slot and batch column against at
-// least 4 bytes of srcT per slot and column read through L2, so it is bound
-// by memory traffic, never by the f32 units. The operands of a serving layer
-// (a few MB) sit in the 50 MB L2; device memory sees each input once.
+// The sum. Every output is one f32 chain in slot order:
 //
-// Design:
-//   * One thread per (segment, batch column), flattened as s * B + b. At
-//     B = 128 the 32 lanes of a warp read 32 consecutive floats of one srcT
-//     row (coalesced), and gather[j] / values[j] are the same address for the
-//     whole warp (one broadcast load). At B = 1 the lanes cover consecutive
-//     segments, so even the smallest bucket fills the card's warps.
-//   * Each thread walks its segment's slots left to right in canonical slot
-//     order and sums in one f32 register: no atomics, no tree reduction, so
-//     the result is deterministic and independent of the launch shape.
-//     Removing zero contributions from a fixed left-to-right sum leaves it
-//     unchanged, which is why lossless compaction stays bit-equal on the card.
-//   * The loop is unrolled by kUnroll with all loads issued before the fused
-//     multiply-adds, so a long segment keeps kUnroll gathers in flight while
-//     the additions still happen in slot order.
-//   * Segment offsets come from seg_ptr (n_segments + 1 int64 offsets); all
-//     offset arithmetic is 64-bit. An empty segment yields acc, or exactly 0.
+//   sum = acc ? acc[s, b] : 0;  for j in [seg_ptr[s], seg_ptr[s+1]): sum = fmaf(x[gather[j], b], values[j], sum)
+//
+// and both routes below run exactly this chain, so they give the same bits,
+// on every launch. The chain is not split into runs summed apart: lossless
+// compaction removes the slots whose value is 0 and must leave the served
+// logits bit-equal (tests/test_serve.py::test_eliminate_dead_neurons_bit_equivalent,
+// and chip_smoke.py on the card). fmaf(x, 0, sum) == sum, so dropping a zero
+// slot from one left-to-right chain changes nothing; a split whose runs end
+// at fixed slot counts would put other slots in each run once the zeros are
+// gone, and the rounding would change.
+//
+// What bounds it on an H100: 2 flops per slot and batch column against at
+// least 4 bytes of srcT per slot and column read through L2, so bytes, never
+// the f32 units, bound a layer whose segments are short (the served hidden
+// layers: 19-73 slots on average). A long segment is bound by its chain's
+// latency: ~4.6 cycles per dependent FMA, so the served output layer's 2,800
+// slots are ~12,800 cycles (~6.5 us at 1.98 GHz) whatever the batch, against
+// a 0.5 us bytes bound.
+//
+// Two routes, chosen by the wrapper from host ints (the longest segment,
+// core/sparsity.py::coo_route); the same code computes both chains:
+//
+//   * route 0, short segments: one thread per (segment, batch column),
+//     flattened as s * B + b. At B = 128 the 32 lanes of a warp read 32
+//     consecutive floats of one srcT row (coalesced) and gather[j] / values[j]
+//     are one broadcast load; at B = 1 the lanes cover consecutive segments.
+//     Loads are issued kUnroll at a time ahead of the FMAs. Many warps hide
+//     the latency of short walks.
+//   * route 1, long segments: one block of 160 threads per (segment, 32-wide
+//     slice of the batch columns); at B = 128 the output layer's 10 segments
+//     make 40 blocks. Warp 0 runs the chains, one lane per batch column;
+//     warps 1-4 stage the segment through shared memory in chunks of 256
+//     slots, a ring of 4 stages (132 KB): the chunk's values (4-byte
+//     cp.async) and its gathered srcT rows (16-byte cp.async where B is a
+//     multiple of 4 and srcT is 16-byte aligned, else 4-byte). The loaders
+//     read each chunk's gather indices into registers one chunk ahead, so an
+//     index's latency is paid while the chunk before it is summed. The
+//     summing warp is the bottleneck: it issues in order, and its shared
+//     memory loads queue. It loads a run of 32 slots' operands in 16
+//     instructions (ldmatrix.x4 hands each lane its column's x of 4 slots;
+//     float4 broadcasts of 4 values) into one register block, each issued
+//     between two of the 32 FMAs of the run before, which use the other
+//     block. The FMA's dependent latency is ~4.6 cycles on the H100.
+//
+// Segment offsets come from seg_ptr (n_segments + 1 int64 offsets); all
+// offset arithmetic is 64-bit. An empty segment yields acc, or exactly 0.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -36,7 +63,11 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+// --- route 0: one thread per (segment, batch column) --------------------------
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 8;
@@ -75,24 +106,224 @@ coo_matmul_T_kernel(const float* __restrict__ srcT,
   out[t] = sum;
 }
 
+// --- route 1: one block per (segment, 32 batch columns), staged ---------------
+
+constexpr int kCols = 32;                     // batch columns per block: warp 0's lanes
+constexpr int kLoaders = 128;                 // warps 1-4 copy
+constexpr int kStagedThreads = 32 + kLoaders;
+constexpr int kChunk = 256;                   // slots per stage
+constexpr int kStagedStages = 4;
+constexpr int kRun = 32;                      // slots per register block of the summing lane
+constexpr int kStageFloats = kChunk * kCols + kChunk;  // rows, then values
+constexpr int kStagedSmemBytes = kStagedStages * kStageFloats * static_cast<int>(sizeof(float));
+// Each loader copies, per chunk, kIdx slots' rows: in 16-byte copies the
+// (slot, quad) pairs lt + kLoaders * i, in 4-byte copies whole slots lt + kLoaders * i.
+constexpr int kQuads = kCols / 4;
+constexpr int kIdxVec = kChunk * kQuads / kLoaders;
+constexpr int kIdxScalar = kChunk / kLoaders;
+static_assert(kChunk * kQuads % kLoaders == 0 && kLoaders % kQuads == 0, "vector mapping");
+static_assert(kChunk % kLoaders == 0 && kChunk % (2 * kRun) == 0, "scalar mapping, runs");
+
+// v.x, v.y, v.z or v.w; k is a constant once the caller's loop is unrolled.
+__device__ __forceinline__ float component(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kStagedThreads)
+coo_matmul_T_staged(const float* __restrict__ srcT,
+                    const float* __restrict__ values,
+                    const int32_t* __restrict__ gather,
+                    const int64_t* __restrict__ seg_ptr,
+                    const float* __restrict__ acc,
+                    float* __restrict__ out,
+                    int64_t batch) {
+  constexpr int kIdx = kVec ? kIdxVec : kIdxScalar;
+  extern __shared__ __align__(16) float smem[];
+  const int64_t s = blockIdx.x;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kCols;
+  const int b_valid = batch - b0 < kCols ? static_cast<int>(batch - b0) : kCols;
+  const int64_t lo = seg_ptr[s];
+  const int64_t hi = seg_ptr[s + 1];
+  const int n_chunks = static_cast<int>((hi - lo + kChunk - 1) / kChunk);
+  const int tid = threadIdx.x;
+  const bool loader = tid >= 32;
+  const int lt = tid - 32;
+
+  // the chunk-local slot of a loader's i-th copy (and its quad, 16-byte copies)
+  auto slot_of = [&](int i) { return kVec ? lt / kQuads + (kLoaders / kQuads) * i : lt + kLoaders * i; };
+  auto chunk_len = [&](int c) {
+    const int64_t left = hi - lo - static_cast<int64_t>(c) * kChunk;
+    return left < kChunk ? static_cast<int>(left) : kChunk;
+  };
+  int idx[kIdx];  // gather indices of the next chunk to copy
+  auto fetch_idx = [&](int c) {
+    const int n = chunk_len(c);
+    const int32_t* gc = gather + lo + static_cast<int64_t>(c) * kChunk;
+#pragma unroll
+    for (int i = 0; i < kIdx; ++i) idx[i] = slot_of(i) < n ? __ldg(gc + slot_of(i)) : 0;
+  };
+  auto copy = [&](int c) {
+    float* xs = smem + (c % kStagedStages) * kStageFloats;
+    float* vs = xs + kChunk * kCols;
+    const int n = chunk_len(c);
+    const float* vg = values + lo + static_cast<int64_t>(c) * kChunk;
+    for (int i = lt; i < n; i += kLoaders) tf32x3::cp_async4(vs + i, vg + i, 4);
+#pragma unroll
+    for (int i = 0; i < kIdx; ++i) {
+      const int jj = slot_of(i);
+      if (jj >= n) continue;
+      const float* row = srcT + static_cast<int64_t>(idx[i]) * batch + b0;
+      if constexpr (kVec) {
+        const int q = (lt % kQuads) * 4;
+        if (q < b_valid) tf32x3::cp_async16(xs + jj * kCols + q, row + q, 16);
+      } else {
+        for (int b = 0; b < b_valid; ++b) tf32x3::cp_async4(xs + jj * kCols + b, row + b, 4);
+      }
+    }
+  };
+
+  if (loader) {
+    if (n_chunks > 0) fetch_idx(0);
+#pragma unroll
+    for (int st = 0; st < kStagedStages - 1; ++st) {
+      if (st < n_chunks) {
+        copy(st);
+        if (st + 1 < n_chunks) fetch_idx(st + 1);
+      }
+      tf32x3::cp_async_commit();
+    }
+  }
+
+  const int lane = tid, b = tid;  // warp 0: one lane per batch column
+  const bool summer = tid < b_valid;
+  float sum = 0.0f;
+  if (summer && acc != nullptr) sum = __ldg(acc + s * batch + b0 + b);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (loader) tf32x3::cp_async_wait<kStagedStages - 2>();  // chunk c has landed
+    __syncthreads();  // ... for every thread, and the stage of chunk c - 1 is free
+    if (loader) {
+      const int next = c + kStagedStages - 1;
+      if (next < n_chunks) {
+        copy(next);
+        if (next + 1 < n_chunks) fetch_idx(next + 1);
+      }
+      tf32x3::cp_async_commit();
+    } else {
+      // The chunk in runs of 32 slots, two register blocks in turn: run
+      // r + 1's operands load from shared memory while run r's FMAs issue.
+      // One ldmatrix gives each lane its column's x of 4 slots (lanes 8k to
+      // 8k + 7 point at the 8 quads of slot j + k's row); the values come as
+      // float4 broadcasts. A read past n stays inside the stage and feeds no
+      // FMA; lanes past the batch sum what they read and store nothing.
+      const float* stage = smem + (c % kStagedStages) * kStageFloats;
+      const uint32_t xrow = static_cast<uint32_t>(__cvta_generic_to_shared(stage)) +
+                            ((lane / 8) * kCols + (lane % 8) * 4) * 4;
+      const float4* vs = reinterpret_cast<const float4*>(stage + kChunk * kCols);
+      const int n = chunk_len(c);
+      uint32_t xa[kRun], xb[kRun];
+      float4 va[kRun / 4], vb[kRun / 4];
+      auto load = [&](uint32_t (&x)[kRun], float4 (&v)[kRun / 4], int j0) {
+#pragma unroll
+        for (int u = 0; u < kRun / 4; ++u) {
+          v[u] = vs[j0 / 4 + u];
+          tf32x3::ldmatrix_x4(xrow + (j0 + 4 * u) * kCols * 4, x[4 * u], x[4 * u + 1],
+                      x[4 * u + 2], x[4 * u + 3]);
+        }
+      };
+      auto fma_run = [&](const uint32_t (&x)[kRun], const float4 (&v)[kRun / 4], int j0) {
+        if (j0 + kRun <= n) {
+#pragma unroll
+          for (int u = 0; u < kRun; ++u) {
+            sum = fmaf(__uint_as_float(x[u]), component(v[u / 4], u % 4), sum);
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < kRun; ++u) {
+            if (j0 + u < n) sum = fmaf(__uint_as_float(x[u]), component(v[u / 4], u % 4), sum);
+          }
+        }
+      };
+      // A full run's FMAs with the next run's 16 loads among them: a warp
+      // issues in order, and loads placed ahead of the FMAs (where the
+      // compiler puts independent loads) would wait their turn in the
+      // shared-memory queue before the first FMA. Each load's address is
+      // tied to the FMA before it through z, a zero the compiler cannot see
+      // (batch < 2^62), so it issues in that FMA's shadow.
+      const uint32_t zero = static_cast<uint32_t>(batch >> 62);
+      auto fma_load = [&](const uint32_t (&x)[kRun], const float4 (&v)[kRun / 4],
+                          uint32_t (&xn)[kRun], float4 (&vn)[kRun / 4], int jn) {
+#pragma unroll
+        for (int u = 0; u < kRun; ++u) {
+          sum = fmaf(__uint_as_float(x[u]), component(v[u / 4], u % 4), sum);
+          const uint32_t z = __float_as_uint(sum) & zero;
+          const int q = u / 4;
+          if (u % 4 == 1) vn[q] = vs[jn / 4 + q + z];
+          if (u % 4 == 3) {
+            tf32x3::ldmatrix_x4(xrow + z + (jn + 4 * q) * kCols * 4, xn[4 * q], xn[4 * q + 1],
+                                xn[4 * q + 2], xn[4 * q + 3]);
+          }
+        }
+      };
+      load(xa, va, 0);
+      for (int j = 0; j < n; j += 2 * kRun) {
+        if (j + 2 * kRun <= n) {  // two full runs
+          fma_load(xa, va, xb, vb, j + kRun);
+          if (j + 2 * kRun < kChunk) {
+            fma_load(xb, vb, xa, va, j + 2 * kRun);
+          } else {
+            fma_run(xb, vb, j + kRun);
+          }
+        } else {  // the chunk's tail
+          load(xb, vb, j + kRun);
+          fma_run(xa, va, j);
+          if (j + kRun < n) fma_run(xb, vb, j + kRun);
+        }
+      }
+    }
+  }
+  if (loader) tf32x3::cp_async_wait<0>();
+  if (summer) out[s * batch + b0 + b] = sum;
+}
+
+bool smem_set[2][64];
+
 }  // namespace
 
+// route: 0 = one thread per (segment, column), 1 = one staged block per
+// (segment, 32 columns). Both give the same bits.
 extern "C" int coo_matmul_T_f32(const void* srcT, const void* values,
                                 const void* gather, const void* seg_ptr,
                                 const void* acc, void* out,
-                                int64_t n_segments, int64_t batch,
+                                int64_t n_segments, int64_t batch, int route,
                                 int device, void* stream) {
+  if (n_segments < 0 || batch < 0 || (route != 0 && route != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const auto st = static_cast<cudaStream_t>(stream);
   const int64_t total = n_segments * batch;
-  if (total > 0) {
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  if (route == 0) {
     const int64_t blocks = (total + kThreads - 1) / kThreads;
-    coo_matmul_T_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    coo_matmul_T_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(
         static_cast<const float*>(srcT), static_cast<const float*>(values),
         static_cast<const int32_t*>(gather),
         static_cast<const int64_t*>(seg_ptr), static_cast<const float*>(acc),
         static_cast<float*>(out), n_segments, batch);
+    return static_cast<int>(cudaGetLastError());
   }
+  const int64_t slices = (batch + kCols - 1) / kCols;
+  if (n_segments > 0x7fffffff || slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = batch % 4 == 0 && tf32x3::aligned16(srcT);
+  auto kernel = vec ? &coo_matmul_T_staged<true> : &coo_matmul_T_staged<false>;
+  err = tf32x3::allow_smem(kernel, device, kStagedSmemBytes, smem_set[vec ? 1 : 0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>(n_segments), static_cast<unsigned int>(slices));
+  kernel<<<grid, kStagedThreads, kStagedSmemBytes, st>>>(
+      static_cast<const float*>(srcT), static_cast<const float*>(values),
+      static_cast<const int32_t*>(gather), static_cast<const int64_t*>(seg_ptr),
+      static_cast<const float*>(acc), static_cast<float*>(out), batch);
   return static_cast<int>(cudaGetLastError());
 }

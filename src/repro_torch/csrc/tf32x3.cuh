@@ -1,5 +1,6 @@
-// Shared pieces of kernels C (bsmm_fwd.cu) and E (bsmm_dw.cu): asynchronous
-// global-to-shared copies, f32-accurate tensor-core products (3xTF32), and
+// Shared pieces of kernels C, D and E (bsmm_fwd.cu, bsmm_dx.cu, bsmm_dw.cu):
+// asynchronous global-to-shared copies and ldmatrix (also kernel A's staged
+// route, coo_matmul_T.cu), f32-accurate tensor-core products (3xTF32), and
 // the ordered sum of split partials.
 //
 // 3xTF32. TF32 keeps 10 explicit mantissa bits, so one TF32 product of f32
@@ -51,12 +52,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// Four 8x8 b16 matrices from shared memory: lane i receives 32-bit word i % 4
+// of row i / 4 of matrix k in r_k, where lanes 8k to 8k + 7 give the addresses
+// of matrix k's 8 rows (16 bytes each, 16-byte aligned). Taken as f32 words,
+// a row is 4 floats: one instruction gives each lane the element of 4 rows
+// that its (g, t) = (lane / 4, lane % 4) selects, e.g. an m16n8k8 TF32 A
+// fragment, where four 4-byte loads would take four instructions.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
 // --- 3xTF32 on mma.sync ------------------------------------------------------
 
+// cvt.rna.tf32.f32 for a finite a: add half of the 13 dropped bits' range to
+// the magnitude and clear them (round to nearest, ties away from zero; a
+// carry runs into the exponent). Two integer instructions, where the compiler
+// lowers the cvt to four with a guard for infinities and NaNs. A non-finite a
+// gives a NaN product either way (lo = a - hi is a NaN).
 __device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r;
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {

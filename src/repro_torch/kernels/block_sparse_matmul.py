@@ -13,14 +13,16 @@ kernels mask a ragged batch tile where the Pallas kernels need it padded),
 there is no ``block_b``, and ``first_col``/``first_row`` are accepted but not
 read: each kernel block owns an output tile and walks that tile's slot range,
 whose offsets (``col_ptr``, ``row_ptr``) the wrappers compute on the device
-with ``torch.searchsorted``. An input block-row that no slot covers gets an
-exact-zero gradient from both kernel D and its plain version.
+with ``torch.searchsorted``, once per (frozen) index tensor. An input
+block-row that no slot covers gets an exact-zero gradient from both kernel D
+and its plain version.
 
-Kernels C and E cut long sums into contiguous runs that separate blocks
-sum, and add the runs' partials in index order in a second pass (no
-atomics: the same inputs give the same bits on every run). How many runs is
-a pure function of host ints (``fwd_parts``, ``dw_splits``), so choosing it
-reads nothing from the device.
+The kernels cut long sums into contiguous runs that separate blocks sum, and
+add the runs' partials in index order in a second pass (no atomics: the same
+inputs give the same bits on every run): C a block-column's slots, D a
+block-row's, E the batch. How many runs is a pure function of host ints
+(``fwd_parts``, ``dx_parts``, ``dw_splits``), so choosing it reads nothing
+from the device.
 
 Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, block
 sizes 1..128) or raises, and takes its plain version for a CPU tensor. It
@@ -51,13 +53,14 @@ __all__ = [
     "bsmm_fwd_plain",
     "dw_batch_runs",
     "dw_splits",
+    "dx_parts",
     "fwd_parts",
     "split_runs",
 ]
 
 MAX_BLOCK = 128  # the kernels take block sizes 1..128
 SMS = 132  # an H100 SXM's streaming multiprocessors: the splits aim at one wave of blocks
-FWD_TILE = 64  # kernel C: a block's 64 batch rows x 64 output columns
+FWD_TILE = 64  # kernels C and D: a block's 64 batch rows x 64 output columns
 DW_TILE = 64  # kernel E: a block's 64 x 64 part of one slot's tile
 DW_CHUNK = 32  # kernel E: samples per pipeline stage; batch runs are whole chunks
 
@@ -83,9 +86,17 @@ def fwd_parts(nb: int, grid_n: int, batch: int, bn: int) -> int:
     return max(1, min(_cdiv(nb, grid_n), SMS // blocks))
 
 
+def dx_parts(nb: int, grid_m: int, batch: int, bm: int) -> int:
+    """P, the runs kernel D cuts each block-row's slot range into: kernel
+    C's rule over block-rows. 4 on the full-width model's layer 2 (8
+    block-rows of 4 slots: 32 blocks become 128) at batch 128, 1 on layers
+    1 and 3, whose block-rows already fill the card."""
+    return fwd_parts(nb, grid_m, batch, bm)
+
+
 def split_runs(begin: int, end: int, parts: int) -> List[Tuple[int, int]]:
     """The ``parts`` contiguous runs of ``[begin, end)``, in order, as
-    kernel C's block p takes them: ``[begin + n*p//parts, begin +
+    kernel C's (and D's) block p takes them: ``[begin + n*p//parts, begin +
     n*(p+1)//parts)`` with n = end - begin (a run may be empty)."""
     n = end - begin
     return [(begin + n * p // parts, begin + n * (p + 1) // parts) for p in range(parts)]
@@ -178,20 +189,20 @@ def _check_once(what: str, grid: Tuple[int, ...], tensors: Tuple[torch.Tensor, .
     _CHECKED[key] = refs
 
 
-# Kernel C's column offsets, by index tensor and grid: computed once per
-# (frozen) topology tensor, so that a training step does not launch the two
-# offset kernels again for every forward.
-_COL_PTRS: Dict[tuple, Tuple[weakref.ref, torch.Tensor]] = {}
+# Segment offsets (kernel C's col_ptr, kernel D's row_ptr), by sorted index
+# tensor and grid: computed once per (frozen) topology tensor, so that a
+# training step does not launch the two offset kernels again for every call.
+_OFFSETS: Dict[tuple, Tuple[weakref.ref, torch.Tensor]] = {}
 
 
-def _col_ptr_once(cols: torch.Tensor, grid_n: int) -> torch.Tensor:
-    key = (id(cols), grid_n)
-    hit = _COL_PTRS.get(key)
-    if hit is not None and hit[0]() is cols:
+def _offsets_once(idx: torch.Tensor, n: int) -> torch.Tensor:
+    key = (id(idx), n)
+    hit = _OFFSETS.get(key)
+    if hit is not None and hit[0]() is idx:
         return hit[1]
-    col_ptr = segment_offsets(cols, grid_n)
-    _COL_PTRS[key] = (weakref.ref(cols, lambda _, k=key: _COL_PTRS.pop(k, None)), col_ptr)
-    return col_ptr
+    offsets = segment_offsets(idx, n)
+    _OFFSETS[key] = (weakref.ref(idx, lambda _, k=key: _OFFSETS.pop(k, None)), offsets)
+    return offsets
 
 
 def _in_range(t: torch.Tensor, hi: int) -> torch.Tensor:
@@ -223,7 +234,7 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
 
 _I64 = ctypes.c_int64
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_DX_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_DX_ARGTYPES = [ctypes.c_void_p] * 7 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -261,7 +272,7 @@ def bsmm_fwd(
             )
 
     _check_once("fwd", (grid_m, grid_n), (rows, cols), check)
-    col_ptr = _col_ptr_once(cols, grid_n)
+    col_ptr = _offsets_once(cols, grid_n)
     y = torch.empty((batch, grid_n * bn), dtype=f32, device=dev)
     parts = fwd_parts(nb, grid_n, batch, bn)
     part = torch.empty((parts, batch, grid_n * bn), dtype=f32, device=dev) if parts > 1 else None
@@ -320,13 +331,15 @@ def bsmm_dx(
             )
 
     _check_once("dx", (grid_m, grid_n, nb), (rows_r, cols_r, perm_r), check)
-    row_ptr = segment_offsets(rows_r, grid_m)
+    row_ptr = _offsets_once(rows_r, grid_m)
     dx = torch.empty((batch, grid_m * bm), dtype=f32, device=dev)
+    parts = dx_parts(nb, grid_m, batch, bm)
+    part = torch.empty((parts, batch, grid_m * bm), dtype=f32, device=dev) if parts > 1 else None
     fn = build.kernel("bsmm_dx", "bsmm_dx_f32", _DX_ARGTYPES)
     rc = fn(
         dy.data_ptr(), values.data_ptr(), cols_r.data_ptr(), perm_r.data_ptr(),
-        row_ptr.data_ptr(), dx.data_ptr(), batch, grid_m, grid_n, bm, bn,
-        *build.stream_args(dev),
+        row_ptr.data_ptr(), dx.data_ptr(), None if part is None else part.data_ptr(),
+        batch, grid_m, grid_n, bm, bn, parts, *build.stream_args(dev),
     )
     build.check_launch(rc, "bsmm_dx kernel")
     bsmm_dx.launches += 1

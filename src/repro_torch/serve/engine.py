@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.importance import PruningSchedule
+from repro_torch.core.sparsity import offsets_to_device
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import SparseMLP, mlp_forward
 from repro_torch.serve.compact import CompactionReport, compact_element_mlp
@@ -110,9 +111,10 @@ class SparseInferenceEngine:
         )
         self._params = self.model.params()
         # frozen once: the dual-order COO views and kernel A's column offsets
+        # (which also give kernel A its route, from the host's longest segment)
         self._topo = self.model.topo_arrays()
         self._col_ptrs = tuple(
-            torch.as_tensor(t.col_ptr(), device=self.device) for t in self.model.topos
+            offsets_to_device(t.col_ptr(), self.device) for t in self.model.topos
         )
 
     # -- stats --------------------------------------------------------------

@@ -7,12 +7,14 @@ so it runs on a machine that has only the port:
 
 Kernel A sums each segment in slot order, the plain version through
 ``index_add_`` (atomics on the card), so they are held at rtol/atol 1e-5;
-kernel B does the plain version's f32 arithmetic and is held bit-equal.
-Kernels C, D and E sum in another order than the plain versions' einsums
-(up to K = 4096 products per output; C and E in 3xTF32 on the tensor cores,
-as accurate as f32), so they are held at rtol/atol 1e-4; uncovered dx
-block-rows are held exactly 0, and two launches on the same inputs are held
-bit-equal (C and E split long sums, and add the partials in a fixed order).
+its two routes are held bit-equal to each other, and dropping zero-valued
+slots is held bit-equal (lossless compaction). Kernel B does the plain
+version's f32 arithmetic and is held bit-equal. Kernels C, D and E sum in
+another order than the plain versions' einsums (up to K = 4096 products per
+output, in 3xTF32 on the tensor cores, as accurate as f32), so they are held
+at rtol/atol 1e-4; uncovered dx block-rows are held exactly 0, and launches
+on the same inputs are held bit-equal (the kernels split long sums, and add
+the partials in a fixed order).
 """
 import dataclasses
 
@@ -108,6 +110,77 @@ def test_kernel_a_validates_inputs(cuda):
     bad[-1] += 1
     with pytest.raises(ValueError, match="seg_ptr"):
         tsp.coo_matmul_T(srcT, v, t.rows, t.cols, 10, seg_ptr=bad)
+
+
+def _long_segments(counts, batch, seed=0, n_src=3000):
+    """Segments of ``counts`` slots over ``n_src`` sources (distinct, sorted
+    within a segment), he-uniform values and a normal srcT (n_src, batch)."""
+    rng = np.random.default_rng(seed)
+    gather = np.concatenate([np.sort(rng.choice(n_src, k, replace=False)) for k in counts])
+    lim = np.sqrt(6.0 / n_src)
+    vals = rng.uniform(-lim, lim, len(gather)).astype(np.float32)
+    srcT = rng.standard_normal((n_src, batch)).astype(np.float32)
+    return rng, gather.astype(np.int32), vals, srcT
+
+
+def _offsets(counts):
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+
+# the served output layer's segment length, with an empty and a short one
+LONG = [2800, 0, 37]
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("batch", [1, 5, 100, 128])
+def test_kernel_a_routes_give_the_same_bits(cuda, batch, with_acc):
+    """The staged route (16-byte copies at batch 100 and 128, 4-byte at 1
+    and 5) and the one-thread route run the same chain: equal bits."""
+    rng, gather, vals, srcT = _long_segments(LONG, batch)
+    n = len(LONG)
+    seg = torch.as_tensor(np.repeat(np.arange(n), LONG).astype(np.int32), device=cuda)
+    g, v = torch.as_tensor(gather, device=cuda), torch.as_tensor(vals, device=cuda)
+    src = torch.as_tensor(srcT, device=cuda)
+    acc = torch.as_tensor(rng.standard_normal((n, batch)).astype(np.float32),
+                          device=cuda) if with_acc else None
+    seg_ptr = tsp.offsets_to_device(_offsets(LONG), cuda)
+    assert tsp.coo_route(tsp._longest_segment(seg_ptr, len(gather), n)) == tsp.COO_STAGED
+    got = {route: tsp._coo_matmul_T_cuda(src, v, g, seg, seg_ptr, n, acc, route)
+           for route in (tsp.COO_THREAD, tsp.COO_STAGED)}
+    torch.cuda.synchronize()
+    assert torch.equal(got[tsp.COO_THREAD], got[tsp.COO_STAGED])
+    torch.testing.assert_close(
+        got[tsp.COO_STAGED], tsp.coo_matmul_T_plain(src, v, g, seg, n, acc=acc),
+        rtol=1e-5, atol=1e-5)
+    # an srcT 4 bytes past a 16-byte boundary takes the 4-byte copies
+    flat = torch.empty(src.numel() + 1, device=cuda)
+    src_u = flat[1:].view(src.shape)
+    src_u.copy_(src)
+    assert torch.equal(
+        tsp._coo_matmul_T_cuda(src_u, v, g, seg, seg_ptr, n, acc, tsp.COO_STAGED),
+        got[tsp.COO_THREAD])
+
+
+@pytest.mark.parametrize("batch", [1, 128])
+def test_kernel_a_drops_zero_slots_bit_equal(cuda, batch):
+    """Lossless compaction on the card: zero a third of a 2,800-slot
+    segment's values, then drop those slots and rebuild seg_ptr; the
+    outputs are equal, bit for bit."""
+    rng, gather, vals, srcT = _long_segments(LONG, batch)
+    n = len(LONG)
+    seg = np.repeat(np.arange(n), LONG).astype(np.int32)
+    vals[rng.choice(len(vals), len(vals) // 3, replace=False)] = 0.0
+    keep = vals != 0
+    src = torch.as_tensor(srcT, device=cuda)
+    outs = []
+    for sel in (np.ones_like(keep), keep):
+        kept = np.bincount(seg[sel], minlength=n)
+        outs.append(tsp.coo_matmul_T(
+            src, torch.as_tensor(vals[sel], device=cuda),
+            torch.as_tensor(gather[sel], device=cuda), torch.as_tensor(seg[sel], device=cuda),
+            n, seg_ptr=tsp.offsets_to_device(_offsets(kept), cuda)))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("shape", [(128, 4000), (1, 1000), (300, 40), (5, 1001), (3, 7)])
@@ -217,6 +290,8 @@ def test_kernels_c_d_e_match_plain(cuda, case):
     assert not tiles[:, torch.as_tensor(uncovered, device=cuda).long()].any()
     # deterministic: the same call gives the same bits
     assert torch.equal(y, bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n))
+    assert torch.equal(dx, bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                       grid_m=meta.grid_m))
     assert torch.equal(dw, bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m,
                                        block_n=meta.block_n))
 
@@ -349,6 +424,49 @@ def test_kernels_c_e_on_skewed_columns_match_plain_and_repeat_bit_equal(cuda, ca
         assert torch.equal(y, bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
                                            grid_n=meta.grid_n))
         assert torch.equal(dw, bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=bm, block_n=bn))
+
+
+def _skewed_rows(cuda, counts, bm, bn, batch, seed=0):
+    """A topology whose block-rows hold ``counts`` slots each (distinct
+    columns per row), in canonical order, with he-uniform values at fan-in
+    grid_n * bn and normal dy."""
+    rng = np.random.default_rng(seed)
+    grid_m, grid_n = len(counts), max(max(counts), 1) + 2
+    meta = tsp.BlockMeta(grid_m * bm, grid_n * bn, bm, bn)
+    rows = np.repeat(np.arange(grid_m), counts)
+    cols = np.concatenate([rng.choice(grid_n, k, replace=False) for k in counts])
+    order = np.lexsort((rows, cols))
+    t = block_device_arrays(torch.as_tensor(rows[order].astype(np.int32), device=cuda),
+                            torch.as_tensor(cols[order].astype(np.int32), device=cuda),
+                            meta=meta)
+    lim = np.sqrt(6.0 / (grid_n * bn))
+    v = torch.as_tensor(rng.uniform(-lim, lim, (len(rows), bm, bn)).astype(np.float32),
+                        device=cuda)
+    dy = torch.as_tensor(rng.standard_normal((batch, grid_n * bn)).astype(np.float32),
+                         device=cuda)
+    return meta, t, v, dy
+
+
+@pytest.mark.parametrize("batch", [100, 128])
+@pytest.mark.parametrize("tile", [128, 5])
+@pytest.mark.parametrize("counts", [[0, 40, 0], [1, 2, 7, 33]])
+def test_kernel_d_on_skewed_rows_matches_plain_and_repeats_bit_equal(cuda, counts, tile, batch):
+    """Kernel D splits a long block-row into runs (16-byte copies at
+    128x128, 4-byte at 5x5): it matches its plain version, writes exact
+    zeros into the uncovered rows, and gives the same bits three times."""
+    meta, t, v, dy = _skewed_rows(cuda, counts, tile, tile, batch)
+    assert bsm.dx_parts(len(t.rows), meta.grid_m, batch, tile) > 1
+    before = bsm.bsmm_dx.launches
+    dx = [bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
+          for _ in range(3)]
+    torch.cuda.synchronize()
+    assert bsm.bsmm_dx.launches == before + 3  # the sum pass is not counted apart
+    torch.testing.assert_close(
+        dx[0], bsm.bsmm_dx_plain(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                 grid_m=meta.grid_m), **BLOCK_TOL)
+    empty = [r for r, k in enumerate(counts) if k == 0]
+    assert not dx[0].reshape(batch, meta.grid_m, tile)[:, empty].any()
+    assert torch.equal(dx[0], dx[1]) and torch.equal(dx[0], dx[2])
 
 
 def test_kernels_c_e_split_where_the_plan_says(cuda):

@@ -146,15 +146,15 @@ def test_col_ptr_is_computed_once_per_topology_tensor():
     """Kernel C's wrapper reuses a column-offset tensor for the same
     (frozen) index tensor, and drops it with the index tensor."""
     cols = torch.tensor([0, 0, 2, 2, 2], dtype=torch.int32)
-    first = bsm._col_ptr_once(cols, 3)
+    first = bsm._offsets_once(cols, 3)
     assert first.tolist() == [0, 2, 2, 5]
-    assert bsm._col_ptr_once(cols, 3) is first
-    assert bsm._col_ptr_once(cols, 4).tolist() == [0, 2, 2, 5, 5]
+    assert bsm._offsets_once(cols, 3) is first
+    assert bsm._offsets_once(cols, 4).tolist() == [0, 2, 2, 5, 5]
     other = cols.clone()
-    assert bsm._col_ptr_once(other, 3) is not first
+    assert bsm._offsets_once(other, 3) is not first
     key = (id(cols), 3)
     del cols, first
-    assert key not in bsm._COL_PTRS
+    assert key not in bsm._OFFSETS
 
 
 # -- 3xTF32 --------------------------------------------------------------------

@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""Where one block of kernels A (staged route) and D spends its cycles, on
+the card: clock64 spans inside copies of the kernels' sources.
+
+It copies ``src/repro_torch/csrc/coo_matmul_T.cu`` and ``bsmm_dx.cu`` into
+``build/probe/`` (gitignored), adds clock64 reads at fixed points and a
+``read_clk`` entry point, builds them with the port's nvcc flags, and runs
+them behind the kernels' own ctypes signatures on the shapes the main paths
+give them:
+
+    A   the served output layer (10 segments of 2,800 slots, 40 blocks at
+        batch 128, 10 at batch 1): per block, the summing warp's cycles in
+        its loop, per slot, and from entry to its first chunk;
+    D   the full-width block model's layers 1-3 at batch 128: per block,
+        cycles from entry to row_ptr read, to the first stage and the whole
+        prologue (3 stages) issued, to the first compute (the first stage
+        landed, the fourth issued), and in compute per 32-deep stage.
+
+It also times a chain of dependent FMAs on one warp (cycles per FMA and the
+clock rate), the floor under kernel A's long segments. Timings of the
+instrumented kernels (CUDA events) are printed beside them; the clock reads
+cost a few cycles each. Nothing here is part of the port.
+
+    python3 tools/block_span_probe.py        # from the repository root, on the card
+"""
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.core import sparsity as tsp  # noqa: E402
+from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.serve import SparseInferenceEngine  # noqa: E402
+
+OUT = ROOT / "build" / "probe"
+N_CLK = 1 << 17
+GLOBALS = f"__device__ long long g_clk[{N_CLK}];\n"
+READ = ("\nextern \"C\" int read_clk(void* dst, int n) {\n"
+        "  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_clk, n * sizeof(long long)));\n}\n")
+CHAIN = r'''
+#include <cuda_runtime.h>
+__global__ void chain(float* out, long long* cycles, int n) {
+  float s = out[threadIdx.x], a = out[32 + threadIdx.x], b = out[64 + threadIdx.x];
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) s = fmaf(s, a, b);
+  const long long t1 = clock64();
+  out[threadIdx.x] = s;
+  if (threadIdx.x == 0) cycles[0] = t1 - t0;
+}
+extern "C" int run_chain(void* out, void* cycles, int n, void* stream) {
+  chain<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<float*>(out),
+                                                         static_cast<long long*>(cycles), n);
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+
+
+def sub(src: str, old: str, new: str) -> str:
+    if src.count(old) != 1:
+        raise SystemExit(f"not the kernel source this probe edits: {old[:60]!r}")
+    return src.replace(old, new)
+
+
+def probe_a(src: str) -> str:
+    """Slot 16*block: the summing warp (tid 0): total, first chunk, loop
+    cycles; slot +8: a loader (tid 32): total, first chunk, issue cycles."""
+    src = sub(src, "namespace {\n", "namespace {\n" + GLOBALS)
+    src = sub(src, "  extern __shared__ __align__(16) float smem[];\n  const int64_t s = blockIdx.x;",
+              "  extern __shared__ __align__(16) float smem[];\n  const long long c0 = clock64();\n"
+              "  long long c_first = 0, c_loop = 0;\n  const int64_t s = blockIdx.x;")
+    src = sub(src, "    __syncthreads();  // ... for every thread, and the stage of chunk c - 1 is free\n",
+              "    __syncthreads();  // ... for every thread, and the stage of chunk c - 1 is free\n"
+              "    const long long cb = clock64();\n    if (c == 0) c_first = cb - c0;\n")
+    src = sub(src, "      tf32x3::cp_async_commit();\n    } else {",
+              "      tf32x3::cp_async_commit();\n      c_loop += clock64() - cb;\n    } else {")
+    src = sub(src, "          if (j + kRun < n) fma_run(xb, vb, j + kRun);\n        }\n      }\n    }\n",
+              "          if (j + kRun < n) fma_run(xb, vb, j + kRun);\n        }\n      }\n"
+              "      asm volatile(\"\" :: \"f\"(sum));\n      c_loop += clock64() - cb;\n    }\n")
+    src = sub(src, "  if (summer) out[s * batch + b0 + b] = sum;\n}",
+              "  if (summer) out[s * batch + b0 + b] = sum;\n  if (tid == 0 || tid == 32) {\n"
+              "    long long* o = g_clk + 16 * ((blockIdx.x + gridDim.x * blockIdx.y) % 4096)"
+              " + (tid == 0 ? 0 : 8);\n"
+              "    o[0] = clock64() - c0; o[1] = c_first; o[2] = c_loop; o[3] = n_chunks;\n  }\n}")
+    return src + READ
+
+
+def probe_d(src: str) -> str:
+    """Slot 8*block (thread 0): total, row_ptr read, first stage issued,
+    prologue issued, first compute, compute, stages."""
+    src = sub(src, "namespace {\n", "namespace {\n" + GLOBALS)
+    src = sub(src, "  extern __shared__ __align__(16) float smem[];\n  const int64_t r = blockIdx.x / parts;",
+              "  extern __shared__ __align__(16) float smem[];\n  const long long c0 = clock64();\n"
+              "  long long c_ptr = 0, c_ld0 = 0, c_pro = 0, c_first = 0, c_comp = 0;\n"
+              "  const int64_t r = blockIdx.x / parts;")
+    src = sub(src, "  for (int st = 0; st < kStages - 1; ++st) {\n    if (st < n_steps) load(st);\n",
+              "  for (int st = 0; st < kStages - 1; ++st) {\n    if (st == 0) {\n"
+              "      asm volatile(\"\" :: \"l\"(n_steps));\n      c_ptr = clock64() - c0;\n    }\n"
+              "    if (st < n_steps) load(st);\n    if (st == 0) c_ld0 = clock64() - c0;\n")
+    src = sub(src, "  for (int64_t step = 0; step < n_steps; ++step) {\n",
+              "  c_pro = clock64() - c0;\n  for (int64_t step = 0; step < n_steps; ++step) {\n")
+    src = sub(src, "    tf32x3::cp_async_commit();\n\n    const uint32_t stage",
+              "    tf32x3::cp_async_commit();\n    const long long cc = clock64();\n"
+              "    if (step == 0) c_first = cc - c0;\n\n    const uint32_t stage")
+    src = sub(src, "      for (int kk = 0; kk < k_valid; kk += 8) step8(kk);\n    }\n  }\n",
+              "      for (int kk = 0; kk < k_valid; kk += 8) step8(kk);\n    }\n"
+              "    asm volatile(\"\" :: \"f\"(acc[0][0][0]), \"f\"(acc[1][1][3]));\n"
+              "    c_comp += clock64() - cc;\n  }\n")
+    src = re.sub(r"(        if \(m \+ 1 < m_valid\) xt\[b \* dx_stride \+ m \+ 1\] = acc\[i\]\[j\]\[2 \* h \+ 1\];\n"
+                 r"      \}\n    \}\n  \}\n)\}",
+                 r"\1  if (tid == 0) {\n"
+                 r"    long long* o = g_clk + 8 * ((blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) % 8192);\n"
+                 r"    o[0] = clock64() - c0; o[1] = c_ptr; o[2] = c_ld0; o[3] = c_pro; o[4] = c_first;"
+                 r" o[5] = c_comp; o[6] = n_steps;\n  }\n}", src)
+    if "o[5] = c_comp" not in src:
+        raise SystemExit("not the kernel D source this probe edits: the stores")
+    return src + READ
+
+
+def build_all(srcs: dict) -> dict:
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in srcs.items():
+        (OUT / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+             "-o", str(OUT / f"lib{name}.so"), str(OUT / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+    return libs
+
+
+def spans(lib, n: int) -> np.ndarray:
+    buf = np.zeros(n, np.int64)
+    torch.cuda.synchronize()
+    if lib.read_clk(buf.ctypes.data_as(ctypes.c_void_p), n):
+        raise SystemExit("read_clk failed")
+    return buf
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("block_span_probe: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    libs = build_all({"span_a": probe_a((build.CSRC / "coo_matmul_T.cu").read_text()),
+                      "span_d": probe_d((build.CSRC / "bsmm_dx.cu").read_text()),
+                      "chain": CHAIN})
+    stream = torch.cuda.current_stream().cuda_stream
+    med = lambda v: float(np.median(v))  # noqa: E731
+
+    run_chain = libs["chain"].run_chain
+    run_chain.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    buf, cyc = torch.ones(96, device=dev), torch.zeros(1, dtype=torch.int64, device=dev)
+    n = 280_000
+    ms = cs.device_ms(lambda: run_chain(buf.data_ptr(), cyc.data_ptr(), n, stream), reps=20)
+    print(json.dumps({"fma_chain": dict(n=n, ms=ms, cycles_per_fma=int(cyc.item()) / n,
+                                        ghz=int(cyc.item()) / (ms * 1e6))}))
+
+    engine = SparseInferenceEngine(cs.seeded_model("cuda"), compaction=cs.SCHEDULE)
+    host, vals = engine.model.topos[-1], engine.model.values[-1]
+    t, seg_ptr = host.device_arrays(dev), engine._col_ptrs[-1]
+    fa = libs["span_a"].coo_matmul_T_f32
+    fa.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    rng = np.random.default_rng(0)
+    for batch in (1, 128):
+        srcT = torch.as_tensor(rng.standard_normal((host.in_dim, batch)).astype(np.float32),
+                               device=dev)
+        out = torch.empty((host.out_dim, batch), device=dev)
+        call = lambda: fa(srcT.data_ptr(), vals.data_ptr(), t.rows.data_ptr(),  # noqa: E731
+                          seg_ptr.data_ptr(), None, out.data_ptr(), host.out_dim, batch,
+                          tsp.COO_STAGED, 0, stream)
+        ms = cs.device_ms(call)
+        call()
+        blocks = host.out_dim * -(-batch // 32)
+        c = spans(libs["span_a"], 16 * blocks).reshape(blocks, 2, 8)
+        slots = int(np.diff(host.col_ptr()).max())
+        print(json.dumps({"a_spans": dict(
+            batch=batch, ms=ms, blocks=blocks, slots=slots, chunks=int(c[0, 0, 3]),
+            summer_cycles=med(c[:, 0, 0]), summer_first_chunk=med(c[:, 0, 1]),
+            summer_loop=med(c[:, 0, 2]), summer_loop_per_slot=med(c[:, 0, 2]) / slots,
+            loader_first_chunk=med(c[:, 1, 1]), loader_issue=med(c[:, 1, 2]))}))
+
+    model = cs.block_model(dev)
+    x_train = cs.load("cifar10", scale=cs.TRAIN_SCALE).x_train
+    fd = libs["span_d"].bsmm_dx_f32
+    fd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    for l, (meta, hst, bt, v, x, dy) in enumerate(cs.block_layer_inputs(model, x_train[:128],
+                                                                         rng)):
+        if l == 0:
+            continue
+        batch = x.shape[0]
+        row_ptr = tsp.segment_offsets(bt.rows_r, meta.grid_m)
+        parts = bsm.dx_parts(hst.n_blocks, meta.grid_m, batch, meta.block_m)
+        dx = torch.empty((batch, meta.grid_m * meta.block_m), device=dev)
+        part = torch.empty((parts, batch, meta.grid_m * meta.block_m), device=dev)
+        call = lambda: fd(dy.data_ptr(), v.data_ptr(), bt.cols_r.data_ptr(),  # noqa: E731
+                          bt.perm_r.data_ptr(), row_ptr.data_ptr(), dx.data_ptr(),
+                          part.data_ptr(), batch, meta.grid_m, meta.grid_n, meta.block_m,
+                          meta.block_n, parts, 0, stream)
+        ms = cs.device_ms(call)
+        call()
+        blocks = meta.grid_m * parts * -(-batch // 64) * -(-meta.block_m // 64)
+        c = spans(libs["span_d"], 8 * blocks).reshape(blocks, 8)
+        busy = c[c[:, 6] > 0]
+        print(json.dumps({"d_spans": dict(
+            layer=l, parts=parts, ms=ms, blocks=blocks, busy_blocks=len(busy),
+            stages=sorted(set(busy[:, 6].tolist())), block_cycles_med=med(busy[:, 0]),
+            block_cycles_max=float(busy[:, 0].max()), row_ptr=med(busy[:, 1]),
+            first_stage_issued=med(busy[:, 2]), prologue_issued=med(busy[:, 3]),
+            first_compute=med(busy[:, 4]),
+            compute_per_stage=med(busy[:, 5] / busy[:, 6]))}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
