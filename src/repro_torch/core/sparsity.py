@@ -7,8 +7,9 @@ gives the same connections (and the same initial values) bit for bit:
 * ``ElementTopology`` — COO connections, the paper-faithful path;
   ``ElemTopoArrays`` holds its dual-order views as int32 tensors on the
   device. The product primitive :func:`coo_matmul_T` is kernel A
-  (``csrc/coo_matmul_T.cu``) for CUDA tensors and its plain PyTorch
-  version for CPU tensors.
+  (``csrc/coo_matmul_T.cu``), with an optional bias (+ All-ReLU) epilogue
+  in its store, for CUDA tensors and its plain PyTorch version for CPU
+  tensors.
 * ``BlockTopology`` — live (block_m, block_n) tiles stored as a compact
   ``(n_blocks, bm, bn)`` stack plus int32 block coordinates;
   ``BlockTopoArrays`` holds the same dual-order views. Its products are
@@ -33,6 +34,7 @@ __all__ = [
     "ElemTopoArrays",
     "ElementTopology",
     "COO_LONG_SEGMENT",
+    "coo_epilogue",
     "coo_matmul_T",
     "coo_matmul_T_plain",
     "coo_route",
@@ -479,13 +481,19 @@ def coo_matmul_T(
     chunk: Optional[int] = None,
     acc: Optional[torch.Tensor] = None,
     seg_ptr: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    slope: Optional[float] = None,
 ) -> torch.Tensor:
-    """``accT[segment_idx[j], :] += srcT[gather_idx[j], :] * values[j]``.
+    """``accT[segment_idx[j], :] += srcT[gather_idx[j], :] * values[j]``,
+    then the optional epilogue (:func:`coo_epilogue`).
 
     ``srcT`` is (src_dim, B); returns (n_segments, B). ``segment_idx`` must
     be non-decreasing. ``acc`` (optional, (n_segments, B)) is a carry-in
-    accumulator. A CUDA tensor launches kernel A, which sums each segment
-    left to right in slot order (``chunk`` does not apply). Kernel A walks
+    accumulator. ``bias`` ((n_segments,), one per output feature) is added
+    after the whole sum, and with ``slope`` All-ReLU follows (kernel B's
+    arithmetic); ``slope`` needs ``bias``. A CUDA tensor launches kernel A,
+    which sums each segment left to right in slot order (``chunk`` does not
+    apply) and applies the epilogue in its store. Kernel A walks
     ``seg_ptr``, the segment offsets; when they are not given they are
     computed from ``segment_idx``, after checking that it is sorted. Its
     route (:func:`coo_route`) follows the longest segment where ``seg_ptr``
@@ -494,18 +502,43 @@ def coo_matmul_T(
     """
     if srcT.device.type == "cpu":
         return coo_matmul_T_plain(
-            srcT, values, gather_idx, segment_idx, n_segments, chunk=chunk, acc=acc
+            srcT, values, gather_idx, segment_idx, n_segments, chunk=chunk, acc=acc,
+            bias=bias, slope=slope,
         )
     if srcT.device.type != "cuda":
         raise ValueError(f"coo_matmul_T runs on cuda or cpu tensors, not {srcT.device}")
-    return _coo_matmul_T_cuda(srcT, values, gather_idx, segment_idx, seg_ptr, n_segments, acc)
+    return _coo_matmul_T_cuda(srcT, values, gather_idx, segment_idx, seg_ptr, n_segments, acc,
+                              bias=bias, slope=slope)
 
 
 coo_matmul_T.launches = 0  # kernel A launches, so a run can show it went through the kernel
+coo_matmul_T.epilogue_launches = 0  # of which with the bias (+ All-ReLU) epilogue
 
-_COO_MATMUL_T_ARGTYPES = [ctypes.c_void_p] * 6 + [
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+_COO_MATMUL_T_ARGTYPES = [ctypes.c_void_p] * 7 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
 ]
+
+
+def _check_epilogue_args(bias: Optional[torch.Tensor], slope: Optional[float],
+                         n_segments: int) -> None:
+    if slope is not None and bias is None:
+        raise ValueError("the All-ReLU epilogue (slope) needs a bias")
+    if bias is not None and tuple(bias.shape) != (n_segments,):
+        raise ValueError(
+            f"bias has shape {tuple(bias.shape)}, expected ({n_segments},): one per segment")
+
+
+def coo_epilogue(out: torch.Tensor, bias: Optional[torch.Tensor],
+                 slope: Optional[float]) -> torch.Tensor:
+    """Plain version of kernel A's epilogue on an (n_segments, B) product:
+    ``v = out + bias[:, None]``, then, with ``slope``, All-ReLU's
+    ``where(v > 0, v, slope * v)`` (kernel B's arithmetic, in this layout)."""
+    if bias is None:
+        return out
+    v = out + bias[:, None]
+    return v if slope is None else torch.where(v > 0, v, slope * v)
+
 
 # Offsets already checked, by tensor identity. The engine freezes one
 # offsets tensor per layer, so each costs one device sync, on first use.
@@ -544,10 +577,12 @@ def _checked_offsets(segment_idx: torch.Tensor, n_segments: int) -> torch.Tensor
 def _coo_matmul_T_cuda(
     srcT: torch.Tensor, values: torch.Tensor, gather_idx: torch.Tensor,
     segment_idx: torch.Tensor, seg_ptr: Optional[torch.Tensor], n_segments: int,
-    acc: Optional[torch.Tensor], route: Optional[int] = None,
+    acc: Optional[torch.Tensor], route: Optional[int] = None, *,
+    bias: Optional[torch.Tensor] = None, slope: Optional[float] = None,
 ) -> torch.Tensor:
     """Validate, allocate and launch kernel A on the caller's stream, by
-    ``route`` (default: :func:`coo_route` of the longest segment)."""
+    ``route`` (default: :func:`coo_route` of the longest segment), with the
+    epilogue that ``bias`` and ``slope`` ask for."""
     device = srcT.device
     if srcT.dim() != 2:
         raise ValueError(f"srcT must be (src_dim, B), got shape {tuple(srcT.shape)}")
@@ -569,6 +604,11 @@ def _coo_matmul_T_cuda(
     if acc is not None:
         build.check_tensor(acc, "acc", dtype=f32, shape=(n_segments, batch),
                            device=device)
+    _check_epilogue_args(bias, slope, n_segments)
+    if bias is not None:
+        build.check_tensor(bias, "bias", dtype=f32, shape=(n_segments,), device=device)
+    # kernel A's epilogue: 0 none, 1 + bias, 2 + bias then All-ReLU
+    mode = 0 if bias is None else 1 if slope is None else 2
     if route is None:
         route = coo_route(_longest_segment(seg_ptr, nnz, n_segments))
     out = torch.empty((n_segments, batch), dtype=f32, device=device)
@@ -578,10 +618,13 @@ def _coo_matmul_T_cuda(
     rc = fn(
         srcT.data_ptr(), values.data_ptr(), gather_idx.data_ptr(),
         seg_ptr.data_ptr(), None if acc is None else acc.data_ptr(),
-        out.data_ptr(), n_segments, batch, route, *build.stream_args(device),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), n_segments, batch, route,
+        0.0 if slope is None else slope, mode, *build.stream_args(device),
     )
     build.check_launch(rc, "coo_matmul_T kernel")
     coo_matmul_T.launches += 1
+    if mode:
+        coo_matmul_T.epilogue_launches += 1
     return out
 
 
@@ -594,10 +637,14 @@ def coo_matmul_T_plain(
     *,
     chunk: Optional[int] = None,
     acc: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    slope: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel A: chunked gather, scale and
-    ``index_add_``, peak temp O(B * chunk). Runs on any device; on the CPU
-    ``index_add_`` adds in slot order, so the sum order is kernel A's."""
+    ``index_add_``, peak temp O(B * chunk), then :func:`coo_epilogue`. Runs
+    on any device; on the CPU ``index_add_`` adds in slot order, so the sum
+    order is kernel A's."""
+    _check_epilogue_args(bias, slope, n_segments)
     nnz = int(values.shape[0])
     batch = srcT.shape[-1]
     dtype = torch.promote_types(srcT.dtype, values.dtype)
@@ -610,7 +657,7 @@ def coo_matmul_T_plain(
         g = gather_idx[lo:lo + chunk].long()
         v = values[lo:lo + chunk].to(dtype)
         out.index_add_(0, segment_idx[lo:lo + chunk].long(), srcT[g].to(dtype) * v[:, None])
-    return out
+    return coo_epilogue(out, bias, slope)
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,37 @@
 //     block. The FMA's dependent latency is ~4.6 cycles on the H100.
 //
 // Segment offsets come from seg_ptr (n_segments + 1 int64 offsets); all
-// offset arithmetic is 64-bit. An empty segment yields acc, or exactly 0.
+// offset arithmetic is 64-bit. An empty segment yields acc, or exactly 0
+// (then the epilogue's value of it).
+//
+// The epilogue (kernel B's work, fused into the store). The served forward
+// keeps every activation in this (features, batch) layout, and each layer
+// ends in its bias and, on a hidden layer, All-ReLU (paper Eq. 3), so the
+// store applies them itself, with one bias value per segment (= output
+// feature):
+//
+//   epilogue 0: out = sum
+//   epilogue 1: out = v,                          v = __fadd_rn(sum, bias[s])
+//   epilogue 2: out = v > 0 ? v : __fmul_rn(slope, v)
+//
+// This replaces the standalone pass src/repro/kernels/all_relu_fused.py::
+// bias_all_relu (kernel B, csrc/bias_all_relu.cu, which the block path
+// still runs) on the element serving path, and with it the transposes that
+// pass needed around it. The bias is added after the whole chain, never as
+// its start value and never through acc: starting the chain at the bias
+// would round every partial sum differently, so dropping a zero slot would
+// no longer leave the bits alone (the compaction contract above), and acc
+// stays a pure carry-in (the XL shard path). The _rn intrinsics keep the
+// compiler from contracting the add and the multiply into an FMA, so the
+// result is bit for bit kernel A followed by kernel B (or by `+ bias`):
+// the same IEEE add, compare and multiply as B and as the plain `where`.
+// Each summing thread loads its bias value before its chain, so the load's
+// latency hides under the chain's. Route 0 at batch 1 walks consecutive
+// segments, so its bias loads coalesce; at larger batches and on the staged
+// route (one segment a block) a warp's lanes load one bias value, a
+// broadcast. Its bound is the bias's bytes, 4 per segment (11 KB, ~3 ns,
+// on the widest served layer), against the 8 bytes per element that
+// kernel B's own pass reads and writes.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -72,15 +102,27 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 8;
 
+// The store's epilogue: 0 none, 1 + b, 2 + b then All-ReLU with slope, where
+// b = bias[s] was loaded before the chain (its latency hides under it). The
+// add and the multiply round apart (no FMA contraction).
+__device__ __forceinline__ float apply_epilogue(float sum, float b, float slope, int mode) {
+  if (mode == 0) return sum;
+  const float v = __fadd_rn(sum, b);
+  return mode == 1 || v > 0.0f ? v : __fmul_rn(slope, v);
+}
+
 __global__ void __launch_bounds__(kThreads)
 coo_matmul_T_kernel(const float* __restrict__ srcT,
                     const float* __restrict__ values,
                     const int32_t* __restrict__ gather,
                     const int64_t* __restrict__ seg_ptr,
                     const float* __restrict__ acc,
+                    const float* __restrict__ bias,
                     float* __restrict__ out,
                     int64_t n_segments,
-                    int64_t batch) {
+                    int64_t batch,
+                    float slope,
+                    int mode) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= n_segments * batch) return;
   const int64_t s = t / batch;
@@ -88,6 +130,7 @@ coo_matmul_T_kernel(const float* __restrict__ srcT,
   const int64_t end = seg_ptr[s + 1];
   int64_t j = seg_ptr[s];
   float sum = acc != nullptr ? __ldg(acc + t) : 0.0f;
+  const float bias_s = mode != 0 ? __ldg(bias + s) : 0.0f;
   for (; j + kUnroll <= end; j += kUnroll) {
     float x[kUnroll];
     float v[kUnroll];
@@ -103,7 +146,7 @@ coo_matmul_T_kernel(const float* __restrict__ srcT,
     const float x = __ldg(srcT + static_cast<int64_t>(__ldg(gather + j)) * batch + b);
     sum = fmaf(x, __ldg(values + j), sum);
   }
-  out[t] = sum;
+  out[t] = apply_epilogue(sum, bias_s, slope, mode);
 }
 
 // --- route 1: one block per (segment, 32 batch columns), staged ---------------
@@ -136,8 +179,11 @@ coo_matmul_T_staged(const float* __restrict__ srcT,
                     const int32_t* __restrict__ gather,
                     const int64_t* __restrict__ seg_ptr,
                     const float* __restrict__ acc,
+                    const float* __restrict__ bias,
                     float* __restrict__ out,
-                    int64_t batch) {
+                    int64_t batch,
+                    float slope,
+                    int mode) {
   constexpr int kIdx = kVec ? kIdxVec : kIdxScalar;
   extern __shared__ __align__(16) float smem[];
   const int64_t s = blockIdx.x;
@@ -199,6 +245,7 @@ coo_matmul_T_staged(const float* __restrict__ srcT,
   const bool summer = tid < b_valid;
   float sum = 0.0f;
   if (summer && acc != nullptr) sum = __ldg(acc + s * batch + b0 + b);
+  const float bias_s = summer && mode != 0 ? __ldg(bias + s) : 0.0f;  // a broadcast
   for (int c = 0; c < n_chunks; ++c) {
     if (loader) tf32x3::cp_async_wait<kStagedStages - 2>();  // chunk c has landed
     __syncthreads();  // ... for every thread, and the stage of chunk c - 1 is free
@@ -283,7 +330,7 @@ coo_matmul_T_staged(const float* __restrict__ srcT,
     }
   }
   if (loader) tf32x3::cp_async_wait<0>();
-  if (summer) out[s * batch + b0 + b] = sum;
+  if (summer) out[s * batch + b0 + b] = apply_epilogue(sum, bias_s, slope, mode);
 }
 
 bool smem_set[2][64];
@@ -291,13 +338,17 @@ bool smem_set[2][64];
 }  // namespace
 
 // route: 0 = one thread per (segment, column), 1 = one staged block per
-// (segment, 32 columns). Both give the same bits.
+// (segment, 32 columns). Both give the same bits. epilogue: 0 = none,
+// 1 = + bias, 2 = + bias then All-ReLU with slope; bias (n_segments f32)
+// may be null only for epilogue 0.
 extern "C" int coo_matmul_T_f32(const void* srcT, const void* values,
                                 const void* gather, const void* seg_ptr,
-                                const void* acc, void* out,
+                                const void* acc, const void* bias, void* out,
                                 int64_t n_segments, int64_t batch, int route,
+                                float slope, int epilogue,
                                 int device, void* stream) {
-  if (n_segments < 0 || batch < 0 || (route != 0 && route != 1)) {
+  if (n_segments < 0 || batch < 0 || (route != 0 && route != 1) || epilogue < 0 ||
+      epilogue > 2 || (epilogue != 0 && bias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -311,7 +362,8 @@ extern "C" int coo_matmul_T_f32(const void* srcT, const void* values,
         static_cast<const float*>(srcT), static_cast<const float*>(values),
         static_cast<const int32_t*>(gather),
         static_cast<const int64_t*>(seg_ptr), static_cast<const float*>(acc),
-        static_cast<float*>(out), n_segments, batch);
+        static_cast<const float*>(bias), static_cast<float*>(out), n_segments, batch, slope,
+        epilogue);
     return static_cast<int>(cudaGetLastError());
   }
   const int64_t slices = (batch + kCols - 1) / kCols;
@@ -324,6 +376,7 @@ extern "C" int coo_matmul_T_f32(const void* srcT, const void* values,
   kernel<<<grid, kStagedThreads, kStagedSmemBytes, st>>>(
       static_cast<const float*>(srcT), static_cast<const float*>(values),
       static_cast<const int32_t*>(gather), static_cast<const int64_t*>(seg_ptr),
-      static_cast<const float*>(acc), static_cast<float*>(out), batch);
+      static_cast<const float*>(acc), static_cast<const float*>(bias), static_cast<float*>(out),
+      batch, slope, epilogue);
   return static_cast<int>(cudaGetLastError());
 }

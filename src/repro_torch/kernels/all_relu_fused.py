@@ -5,6 +5,12 @@ along N, ``s = -alpha`` for even ``layer_index`` and ``+alpha`` for odd
 (paper Eq. 3). Twin of the Pallas kernel
 ``repro.kernels.all_relu_fused.bias_all_relu``; the Pallas version's
 ``block_rows`` padding is a TPU tiling concern and has no counterpart here.
+
+As in the reference, it is the block product's epilogue: the block model's
+no-grad forward runs it on kernel C's output, whose first ``out_dim``
+columns of a block-padded row it reads in place (a row pitch, no copy). The
+element serving path applies the same arithmetic in kernel A's store
+(``core.sparsity.coo_matmul_T``'s epilogue) instead.
 """
 from __future__ import annotations
 
@@ -26,15 +32,18 @@ def bias_all_relu_plain(
 
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p,
 ]
 
 
 def bias_all_relu(
     x: torch.Tensor, bias: torch.Tensor, *, alpha: float, layer_index: int
 ) -> torch.Tensor:
-    """x: (..., N), bias: (N,). A CUDA tensor launches kernel B (f32,
-    contiguous); a CPU tensor takes the plain version."""
+    """x: (..., N), bias: (N,); returns a contiguous (..., N). A CUDA
+    tensor launches kernel B (f32; x's rows contiguous, at one row pitch,
+    as a column slice of a wider contiguous tensor is); a CPU tensor takes
+    the plain version."""
     if x.device.type == "cpu":
         return bias_all_relu_plain(x, bias, alpha=alpha, layer_index=layer_index)
     if x.device.type != "cuda":
@@ -42,14 +51,16 @@ def bias_all_relu(
     if x.dim() == 0:
         raise ValueError("x must have a feature axis")
     n = x.shape[-1]
-    build.check_tensor(x, "x", dtype=torch.float32, shape=x.shape, device=x.device)
+    if x.dtype != torch.float32:
+        raise ValueError(f"x has dtype {x.dtype}, the kernel takes {torch.float32}")
     build.check_tensor(bias, "bias", dtype=torch.float32, shape=(n,), device=x.device)
-    y = torch.empty_like(x)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
+    pitch = _row_pitch(x)
     fn = build.kernel("bias_all_relu", "bias_all_relu_f32", _ARGTYPES)
     rc = fn(
-        x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // n, n,
+        x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // n, n, pitch,
         slope_for(alpha, layer_index), *build.stream_args(x.device),
     )
     build.check_launch(rc, "bias_all_relu kernel")
@@ -58,3 +69,20 @@ def bias_all_relu(
 
 
 bias_all_relu.launches = 0  # kernel B launches, so a run can show it went through the kernel
+
+
+def _row_pitch(x: torch.Tensor) -> int:
+    """Elements between the starts of x's rows of N, where they are
+    contiguous and evenly spaced (a contiguous tensor, or a column slice of
+    one); raise otherwise."""
+    n = x.shape[-1]
+    try:
+        rows = x.view(-1, n)
+    except RuntimeError:
+        rows = None
+    if rows is None or (n > 1 and rows.stride(1) != 1) or (
+            rows.shape[0] > 1 and rows.stride(0) < n):
+        raise ValueError(
+            f"x must be contiguous, or rows of contiguous features at one pitch; "
+            f"got shape {tuple(x.shape)} with strides {x.stride()}")
+    return rows.stride(0) if rows.shape[0] > 1 else n

@@ -12,9 +12,11 @@ topology arrays:
                     natively differentiable: the oracle of the whole op.
                     The name is the reference's.
 
-Element granularity: the forward-only (serving) entry ``espmm_infer``. The
-element training entry (``espmm`` with its hand-derived backward) comes
-with the element training slice.
+Element granularity, forward only: ``espmm_infer_T``, the serving path's
+op, in kernel A's (features, batch) layout with the bias and activation in
+kernel A's store, and ``espmm_infer``, the reference's (batch, features)
+entry. The element training entry (``espmm`` with its hand-derived
+backward) comes with the element training slice.
 """
 from __future__ import annotations
 
@@ -30,12 +32,13 @@ from repro_torch.core.sparsity import (
     BlockMeta,
     BlockTopoArrays,
     ElemTopoArrays,
+    coo_matmul_T,
     element_spmm,
     element_spmm_segment,
 )
 from repro_torch.kernels import block_sparse_matmul as _k
 
-__all__ = ["bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm_infer"]
+__all__ = ["bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm_infer", "espmm_infer_T"]
 
 
 # ---------------------------------------------------------------------------
@@ -153,4 +156,31 @@ def espmm_infer(
             return element_spmm(x, values, topo.rows, topo.cols, out_dim)
     return element_spmm_segment(
         x, values, topo.rows, topo.cols, out_dim, chunk=chunk, col_ptr=col_ptr
+    )
+
+
+def espmm_infer_T(
+    hT: torch.Tensor,
+    values: torch.Tensor,
+    topo: ElemTopoArrays,
+    out_dim: int,
+    *,
+    bias: torch.Tensor,
+    slope: Optional[float] = None,
+    chunk: Optional[int] = None,
+    col_ptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One served element layer in the transposed layout: ``hT`` (in_dim,
+    B) -> (out_dim, B), ``(h @ W + bias)`` and, with ``slope``, All-ReLU,
+    so that the result feeds the next layer as it is.
+
+    A CUDA tensor runs kernel A with its epilogue (one launch, no
+    transpose); a CPU tensor runs the plain version, the chunked segment
+    sum (``chunk``) and the same epilogue. Unlike :func:`espmm_infer`, the
+    reference's ``SPMM_INFER_*`` scatter-vs-segment thresholds do not
+    apply: the serving loop takes this one path on both devices.
+    """
+    return coo_matmul_T(
+        hT, values, topo.rows, topo.cols, out_dim, chunk=chunk, seg_ptr=col_ptr,
+        bias=bias, slope=slope,
     )

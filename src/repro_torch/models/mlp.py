@@ -8,12 +8,17 @@ live tiles (``BlockTopology``). The activation is All-ReLU with the paper's
 PyTorch twin of ``repro.models.mlp``: the same config, the same seeded
 topology and init (bit-equal). What each impl runs:
 
-* ``element`` — the inference forward (``infer=True``): on the card a hidden
-  layer is kernel A (``espmm_infer``) then kernel B (bias + All-ReLU). Its
-  training forward comes with the element training slice.
+* ``element`` — the inference forward (``infer=True``): the activations stay
+  in kernel A's (features, batch) layout from the input's one transpose to
+  the logits' one, and each layer is one launch of kernel A
+  (``espmm_infer_T``) whose store adds the bias and, on a hidden All-ReLU
+  layer, applies All-ReLU (kernel B's arithmetic). Its training forward
+  comes with the element training slice.
 * ``block`` — training and inference: the block product on kernels C (and,
-  under autograd, D and E), then ``+ bias`` and the plain All-ReLU, as the
-  reference does; dropout draws from an explicit ``torch.Generator``.
+  under autograd, D and E), then ``+ bias`` and the activation; where no
+  gradient is recorded, a hidden All-ReLU layer's bias and All-ReLU run in
+  kernel B, as the reference's fused epilogue; dropout draws from an
+  explicit ``torch.Generator``.
 
 The masked and dense impls and ``return_preacts`` come with later slices and
 raise ``NotImplementedError`` here.
@@ -32,6 +37,7 @@ from repro_torch.core.sparsity import BlockMeta, BlockTopology, ElementTopology
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.all_relu_fused import bias_all_relu
+from repro_torch.kernels.ref import slope_for
 
 __all__ = ["SparseMLPConfig", "SparseMLP", "mlp_forward", "cross_entropy_loss"]
 
@@ -178,6 +184,13 @@ def mlp_forward(
     kernel A walks on the element path; the serving engine computes them
     once when it freezes the topology, and they are computed per call when
     not given.
+
+    The element forward runs in the (features, batch) layout: the input is
+    transposed once, each layer's ``espmm_infer_T`` output feeds the next,
+    and the logits are transposed once. A hidden All-ReLU layer takes its
+    bias and All-ReLU (the paper's 1-based parity) in kernel A's store, the
+    output layer its bias; another activation (elementwise) follows a
+    bias-only epilogue in the same layout.
     """
     _require_sparse(config)
     if return_preacts:
@@ -194,29 +207,34 @@ def mlp_forward(
     if train and config.dropout > 0:
         raise NotImplementedError("element dropout comes with the element training slice")
     act = activation_fn(config.activation, alpha=config.alpha)
-    h = x
+    lead = x.shape[:-1]
+    hT = x.reshape(-1, x.shape[-1]).T.contiguous()  # (features, batch)
     n_layers = config.n_layers
     for l in range(n_layers):
-        bias = params["biases"][l]
-        h = kops.espmm_infer(
-            h, params["values"][l], topo_arrays[l], config.layer_dims[l + 1],
+        hidden = l < n_layers - 1  # the output layer is linear
+        fused = hidden and config.activation == "all_relu"
+        hT = kops.espmm_infer_T(
+            hT, params["values"][l], topo_arrays[l], config.layer_dims[l + 1],
+            bias=params["biases"][l],
+            slope=slope_for(config.alpha, l + 1) if fused else None,  # 1-based parity
             chunk=config.spmm_chunk,
             col_ptr=None if col_ptrs is None else col_ptrs[l],
         )
-        if l == n_layers - 1:  # output layer: linear
-            h = h + bias
-        elif config.activation == "all_relu":  # paper's 1-based layer parity
-            h = bias_all_relu(h, bias, alpha=config.alpha, layer_index=l + 1)
-        else:
-            h = act(h + bias, l + 1)
-    return h
+        if hidden and not fused:
+            hT = act(hT, l + 1)
+    return hT.T.contiguous().reshape(*lead, config.layer_dims[-1])
 
 
 def _block_forward(params, topo_arrays, x, config, *, train, rng, infer):
     """Block layers as the reference runs them: the block product, ``+ bias``,
-    then the activation under autograd, and dropout in training."""
+    then the activation under autograd, and dropout in training. Where no
+    gradient is recorded (``infer=True``, or autograd off, as in
+    evaluation), a hidden All-ReLU layer's bias and All-ReLU are kernel B,
+    reading the product's columns in place; it computes what ``act(h +
+    bias)`` does, bit for bit."""
     act = activation_fn(config.activation, alpha=config.alpha)
     product = kops.bsmm_infer if infer else kops.bsmm_kernel
+    fused = config.activation == "all_relu" and (infer or not torch.is_grad_enabled())
     dropout = train and config.dropout > 0
     if dropout and rng is None:
         raise ValueError("dropout needs rng, a torch.Generator on the input's device")
@@ -224,9 +242,14 @@ def _block_forward(params, topo_arrays, x, config, *, train, rng, infer):
     n_layers = config.n_layers
     for l in range(n_layers):
         h = product(h, params["values"][l], topo_arrays[l], block_meta(config, l))
-        h = h + params["biases"][l]
-        if l < n_layers - 1:  # hidden layers only (paper: exclude output)
-            h = act(h, l + 1)  # paper's 1-based layer parity
+        bias = params["biases"][l]
+        if l == n_layers - 1:  # output layer: linear (paper: exclude output)
+            h = h + bias
+        else:  # paper's 1-based layer parity
+            if fused:
+                h = bias_all_relu(h, bias, alpha=config.alpha, layer_index=l + 1)
+            else:
+                h = act(h + bias, l + 1)
             if dropout:
                 keep = 1.0 - config.dropout
                 mask = torch.rand(h.shape, generator=rng, device=h.device) < keep

@@ -8,8 +8,10 @@ so it runs on a machine that has only the port:
 Kernel A sums each segment in slot order, the plain version through
 ``index_add_`` (atomics on the card), so they are held at rtol/atol 1e-5;
 its two routes are held bit-equal to each other, and dropping zero-valued
-slots is held bit-equal (lossless compaction). Kernel B does the plain
-version's f32 arithmetic and is held bit-equal. Kernels C, D and E sum in
+slots is held bit-equal (lossless compaction). Its epilogue (bias, then
+All-ReLU) is held bit-equal to kernel A followed by kernel B, on both
+routes. Kernel B does the plain version's f32 arithmetic and is held
+bit-equal, on contiguous rows and on rows at a pitch. Kernels C, D and E sum in
 another order than the plain versions' einsums (up to K = 4096 products per
 output, in 3xTF32 on the tensor cores, as accurate as f32), so they are held
 at rtol/atol 1e-4; uncovered dx block-rows are held exactly 0, and launches
@@ -30,8 +32,9 @@ from repro_torch.data.datasets import load
 from repro_torch.kernels import all_relu_fused
 from repro_torch.kernels import block_sparse_matmul as bsm
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import all_relu_ref, slope_for
 from repro_torch.launch.steps import make_mlp_train_step
-from repro_torch.models.mlp import SparseMLP, SparseMLPConfig
+from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward
 from repro_torch.optim.sgd import MomentumSGD
 from repro_torch.serve import EngineConfig, SparseInferenceEngine, importance_prune_mlp
 
@@ -208,6 +211,126 @@ def test_kernel_b_validates_inputs(cuda):
         all_relu_fused.bias_all_relu(x, b[:8], alpha=0.5, layer_index=1)
 
 
+# -- kernel A's epilogue (kernel B fused into its store) ------------------------
+
+
+def _a_then_b(yT, bias, alpha, layer_index):
+    """Kernel A's output, then kernel B (in its (batch, features) layout) or
+    the output layer's ``+ bias``: what the fused store must give."""
+    if layer_index is None:
+        return yT + bias[:, None]
+    return all_relu_fused.bias_all_relu(yT.T.contiguous(), bias, alpha=alpha,
+                                        layer_index=layer_index).T
+
+
+# the served output layer's segment lengths (staged route) and a hidden-like
+# layer (400 -> 400, 80,000 connections, one thread per output)
+EPI_LAYERS = {"long": LONG, "hidden": None}
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("batch", [1, 5, 33, 128])
+@pytest.mark.parametrize("layer", sorted(EPI_LAYERS))
+def test_kernel_a_epilogue_is_kernel_a_then_b_bit_equal(cuda, layer, batch, with_acc):
+    """On both routes, with and without a carry-in: the epilogue's store is
+    bit-equal to kernel A followed by kernel B (both slope signs) or by
+    ``+ bias``, and matches the plain version at A's tolerance."""
+    if layer == "long":
+        rng, gather, vals, srcT = _long_segments(LONG, batch)
+        n = len(LONG)
+        seg_np = np.repeat(np.arange(n), LONG).astype(np.int32)
+        seg_ptr = tsp.offsets_to_device(_offsets(LONG), cuda)
+    else:
+        topo, vals, x = _layer(3, 400, 400, 100, batch)
+        rng = np.random.default_rng(5)
+        gather, seg_np, n, srcT = topo.rows, topo.cols, topo.out_dim, np.ascontiguousarray(x.T)
+        seg_ptr = tsp.offsets_to_device(topo.col_ptr(), cuda)
+    g, seg = torch.as_tensor(gather, device=cuda), torch.as_tensor(seg_np, device=cuda)
+    v, src = torch.as_tensor(vals, device=cuda), torch.as_tensor(srcT, device=cuda)
+    bias = torch.as_tensor(rng.standard_normal((n,)).astype(np.float32), device=cuda)
+    acc = torch.as_tensor(rng.standard_normal((n, batch)).astype(np.float32),
+                          device=cuda) if with_acc else None
+    # A's tolerance is the product's (the plain version sums in another
+    # order); the bias can cancel the product, so it is taken at the larger
+    # of the product's and the result's magnitude
+    plain = tsp.coo_matmul_T_plain(src, v, g, seg, n, acc=acc)
+    for route in (tsp.COO_THREAD, tsp.COO_STAGED):
+        base = tsp._coo_matmul_T_cuda(src, v, g, seg, seg_ptr, n, acc, route)
+        for layer_index in (None, 1, 2):  # + bias; All-ReLU with +alpha and -alpha
+            slope = None if layer_index is None else slope_for(0.75, layer_index)
+            e0 = tsp.coo_matmul_T.epilogue_launches
+            got = tsp._coo_matmul_T_cuda(src, v, g, seg, seg_ptr, n, acc, route,
+                                         bias=bias, slope=slope)
+            torch.cuda.synchronize()
+            assert tsp.coo_matmul_T.epilogue_launches == e0 + 1
+            assert torch.equal(got, _a_then_b(base, bias, 0.75, layer_index)), (route, layer_index)
+            want = tsp.coo_epilogue(plain, bias, slope)
+            assert bool((got - want).abs().le(
+                1e-5 + 1e-5 * torch.maximum(plain.abs(), want.abs())).all())
+
+
+def test_kernel_a_epilogue_validates_inputs(cuda):
+    topo, vals, x = _layer(4, 20, 10, 3, 4)
+    t = topo.device_arrays(cuda)
+    args = (torch.as_tensor(np.ascontiguousarray(x.T), device=cuda),
+            torch.as_tensor(vals, device=cuda), t.rows, t.cols, 10)
+    bias = torch.randn((10,), device=cuda)
+    before = tsp.coo_matmul_T.launches
+    with pytest.raises(ValueError, match="dtype"):
+        tsp.coo_matmul_T(*args, bias=bias.double())
+    with pytest.raises(ValueError, match="bias has shape"):
+        tsp.coo_matmul_T(*args, bias=bias[:9])
+    with pytest.raises(ValueError, match="bias is on cpu"):
+        tsp.coo_matmul_T(*args, bias=bias.cpu())
+    with pytest.raises(ValueError, match="needs a bias"):
+        tsp.coo_matmul_T(*args, slope=0.75)
+    assert tsp.coo_matmul_T.launches == before  # no launch, and no plain fallback
+
+
+@pytest.mark.parametrize("case", [
+    ((128, 4096), np.s_[:, :4000]),  # the block model's padded product: 16-byte path
+    ((512, 1024), np.s_[:, :1000]),
+    ((5, 1003), np.s_[:, :1001]),    # a pitch that is no multiple of 4: scalar path
+    ((4, 4004), np.s_[:, 1:4001]),   # 4 bytes past a 16-byte boundary: scalar path
+    ((2, 3, 40), np.s_[..., :36]),   # leading dims
+])
+def test_kernel_b_reads_a_row_pitch(cuda, case):
+    shape, sl = case
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)[sl]
+    b = torch.as_tensor(rng.standard_normal(x.shape[-1:]).astype(np.float32), device=cuda)
+    assert not x.is_contiguous()
+    got = all_relu_fused.bias_all_relu(x, b, alpha=0.75, layer_index=2)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == x.shape
+    assert torch.equal(got, all_relu_fused.bias_all_relu_plain(x, b, alpha=0.75, layer_index=2))
+
+
+def test_block_evaluation_runs_kernel_b_bit_equal(cuda):
+    """The block model's no-grad forward runs kernel B on each hidden
+    layer's product slice; the logits equal the plain ``act(h + bias)``
+    after the same kernel C products, bit for bit."""
+    cfg = SparseMLPConfig(layer_dims=(300, 200, 130, 10), epsilon=20, impl="block",
+                          block_m=128, block_n=128, dropout=0.0)
+    model = SparseMLP(cfg, seed=2, device=cuda)
+    rng = np.random.default_rng(2)
+    model.biases = [torch.as_tensor(rng.standard_normal(b.shape).astype(np.float32), device=cuda)
+                    for b in model.biases]
+    x = torch.as_tensor(rng.standard_normal((100, 300)).astype(np.float32), device=cuda)
+    topo = model.topo_arrays()
+    b0 = all_relu_fused.bias_all_relu.launches
+    with torch.no_grad():
+        got = mlp_forward(model.params(), topo, x, cfg)
+        torch.cuda.synchronize()
+        assert all_relu_fused.bias_all_relu.launches - b0 == cfg.n_layers - 1
+        h = x
+        for l in range(cfg.n_layers):
+            h = ops.bsmm_kernel(h, model.values[l], topo[l], block_meta(cfg, l)) + model.biases[l]
+            if l < cfg.n_layers - 1:
+                h = all_relu_ref(h, cfg.alpha, l + 1)
+    assert torch.equal(got, h)
+
+
 def _model(device, seed=8):
     cfg = SparseMLPConfig(layer_dims=(32, 24, 20, 6), epsilon=6, dropout=0.0)
     model = SparseMLP(cfg, seed=seed, device=device)
@@ -224,10 +347,14 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
     cpu = SparseInferenceEngine(_model("cpu"), compaction=sched, engine=ec, device="cpu")
     x = np.random.default_rng(9).standard_normal((9, 32)).astype(np.float32)
     a0, b0 = tsp.coo_matmul_T.launches, all_relu_fused.bias_all_relu.launches
+    e0 = tsp.coo_matmul_T.epilogue_launches
     got = card.classify(x)
     forwards = 3  # 4 + 4 + (1 padded to 2)
+    # one kernel A launch per layer, each with its bias (+ All-ReLU) epilogue;
+    # kernel B's standalone pass does not run on the served path
     assert tsp.coo_matmul_T.launches - a0 == forwards * 3
-    assert all_relu_fused.bias_all_relu.launches - b0 == forwards * 2
+    assert tsp.coo_matmul_T.epilogue_launches - e0 == forwards * 3
+    assert all_relu_fused.bias_all_relu.launches - b0 == 0
     np.testing.assert_allclose(got, cpu.classify(x), rtol=1e-5, atol=1e-5)
     # lossless compaction holds bit for bit on the card
     pruned, _ = importance_prune_mlp(_model(cuda), sched)

@@ -83,14 +83,18 @@ def test_datasets_bit_equal(name):
     assert a.n_classes == b.n_classes and a.name == b.name
 
 
-# the smoke config, other activations, and a 400-wide hidden layer whose
-# 80,000 connections send the reference down its chunked segment path at
-# batch 8
+# the smoke config, other activations (a bias-only epilogue, then the
+# activation in the (features, batch) layout), batch 1 and 33, and a
+# 400-wide hidden layer whose 80,000 connections send the reference down its
+# chunked segment path at batch 8
 @pytest.mark.parametrize("fields,batch", [
     (SMOKE, 5),
+    (SMOKE, 33),
     (dict(SMOKE, alpha=0.75), 1),
     (dict(SMOKE, activation="relu"), 3),
     (dict(SMOKE, activation="gelu"), 3),
+    (dict(SMOKE, activation="leaky_relu"), 33),
+    (dict(SMOKE, activation="silu"), 1),
     (dict(layer_dims=(48, 400, 400, 10), epsilon=100), 8),
 ])
 def test_forward_matches_reference(fields, batch):
