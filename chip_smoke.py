@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's SET-MLP serving and training paths on one NVIDIA card
-and check them.
+"""Drive the port's SET-MLP serving and training paths (block and element)
+on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -31,12 +31,22 @@ Phases, one line each (any failure exits non-zero):
                    block-rows and empty block-columns held exactly 0; C, D
                    and E launched twice more on the same inputs, held
                    bit-equal;
-5. main          — the serving path: ``SparseInferenceEngine.classify`` at
+5. element_kernels — the element training path's kernels against their
+                   plain versions at the four full-width element layers, batch
+                   128 and a ragged 33, at rtol 1e-4 / atol 1e-5, each
+                   launched twice more on the same inputs and held bit-equal:
+                   kernel A's dX use (the row-sorted dual order), kernel F
+                   (coo_dw), kernel G (all_relu_bwd) with and without a mask
+                   on both slope signs, and kernel A's training epilogue (its
+                   output bit-equal to the All-ReLU epilogue's, its mask to
+                   where the bias epilogue's output is > 0), with some
+                   pre-activations exactly 0;
+6. main          — the serving path: ``SparseInferenceEngine.classify`` at
                    full width (3072-4000-1000-4000-10, epsilon 20) with
                    deployment-time compaction, against the same model served
                    on the CPU, and its launch counts: one kernel A a layer,
                    each with its epilogue, and no standalone kernel B;
-6. train         — the training path: ``SequentialTrainer.run`` of the
+7. train         — the block training path: ``SequentialTrainer.run`` of the
                    full-width block model (128x128 tiles) for 3 epochs with
                    SET and importance pruning, against the same run on the
                    CPU through the plain versions (topology and n_params
@@ -44,17 +54,26 @@ Phases, one line each (any failure exits non-zero):
                    tolerance), kernels C, D and E's launch counts and
                    kernel B's in the evaluations, and a run at the paper's
                    dropout whose loss must fall;
-7. timings       — classify latency per bucket, where a classify's device
+8. element_train — the paper's element training path: ``SequentialTrainer.
+                   run`` of the full-width element model for 3 epochs with
+                   SET and importance pruning (the element cascade), the
+                   block run's settings, against the same run on the CPU
+                   (topology and n_params equal after every epoch, loss and
+                   accuracy within tolerance), the launches of kernels A
+                   (forward, dX), F and G per step, and a run at the paper's
+                   dropout whose loss must fall;
+9. timings       — classify latency per bucket, where a classify's device
                    time goes (kernels, copies and transposes, launches),
                    and per-kernel device time for A and B (CUDA events)
                    beside bound, plain version and one PyTorch library call
                    (A also with its other route's time and with its
                    epilogue; B as the epilogue's cost in A and as its
                    standalone pass);
-8. train_timings — the training step's time and device idle share, the
-                   epochs' seconds, and per-kernel rows for C, D and E (C
-                   and E also with ``bound_tc_ms``, their bound at the
-                   3xTF32 tensor-core rate).
+10. train_timings — the block and the element training step's time and
+                   device idle share, the epochs' seconds, and per-kernel rows
+                   for C, D and E (C and E also with ``bound_tc_ms``, their
+                   bound at the 3xTF32 tensor-core rate) and for kernel A's
+                   dX use, F and G.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Without a card it exits non-zero and prints no result.
@@ -126,10 +145,29 @@ KERNEL_E = dict(
     name="bsmm_dw", route="cuda", source="src/repro_torch/csrc/bsmm_dw.cu",
     replaces="src/repro/kernels/block_sparse_matmul.py:186",
 )
+# the element training path: kernel A's dX use (the reference's backward
+# calls sparsity.py:477 over the dual order at ops.py:223), F, and G (what
+# XLA derives for All-ReLU's jnp.where)
+KERNEL_A_DX = dict(
+    name="coo_matmul_T.dX", route="cuda", source="src/repro_torch/csrc/coo_matmul_T.cu",
+    replaces="src/repro/kernels/ops.py:223",
+)
+KERNEL_F = dict(
+    name="coo_dw", route="cuda", source="src/repro_torch/csrc/coo_dw.cu",
+    replaces="src/repro/core/sparsity.py:544",
+)
+KERNEL_G = dict(
+    name="all_relu_bwd", route="cuda", source="src/repro_torch/csrc/all_relu_bwd.cu",
+    replaces="src/repro/core/all_relu.py:21",
+)
 WRAPPERS = {
     "coo_matmul_T": sparsity.coo_matmul_T, "bias_all_relu": all_relu_fused.bias_all_relu,
     "bsmm_fwd": bsm.bsmm_fwd, "bsmm_dx": bsm.bsmm_dx, "bsmm_dw": bsm.bsmm_dw,
+    "coo_dw": sparsity.coo_dw, "all_relu_bwd": all_relu_fused.all_relu_bwd,
 }
+# The element gradients' tolerance, the reference's (tests/test_espmm_grad.py):
+# kernels A (dX), F and G sum in other orders than the plain versions.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 # Kernels C, D and E sum up to K = 4096 products per output in another order
 # than the plain versions' einsums (C and E in 3xTF32, as accurate as f32;
 # one TF32 pass would miss this tolerance ~10x, tests/test_torch_tf32.py).
@@ -149,15 +187,22 @@ class SmokeFailure(RuntimeError):
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0, kernel A's epilogue count too."""
+    """Set every kernel's launch count to 0, kernel A's epilogue and mask
+    counts too."""
     for fn in WRAPPERS.values():
         fn.launches = 0
     sparsity.coo_matmul_T.epilogue_launches = 0
+    sparsity.coo_matmul_T.mask_launches = 0
 
 
 def read_counts() -> dict:
     return dict({name: fn.launches for name, fn in WRAPPERS.items()},
-                **{"coo_matmul_T.epilogue": sparsity.coo_matmul_T.epilogue_launches})
+                **{"coo_matmul_T.epilogue": sparsity.coo_matmul_T.epilogue_launches,
+                   "coo_matmul_T.mask": sparsity.coo_matmul_T.mask_launches})
+
+
+NO_LAUNCHES = dict({name: 0 for name in WRAPPERS}, **{"coo_matmul_T.epilogue": 0,
+                                                      "coo_matmul_T.mask": 0})
 
 
 def check(cond: bool, msg: str) -> None:
@@ -429,9 +474,8 @@ def phase_main(out: dict) -> str:
     cap = engine.cfg.batch_buckets[-1]
     forwards = sum(-(-n // cap) for n in SIZES)
     # one kernel A a layer, each with its epilogue; kernel B's pass is in it
-    want = {"coo_matmul_T": forwards * cfg.n_layers,
-            "coo_matmul_T.epilogue": forwards * cfg.n_layers, "bias_all_relu": 0,
-            "bsmm_fwd": 0, "bsmm_dx": 0, "bsmm_dw": 0}
+    want = dict(NO_LAUNCHES, **{"coo_matmul_T": forwards * cfg.n_layers,
+                                "coo_matmul_T.epilogue": forwards * cfg.n_layers})
     check(launches == want, f"launch counts {launches}, expected {want}")
     for n in SIZES:
         check(logits[n].shape == (n, cfg.layer_dims[-1]), f"logits shape {logits[n].shape}")
@@ -534,7 +578,7 @@ def phase_timings(out: dict) -> str:
             vals, bias = engine.model.values[l], engine.model.biases[l]
             host = engine.model.topos[l]
             topo = host.device_arrays(dev)
-            seg_ptr = engine._col_ptrs[l]
+            seg_ptr = sparsity.registered_offsets(topo.cols)
             n_out, nnz = host.out_dim, host.nnz
             route = sparsity.coo_route(int(np.diff(host.col_ptr()).max()))
             hidden = l < cfg.n_layers - 1
@@ -793,11 +837,10 @@ def block_accuracy(rng: np.random.Generator) -> dict:
     return res
 
 
-def trainer_for(device, dropout: float = 0.0):
-    """A trainer of the full-width block model and the list its epoch hook
-    fills with each epoch's topology."""
-    trainer = SequentialTrainer(block_model(device, dropout), load("cifar10", scale=TRAIN_SCALE),
-                                train_config())
+def trainer_for(model: SparseMLP):
+    """A trainer of ``model`` with ``train_config()`` and the list its epoch
+    hook fills with each epoch's topology."""
+    trainer = SequentialTrainer(model, load("cifar10", scale=TRAIN_SCALE), train_config())
     topologies = []
     trainer.epoch_end_hook = lambda tr, epoch: topologies.append(
         [(t.rows.copy(), t.cols.copy()) for t in tr.model.topos])
@@ -805,7 +848,7 @@ def trainer_for(device, dropout: float = 0.0):
 
 
 def phase_train(out: dict) -> str:
-    card, card_topos = trainer_for(CARD)
+    card, card_topos = trainer_for(block_model(CARD))
     reset_counts()
     hist = card.run()
     launches = read_counts()
@@ -813,15 +856,31 @@ def phase_train(out: dict) -> str:
     steps = TRAIN_EPOCHS * (len(card.data.x_train) // 128)
     evals = TRAIN_EPOCHS * -(-len(card.data.x_test) // 512)
     # the evaluations (autograd off) run kernel B on each hidden layer
-    want = {"coo_matmul_T": 0, "coo_matmul_T.epilogue": 0,
-            "bias_all_relu": evals * (cfg.n_layers - 1),
-            "bsmm_fwd": (steps + evals) * cfg.n_layers,
-            "bsmm_dx": steps * (cfg.n_layers - 1), "bsmm_dw": steps * cfg.n_layers}
+    want = dict(NO_LAUNCHES, bias_all_relu=evals * (cfg.n_layers - 1),
+                bsmm_fwd=(steps + evals) * cfg.n_layers,
+                bsmm_dx=steps * (cfg.n_layers - 1), bsmm_dw=steps * cfg.n_layers)
     check(launches == want, f"launch counts {launches}, expected {want}")
     check(bool(np.isfinite(hist["train_loss"]).all()), f"non-finite loss {hist['train_loss']}")
 
-    # the same run on the CPU, through the plain versions
-    cpu, cpu_topos = trainer_for("cpu")
+    cpu_hist, loss_err = same_run_on_cpu(card, hist, card_topos, block_model("cpu"))
+    drop_hist = dropout_run(block_model(CARD, dropout=0.3))
+    out.update(train_hist=hist, train_launches=launches)
+    print(json.dumps({"train_history": {"card": hist, "cpu": cpu_hist, "dropout_0.3": drop_hist}}))
+    return (
+        f"3 epochs x {steps // TRAIN_EPOCHS} steps of 128 at dims {cfg.layer_dims}, tiles "
+        f"{[t.n_blocks for t in card.model.topos]} after pruning; loss {hist['train_loss']}, "
+        f"acc {hist['test_acc']}, n_params {hist['n_params']}; card vs CPU: topology and "
+        f"n_params equal every epoch, loss rel err {loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); "
+        f"launches {launches}; dropout 0.3 loss {drop_hist['train_loss']}"
+    )
+
+
+def same_run_on_cpu(card: SequentialTrainer, hist: dict, card_topos: list, cpu_model: SparseMLP):
+    """The card run's history against the same run on the CPU, through the
+    plain versions: topology and n_params equal after every epoch, loss
+    within TRAIN_LOSS_RTOL, accuracy within one test sample. Returns the
+    CPU history and the largest relative loss difference."""
+    cpu, cpu_topos = trainer_for(cpu_model)
     cpu_hist = cpu.run()
     check(hist["n_params"] == cpu_hist["n_params"],
           f"n_params {hist['n_params']} on the card, {cpu_hist['n_params']} on the CPU")
@@ -833,22 +892,181 @@ def phase_train(out: dict) -> str:
     np.testing.assert_allclose(hist["train_loss"], cpu_hist["train_loss"], rtol=TRAIN_LOSS_RTOL)
     n_test = len(card.data.y_test)
     np.testing.assert_allclose(hist["test_acc"], cpu_hist["test_acc"], atol=1.0 / n_test + 1e-9)
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(hist["train_loss"], cpu_hist["train_loss"]))
+    return cpu_hist, max(abs(a - b) / abs(b)
+                         for a, b in zip(hist["train_loss"], cpu_hist["train_loss"]))
 
-    # the paper's dropout: the loss must be finite and fall
-    drop, _ = trainer_for(CARD, dropout=0.3)
-    drop_hist = drop.run()
-    check(bool(np.isfinite(drop_hist["train_loss"]).all())
-          and drop_hist["train_loss"][-1] < drop_hist["train_loss"][0],
-          f"dropout 0.3 run: loss {drop_hist['train_loss']} is not finite and falling")
-    out.update(train_hist=hist, train_launches=launches)
-    print(json.dumps({"train_history": {"card": hist, "cpu": cpu_hist, "dropout_0.3": drop_hist}}))
+
+def dropout_run(model: SparseMLP) -> dict:
+    """A run at the paper's dropout on the card: the loss must be finite and
+    fall."""
+    hist = trainer_for(model)[0].run()
+    check(bool(np.isfinite(hist["train_loss"]).all())
+          and hist["train_loss"][-1] < hist["train_loss"][0],
+          f"dropout {model.config.dropout} run: loss {hist['train_loss']} is not finite "
+          f"and falling")
+    return hist
+
+
+# -- the element training path (kernels A, F, G) ------------------------------
+
+
+def element_model(device, dropout: float = 0.0) -> SparseMLP:
+    """The full-width CIFAR-10 element SET-MLP, seeded."""
+    return SparseMLP(dataclasses.replace(mlp_config("cifar10"), dropout=dropout), seed=SEED,
+                     device=device)
+
+
+def element_layer_inputs(model: SparseMLP, x: np.ndarray, rng: np.random.Generator):
+    """Per layer: (host topology, device arrays, values, bias, input hT
+    (in_dim, B), a seeded output gradient dz (out_dim, B), All-ReLU's slope
+    or None), the activations carried from ``x`` through the plain
+    training forward."""
+    cfg, dev = model.config, model.device
+    hT = torch.as_tensor(np.ascontiguousarray(x.T), device=dev)
+    layers = []
+    for l in range(cfg.n_layers):
+        host = model.topos[l]
+        t = host.device_arrays(dev)
+        slope = ref.slope_for(cfg.alpha, l + 1) if l < cfg.n_layers - 1 else None
+        dz = torch.as_tensor(
+            (0.01 * rng.standard_normal((host.out_dim, hT.shape[1]))).astype(np.float32),
+            device=dev)
+        layers.append((host, t, model.values[l], model.biases[l], hT, dz, slope))
+        hT = sparsity.coo_matmul_T_plain(hT, model.values[l], t.rows, t.cols, host.out_dim,
+                                         bias=model.biases[l], slope=slope)
+    return layers
+
+
+def _bits_equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_bits_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def thrice(fn, what: str):
+    """``fn()`` launched three times on the same inputs: the first result,
+    after checking that the other two have its bits."""
+    first, again = fn(), [fn(), fn()]
+    torch.cuda.synchronize()
+    check(all(_bits_equal(first, r) for r in again), f"{what} gave other bits on a later launch")
+    return first
+
+
+def phase_element_kernels(out: dict) -> str:
+    model = seeded_model(CARD)  # nonzero biases: G's bias gradient and A's epilogue see them
+    x_train = load("cifar10", scale=TRAIN_SCALE).x_train
+    rng = np.random.default_rng(SEED)
+    err = {k: 0.0 for k in ("coo_matmul_T.dX", "coo_matmul_T.mask", "coo_dw", "all_relu_bwd")}
+    n_checks, n_zero = 0, 0
+
+    def compare(name, got, want, what):
+        nonlocal n_checks
+        torch.testing.assert_close(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   msg=lambda m: f"{what}: {m}")
+        err[name] = max(err[name], float((got - want).abs().max()))
+        n_checks += 1
+
+    for batch in (128, 33):
+        for l, (host, t, v, bias, hT, dz, slope) in enumerate(
+                element_layer_inputs(model, x_train[:batch], rng)):
+            where = f"layer {l}, batch {batch}"
+            # A's dX use: the dual order's registered offsets pick the route
+            row_ptr = sparsity.registered_offsets(t.rows_r)
+            check(row_ptr is not None, "the dual order's offsets are not registered")
+            route = sparsity.coo_route(sparsity._longest_segment(row_ptr, host.nnz, host.in_dim))
+            check(route == sparsity.COO_THREAD, f"A's dX takes route {route} at {where}")
+            vr = v.index_select(0, t.perm_r)
+            dx = thrice(lambda: sparsity.coo_matmul_T(dz, vr, t.cols_r, t.rows_r, host.in_dim),
+                        f"kernel A's dX at {where}")
+            compare("coo_matmul_T.dX", dx, sparsity.coo_matmul_T_plain(
+                dz, vr, t.cols_r, t.rows_r, host.in_dim), f"kernel A's dX at {where}")
+            # F
+            dv = thrice(lambda: sparsity.coo_dw(hT, dz, t.rows, t.cols), f"kernel F at {where}")
+            compare("coo_dw", dv, sparsity.coo_dw_plain(hT, dz, t.rows, t.cols),
+                    f"kernel F at {where}")
+            # G without a mask (the output layer's use, here on every layer)
+            g = thrice(lambda: all_relu_fused.all_relu_bwd(dz, None, None), f"kernel G at {where}")
+            want = all_relu_fused.all_relu_bwd_plain(dz, None, None)
+            check(torch.equal(g[0], want[0]), f"kernel G's dz is not dy without a mask at {where}")
+            compare("all_relu_bwd", g[1], want[1], f"kernel G's dbias at {where}")
+            # A's training epilogue and G with its mask, both slope signs; a
+            # bias that cancels the product makes v exactly 0 in batch column
+            # 0 of every third feature, where the slope branch is taken
+            prod = sparsity.coo_matmul_T(hT, v, t.rows, t.cols, host.out_dim)
+            bias_z = bias.clone()
+            bias_z[::3] = -prod[::3, 0]
+            pre = sparsity.coo_matmul_T(hT, v, t.rows, t.cols, host.out_dim, bias=bias_z)
+            n_zero += int((pre == 0).sum())
+            for layer_index in (1, 2):
+                s_l = ref.slope_for(model.config.alpha, layer_index)
+                o3, m3 = thrice(lambda: sparsity.coo_matmul_T(
+                    hT, v, t.rows, t.cols, host.out_dim, bias=bias_z, slope=s_l, with_mask=True),
+                    f"kernel A's training epilogue at {where}")
+                o2 = sparsity.coo_matmul_T(hT, v, t.rows, t.cols, host.out_dim, bias=bias_z,
+                                           slope=s_l)
+                torch.cuda.synchronize()
+                check(torch.equal(o3, o2),
+                      f"kernel A's training epilogue output is not its All-ReLU epilogue's at "
+                      f"{where}, slope {s_l}")
+                check(torch.equal(m3.bool(), pre > 0),
+                      f"kernel A's mask is not where its bias epilogue is > 0 at {where}")
+                compare("coo_matmul_T.mask", o3, sparsity.coo_matmul_T_plain(
+                    hT, v, t.rows, t.cols, host.out_dim, bias=bias_z, slope=s_l),
+                    f"kernel A's training epilogue at {where}")
+                g = thrice(lambda: all_relu_fused.all_relu_bwd(dz, m3, s_l),
+                           f"kernel G with a mask at {where}")
+                want = all_relu_fused.all_relu_bwd_plain(dz, m3, s_l)
+                check(torch.equal(g[0], want[0]), f"kernel G's dz differs at {where}, slope {s_l}")
+                compare("all_relu_bwd", g[1], want[1], f"kernel G's dbias at {where}")
+    check(n_zero > 0, "no pre-activation was exactly 0")
+    out["err"].update(err)
     return (
-        f"3 epochs x {steps // TRAIN_EPOCHS} steps of 128 at dims {cfg.layer_dims}, tiles "
-        f"{[t.n_blocks for t in card.model.topos]} after pruning; loss {hist['train_loss']}, "
-        f"acc {hist['test_acc']}, n_params {hist['n_params']}; card vs CPU: topology and "
-        f"n_params equal every epoch, loss rel err {loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); "
-        f"launches {launches}; dropout 0.3 loss {drop_hist['train_loss']}"
+        f"{n_checks} comparisons at dims {model.config.layer_dims}, batch 128 and 33: kernel "
+        f"A's dX (thread route, registered row offsets), F, G with and without a mask "
+        f"(slopes +-{model.config.alpha}), A's training epilogue (output bit-equal to the "
+        f"All-ReLU epilogue's, mask = bias epilogue > 0, {n_zero} pre-activations exactly 0); "
+        f"each bit-equal over 3 launches; max_abs_err A dX {err['coo_matmul_T.dX']:.3g}, F "
+        f"{err['coo_dw']:.3g}, G dbias {err['all_relu_bwd']:.3g}, A training epilogue "
+        f"{err['coo_matmul_T.mask']:.3g} (rtol {GRAD_RTOL}, atol {GRAD_ATOL})"
+    )
+
+
+def phase_element_train(out: dict) -> str:
+    card, card_topos = trainer_for(element_model(CARD))
+    reset_counts()
+    hist = card.run()
+    launches = read_counts()
+    cfg = card.model.config
+    n_layers = cfg.n_layers
+    steps = TRAIN_EPOCHS * (len(card.data.x_train) // 128)
+    evals = TRAIN_EPOCHS * -(-len(card.data.x_test) // 512)
+    # a step: A forward on every layer (the hidden ones with the mask), A's
+    # dX on all but layer 0, F and G on every layer; an evaluation batch: A
+    # with its epilogue on every layer
+    want = dict(NO_LAUNCHES, **{
+        "coo_matmul_T": steps * (2 * n_layers - 1) + evals * n_layers,
+        "coo_matmul_T.epilogue": (steps + evals) * n_layers,
+        "coo_matmul_T.mask": steps * (n_layers - 1),
+        "coo_dw": steps * n_layers, "all_relu_bwd": steps * n_layers})
+    check(launches == want, f"launch counts {launches}, expected {want}")
+    check(bool(np.isfinite(hist["train_loss"]).all()), f"non-finite loss {hist['train_loss']}")
+    per_step = {
+        "A forward": (launches["coo_matmul_T.epilogue"] - evals * n_layers) / steps,
+        "A forward with mask": launches["coo_matmul_T.mask"] / steps,
+        "A dX": (launches["coo_matmul_T"] - launches["coo_matmul_T.epilogue"]) / steps,
+        "F": launches["coo_dw"] / steps, "G": launches["all_relu_bwd"] / steps}
+    cpu_hist, loss_err = same_run_on_cpu(card, hist, card_topos, element_model("cpu"))
+    drop_hist = dropout_run(element_model(CARD, dropout=0.3))
+    out.update(element_hist=hist, element_launches=launches)
+    print(json.dumps({"element_train_history": {
+        "card": hist, "cpu": cpu_hist, "dropout_0.3": drop_hist}}))
+    print(json.dumps({"element_launches_per_step": per_step}))
+    return (
+        f"3 epochs x {steps // TRAIN_EPOCHS} steps of 128 at dims {cfg.layer_dims}, connections "
+        f"{[t.nnz for t in card.model.topos]} after pruning; loss {hist['train_loss']}, acc "
+        f"{hist['test_acc']}, n_params {hist['n_params']}; card vs CPU: topology and n_params "
+        f"equal every epoch, loss rel err {loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); launches "
+        f"{launches}, per step {per_step}; dropout 0.3 loss {drop_hist['train_loss']}"
     )
 
 
@@ -905,14 +1123,16 @@ def profile_train_step(one_step, step_ms: float, steps: int = 10) -> dict:
                 host_self_us_top=[dict(op=k, us=us, calls=n) for us, n, k in host[:12]])
 
 
-def phase_train_timings(out: dict) -> str:
-    model = block_model(CARD)
-    cfg, dev = model.config, model.device
-    data = load("cifar10", scale=TRAIN_SCALE)
+def time_train_step(model: SparseMLP, data, name: str) -> dict:
+    """One training step of ``model`` at batch 128 (forward, backward,
+    momentum-SGD update): the median of 30 host-clock steps that end in a
+    synchronise, after 5 warm-up steps, with quartiles (``<name>_ms``), then
+    its profile (``<name>_profile``)."""
+    dev = model.device
     xb = torch.as_tensor(data.x_train[:128], device=dev)
     yb = torch.as_tensor(data.y_train[:128], device=dev).long()
     opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
-    step = make_mlp_train_step(cfg, opt)
+    step = make_mlp_train_step(model.config, opt)
     topo = model.topo_arrays()
     lr = torch.tensor(0.01, device=dev)
     state = {"params": model.params(), "opt": opt.init(model.params())}
@@ -931,10 +1151,87 @@ def phase_train_timings(out: dict) -> str:
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     q25, q50, q75 = np.percentile(ts, [25, 50, 75])
-    print(json.dumps({"train_step_ms": dict(median=float(q50), q25=float(q25), q75=float(q75))}))
+    print(json.dumps({f"{name}_ms": dict(median=float(q50), q25=float(q25), q75=float(q75))}))
     prof = profile_train_step(one_step, float(q50))
-    print(json.dumps({"train_step_profile": prof}))
-    print(json.dumps({"epoch_seconds": out["train_hist"]["epoch_seconds"]}))
+    print(json.dumps({f"{name}_profile": prof}))
+    return dict(prof, q25=float(q25), q75=float(q75))
+
+
+def element_timing_rows(data) -> list:
+    """Per-layer device times at batch 128 of the element step's backward
+    kernels, on the full-width element model: kernel A's dX use (not on
+    layer 0), F and G (with the mask kernel A's training epilogue gives a
+    hidden layer), each beside its bound, its plain version and one PyTorch
+    call: ``torch.sparse.mm`` on the dual order's CSR, ``sampled_addmm`` on
+    the layer's CSR pattern, ``torch.where`` then ``.sum(1)``."""
+    model = element_model(CARD)
+    rows = []
+    rng = np.random.default_rng(SEED)
+    for l, (host, t, v, bias, hT, dz, slope) in enumerate(
+            element_layer_inputs(model, data.x_train[:128], rng)):
+        batch, nnz, n_in, n_out = hT.shape[1], host.nnz, host.in_dim, host.out_dim
+        common = dict(layer=l, batch=batch, shape=[n_in, n_out], nnz=nnz)
+        row_ptr = sparsity.registered_offsets(t.rows_r)
+        vr = v.index_select(0, t.perm_r)
+        if l > 0:  # the step needs no gradient of the data
+            csr = torch.sparse_csr_tensor(row_ptr, t.cols_r.long(), vr, (n_in, n_out))
+            rows.append(dict(
+                kernel="coo_matmul_T.dX", **common,
+                ms=device_ms(lambda: sparsity.coo_matmul_T(dz, vr, t.cols_r, t.rows_r, n_in)),
+                plain_ms=device_ms(lambda: sparsity.coo_matmul_T_plain(
+                    dz, vr, t.cols_r, t.rows_r, n_in)),
+                library_ms=library_ms(lambda: torch.sparse.mm(csr, dz)),
+                **bound(4 * (dz.numel() + 2 * nnz + n_in * batch) + 8 * (n_in + 1),
+                        2 * nnz * batch),
+            ))
+        pattern = torch.sparse_csr_tensor(row_ptr, t.cols_r.long(), torch.zeros_like(vr),
+                                          (n_in, n_out))
+        dz_bt = dz.T.contiguous()  # sampled_addmm's (B, out_dim) operand, made untimed
+        rows.append(dict(
+            kernel="coo_dw", **common,
+            ms=device_ms(lambda: sparsity.coo_dw(hT, dz, t.rows, t.cols)),
+            plain_ms=device_ms(lambda: sparsity.coo_dw_plain(hT, dz, t.rows, t.cols)),
+            library_ms=library_ms(lambda: torch.sparse.sampled_addmm(pattern, hT, dz_bt, beta=0.0)),
+            **bound(4 * (hT.numel() + dz.numel() + 3 * nnz), 2 * nnz * batch),
+        ))
+        if slope is None:
+            mask = None
+            lib = lambda: dz.sum(1)  # noqa: E731
+        else:
+            _, mask = sparsity.coo_matmul_T(hT, v, t.rows, t.cols, n_out, bias=bias, slope=slope,
+                                            with_mask=True)
+            keep = mask.bool()
+            lib = lambda: torch.where(keep, dz, slope * dz).sum(1)  # noqa: E731
+            # the training epilogue's cost: kernel A's forward with the mask
+            # store against the served All-ReLU epilogue (not a kernels-line
+            # entry: A's forward is kernel A's)
+            rows.append(dict(
+                kernel="coo_matmul_T.train", **common,
+                ms=device_ms(lambda: sparsity.coo_matmul_T(hT, v, t.rows, t.cols, n_out,
+                                                           bias=bias, slope=slope,
+                                                           with_mask=True)),
+                all_relu_epilogue_ms=device_ms(lambda: sparsity.coo_matmul_T(
+                    hT, v, t.rows, t.cols, n_out, bias=bias, slope=slope)),
+            ))
+        n = dz.numel()
+        rows.append(dict(
+            kernel="all_relu_bwd", **common, mask=mask is not None,
+            ms=device_ms(lambda: all_relu_fused.all_relu_bwd(dz, mask, slope)),
+            plain_ms=device_ms(lambda: all_relu_fused.all_relu_bwd_plain(dz, mask, slope)),
+            library_ms=library_ms(lib),
+            **bound(8 * n + 4 * n_out + (n if mask is not None else 0),
+                    (2 if mask is not None else 1) * n),
+        ))
+    return rows
+
+
+def phase_train_timings(out: dict) -> str:
+    model = block_model(CARD)
+    data = load("cifar10", scale=TRAIN_SCALE)
+    prof = time_train_step(model, data, "train_step")
+    eprof = time_train_step(element_model(CARD), data, "element_train_step")
+    print(json.dumps({"epoch_seconds": out["train_hist"]["epoch_seconds"],
+                      "element_epoch_seconds": out["element_hist"]["epoch_seconds"]}))
 
     rows = []
     rng = np.random.default_rng(SEED)
@@ -977,17 +1274,30 @@ def phase_train_timings(out: dict) -> str:
             library_ms=library_ms(lambda: torch.bmm(xg, dyg)),
             **block_bound("bsmm_dw", meta, host, batch),
         ))
+    rows += element_timing_rows(data)
     for r in rows:
         print(json.dumps({"kernel_timing": r}))
-    for meta in (KERNEL_C, KERNEL_D, KERNEL_E):
+    el = out["element_launches"]
+    element_launches = {"coo_matmul_T.dX": el["coo_matmul_T"] - el["coo_matmul_T.epilogue"],
+                        "coo_dw": el["coo_dw"], "all_relu_bwd": el["all_relu_bwd"]}
+    for meta, launches in ((KERNEL_C, out["train_launches"]["bsmm_fwd"]),
+                           (KERNEL_D, out["train_launches"]["bsmm_dx"]),
+                           (KERNEL_E, out["train_launches"]["bsmm_dw"]),
+                           *((m, element_launches[m["name"]])
+                             for m in (KERNEL_A_DX, KERNEL_F, KERNEL_G))):
         # one training step: the sum over its launches
         mine = [r for r in rows if r["kernel"] == meta["name"]]
-        out["kernels"].append(kernel_entry(meta, mine, out["train_launches"][meta["name"]],
-                                           out["err"][meta["name"]]))
+        out["kernels"].append(kernel_entry(meta, mine, launches, out["err"][meta["name"]]))
+
+    def step_line(p):
+        return (f"median {p['step_ms']:.3f} ms (q25 {p['q25']:.3f}, q75 {p['q75']:.3f}), "
+                f"device busy {p['device_busy_us']:.1f} us, idle share "
+                f"{p['device_idle_share']:.3f}")
+
     return (
-        f"train step median {q50:.3f} ms (q25 {q25:.3f}, q75 {q75:.3f}), device busy "
-        f"{prof['device_busy_us']:.1f} us, idle share {prof['device_idle_share']:.3f}; "
-        f"epoch_seconds {out['train_hist']['epoch_seconds']}; per-kernel rows above"
+        f"block step {step_line(prof)}; element step {step_line(eprof)}; epoch_seconds block "
+        f"{out['train_hist']['epoch_seconds']}, element {out['element_hist']['epoch_seconds']}; "
+        f"per-kernel rows above"
     )
 
 
@@ -1012,7 +1322,8 @@ def main() -> int:
     out: dict = {}
     for name, phase in (
         ("device", phase_device), ("build", phase_build), ("kernels", phase_kernels),
-        ("block_kernels", phase_block_kernels), ("main", phase_main), ("train", phase_train),
+        ("block_kernels", phase_block_kernels), ("element_kernels", phase_element_kernels),
+        ("main", phase_main), ("train", phase_train), ("element_train", phase_element_train),
         ("timings", phase_timings), ("train_timings", phase_train_timings),
     ):
         t0 = time.perf_counter()

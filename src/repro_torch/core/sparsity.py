@@ -6,10 +6,13 @@ gives the same connections (and the same initial values) bit for bit:
 
 * ``ElementTopology`` — COO connections, the paper-faithful path;
   ``ElemTopoArrays`` holds its dual-order views as int32 tensors on the
-  device. The product primitive :func:`coo_matmul_T` is kernel A
+  device, and the segment offsets of both orders are made with them, once.
+  The product primitive :func:`coo_matmul_T` is kernel A
   (``csrc/coo_matmul_T.cu``), with an optional bias (+ All-ReLU) epilogue
   in its store, for CUDA tensors and its plain PyTorch version for CPU
-  tensors.
+  tensors; it serves the forward and, over the row-sorted dual order, dX.
+  The per-slot weight gradient :func:`coo_dw` is kernel F
+  (``csrc/coo_dw.cu``).
 * ``BlockTopology`` — live (block_m, block_n) tiles stored as a compact
   ``(n_blocks, bm, bn)`` stack plus int32 block coordinates;
   ``BlockTopoArrays`` holds the same dual-order views. Its products are
@@ -34,6 +37,8 @@ __all__ = [
     "ElemTopoArrays",
     "ElementTopology",
     "COO_LONG_SEGMENT",
+    "coo_dw",
+    "coo_dw_plain",
     "coo_epilogue",
     "coo_matmul_T",
     "coo_matmul_T_plain",
@@ -43,6 +48,7 @@ __all__ = [
     "element_spmm_segment",
     "erdos_renyi_nnz",
     "offsets_to_device",
+    "registered_offsets",
     "segment_offsets",
     "spmm_chunk_for",
 ]
@@ -336,20 +342,37 @@ class ElementTopology:
         return self.nnz / (self.in_dim * self.out_dim)
 
     def device_arrays(self, device: torch.device) -> ElemTopoArrays:
+        """The dual-order views on ``device``. The segment offsets of both
+        orders (:meth:`col_ptr`, :meth:`row_ptr`) are made with them from the
+        host's arrays and registered to ``cols`` and ``rows_r``, so that
+        kernel A finds them, and its route, with no device sync; the indices
+        were range-checked at construction, so kernels A and F gather
+        through them unchecked."""
         rows, cols = self.rows, self.cols
         perm_r = np.lexsort((cols, rows)).astype(np.int32)
         rows_r = rows[perm_r]
         cols_r = cols[perm_r]
-        return ElemTopoArrays(*(
+        arrays = ElemTopoArrays(*(
             torch.as_tensor(a, device=device)
             for a in (rows, cols, _first_flags(cols), rows_r, cols_r,
                       _first_flags(rows_r), perm_r)
         ))
+        _register_offsets(arrays.cols, offsets_to_device(self.col_ptr(), device))
+        _register_offsets(arrays.rows_r, offsets_to_device(self.row_ptr(), device))
+        for t, hi in ((arrays.rows, self.in_dim), (arrays.cols, self.out_dim),
+                      (arrays.rows_r, self.in_dim), (arrays.cols_r, self.out_dim)):
+            _trust_indices(t, hi)
+        return arrays
 
     def col_ptr(self) -> np.ndarray:
         """int64 (out_dim + 1,) offsets of each column's slot range in the
         canonical order: kernel A's ``seg_ptr`` for the forward product."""
         return np.searchsorted(self.cols, np.arange(self.out_dim + 1)).astype(np.int64)
+
+    def row_ptr(self) -> np.ndarray:
+        """int64 (in_dim + 1,) offsets of each row's slot range in the
+        row-sorted dual order (``rows_r``): kernel A's ``seg_ptr`` for dX."""
+        return np.searchsorted(np.sort(self.rows), np.arange(self.in_dim + 1)).astype(np.int64)
 
     def init_values(
         self, rng: np.random.Generator, *, dtype: torch.dtype = torch.float32,
@@ -443,22 +466,28 @@ def coo_route(longest: int) -> int:
     return COO_STAGED if longest >= COO_LONG_SEGMENT else COO_THREAD
 
 
-# The longest segment of offsets made on the host, by tensor identity
-# (offsets_to_device): kernel A's route needs it, and reading it from the
-# device would cost a sync per call.
-_LONGEST: Dict[int, Tuple[weakref.ref, int]] = {}
+# The longest segment and the end of offsets made on the host, by tensor
+# identity (offsets_to_device): kernel A's route needs the first, its bounds
+# check the second, and reading either from the device would cost a sync
+# per call.
+_LONGEST: Dict[int, Tuple[weakref.ref, int, int]] = {}
 
 
 def offsets_to_device(seg_ptr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Kernel A's ``seg_ptr`` (int64 (n_segments + 1,)) on ``device`` from
-    the host's offsets (``ElementTopology.col_ptr()``), remembering the
-    longest segment so that :func:`coo_matmul_T` picks its route from a host
-    int. Frozen topology: the tensor must not change after."""
-    seg_ptr = np.asarray(seg_ptr, np.int64)
-    t = torch.as_tensor(seg_ptr, device=device)
+    the host's offsets (``ElementTopology.col_ptr()``/``row_ptr()``),
+    checked on the host (from 0, never decreasing) and remembered with its
+    longest segment, so that :func:`coo_matmul_T` picks its route from a
+    host int and checks it with no device sync. Frozen topology: the tensor
+    must not change after."""
+    seg_ptr = np.array(seg_ptr, np.int64)  # a copy: the tensor must not follow the caller's array
+    if seg_ptr.size == 0 or seg_ptr[0] != 0 or (np.diff(seg_ptr) < 0).any():
+        raise ValueError("seg_ptr must start at 0 and never decrease")
+    t = torch.from_numpy(seg_ptr).to(device)
     key = id(t)
     longest = int(np.diff(seg_ptr).max()) if seg_ptr.size > 1 else 0
-    _LONGEST[key] = (weakref.ref(t, lambda _, k=key: _LONGEST.pop(k, None)), longest)
+    _LONGEST[key] = (weakref.ref(t, lambda _, k=key: _LONGEST.pop(k, None)), longest,
+                     int(seg_ptr[-1]))
     return t
 
 
@@ -469,6 +498,50 @@ def _longest_segment(seg_ptr: Optional[torch.Tensor], nnz: int, n_segments: int)
     if hit is not None and hit[0]() is seg_ptr:
         return hit[1]
     return -(-nnz // max(1, n_segments))
+
+
+# Segment offsets by the identity of the sorted index tensor they describe
+# (``ElementTopology.device_arrays``: ``cols`` -> column offsets, ``rows_r``
+# -> row offsets), so that every product over a topology's arrays finds
+# them with no argument and no device work. An entry lives as long as its
+# index tensor.
+_SEG_PTRS: Dict[int, Tuple[weakref.ref, torch.Tensor]] = {}
+
+
+def _register_offsets(segment_idx: torch.Tensor, seg_ptr: torch.Tensor) -> None:
+    key = id(segment_idx)
+    _SEG_PTRS[key] = (weakref.ref(segment_idx, lambda _, k=key: _SEG_PTRS.pop(k, None)),
+                      seg_ptr)
+
+
+def registered_offsets(segment_idx: torch.Tensor) -> Optional[torch.Tensor]:
+    """The offsets made for ``segment_idx`` by the ``device_arrays`` that
+    made it, or None."""
+    hit = _SEG_PTRS.get(id(segment_idx))
+    return hit[1] if hit is not None and hit[0]() is segment_idx else None
+
+
+# Index tensors known to lie in [0, bound), by identity: made by
+# ``device_arrays`` from a range-checked topology, or checked once (one
+# device sync) on first use by kernel F.
+_TRUSTED_INDICES: Dict[int, Tuple[weakref.ref, int]] = {}
+
+
+def _trust_indices(idx: torch.Tensor, bound: int) -> None:
+    key = id(idx)
+    _TRUSTED_INDICES[key] = (weakref.ref(idx, lambda _, k=key: _TRUSTED_INDICES.pop(k, None)),
+                             bound)
+
+
+def _check_indices(idx: torch.Tensor, bound: int, name: str) -> None:
+    """Raise unless every index lies in [0, bound). Frozen topology: a
+    tensor is checked the first time it is given, then remembered."""
+    hit = _TRUSTED_INDICES.get(id(idx))
+    if hit is not None and hit[0]() is idx and hit[1] <= bound:
+        return
+    if idx.numel() and not bool((idx.min() >= 0) & (idx.max() < bound)):
+        raise ValueError(f"{name} has indices outside [0, {bound})")
+    _trust_indices(idx, bound)
 
 
 def coo_matmul_T(
@@ -483,7 +556,8 @@ def coo_matmul_T(
     seg_ptr: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     slope: Optional[float] = None,
-) -> torch.Tensor:
+    with_mask: bool = False,
+):
     """``accT[segment_idx[j], :] += srcT[gather_idx[j], :] * values[j]``,
     then the optional epilogue (:func:`coo_epilogue`).
 
@@ -494,36 +568,46 @@ def coo_matmul_T(
     arithmetic); ``slope`` needs ``bias``. A CUDA tensor launches kernel A,
     which sums each segment left to right in slot order (``chunk`` does not
     apply) and applies the epilogue in its store. Kernel A walks
-    ``seg_ptr``, the segment offsets; when they are not given they are
-    computed from ``segment_idx``, after checking that it is sorted. Its
-    route (:func:`coo_route`) follows the longest segment where ``seg_ptr``
-    came from :func:`offsets_to_device`, else the mean. A CPU tensor takes
-    the plain version.
+    ``seg_ptr``, the segment offsets; when they are not given it takes those
+    registered to ``segment_idx`` (:meth:`ElementTopology.device_arrays`),
+    else computes them from ``segment_idx`` after checking that it is
+    sorted (one device sync). Its route (:func:`coo_route`) follows the
+    longest segment where the offsets came from :func:`offsets_to_device`,
+    else the mean. A CPU tensor takes the plain version.
+
+    ``with_mask`` (training; needs ``bias`` and ``slope``) also returns the
+    uint8 (n_segments, B) mask of ``v > 0``, ``v`` the pre-activation: the
+    branch All-ReLU took, which its backward (:func:`repro_torch.kernels.
+    all_relu_fused.all_relu_bwd`) needs and the output alone does not give
+    (a slope of -alpha turns a negative ``v`` into a positive output).
     """
     if srcT.device.type == "cpu":
         return coo_matmul_T_plain(
             srcT, values, gather_idx, segment_idx, n_segments, chunk=chunk, acc=acc,
-            bias=bias, slope=slope,
+            bias=bias, slope=slope, with_mask=with_mask,
         )
     if srcT.device.type != "cuda":
         raise ValueError(f"coo_matmul_T runs on cuda or cpu tensors, not {srcT.device}")
     return _coo_matmul_T_cuda(srcT, values, gather_idx, segment_idx, seg_ptr, n_segments, acc,
-                              bias=bias, slope=slope)
+                              bias=bias, slope=slope, with_mask=with_mask)
 
 
 coo_matmul_T.launches = 0  # kernel A launches, so a run can show it went through the kernel
 coo_matmul_T.epilogue_launches = 0  # of which with the bias (+ All-ReLU) epilogue
+coo_matmul_T.mask_launches = 0  # of which with the training epilogue (+ the mask)
 
-_COO_MATMUL_T_ARGTYPES = [ctypes.c_void_p] * 7 + [
+_COO_MATMUL_T_ARGTYPES = [ctypes.c_void_p] * 8 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
 
 
 def _check_epilogue_args(bias: Optional[torch.Tensor], slope: Optional[float],
-                         n_segments: int) -> None:
+                         n_segments: int, with_mask: bool = False) -> None:
     if slope is not None and bias is None:
         raise ValueError("the All-ReLU epilogue (slope) needs a bias")
+    if with_mask and slope is None:
+        raise ValueError("the mask is All-ReLU's branch: with_mask needs bias and slope")
     if bias is not None and tuple(bias.shape) != (n_segments,):
         raise ValueError(
             f"bias has shape {tuple(bias.shape)}, expected ({n_segments},): one per segment")
@@ -553,6 +637,11 @@ def _check_seg_ptr(seg_ptr: torch.Tensor, nnz: int) -> None:
     seen = _CHECKED_SEG_PTRS.get(key)
     if seen is not None and seen() is seg_ptr:
         return
+    made = _LONGEST.get(key)
+    if made is not None and made[0]() is seg_ptr:  # checked on the host when it was made
+        if made[2] != nnz:
+            raise ValueError(f"seg_ptr must run from 0 to nnz={nnz} without decreasing")
+        return
     ok = (seg_ptr[0] == 0) & (seg_ptr[-1] == nnz) & (seg_ptr.diff() >= 0).all()
     if not bool(ok):
         raise ValueError(f"seg_ptr must run from 0 to nnz={nnz} without decreasing")
@@ -579,10 +668,11 @@ def _coo_matmul_T_cuda(
     segment_idx: torch.Tensor, seg_ptr: Optional[torch.Tensor], n_segments: int,
     acc: Optional[torch.Tensor], route: Optional[int] = None, *,
     bias: Optional[torch.Tensor] = None, slope: Optional[float] = None,
-) -> torch.Tensor:
+    with_mask: bool = False,
+):
     """Validate, allocate and launch kernel A on the caller's stream, by
     ``route`` (default: :func:`coo_route` of the longest segment), with the
-    epilogue that ``bias`` and ``slope`` ask for."""
+    epilogue that ``bias``, ``slope`` and ``with_mask`` ask for."""
     device = srcT.device
     if srcT.dim() != 2:
         raise ValueError(f"srcT must be (src_dim, B), got shape {tuple(srcT.shape)}")
@@ -596,6 +686,8 @@ def _coo_matmul_T_cuda(
     build.check_tensor(segment_idx, "segment_idx", dtype=torch.int32, shape=(nnz,),
                        device=device)
     if seg_ptr is None:
+        seg_ptr = registered_offsets(segment_idx)
+    if seg_ptr is None:
         seg_ptr = _checked_offsets(segment_idx, n_segments)
     else:
         build.check_tensor(seg_ptr, "seg_ptr", dtype=torch.int64,
@@ -604,28 +696,32 @@ def _coo_matmul_T_cuda(
     if acc is not None:
         build.check_tensor(acc, "acc", dtype=f32, shape=(n_segments, batch),
                            device=device)
-    _check_epilogue_args(bias, slope, n_segments)
+    _check_epilogue_args(bias, slope, n_segments, with_mask)
     if bias is not None:
         build.check_tensor(bias, "bias", dtype=f32, shape=(n_segments,), device=device)
-    # kernel A's epilogue: 0 none, 1 + bias, 2 + bias then All-ReLU
-    mode = 0 if bias is None else 1 if slope is None else 2
+    # kernel A's epilogue: 0 none, 1 + bias, 2 + bias then All-ReLU, 3 as 2
+    # and the mask of the pre-activation's sign
+    mode = 0 if bias is None else 1 if slope is None else 3 if with_mask else 2
     if route is None:
         route = coo_route(_longest_segment(seg_ptr, nnz, n_segments))
     out = torch.empty((n_segments, batch), dtype=f32, device=device)
-    if out.numel() == 0:
-        return out
-    fn = build.kernel("coo_matmul_T", "coo_matmul_T_f32", _COO_MATMUL_T_ARGTYPES)
-    rc = fn(
-        srcT.data_ptr(), values.data_ptr(), gather_idx.data_ptr(),
-        seg_ptr.data_ptr(), None if acc is None else acc.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), n_segments, batch, route,
-        0.0 if slope is None else slope, mode, *build.stream_args(device),
-    )
-    build.check_launch(rc, "coo_matmul_T kernel")
-    coo_matmul_T.launches += 1
-    if mode:
-        coo_matmul_T.epilogue_launches += 1
-    return out
+    mask = torch.empty((n_segments, batch), dtype=torch.uint8, device=device) if with_mask else None
+    if out.numel():
+        fn = build.kernel("coo_matmul_T", "coo_matmul_T_f32", _COO_MATMUL_T_ARGTYPES)
+        rc = fn(
+            srcT.data_ptr(), values.data_ptr(), gather_idx.data_ptr(),
+            seg_ptr.data_ptr(), None if acc is None else acc.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if mask is None else mask.data_ptr(), n_segments, batch, route,
+            0.0 if slope is None else slope, mode, *build.stream_args(device),
+        )
+        build.check_launch(rc, "coo_matmul_T kernel")
+        coo_matmul_T.launches += 1
+        if mode:
+            coo_matmul_T.epilogue_launches += 1
+        if with_mask:
+            coo_matmul_T.mask_launches += 1
+    return (out, mask) if with_mask else out
 
 
 def coo_matmul_T_plain(
@@ -639,12 +735,14 @@ def coo_matmul_T_plain(
     acc: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     slope: Optional[float] = None,
-) -> torch.Tensor:
+    with_mask: bool = False,
+):
     """Plain PyTorch version of kernel A: chunked gather, scale and
-    ``index_add_``, peak temp O(B * chunk), then :func:`coo_epilogue`. Runs
-    on any device; on the CPU ``index_add_`` adds in slot order, so the sum
-    order is kernel A's."""
-    _check_epilogue_args(bias, slope, n_segments)
+    ``index_add_``, peak temp O(B * chunk), then :func:`coo_epilogue` (and,
+    ``with_mask``, the mask of ``out + bias > 0``). Runs on any device; on
+    the CPU ``index_add_`` adds in slot order, so the sum order is kernel
+    A's."""
+    _check_epilogue_args(bias, slope, n_segments, with_mask)
     nnz = int(values.shape[0])
     batch = srcT.shape[-1]
     dtype = torch.promote_types(srcT.dtype, values.dtype)
@@ -657,7 +755,79 @@ def coo_matmul_T_plain(
         g = gather_idx[lo:lo + chunk].long()
         v = values[lo:lo + chunk].to(dtype)
         out.index_add_(0, segment_idx[lo:lo + chunk].long(), srcT[g].to(dtype) * v[:, None])
+    if with_mask:
+        return coo_epilogue(out, bias, slope), (out + bias[:, None] > 0).to(torch.uint8)
     return coo_epilogue(out, bias, slope)
+
+
+def coo_dw(
+    xT: torch.Tensor,
+    dyT: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    *,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-slot batch contraction ``dv[j] = sum_b xT[rows[j], b] * dyT[cols[j], b]``.
+
+    ``xT`` is (in_dim, B), ``dyT`` is (out_dim, B); returns (nnz,) aligned
+    to the canonical slot order. A CUDA tensor launches kernel F, which sums
+    each slot's batch in one fixed order (``chunk`` does not apply); a CPU
+    tensor takes the plain version.
+    """
+    if xT.device.type == "cpu":
+        return coo_dw_plain(xT, dyT, rows, cols, chunk=chunk)
+    if xT.device.type != "cuda":
+        raise ValueError(f"coo_dw runs on cuda or cpu tensors, not {xT.device}")
+    device = xT.device
+    if xT.dim() != 2 or dyT.dim() != 2 or xT.shape[1] != dyT.shape[1]:
+        raise ValueError(
+            f"xT and dyT must be (features, B) with one B, got {tuple(xT.shape)} and "
+            f"{tuple(dyT.shape)}")
+    nnz, batch = rows.shape[0], xT.shape[1]
+    f32 = torch.float32
+    build.check_tensor(xT, "xT", dtype=f32, shape=xT.shape, device=device)
+    build.check_tensor(dyT, "dyT", dtype=f32, shape=dyT.shape, device=device)
+    build.check_tensor(rows, "rows", dtype=torch.int32, shape=(nnz,), device=device)
+    build.check_tensor(cols, "cols", dtype=torch.int32, shape=(nnz,), device=device)
+    _check_indices(rows, xT.shape[0], "rows")
+    _check_indices(cols, dyT.shape[0], "cols")
+    dv = torch.empty((nnz,), dtype=f32, device=device)
+    if nnz == 0:
+        return dv
+    fn = build.kernel("coo_dw", "coo_dw_f32", _COO_DW_ARGTYPES)
+    rc = fn(xT.data_ptr(), dyT.data_ptr(), rows.data_ptr(), cols.data_ptr(), dv.data_ptr(),
+            nnz, batch, *build.stream_args(device))
+    build.check_launch(rc, "coo_dw kernel")
+    coo_dw.launches += 1
+    return dv
+
+
+coo_dw.launches = 0  # kernel F launches, so a run can show it went through the kernel
+
+_COO_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                             ctypes.c_void_p]
+
+
+def coo_dw_plain(
+    xT: torch.Tensor,
+    dyT: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    *,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel F, the reference's chunked form: the
+    two gathered (chunk, B) slabs are the peak intermediate, reduced over the
+    batch at once. Runs on any device."""
+    nnz = int(rows.shape[0])
+    dtype = torch.promote_types(xT.dtype, dyT.dtype)
+    out = torch.empty((nnz,), dtype=dtype, device=xT.device)
+    chunk = spmm_chunk_for(xT.shape[-1], nnz, chunk)
+    for lo in range(0, nnz, chunk):
+        r, c = rows[lo:lo + chunk].long(), cols[lo:lo + chunk].long()
+        out[lo:lo + chunk] = (xT[r].to(dtype) * dyT[c].to(dtype)).sum(-1)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,23 @@
-"""SET topology evolution (Mocanu et al. 2018), block granularity, on the
-host. Twin of the host half of ``repro.core.topology`` for block layers:
-numpy copies of the reference's algorithm and draws, so the same rng gives
-the same topology.
+"""SET topology evolution (Mocanu et al. 2018), on the host. Twin of the
+host half of ``repro.core.topology``: numpy copies of the reference's
+algorithm and draws, so the same rng gives the same topology.
 
-Paper Algorithm 2, weight pruning-regrowing cycle, at tile granularity: the
-prune criterion is the block's mean |w|; regrowth samples vacant tiles
-uniformly, and new blocks are zero-init so they change nothing until
-gradients flow into them. ``RetainValidUpdates`` (Algorithm 1, line 14)
-filters updates computed against a stale topology down to the tiles that
-still exist.
+Paper Algorithm 2, weight pruning-regrowing cycle:
+
+* element granularity (paper-faithful): remove the zeta-tail of the
+  smallest positive and of the largest negative weights (and exact zeros),
+  regrow as many at random vacant positions, drawn by the init scheme;
+* block granularity: the prune criterion is the block's mean |w|; regrowth
+  samples vacant tiles uniformly, and new blocks are zero-init so they
+  change nothing until gradients flow into them.
+
+``RetainValidUpdates`` (Algorithm 1, line 14) filters updates computed
+against a stale topology down to the connections or tiles that still exist.
 
 :func:`block_device_arrays` builds the kernels' dual-order views from
 canonical coordinates where they live, without a host round trip. The
-device-resident evolution (``evolve_block_device``) and the element half
-come with later slices.
+device-resident evolution (``evolve_element_device``,
+``evolve_block_device``) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -22,19 +26,27 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays, BlockTopology
+from repro_torch.core.sparsity import (
+    BlockMeta,
+    BlockTopoArrays,
+    BlockTopology,
+    ElementTopology,
+    _init_numpy,
+)
 
 __all__ = [
     "EvolutionResult",
     "block_device_arrays",
     "evolve_block",
+    "evolve_element",
     "prune_indices_by_magnitude",
     "retain_valid_updates_block",
+    "retain_valid_updates_element",
 ]
 
 
 class EvolutionResult(NamedTuple):
-    topology: object          # BlockTopology
+    topology: object          # ElementTopology | BlockTopology
     values: np.ndarray        # re-aligned weight values
     momentum: Optional[np.ndarray]  # re-aligned momentum (reset on new slots)
     n_pruned: int
@@ -56,6 +68,71 @@ def prune_indices_by_magnitude(values: np.ndarray, zeta: float) -> np.ndarray:
     if k_neg > 0:
         drop.append(neg[np.argsort(v[neg])[::-1][:k_neg]])    # largest negative
     return np.concatenate(drop)
+
+
+def evolve_element(
+    topo: ElementTopology,
+    values: np.ndarray,
+    zeta: float,
+    rng: np.random.Generator,
+    momentum: Optional[np.ndarray] = None,
+    init_scheme: str = "normal",
+) -> EvolutionResult:
+    """Prune the zeta-tail per sign (:func:`prune_indices_by_magnitude`),
+    regrow as many connections at vacant positions with ``init_scheme``
+    values and zero momentum, and return them in canonical (col, row)
+    order. The draws come in the reference's order: the vacancies, then the
+    values."""
+    values = np.asarray(values, np.float32)
+    drop = prune_indices_by_magnitude(values, zeta)
+    keep = np.setdiff1d(np.arange(topo.nnz), drop, assume_unique=False)
+
+    rows_k, cols_k = topo.rows[keep], topo.cols[keep]
+    vals_k = values[keep]
+    mom_k = momentum[keep] if momentum is not None else None
+
+    n_grow = topo.nnz - keep.size
+    flat_existing = rows_k.astype(np.int64) * topo.out_dim + cols_k
+    new_flat = _sample_vacant(topo.in_dim * topo.out_dim, flat_existing, n_grow, rng)
+    new_rows = (new_flat // topo.out_dim).astype(np.int32)
+    new_cols = (new_flat % topo.out_dim).astype(np.int32)
+    new_vals = _init_numpy(rng, (n_grow,), fan_in_dense=topo.in_dim, scheme=init_scheme)
+
+    rows = np.concatenate([rows_k, new_rows])
+    cols = np.concatenate([cols_k, new_cols])
+    vals = np.concatenate([vals_k, new_vals])
+    mom = (
+        np.concatenate([mom_k, np.zeros(n_grow, np.float32)])
+        if mom_k is not None
+        else None
+    )
+    order = np.lexsort((rows, cols))
+    new_topo = ElementTopology(topo.in_dim, topo.out_dim, rows[order], cols[order])
+    return EvolutionResult(
+        new_topo, vals[order], mom[order] if mom is not None else None,
+        int(drop.size), int(n_grow),
+    )
+
+
+def retain_valid_updates_element(
+    update_vals: np.ndarray,
+    old: ElementTopology,
+    new: ElementTopology,
+) -> np.ndarray:
+    """Map an update aligned to ``old`` onto ``new``; vanished entries -> 0.
+
+    Paper Algorithm 1 line 14: gradients computed on a stale topology are
+    applied only where the connection still exists."""
+    out = np.zeros(new.nnz, np.float32)
+    old_flat = old.rows.astype(np.int64) * old.out_dim + old.cols
+    new_flat = new.rows.astype(np.int64) * new.out_dim + new.cols
+    order_new = np.argsort(new_flat)
+    sorted_new = new_flat[order_new]
+    pos = np.searchsorted(sorted_new, old_flat)
+    pos = np.clip(pos, 0, sorted_new.size - 1)
+    hit = sorted_new[pos] == old_flat
+    out[order_new[pos[hit]]] = update_vals[hit]
+    return out
 
 
 def evolve_block(

@@ -5,8 +5,10 @@
 // Replaces src/repro/core/sparsity.py::coo_matmul_T, an XLA lax.scan of
 // sorted segment_sums (not a Pallas kernel). The serving path runs it as the
 // forward product (gather = rows, segments = cols, canonical (col, row)
-// order); the training slice runs the same kernel for dX (gather = cols_r,
-// segments = rows_r).
+// order); the element training path runs it for the forward too, and for dX
+// (gather = cols_r, segments = rows_r, values gathered through perm_r by the
+// caller; the dual order's segments are 10-136 slots at full width, so route
+// 0 serves them).
 //
 // The sum. Every output is one f32 chain in slot order:
 //
@@ -67,6 +69,15 @@
 //   epilogue 0: out = sum
 //   epilogue 1: out = v,                          v = __fadd_rn(sum, bias[s])
 //   epilogue 2: out = v > 0 ? v : __fmul_rn(slope, v)
+//   epilogue 3: out as epilogue 2, and mask = v > 0 (uint8, one per output)
+//
+// Epilogue 3 is the training forward's: All-ReLU's backward
+// (csrc/all_relu_bwd.cu, kernel G) needs the branch each output took, and
+// the output alone does not give it: on the paper's even hidden layers the
+// slope is -alpha, so a negative v gives a positive output
+// (src/repro/core/all_relu.py). The mask costs one byte an output (512 KB a
+// 4000-wide layer at batch 128) against the four of keeping v. At v == 0 it
+// is 0, the slope branch, as the reference's jnp.where(x > 0, ...) takes.
 //
 // This replaces the standalone pass src/repro/kernels/all_relu_fused.py::
 // bias_all_relu (kernel B, csrc/bias_all_relu.cu, which the block path
@@ -102,13 +113,20 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 8;
 
-// The store's epilogue: 0 none, 1 + b, 2 + b then All-ReLU with slope, where
-// b = bias[s] was loaded before the chain (its latency hides under it). The
-// add and the multiply round apart (no FMA contraction).
-__device__ __forceinline__ float apply_epilogue(float sum, float b, float slope, int mode) {
-  if (mode == 0) return sum;
+// The store's epilogue: 0 none, 1 + b, 2 and 3 + b then All-ReLU with slope,
+// where b = bias[s] was loaded before the chain (its latency hides under it),
+// and with mode 3 the sign mask of v. The add and the multiply round apart
+// (no FMA contraction).
+__device__ __forceinline__ void store(float sum, float b, float slope, int mode, float* out,
+                                      uint8_t* mask, int64_t t) {
+  if (mode == 0) {
+    out[t] = sum;
+    return;
+  }
   const float v = __fadd_rn(sum, b);
-  return mode == 1 || v > 0.0f ? v : __fmul_rn(slope, v);
+  const bool positive = v > 0.0f;
+  out[t] = mode == 1 || positive ? v : __fmul_rn(slope, v);
+  if (mode == 3) mask[t] = positive ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -119,6 +137,7 @@ coo_matmul_T_kernel(const float* __restrict__ srcT,
                     const float* __restrict__ acc,
                     const float* __restrict__ bias,
                     float* __restrict__ out,
+                    uint8_t* __restrict__ mask,
                     int64_t n_segments,
                     int64_t batch,
                     float slope,
@@ -146,7 +165,7 @@ coo_matmul_T_kernel(const float* __restrict__ srcT,
     const float x = __ldg(srcT + static_cast<int64_t>(__ldg(gather + j)) * batch + b);
     sum = fmaf(x, __ldg(values + j), sum);
   }
-  out[t] = apply_epilogue(sum, bias_s, slope, mode);
+  store(sum, bias_s, slope, mode, out, mask, t);
 }
 
 // --- route 1: one block per (segment, 32 batch columns), staged ---------------
@@ -181,6 +200,7 @@ coo_matmul_T_staged(const float* __restrict__ srcT,
                     const float* __restrict__ acc,
                     const float* __restrict__ bias,
                     float* __restrict__ out,
+                    uint8_t* __restrict__ mask,
                     int64_t batch,
                     float slope,
                     int mode) {
@@ -330,7 +350,7 @@ coo_matmul_T_staged(const float* __restrict__ srcT,
     }
   }
   if (loader) tf32x3::cp_async_wait<0>();
-  if (summer) out[s * batch + b0 + b] = apply_epilogue(sum, bias_s, slope, mode);
+  if (summer) store(sum, bias_s, slope, mode, out, mask, s * batch + b0 + b);
 }
 
 bool smem_set[2][64];
@@ -339,16 +359,18 @@ bool smem_set[2][64];
 
 // route: 0 = one thread per (segment, column), 1 = one staged block per
 // (segment, 32 columns). Both give the same bits. epilogue: 0 = none,
-// 1 = + bias, 2 = + bias then All-ReLU with slope; bias (n_segments f32)
-// may be null only for epilogue 0.
+// 1 = + bias, 2 = + bias then All-ReLU with slope, 3 = as 2 and the uint8
+// mask of v > 0 (n_segments x batch, like out); bias (n_segments f32) may be
+// null only for epilogue 0, mask only below epilogue 3.
 extern "C" int coo_matmul_T_f32(const void* srcT, const void* values,
                                 const void* gather, const void* seg_ptr,
-                                const void* acc, const void* bias, void* out,
+                                const void* acc, const void* bias, void* out, void* mask,
                                 int64_t n_segments, int64_t batch, int route,
                                 float slope, int epilogue,
                                 int device, void* stream) {
   if (n_segments < 0 || batch < 0 || (route != 0 && route != 1) || epilogue < 0 ||
-      epilogue > 2 || (epilogue != 0 && bias == nullptr)) {
+      epilogue > 3 || (epilogue != 0 && bias == nullptr) ||
+      (epilogue == 3 && mask == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -362,8 +384,8 @@ extern "C" int coo_matmul_T_f32(const void* srcT, const void* values,
         static_cast<const float*>(srcT), static_cast<const float*>(values),
         static_cast<const int32_t*>(gather),
         static_cast<const int64_t*>(seg_ptr), static_cast<const float*>(acc),
-        static_cast<const float*>(bias), static_cast<float*>(out), n_segments, batch, slope,
-        epilogue);
+        static_cast<const float*>(bias), static_cast<float*>(out), static_cast<uint8_t*>(mask),
+        n_segments, batch, slope, epilogue);
     return static_cast<int>(cudaGetLastError());
   }
   const int64_t slices = (batch + kCols - 1) / kCols;
@@ -377,6 +399,6 @@ extern "C" int coo_matmul_T_f32(const void* srcT, const void* values,
       static_cast<const float*>(srcT), static_cast<const float*>(values),
       static_cast<const int32_t*>(gather), static_cast<const int64_t*>(seg_ptr),
       static_cast<const float*>(acc), static_cast<const float*>(bias), static_cast<float*>(out),
-      batch, slope, epilogue);
+      static_cast<uint8_t*>(mask), batch, slope, epilogue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,19 +9,25 @@ along N, ``s = -alpha`` for even ``layer_index`` and ``+alpha`` for odd
 As in the reference, it is the block product's epilogue: the block model's
 no-grad forward runs it on kernel C's output, whose first ``out_dim``
 columns of a block-padded row it reads in place (a row pitch, no copy). The
-element serving path applies the same arithmetic in kernel A's store
+element paths apply the same arithmetic in kernel A's store
 (``core.sparsity.coo_matmul_T``'s epilogue) instead.
+
+Its backward on the element training path is kernel G
+(``csrc/all_relu_bwd.cu``, :func:`all_relu_bwd`): the gradient through
+All-ReLU from the branch mask kernel A's training epilogue records, and the
+bias's gradient, the batch summed in one fixed order.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import all_relu_ref, slope_for
 
-__all__ = ["bias_all_relu", "bias_all_relu_plain"]
+__all__ = ["all_relu_bwd", "all_relu_bwd_plain", "bias_all_relu", "bias_all_relu_plain"]
 
 
 def bias_all_relu_plain(
@@ -86,3 +92,54 @@ def _row_pitch(x: torch.Tensor) -> int:
             f"x must be contiguous, or rows of contiguous features at one pitch; "
             f"got shape {tuple(x.shape)} with strides {x.stride()}")
     return rows.stride(0) if rows.shape[0] > 1 else n
+
+
+def all_relu_bwd_plain(
+    dy: torch.Tensor, mask: Optional[torch.Tensor], slope: Optional[float]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel G, on any device: ``dz = where(mask,
+    dy, slope * dy)`` (``dz = dy`` without a mask) and ``dbias = dz.sum(1)``
+    for (N, B) tensors."""
+    dz = dy if mask is None else torch.where(mask.bool(), dy, slope * dy)
+    return dz, dz.sum(1)
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def all_relu_bwd(
+    dy: torch.Tensor, mask: Optional[torch.Tensor], slope: Optional[float]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of bias + All-ReLU in the (features, batch) layout:
+    ``dy`` (N, B) f32, ``mask`` (N, B) uint8, 1 where the pre-activation was
+    > 0 (``coo_matmul_T(..., with_mask=True)``), or None for a layer with
+    the bias alone; returns ``(dz, dbias)``, dz (N, B) and dbias (N,). A
+    CUDA tensor launches kernel G; a CPU tensor takes the plain version."""
+    if dy.device.type == "cpu":
+        return all_relu_bwd_plain(dy, mask, slope)
+    if dy.device.type != "cuda":
+        raise ValueError(f"all_relu_bwd runs on cuda or cpu tensors, not {dy.device}")
+    if dy.dim() != 2:
+        raise ValueError(f"dy must be (N, B), got shape {tuple(dy.shape)}")
+    build.check_tensor(dy, "dy", dtype=torch.float32, shape=dy.shape, device=dy.device)
+    if mask is not None:
+        build.check_tensor(mask, "mask", dtype=torch.uint8, shape=dy.shape, device=dy.device)
+        if slope is None:
+            raise ValueError("a mask needs the slope of its negative branch")
+    n, batch = dy.shape
+    dz = torch.empty_like(dy)
+    dbias = torch.empty((n,), dtype=torch.float32, device=dy.device)
+    if n == 0:
+        return dz, dbias
+    fn = build.kernel("all_relu_bwd", "all_relu_bwd_f32", _BWD_ARGTYPES)
+    rc = fn(dy.data_ptr(), None if mask is None else mask.data_ptr(), dz.data_ptr(),
+            dbias.data_ptr(), n, batch, 0.0 if slope is None else slope,
+            *build.stream_args(dy.device))
+    build.check_launch(rc, "all_relu_bwd kernel")
+    all_relu_bwd.launches += 1
+    return dz, dbias
+
+
+all_relu_bwd.launches = 0  # kernel G launches, so a run can show it went through the kernel

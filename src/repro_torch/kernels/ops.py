@@ -12,11 +12,24 @@ topology arrays:
                     natively differentiable: the oracle of the whole op.
                     The name is the reference's.
 
-Element granularity, forward only: ``espmm_infer_T``, the serving path's
-op, in kernel A's (features, batch) layout with the bias and activation in
-kernel A's store, and ``espmm_infer``, the reference's (batch, features)
-entry. The element training entry (``espmm`` with its hand-derived
-backward) comes with the element training slice.
+Element granularity (the paper-faithful COO path), in kernel A's
+(features, batch) layout, on kernels A (forward and dX), F (dW) and G (the
+epilogue's backward):
+
+* ``espmm_train_T`` — one training layer: kernel A with the bias and
+                      All-ReLU in its store, recording the branch mask;
+                      backward G, then A over the row-sorted dual order for
+                      dX (only where the input needs a gradient), then F.
+* ``espmm_infer_T`` — one served layer: kernel A with its epilogue.
+* ``espmm`` / ``espmm_custom`` — the reference's (batch, features) entries
+                      with its ``impl`` values: ``custom`` is the
+                      hand-derived backward (an autograd Function on A and
+                      F), ``segment`` the chunked segment sum under
+                      autograd, ``scatter`` gather/scatter-add, ``auto`` the
+                      reference's ``SPMM_AUTO_*`` thresholds. Those choose
+                      among plain versions on the CPU only: on the card
+                      every impl runs the kernels.
+* ``espmm_infer`` — the reference's forward-only (batch, features) entry.
 """
 from __future__ import annotations
 
@@ -27,18 +40,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sparsity import (
+    SPMM_AUTO_ELEMS,
+    SPMM_AUTO_NNZ,
     SPMM_INFER_ELEMS,
     SPMM_INFER_NNZ,
     BlockMeta,
     BlockTopoArrays,
     ElemTopoArrays,
+    coo_dw,
     coo_matmul_T,
     element_spmm,
     element_spmm_segment,
 )
 from repro_torch.kernels import block_sparse_matmul as _k
+from repro_torch.kernels.all_relu_fused import all_relu_bwd
 
-__all__ = ["bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm_infer", "espmm_infer_T"]
+__all__ = [
+    "bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm", "espmm_custom", "espmm_infer",
+    "espmm_infer_T", "espmm_train_T",
+]
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +146,128 @@ def bsmm_infer(
     kernel C alone, with autograd off."""
     with torch.no_grad():
         return bsmm_kernel(x, values, topo, meta)
+
+
+# ---------------------------------------------------------------------------
+# Element path: kernels A, F and G behind one autograd Function
+# ---------------------------------------------------------------------------
+#
+# The reference's hand-derived VJP (src/repro/kernels/ops.py::_espmm_core),
+# in the (features, batch) layout it computes in. For yT = act(W^T hT + b):
+#
+#   fwd  zT[cols[j], :]  += hT[rows[j], :] * v[j], then + b and All-ReLU  A
+#   act  dz = dy * (z > 0 ? 1 : slope), db = sum_b dz                     G
+#   dX   dhT[rows_r[j], :] += dz[cols_r[j], :] * v[perm_r[j]]             A
+#   dW   dv[j] = sum_b hT[rows[j], b] * dz[cols[j], b]                    F
+#
+# Each pass sums in one fixed order and reads its segment offsets from the
+# topology's registration (ElementTopology.device_arrays), so none syncs.
+
+
+class _EspmmT(torch.autograd.Function):
+    """``yT = epilogue(W^T hT)``: hT (in_dim, B) -> (out_dim, B). With no
+    ``bias`` the product alone; with ``bias`` it is added; with ``slope``
+    too, All-ReLU follows and the forward keeps its branch mask. The
+    topology is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, hT, values, bias, topo: ElemTopoArrays, out_dim: int,
+                slope: Optional[float], chunk: Optional[int]):
+        mask = None
+        if slope is None:
+            yT = coo_matmul_T(hT, values, topo.rows, topo.cols, out_dim, chunk=chunk, bias=bias)
+        else:
+            yT, mask = coo_matmul_T(hT, values, topo.rows, topo.cols, out_dim, chunk=chunk,
+                                    bias=bias, slope=slope, with_mask=True)
+        ctx.save_for_backward(hT, values, mask)
+        ctx.topo, ctx.slope, ctx.chunk, ctx.has_bias = topo, slope, chunk, bias is not None
+        return yT
+
+    @staticmethod
+    def backward(ctx, dyT):
+        hT, values, mask = ctx.saved_tensors
+        topo, chunk = ctx.topo, ctx.chunk
+        dyT = dyT.contiguous()
+        dz, dbias = all_relu_bwd(dyT, mask, ctx.slope) if ctx.has_bias else (dyT, None)
+        dhT = dv = None
+        if ctx.needs_input_grad[0]:  # layer 0's input needs none: no dX pass
+            dhT = coo_matmul_T(dz, values.index_select(0, topo.perm_r), topo.cols_r,
+                               topo.rows_r, hT.shape[0], chunk=chunk)
+        if ctx.needs_input_grad[1]:
+            dv = coo_dw(hT, dz, topo.rows, topo.cols, chunk=chunk)
+        return dhT, dv, dbias, None, None, None, None
+
+
+def espmm_train_T(
+    hT: torch.Tensor,
+    values: torch.Tensor,
+    topo: ElemTopoArrays,
+    out_dim: int,
+    *,
+    bias: torch.Tensor,
+    slope: Optional[float] = None,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """One element training layer in the transposed layout: ``hT``
+    (in_dim, B) -> (out_dim, B), ``h @ W + bias`` and, with ``slope``,
+    All-ReLU, differentiable in ``hT``, ``values`` and ``bias``. The
+    forward is kernel A with its epilogue in the store (and the branch
+    mask); the backward is kernel G, kernel A over the row-sorted dual
+    order for dX, and kernel F for dW. CPU tensors take the plain
+    versions."""
+    return _EspmmT.apply(hT.contiguous(), values, bias, topo, out_dim, slope, chunk)
+
+
+def espmm_custom(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    topo: ElemTopoArrays,
+    out_dim: int,
+    *,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Element-sparse ``y = x @ W`` with the hand-derived backward: the
+    product on kernel A, dX on kernel A over the dual order, dW on kernel F
+    (their plain versions on the CPU). One transpose of the operand in and
+    one of the result out, as the reference's ``_espmm_core``."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    yT = _EspmmT.apply(x2.T.contiguous(), values, None, topo, out_dim, None, chunk)
+    return yT.T.reshape(*lead, out_dim)
+
+
+def espmm(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    topo: ElemTopoArrays,
+    out_dim: int,
+    *,
+    impl: str = "auto",
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Element-sparse ``y = x @ W`` for COO topology arrays, differentiable.
+
+    On the card every ``impl`` runs :func:`espmm_custom` (kernels A and F).
+    On the CPU the impls are the reference's plain formulations: ``custom``
+    the hand-derived backward, ``segment`` the chunked segment sum under
+    autograd, ``scatter`` gather and scatter-add, and ``auto`` (default)
+    ``scatter`` below the reference's ``SPMM_AUTO_*`` thresholds and
+    ``custom`` above.
+    """
+    if impl not in ("auto", "custom", "segment", "scatter"):
+        raise ValueError(f"unknown element impl {impl!r}")
+    if x.device.type != "cpu":
+        return espmm_custom(x, values, topo, out_dim, chunk=chunk)
+    if impl == "auto":
+        nnz = int(values.shape[0])
+        batch = int(np.prod(x.shape[:-1])) if x.dim() > 1 else 1
+        big = nnz >= SPMM_AUTO_NNZ or batch * nnz >= SPMM_AUTO_ELEMS
+        impl = "custom" if big else "scatter"
+    if impl == "custom":
+        return espmm_custom(x, values, topo, out_dim, chunk=chunk)
+    if impl == "segment":
+        return element_spmm_segment(x, values, topo.rows, topo.cols, out_dim, chunk=chunk)
+    return element_spmm(x, values, topo.rows, topo.cols, out_dim)
 
 
 # ---------------------------------------------------------------------------

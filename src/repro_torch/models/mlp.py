@@ -8,12 +8,14 @@ live tiles (``BlockTopology``). The activation is All-ReLU with the paper's
 PyTorch twin of ``repro.models.mlp``: the same config, the same seeded
 topology and init (bit-equal). What each impl runs:
 
-* ``element`` — the inference forward (``infer=True``): the activations stay
-  in kernel A's (features, batch) layout from the input's one transpose to
-  the logits' one, and each layer is one launch of kernel A
-  (``espmm_infer_T``) whose store adds the bias and, on a hidden All-ReLU
-  layer, applies All-ReLU (kernel B's arithmetic). Its training forward
-  comes with the element training slice.
+* ``element`` — training and inference: the activations stay in kernel
+  A's (features, batch) layout from the input's one transpose to the
+  logits' one, and each layer is one launch of kernel A whose store adds
+  the bias and, on a hidden All-ReLU layer, applies All-ReLU (kernel B's
+  arithmetic): ``espmm_infer_T`` where no gradient is recorded,
+  ``espmm_train_T`` under autograd, which also records All-ReLU's branch
+  and runs its backward on kernels G, A (dX) and F; dropout draws from an
+  explicit ``torch.Generator``.
 * ``block`` — training and inference: the block product on kernels C (and,
   under autograd, D and E), then ``+ bias`` and the activation; where no
   gradient is recorded, a hidden All-ReLU layer's bias and All-ReLU run in
@@ -171,26 +173,29 @@ def mlp_forward(
     rng: Optional[torch.Generator] = None,
     infer: bool = False,
     return_preacts: bool = False,
-    col_ptrs: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Forward; returns logits.
 
-    ``infer=True`` is the serving entry. A block model also runs with
-    ``infer=False`` (training and evaluation), differentiable through
-    kernels C, D and E; ``train=True`` applies dropout, drawn from ``rng``,
-    a ``torch.Generator`` on the input's device.
+    ``infer=True`` is the serving entry. ``infer=False`` (training and
+    evaluation) is differentiable: an element model through kernels A, F
+    and G, a block model through C, D and E. ``train=True`` applies dropout
+    after each hidden layer, drawn from ``rng``, a ``torch.Generator`` on
+    the input's device.
 
-    ``col_ptrs`` (per layer, int64 (out_dim + 1,)) are the column offsets
-    kernel A walks on the element path; the serving engine computes them
-    once when it freezes the topology, and they are computed per call when
-    not given.
+    On the element path kernel A walks the segment offsets that
+    ``ElementTopology.device_arrays`` registered to ``topo_arrays`` (made
+    once per topology: the engine freezes them, the trainer makes them after
+    each topology phase).
 
-    The element forward runs in the (features, batch) layout: the input is
-    transposed once, each layer's ``espmm_infer_T`` output feeds the next,
-    and the logits are transposed once. A hidden All-ReLU layer takes its
-    bias and All-ReLU (the paper's 1-based parity) in kernel A's store, the
-    output layer its bias; another activation (elementwise) follows a
-    bias-only epilogue in the same layout.
+    The element forward runs in the (features, batch) layout, as the
+    reference's ``_espmm_core`` computes: the input is transposed once,
+    each layer's output feeds the next, and the logits are transposed once.
+    A hidden All-ReLU layer takes its bias and All-ReLU (the paper's 1-based
+    parity) in kernel A's store, the output layer its bias; another
+    activation (elementwise) follows a bias-only epilogue in the same
+    layout. Where no gradient is recorded (``infer=True``, or autograd off,
+    as in evaluation) it is the served forward, ``espmm_infer_T``; else
+    ``espmm_train_T``.
     """
     _require_sparse(config)
     if return_preacts:
@@ -199,30 +204,46 @@ def mlp_forward(
         raise ValueError(f"x has {x.shape[-1]} features, the model takes {config.layer_dims[0]}")
     if config.impl == "block":
         return _block_forward(params, topo_arrays, x, config, train=train, rng=rng, infer=infer)
-    if not infer:
-        raise NotImplementedError(
-            "the element training forward (espmm with its backward) comes with "
-            "the element training slice; pass infer=True, or train impl='block'"
-        )
-    if train and config.dropout > 0:
-        raise NotImplementedError("element dropout comes with the element training slice")
     act = activation_fn(config.activation, alpha=config.alpha)
+    dropout = _dropout_fn(config, train, rng)
+    served = infer or not torch.is_grad_enabled()
     lead = x.shape[:-1]
     hT = x.reshape(-1, x.shape[-1]).T.contiguous()  # (features, batch)
     n_layers = config.n_layers
     for l in range(n_layers):
         hidden = l < n_layers - 1  # the output layer is linear
         fused = hidden and config.activation == "all_relu"
-        hT = kops.espmm_infer_T(
-            hT, params["values"][l], topo_arrays[l], config.layer_dims[l + 1],
-            bias=params["biases"][l],
-            slope=slope_for(config.alpha, l + 1) if fused else None,  # 1-based parity
-            chunk=config.spmm_chunk,
-            col_ptr=None if col_ptrs is None else col_ptrs[l],
-        )
+        slope = slope_for(config.alpha, l + 1) if fused else None  # 1-based parity
+        vals, topo, bias = params["values"][l], topo_arrays[l], params["biases"][l]
+        if served:
+            hT = kops.espmm_infer_T(
+                hT, vals, topo, config.layer_dims[l + 1], bias=bias, slope=slope,
+                chunk=config.spmm_chunk,
+            )
+        else:
+            hT = kops.espmm_train_T(hT, vals, topo, config.layer_dims[l + 1], bias=bias,
+                                    slope=slope, chunk=config.spmm_chunk)
         if hidden and not fused:
             hT = act(hT, l + 1)
+        if hidden and dropout is not None:
+            hT = dropout(hT)
     return hT.T.contiguous().reshape(*lead, config.layer_dims[-1])
+
+
+def _dropout_fn(config: SparseMLPConfig, train: bool, rng: Optional[torch.Generator]):
+    """Inverted dropout at ``config.dropout``, its keep mask drawn from
+    ``rng``, where training asks for it; else None."""
+    if not (train and config.dropout > 0):
+        return None
+    if rng is None:
+        raise ValueError("dropout needs rng, a torch.Generator on the input's device")
+    keep = 1.0 - config.dropout
+
+    def dropout(h: torch.Tensor) -> torch.Tensor:
+        mask = torch.rand(h.shape, generator=rng, device=h.device) < keep
+        return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    return dropout
 
 
 def _block_forward(params, topo_arrays, x, config, *, train, rng, infer):
@@ -235,9 +256,7 @@ def _block_forward(params, topo_arrays, x, config, *, train, rng, infer):
     act = activation_fn(config.activation, alpha=config.alpha)
     product = kops.bsmm_infer if infer else kops.bsmm_kernel
     fused = config.activation == "all_relu" and (infer or not torch.is_grad_enabled())
-    dropout = train and config.dropout > 0
-    if dropout and rng is None:
-        raise ValueError("dropout needs rng, a torch.Generator on the input's device")
+    dropout = _dropout_fn(config, train, rng)
     h = x
     n_layers = config.n_layers
     for l in range(n_layers):
@@ -250,10 +269,8 @@ def _block_forward(params, topo_arrays, x, config, *, train, rng, infer):
                 h = bias_all_relu(h, bias, alpha=config.alpha, layer_index=l + 1)
             else:
                 h = act(h + bias, l + 1)
-            if dropout:
-                keep = 1.0 - config.dropout
-                mask = torch.rand(h.shape, generator=rng, device=h.device) < keep
-                h = torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+            if dropout is not None:
+                h = dropout(h)
     return h
 
 

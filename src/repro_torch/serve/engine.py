@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.importance import PruningSchedule
-from repro_torch.core.sparsity import offsets_to_device
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import SparseMLP, mlp_forward
 from repro_torch.serve.compact import CompactionReport, compact_element_mlp
@@ -110,12 +109,10 @@ class SparseInferenceEngine:
             model.config, model.topos, model.values, model.biases, device=self.device
         )
         self._params = self.model.params()
-        # frozen once: the dual-order COO views and kernel A's column offsets
-        # (which also give kernel A its route, from the host's longest segment)
+        # frozen once: the dual-order COO views, with kernel A's column
+        # offsets registered to them (which also give kernel A its route, from
+        # the host's longest segment)
         self._topo = self.model.topo_arrays()
-        self._col_ptrs = tuple(
-            offsets_to_device(t.col_ptr(), self.device) for t in self.model.topos
-        )
 
     # -- stats --------------------------------------------------------------
 
@@ -163,9 +160,6 @@ class SparseInferenceEngine:
 
         @torch.inference_mode()
         def fn(xb: torch.Tensor) -> torch.Tensor:
-            return mlp_forward(
-                self._params, self._topo, xb, config, infer=True,
-                col_ptrs=self._col_ptrs,
-            )
+            return mlp_forward(self._params, self._topo, xb, config, infer=True)
 
         return fn

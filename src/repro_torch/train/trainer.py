@@ -1,8 +1,9 @@
 """Sequential SET trainer — paper Algorithm 2 (SET + Importance Pruning).
 
-Twin of ``repro.train.trainer.SequentialTrainer`` for block-sparse SET-MLPs,
-with the same ``TrainerConfig``, the same epoch protocol and the same
-``history`` keys. Two execution modes (``TrainerConfig.fused_epochs``):
+Twin of ``repro.train.trainer.SequentialTrainer`` for element-sparse (COO,
+the paper's) and block-sparse SET-MLPs, with the same ``TrainerConfig``,
+the same epoch protocol and the same ``history`` keys. Two execution modes
+(``TrainerConfig.fused_epochs``):
 
 * **Fused (default)** — the training set lives on the device, the host ships
   only the epoch's shuffled index permutation and learning rates, and
@@ -10,19 +11,27 @@ with the same ``TrainerConfig``, the same epoch protocol and the same
   kept on the device: one host synchronisation per epoch.
 * **Per-batch** — one step call per minibatch from host numpy batches.
 
-Per epoch, both modes: momentum-SGD minibatch steps (on the card the block
-products run on kernels C, D and E), then
-  1. Importance Pruning (if the schedule fires): zero the weak hidden
-     neurons' incoming columns and free the tiles left empty;
+Per epoch, both modes: momentum-SGD minibatch steps (on the card the
+element products run on kernels A, F and G, the block products on C, D and
+E), then
+  1. Importance Pruning (if the schedule fires): remove the weak hidden
+     neurons' incoming connections and, on an element model, their outgoing
+     ones in the next layer too (the output layer takes only that cascade);
+     a block model zeroes the neurons' columns and frees the tiles left
+     empty;
   2. the SET pruning-regrowing cycle on the host (``core.topology.
-     evolve_block``: the zeta-tail of tiles by mean |w|, random regrowth,
-     zero-init), keeping the tile count; momentum is kept on surviving tiles
-     and reset on regrown ones;
-then evaluation. The same seed gives the reference's epoch order, pruning
-and regrowth draws, so at dropout 0 the topology follows the reference's.
+     evolve_element``: the zeta-tail per sign, random regrowth drawn by the
+     model's init scheme; ``evolve_block``: the zeta-tail of tiles by mean
+     |w|, zero-init), keeping the connection or tile count; momentum is kept
+     on survivors and reset on regrown ones;
+then evaluation. The topology's device arrays (and an element topology's
+segment offsets) are made once after each topology phase, and serve the
+evaluation and the next epoch. The same seed gives the reference's epoch
+order, pruning and regrowth draws, so at dropout 0 the topology follows the
+reference's.
 
 Not in this slice, and refused with an error that says so: device-resident
-evolution (``device_evolution=True``), the element/masked/dense impls,
+evolution (``device_evolution=True``), the masked/dense impls,
 training-dynamics probes, checkpoints, and the fault hook / step retries.
 """
 from __future__ import annotations
@@ -34,8 +43,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.importance import PruningSchedule, importance_prune_block
-from repro_torch.core.topology import evolve_block
+from repro_torch.core.importance import (
+    PruningSchedule,
+    importance_prune_block,
+    importance_prune_element,
+)
+from repro_torch.core.sparsity import ElementTopology
+from repro_torch.core.topology import evolve_block, evolve_element
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import Dataset
 from repro_torch.launch.steps import make_mlp_step_core, make_mlp_train_step, scan_segment
@@ -84,9 +98,13 @@ def make_segment_program(config: SparseMLPConfig, opt: MomentumSGD, probe: bool 
     return segment
 
 
-def evaluate(model: SparseMLP, x: np.ndarray, y: np.ndarray, batch: int = 512) -> float:
-    """Accuracy on (x, y), counted on the device with one synchronisation."""
-    params, topo = model.params(), model.topo_arrays()
+def evaluate(model: SparseMLP, x: np.ndarray, y: np.ndarray, batch: int = 512, *,
+             topo_arrays=None) -> float:
+    """Accuracy on (x, y), counted on the device with one synchronisation.
+    ``topo_arrays`` are the model's device arrays where the caller has
+    them, else they are made."""
+    params = model.params()
+    topo = model.topo_arrays() if topo_arrays is None else topo_arrays
     dev = model.device
     correct = torch.zeros((), dtype=torch.int64, device=dev)
     with torch.no_grad():
@@ -111,10 +129,10 @@ class SequentialTrainer:
     """Paper §2.2 protocol (1 worker). History mirrors Table 2 columns."""
 
     def __init__(self, model: SparseMLP, data: Dataset, tc: TrainerConfig):
-        if model.config.impl != "block":
+        if model.config.impl not in ("element", "block"):
             raise NotImplementedError(
-                f"impl={model.config.impl!r}: the port trains block models; "
-                "element training comes with the element training slice"
+                f"impl={model.config.impl!r}: the port trains element and block models; "
+                "the masked and dense impls come with a later slice"
             )
         if tc.evolve and tc.device_evolution:
             raise NotImplementedError(
@@ -152,16 +170,30 @@ class SequentialTrainer:
         tc, model = self.tc, self.model
         if tc.pruning is None or not tc.pruning.should_prune(epoch):
             return
+        element = model.config.impl == "element"
         vel = list(self.opt_state.velocity["values"])
-        # output units are protected: the last layer is left as it is
-        for l in range(model.config.n_layers - 1):
+        pruned_prev: Optional[np.ndarray] = None
+        for l in range(model.config.n_layers):
+            # the element cascade: connections out of neurons pruned in the
+            # layer before die too
+            cascade = element and pruned_prev is not None and pruned_prev.size > 0
+            if l == model.config.n_layers - 1 and not cascade:
+                break
             dtype = model.values[l].dtype
-            res = importance_prune_block(
-                model.topos[l], _host(model.values[l]), tc.pruning, momentum=_host(vel[l])
-            )
-            model.topos[l] = res.topology
-            model.values[l] = torch.as_tensor(res.values, device=self.device).to(dtype)
-            vel[l] = torch.as_tensor(res.momentum, device=self.device)
+            topo, vals, mom = model.topos[l], _host(model.values[l]), _host(vel[l])
+            if cascade:
+                keep = ~np.isin(topo.rows, pruned_prev)
+                topo = ElementTopology(topo.in_dim, topo.out_dim, topo.rows[keep],
+                                       topo.cols[keep])
+                vals, mom = vals[keep], mom[keep]
+            if l < model.config.n_layers - 1:  # output units are protected
+                fn = importance_prune_element if element else importance_prune_block
+                res = fn(topo, vals, tc.pruning, momentum=mom)
+                topo, vals, mom, pruned_prev = (res.topology, res.values, res.momentum,
+                                                res.pruned_neurons)
+            model.topos[l] = topo
+            model.values[l] = torch.as_tensor(vals, device=self.device).to(dtype)
+            vel[l] = torch.as_tensor(mom, device=self.device)
         self.opt_state = replace_values_velocity(self.opt_state, vel)
 
     def _evolve(self) -> None:
@@ -171,21 +203,29 @@ class SequentialTrainer:
         vel = list(self.opt_state.velocity["values"])
         for l in range(model.config.n_layers):
             dtype = model.values[l].dtype
-            res = evolve_block(
-                model.topos[l], _host(model.values[l]), tc.zeta, self.rng,
-                momentum=_host(vel[l]),
-            )
+            if model.config.impl == "element":
+                res = evolve_element(
+                    model.topos[l], _host(model.values[l]), tc.zeta, self.rng,
+                    momentum=_host(vel[l]), init_scheme=model.config.init,
+                )
+            else:
+                res = evolve_block(
+                    model.topos[l], _host(model.values[l]), tc.zeta, self.rng,
+                    momentum=_host(vel[l]),
+                )
             model.topos[l] = res.topology
             model.values[l] = torch.as_tensor(res.values, device=self.device).to(dtype)
             vel[l] = torch.as_tensor(res.momentum, device=self.device)
         self.opt_state = replace_values_velocity(self.opt_state, vel)
 
-    def _topology_phase(self, epoch: int) -> None:
+    def _topology_phase(self, epoch: int):
         """Importance pruning if it fires, then SET (none after the last
-        epoch, as in the paper)."""
+        epoch, as in the paper); returns the topology's device arrays, made
+        once for the evaluation and the next epoch."""
         self._importance_prune(epoch)
         if epoch < self.tc.epochs - 1:
             self._evolve()
+        return self.model.topo_arrays()
 
     def save_checkpoint(self, manager) -> None:
         raise NotImplementedError("checkpoints come with the checkpoint slice")
@@ -212,13 +252,13 @@ class SequentialTrainer:
         return loader
 
     def _end_epoch(self, epoch: int, t0: float, train_loss: float, gstep: int,
-                   log_every: int) -> None:
+                   log_every: int, topo) -> None:
         """Wait for the epoch's device work, evaluate, and record history."""
         tc, model = self.tc, self.model
         _sync(self.device)
         dt = time.perf_counter() - t0
         if (epoch + 1) % tc.eval_every == 0 or epoch == tc.epochs - 1:
-            acc = evaluate(model, self.data.x_test, self.data.y_test)
+            acc = evaluate(model, self.data.x_test, self.data.y_test, topo_arrays=topo)
         else:
             acc = float("nan")
         n_params = model.n_params
@@ -243,6 +283,7 @@ class SequentialTrainer:
         x_all = torch.as_tensor(self.data.x_train, device=dev)
         y_all = torch.as_tensor(self.data.y_train, device=dev).long()
         gstep = self.gstep
+        topo = model.topo_arrays()
         for epoch in range(self.start_epoch, tc.epochs):
             t0 = time.perf_counter()
             perm = torch.as_tensor(
@@ -252,13 +293,12 @@ class SequentialTrainer:
                 [float(lr_fn(gstep + i)) for i in range(steps)], dtype=torch.float32, device=dev
             )
             params, self.opt_state, self.key, losses = self._segment(
-                model.params(), self.opt_state, model.topo_arrays(), x_all, y_all, perm,
-                lrs, self.key,
+                model.params(), self.opt_state, topo, x_all, y_all, perm, lrs, self.key,
             )
             gstep += steps
             model.set_params(params)
-            self._topology_phase(epoch)
-            self._end_epoch(epoch, t0, float(losses.mean()), gstep, log_every)
+            topo = self._topology_phase(epoch)
+            self._end_epoch(epoch, t0, float(losses.mean()), gstep, log_every, topo)
         return self.history
 
     def _run_per_batch(self, log_every: int) -> Dict[str, List]:
@@ -267,10 +307,10 @@ class SequentialTrainer:
         loader = self._loader()
         lr_fn = tc.lr_schedule or (lambda step: tc.lr)
         gstep = self.gstep
+        topo = model.topo_arrays()
         for epoch in range(self.start_epoch, tc.epochs):
             t0 = time.perf_counter()
             params = model.params()
-            topo = model.topo_arrays()
             losses = []
             for xb, yb in loader.epoch(epoch):
                 lr = torch.tensor(float(lr_fn(gstep)), dtype=torch.float32, device=dev)
@@ -281,6 +321,7 @@ class SequentialTrainer:
                 losses.append(loss)
                 gstep += 1
             model.set_params(params)
-            self._topology_phase(epoch)
-            self._end_epoch(epoch, t0, float(torch.stack(losses).mean()), gstep, log_every)
+            topo = self._topology_phase(epoch)
+            self._end_epoch(epoch, t0, float(torch.stack(losses).mean()), gstep, log_every,
+                            topo)
         return self.history

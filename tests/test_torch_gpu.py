@@ -637,3 +637,155 @@ def test_kernels_c_e_take_an_unaligned_input(cuda):
     torch.testing.assert_close(bsm.bsmm_dw(xu, dy, t.rows, t.cols, block_m=8, block_n=8),
                                bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=8, block_n=8),
                                rtol=0, atol=0)
+
+
+# -- the element training path: kernel A's dX use and training epilogue, F, G --
+
+
+def _grad_case(cuda, case, seed=6):
+    """A layer of LAYERS on the card: its arrays (offsets registered), values,
+    the input hT (in_dim, B) and a seeded output gradient dz (out_dim, B)."""
+    _, in_dim, out_dim, eps, batch = case
+    topo, vals, x = _layer(seed, in_dim, out_dim, eps, batch)
+    rng = np.random.default_rng(seed + 1)
+    dz = rng.standard_normal((out_dim, batch)).astype(np.float32)
+    return (topo, topo.device_arrays(cuda), torch.as_tensor(vals, device=cuda),
+            torch.as_tensor(np.ascontiguousarray(x.T), device=cuda), torch.as_tensor(dz, device=cuda))
+
+
+@pytest.mark.parametrize("case", LAYERS)
+def test_kernel_a_dx_use_matches_plain_and_repeats_bit_equal(cuda, case):
+    """dX over the row-sorted dual order, with the row offsets the topology
+    registered (no sync, the thread route): against the plain version at A's
+    tolerance, and bit-equal over three launches."""
+    topo, t, v, _, dz = _grad_case(cuda, case)
+    assert tsp.registered_offsets(t.rows_r) is not None
+    vr = v.index_select(0, t.perm_r)
+    before = tsp.coo_matmul_T.launches
+    got = [tsp.coo_matmul_T(dz, vr, t.cols_r, t.rows_r, topo.in_dim) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tsp.coo_matmul_T.launches == before + 3
+    want = tsp.coo_matmul_T_plain(dz, vr, t.cols_r, t.rows_r, topo.in_dim)
+    torch.testing.assert_close(got[0], want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+
+
+@pytest.mark.parametrize("layer", sorted(EPI_LAYERS))
+@pytest.mark.parametrize("batch", [1, 33, 128])
+def test_kernel_a_training_epilogue_gives_mode_2_and_the_sign_mask(cuda, layer, batch):
+    """Epilogue 3 on both routes: its output bit-equal to the All-ReLU
+    epilogue's, its mask exactly where the bias epilogue's output is > 0
+    (0 where it is 0: some biases cancel a product exactly)."""
+    if layer == "long":
+        rng, gather, vals, srcT = _long_segments(LONG, batch)
+        n = len(LONG)
+        seg_np = np.repeat(np.arange(n), LONG).astype(np.int32)
+        seg_ptr = tsp.offsets_to_device(_offsets(LONG), cuda)
+    else:
+        topo, vals, x = _layer(3, 400, 400, 100, batch)
+        rng = np.random.default_rng(5)
+        gather, seg_np, n, srcT = topo.rows, topo.cols, topo.out_dim, np.ascontiguousarray(x.T)
+        seg_ptr = tsp.offsets_to_device(topo.col_ptr(), cuda)
+    g, seg = torch.as_tensor(gather, device=cuda), torch.as_tensor(seg_np, device=cuda)
+    v, src = torch.as_tensor(vals, device=cuda), torch.as_tensor(srcT, device=cuda)
+    args = (src, v, g, seg, seg_ptr, n, None)
+    prod = tsp._coo_matmul_T_cuda(*args, tsp.COO_THREAD)
+    bias = torch.as_tensor(rng.standard_normal((n,)).astype(np.float32), device=cuda)
+    bias[::3] = -prod[::3, 0]  # v == 0 exactly at batch column 0 of every third segment
+    for route in (tsp.COO_THREAD, tsp.COO_STAGED):
+        pre = tsp._coo_matmul_T_cuda(*args, route, bias=bias)
+        for layer_index in (1, 2):
+            slope = slope_for(0.75, layer_index)
+            m0 = tsp.coo_matmul_T.mask_launches
+            out, mask = tsp._coo_matmul_T_cuda(*args, route, bias=bias, slope=slope,
+                                               with_mask=True)
+            torch.cuda.synchronize()
+            assert tsp.coo_matmul_T.mask_launches == m0 + 1 and mask.dtype == torch.uint8
+            assert torch.equal(out, tsp._coo_matmul_T_cuda(*args, route, bias=bias, slope=slope))
+            assert torch.equal(mask.bool(), pre > 0)
+    assert bool((pre[::3, 0] == 0).all())
+
+
+@pytest.mark.parametrize("case", LAYERS)
+def test_kernel_f_matches_plain_and_repeats_bit_equal(cuda, case):
+    topo, t, _, hT, dz = _grad_case(cuda, case)
+    before = tsp.coo_dw.launches
+    got = [tsp.coo_dw(hT, dz, t.rows, t.cols) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tsp.coo_dw.launches == before + 3 and got[0].shape == (topo.nnz,)
+    torch.testing.assert_close(got[0], tsp.coo_dw_plain(hT, dz, t.rows, t.cols),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    # a ragged batch, and operands off a 16-byte boundary: the scalar path
+    for sl in (np.s_[:, :-1], np.s_[:, 1:]):
+        h2, d2 = hT[sl].contiguous(), dz[sl].contiguous()
+        torch.testing.assert_close(tsp.coo_dw(h2, d2, t.rows, t.cols),
+                                   tsp.coo_dw_plain(h2, d2, t.rows, t.cols), rtol=1e-4, atol=1e-5)
+    off = torch.empty(hT.numel() + 1, device=cuda)[1:].view(hT.shape).copy_(hT)
+    torch.testing.assert_close(tsp.coo_dw(off, dz, t.rows, t.cols), got[0], rtol=1e-4, atol=1e-5)
+
+
+def test_kernel_f_validates_inputs(cuda):
+    topo, t, _, hT, dz = _grad_case(cuda, LAYERS[0])
+    before = tsp.coo_dw.launches
+    with pytest.raises(ValueError, match="dtype"):
+        tsp.coo_dw(hT.double(), dz, t.rows, t.cols)
+    with pytest.raises(ValueError, match="one B"):
+        tsp.coo_dw(hT, dz[:, :-1], t.rows, t.cols)
+    with pytest.raises(ValueError, match="outside"):  # unregistered indices are checked
+        tsp.coo_dw(hT, dz, t.rows.clone() + 1000, t.cols)
+    with pytest.raises(ValueError, match="dtype"):
+        tsp.coo_dw(hT, dz, t.rows.long(), t.cols)
+    assert tsp.coo_dw.launches == before  # no launch, and no plain fallback
+
+
+@pytest.mark.parametrize("shape", [(4000, 128), (10, 128), (1000, 33), (7, 1)])
+@pytest.mark.parametrize("layer_index", [1, 2, None])  # slope +alpha, -alpha; no mask
+def test_kernel_g_matches_plain_and_repeats_bit_equal(cuda, shape, layer_index):
+    """dz bit-equal to the plain version (one rounded multiply), dbias at
+    the plain sum's tolerance and bit-equal across launches; where the
+    pre-activation is exactly 0 the slope branch is taken."""
+    rng = np.random.default_rng(12)
+    dy = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
+    pre = rng.standard_normal(shape).astype(np.float32)
+    pre[rng.random(shape) < 0.2] = 0.0
+    mask = None if layer_index is None else torch.as_tensor(pre > 0, device=cuda).to(torch.uint8)
+    slope = None if layer_index is None else slope_for(0.75, layer_index)
+    before = all_relu_fused.all_relu_bwd.launches
+    got = [all_relu_fused.all_relu_bwd(dy, mask, slope) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all_relu_fused.all_relu_bwd.launches == before + 3
+    dz, db = all_relu_fused.all_relu_bwd_plain(dy, mask, slope)
+    assert torch.equal(got[0][0], dz)
+    torch.testing.assert_close(got[0][1], db, rtol=1e-4, atol=1e-5)
+    for other in got[1:]:
+        assert torch.equal(other[0], got[0][0]) and torch.equal(other[1], got[0][1])
+
+
+def test_full_width_element_train_step_matches_cpu(cuda):
+    """One step of the full-width CIFAR-10 element model (3072-4000-1000-
+    4000-10, epsilon 20) on the card and on the CPU from the same state, and
+    its launches: A 4 forward (3 with the mask) and 3 dX (layer 0's input
+    needs no gradient), F 4, G 4."""
+    cfg = dataclasses.replace(mlp_config("cifar10"), dropout=0.0)
+    data = load("cifar10", scale=0.003)
+    x, y = data.x_train[:128], data.y_train[:128]
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+    step = make_mlp_train_step(cfg, opt)
+    counters = (lambda: (tsp.coo_matmul_T.launches, tsp.coo_matmul_T.mask_launches,
+                         tsp.coo_dw.launches, all_relu_fused.all_relu_bwd.launches))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = SparseMLP(cfg, seed=0, device=dev)
+        before = counters()
+        p, s, loss = step(model.params(), opt.init(model.params()), model.topo_arrays(),
+                          torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev).long(),
+                          torch.tensor(0.01, device=dev), None)
+        out[dev.type] = (p, s, loss, tuple(a - b for a, b in zip(counters(), before)))
+    assert out["cuda"][3] == (7, 3, 4, 4) and out["cpu"][3] == (0, 0, 0, 0)
+    torch.testing.assert_close(out["cuda"][2].cpu(), out["cpu"][2], rtol=1e-5, atol=1e-5)
+    for k in ("values", "biases"):
+        for a, b in zip(out["cuda"][0][k], out["cpu"][0][k]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+        for a, b in zip(out["cuda"][1].velocity[k], out["cpu"][1].velocity[k]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)

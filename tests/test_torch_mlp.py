@@ -114,9 +114,17 @@ def test_forward_matches_reference(fields, batch):
 def test_unported_paths_raise():
     tm = tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE), seed=0, device="cpu")
     x = torch.zeros((2, 64))
-    for kwargs in (dict(), dict(infer=True, return_preacts=True), dict(infer=True, train=True)):
-        with pytest.raises(NotImplementedError):
-            tmlp.mlp_forward(tm.params(), tm.topo_arrays(), x, tm.config, **kwargs)
+    with pytest.raises(NotImplementedError):
+        tmlp.mlp_forward(tm.params(), tm.topo_arrays(), x, tm.config, infer=True,
+                         return_preacts=True)
+    # the element training forward and element dropout are ported: they run,
+    # and dropout asks for its generator
+    for kwargs in (dict(), dict(infer=True, train=True, rng=torch.Generator()),
+                   dict(train=True, rng=torch.Generator())):
+        out = tmlp.mlp_forward(tm.params(), tm.topo_arrays(), x, tm.config, **kwargs)
+        assert out.shape == (2, 4) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="rng"):
+        tmlp.mlp_forward(tm.params(), tm.topo_arrays(), x, tm.config, train=True)
     with pytest.raises(ValueError, match="features"):
         tmlp.mlp_forward(tm.params(), tm.topo_arrays(), torch.zeros((2, 63)), tm.config, infer=True)
     for impl in ("masked", "dense"):

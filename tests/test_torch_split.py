@@ -124,7 +124,8 @@ def test_coo_route_on_the_served_model(compact):
     output for the hidden layers (at most 131 slots a segment)."""
     engine = _engine(compact)
     longest, routes = [], []
-    for seg_ptr, topo in zip(engine._col_ptrs, engine.model.topos):
+    for t, topo in zip(engine._topo, engine.model.topos):
+        seg_ptr = tsp.registered_offsets(t.cols)
         longest.append(tsp._longest_segment(seg_ptr, topo.nnz, topo.out_dim))
         assert longest[-1] == int(np.diff(topo.col_ptr()).max())
         routes.append(tsp.coo_route(longest[-1]))

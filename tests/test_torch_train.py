@@ -241,10 +241,15 @@ def test_trainer_refuses_what_this_slice_lacks():
     with pytest.raises(NotImplementedError, match="probes"):
         ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig(device_evolution=False,
                                                                       probe=True))
+    # element training is ported: its trainer runs (test_torch_element_train.py
+    # holds it against the reference)
     el = tmlp.SparseMLP(tmlp.SparseMLPConfig(**dict(FIELDS, impl="element")), seed=0,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="element"):
-        ttrainer.SequentialTrainer(el, data, ttrainer.TrainerConfig(device_evolution=False))
+    hist = ttrainer.SequentialTrainer(
+        el, data, ttrainer.TrainerConfig(device_evolution=False, epochs=1)).run()
+    assert np.isfinite(hist["train_loss"]).all() and hist["n_params"] == [el.n_params]
+    with pytest.raises(NotImplementedError, match="device_evolution=False"):
+        ttrainer.SequentialTrainer(el, data, ttrainer.TrainerConfig())
     # no evolution needs no device evolution
     tr = ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig(evolve=False, epochs=1))
     with pytest.raises(NotImplementedError, match="checkpoint"):

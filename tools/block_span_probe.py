@@ -175,7 +175,8 @@ def main() -> int:
 
     engine = SparseInferenceEngine(cs.seeded_model("cuda"), compaction=cs.SCHEDULE)
     host, vals = engine.model.topos[-1], engine.model.values[-1]
-    t, seg_ptr = host.device_arrays(dev), engine._col_ptrs[-1]
+    t = host.device_arrays(dev)
+    seg_ptr = tsp.registered_offsets(t.cols)
     fa = libs["span_a"].coo_matmul_T_f32
     fa.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
