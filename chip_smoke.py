@@ -36,8 +36,12 @@ Phases, one line each (any failure exits non-zero):
                    128 and a ragged 33, at rtol 1e-4 / atol 1e-5, each
                    launched twice more on the same inputs and held bit-equal:
                    kernel A's dX use (the row-sorted dual order), kernel F
-                   (coo_dw), kernel G (all_relu_bwd) with and without a mask
-                   on both slope signs, and kernel A's training epilogue (its
+                   (coo_dw) in its three epilogue modes (none; the bias's
+                   gradient; All-ReLU's backward with the mask, both slope
+                   signs: kernel G's work, dz bit-equal to the plain
+                   version), also with a third of the columns emptied, G's
+                   standalone call (all_relu_bwd: F's epilogue alone) with
+                   and without a mask, and kernel A's training epilogue (its
                    output bit-equal to the All-ReLU epilogue's, its mask to
                    where the bias epilogue's output is > 0), with some
                    pre-activations exactly 0;
@@ -60,7 +64,8 @@ Phases, one line each (any failure exits non-zero):
                    block run's settings, against the same run on the CPU
                    (topology and n_params equal after every epoch, loss and
                    accuracy within tolerance), the launches of kernels A
-                   (forward, dX), F and G per step, and a run at the paper's
+                   (forward, dX) and F (each with its epilogue, G's work)
+                   per step and no standalone G, and a run at the paper's
                    dropout whose loss must fall;
 9. timings       — classify latency per bucket, where a classify's device
                    time goes (kernels, copies and transposes, launches),
@@ -73,7 +78,8 @@ Phases, one line each (any failure exits non-zero):
                    device idle share, the epochs' seconds, and per-kernel rows
                    for C, D and E (C and E also with ``bound_tc_ms``, their
                    bound at the 3xTF32 tensor-core rate) and for kernel A's
-                   dX use, F and G.
+                   dX use, F (with and without its epilogue) and G (as the
+                   epilogue's cost in F and as its standalone call).
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Without a card it exits non-zero and prints no result.
@@ -147,7 +153,7 @@ KERNEL_E = dict(
 )
 # the element training path: kernel A's dX use (the reference's backward
 # calls sparsity.py:477 over the dual order at ops.py:223), F, and G (what
-# XLA derives for All-ReLU's jnp.where)
+# XLA derives for All-ReLU's jnp.where), which runs in F's epilogue
 KERNEL_A_DX = dict(
     name="coo_matmul_T.dX", route="cuda", source="src/repro_torch/csrc/coo_matmul_T.cu",
     replaces="src/repro/kernels/ops.py:223",
@@ -157,7 +163,7 @@ KERNEL_F = dict(
     replaces="src/repro/core/sparsity.py:544",
 )
 KERNEL_G = dict(
-    name="all_relu_bwd", route="cuda", source="src/repro_torch/csrc/all_relu_bwd.cu",
+    name="all_relu_bwd", route="cuda", source="src/repro_torch/csrc/coo_dw.cu",
     replaces="src/repro/core/all_relu.py:21",
 )
 WRAPPERS = {
@@ -186,23 +192,26 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+# kernels A's and F's counts of launches with an epilogue, and with a mask
+SUB_COUNTS = {f"{name}.{sub}": (WRAPPERS[name], f"{sub}_launches")
+              for name in ("coo_matmul_T", "coo_dw") for sub in ("epilogue", "mask")}
+
+
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0, kernel A's epilogue and mask
-    counts too."""
+    """Set every kernel's launch count to 0, kernels A's and F's epilogue
+    and mask counts too."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-    sparsity.coo_matmul_T.epilogue_launches = 0
-    sparsity.coo_matmul_T.mask_launches = 0
+    for fn, attr in SUB_COUNTS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
     return dict({name: fn.launches for name, fn in WRAPPERS.items()},
-                **{"coo_matmul_T.epilogue": sparsity.coo_matmul_T.epilogue_launches,
-                   "coo_matmul_T.mask": sparsity.coo_matmul_T.mask_launches})
+                **{k: getattr(fn, attr) for k, (fn, attr) in SUB_COUNTS.items()})
 
 
-NO_LAUNCHES = dict({name: 0 for name in WRAPPERS}, **{"coo_matmul_T.epilogue": 0,
-                                                      "coo_matmul_T.mask": 0})
+NO_LAUNCHES = {name: 0 for name in (*WRAPPERS, *SUB_COUNTS)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -952,12 +961,19 @@ def thrice(fn, what: str):
     return first
 
 
+def emptied(host: sparsity.ElementTopology) -> sparsity.ElementTopology:
+    """``host`` with every third column's connections removed: columns
+    whose only run is empty, as importance pruning leaves them."""
+    keep = host.cols % 3 != 0
+    return sparsity.ElementTopology(host.in_dim, host.out_dim, host.rows[keep], host.cols[keep])
+
+
 def phase_element_kernels(out: dict) -> str:
-    model = seeded_model(CARD)  # nonzero biases: G's bias gradient and A's epilogue see them
+    model = seeded_model(CARD)  # nonzero biases: the bias gradient and A's epilogue see them
     x_train = load("cifar10", scale=TRAIN_SCALE).x_train
     rng = np.random.default_rng(SEED)
     err = {k: 0.0 for k in ("coo_matmul_T.dX", "coo_matmul_T.mask", "coo_dw", "all_relu_bwd")}
-    n_checks, n_zero = 0, 0
+    n_checks, n_zero, n_empty = 0, 0, 0
 
     def compare(name, got, want, what):
         nonlocal n_checks
@@ -965,6 +981,17 @@ def phase_element_kernels(out: dict) -> str:
                                    msg=lambda m: f"{what}: {m}")
         err[name] = max(err[name], float((got - want).abs().max()))
         n_checks += 1
+
+    def check_f(hT, dz, t, what, mask=None, slope=None, with_dbias=True):
+        """Kernel F with an epilogue against its plain version: dv at the
+        tolerance, dz bit-equal (one rounded multiply), dbias (G's sum) at
+        the tolerance; each output bit-equal over 3 launches."""
+        args = dict(with_dbias=with_dbias, mask=mask, slope=slope)
+        got = thrice(lambda: sparsity.coo_dw(hT, dz, t.rows, t.cols, **args), f"kernel F at {what}")
+        want = sparsity.coo_dw_plain(hT, dz, t.rows, t.cols, **args)
+        compare("coo_dw", got[0], want[0], f"kernel F's dv at {what}")
+        check(torch.equal(got[1], want[1]), f"kernel F's dz differs at {what}")
+        compare("all_relu_bwd", got[2], want[2], f"kernel F's dbias at {what}")
 
     for batch in (128, 33):
         for l, (host, t, v, bias, hT, dz, slope) in enumerate(
@@ -980,18 +1007,26 @@ def phase_element_kernels(out: dict) -> str:
                         f"kernel A's dX at {where}")
             compare("coo_matmul_T.dX", dx, sparsity.coo_matmul_T_plain(
                 dz, vr, t.cols_r, t.rows_r, host.in_dim), f"kernel A's dX at {where}")
-            # F
-            dv = thrice(lambda: sparsity.coo_dw(hT, dz, t.rows, t.cols), f"kernel F at {where}")
-            compare("coo_dw", dv, sparsity.coo_dw_plain(hT, dz, t.rows, t.cols),
-                    f"kernel F at {where}")
-            # G without a mask (the output layer's use, here on every layer)
+            # F with no epilogue (espmm_custom's), and with the bias alone
+            # (the output layer's), on the layer and with columns emptied
+            host_e = emptied(host)
+            t_e = host_e.device_arrays(CARD)
+            n_empty += host.out_dim - len(np.unique(host_e.cols))
+            for tt, which in ((t, where), (t_e, f"{where}, columns emptied")):
+                dv = thrice(lambda: sparsity.coo_dw(hT, dz, tt.rows, tt.cols),
+                            f"kernel F at {which}")
+                compare("coo_dw", dv, sparsity.coo_dw_plain(hT, dz, tt.rows, tt.cols),
+                        f"kernel F at {which}")
+                check_f(hT, dz, tt, f"{which}, bias alone")
+            # G's standalone call without a mask: F's epilogue alone
             g = thrice(lambda: all_relu_fused.all_relu_bwd(dz, None, None), f"kernel G at {where}")
             want = all_relu_fused.all_relu_bwd_plain(dz, None, None)
             check(torch.equal(g[0], want[0]), f"kernel G's dz is not dy without a mask at {where}")
             compare("all_relu_bwd", g[1], want[1], f"kernel G's dbias at {where}")
-            # A's training epilogue and G with its mask, both slope signs; a
-            # bias that cancels the product makes v exactly 0 in batch column
-            # 0 of every third feature, where the slope branch is taken
+            # A's training epilogue, then F with All-ReLU's backward and G's
+            # standalone call on its mask, both slope signs; a bias that
+            # cancels the product makes v exactly 0 in batch column 0 of
+            # every third feature, where the slope branch is taken
             prod = sparsity.coo_matmul_T(hT, v, t.rows, t.cols, host.out_dim)
             bias_z = bias.clone()
             bias_z[::3] = -prod[::3, 0]
@@ -1013,21 +1048,26 @@ def phase_element_kernels(out: dict) -> str:
                 compare("coo_matmul_T.mask", o3, sparsity.coo_matmul_T_plain(
                     hT, v, t.rows, t.cols, host.out_dim, bias=bias_z, slope=s_l),
                     f"kernel A's training epilogue at {where}")
+                for tt, which in ((t, where), (t_e, f"{where}, columns emptied")):
+                    check_f(hT, dz, tt, f"{which}, slope {s_l}", mask=m3, slope=s_l)
                 g = thrice(lambda: all_relu_fused.all_relu_bwd(dz, m3, s_l),
                            f"kernel G with a mask at {where}")
                 want = all_relu_fused.all_relu_bwd_plain(dz, m3, s_l)
                 check(torch.equal(g[0], want[0]), f"kernel G's dz differs at {where}, slope {s_l}")
                 compare("all_relu_bwd", g[1], want[1], f"kernel G's dbias at {where}")
     check(n_zero > 0, "no pre-activation was exactly 0")
+    check(n_empty > 0, "no column was emptied")
     out["err"].update(err)
     return (
         f"{n_checks} comparisons at dims {model.config.layer_dims}, batch 128 and 33: kernel "
-        f"A's dX (thread route, registered row offsets), F, G with and without a mask "
-        f"(slopes +-{model.config.alpha}), A's training epilogue (output bit-equal to the "
-        f"All-ReLU epilogue's, mask = bias epilogue > 0, {n_zero} pre-activations exactly 0); "
-        f"each bit-equal over 3 launches; max_abs_err A dX {err['coo_matmul_T.dX']:.3g}, F "
-        f"{err['coo_dw']:.3g}, G dbias {err['all_relu_bwd']:.3g}, A training epilogue "
-        f"{err['coo_matmul_T.mask']:.3g} (rtol {GRAD_RTOL}, atol {GRAD_ATOL})"
+        f"A's dX (thread route, registered row offsets); F with no epilogue, the bias alone "
+        f"and All-ReLU's backward (slopes +-{model.config.alpha}; dz bit-equal), on each layer "
+        f"and with {n_empty} columns emptied; G's standalone call with and without a mask; A's "
+        f"training epilogue (output bit-equal to the All-ReLU epilogue's, mask = bias "
+        f"epilogue > 0, {n_zero} pre-activations exactly 0); each bit-equal over 3 launches; "
+        f"max_abs_err A dX {err['coo_matmul_T.dX']:.3g}, F dv {err['coo_dw']:.3g}, dbias "
+        f"{err['all_relu_bwd']:.3g}, A training epilogue {err['coo_matmul_T.mask']:.3g} (rtol "
+        f"{GRAD_RTOL}, atol {GRAD_ATOL})"
     )
 
 
@@ -1041,20 +1081,24 @@ def phase_element_train(out: dict) -> str:
     steps = TRAIN_EPOCHS * (len(card.data.x_train) // 128)
     evals = TRAIN_EPOCHS * -(-len(card.data.x_test) // 512)
     # a step: A forward on every layer (the hidden ones with the mask), A's
-    # dX on all but layer 0, F and G on every layer; an evaluation batch: A
-    # with its epilogue on every layer
+    # dX on all but layer 0, F with its epilogue (G's work) on every layer
+    # (the hidden ones with All-ReLU's mask), no standalone G; an evaluation
+    # batch: A with its epilogue on every layer
     want = dict(NO_LAUNCHES, **{
         "coo_matmul_T": steps * (2 * n_layers - 1) + evals * n_layers,
         "coo_matmul_T.epilogue": (steps + evals) * n_layers,
         "coo_matmul_T.mask": steps * (n_layers - 1),
-        "coo_dw": steps * n_layers, "all_relu_bwd": steps * n_layers})
+        "coo_dw": steps * n_layers, "coo_dw.epilogue": steps * n_layers,
+        "coo_dw.mask": steps * (n_layers - 1)})
     check(launches == want, f"launch counts {launches}, expected {want}")
     check(bool(np.isfinite(hist["train_loss"]).all()), f"non-finite loss {hist['train_loss']}")
     per_step = {
         "A forward": (launches["coo_matmul_T.epilogue"] - evals * n_layers) / steps,
         "A forward with mask": launches["coo_matmul_T.mask"] / steps,
         "A dX": (launches["coo_matmul_T"] - launches["coo_matmul_T.epilogue"]) / steps,
-        "F": launches["coo_dw"] / steps, "G": launches["all_relu_bwd"] / steps}
+        "F": launches["coo_dw"] / steps, "F with epilogue": launches["coo_dw.epilogue"] / steps,
+        "F with mask": launches["coo_dw.mask"] / steps,
+        "G standalone": launches["all_relu_bwd"] / steps}
     cpu_hist, loss_err = same_run_on_cpu(card, hist, card_topos, element_model("cpu"))
     drop_hist = dropout_run(element_model(CARD, dropout=0.3))
     out.update(element_hist=hist, element_launches=launches)
@@ -1093,9 +1137,10 @@ def block_bound(kind: str, meta, host, batch: int) -> dict:
 
 def profile_train_step(one_step, step_ms: float, steps: int = 10) -> dict:
     """Where a training step's time goes (torch.profiler over ``steps``
-    steps): device busy time by kernel, the device's idle share of the
-    unprofiled median step time, and the host's own time by operator (the
-    twelve largest, with their calls per step)."""
+    steps): device busy time by kernel, device launches (kernels and
+    copies) per step, the device's idle share of the unprofiled median step
+    time, and the host's own time by operator (the twelve largest, with
+    their calls per step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1109,16 +1154,19 @@ def profile_train_step(one_step, step_ms: float, steps: int = 10) -> dict:
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name: dict = {}
     host: list = []
+    launches = 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             by_name[e.key[:200]] = by_name.get(e.key[:200], 0.0) + e.self_device_time_total / steps
+            launches += e.count / steps
         elif e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:
             host.append((e.self_cpu_time_total / steps, e.count / steps, e.key[:120]))
     busy_us = sum(by_name.values())
     check(busy_us > 0, "the profiler saw no device time")
     host.sort(reverse=True)
     return dict(step_ms=step_ms, profiled_step_ms=profiled_ms, device_busy_us=busy_us,
-                device_idle_share=1.0 - busy_us / (step_ms * 1e3), device_us_by_name=by_name,
+                device_idle_share=1.0 - busy_us / (step_ms * 1e3), device_launches=launches,
+                device_us_by_name=by_name,
                 host_self_us_total=sum(h[0] for h in host),
                 host_self_us_top=[dict(op=k, us=us, calls=n) for us, n, k in host[:12]])
 
@@ -1160,10 +1208,13 @@ def time_train_step(model: SparseMLP, data, name: str) -> dict:
 def element_timing_rows(data) -> list:
     """Per-layer device times at batch 128 of the element step's backward
     kernels, on the full-width element model: kernel A's dX use (not on
-    layer 0), F and G (with the mask kernel A's training epilogue gives a
-    hidden layer), each beside its bound, its plain version and one PyTorch
-    call: ``torch.sparse.mm`` on the dual order's CSR, ``sampled_addmm`` on
-    the layer's CSR pattern, ``torch.where`` then ``.sum(1)``."""
+    layer 0), F without and with the layer's epilogue (All-ReLU's backward
+    with the mask kernel A's training epilogue gives a hidden layer; the
+    bias alone on the output layer), and G as that epilogue's cost in F and
+    as its standalone call, each beside its bound, its plain version and
+    one PyTorch call: ``torch.sparse.mm`` on the dual order's CSR,
+    ``sampled_addmm`` on the layer's CSR pattern, ``torch.where`` then
+    ``.sum(1)``."""
     model = element_model(CARD)
     rows = []
     rng = np.random.default_rng(SEED)
@@ -1184,16 +1235,6 @@ def element_timing_rows(data) -> list:
                 **bound(4 * (dz.numel() + 2 * nnz + n_in * batch) + 8 * (n_in + 1),
                         2 * nnz * batch),
             ))
-        pattern = torch.sparse_csr_tensor(row_ptr, t.cols_r.long(), torch.zeros_like(vr),
-                                          (n_in, n_out))
-        dz_bt = dz.T.contiguous()  # sampled_addmm's (B, out_dim) operand, made untimed
-        rows.append(dict(
-            kernel="coo_dw", **common,
-            ms=device_ms(lambda: sparsity.coo_dw(hT, dz, t.rows, t.cols)),
-            plain_ms=device_ms(lambda: sparsity.coo_dw_plain(hT, dz, t.rows, t.cols)),
-            library_ms=library_ms(lambda: torch.sparse.sampled_addmm(pattern, hT, dz_bt, beta=0.0)),
-            **bound(4 * (hT.numel() + dz.numel() + 3 * nnz), 2 * nnz * batch),
-        ))
         if slope is None:
             mask = None
             lib = lambda: dz.sum(1)  # noqa: E731
@@ -1213,14 +1254,34 @@ def element_timing_rows(data) -> list:
                 all_relu_epilogue_ms=device_ms(lambda: sparsity.coo_matmul_T(
                     hT, v, t.rows, t.cols, n_out, bias=bias, slope=slope)),
             ))
-        n = dz.numel()
+        epi = dict(with_dbias=True, mask=mask, slope=slope)  # the layer's epilogue in the step
+        pattern = torch.sparse_csr_tensor(row_ptr, t.cols_r.long(), torch.zeros_like(vr),
+                                          (n_in, n_out))
+        dz_bt = dz.T.contiguous()  # sampled_addmm's (B, out_dim) operand, made untimed
+        f_ms = device_ms(lambda: sparsity.coo_dw(hT, dz, t.rows, t.cols))
+        f_epi_ms = device_ms(lambda: sparsity.coo_dw(hT, dz, t.rows, t.cols, **epi))
         rows.append(dict(
-            kernel="all_relu_bwd", **common, mask=mask is not None,
-            ms=device_ms(lambda: all_relu_fused.all_relu_bwd(dz, mask, slope)),
-            plain_ms=device_ms(lambda: all_relu_fused.all_relu_bwd_plain(dz, mask, slope)),
+            kernel="coo_dw", **common, ms=f_ms, with_epilogue_ms=f_epi_ms,
+            epilogue="All-ReLU's backward" if mask is not None else "bias alone",
+            plain_ms=device_ms(lambda: sparsity.coo_dw_plain(hT, dz, t.rows, t.cols)),
+            library_ms=library_ms(lambda: torch.sparse.sampled_addmm(pattern, hT, dz_bt, beta=0.0)),
+            **bound(4 * (hT.numel() + dz.numel() + 3 * nnz), 2 * nnz * batch),
+        ))
+        # G's work: its cost inside F (F with the epilogue less F alone),
+        # bound by what the epilogue adds to F's traffic (the mask read, dz
+        # and dbias written) and its operations; beside it the standalone
+        # call, bound by its own traffic (dy read, mask read, dz written
+        # with a mask, dbias written)
+        n = dz.numel()
+        masked = mask is not None
+        rows.append(dict(
+            kernel="all_relu_bwd", **common, mask=masked, ms=f_epi_ms - f_ms,
+            plain_ms=device_ms(lambda: sparsity.coo_dw_epilogue(dz, mask, slope)),
             library_ms=library_ms(lib),
-            **bound(8 * n + 4 * n_out + (n if mask is not None else 0),
-                    (2 if mask is not None else 1) * n),
+            standalone_ms=device_ms(lambda: all_relu_fused.all_relu_bwd(dz, mask, slope)),
+            standalone_bound_ms=bound(4 * n + 4 * n_out + (5 * n if masked else 0),
+                                      (2 if masked else 1) * n)["bound_ms"],
+            **bound(4 * n_out + (5 * n if masked else 0), (2 if masked else 1) * n),
         ))
     return rows
 
@@ -1278,8 +1339,10 @@ def phase_train_timings(out: dict) -> str:
     for r in rows:
         print(json.dumps({"kernel_timing": r}))
     el = out["element_launches"]
+    # G runs in F's epilogue: its launches are F's with an epilogue, and its
+    # standalone call (all_relu_bwd) launches no time on the path
     element_launches = {"coo_matmul_T.dX": el["coo_matmul_T"] - el["coo_matmul_T.epilogue"],
-                        "coo_dw": el["coo_dw"], "all_relu_bwd": el["all_relu_bwd"]}
+                        "coo_dw": el["coo_dw"], "all_relu_bwd": el["coo_dw.epilogue"]}
     for meta, launches in ((KERNEL_C, out["train_launches"]["bsmm_fwd"]),
                            (KERNEL_D, out["train_launches"]["bsmm_dx"]),
                            (KERNEL_E, out["train_launches"]["bsmm_dw"]),
@@ -1287,12 +1350,18 @@ def phase_train_timings(out: dict) -> str:
                              for m in (KERNEL_A_DX, KERNEL_F, KERNEL_G))):
         # one training step: the sum over its launches
         mine = [r for r in rows if r["kernel"] == meta["name"]]
-        out["kernels"].append(kernel_entry(meta, mine, launches, out["err"][meta["name"]]))
+        extra = {k: sum(r[k] for r in mine) for k in ("with_epilogue_ms", "standalone_ms",
+                                                      "standalone_bound_ms") if k in mine[0]}
+        if meta is KERNEL_G:
+            extra.update(epilogue_launches=el["coo_dw.epilogue"],
+                         standalone_launches=el["all_relu_bwd"])
+        out["kernels"].append(dict(kernel_entry(meta, mine, launches, out["err"][meta["name"]]),
+                                   **extra))
 
     def step_line(p):
         return (f"median {p['step_ms']:.3f} ms (q25 {p['q25']:.3f}, q75 {p['q75']:.3f}), "
-                f"device busy {p['device_busy_us']:.1f} us, idle share "
-                f"{p['device_idle_share']:.3f}")
+                f"device busy {p['device_busy_us']:.1f} us, {p['device_launches']:g} launches, "
+                f"idle share {p['device_idle_share']:.3f}")
 
     return (
         f"block step {step_line(prof)}; element step {step_line(eprof)}; epoch_seconds block "

@@ -12,7 +12,9 @@ gives the same connections (and the same initial values) bit for bit:
   in its store, for CUDA tensors and its plain PyTorch version for CPU
   tensors; it serves the forward and, over the row-sorted dual order, dX.
   The per-slot weight gradient :func:`coo_dw` is kernel F
-  (``csrc/coo_dw.cu``).
+  (``csrc/coo_dw.cu``), a warp a run of one column's slots, with the
+  backward of A's epilogue (kernel G's work: dz and the bias's gradient)
+  in the same pass.
 * ``BlockTopology`` — live (block_m, block_n) tiles stored as a compact
   ``(n_blocks, bm, bn)`` stack plus int32 block coordinates;
   ``BlockTopoArrays`` holds the same dual-order views. Its products are
@@ -37,13 +39,18 @@ __all__ = [
     "ElemTopoArrays",
     "ElementTopology",
     "COO_LONG_SEGMENT",
+    "DW_RUN",
+    "DwRuns",
     "coo_dw",
+    "coo_dw_epilogue",
     "coo_dw_plain",
     "coo_epilogue",
     "coo_matmul_T",
     "coo_matmul_T_plain",
     "coo_route",
     "density_from_epsilon",
+    "dw_plan",
+    "dw_runs",
     "element_spmm",
     "element_spmm_segment",
     "erdos_renyi_nnz",
@@ -345,9 +352,10 @@ class ElementTopology:
         """The dual-order views on ``device``. The segment offsets of both
         orders (:meth:`col_ptr`, :meth:`row_ptr`) are made with them from the
         host's arrays and registered to ``cols`` and ``rows_r``, so that
-        kernel A finds them, and its route, with no device sync; the indices
-        were range-checked at construction, so kernels A and F gather
-        through them unchecked."""
+        kernel A finds them, and its route, with no device sync; so is
+        kernel F's run plan (:func:`dw_runs`), to ``cols``. The indices were
+        range-checked at construction, so kernels A and F gather through
+        them unchecked."""
         rows, cols = self.rows, self.cols
         perm_r = np.lexsort((cols, rows)).astype(np.int32)
         rows_r = rows[perm_r]
@@ -357,11 +365,11 @@ class ElementTopology:
             for a in (rows, cols, _first_flags(cols), rows_r, cols_r,
                       _first_flags(rows_r), perm_r)
         ))
-        _register_offsets(arrays.cols, offsets_to_device(self.col_ptr(), device))
+        col_ptr = self.col_ptr()
+        _register_offsets(arrays.cols, offsets_to_device(col_ptr, device))
         _register_offsets(arrays.rows_r, offsets_to_device(self.row_ptr(), device))
-        for t, hi in ((arrays.rows, self.in_dim), (arrays.cols, self.out_dim),
-                      (arrays.rows_r, self.in_dim), (arrays.cols_r, self.out_dim)):
-            _trust_indices(t, hi)
+        _remember(_DW_RUNS, arrays.cols, _runs_to_device(rows, col_ptr, device))
+        _trust_indices(arrays.rows, self.in_dim)  # kernel F's gather
         return arrays
 
     def col_ptr(self) -> np.ndarray:
@@ -508,17 +516,27 @@ def _longest_segment(seg_ptr: Optional[torch.Tensor], nnz: int, n_segments: int)
 _SEG_PTRS: Dict[int, Tuple[weakref.ref, torch.Tensor]] = {}
 
 
+def _remember(table: Dict, t: torch.Tensor, value) -> None:
+    """Keep ``value`` in ``table`` under ``t``'s identity for as long as
+    ``t`` lives."""
+    key = id(t)
+    table[key] = (weakref.ref(t, lambda _, k=key: table.pop(k, None)), value)
+
+
+def _recall(table: Dict, t: torch.Tensor):
+    """What :func:`_remember` kept in ``table`` for ``t``, or None."""
+    hit = table.get(id(t))
+    return hit[1] if hit is not None and hit[0]() is t else None
+
+
 def _register_offsets(segment_idx: torch.Tensor, seg_ptr: torch.Tensor) -> None:
-    key = id(segment_idx)
-    _SEG_PTRS[key] = (weakref.ref(segment_idx, lambda _, k=key: _SEG_PTRS.pop(k, None)),
-                      seg_ptr)
+    _remember(_SEG_PTRS, segment_idx, seg_ptr)
 
 
 def registered_offsets(segment_idx: torch.Tensor) -> Optional[torch.Tensor]:
     """The offsets made for ``segment_idx`` by the ``device_arrays`` that
     made it, or None."""
-    hit = _SEG_PTRS.get(id(segment_idx))
-    return hit[1] if hit is not None and hit[0]() is segment_idx else None
+    return _recall(_SEG_PTRS, segment_idx)
 
 
 # Index tensors known to lie in [0, bound), by identity: made by
@@ -528,16 +546,14 @@ _TRUSTED_INDICES: Dict[int, Tuple[weakref.ref, int]] = {}
 
 
 def _trust_indices(idx: torch.Tensor, bound: int) -> None:
-    key = id(idx)
-    _TRUSTED_INDICES[key] = (weakref.ref(idx, lambda _, k=key: _TRUSTED_INDICES.pop(k, None)),
-                             bound)
+    _remember(_TRUSTED_INDICES, idx, bound)
 
 
 def _check_indices(idx: torch.Tensor, bound: int, name: str) -> None:
     """Raise unless every index lies in [0, bound). Frozen topology: a
     tensor is checked the first time it is given, then remembered."""
-    hit = _TRUSTED_INDICES.get(id(idx))
-    if hit is not None and hit[0]() is idx and hit[1] <= bound:
+    trusted = _recall(_TRUSTED_INDICES, idx)
+    if trusted is not None and trusted <= bound:
         return
     if idx.numel() and not bool((idx.min() >= 0) & (idx.max() < bound)):
         raise ValueError(f"{name} has indices outside [0, {bound})")
@@ -760,6 +776,74 @@ def coo_matmul_T_plain(
     return coo_epilogue(out, bias, slope)
 
 
+# Kernel F's work unit (csrc/coo_dw.cu): a run of at most DW_RUN consecutive
+# slots of one column in the canonical order, one warp a run and one lane a
+# slot. Every column also has one empty run, its epilogue's: its dz row and
+# dbias, written whether or not the column has a slot.
+DW_RUN = 32
+
+
+class DwRuns(NamedTuple):
+    """Kernel F's run plan on the device: ``runs`` int32 (n_runs, 3), run r
+    covering the ``runs[r, 2]`` slots from ``runs[r, 1]`` of column
+    ``runs[r, 0]``; the first ``n_slot_runs`` hold the slots, then one
+    empty run per column of ``n_cols``, in column order."""
+
+    runs: torch.Tensor
+    n_slot_runs: int
+    n_cols: int
+
+
+def dw_runs(rows: np.ndarray, col_ptr: np.ndarray, run: int = DW_RUN) -> Tuple[np.ndarray, int]:
+    """Kernel F's run plan from a canonical order's host arrays: ``rows``
+    and the column offsets ``col_ptr`` (int64 (n_cols + 1,),
+    :meth:`ElementTopology.col_ptr`). Each column's slot range is cut from
+    its start into runs of at most ``run`` slots; the runs are ordered by
+    their first slot's row (then column), so that warps that run together
+    walk the same rows of x (each column's rows ascend) and find them in
+    L1 or L2; then one empty run per column, in column order. Returns
+    ``(runs, n_slot_runs)``, runs int32 (n_runs, 3) of (column, first
+    slot, slots)."""
+    col_ptr = np.asarray(col_ptr, np.int64)
+    counts = np.diff(col_ptr)
+    per_col = -(-counts // run)
+    col = np.repeat(np.arange(counts.size), per_col)
+    within = np.arange(col.size) - np.repeat(np.cumsum(per_col) - per_col, per_col)
+    lo = col_ptr[col] + within * run
+    n = np.minimum(run, col_ptr[col + 1] - lo)
+    order = np.lexsort((col, np.asarray(rows)[lo]))
+    empty = np.stack([np.arange(counts.size), col_ptr[:-1], np.zeros_like(counts)], 1)
+    runs = np.concatenate([np.stack([col, lo, n], 1)[order], empty])
+    return runs.astype(np.int32), int(col.size)
+
+
+def _runs_to_device(rows: np.ndarray, col_ptr: np.ndarray, device: torch.device) -> DwRuns:
+    runs, n_slot_runs = dw_runs(rows, col_ptr)
+    return DwRuns(torch.from_numpy(runs).to(device), n_slot_runs, len(col_ptr) - 1)
+
+
+# Kernel F's run plans, by the identity of the ``cols`` they cut: made with
+# the arrays by ``device_arrays``, else once per tensor by :func:`dw_plan`.
+_DW_RUNS: Dict[int, Tuple[weakref.ref, DwRuns]] = {}
+
+
+def dw_plan(rows: torch.Tensor, cols: torch.Tensor, n_cols: int) -> DwRuns:
+    """Kernel F's run plan for the canonical ``cols`` (``rows`` only orders
+    the runs): the one registered to ``cols``
+    (:meth:`ElementTopology.device_arrays`: no device work), else made
+    once from its offsets after checking that it is sorted and in
+    [0, n_cols) (one device sync), and registered. Frozen topology: the
+    tensor must not change after."""
+    runs = _recall(_DW_RUNS, cols)
+    if runs is None:
+        col_ptr = _checked_offsets(cols, n_cols).cpu().numpy()
+        runs = _runs_to_device(rows.cpu().numpy(), col_ptr, cols.device)
+        _remember(_DW_RUNS, cols, runs)
+    if runs.n_cols != n_cols:
+        raise ValueError(f"cols was planned for {runs.n_cols} columns, not {n_cols}")
+    return runs
+
+
 def coo_dw(
     xT: torch.Tensor,
     dyT: torch.Tensor,
@@ -767,16 +851,27 @@ def coo_dw(
     cols: torch.Tensor,
     *,
     chunk: Optional[int] = None,
-) -> torch.Tensor:
-    """Per-slot batch contraction ``dv[j] = sum_b xT[rows[j], b] * dyT[cols[j], b]``.
+    with_dbias: bool = False,
+    mask: Optional[torch.Tensor] = None,
+    slope: Optional[float] = None,
+):
+    """Per-slot batch contraction ``dv[j] = sum_b xT[rows[j], b] * dz[cols[j], b]``.
 
-    ``xT`` is (in_dim, B), ``dyT`` is (out_dim, B); returns (nnz,) aligned
-    to the canonical slot order. A CUDA tensor launches kernel F, which sums
-    each slot's batch in one fixed order (``chunk`` does not apply); a CPU
-    tensor takes the plain version.
+    ``xT`` is (in_dim, B), ``dyT`` is (out_dim, B); ``dv`` is (nnz,),
+    aligned to the canonical slot order. Without an epilogue ``dz = dyT``
+    and it returns ``dv``. ``with_dbias`` (a layer with a bias) returns
+    ``(dv, dz, dbias)`` with ``dbias = dz.sum(1)``; with ``mask`` too (the
+    uint8 branch mask of kernel A's training epilogue) and ``slope``, ``dz``
+    is All-ReLU's backward, ``where(mask, dyT, slope * dyT)``
+    (:func:`coo_dw_epilogue`). A CUDA tensor launches kernel F, the
+    epilogue in the same launch, over the run plan of ``cols``
+    (:func:`dw_plan`: ``cols`` must be in the canonical, column-sorted
+    order); each sum is taken in one fixed order (``chunk`` does not apply).
+    A CPU tensor takes the plain version.
     """
     if xT.device.type == "cpu":
-        return coo_dw_plain(xT, dyT, rows, cols, chunk=chunk)
+        return coo_dw_plain(xT, dyT, rows, cols, chunk=chunk, with_dbias=with_dbias,
+                            mask=mask, slope=slope)
     if xT.device.type != "cuda":
         raise ValueError(f"coo_dw runs on cuda or cpu tensors, not {xT.device}")
     device = xT.device
@@ -784,29 +879,82 @@ def coo_dw(
         raise ValueError(
             f"xT and dyT must be (features, B) with one B, got {tuple(xT.shape)} and "
             f"{tuple(dyT.shape)}")
-    nnz, batch = rows.shape[0], xT.shape[1]
-    f32 = torch.float32
-    build.check_tensor(xT, "xT", dtype=f32, shape=xT.shape, device=device)
-    build.check_tensor(dyT, "dyT", dtype=f32, shape=dyT.shape, device=device)
+    nnz = rows.shape[0]
+    build.check_tensor(xT, "xT", dtype=torch.float32, shape=xT.shape, device=device)
     build.check_tensor(rows, "rows", dtype=torch.int32, shape=(nnz,), device=device)
     build.check_tensor(cols, "cols", dtype=torch.int32, shape=(nnz,), device=device)
     _check_indices(rows, xT.shape[0], "rows")
-    _check_indices(cols, dyT.shape[0], "cols")
-    dv = torch.empty((nnz,), dtype=f32, device=device)
-    if nnz == 0:
-        return dv
-    fn = build.kernel("coo_dw", "coo_dw_f32", _COO_DW_ARGTYPES)
-    rc = fn(xT.data_ptr(), dyT.data_ptr(), rows.data_ptr(), cols.data_ptr(), dv.data_ptr(),
-            nnz, batch, *build.stream_args(device))
-    build.check_launch(rc, "coo_dw kernel")
-    coo_dw.launches += 1
-    return dv
+    runs = dw_plan(rows, cols, dyT.shape[0])
+    dv, dz, dbias, launched = _coo_dw_cuda(dyT, mask, slope, with_dbias, xT=xT, rows=rows,
+                                           runs=runs)
+    if launched:
+        coo_dw.launches += 1
+        if with_dbias:
+            coo_dw.epilogue_launches += 1
+        if mask is not None:
+            coo_dw.mask_launches += 1
+    return (dv, dz, dbias) if with_dbias else dv
 
 
 coo_dw.launches = 0  # kernel F launches, so a run can show it went through the kernel
+coo_dw.epilogue_launches = 0  # of which with the epilogue (dbias, and dz with a mask)
+coo_dw.mask_launches = 0  # of which with All-ReLU's backward (the mask)
 
-_COO_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                             ctypes.c_void_p]
+_COO_DW_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _check_dw_epilogue_args(with_dbias: bool, mask: Optional[torch.Tensor],
+                            slope: Optional[float]) -> None:
+    if mask is not None and not with_dbias:
+        raise ValueError("the mask is All-ReLU's branch after the bias: a mask needs with_dbias")
+    if mask is not None and slope is None:
+        raise ValueError("a mask needs the slope of its negative branch")
+
+
+def _coo_dw_cuda(dyT: torch.Tensor, mask: Optional[torch.Tensor], slope: Optional[float],
+                 with_dbias: bool, *, xT: Optional[torch.Tensor] = None,
+                 rows: Optional[torch.Tensor] = None, runs: Optional[DwRuns] = None):
+    """Check the epilogue's operands, allocate the outputs and launch
+    kernel F on the caller's stream over ``runs`` (its slot runs alone
+    without an epilogue), or, with no run plan, its epilogue alone over one
+    empty run per row of ``dyT`` (kernel G's standalone pass); the caller
+    has checked ``xT``, ``rows`` and ``runs``. Returns ``(dv, dz, dbias,
+    launched)``: dz is ``dyT`` itself without a mask (not written), dbias
+    None without ``with_dbias``."""
+    _check_dw_epilogue_args(with_dbias, mask, slope)
+    if dyT.dim() != 2:
+        raise ValueError(f"dy must be (N, B), got shape {tuple(dyT.shape)}")
+    device = dyT.device
+    build.check_tensor(dyT, "dy", dtype=torch.float32, shape=dyT.shape, device=device)
+    if mask is not None:
+        build.check_tensor(mask, "mask", dtype=torch.uint8, shape=dyT.shape, device=device)
+    dv = None if rows is None else torch.empty(rows.shape, dtype=torch.float32, device=device)
+    dz = dyT if mask is None else torch.empty_like(dyT)
+    dbias = torch.empty((dyT.shape[0],), dtype=torch.float32, device=device) if with_dbias else None
+    if runs is None:
+        n_runs = dyT.shape[0]
+    else:
+        n_runs = runs.runs.shape[0] if with_dbias else runs.n_slot_runs
+    if n_runs:
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        fn = build.kernel("coo_dw", "coo_dw_f32", _COO_DW_ARGTYPES)
+        rc = fn(ptr(xT), dyT.data_ptr(), ptr(mask), 0.0 if slope is None else slope, ptr(rows),
+                None if runs is None else runs.runs.data_ptr(), ptr(dv),
+                None if mask is None else dz.data_ptr(), ptr(dbias), n_runs, dyT.shape[1],
+                *build.stream_args(device))
+        build.check_launch(rc, "coo_dw kernel")
+    return dv, dz, dbias, n_runs > 0
+
+
+def coo_dw_epilogue(dyT: torch.Tensor, mask: Optional[torch.Tensor],
+                    slope: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel F's epilogue (kernel G's work), on any
+    device: ``dz = where(mask, dyT, slope * dyT)`` (``dz = dyT`` without a
+    mask) and ``dbias = dz.sum(1)`` for (N, B) tensors."""
+    dz = dyT if mask is None else torch.where(mask.bool(), dyT, slope * dyT)
+    return dz, dz.sum(1)
 
 
 def coo_dw_plain(
@@ -816,18 +964,24 @@ def coo_dw_plain(
     cols: torch.Tensor,
     *,
     chunk: Optional[int] = None,
-) -> torch.Tensor:
+    with_dbias: bool = False,
+    mask: Optional[torch.Tensor] = None,
+    slope: Optional[float] = None,
+):
     """Plain PyTorch version of kernel F, the reference's chunked form: the
     two gathered (chunk, B) slabs are the peak intermediate, reduced over the
-    batch at once. Runs on any device."""
+    batch at once; with ``with_dbias``, :func:`coo_dw_epilogue` first, as
+    :func:`coo_dw`. Runs on any device."""
+    _check_dw_epilogue_args(with_dbias, mask, slope)
+    dz, dbias = coo_dw_epilogue(dyT, mask, slope) if with_dbias else (dyT, None)
     nnz = int(rows.shape[0])
-    dtype = torch.promote_types(xT.dtype, dyT.dtype)
+    dtype = torch.promote_types(xT.dtype, dz.dtype)
     out = torch.empty((nnz,), dtype=dtype, device=xT.device)
     chunk = spmm_chunk_for(xT.shape[-1], nnz, chunk)
     for lo in range(0, nnz, chunk):
         r, c = rows[lo:lo + chunk].long(), cols[lo:lo + chunk].long()
-        out[lo:lo + chunk] = (xT[r].to(dtype) * dyT[c].to(dtype)).sum(-1)
-    return out
+        out[lo:lo + chunk] = (xT[r].to(dtype) * dz[c].to(dtype)).sum(-1)
+    return (out, dz, dbias) if with_dbias else out
 
 
 # ---------------------------------------------------------------------------

@@ -71,8 +71,8 @@
 //   epilogue 2: out = v > 0 ? v : __fmul_rn(slope, v)
 //   epilogue 3: out as epilogue 2, and mask = v > 0 (uint8, one per output)
 //
-// Epilogue 3 is the training forward's: All-ReLU's backward
-// (csrc/all_relu_bwd.cu, kernel G) needs the branch each output took, and
+// Epilogue 3 is the training forward's: All-ReLU's backward (kernel G's
+// work, in csrc/coo_dw.cu's epilogue) needs the branch each output took, and
 // the output alone does not give it: on the paper's even hidden layers the
 // slope is -alpha, so a negative v gives a positive output
 // (src/repro/core/all_relu.py). The mask costs one byte an output (512 KB a

@@ -12,10 +12,12 @@ columns of a block-padded row it reads in place (a row pitch, no copy). The
 element paths apply the same arithmetic in kernel A's store
 (``core.sparsity.coo_matmul_T``'s epilogue) instead.
 
-Its backward on the element training path is kernel G
-(``csrc/all_relu_bwd.cu``, :func:`all_relu_bwd`): the gradient through
-All-ReLU from the branch mask kernel A's training epilogue records, and the
-bias's gradient, the batch summed in one fixed order.
+Its backward on the element training path is kernel G's work: the
+gradient through All-ReLU from the branch mask kernel A's training epilogue
+records, and the bias's gradient, the batch summed in one fixed order. The
+training step runs it as kernel F's epilogue (``core.sparsity.coo_dw``,
+``csrc/coo_dw.cu``), in the pass that reads the same dz row for dW;
+:func:`all_relu_bwd` is its standalone call, kernel F's epilogue alone.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import sparsity
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import all_relu_ref, slope_for
 
@@ -99,14 +102,8 @@ def all_relu_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel G, on any device: ``dz = where(mask,
     dy, slope * dy)`` (``dz = dy`` without a mask) and ``dbias = dz.sum(1)``
-    for (N, B) tensors."""
-    dz = dy if mask is None else torch.where(mask.bool(), dy, slope * dy)
-    return dz, dz.sum(1)
-
-
-_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-]
+    for (N, B) tensors (:func:`repro_torch.core.sparsity.coo_dw_epilogue`)."""
+    return sparsity.coo_dw_epilogue(dy, mask, slope)
 
 
 def all_relu_bwd(
@@ -115,31 +112,19 @@ def all_relu_bwd(
     """The backward of bias + All-ReLU in the (features, batch) layout:
     ``dy`` (N, B) f32, ``mask`` (N, B) uint8, 1 where the pre-activation was
     > 0 (``coo_matmul_T(..., with_mask=True)``), or None for a layer with
-    the bias alone; returns ``(dz, dbias)``, dz (N, B) and dbias (N,). A
-    CUDA tensor launches kernel G; a CPU tensor takes the plain version."""
+    the bias alone; returns ``(dz, dbias)``, dz (N, B) (``dy`` itself
+    without a mask) and dbias (N,). A CUDA tensor launches kernel F's
+    epilogue alone (kernel G's work; the training step runs it inside
+    :func:`repro_torch.core.sparsity.coo_dw`); a CPU tensor takes the plain
+    version."""
     if dy.device.type == "cpu":
         return all_relu_bwd_plain(dy, mask, slope)
     if dy.device.type != "cuda":
         raise ValueError(f"all_relu_bwd runs on cuda or cpu tensors, not {dy.device}")
-    if dy.dim() != 2:
-        raise ValueError(f"dy must be (N, B), got shape {tuple(dy.shape)}")
-    build.check_tensor(dy, "dy", dtype=torch.float32, shape=dy.shape, device=dy.device)
-    if mask is not None:
-        build.check_tensor(mask, "mask", dtype=torch.uint8, shape=dy.shape, device=dy.device)
-        if slope is None:
-            raise ValueError("a mask needs the slope of its negative branch")
-    n, batch = dy.shape
-    dz = torch.empty_like(dy)
-    dbias = torch.empty((n,), dtype=torch.float32, device=dy.device)
-    if n == 0:
-        return dz, dbias
-    fn = build.kernel("all_relu_bwd", "all_relu_bwd_f32", _BWD_ARGTYPES)
-    rc = fn(dy.data_ptr(), None if mask is None else mask.data_ptr(), dz.data_ptr(),
-            dbias.data_ptr(), n, batch, 0.0 if slope is None else slope,
-            *build.stream_args(dy.device))
-    build.check_launch(rc, "all_relu_bwd kernel")
-    all_relu_bwd.launches += 1
+    _, dz, dbias, launched = sparsity._coo_dw_cuda(dy, mask, slope, True)
+    if launched:
+        all_relu_bwd.launches += 1
     return dz, dbias
 
 
-all_relu_bwd.launches = 0  # kernel G launches, so a run can show it went through the kernel
+all_relu_bwd.launches = 0  # kernel G's standalone launches (kernel F's epilogue alone)

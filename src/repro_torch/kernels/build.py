@@ -34,7 +34,6 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES: Tuple[str, ...] = (
     "coo_matmul_T", "bias_all_relu", "bsmm_fwd", "bsmm_dx", "bsmm_dw", "coo_dw",
-    "all_relu_bwd",
 )
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -13,13 +13,14 @@ topology arrays:
                     The name is the reference's.
 
 Element granularity (the paper-faithful COO path), in kernel A's
-(features, batch) layout, on kernels A (forward and dX), F (dW) and G (the
-epilogue's backward):
+(features, batch) layout, on kernels A (forward and dX) and F (dW, with the
+epilogue's backward, kernel G's work, in its pass):
 
 * ``espmm_train_T`` — one training layer: kernel A with the bias and
                       All-ReLU in its store, recording the branch mask;
-                      backward G, then A over the row-sorted dual order for
-                      dX (only where the input needs a gradient), then F.
+                      backward F (dz, dbias and dW in one pass), then A
+                      over the row-sorted dual order for dX on F's dz (only
+                      where the input needs a gradient).
 * ``espmm_infer_T`` — one served layer: kernel A with its epilogue.
 * ``espmm`` / ``espmm_custom`` — the reference's (batch, features) entries
                       with its ``impl`` values: ``custom`` is the
@@ -149,19 +150,20 @@ def bsmm_infer(
 
 
 # ---------------------------------------------------------------------------
-# Element path: kernels A, F and G behind one autograd Function
+# Element path: kernels A and F behind one autograd Function
 # ---------------------------------------------------------------------------
 #
 # The reference's hand-derived VJP (src/repro/kernels/ops.py::_espmm_core),
 # in the (features, batch) layout it computes in. For yT = act(W^T hT + b):
 #
 #   fwd  zT[cols[j], :]  += hT[rows[j], :] * v[j], then + b and All-ReLU  A
-#   act  dz = dy * (z > 0 ? 1 : slope), db = sum_b dz                     G
-#   dX   dhT[rows_r[j], :] += dz[cols_r[j], :] * v[perm_r[j]]             A
+#   act  dz = dy * (z > 0 ? 1 : slope), db = sum_b dz      F's epilogue (G)
 #   dW   dv[j] = sum_b hT[rows[j], b] * dz[cols[j], b]                    F
+#   dX   dhT[rows_r[j], :] += dz[cols_r[j], :] * v[perm_r[j]]             A
 #
-# Each pass sums in one fixed order and reads its segment offsets from the
-# topology's registration (ElementTopology.device_arrays), so none syncs.
+# Each pass sums in one fixed order and reads its segment offsets or run
+# plan from the topology's registration (ElementTopology.device_arrays), so
+# none syncs.
 
 
 class _EspmmT(torch.autograd.Function):
@@ -188,13 +190,19 @@ class _EspmmT(torch.autograd.Function):
         hT, values, mask = ctx.saved_tensors
         topo, chunk = ctx.topo, ctx.chunk
         dyT = dyT.contiguous()
-        dz, dbias = all_relu_bwd(dyT, mask, ctx.slope) if ctx.has_bias else (dyT, None)
-        dhT = dv = None
+        dz, dv, dbias = dyT, None, None
+        if ctx.needs_input_grad[1]:  # F, with the epilogue's dz and dbias in its pass
+            if ctx.has_bias:
+                dv, dz, dbias = coo_dw(hT, dyT, topo.rows, topo.cols, chunk=chunk,
+                                       with_dbias=True, mask=mask, slope=ctx.slope)
+            else:
+                dv = coo_dw(hT, dyT, topo.rows, topo.cols, chunk=chunk)
+        elif ctx.has_bias:  # the epilogue alone
+            dz, dbias = all_relu_bwd(dyT, mask, ctx.slope)
+        dhT = None
         if ctx.needs_input_grad[0]:  # layer 0's input needs none: no dX pass
             dhT = coo_matmul_T(dz, values.index_select(0, topo.perm_r), topo.cols_r,
                                topo.rows_r, hT.shape[0], chunk=chunk)
-        if ctx.needs_input_grad[1]:
-            dv = coo_dw(hT, dz, topo.rows, topo.cols, chunk=chunk)
         return dhT, dv, dbias, None, None, None, None
 
 
@@ -212,9 +220,9 @@ def espmm_train_T(
     (in_dim, B) -> (out_dim, B), ``h @ W + bias`` and, with ``slope``,
     All-ReLU, differentiable in ``hT``, ``values`` and ``bias``. The
     forward is kernel A with its epilogue in the store (and the branch
-    mask); the backward is kernel G, kernel A over the row-sorted dual
-    order for dX, and kernel F for dW. CPU tensors take the plain
-    versions."""
+    mask); the backward is kernel F with its epilogue (dz and the bias's
+    gradient beside dW), then kernel A over the row-sorted dual order for
+    dX. CPU tensors take the plain versions."""
     return _EspmmT.apply(hT.contiguous(), values, bias, topo, out_dim, slope, chunk)
 
 

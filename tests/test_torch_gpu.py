@@ -706,23 +706,80 @@ def test_kernel_a_training_epilogue_gives_mode_2_and_the_sign_mask(cuda, layer, 
     assert bool((pre[::3, 0] == 0).all())
 
 
-@pytest.mark.parametrize("case", LAYERS)
-def test_kernel_f_matches_plain_and_repeats_bit_equal(cuda, case):
-    topo, t, _, hT, dz = _grad_case(cuda, case)
-    before = tsp.coo_dw.launches
-    got = [tsp.coo_dw(hT, dz, t.rows, t.cols) for _ in range(3)]
+# Kernel F's layers beside LAYERS: batch 33 with every third column emptied
+# (their empty runs still write dz and dbias), 4,000-slot columns (the
+# output layer's: 125 runs a column) at batch 128, and the batches that take
+# the kernel's other register widths (256, 512; ragged: 255, 511) and its
+# path for a batch over 512 (600, 599), whose dz row is not in registers
+F_LAYERS = [*LAYERS, (4, 400, 400, 100, 33, "emptied"), (5, 4000, 10, 20, 128),
+            (6, 200, 150, 20, 256), (7, 200, 150, 20, 512), (8, 200, 150, 20, 600)]
+# kernel F's epilogue: mode 0 (no bias), 1 (the bias alone), 2 (bias +
+# All-ReLU, slope +alpha or -alpha)
+F_MODES = {"none": None, "bias": None, "relu_odd": 1, "relu_even": 2}
+
+
+def _f_args(cuda, mode, shape, seed=12):
+    """coo_dw's epilogue arguments for ``mode``: with All-ReLU, the branch
+    mask of pre-activations of which a fifth are exactly 0."""
+    if mode in ("none", "bias"):
+        return dict(with_dbias=mode == "bias")
+    rng = np.random.default_rng(seed)
+    pre = rng.standard_normal(shape).astype(np.float32)
+    pre[rng.random(shape) < 0.2] = 0.0
+    return dict(with_dbias=True, mask=torch.as_tensor(pre > 0, device=cuda).to(torch.uint8),
+                slope=slope_for(0.75, F_MODES[mode]))
+
+
+def _f_check(got, want, what):
+    """dz bit-equal to the plain version, dv and dbias at its tolerance."""
+    if not isinstance(want, tuple):
+        got, want = (got,), (want,)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5, msg=lambda m: f"{what}: {m}")
+    if len(want) == 3:
+        assert torch.equal(got[1], want[1]), f"{what}: dz differs"
+        torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.parametrize("mode", sorted(F_MODES))
+@pytest.mark.parametrize("case", F_LAYERS)
+def test_kernel_f_matches_plain_and_repeats_bit_equal(cuda, case, mode):
+    """Kernel F in its three epilogue modes against the plain version (dz
+    bit-equal: one rounded multiply; dv and dbias at rtol 1e-4 / atol 1e-5),
+    every output bit-equal over three launches; then a ragged batch and
+    operands off a 16-byte boundary (the scalar path)."""
+    topo, t, _, hT, dz = _grad_case(cuda, case[:5])
+    if len(case) > 5:  # empty every third column
+        keep = topo.cols % 3 != 0
+        topo = tsp.ElementTopology(topo.in_dim, topo.out_dim, topo.rows[keep], topo.cols[keep])
+        t = topo.device_arrays(cuda)
+    args = _f_args(cuda, mode, tuple(dz.shape))
+    counts = lambda: (tsp.coo_dw.launches, tsp.coo_dw.epilogue_launches,  # noqa: E731
+                      tsp.coo_dw.mask_launches, all_relu_fused.all_relu_bwd.launches)
+    before = counts()
+    got = [tsp.coo_dw(hT, dz, t.rows, t.cols, **args) for _ in range(3)]
     torch.cuda.synchronize()
-    assert tsp.coo_dw.launches == before + 3 and got[0].shape == (topo.nnz,)
-    torch.testing.assert_close(got[0], tsp.coo_dw_plain(hT, dz, t.rows, t.cols),
-                               rtol=1e-4, atol=1e-5)
-    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    epi, masked = args["with_dbias"], "mask" in args
+    assert tuple(a - b for a, b in zip(counts(), before)) == (3, 3 * epi, 3 * masked, 0)
+    want = tsp.coo_dw_plain(hT, dz, t.rows, t.cols, **args)
+    _f_check(got[0], want, f"{case}, mode {mode}")
+    first = got[0] if isinstance(got[0], tuple) else (got[0],)
+    assert first[0].shape == (topo.nnz,)
+    for other in got[1:]:
+        other = other if isinstance(other, tuple) else (other,)
+        assert all(torch.equal(a, b) for a, b in zip(first, other))
     # a ragged batch, and operands off a 16-byte boundary: the scalar path
     for sl in (np.s_[:, :-1], np.s_[:, 1:]):
         h2, d2 = hT[sl].contiguous(), dz[sl].contiguous()
-        torch.testing.assert_close(tsp.coo_dw(h2, d2, t.rows, t.cols),
-                                   tsp.coo_dw_plain(h2, d2, t.rows, t.cols), rtol=1e-4, atol=1e-5)
-    off = torch.empty(hT.numel() + 1, device=cuda)[1:].view(hT.shape).copy_(hT)
-    torch.testing.assert_close(tsp.coo_dw(off, dz, t.rows, t.cols), got[0], rtol=1e-4, atol=1e-5)
+        a2 = dict(args, mask=args["mask"][sl].contiguous()) if masked else args
+        if h2.shape[1]:
+            _f_check(tsp.coo_dw(h2, d2, t.rows, t.cols, **a2),
+                     tsp.coo_dw_plain(h2, d2, t.rows, t.cols, **a2), f"{case}, ragged")
+    for which in (0, 1):
+        ops_ = [hT, dz]
+        ops_[which] = torch.empty(ops_[which].numel() + 1, device=cuda)[1:].view(
+            ops_[which].shape).copy_(ops_[which])
+        _f_check(tsp.coo_dw(*ops_, t.rows, t.cols, **args), want, f"{case}, off 16 bytes")
 
 
 def test_kernel_f_validates_inputs(cuda):
@@ -742,19 +799,23 @@ def test_kernel_f_validates_inputs(cuda):
 @pytest.mark.parametrize("shape", [(4000, 128), (10, 128), (1000, 33), (7, 1)])
 @pytest.mark.parametrize("layer_index", [1, 2, None])  # slope +alpha, -alpha; no mask
 def test_kernel_g_matches_plain_and_repeats_bit_equal(cuda, shape, layer_index):
-    """dz bit-equal to the plain version (one rounded multiply), dbias at
-    the plain sum's tolerance and bit-equal across launches; where the
-    pre-activation is exactly 0 the slope branch is taken."""
+    """G's standalone call, kernel F's epilogue over one empty run a row:
+    dz bit-equal to the plain version (one rounded multiply; dy itself
+    without a mask), dbias at the plain sum's tolerance and bit-equal
+    across launches; where the pre-activation is exactly 0 the slope branch
+    is taken."""
     rng = np.random.default_rng(12)
     dy = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
     pre = rng.standard_normal(shape).astype(np.float32)
     pre[rng.random(shape) < 0.2] = 0.0
     mask = None if layer_index is None else torch.as_tensor(pre > 0, device=cuda).to(torch.uint8)
     slope = None if layer_index is None else slope_for(0.75, layer_index)
-    before = all_relu_fused.all_relu_bwd.launches
+    before = all_relu_fused.all_relu_bwd.launches, tsp.coo_dw.launches
     got = [all_relu_fused.all_relu_bwd(dy, mask, slope) for _ in range(3)]
     torch.cuda.synchronize()
-    assert all_relu_fused.all_relu_bwd.launches == before + 3
+    # kernel F's epilogue alone: counted as G's standalone call, not as F
+    assert (all_relu_fused.all_relu_bwd.launches, tsp.coo_dw.launches) == (before[0] + 3,
+                                                                          before[1])
     dz, db = all_relu_fused.all_relu_bwd_plain(dy, mask, slope)
     assert torch.equal(got[0][0], dz)
     torch.testing.assert_close(got[0][1], db, rtol=1e-4, atol=1e-5)
@@ -766,14 +827,16 @@ def test_full_width_element_train_step_matches_cpu(cuda):
     """One step of the full-width CIFAR-10 element model (3072-4000-1000-
     4000-10, epsilon 20) on the card and on the CPU from the same state, and
     its launches: A 4 forward (3 with the mask) and 3 dX (layer 0's input
-    needs no gradient), F 4, G 4."""
+    needs no gradient), F 4, each with its epilogue (G's work: 3 with
+    All-ReLU's mask, 1 with the bias alone), and no standalone G."""
     cfg = dataclasses.replace(mlp_config("cifar10"), dropout=0.0)
     data = load("cifar10", scale=0.003)
     x, y = data.x_train[:128], data.y_train[:128]
     opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
     step = make_mlp_train_step(cfg, opt)
     counters = (lambda: (tsp.coo_matmul_T.launches, tsp.coo_matmul_T.mask_launches,
-                         tsp.coo_dw.launches, all_relu_fused.all_relu_bwd.launches))
+                         tsp.coo_dw.launches, tsp.coo_dw.epilogue_launches,
+                         tsp.coo_dw.mask_launches, all_relu_fused.all_relu_bwd.launches))
     out = {}
     for dev in (cuda, torch.device("cpu")):
         model = SparseMLP(cfg, seed=0, device=dev)
@@ -782,7 +845,7 @@ def test_full_width_element_train_step_matches_cpu(cuda):
                           torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev).long(),
                           torch.tensor(0.01, device=dev), None)
         out[dev.type] = (p, s, loss, tuple(a - b for a, b in zip(counters(), before)))
-    assert out["cuda"][3] == (7, 3, 4, 4) and out["cpu"][3] == (0, 0, 0, 0)
+    assert out["cuda"][3] == (7, 3, 4, 4, 3, 0) and out["cpu"][3] == (0,) * 6
     torch.testing.assert_close(out["cuda"][2].cpu(), out["cpu"][2], rtol=1e-5, atol=1e-5)
     for k in ("values", "biases"):
         for a, b in zip(out["cuda"][0][k], out["cpu"][0][k]):
