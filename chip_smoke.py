@@ -52,7 +52,7 @@ Phases, one line each (any failure exits non-zero):
                    each with its epilogue, and no standalone kernel B;
 7. train         — the block training path: ``SequentialTrainer.run`` of the
                    full-width block model (128x128 tiles) for 3 epochs with
-                   SET and importance pruning, against the same run on the
+                   host SET and importance pruning, against the same run on the
                    CPU through the plain versions (topology and n_params
                    equal after every epoch, loss and accuracy within
                    tolerance), kernels C, D and E's launch counts and
@@ -60,21 +60,45 @@ Phases, one line each (any failure exits non-zero):
                    dropout whose loss must fall;
 8. element_train — the paper's element training path: ``SequentialTrainer.
                    run`` of the full-width element model for 3 epochs with
-                   SET and importance pruning (the element cascade), the
+                   host SET and importance pruning (the element cascade), the
                    block run's settings, against the same run on the CPU
                    (topology and n_params equal after every epoch, loss and
                    accuracy within tolerance), the launches of kernels A
                    (forward, dX) and F (each with its epilogue, G's work)
                    per step and no standalone G, and a run at the paper's
                    dropout whose loss must fall;
-9. timings       — classify latency per bucket, where a classify's device
+9. evolution     — device SET (``core.topology.evolve_element_layers_device``,
+                   ``evolve_block_layers_device``) of the full-width element
+                   and block models, seeded values and momentum, all four
+                   layers each under ``set_sync_debug_mode("error")``: equal
+                   slot for slot (rows, cols, values, momentum, pruned count)
+                   to the numpy version fed the card's draws (block scores
+                   within rtol 1e-6, the drop decision held on the card's
+                   scores); the invariants of tests/test_device_evolution.py;
+                   the device-made offsets equal to ``col_ptr()``/
+                   ``row_ptr()`` and F's device plan, padding stripped, to
+                   ``dw_runs``; kernels A (forward with the mask, dX; both
+                   routes) and F (modes 0-2) on the device-made arrays
+                   bit-equal to host-made arrays of the same topology; and
+                   per layer the evolution's device time, device launches
+                   and host time (``evolution_cost`` lines);
+10. element_train_device_evolution, block_train_device_evolution — the 3-epoch
+                   runs of phases 8 and 7 with ``device_evolution=True`` (the
+                   default), every evolution under ``set_sync_debug_mode(
+                   "error")``: the same launch counts, a finite loss, the
+                   synced host mirror's invariants after every epoch (an
+                   element model's ``n_params`` its count), ``n_params``
+                   equal to the host-SET run's after epoch 0 (pruning then
+                   acts on other topologies), and ``epoch_seconds`` and the
+                   topology phase's seconds beside the host-SET run's;
+11. timings       — classify latency per bucket, where a classify's device
                    time goes (kernels, copies and transposes, launches),
                    and per-kernel device time for A and B (CUDA events)
                    beside bound, plain version and one PyTorch library call
                    (A also with its other route's time and with its
                    epilogue; B as the epilogue's cost in A and as its
                    standalone pass);
-10. train_timings — the block and the element training step's time and
+12. train_timings — the block and the element training step's time and
                    device idle share, the epochs' seconds, and per-kernel rows
                    for C, D and E (C and E also with ``bound_tc_ms``, their
                    bound at the 3xTF32 tensor-core rate) and for kernel A's
@@ -101,7 +125,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.set_mlp import mlp_config  # noqa: E402
-from repro_torch.core import sparsity  # noqa: E402
+from repro_torch.core import sparsity, topology  # noqa: E402
 from repro_torch.core.importance import PruningSchedule  # noqa: E402
 from repro_torch.data.datasets import load  # noqa: E402
 from repro_torch.core.all_relu import activation_fn  # noqa: E402
@@ -665,11 +689,13 @@ def block_model(device, dropout: float = 0.0) -> SparseMLP:
     return SparseMLP(cfg, seed=SEED, device=device)
 
 
-def train_config() -> TrainerConfig:
+def train_config(device_evolution: bool = False) -> TrainerConfig:
     """3 epochs with SET after epochs 0 and 1 and importance pruning at
-    epochs 1 and 2, host evolution (device evolution is a later slice)."""
+    epochs 1 and 2; SET on the host (the run held to the CPU's) unless
+    ``device_evolution``."""
     return TrainerConfig(
-        epochs=TRAIN_EPOCHS, batch_size=128, lr=0.01, zeta=0.3, device_evolution=False,
+        epochs=TRAIN_EPOCHS, batch_size=128, lr=0.01, zeta=0.3,
+        device_evolution=device_evolution,
         pruning=PruningSchedule(tau=1, period=1, percentile=5.0),
     )
 
@@ -846,34 +872,76 @@ def block_accuracy(rng: np.random.Generator) -> dict:
     return res
 
 
-def trainer_for(model: SparseMLP):
-    """A trainer of ``model`` with ``train_config()`` and the list its epoch
-    hook fills with each epoch's topology."""
-    trainer = SequentialTrainer(model, load("cifar10", scale=TRAIN_SCALE), train_config())
-    topologies = []
+def trainer_for(model: SparseMLP, device_evolution: bool = False):
+    """A trainer of ``model`` with ``train_config(device_evolution)``, the
+    list its epoch hook fills with each epoch's topology (the host mirror,
+    which the trainer syncs before the hook), and the list of each epoch's
+    topology phase's seconds (pruning and SET, timed between two
+    synchronisations of the device)."""
+    trainer = SequentialTrainer(model, load("cifar10", scale=TRAIN_SCALE),
+                                train_config(device_evolution))
+    topologies, phase_s = [], []
     trainer.epoch_end_hook = lambda tr, epoch: topologies.append(
         [(t.rows.copy(), t.cols.copy()) for t in tr.model.topos])
-    return trainer, topologies
+    topology_phase = trainer._topology_phase
+
+    def timed(*args):
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = topology_phase(*args)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        phase_s.append(time.perf_counter() - t0)
+        return res
+
+    trainer._topology_phase = timed
+    return trainer, topologies, phase_s
+
+
+def run_steps(trainer: SequentialTrainer):
+    """The 3-epoch run's steps and evaluation batches."""
+    return (TRAIN_EPOCHS * (len(trainer.data.x_train) // 128),
+            TRAIN_EPOCHS * -(-len(trainer.data.x_test) // 512))
+
+
+def block_launches(cfg, steps: int, evals: int) -> dict:
+    """A block run's launches: C, D and E in each step, C in each
+    evaluation batch, whose hidden layers (autograd off) run kernel B."""
+    return dict(NO_LAUNCHES, bias_all_relu=evals * (cfg.n_layers - 1),
+                bsmm_fwd=(steps + evals) * cfg.n_layers,
+                bsmm_dx=steps * (cfg.n_layers - 1), bsmm_dw=steps * cfg.n_layers)
+
+
+def element_launches(cfg, steps: int, evals: int) -> dict:
+    """An element run's launches. A step: A forward on every layer (the
+    hidden ones with the mask), A's dX on all but layer 0, F with its
+    epilogue (G's work) on every layer (the hidden ones with All-ReLU's
+    mask), no standalone G; an evaluation batch: A with its epilogue on
+    every layer."""
+    n_layers = cfg.n_layers
+    return dict(NO_LAUNCHES, **{
+        "coo_matmul_T": steps * (2 * n_layers - 1) + evals * n_layers,
+        "coo_matmul_T.epilogue": (steps + evals) * n_layers,
+        "coo_matmul_T.mask": steps * (n_layers - 1),
+        "coo_dw": steps * n_layers, "coo_dw.epilogue": steps * n_layers,
+        "coo_dw.mask": steps * (n_layers - 1)})
 
 
 def phase_train(out: dict) -> str:
-    card, card_topos = trainer_for(block_model(CARD))
+    card, card_topos, phase_s = trainer_for(block_model(CARD))
     reset_counts()
     hist = card.run()
     launches = read_counts()
     cfg = card.model.config
-    steps = TRAIN_EPOCHS * (len(card.data.x_train) // 128)
-    evals = TRAIN_EPOCHS * -(-len(card.data.x_test) // 512)
-    # the evaluations (autograd off) run kernel B on each hidden layer
-    want = dict(NO_LAUNCHES, bias_all_relu=evals * (cfg.n_layers - 1),
-                bsmm_fwd=(steps + evals) * cfg.n_layers,
-                bsmm_dx=steps * (cfg.n_layers - 1), bsmm_dw=steps * cfg.n_layers)
+    steps, evals = run_steps(card)
+    want = block_launches(cfg, steps, evals)
     check(launches == want, f"launch counts {launches}, expected {want}")
     check(bool(np.isfinite(hist["train_loss"]).all()), f"non-finite loss {hist['train_loss']}")
 
     cpu_hist, loss_err = same_run_on_cpu(card, hist, card_topos, block_model("cpu"))
     drop_hist = dropout_run(block_model(CARD, dropout=0.3))
-    out.update(train_hist=hist, train_launches=launches)
+    out.update(train_hist=hist, train_launches=launches, train_phase_s=phase_s)
     print(json.dumps({"train_history": {"card": hist, "cpu": cpu_hist, "dropout_0.3": drop_hist}}))
     return (
         f"3 epochs x {steps // TRAIN_EPOCHS} steps of 128 at dims {cfg.layer_dims}, tiles "
@@ -889,7 +957,7 @@ def same_run_on_cpu(card: SequentialTrainer, hist: dict, card_topos: list, cpu_m
     plain versions: topology and n_params equal after every epoch, loss
     within TRAIN_LOSS_RTOL, accuracy within one test sample. Returns the
     CPU history and the largest relative loss difference."""
-    cpu, cpu_topos = trainer_for(cpu_model)
+    cpu, cpu_topos, _ = trainer_for(cpu_model)
     cpu_hist = cpu.run()
     check(hist["n_params"] == cpu_hist["n_params"],
           f"n_params {hist['n_params']} on the card, {cpu_hist['n_params']} on the CPU")
@@ -908,7 +976,7 @@ def same_run_on_cpu(card: SequentialTrainer, hist: dict, card_topos: list, cpu_m
 def dropout_run(model: SparseMLP) -> dict:
     """A run at the paper's dropout on the card: the loss must be finite and
     fall."""
-    hist = trainer_for(model)[0].run()
+    hist = trainer_for(model)[0].run()  # host SET
     check(bool(np.isfinite(hist["train_loss"]).all())
           and hist["train_loss"][-1] < hist["train_loss"][0],
           f"dropout {model.config.dropout} run: loss {hist['train_loss']} is not finite "
@@ -1072,24 +1140,14 @@ def phase_element_kernels(out: dict) -> str:
 
 
 def phase_element_train(out: dict) -> str:
-    card, card_topos = trainer_for(element_model(CARD))
+    card, card_topos, phase_s = trainer_for(element_model(CARD))
     reset_counts()
     hist = card.run()
     launches = read_counts()
     cfg = card.model.config
     n_layers = cfg.n_layers
-    steps = TRAIN_EPOCHS * (len(card.data.x_train) // 128)
-    evals = TRAIN_EPOCHS * -(-len(card.data.x_test) // 512)
-    # a step: A forward on every layer (the hidden ones with the mask), A's
-    # dX on all but layer 0, F with its epilogue (G's work) on every layer
-    # (the hidden ones with All-ReLU's mask), no standalone G; an evaluation
-    # batch: A with its epilogue on every layer
-    want = dict(NO_LAUNCHES, **{
-        "coo_matmul_T": steps * (2 * n_layers - 1) + evals * n_layers,
-        "coo_matmul_T.epilogue": (steps + evals) * n_layers,
-        "coo_matmul_T.mask": steps * (n_layers - 1),
-        "coo_dw": steps * n_layers, "coo_dw.epilogue": steps * n_layers,
-        "coo_dw.mask": steps * (n_layers - 1)})
+    steps, evals = run_steps(card)
+    want = element_launches(cfg, steps, evals)
     check(launches == want, f"launch counts {launches}, expected {want}")
     check(bool(np.isfinite(hist["train_loss"]).all()), f"non-finite loss {hist['train_loss']}")
     per_step = {
@@ -1101,7 +1159,7 @@ def phase_element_train(out: dict) -> str:
         "G standalone": launches["all_relu_bwd"] / steps}
     cpu_hist, loss_err = same_run_on_cpu(card, hist, card_topos, element_model("cpu"))
     drop_hist = dropout_run(element_model(CARD, dropout=0.3))
-    out.update(element_hist=hist, element_launches=launches)
+    out.update(element_hist=hist, element_launches=launches, element_phase_s=phase_s)
     print(json.dumps({"element_train_history": {
         "card": hist, "cpu": cpu_hist, "dropout_0.3": drop_hist}}))
     print(json.dumps({"element_launches_per_step": per_step}))
@@ -1111,6 +1169,327 @@ def phase_element_train(out: dict) -> str:
         f"{hist['test_acc']}, n_params {hist['n_params']}; card vs CPU: topology and n_params "
         f"equal every epoch, loss rel err {loss_err:.3g} (rtol {TRAIN_LOSS_RTOL}); launches "
         f"{launches}, per step {per_step}; dropout 0.3 loss {drop_hist['train_loss']}"
+    )
+
+
+# -- device SET evolution (the phase between epochs) --------------------------
+
+EVOLVE_ZETA = 0.3  # train_config()'s
+
+
+def seeded_velocity(model: SparseMLP, rng: np.random.Generator) -> list:
+    return [torch.as_tensor((0.01 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+                            device=model.device) for v in model.values]
+
+
+def without_host_sync(fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a host sync inside
+    it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def with_recorded_draws(fn):
+    """``(fn(), draws)``: every evolution draw ``fn`` takes, in order."""
+    draws, real = [], topology.evolution_draws
+
+    def recording(*args, **kwargs):
+        draws.append(real(*args, **kwargs))
+        return draws[-1]
+
+    topology.evolution_draws = recording
+    try:
+        return fn(), draws
+    finally:
+        topology.evolution_draws = real
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def equal_slots(got, want, what: str) -> None:
+    for name, g, w in zip(("rows", "cols", "values", "momentum", "n_pruned"), got, want):
+        g = _np(g) if isinstance(g, torch.Tensor) else g
+        check(np.array_equal(g, np.asarray(w)), f"{what}: {name} differs from the numpy version")
+
+
+def element_invariants(old, rows, cols, mom, n_pruned: int, what: str) -> None:
+    """tests/test_device_evolution.py's element invariants: capacity,
+    unique positions in range, the canonical order, momentum 0 on grown
+    slots, no more grown than pruned; the host mirror takes it."""
+    n_in, n_out = old.in_dim, old.out_dim
+    check(rows.shape[0] == old.nnz, f"{what}: capacity changed")
+    sparsity.ElementTopology(n_in, n_out, rows, cols)  # range and uniqueness
+    check(bool((np.diff(cols.astype(np.int64) * n_in + rows) > 0).all()),
+          f"{what}: not in the canonical order")
+    grown = ~np.isin(rows.astype(np.int64) * n_out + cols,
+                     old.rows.astype(np.int64) * n_out + old.cols)
+    check(bool((mom[grown] == 0).all()) and grown.sum() <= n_pruned,
+          f"{what}: a grown slot kept momentum, or more grew than were pruned")
+
+
+def block_invariants(old, rows, cols, vals, mom, n_pruned: int, what: str) -> None:
+    """The block invariants: capacity, unique, coverage (the host mirror's
+    checks), canonical order, grown tiles zero with momentum 0, at most the
+    zeta-tail pruned."""
+    meta = old.meta
+    check(rows.shape[0] == old.n_blocks, f"{what}: capacity changed")
+    sparsity.BlockTopology(meta, rows, cols)
+    check(bool((np.diff(cols.astype(np.int64) * meta.grid_m + rows) > 0).all()),
+          f"{what}: not in the canonical order")
+    grown = np.abs(vals).sum(axis=(1, 2)) == 0
+    check(mom[grown].sum() == 0 and n_pruned <= int(EVOLVE_ZETA * old.n_blocks),
+          f"{what}: a grown tile kept momentum, or more than the zeta-tail was pruned")
+
+
+def evolution_cost(fn, reps: int = 5) -> dict:
+    """One ``fn()`` call's host time (enqueue, median of ``reps``), its time
+    to the device's end (median), and its device busy time and device
+    launches (torch.profiler over ``reps`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy, launches = 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            busy += e.self_device_time_total / reps
+            launches += e.count / reps
+    check(launches > 0, "the profiler saw no device launches of the evolution")
+    return dict(host_ms=float(np.median(host)) * 1e3, wall_ms=float(np.median(wall)) * 1e3,
+                device_us=busy, device_launches=launches)
+
+
+def plans_bit_equal(model: SparseMLP, new, values, rng: np.random.Generator):
+    """Kernels A (the forward with the training epilogue, and dX; thread,
+    staged and the default route) and F (modes 0-2) on the arrays device
+    evolution made, against the same calls on host-made arrays of the same
+    topology: bit-equal. Then F's device time at batch 128 with the
+    layer's epilogue on the step (All-ReLU's backward; the output layer's
+    bias alone) over the host-made plan and the padded device-made one, in
+    turns (host, device, device, host). Returns the number of comparisons
+    and the timing rows."""
+    cfg, n, rows = model.config, 0, []
+    for l, t_dev in enumerate(new):
+        n_in, n_out = cfg.layer_dims[l], cfg.layer_dims[l + 1]
+        host = sparsity.ElementTopology(n_in, n_out, _np(t_dev.rows), _np(t_dev.cols))
+        t_host = host.device_arrays(CARD)
+        v = values[l]
+        hT = torch.as_tensor(rng.standard_normal((n_in, 128)).astype(np.float32), device=CARD)
+        dz = torch.as_tensor((0.01 * rng.standard_normal((n_out, 128))).astype(np.float32),
+                             device=CARD)
+        bias = torch.as_tensor((0.1 * rng.standard_normal(n_out)).astype(np.float32),
+                               device=CARD)
+        slope = ref.slope_for(cfg.alpha, l + 1) if l < cfg.n_layers - 1 else None
+        both = (t_dev, t_host)
+        for route in (sparsity.COO_THREAD, sparsity.COO_STAGED, None):
+            fwd = [sparsity._coo_matmul_T_cuda(hT, v, t.rows, t.cols, None, n_out, None, route,
+                                               bias=bias, slope=slope,
+                                               with_mask=slope is not None) for t in both]
+            dx = [sparsity._coo_matmul_T_cuda(dz, v.index_select(0, t.perm_r), t.cols_r,
+                                              t.rows_r, None, n_in, None, route) for t in both]
+            torch.cuda.synchronize()
+            check(_bits_equal(*fwd) and _bits_equal(*dx),
+                  f"kernel A on the device-made arrays of layer {l} (route {route}) differs")
+            n += 2
+        f_args = [dict(), dict(with_dbias=True)]  # F's modes 0 and 1, then 2 on A's mask
+        if slope is not None:
+            f_args.append(dict(with_dbias=True, mask=fwd[1][1], slope=slope))
+        for args in f_args:
+            f = [sparsity.coo_dw(hT, dz, t.rows, t.cols, **args) for t in both]
+            torch.cuda.synchronize()
+            check(_bits_equal(*f), f"kernel F on the device-made plan of layer {l} differs")
+            n += 1
+        ms = {"host": [], "device": []}
+        for which in ("host", "device", "device", "host"):
+            t = t_host if which == "host" else t_dev
+            ms[which].append(device_ms(lambda: sparsity.coo_dw(hT, dz, t.rows, t.cols,
+                                                               **f_args[-1])))
+        plan = sparsity.dw_plan(t_dev.rows, t_dev.cols, n_out)
+        rows.append(dict(layer=l, batch=128, slot_runs=sparsity.dw_plan(
+            t_host.rows, t_host.cols, n_out).n_slot_runs, capacity=plan.n_slot_runs,
+            host_plan_ms=ms["host"], device_plan_ms=ms["device"]))
+    return n, rows
+
+
+def phase_evolution(out: dict) -> str:
+    """Device SET of the full-width element and block models on the card,
+    with seeded values and momentum: held slot for slot to the numpy
+    version fed the same draws; the invariants; the device-made offsets
+    and F's plan against the host's; A and F on them bit-equal to
+    host-made arrays; no host sync; and its cost per layer."""
+    rng = np.random.default_rng(SEED)
+    emodel, bmodel = element_model(CARD), block_model(CARD)
+    ecfg, bcfg = emodel.config, bmodel.config
+    metas = [block_meta(bcfg, l) for l in range(bcfg.n_layers)]
+    etopo, btopo = emodel.topo_arrays(), bmodel.topo_arrays()
+    evel, bvel = seeded_velocity(emodel, rng), seeded_velocity(bmodel, rng)
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    reset_counts()
+    (enew, evals, evels, epruned), edraws = with_recorded_draws(lambda: without_host_sync(
+        lambda: topology.evolve_element_layers_device(
+            etopo, emodel.values, evel, gen, layer_dims=ecfg.layer_dims, zeta=EVOLVE_ZETA,
+            init_scheme=ecfg.init)))
+    (bnew, bvals, bvels, bpruned), bdraws = with_recorded_draws(lambda: without_host_sync(
+        lambda: topology.evolve_block_layers_device(
+            btopo, bmodel.values, bvel, gen, metas=metas, zeta=EVOLVE_ZETA)))
+    torch.cuda.synchronize()
+    check(read_counts() == NO_LAUNCHES, "device SET launched a hand kernel")
+    for l, host in enumerate(emodel.topos):
+        what = f"element layer {l}"
+        cand, init = edraws[l]
+        got = (enew[l].rows, enew[l].cols, evals[l], evels[l], epruned[l])
+        equal_slots(got, topology.evolve_element_device_reference(
+            host.rows, host.cols, _np(emodel.values[l]), _np(evel[l]), _np(cand), _np(init),
+            in_dim=host.in_dim, out_dim=host.out_dim, zeta=EVOLVE_ZETA), what)
+        rows, cols = _np(enew[l].rows), _np(enew[l].cols)
+        element_invariants(host, rows, cols, _np(evels[l]), int(epruned[l]), what)
+        made = sparsity.ElementTopology(host.in_dim, host.out_dim, rows, cols)
+        check(np.array_equal(_np(sparsity.registered_offsets(enew[l].cols)), made.col_ptr())
+              and np.array_equal(_np(sparsity.registered_offsets(enew[l].rows_r)),
+                                 made.row_ptr()), f"{what}: device-made offsets differ")
+        runs, n_slot = sparsity.dw_runs(rows, made.col_ptr())
+        plan = sparsity.dw_plan(enew[l].rows, enew[l].cols, host.out_dim)
+        got_runs = _np(plan.runs)
+        check(np.array_equal(got_runs[:n_slot], runs[:n_slot])
+              and np.array_equal(got_runs[plan.n_slot_runs:], runs[n_slot:])
+              and bool((got_runs[n_slot:plan.n_slot_runs] == [-1, 0, 0]).all()),
+              f"{what}: F's device plan, padding stripped, is not dw_runs")
+    score_err = 0.0
+    for l, host in enumerate(bmodel.topos):
+        what = f"block layer {l}"
+        vals = bmodel.values[l]
+        scores = _np(vals.abs().mean(dim=(1, 2)))
+        want_scores = np.abs(_np(vals)).mean(axis=(1, 2))
+        np.testing.assert_allclose(scores, want_scores, rtol=1e-6)
+        score_err = max(score_err, float(np.abs(scores / want_scores - 1).max()))
+        got = (bnew[l].rows, bnew[l].cols, bvals[l], bvels[l], bpruned[l])
+        equal_slots(got, topology.evolve_block_device_reference(
+            host.rows, host.cols, _np(vals), _np(bvel[l]), _np(bdraws[l][0]), meta=metas[l],
+            zeta=EVOLVE_ZETA, scores=scores), what)
+        block_invariants(host, _np(bnew[l].rows), _np(bnew[l].cols), _np(bvals[l]),
+                         _np(bvels[l]), int(bpruned[l]), what)
+    n_bits, f_rows = plans_bit_equal(emodel, enew, evals, rng)
+    for r in f_rows:
+        print(json.dumps({"f_plan_timing": r}))
+
+    costs = []
+    for l, t in enumerate(etopo):
+        dims = ecfg.layer_dims[l:l + 2]
+        costs.append(dict(kind="element", layer=l, slots=emodel.topos[l].nnz, **evolution_cost(
+            lambda: topology.evolve_element_layers_device(
+                [t], [emodel.values[l]], [evel[l]], gen, layer_dims=dims, zeta=EVOLVE_ZETA,
+                init_scheme=ecfg.init))))
+    for l, t in enumerate(btopo):
+        costs.append(dict(kind="block", layer=l, slots=bmodel.topos[l].n_blocks,
+                          **evolution_cost(lambda: topology.evolve_block_layers_device(
+                              [t], [bmodel.values[l]], [bvel[l]], gen, metas=[metas[l]],
+                              zeta=EVOLVE_ZETA))))
+    for c in costs:
+        print(json.dumps({"evolution_cost": c}))
+    out["evolution_cost"] = costs
+    return (
+        f"element {ecfg.layer_dims} ({[t.nnz for t in emodel.topos]} connections) and block "
+        f"({[t.n_blocks for t in bmodel.topos]} tiles of 128x128) SET on the card, zeta "
+        f"{EVOLVE_ZETA}, under set_sync_debug_mode('error'): pruned "
+        f"{_np(epruned).tolist()} and {_np(bpruned).tolist()}, equal slot for slot to the numpy "
+        f"version on the card's draws; invariants hold; device-made offsets and F's plan "
+        f"(padding stripped) equal the host's; {n_bits} A/F calls on the device-made arrays "
+        f"bit-equal to host-made ones; block scores within {score_err:.3g} (rtol 1e-6); device "
+        f"us per layer element {[round(c['device_us'], 1) for c in costs[:4]]}, block "
+        f"{[round(c['device_us'], 1) for c in costs[4:]]}; launches "
+        f"{[c['device_launches'] for c in costs]}; host ms "
+        f"{[round(c['host_ms'], 3) for c in costs]}; F ms a layer on the host plan "
+        f"{[round(min(r['host_plan_ms']), 4) for r in f_rows]}, on the padded device plan "
+        f"{[round(min(r['device_plan_ms']), 4) for r in f_rows]}"
+    )
+
+
+def device_evolution_run(model: SparseMLP, host_hist: dict, host_phase_s: list, want_of,
+                         what: str) -> tuple:
+    """The 3-epoch run of ``model`` with device SET: every device evolution
+    under ``set_sync_debug_mode("error")``, the launches of ``want_of``,
+    a finite loss, the host mirror's invariants after every epoch (the
+    trainer syncs it for the hook), and, after epoch 0 (before pruning
+    first fires, one SET apart), ``n_params`` equal to the host-SET run's.
+    Returns the history, the topology phase's seconds and the launches."""
+    card, topos, phase_s = trainer_for(model, device_evolution=True)
+    evolve = card._evolve_device
+    card._evolve_device = lambda topo: without_host_sync(lambda: evolve(topo))
+    reset_counts()
+    hist = card.run()
+    launches = read_counts()
+    cfg = card.model.config
+    want = want_of(cfg, *run_steps(card))
+    check(launches == want, f"{what}: launch counts {launches}, expected {want}")
+    check(bool(np.isfinite(hist["train_loss"]).all()), f"{what}: non-finite loss")
+    check(len(topos) == TRAIN_EPOCHS, f"{what}: an epoch hook did not fire")
+    biases = sum(int(b.numel()) for b in card.model.biases)
+    for epoch, layers in enumerate(topos):
+        for l, (rows, cols) in enumerate(layers):
+            # the mirror's constructors check range, uniqueness (and a block
+            # model's coverage); the order must already be canonical
+            if cfg.impl == "element":
+                sparsity.ElementTopology(cfg.layer_dims[l], cfg.layer_dims[l + 1], rows, cols)
+                n_rows = cfg.layer_dims[l]
+            else:
+                n_rows = sparsity.BlockTopology(block_meta(cfg, l), rows, cols).meta.grid_m
+            check(bool((np.diff(cols.astype(np.int64) * n_rows + rows) > 0).all()),
+                  f"{what}: layer {l} is not in the canonical order after epoch {epoch}")
+        if cfg.impl == "element":
+            check(hist["n_params"][epoch] == biases + sum(r.shape[0] for r, _ in layers),
+                  f"{what}: n_params is not the synced mirror's after epoch {epoch}")
+    check(hist["n_params"][0] == host_hist["n_params"][0],
+          f"{what}: n_params {hist['n_params'][0]} after epoch 0, host SET's "
+          f"{host_hist['n_params'][0]}")
+    print(json.dumps({f"{what}_history": {"device_set": hist, "host_set": host_hist,
+                                          "topology_phase_s": {"device_set": phase_s,
+                                                               "host_set": host_phase_s}}}))
+    return hist, phase_s, launches
+
+
+def phase_element_train_device_evolution(out: dict) -> str:
+    hist, phase_s, launches = device_evolution_run(
+        element_model(CARD), out["element_hist"], out["element_phase_s"], element_launches,
+        "element_train_device_evolution")
+    out.update(element_dev_hist=hist, element_dev_phase_s=phase_s)
+    return (
+        f"3 epochs, device SET after epochs 0 and 1: loss {hist['train_loss']}, acc "
+        f"{hist['test_acc']}, n_params {hist['n_params']} (host SET "
+        f"{out['element_hist']['n_params']}); launches as the host-SET run's; epoch_seconds "
+        f"{hist['epoch_seconds']} (host SET {out['element_hist']['epoch_seconds']}); topology "
+        f"phase s {phase_s} (host SET {out['element_phase_s']})"
+    )
+
+
+def phase_block_train_device_evolution(out: dict) -> str:
+    hist, phase_s, launches = device_evolution_run(
+        block_model(CARD), out["train_hist"], out["train_phase_s"], block_launches,
+        "block_train_device_evolution")
+    out.update(block_dev_hist=hist, block_dev_phase_s=phase_s)
+    return (
+        f"3 epochs, device SET after epochs 0 and 1: loss {hist['train_loss']}, acc "
+        f"{hist['test_acc']}, n_params {hist['n_params']} (host SET "
+        f"{out['train_hist']['n_params']}); launches as the host-SET run's; epoch_seconds "
+        f"{hist['epoch_seconds']} (host SET {out['train_hist']['epoch_seconds']}); topology "
+        f"phase s {phase_s} (host SET {out['train_phase_s']})"
     )
 
 
@@ -1393,6 +1772,9 @@ def main() -> int:
         ("device", phase_device), ("build", phase_build), ("kernels", phase_kernels),
         ("block_kernels", phase_block_kernels), ("element_kernels", phase_element_kernels),
         ("main", phase_main), ("train", phase_train), ("element_train", phase_element_train),
+        ("evolution", phase_evolution),
+        ("element_train_device_evolution", phase_element_train_device_evolution),
+        ("block_train_device_evolution", phase_block_train_device_evolution),
         ("timings", phase_timings), ("train_timings", phase_train_timings),
     ):
         t0 = time.perf_counter()

@@ -6,8 +6,9 @@ given ``--device cpu`` (the plain versions).
 
     PYTHONPATH=src python examples/quickstart_torch.py [--epochs 20] [--scale 0.05] [--device cpu]
 
-SET evolves on the host between epochs (``device_evolution=False``): the
-device-resident evolution is not ported yet.
+As the reference's quickstart, it takes ``TrainerConfig``'s defaults: fused
+epochs, and SET evolution on the device between them
+(``device_evolution=True``), with no host sync.
 """
 import argparse
 
@@ -42,7 +43,7 @@ def main():
           f"(dense would be {sum(a*b for a, b in zip(cfg.layer_dims, cfg.layer_dims[1:]))})")
     tc = TrainerConfig(
         epochs=args.epochs, batch_size=min(hp["batch"], 64), lr=hp["lr"],
-        zeta=0.3, device_evolution=False,
+        zeta=0.3,
         pruning=None if args.no_prune else PruningSchedule(
             tau=args.epochs // 2, period=2, percentile=10.0
         ),

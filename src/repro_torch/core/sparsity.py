@@ -6,7 +6,10 @@ gives the same connections (and the same initial values) bit for bit:
 
 * ``ElementTopology`` — COO connections, the paper-faithful path;
   ``ElemTopoArrays`` holds its dual-order views as int32 tensors on the
-  device, and the segment offsets of both orders are made with them, once.
+  device, and the segment offsets of both orders and kernel F's run plan
+  are made with them, once: on the host from the topology
+  (``ElementTopology.device_arrays``), or on the device from arrays that
+  device SET evolution made (:func:`register_device_plans`).
   The product primitive :func:`coo_matmul_T` is kernel A
   (``csrc/coo_matmul_T.cu``), with an optional bias (+ All-ReLU) epilogue
   in its store, for CUDA tensors and its plain PyTorch version for CPU
@@ -51,11 +54,15 @@ __all__ = [
     "density_from_epsilon",
     "dw_plan",
     "dw_runs",
+    "dw_runs_capacity",
+    "dw_runs_device",
     "element_spmm",
     "element_spmm_segment",
     "erdos_renyi_nnz",
     "offsets_to_device",
+    "register_device_plans",
     "registered_offsets",
+    "route_hints",
     "segment_offsets",
     "spmm_chunk_for",
 ]
@@ -492,16 +499,22 @@ def offsets_to_device(seg_ptr: np.ndarray, device: torch.device) -> torch.Tensor
     if seg_ptr.size == 0 or seg_ptr[0] != 0 or (np.diff(seg_ptr) < 0).any():
         raise ValueError("seg_ptr must start at 0 and never decrease")
     t = torch.from_numpy(seg_ptr).to(device)
-    key = id(t)
     longest = int(np.diff(seg_ptr).max()) if seg_ptr.size > 1 else 0
-    _LONGEST[key] = (weakref.ref(t, lambda _, k=key: _LONGEST.pop(k, None)), longest,
-                     int(seg_ptr[-1]))
+    _note_offsets(t, longest, int(seg_ptr[-1]))
     return t
+
+
+def _note_offsets(seg_ptr: torch.Tensor, longest: int, end: int) -> None:
+    """Remember, for as long as ``seg_ptr`` lives, the host ints kernel A
+    needs of it: the longest segment (its route) and the end (its check)."""
+    key = id(seg_ptr)
+    _LONGEST[key] = (weakref.ref(seg_ptr, lambda _, k=key: _LONGEST.pop(k, None)), longest, end)
 
 
 def _longest_segment(seg_ptr: Optional[torch.Tensor], nnz: int, n_segments: int) -> int:
     """The longest segment of ``seg_ptr`` where it came from
-    :func:`offsets_to_device`, else the mean (both host ints)."""
+    :func:`offsets_to_device` (the route hint where it came from
+    :func:`register_device_plans`), else the mean (both host ints)."""
     hit = _LONGEST.get(id(seg_ptr)) if seg_ptr is not None else None
     if hit is not None and hit[0]() is seg_ptr:
         return hit[1]
@@ -654,7 +667,9 @@ def _check_seg_ptr(seg_ptr: torch.Tensor, nnz: int) -> None:
     if seen is not None and seen() is seg_ptr:
         return
     made = _LONGEST.get(key)
-    if made is not None and made[0]() is seg_ptr:  # checked on the host when it was made
+    # checked on the host when it was made, or made on the device from
+    # sorted indices, which gives offsets from 0 to their count
+    if made is not None and made[0]() is seg_ptr:
         if made[2] != nnz:
             raise ValueError(f"seg_ptr must run from 0 to nnz={nnz} without decreasing")
         return
@@ -786,8 +801,12 @@ DW_RUN = 32
 class DwRuns(NamedTuple):
     """Kernel F's run plan on the device: ``runs`` int32 (n_runs, 3), run r
     covering the ``runs[r, 2]`` slots from ``runs[r, 1]`` of column
-    ``runs[r, 0]``; the first ``n_slot_runs`` hold the slots, then one
-    empty run per column of ``n_cols``, in column order."""
+    ``runs[r, 0]``; then one empty run per column of ``n_cols``, in column
+    order. ``n_slot_runs`` is the slot runs' capacity, the rows before the
+    empty runs: a plan made on the host (:func:`dw_runs`) fills it
+    exactly; one made on the device (:func:`dw_runs_device`) has a fixed
+    capacity, its slot runs first and then padding runs of column -1,
+    which kernel F skips."""
 
     runs: torch.Tensor
     n_slot_runs: int
@@ -822,6 +841,45 @@ def _runs_to_device(rows: np.ndarray, col_ptr: np.ndarray, device: torch.device)
     return DwRuns(torch.from_numpy(runs).to(device), n_slot_runs, len(col_ptr) - 1)
 
 
+def dw_runs_capacity(nnz: int, n_cols: int, run: int = DW_RUN) -> int:
+    """An upper bound on the slot runs of any topology of ``nnz`` slots over
+    ``n_cols`` columns: each run holds a slot, and a column's runs number
+    at most its slots over ``run`` plus one, so the sum over columns is at
+    most ``nnz // run + n_cols``."""
+    return min(nnz, nnz // run + n_cols)
+
+
+def dw_runs_device(rows: torch.Tensor, col_ptr: torch.Tensor, n_cols: int,
+                   run: int = DW_RUN) -> DwRuns:
+    """Kernel F's run plan made where the canonical ``rows`` and their
+    column offsets ``col_ptr`` (int64 (n_cols + 1,)) live, with no device
+    sync: :func:`dw_runs`'s slot runs in its order at a fixed capacity
+    (:func:`dw_runs_capacity`), the rows past them padding runs
+    ``(-1, 0, 0)``, then the empty runs. Slot run r of column c is found by
+    a search of r in the running count of runs per column; the runs are
+    ordered by one stable sort on ``first row * n_cols + column``, unique
+    per run, with padding keyed past every run."""
+    nnz, dev = rows.shape[0], rows.device
+    cap = dw_runs_capacity(nnz, n_cols, run)
+    counts = col_ptr[1:] - col_ptr[:-1]
+    per_col = (counts + run - 1) // run
+    ends = torch.cumsum(per_col, 0)
+    r = torch.arange(cap, dtype=torch.int64, device=dev)
+    col = torch.searchsorted(ends, r, right=True)
+    real = col < n_cols
+    c = col.clamp(max=n_cols - 1)
+    lo = col_ptr.index_select(0, c) + (r - (ends - per_col).index_select(0, c)) * run
+    n = torch.minimum(col_ptr.index_select(0, c + 1) - lo, torch.full_like(lo, run))
+    first_row = rows.index_select(0, lo.clamp(0, max(nnz - 1, 0))).long()
+    key = torch.where(real, first_row * n_cols + c, torch.iinfo(torch.int64).max)
+    order = torch.sort(key, stable=True).indices
+    slot_runs = torch.stack([torch.where(real, c, -1), torch.where(real, lo, 0),
+                             torch.where(real, n, 0)], 1).index_select(0, order)
+    cols = torch.arange(n_cols, dtype=torch.int64, device=dev)
+    empty = torch.stack([cols, col_ptr[:-1], torch.zeros_like(cols)], 1)
+    return DwRuns(torch.cat([slot_runs, empty]).to(torch.int32), cap, n_cols)
+
+
 # Kernel F's run plans, by the identity of the ``cols`` they cut: made with
 # the arrays by ``device_arrays``, else once per tensor by :func:`dw_plan`.
 _DW_RUNS: Dict[int, Tuple[weakref.ref, DwRuns]] = {}
@@ -842,6 +900,38 @@ def dw_plan(rows: torch.Tensor, cols: torch.Tensor, n_cols: int) -> DwRuns:
     if runs.n_cols != n_cols:
         raise ValueError(f"cols was planned for {runs.n_cols} columns, not {n_cols}")
     return runs
+
+
+def route_hints(arrays: ElemTopoArrays, in_dim: int, out_dim: int) -> Tuple[int, int]:
+    """Host ints for kernel A's routes over ``arrays``: the longest segment
+    of the column order (the forward) and of the row order (dX), as their
+    registered offsets record them, else the mean."""
+    nnz = arrays.rows.shape[0]
+    return (_longest_segment(registered_offsets(arrays.cols), nnz, out_dim),
+            _longest_segment(registered_offsets(arrays.rows_r), nnz, in_dim))
+
+
+def register_device_plans(arrays: ElemTopoArrays, in_dim: int, out_dim: int,
+                          longest: Tuple[int, int]) -> None:
+    """Make on the device, with no sync, what ``ElementTopology.
+    device_arrays`` makes on the host for its arrays, and register it the
+    same way: both orders' offsets (to ``cols`` and ``rows_r``, their end
+    the slot count by construction), kernel F's run plan
+    (:func:`dw_runs_device`, to ``cols``) and ``rows`` as trusted for F's
+    gather. ``arrays`` must be a canonical, in-range topology's views, as
+    device evolution makes them: nothing here checks them. ``longest`` is
+    the (column, row) route hint for kernel A (:func:`route_hints` of the
+    last host-made arrays): both routes give the same bits, so a stale
+    hint changes only the time."""
+    nnz = arrays.rows.shape[0]
+    col_ptr = segment_offsets(arrays.cols, out_dim)
+    row_ptr = segment_offsets(arrays.rows_r, in_dim)
+    _note_offsets(col_ptr, longest[0], nnz)
+    _note_offsets(row_ptr, longest[1], nnz)
+    _register_offsets(arrays.cols, col_ptr)
+    _register_offsets(arrays.rows_r, row_ptr)
+    _remember(_DW_RUNS, arrays.cols, dw_runs_device(arrays.rows, col_ptr, out_dim))
+    _trust_indices(arrays.rows, in_dim)
 
 
 def coo_dw(

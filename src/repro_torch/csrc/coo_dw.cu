@@ -30,7 +30,10 @@
 // topology) cuts each column's slot range, in the canonical order, into
 // runs of at most 32 consecutive slots, and gives every column one empty
 // run besides: runs[r] = (column, first slot, slots). One warp takes one
-// run. A run with slots:
+// run. A plan made on the device (dw_runs_device, after SET evolution on
+// the card) has a fixed number of slot runs, the ones past its slot runs
+// padding with column -1: their warps return at once and write nothing.
+// A run with slots:
 //
 //   * makes its column's dz row from dy, the mask and the slope (one
 //     rounded multiply, __fmul_rn) into registers, for B <= 512, and keeps
@@ -188,6 +191,7 @@ coo_dw_kernel(const float* __restrict__ xT,
     lo = __ldg(runs + 3 * r + 1);
     n = __ldg(runs + 3 * r + 2);
   }
+  if (col < 0) return;  // a padding run (a plan made on the device): nothing to do
   const float* dy_row = dy + col * batch;
   const uint8_t* m_row = mask == nullptr ? nullptr : mask + col * batch;
   const int64_t b0 = L::start(lane);
@@ -276,10 +280,10 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // xT (in_dim x batch), dy and dz (n_cols x batch f32), mask (n_cols x batch
 // uint8, or null: dz = dy), dbias (n_cols f32, or null: no epilogue), rows
 // (nnz int32, inside xT's first dimension: the wrapper checks), dv (nnz
-// f32), and the run plan: runs (n_runs x 3 int32: column in [0, n_cols),
-// first slot, 0 to 32 slots inside one column's range). With runs null,
-// n_runs = n_cols empty runs, run r on column r, and xT, rows and dv are
-// not read.
+// f32), and the run plan: runs (n_runs x 3 int32: column in [0, n_cols)
+// or -1 for a padding run, first slot, 0 to 32 slots inside one column's
+// range). With runs null, n_runs = n_cols empty runs, run r on column r,
+// and xT, rows and dv are not read.
 extern "C" int coo_dw_f32(const void* xT, const void* dy, const void* mask, float slope,
                           const void* rows, const void* runs, void* dv, void* dz, void* dbias,
                           int64_t n_runs, int64_t batch, int device, void* stream) {

@@ -29,7 +29,9 @@ sizes 1..128) or raises, and takes its plain version for a CPU tensor. It
 counts its launches (one per call, the second pass of a split included).
 Topology arrays are checked once per tensor (one device sync on first
 use): every coordinate inside the grid and the slot order sorted, so the
-kernels never index out of bounds.
+kernels never index out of bounds. Arrays that device SET evolution made
+hold these by construction and are registered as checked
+(:func:`trust_block_arrays`), so a new topology costs no sync.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ __all__ = [
     "dx_parts",
     "fwd_parts",
     "split_runs",
+    "trust_block_arrays",
 ]
 
 MAX_BLOCK = 128  # the kernels take block sizes 1..128
@@ -183,10 +186,30 @@ def _check_once(what: str, grid: Tuple[int, ...], tensors: Tuple[torch.Tensor, .
     if seen is not None and all(r() is t for r, t in zip(seen, tensors)):
         return
     check()
+    _mark_checked(what, grid, tensors)
+
+
+def _mark_checked(what: str, grid: Tuple[int, ...], tensors: Tuple[torch.Tensor, ...]) -> None:
+    key = (what, grid) + tuple(id(t) for t in tensors)
     refs = tuple(
         weakref.ref(t, lambda _, k=key: _CHECKED.pop(k, None)) for t in tensors
     )
     _CHECKED[key] = refs
+
+
+def trust_block_arrays(arrays, grid_m: int, grid_n: int) -> None:
+    """Register a block topology's device arrays as checked for kernels C,
+    D and E on a (grid_m, grid_n) grid, so that none of them syncs to check
+    them. Only for arrays whose invariants hold by construction, as device
+    SET evolution makes them (``core.topology.evolve_block_layers_device``:
+    canonical, in the grid, ``perm_r`` a permutation)."""
+    nb = arrays.rows.shape[0]
+    for what, grid, tensors in (
+        ("fwd", (grid_m, grid_n), (arrays.rows, arrays.cols)),
+        ("dx", (grid_m, grid_n, nb), (arrays.rows_r, arrays.cols_r, arrays.perm_r)),
+        ("dw", (grid_m, grid_n), (arrays.rows, arrays.cols)),
+    ):
+        _mark_checked(what, grid, tensors)
 
 
 # Segment offsets (kernel C's col_ptr, kernel D's row_ptr), by sorted index

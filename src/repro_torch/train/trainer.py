@@ -8,8 +8,18 @@ the same epoch protocol and the same ``history`` keys. Two execution modes
 * **Fused (default)** — the training set lives on the device, the host ships
   only the epoch's shuffled index permutation and learning rates, and
   ``launch.steps.scan_segment`` runs every minibatch step with the losses
-  kept on the device: one host synchronisation per epoch.
-* **Per-batch** — one step call per minibatch from host numpy batches.
+  kept on the device: one host synchronisation per epoch. Between segments
+  the SET prune/regrow cycle runs on the device too, on fixed-capacity
+  topology arrays (``core.topology.evolve_element_layers_device``,
+  ``evolve_block_layers_device``; ``device_evolution=True``, the default),
+  and rebuilds the arrays and the kernels' plans there, with no host sync.
+  The host topology mirror (``model.topos``) is synchronised lazily: only
+  before importance pruning (a host operation that changes shapes), at an
+  epoch-end hook, and at the end of the run. With
+  ``device_evolution=False``, or a layer whose flat positions overflow
+  int32, SET runs on the host as in per-batch mode.
+* **Per-batch** — one step call per minibatch from host numpy batches, SET
+  on the host, as the reference's.
 
 Per epoch, both modes: momentum-SGD minibatch steps (on the card the
 element products run on kernels A, F and G, the block products on C, D and
@@ -19,20 +29,23 @@ E), then
      ones in the next layer too (the output layer takes only that cascade);
      a block model zeroes the neurons' columns and frees the tiles left
      empty;
-  2. the SET pruning-regrowing cycle on the host (``core.topology.
-     evolve_element``: the zeta-tail per sign, random regrowth drawn by the
-     model's init scheme; ``evolve_block``: the zeta-tail of tiles by mean
-     |w|, zero-init), keeping the connection or tile count; momentum is kept
-     on survivors and reset on regrown ones;
-then evaluation. The topology's device arrays (and an element topology's
-segment offsets) are made once after each topology phase, and serve the
-evaluation and the next epoch. The same seed gives the reference's epoch
-order, pruning and regrowth draws, so at dropout 0 the topology follows the
-reference's.
+  2. the SET pruning-regrowing cycle (element: the zeta-tail per sign,
+     random regrowth drawn by the model's init scheme; block: the zeta-tail
+     of tiles by mean |w|, zero-init), keeping the connection or tile
+     count; momentum is kept on survivors and reset on regrown ones;
+then evaluation. Host SET (``core.topology.evolve_element``,
+``evolve_block``) draws from the reference's numpy rng, so at dropout 0 the
+topology follows the reference's host-evolution run. Device SET draws from
+the trainer's one ``torch.Generator``, which dropout draws from too, as the
+reference draws both from its one jax key chain; the two generators give
+other numbers, so device SET follows the reference's only when fed its
+draws (``core.topology.evolution_draws``). After a host topology phase the
+device arrays (and an element topology's offsets and run plan) are made
+once, from the host, and serve the evaluation and the next epoch.
 
-Not in this slice, and refused with an error that says so: device-resident
-evolution (``device_evolution=True``), the masked/dense impls,
-training-dynamics probes, checkpoints, and the fault hook / step retries.
+Not in this slice, and refused with an error that says so: the
+masked/dense impls, training-dynamics probes, checkpoints, and the fault
+hook / step retries.
 """
 from __future__ import annotations
 
@@ -48,12 +61,17 @@ from repro_torch.core.importance import (
     importance_prune_block,
     importance_prune_element,
 )
-from repro_torch.core.sparsity import ElementTopology
-from repro_torch.core.topology import evolve_block, evolve_element
+from repro_torch.core.sparsity import BlockTopology, ElementTopology
+from repro_torch.core.topology import (
+    evolve_block,
+    evolve_block_layers_device,
+    evolve_element,
+    evolve_element_layers_device,
+)
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import Dataset
 from repro_torch.launch.steps import make_mlp_step_core, make_mlp_train_step, scan_segment
-from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, mlp_forward
+from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward
 from repro_torch.optim.sgd import MomentumSGD, replace_values_velocity
 
 __all__ = [
@@ -78,7 +96,7 @@ class TrainerConfig:
     seed: int = 0
     lr_schedule: Optional[Callable] = None
     fused_epochs: bool = True  # one device-resident segment per epoch
-    device_evolution: bool = True  # device SET evolution: not in this slice
+    device_evolution: bool = True  # SET on the device between fused segments
     probe: bool = False  # training-dynamics probes: not in this slice
 
 
@@ -134,11 +152,6 @@ class SequentialTrainer:
                 f"impl={model.config.impl!r}: the port trains element and block models; "
                 "the masked and dense impls come with a later slice"
             )
-        if tc.evolve and tc.device_evolution:
-            raise NotImplementedError(
-                "device-resident SET evolution comes with a later slice; pass "
-                "TrainerConfig(device_evolution=False) to evolve on the host"
-            )
         if tc.probe:
             raise NotImplementedError("training-dynamics probes come with the probes slice")
         self.model = model
@@ -147,8 +160,8 @@ class SequentialTrainer:
         self.device = model.device
         self.opt = MomentumSGD(momentum=tc.momentum, weight_decay=tc.weight_decay)
         self.opt_state = self.opt.init(model.params())
-        self.rng = np.random.default_rng(tc.seed)  # evolution draws, as the reference's
-        self.key = torch.Generator(device=self.device)  # dropout draws
+        self.rng = np.random.default_rng(tc.seed)  # host evolution draws, as the reference's
+        self.key = torch.Generator(device=self.device)  # dropout and device evolution draws
         self.key.manual_seed(tc.seed)
         self._step = make_mlp_train_step(model.config, self.opt)
         self._segment = make_segment_program(model.config, self.opt)
@@ -218,14 +231,73 @@ class SequentialTrainer:
             vel[l] = torch.as_tensor(res.momentum, device=self.device)
         self.opt_state = replace_values_velocity(self.opt_state, vel)
 
-    def _topology_phase(self, epoch: int):
-        """Importance pruning if it fires, then SET (none after the last
-        epoch, as in the paper); returns the topology's device arrays, made
-        once for the evaluation and the next epoch."""
-        self._importance_prune(epoch)
-        if epoch < self.tc.epochs - 1:
-            self._evolve()
+    # -- device-side topology mutations --------------------------------------
+
+    def _evolve_device(self, topo):
+        """SET for every layer on the device, drawing from ``self.key``:
+        returns the new device arrays (with their plans) and leaves the host
+        mirror behind."""
+        tc, model = self.tc, self.model
+        cfg = model.config
+        vel = list(self.opt_state.velocity["values"])
+        if cfg.impl == "element":
+            topo, values, vel, _ = evolve_element_layers_device(
+                topo, model.values, vel, self.key, layer_dims=cfg.layer_dims, zeta=tc.zeta,
+                init_scheme=cfg.init)
+        else:
+            topo, values, vel, _ = evolve_block_layers_device(
+                topo, model.values, vel, self.key,
+                metas=[block_meta(cfg, l) for l in range(cfg.n_layers)], zeta=tc.zeta)
+        model.values = list(values)
+        self.opt_state = replace_values_velocity(self.opt_state, vel)
+        return topo
+
+    def _sync_topology_to_host(self, topo) -> None:
+        """Pull the device topology into the host mirror (``model.topos``),
+        whose constructors check its invariants: needed only before a host
+        topology operation, at an epoch-end hook and at the end of a fused
+        run."""
+        cfg = self.model.config
+        for l, t in enumerate(topo):
+            rows, cols = t.rows.cpu().numpy(), t.cols.cpu().numpy()
+            if cfg.impl == "element":
+                self.model.topos[l] = ElementTopology(cfg.layer_dims[l], cfg.layer_dims[l + 1],
+                                                      rows, cols)
+            else:
+                self.model.topos[l] = BlockTopology(block_meta(cfg, l), rows, cols)
+
+    def _host_topology_op(self, topo, topo_dirty: bool, op):
+        """Run a host topology mutation ``op`` (it changes the model and
+        ``opt_state``) after syncing the host mirror if the device topology
+        has moved on, and return the device arrays made from its result."""
+        if topo_dirty:
+            self._sync_topology_to_host(topo)
+        op()
         return self.model.topo_arrays()
+
+    def _supports_device_evolution(self) -> bool:
+        # device SET encodes flat positions in int32
+        cfg = self.model.config
+        if cfg.impl == "element":
+            return all(cfg.layer_dims[l] * cfg.layer_dims[l + 1] < 2**31
+                       for l in range(cfg.n_layers))
+        return all(block_meta(cfg, l).total_blocks < 2**31 for l in range(cfg.n_layers))
+
+    def _topology_phase(self, epoch: int, topo, topo_dirty: bool, device_evo: bool):
+        """Importance pruning if it fires, then SET (none after the last
+        epoch, as in the paper), on the device or on the host. Returns the
+        topology's device arrays, which serve the evaluation and the next
+        epoch, and whether the host mirror lags them."""
+        tc = self.tc
+        if tc.pruning is not None and tc.pruning.should_prune(epoch):
+            topo = self._host_topology_op(topo, topo_dirty, lambda: self._importance_prune(epoch))
+            topo_dirty = False
+        if epoch < tc.epochs - 1 and tc.evolve:
+            if device_evo:
+                topo, topo_dirty = self._evolve_device(topo), True
+            else:
+                topo, topo_dirty = self._host_topology_op(topo, topo_dirty, self._evolve), False
+        return topo, topo_dirty
 
     def save_checkpoint(self, manager) -> None:
         raise NotImplementedError("checkpoints come with the checkpoint slice")
@@ -252,8 +324,10 @@ class SequentialTrainer:
         return loader
 
     def _end_epoch(self, epoch: int, t0: float, train_loss: float, gstep: int,
-                   log_every: int, topo) -> None:
-        """Wait for the epoch's device work, evaluate, and record history."""
+                   log_every: int, topo, topo_dirty: bool = False) -> bool:
+        """Wait for the epoch's device work, evaluate, record history and
+        call the epoch-end hook, which reads the host mirror: synced first
+        if it lags ``topo``. Returns whether it still lags."""
         tc, model = self.tc, self.model
         _sync(self.device)
         dt = time.perf_counter() - t0
@@ -272,7 +346,11 @@ class SequentialTrainer:
         self.gstep = gstep
         self.epoch_next = epoch + 1
         if self.epoch_end_hook is not None:
+            if topo_dirty:
+                self._sync_topology_to_host(topo)
+                topo_dirty = False
             self.epoch_end_hook(self, epoch)
+        return topo_dirty
 
     def _run_fused(self, log_every: int) -> Dict[str, List]:
         tc, model = self.tc, self.model
@@ -284,6 +362,8 @@ class SequentialTrainer:
         y_all = torch.as_tensor(self.data.y_train, device=dev).long()
         gstep = self.gstep
         topo = model.topo_arrays()
+        device_evo = tc.evolve and tc.device_evolution and self._supports_device_evolution()
+        topo_dirty = False  # the device topology has moved on from model.topos
         for epoch in range(self.start_epoch, tc.epochs):
             t0 = time.perf_counter()
             perm = torch.as_tensor(
@@ -297,8 +377,11 @@ class SequentialTrainer:
             )
             gstep += steps
             model.set_params(params)
-            topo = self._topology_phase(epoch)
-            self._end_epoch(epoch, t0, float(losses.mean()), gstep, log_every, topo)
+            topo, topo_dirty = self._topology_phase(epoch, topo, topo_dirty, device_evo)
+            topo_dirty = self._end_epoch(epoch, t0, float(losses.mean()), gstep, log_every,
+                                         topo, topo_dirty)
+        if topo_dirty:
+            self._sync_topology_to_host(topo)
         return self.history
 
     def _run_per_batch(self, log_every: int) -> Dict[str, List]:
@@ -321,7 +404,7 @@ class SequentialTrainer:
                 losses.append(loss)
                 gstep += 1
             model.set_params(params)
-            topo = self._topology_phase(epoch)
+            topo, _ = self._topology_phase(epoch, topo, False, device_evo=False)
             self._end_epoch(epoch, t0, float(torch.stack(losses).mean()), gstep, log_every,
                             topo)
         return self.history

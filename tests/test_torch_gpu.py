@@ -16,7 +16,10 @@ another order than the plain versions' einsums (up to K = 4096 products per
 output, in 3xTF32 on the tensor cores, as accurate as f32), so they are held
 at rtol/atol 1e-4; uncovered dx block-rows are held exactly 0, and launches
 on the same inputs are held bit-equal (the kernels split long sums, and add
-the partials in a fixed order).
+the partials in a fixed order). Device SET evolution is held slot for slot
+to its numpy version fed the same draws, and runs without a host sync;
+kernel F over the run plan made on the device (padded) is held bit-equal
+to the host-made plan.
 """
 import dataclasses
 
@@ -26,7 +29,17 @@ import torch
 
 from repro_torch.configs.set_mlp import mlp_config
 from repro_torch.core import sparsity as tsp
-from repro_torch.core.topology import block_device_arrays
+from repro_torch.core.topology import (
+    block_device_arrays,
+    element_device_arrays,
+    evolution_draws,
+    evolve_block_device,
+    evolve_block_device_reference,
+    evolve_block_layers_device,
+    evolve_element_device,
+    evolve_element_device_reference,
+    evolve_element_layers_device,
+)
 from repro_torch.core.importance import PruningSchedule
 from repro_torch.data.datasets import load
 from repro_torch.kernels import all_relu_fused
@@ -852,3 +865,142 @@ def test_full_width_element_train_step_matches_cpu(cuda):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
         for a, b in zip(out["cuda"][1].velocity[k], out["cpu"][1].velocity[k]):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+
+
+# -- device SET evolution and the plans it makes on the card -----------------
+
+
+def _device_made(t, topo):
+    """The same topology's arrays made on the device (new tensors, so the
+    plans are made anew: kernel F's padded to its fixed capacity)."""
+    return element_device_arrays(t.rows.clone(), t.cols.clone(), in_dim=topo.in_dim,
+                                 out_dim=topo.out_dim,
+                                 longest=tsp.route_hints(t, topo.in_dim, topo.out_dim))
+
+
+@pytest.mark.parametrize("emptied", [False, True])
+@pytest.mark.parametrize("batch", [1, 33, 128])
+def test_kernel_f_on_a_padded_device_plan_is_bit_equal_to_the_host_plan(cuda, batch, emptied):
+    """Kernel F over the run plan made on the device (its slot runs, then
+    padding runs of column -1 up to the capacity) gives the bits of the
+    host-made plan, in every epilogue mode, with columns emptied too."""
+    topo, t, _, hT, dz = _grad_case(cuda, (3, 400, 400, 100, batch))
+    if emptied:
+        keep = topo.cols % 3 != 0
+        topo = tsp.ElementTopology(topo.in_dim, topo.out_dim, topo.rows[keep], topo.cols[keep])
+        t = topo.device_arrays(cuda)
+    d = _device_made(t, topo)
+    plan = tsp.dw_plan(d.rows, d.cols, topo.out_dim)
+    n_real = tsp.dw_plan(t.rows, t.cols, topo.out_dim).n_slot_runs
+    assert plan.n_slot_runs == tsp.dw_runs_capacity(topo.nnz, topo.out_dim) > n_real
+    for mode in sorted(F_MODES):
+        args = _f_args(cuda, mode, tuple(dz.shape))
+        host = tsp.coo_dw(hT, dz, t.rows, t.cols, **args)
+        dev = tsp.coo_dw(hT, dz, d.rows, d.cols, **args)
+        torch.cuda.synchronize()
+        host, dev = (x if isinstance(x, tuple) else (x,) for x in (host, dev))
+        assert all(torch.equal(a, b) for a, b in zip(host, dev)), f"mode {mode}"
+
+
+def test_kernel_f_padding_runs_write_nothing(cuda):
+    """A plan of padding runs alone, with an epilogue's outputs given:
+    every warp returns at once, and dv, dz and dbias keep their sentinels."""
+    rng = np.random.default_rng(0)
+    n_cols, batch = 16, 33
+    xT = torch.as_tensor(rng.standard_normal((8, batch)).astype(np.float32), device=cuda)
+    dy = torch.as_tensor(rng.standard_normal((n_cols, batch)).astype(np.float32), device=cuda)
+    mask = torch.ones((n_cols, batch), dtype=torch.uint8, device=cuda)
+    rows = torch.zeros(4, dtype=torch.int32, device=cuda)
+    runs = torch.tensor([[-1, 0, 0]] * 40, dtype=torch.int32, device=cuda)
+    dv = torch.full((4,), 7.0, device=cuda)
+    dz = torch.full((n_cols, batch), 7.0, device=cuda)
+    dbias = torch.full((n_cols,), 7.0, device=cuda)
+    fn = tsp.build.kernel("coo_dw", "coo_dw_f32", tsp._COO_DW_ARGTYPES)
+    rc = fn(xT.data_ptr(), dy.data_ptr(), mask.data_ptr(), 0.5, rows.data_ptr(),
+            runs.data_ptr(), dv.data_ptr(), dz.data_ptr(), dbias.data_ptr(), runs.shape[0],
+            batch, *tsp.build.stream_args(dy.device))
+    tsp.build.check_launch(rc, "coo_dw kernel")
+    torch.cuda.synchronize()
+    assert bool((dv == 7).all() & (dz == 7).all() & (dbias == 7).all())
+
+
+def _check_evolved(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+        assert np.array_equal(g, np.asarray(w)), f"{what}: output {i} differs"
+
+
+@pytest.mark.parametrize("zeta", [0.3, 0.5])
+def test_device_evolution_matches_its_numpy_version(cuda, zeta):
+    """Element and block SET on the card against the numpy versions fed the
+    same draws (copied from the card): equal slot for slot."""
+    rng = np.random.default_rng(4)
+    topo = tsp.ElementTopology.erdos_renyi(400, 300, 20, rng)
+    vals = rng.standard_normal(topo.nnz).astype(np.float32)
+    vals[::17] = 0.0
+    mom = rng.standard_normal(topo.nnz).astype(np.float32)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cand, init = evolution_draws(gen, topo.nnz, 400 * 300, fan_in_dense=400, scheme="he_uniform")
+    dims = dict(in_dim=400, out_dim=300, zeta=zeta)
+    got = evolve_element_device(*(torch.as_tensor(a, device=cuda) for a in (
+        topo.rows, topo.cols, vals, mom)), cand, init, **dims)
+    want = evolve_element_device_reference(topo.rows, topo.cols, vals, mom, cand.cpu().numpy(),
+                                           init.cpu().numpy(), **dims)
+    _check_evolved(got, want, "element")
+    meta = tsp.BlockMeta(300, 200, 32, 32)
+    btopo = tsp.BlockTopology.erdos_renyi(meta, 0.4, rng)
+    bvals = rng.standard_normal((btopo.n_blocks, 32, 32)).astype(np.float32)
+    bmom = rng.standard_normal(bvals.shape).astype(np.float32)
+    bcand, _ = evolution_draws(gen, btopo.n_blocks, meta.total_blocks, fan_in_dense=300,
+                               scheme=None)
+    dv = torch.as_tensor(bvals, device=cuda)
+    got = evolve_block_device(*(torch.as_tensor(a, device=cuda) for a in (
+        btopo.rows, btopo.cols)), dv, torch.as_tensor(bmom, device=cuda), bcand, meta=meta,
+        zeta=zeta)
+    scores = dv.abs().mean(dim=(1, 2)).cpu().numpy()
+    np.testing.assert_allclose(scores, np.abs(bvals).mean(axis=(1, 2)), rtol=1e-6)
+    want = evolve_block_device_reference(btopo.rows, btopo.cols, bvals, bmom,
+                                         bcand.cpu().numpy(), meta=meta, zeta=zeta,
+                                         scores=scores)
+    _check_evolved(got, want, "block")
+
+
+def test_full_width_evolution_runs_without_a_host_sync(cuda):
+    """One device evolution of the full-width element model (3072-4000-
+    1000-4000-10) and of its block model, arrays and plans included, under
+    ``set_sync_debug_mode("error")``; then the device-made offsets equal
+    the host's and F's plan, padding stripped, equals ``dw_runs``."""
+    model = SparseMLP(mlp_config("cifar10"), seed=0, device=cuda)
+    bmodel = SparseMLP(mlp_config("cifar10", impl="block"), seed=0, device=cuda)
+    topo, btopo = model.topo_arrays(), bmodel.topo_arrays()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    vel = [torch.randn(v.shape, device=cuda) for v in model.values]
+    bvel = [torch.randn(v.shape, device=cuda) for v in bmodel.values]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, _, _, pruned = evolve_element_layers_device(
+            topo, model.values, vel, gen, layer_dims=model.config.layer_dims, zeta=0.3)
+        bnew, _, _, bpruned = evolve_block_layers_device(
+            btopo, bmodel.values, bvel, gen,
+            metas=[block_meta(bmodel.config, l) for l in range(4)], zeta=0.3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # a block layer of one tile a block-column (layer 0: 32 tiles, 32
+    # columns) has none to drop: coverage keeps them all
+    assert int(pruned.min()) > 0 and int(bpruned.sum()) > 0
+    for l, t in enumerate(new):
+        host = tsp.ElementTopology(model.config.layer_dims[l], model.config.layer_dims[l + 1],
+                                   t.rows.cpu().numpy(), t.cols.cpu().numpy())
+        assert torch.equal(tsp.registered_offsets(t.cols).cpu(), torch.from_numpy(host.col_ptr()))
+        assert torch.equal(tsp.registered_offsets(t.rows_r).cpu(),
+                           torch.from_numpy(host.row_ptr()))
+        runs, n = tsp.dw_runs(host.rows, host.col_ptr())
+        plan = tsp.dw_plan(t.rows, t.cols, host.out_dim).runs.cpu().numpy()
+        cap = tsp.dw_runs_capacity(host.nnz, host.out_dim)
+        assert np.array_equal(plan[:n], runs[:n]) and np.array_equal(plan[cap:], runs[n:])
+        assert (plan[n:cap, 0] == -1).all()
+    for l, t in enumerate(bnew):
+        tsp.BlockTopology(block_meta(bmodel.config, l), t.rows.cpu().numpy(),
+                          t.cols.cpu().numpy())

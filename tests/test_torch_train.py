@@ -236,8 +236,9 @@ def test_dropout_run_is_finite_falls_and_is_reproducible():
 def test_trainer_refuses_what_this_slice_lacks():
     data = tdata.load("fashionmnist", scale=0.01)
     tm = tmlp.SparseMLP(tmlp.SparseMLPConfig(**FIELDS), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="device_evolution=False"):
-        ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig())
+    # device evolution is ported: the default config is taken
+    # (tests/test_torch_device_train.py holds it against the reference)
+    ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig())
     with pytest.raises(NotImplementedError, match="probes"):
         ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig(device_evolution=False,
                                                                       probe=True))
@@ -248,8 +249,7 @@ def test_trainer_refuses_what_this_slice_lacks():
     hist = ttrainer.SequentialTrainer(
         el, data, ttrainer.TrainerConfig(device_evolution=False, epochs=1)).run()
     assert np.isfinite(hist["train_loss"]).all() and hist["n_params"] == [el.n_params]
-    with pytest.raises(NotImplementedError, match="device_evolution=False"):
-        ttrainer.SequentialTrainer(el, data, ttrainer.TrainerConfig())
+    ttrainer.SequentialTrainer(el, data, ttrainer.TrainerConfig())
     # no evolution needs no device evolution
     tr = ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig(evolve=False, epochs=1))
     with pytest.raises(NotImplementedError, match="checkpoint"):
