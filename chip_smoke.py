@@ -33,7 +33,7 @@ Phases, one line each (any failure exits non-zero):
                    bit-equal;
 5. element_kernels — the element training path's kernels against their
                    plain versions at the four full-width element layers, batch
-                   128 and a ragged 33, at rtol 1e-4 / atol 1e-5, each
+                   128, a ragged 33 and WASAP's 32, at rtol 1e-4 / atol 1e-5, each
                    launched twice more on the same inputs and held bit-equal:
                    kernel A's dX use (the row-sorted dual order), kernel F
                    (coo_dw) in its three epilogue modes (none; the bias's
@@ -103,7 +103,27 @@ Phases, one line each (any failure exits non-zero):
                    for C, D and E (C and E also with ``bound_tc_ms``, their
                    bound at the 3xTF32 tensor-core rate) and for kernel A's
                    dX use, F (with and without its epilogue) and G (as the
-                   epilogue's cost in F and as its standalone call).
+                   epilogue's cost in F and as its standalone call);
+13. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+                   model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
+                   and 1 phase-2 epochs on 1,000 samples (7 steps a
+                   worker-epoch: 2 rounds, the second with a padded step). The
+                   round loop (host SET) against the same run on the CPU, and
+                   the fused run (device SET, every evolution under
+                   ``set_sync_debug_mode("error")``) against a CPU fused run
+                   fed the card's draws: every evolution's topology (the
+                   master's after each phase-1 epoch, each worker's after
+                   phase 2), the merged topology and the ``n_params`` history
+                   equal, loss and accuracy within tolerance; every step of
+                   every worker, padded ones too, launching A and F
+                   (``element_launches``); a WASSP run (H = 1) that keeps its
+                   connection count; the async parameter server (3 worker
+                   threads on the card, 1 epoch: every update applied, the
+                   model finite); ``wasap_history`` (every run's history and
+                   epoch seconds by phase) and ``wasap_epoch_profile`` (a
+                   phase-1 epoch's device busy time, launches and idle share).
+                   It runs last: before the timing phases it made their
+                   profiler sessions lose device events.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Without a card it exits non-zero and prints no result.
@@ -125,18 +145,20 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.set_mlp import mlp_config  # noqa: E402
-from repro_torch.core import sparsity, topology  # noqa: E402
+from repro_torch.core import sparsity, topology, wasap  # noqa: E402
 from repro_torch.core.importance import PruningSchedule  # noqa: E402
 from repro_torch.data.datasets import load  # noqa: E402
 from repro_torch.core.all_relu import activation_fn  # noqa: E402
 from repro_torch.core.topology import block_device_arrays  # noqa: E402
+from repro_torch.core.wasap import WASAPConfig, WASAPTrainer  # noqa: E402
+from repro_torch.core.wasap_ps import AsyncParameterServer, AsyncPSConfig  # noqa: E402
 from repro_torch.kernels import all_relu_fused, build, ref  # noqa: E402
 from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
 from repro_torch.launch.steps import make_mlp_train_step  # noqa: E402
 from repro_torch.models.mlp import SparseMLP, block_meta  # noqa: E402
 from repro_torch.optim.sgd import MomentumSGD  # noqa: E402
 from repro_torch.serve import SparseInferenceEngine, importance_prune_mlp  # noqa: E402
-from repro_torch.train.trainer import SequentialTrainer, TrainerConfig  # noqa: E402
+from repro_torch.train.trainer import SequentialTrainer, TrainerConfig, evaluate  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32
 # (non-tensor-core) rate and dense TF32 tensor-core rate. The bound of a call
@@ -195,6 +217,9 @@ WRAPPERS = {
     "bsmm_fwd": bsm.bsmm_fwd, "bsmm_dx": bsm.bsmm_dx, "bsmm_dw": bsm.bsmm_dw,
     "coo_dw": sparsity.coo_dw, "all_relu_bwd": all_relu_fused.all_relu_bwd,
 }
+# The element training path's batches: the trainer's 128, a ragged 33, and
+# WASAP's 32
+ELEMENT_BATCHES = (128, 33, 32)
 # The element gradients' tolerance, the reference's (tests/test_espmm_grad.py):
 # kernels A (dX), F and G sum in other orders than the plain versions.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
@@ -1061,7 +1086,7 @@ def phase_element_kernels(out: dict) -> str:
         check(torch.equal(got[1], want[1]), f"kernel F's dz differs at {what}")
         compare("all_relu_bwd", got[2], want[2], f"kernel F's dbias at {what}")
 
-    for batch in (128, 33):
+    for batch in ELEMENT_BATCHES:
         for l, (host, t, v, bias, hT, dz, slope) in enumerate(
                 element_layer_inputs(model, x_train[:batch], rng)):
             where = f"layer {l}, batch {batch}"
@@ -1127,7 +1152,8 @@ def phase_element_kernels(out: dict) -> str:
     check(n_empty > 0, "no column was emptied")
     out["err"].update(err)
     return (
-        f"{n_checks} comparisons at dims {model.config.layer_dims}, batch 128 and 33: kernel "
+        f"{n_checks} comparisons at dims {model.config.layer_dims}, batch {ELEMENT_BATCHES}: "
+        f"kernel "
         f"A's dX (thread route, registered row offsets); F with no epilogue, the bias alone "
         f"and All-ReLU's backward (slopes +-{model.config.alpha}; dz bit-equal), on each layer "
         f"and with {n_empty} columns emptied; G's standalone call with and without a mask; A's "
@@ -1493,6 +1519,205 @@ def phase_block_train_device_evolution(out: dict) -> str:
     )
 
 
+# -- WASAP-SGD, the paper's parallel training (Algorithm 1) ------------------
+
+# The full-width element model at dropout 0 on 1,000 training samples: 250 a
+# worker shard, 7 steps of 32 a worker-epoch, so H = 4 gives 2 rounds a
+# phase-1 epoch, the second with one padded step.
+WASAP_SCALE = 0.02
+WASAP_CONFIG = dict(n_workers=4, phase1_epochs=2, phase2_epochs=1, sync_every=4, batch_size=32,
+                    lr=0.01, zeta=0.3, seed=0)
+
+
+def wasap_trainer(device, **wc) -> WASAPTrainer:
+    return WASAPTrainer(element_model(device), load("cifar10", scale=WASAP_SCALE),
+                        WASAPConfig(**dict(WASAP_CONFIG, **wc)))
+
+
+def wasap_run(device, *, fused: bool, mode: str = "wasap", draws=None) -> dict:
+    """One WASAP run of the full-width element model on ``device``: its
+    history, launches, the topologies its evolutions returned (per layer,
+    in order: the master's after each phase-1 epoch, then each worker's
+    after each phase-2 epoch), the merged topology, and the draws its device
+    evolutions took (``draws`` given: those, in order, on ``device``). On
+    the card every device evolution runs under ``set_sync_debug_mode(
+    "error")``."""
+    trainer = wasap_trainer(device, fused=fused, mode=mode)
+    evolved, taken = [], []
+    real = (wasap.evolve_element, wasap.evolve_element_layers_device, topology.evolution_draws)
+
+    def host_evolution(*args, **kwargs):
+        res = real[0](*args, **kwargs)
+        evolved.append((res.topology.rows.copy(), res.topology.cols.copy()))
+        return res
+
+    def device_evolution(*args, **kwargs):
+        out = (without_host_sync(lambda: real[1](*args, **kwargs)) if device.type == "cuda"
+               else real[1](*args, **kwargs))
+        evolved.extend((t.rows, t.cols) for t in out[0])  # read after the run
+        return out
+
+    def evolution_draws(generator, n, total, **kwargs):
+        got = (real[2](generator, n, total, **kwargs) if draws is None
+               else tuple(d.to(generator.device) for d in draws[len(taken)]))
+        taken.append(got)
+        return got
+
+    wasap.evolve_element, wasap.evolve_element_layers_device = host_evolution, device_evolution
+    topology.evolution_draws = evolution_draws
+    try:
+        reset_counts()
+        hist = trainer.run()
+        launches = read_counts()
+    finally:
+        wasap.evolve_element, wasap.evolve_element_layers_device, topology.evolution_draws = real
+    return dict(hist=hist, launches=launches, trainer=trainer, draws=taken,
+                evolved=[tuple(_np(a) if isinstance(a, torch.Tensor) else a for a in t)
+                         for t in evolved],
+                merged=[(t.rows.copy(), t.cols.copy()) for t in trainer.model.topos])
+
+
+def wasap_launches(trainer: WASAPTrainer) -> dict:
+    """A run's launches: every step of every worker (phase 1's padded ones
+    too) is an element step, and the evaluations (after each phase-1 epoch
+    and at the end) run A with its epilogue."""
+    wc = trainer.wc
+    h = 1 if wc.mode == "wassp" else wc.sync_every
+    rounds = -(-min(ld.steps_per_epoch for ld in trainer.loaders) // h)
+    steps = (wc.phase1_epochs * rounds * h * wc.n_workers
+             + wc.phase2_epochs * sum(ld.steps_per_epoch for ld in trainer.loaders))
+    evals = (wc.phase1_epochs + 1) * -(-len(trainer.data.x_test) // 512)
+    return element_launches(trainer.model.config, steps, evals)
+
+
+def same_wasap_run(a: dict, b: dict, what: str) -> float:
+    """Run ``a`` against run ``b``: every evolution's topology, the merged
+    topology and the ``n_params`` history equal; the loss at
+    TRAIN_LOSS_RTOL and accuracy within one test sample. Returns the
+    largest relative loss difference."""
+    wc = a["trainer"].wc
+    n_layers = a["trainer"].model.config.n_layers
+    want = (wc.phase1_epochs + wc.phase2_epochs * wc.n_workers) * n_layers
+    check(len(a["evolved"]) == len(b["evolved"]) == want,
+          f"{what}: {len(a['evolved'])} and {len(b['evolved'])} evolutions, expected {want}")
+    for i, ((ra, ca), (rb, cb)) in enumerate(zip(a["evolved"], b["evolved"])):
+        check(np.array_equal(ra, rb) and np.array_equal(ca, cb),
+              f"{what}: the topology of evolution {i} (layer {i % n_layers}) differs")
+    for l, ((ra, ca), (rb, cb)) in enumerate(zip(a["merged"], b["merged"])):
+        check(np.array_equal(ra, rb) and np.array_equal(ca, cb),
+              f"{what}: the merged topology of layer {l} differs")
+    ha, hb = a["hist"], b["hist"]
+    check(ha["n_params"] == hb["n_params"], f"{what}: n_params {ha['n_params']}, {hb['n_params']}")
+    np.testing.assert_allclose(ha["train_loss"], hb["train_loss"], rtol=TRAIN_LOSS_RTOL,
+                               equal_nan=True)
+    n_test = len(a["trainer"].data.y_test)
+    np.testing.assert_allclose(ha["test_acc"], hb["test_acc"], atol=1.0 / n_test + 1e-9,
+                               equal_nan=True)
+    return max(abs(x - y) / abs(y) for x, y in zip(ha["train_loss"], hb["train_loss"])
+               if np.isfinite(y))
+
+
+def profile_phase1_epoch(trainer: WASAPTrainer) -> dict:
+    """A phase-1 epoch of ``trainer``'s model as its fused loop runs it (the
+    sync rounds, then the master's device SET), from the model's state: the
+    median of 3 host-clock epochs that end in a synchronise, then its
+    profile (device busy time, launches and idle share)."""
+    model = trainer.model
+    x_all, y_all = trainer._data_on_device()
+    params, topo = model.params(), model.topo_arrays()
+    state = trainer.opt.init(params)
+    args = trainer._phase1_inputs(0, 0)
+
+    def one_epoch():
+        p, s, _ = trainer._epoch_fn(params, state, topo, x_all, y_all, *args, trainer.key)
+        trainer._evolve_device(topo, p, s, trainer.key)
+
+    one_epoch()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_epoch()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_train_step(one_epoch, float(np.median(ts)), steps=2)
+    rounds, k, h = args[0].shape[:3]
+    return dict(epoch_ms=prof.pop("step_ms"), epoch_ms_runs=ts,
+                profiled_epoch_ms=prof.pop("profiled_step_ms"), rounds=rounds, workers=k,
+                h=h, real_steps=int(args[2].sum()), **prof)
+
+
+def phase_wasap(out: dict) -> str:
+    """WASAP-SGD of the full-width element model on the card: the round
+    loop (host SET) against the same run on the CPU; the fused run (device
+    SET under the sync check) against a CPU fused run fed the card's draws;
+    a WASSP run; the async parameter server; and a phase-1 epoch's
+    profile."""
+    loop_card = wasap_run(CARD, fused=False)
+    loop_cpu = wasap_run(torch.device("cpu"), fused=False)
+    fused_card = wasap_run(CARD, fused=True)
+    fused_cpu = wasap_run(torch.device("cpu"), fused=True,
+                          draws=[tuple(d.cpu() for d in dr) for dr in fused_card["draws"]])
+    wassp = wasap_run(CARD, fused=True, mode="wassp")
+    for run, what in ((loop_card, "round loop"), (fused_card, "fused"), (wassp, "wassp")):
+        want = wasap_launches(run["trainer"])
+        check(run["launches"] == want, f"WASAP {what}: launches {run['launches']}, "
+                                       f"expected {want}")
+        loss = np.asarray(run["hist"]["train_loss"][:-1])
+        check(bool(np.isfinite(loss).all()), f"WASAP {what}: non-finite loss {loss}")
+    check(fused_card["trainer"]._fused and not loop_card["trainer"]._fused,
+          "the runs did not take the paths asked for")
+    check(len(fused_card["draws"]) == len(fused_cpu["draws"]), "the CPU run took other draws")
+    loop_err = same_wasap_run(loop_card, loop_cpu, "round loop, card vs CPU")
+    fused_err = same_wasap_run(fused_card, fused_cpu, "fused, card vs CPU on its draws")
+    n0 = wassp["hist"]["n_params"]
+    check(n0[-1] == n0[0], f"wassp: n_params {n0} did not come back to its start")
+
+    # the paper's literal protocol: 3 worker threads on the card, the server on the host
+    model = element_model(CARD)
+    reset_counts()
+    ps = AsyncParameterServer(model, load("cifar10", scale=WASAP_SCALE),
+                              AsyncPSConfig(n_workers=3, epochs=1, batch_size=32, lr=0.01,
+                                            zeta=0.3, seed=0))
+    stats = ps.run()
+    ps_launches = read_counts()
+    check(stats["updates"] == ps.steps_per_epoch,
+          f"the parameter server applied {stats['updates']} updates, not {ps.steps_per_epoch}")
+    check(all(bool(torch.isfinite(v).all()) for v in model.values + model.biases),
+          "the parameter server's model is not finite")
+    check(ps_launches["coo_matmul_T"] > 0 and ps_launches["coo_dw"] > 0,
+          f"the parameter server's workers launched no kernel: {ps_launches}")
+    ps_acc = evaluate(model, ps.data.x_test, ps.data.y_test)
+
+    def by_phase(hist):
+        return {str(p): [s for s, q in zip(hist["epoch_seconds"], hist["phase"]) if q == p]
+                for p in (1, 2)}
+
+    runs = dict(round_loop_card=loop_card, round_loop_cpu=loop_cpu, fused_card=fused_card,
+                fused_cpu_on_card_draws=fused_cpu, wassp_card=wassp)
+    print(json.dumps({"wasap_history": {
+        **{k: r["hist"] for k, r in runs.items()},
+        "epoch_seconds_by_phase": {k: by_phase(r["hist"]) for k, r in runs.items()},
+        "async_ps": {k: v for k, v in stats.items() if k != "history"} | {"test_acc": ps_acc},
+    }}))
+    prof = profile_phase1_epoch(wasap_trainer(CARD))
+    print(json.dumps({"wasap_epoch_profile": prof}))
+    hist = fused_card["hist"]
+    return (
+        f"{WASAP_CONFIG['n_workers']} workers, batch 32, H {WASAP_CONFIG['sync_every']} at dims "
+        f"{fused_card['trainer'].model.config.layer_dims}, 2+1 epochs: round loop card vs CPU "
+        f"and fused card vs CPU on the card's {len(fused_card['draws'])} draws: every "
+        f"evolution's topology, the merged one and n_params equal, loss rel err "
+        f"{loop_err:.3g} and {fused_err:.3g} (rtol {TRAIN_LOSS_RTOL}); fused loss "
+        f"{hist['train_loss']}, acc {hist['test_acc']}, n_params {hist['n_params']}; launches "
+        f"{fused_card['launches']}; wassp loss {wassp['hist']['train_loss']}; async PS "
+        f"{stats['updates']} updates, stale entries dropped {stats['stale_entries_dropped']}, "
+        f"acc {ps_acc}; phase-1 epoch {prof['epoch_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_us']:.0f} us, {prof['device_launches']:g} launches, idle share "
+        f"{prof['device_idle_share']:.3f}"
+    )
+
+
 def block_bound(kind: str, meta, host, batch: int) -> dict:
     """The least time for one launch: each input read once (x only at the
     block-rows some tile reads), each output written once; 2 flops per
@@ -1776,6 +2001,9 @@ def main() -> int:
         ("element_train_device_evolution", phase_element_train_device_evolution),
         ("block_train_device_evolution", phase_block_train_device_evolution),
         ("timings", phase_timings), ("train_timings", phase_train_timings),
+        # last: run before the timing phases, it made their torch.profiler
+        # sessions lose device events (PERF.md §7)
+        ("wasap", phase_wasap),
     ):
         t0 = time.perf_counter()
         try:

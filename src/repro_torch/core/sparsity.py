@@ -28,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import weakref
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -504,11 +504,26 @@ def offsets_to_device(seg_ptr: np.ndarray, device: torch.device) -> torch.Tensor
     return t
 
 
+def forget_on_death(table: Dict, key) -> Callable[[weakref.ref], None]:
+    """The weakref callback that removes ``table[key]`` when the tensor it
+    was made for dies, but only if the entry still holds this weakref: an
+    entry made since for another tensor under the same id (a dead tensor's
+    id is reused) stays. The registries below are filled from several
+    threads (the async parameter server's workers make device arrays)."""
+
+    def callback(ref: weakref.ref) -> None:
+        hit = table.get(key)
+        if hit is ref or (isinstance(hit, tuple) and any(x is ref for x in hit)):
+            del table[key]
+
+    return callback
+
+
 def _note_offsets(seg_ptr: torch.Tensor, longest: int, end: int) -> None:
     """Remember, for as long as ``seg_ptr`` lives, the host ints kernel A
     needs of it: the longest segment (its route) and the end (its check)."""
     key = id(seg_ptr)
-    _LONGEST[key] = (weakref.ref(seg_ptr, lambda _, k=key: _LONGEST.pop(k, None)), longest, end)
+    _LONGEST[key] = (weakref.ref(seg_ptr, forget_on_death(_LONGEST, key)), longest, end)
 
 
 def _longest_segment(seg_ptr: Optional[torch.Tensor], nnz: int, n_segments: int) -> int:
@@ -533,7 +548,7 @@ def _remember(table: Dict, t: torch.Tensor, value) -> None:
     """Keep ``value`` in ``table`` under ``t``'s identity for as long as
     ``t`` lives."""
     key = id(t)
-    table[key] = (weakref.ref(t, lambda _, k=key: table.pop(k, None)), value)
+    table[key] = (weakref.ref(t, forget_on_death(table, key)), value)
 
 
 def _recall(table: Dict, t: torch.Tensor):
@@ -676,9 +691,7 @@ def _check_seg_ptr(seg_ptr: torch.Tensor, nnz: int) -> None:
     ok = (seg_ptr[0] == 0) & (seg_ptr[-1] == nnz) & (seg_ptr.diff() >= 0).all()
     if not bool(ok):
         raise ValueError(f"seg_ptr must run from 0 to nnz={nnz} without decreasing")
-    _CHECKED_SEG_PTRS[key] = weakref.ref(
-        seg_ptr, lambda _, k=key: _CHECKED_SEG_PTRS.pop(k, None)
-    )
+    _CHECKED_SEG_PTRS[key] = weakref.ref(seg_ptr, forget_on_death(_CHECKED_SEG_PTRS, key))
 
 
 def _checked_offsets(segment_idx: torch.Tensor, n_segments: int) -> torch.Tensor:

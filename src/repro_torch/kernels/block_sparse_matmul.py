@@ -41,7 +41,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.core.sparsity import segment_offsets
+from repro_torch.core.sparsity import forget_on_death, segment_offsets
 from repro_torch.kernels import build
 
 __all__ = [
@@ -191,9 +191,7 @@ def _check_once(what: str, grid: Tuple[int, ...], tensors: Tuple[torch.Tensor, .
 
 def _mark_checked(what: str, grid: Tuple[int, ...], tensors: Tuple[torch.Tensor, ...]) -> None:
     key = (what, grid) + tuple(id(t) for t in tensors)
-    refs = tuple(
-        weakref.ref(t, lambda _, k=key: _CHECKED.pop(k, None)) for t in tensors
-    )
+    refs = tuple(weakref.ref(t, forget_on_death(_CHECKED, key)) for t in tensors)
     _CHECKED[key] = refs
 
 
@@ -224,7 +222,7 @@ def _offsets_once(idx: torch.Tensor, n: int) -> torch.Tensor:
     if hit is not None and hit[0]() is idx:
         return hit[1]
     offsets = segment_offsets(idx, n)
-    _OFFSETS[key] = (weakref.ref(idx, lambda _, k=key: _OFFSETS.pop(k, None)), offsets)
+    _OFFSETS[key] = (weakref.ref(idx, forget_on_death(_OFFSETS, key)), offsets)
     return offsets
 
 

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Sequence, Tuple
 
@@ -41,6 +42,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
 )
 
 _FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# one first use at a time: threads that launch kernels (the async parameter
+# server's workers) would otherwise build one source twice into one file
+_FIRST_USE = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -106,11 +110,14 @@ def kernel(source: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     ``cudaGetLastError()`` of the launch)."""
     fn = _FUNCS.get((source, symbol))
     if fn is None:
-        build((source,))
-        fn = getattr(ctypes.CDLL(str(library_path(source))), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _FUNCS[(source, symbol)] = fn
+        with _FIRST_USE:
+            fn = _FUNCS.get((source, symbol))
+            if fn is None:
+                build((source,))
+                fn = getattr(ctypes.CDLL(str(library_path(source))), symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _FUNCS[(source, symbol)] = fn
     return fn
 
 

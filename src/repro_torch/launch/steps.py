@@ -14,9 +14,10 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.models.mlp import SparseMLPConfig, cross_entropy_loss, mlp_forward
-from repro_torch.optim.sgd import MomentumSGD, SGDState, tree_map
+from repro_torch.optim.sgd import MomentumSGD, SGDState
+from repro_torch.tree import tree_map
 
-__all__ = ["make_mlp_step_core", "make_mlp_train_step", "scan_segment"]
+__all__ = ["make_mlp_step_core", "make_mlp_train_step", "scan_masked_segment", "scan_segment"]
 
 
 def make_mlp_step_core(config: SparseMLPConfig, opt: MomentumSGD, topo_arrays,
@@ -79,4 +80,25 @@ def scan_segment(
     for i in range(step_inputs[0].shape[0]):
         params, opt_state, m = step_core(params, opt_state, tuple(t[i] for t in step_inputs), key)
         metrics.append(m)
+    return params, opt_state, key, torch.stack(metrics)
+
+
+def scan_masked_segment(step_core: Callable, params, opt_state, key: Any,
+                        step_inputs: Tuple[torch.Tensor, ...], valid: torch.Tensor):
+    """:func:`scan_segment` with per-step validity weights.
+
+    ``valid`` is a float (steps,) tensor on the device: a step whose weight
+    is 0 still runs (so a padded tail keeps every shape fixed) but leaves
+    the (params, opt_state) carry bit for bit as it was, by a select on the
+    device (nothing reads ``valid`` on the host), and adds ``metric * 0``
+    to the stacked metrics. ``step_core`` must return a scalar metric (it
+    is scaled by the weight). The WASAP phase-1 rounds use it: their tail
+    rounds pad the local-step axis to a fixed H."""
+    metrics = []
+    for i in range(valid.shape[0]):
+        new_p, new_s, m = step_core(params, opt_state, tuple(t[i] for t in step_inputs), key)
+        keep = valid[i] > 0
+        params = tree_map(lambda n, o: torch.where(keep, n, o), new_p, params)
+        opt_state = tree_map(lambda n, o: torch.where(keep, n, o), new_s, opt_state)
+        metrics.append(m * valid[i])
     return params, opt_state, key, torch.stack(metrics)

@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch.tree import tree_map
+
 __all__ = [
     "MomentumSGD",
     "SGDState",
@@ -30,12 +32,6 @@ __all__ = [
 ]
 
 Params = Dict[str, Tuple[torch.Tensor, ...]]
-
-
-def tree_map(fn: Callable, *trees: Params) -> Params:
-    """Map ``fn`` over matching leaves of dicts of tuples of tensors."""
-    return {k: tuple(fn(*leaves) for leaves in zip(*(t[k] for t in trees)))
-            for k in trees[0]}
 
 
 class SGDState(NamedTuple):

@@ -117,11 +117,13 @@ def make_segment_program(config: SparseMLPConfig, opt: MomentumSGD, probe: bool 
 
 
 def evaluate(model: SparseMLP, x: np.ndarray, y: np.ndarray, batch: int = 512, *,
-             topo_arrays=None) -> float:
+             params=None, topo_arrays=None) -> float:
     """Accuracy on (x, y), counted on the device with one synchronisation.
-    ``topo_arrays`` are the model's device arrays where the caller has
-    them, else they are made."""
-    params = model.params()
+    ``params``/``topo_arrays`` override the model's own views: the caller's
+    device state (WASAP's averaged phase-1 master, whose host mirror lags),
+    or device arrays it already has; without them they are made from the
+    model."""
+    params = model.params() if params is None else params
     topo = model.topo_arrays() if topo_arrays is None else topo_arrays
     dev = model.device
     correct = torch.zeros((), dtype=torch.int64, device=dev)

@@ -1004,3 +1004,122 @@ def test_full_width_evolution_runs_without_a_host_sync(cuda):
     for l, t in enumerate(bnew):
         tsp.BlockTopology(block_meta(bmodel.config, l), t.rows.cpu().numpy(),
                           t.cols.cpu().numpy())
+
+
+# -- WASAP-SGD: the phase-1 epoch and phase-2 worker evolution on the card ---
+
+
+def _phase1_inputs(dev, k=3, h=2, rounds=2, batch=32, seed=0):
+    """The full-width element model's phase-1 epoch inputs on ``dev``: k
+    workers, rounds x h local steps of ``batch``, the last step padded."""
+    cfg = dataclasses.replace(mlp_config("cifar10"), dropout=0.0)
+    data = load("cifar10", scale=0.003)
+    rng = np.random.default_rng(seed)
+    n = len(data.x_train)
+    idx = rng.integers(0, n, (rounds, k, h, batch))
+    valid = np.ones((rounds, h), np.float32)
+    valid[-1, -1] = 0.0
+    lrs = np.full((rounds, h), 0.02, np.float32)
+    model = SparseMLP(cfg, seed=seed, device=dev)
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+    return cfg, opt, model, (
+        torch.as_tensor(data.x_train, device=dev), torch.as_tensor(data.y_train, device=dev).long(),
+        torch.as_tensor(idx, device=dev), torch.as_tensor(lrs, device=dev),
+        torch.as_tensor(valid, device=dev))
+
+
+def _launches():
+    return (tsp.coo_matmul_T.launches, tsp.coo_matmul_T.epilogue_launches,
+            tsp.coo_matmul_T.mask_launches, tsp.coo_dw.launches, tsp.coo_dw.epilogue_launches,
+            tsp.coo_dw.mask_launches, all_relu_fused.all_relu_bwd.launches)
+
+
+def test_wasap_phase1_epoch_matches_cpu_and_repeats_bit_equal(cuda):
+    """A phase-1 epoch of the full-width element model (3 workers, 2 rounds
+    of 2 steps of 32, the last padded) on the card against the CPU at rtol
+    1e-5, with its launches: every step of every worker, the padded one
+    too, launches A 4 forward (3 with the mask) and 3 dX, and F 4 with its
+    epilogue (3 with the mask), no standalone G; then a second card run of
+    the same epoch, bit-equal."""
+    from repro_torch.core.wasap import make_phase1_epoch_fn
+
+    out = {}
+    for dev in (torch.device("cpu"), cuda, cuda):
+        cfg, opt, model, (x, y, idx, lrs, valid) = _phase1_inputs(dev)
+        epoch = make_phase1_epoch_fn(cfg, opt, n_workers=3)
+        before = _launches()
+        p, s, losses = epoch(model.params(), opt.init(model.params()), model.topo_arrays(), x, y,
+                             idx, lrs, valid, torch.Generator(device=dev).manual_seed(0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(_launches(), before))
+        out.setdefault(dev.type, []).append((p, s, losses, launches))
+    steps = 2 * 3 * 2  # rounds x workers x steps, the padded one included
+    assert out["cpu"][0][3] == (0,) * 7
+    assert out["cuda"][0][3] == (7 * steps, 4 * steps, 3 * steps, 4 * steps, 4 * steps,
+                                 3 * steps, 0)
+    (pc, sc, lc, _), (p1, s1, l1, _), (p2, s2, l2, _) = out["cpu"][0], *out["cuda"]
+    torch.testing.assert_close(l1.cpu(), lc, rtol=1e-5, atol=1e-6)
+    assert int(s1.step) == int(sc.step) == 3
+    for k in ("values", "biases"):
+        for a, b in zip(p1[k], pc[k]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+        for a, b in zip(s1.velocity[k], sc.velocity[k]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+        assert all(torch.equal(a, b) for a, b in zip(p1[k], p2[k]))
+        assert all(torch.equal(a, b) for a, b in zip(s1.velocity[k], s2.velocity[k]))
+    assert torch.equal(l1, l2)
+
+
+def test_wasap_phase2_worker_evolution_runs_without_a_host_sync(cuda):
+    """Phase 2's K workers each evolve their own copy of the full-width
+    element model's topology on the card, every evolution under
+    ``set_sync_debug_mode("error")``; the K x 4 device-made array sets keep
+    their own offsets and F plans registered, and a training step of each
+    worker on its arrays, also under the sync check, finds them (a miss
+    would sync) and launches A and F."""
+    from repro_torch.core.wasap import WASAPConfig, WASAPTrainer
+
+    cfg = dataclasses.replace(mlp_config("cifar10"), dropout=0.0)
+    data = load("cifar10", scale=0.003)
+    model = SparseMLP(cfg, seed=0, device=cuda)
+    trainer = WASAPTrainer(model, data, WASAPConfig(n_workers=3, batch_size=32))
+    opt = trainer.opt
+    base = model.params()
+    workers = []
+    for wk in range(3):
+        rng = np.random.default_rng(wk)
+        state = opt.init(base)._replace(velocity={
+            k: tuple(torch.as_tensor(0.01 * rng.standard_normal(tuple(v.shape)),
+                                     dtype=torch.float32, device=cuda) for v in vs)
+            for k, vs in base.items()})
+        workers.append([model.topo_arrays(), base, state,
+                        torch.Generator(device=cuda).manual_seed(wk)])
+    step = make_mlp_train_step(cfg, opt)
+    x = torch.as_tensor(data.x_train[:32], device=cuda)
+    y = torch.as_tensor(data.y_train[:32], device=cuda).long()
+    lr = torch.tensor(0.01, device=cuda)
+    torch.cuda.synchronize()
+    before = _launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for w in workers:
+            w[0], w[1], w[2] = trainer._evolve_device(*w)
+        for w in workers:
+            w[1], w[2], _ = step(w[1], w[2], w[0], x, y, lr, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = tuple(a - b for a, b in zip(_launches(), before))
+    assert launches == (21, 12, 9, 12, 12, 9, 0)
+    for wk, w in enumerate(workers):
+        for l, t in enumerate(w[0]):
+            host = tsp.ElementTopology(cfg.layer_dims[l], cfg.layer_dims[l + 1],
+                                       t.rows.cpu().numpy(), t.cols.cpu().numpy())
+            assert host.nnz == model.topos[l].nnz
+            assert torch.equal(tsp.registered_offsets(t.cols).cpu(),
+                               torch.from_numpy(host.col_ptr())), (wk, l)
+            assert tsp._recall(tsp._DW_RUNS, t.cols) is not None, (wk, l)
+        assert all(bool(torch.isfinite(v).all()) for v in w[1]["values"])
+    # the workers drew from their own generators: their topologies differ
+    assert not torch.equal(workers[0][0][0].rows, workers[1][0][0].rows)
