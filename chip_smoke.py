@@ -122,8 +122,27 @@ Phases, one line each (any failure exits non-zero):
                    model finite); ``wasap_history`` (every run's history and
                    epoch seconds by phase) and ``wasap_epoch_profile`` (a
                    phase-1 epoch's device busy time, launches and idle share).
-                   It runs last: before the timing phases it made their
-                   profiler sessions lose device events.
+                   It runs after the timing phases: before them it made
+                   their profiler sessions lose device events.
+14. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+                   full width on the card: the element and the block model
+                   trained 3 epochs with device SET, pruning and the paper's
+                   dropout 0.3, saved at every epoch; a fresh trainer
+                   restored from the epoch-0 checkpoint runs on to the same
+                   history, values, biases and topologies, bit for bit, on
+                   kernels A and F (element) or C, D and E (block), their
+                   launches counted; WASAP (the ``wasap`` phase's
+                   configuration with 2 phase-2 epochs) resumed at a phase-1
+                   and at a phase-2 boundary, bit-equal; the seeded serving
+                   model saved with ``save_mlp_for_serving`` and served by
+                   ``SparseInferenceEngine.from_checkpoint`` on the card at
+                   phase ``main``'s sizes, bit-equal to the live engine, on
+                   kernel A, one signature per bucket, and served on the CPU
+                   from the same checkpoint within rtol 1e-5; a
+                   ``checkpoint_io`` line: bytes on disk, save (snapshot and
+                   write) and restore seconds of the element and block
+                   checkpoints, with the card's name and power limit. It
+                   runs last, as it profiles nothing.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Without a card it exits non-zero and prints no result.
@@ -135,6 +154,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -144,6 +164,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.set_mlp import mlp_config  # noqa: E402
 from repro_torch.core import sparsity, topology, wasap  # noqa: E402
 from repro_torch.core.importance import PruningSchedule  # noqa: E402
@@ -157,7 +178,11 @@ from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
 from repro_torch.launch.steps import make_mlp_train_step  # noqa: E402
 from repro_torch.models.mlp import SparseMLP, block_meta  # noqa: E402
 from repro_torch.optim.sgd import MomentumSGD  # noqa: E402
-from repro_torch.serve import SparseInferenceEngine, importance_prune_mlp  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    SparseInferenceEngine,
+    importance_prune_mlp,
+    save_mlp_for_serving,
+)
 from repro_torch.train.trainer import SequentialTrainer, TrainerConfig, evaluate  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32
@@ -318,7 +343,7 @@ def phase_device(out: dict) -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    out.update(name=name, count=count)
+    out.update(name=name, count=count, smi=smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return f"{name} count={count} ({smi}); torch {torch.__version__} cuda {torch.version.cuda}"
@@ -1974,6 +1999,170 @@ def phase_train_timings(out: dict) -> str:
     )
 
 
+# -- checkpoints and resume ----------------------------------------------------
+
+TRAJ = ("epoch", "train_loss", "test_acc", "n_params")
+
+
+def same_history(got: dict, want: dict, what: str) -> None:
+    """Bit-equal histories, NaN equal to NaN (WASAP's phase 2 does not
+    evaluate)."""
+    for key in TRAJ:
+        check(np.array_equal(np.asarray(got[key], float), np.asarray(want[key], float),
+                             equal_nan=True), f"{what}: {key} {got[key]}, expected {want[key]}")
+    check(got.get("phase") == want.get("phase"), f"{what}: phases differ")
+
+
+def same_model(a: SparseMLP, b: SparseMLP, what: str) -> None:
+    for l, (x, y) in enumerate(zip(a.values + a.biases, b.values + b.biases)):
+        check(x.device == y.device and torch.equal(x, y), f"{what}: tensor {l} differs")
+    for l, (s, t) in enumerate(zip(a.topos, b.topos)):
+        check(np.array_equal(s.rows, t.rows) and np.array_equal(s.cols, t.cols),
+              f"{what}: the topology of layer {l} differs")
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def resumed_training(root: Path, model_of, wrappers: tuple, what: str) -> dict:
+    """The 3-epoch run of ``model_of(CARD)`` with device SET and pruning at
+    the paper's dropout, saved at every epoch (each save timed: the
+    snapshot, which ``save`` takes before it returns, then the write, which
+    ``wait`` joins); then a fresh trainer restored from the epoch-0
+    checkpoint (timed) runs on: its history and final state bit-equal to the
+    run that never stopped, and each of ``wrappers`` launched in it."""
+    mgr = CheckpointManager(str(root / what), keep_last=TRAIN_EPOCHS)
+    tc = train_config(device_evolution=True)
+    live = SequentialTrainer(model_of(CARD), load("cifar10", scale=TRAIN_SCALE), tc)
+    saves = []
+
+    def save(tr, epoch):
+        t0 = time.perf_counter()
+        tr.save_checkpoint(mgr)
+        t1 = time.perf_counter()
+        mgr.wait()
+        saves.append(dict(snapshot_s=t1 - t0, write_s=time.perf_counter() - t1))
+
+    live.epoch_end_hook = save
+    hist = live.run()
+    steps = mgr.all_steps()
+    check(len(steps) == TRAIN_EPOCHS, f"{what}: {len(steps)} checkpoints, not {TRAIN_EPOCHS}")
+    resumed = SequentialTrainer(model_of(CARD), live.data, tc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed.restore_checkpoint(mgr, steps[0])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    reset_counts()
+    got = resumed.run()
+    launches = read_counts()
+    for w in wrappers:
+        check(launches[w] > 0, f"{what}: the resumed run launched no {w}: {launches}")
+    same_history(got, hist, what)
+    same_model(resumed.model, live.model, what)
+    return dict(history=hist, steps=steps, launches=launches, saves=saves,
+                restore_s=restore_s, bytes=[dir_bytes(mgr.dir / f"step_{s:09d}") for s in steps])
+
+
+def resumed_wasap(root: Path) -> dict:
+    """WASAP of the full-width element model (the ``wasap`` phase's
+    configuration with 2 phase-2 epochs), saved at every epoch boundary;
+    fresh trainers resumed at a phase-1 boundary (after epoch 0) and at a
+    phase-2 boundary (after epoch 2) run on to the same history and merged
+    model, bit for bit, launching kernels A and F."""
+    mgr = CheckpointManager(str(root / "wasap"), keep_last=4)
+    config = dict(phase2_epochs=2)
+    live = wasap_trainer(CARD, **config)
+    live.epoch_end_hook = lambda tr, epoch: tr.save_checkpoint(mgr)
+    hist = live.run()
+    mgr.wait()
+    check(mgr.all_steps() == [1, 2, 3, 4], f"WASAP checkpoints {mgr.all_steps()}")
+    res = {}
+    for step, phase in ((1, 1), (3, 2)):
+        check(mgr.read_manifest(step)["meta"]["resume"]["phase"] == phase,
+              f"WASAP step {step} is not a phase-{phase} checkpoint")
+        resumed = wasap_trainer(CARD, **config)
+        resumed.restore_checkpoint(mgr, step)
+        reset_counts()
+        got = resumed.run()
+        launches = read_counts()
+        check(launches["coo_matmul_T"] > 0 and launches["coo_dw"] > 0,
+              f"WASAP resumed at step {step} launched no A or F: {launches}")
+        same_history(got, hist, f"WASAP resumed at step {step}")
+        same_model(resumed.model, live.model, f"WASAP resumed at step {step}")
+        res[f"phase{phase}_step{step}"] = launches
+    return dict(history=hist, launches=res)
+
+
+def served_from_checkpoint(root: Path, out: dict) -> dict:
+    """The seeded serving model saved, restored on the card (compacted as
+    phase ``main``'s engine is) and served at its sizes, bit-equal to the
+    live engine, on kernel A; then served on the CPU from the same
+    checkpoint within rtol 1e-5."""
+    mgr = CheckpointManager(str(root / "serve"), async_write=False)
+    t0 = time.perf_counter()
+    save_mlp_for_serving(mgr, out["model"], step=0)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = SparseInferenceEngine.from_checkpoint(mgr, compaction=SCHEDULE)
+    restore_s = time.perf_counter() - t0
+    check(engine.report == out["engine"].report, "the restored model compacted otherwise")
+    reqs = {n: requests(out["x_test"], n) for n in SIZES}
+    reset_counts()
+    logits = {n: engine.classify(reqs[n]) for n in SIZES}
+    launches = read_counts()
+    check(launches == out["launches"], f"served from the checkpoint: launches {launches}, "
+                                       f"the live engine's {out['launches']}")
+    for n in SIZES:
+        check(np.array_equal(logits[n], out["engine"].classify(reqs[n])),
+              f"served from the checkpoint: logits differ from the live engine's at n={n}")
+    sizes = engine.jit_entry_sizes()
+    check(set(sizes.values()) == {1}, f"jit_entry_sizes {sizes}")
+    cpu = SparseInferenceEngine.from_checkpoint(mgr, compaction=SCHEDULE, device="cpu")
+    err = 0.0
+    for n in SIZES:
+        want = cpu.classify(reqs[n])
+        np.testing.assert_allclose(logits[n], want, rtol=RTOL, atol=ATOL)
+        err = max(err, float(np.abs(logits[n] - want).max()))
+    return dict(launches=launches, jit_entry_sizes={str(k): v for k, v in sizes.items()},
+                cpu_max_abs_err=err, save_s=save_s, restore_s=restore_s,
+                bytes=dir_bytes(mgr.dir / "step_000000000"))
+
+
+def phase_checkpoint(out: dict) -> str:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        root = Path(tmp)
+        element = resumed_training(
+            root, lambda dev: element_model(dev, dropout=0.3), ("coo_matmul_T", "coo_dw"),
+            "element")
+        block = resumed_training(
+            root, lambda dev: block_model(dev, dropout=0.3), ("bsmm_fwd", "bsmm_dx", "bsmm_dw"),
+            "block")
+        was = resumed_wasap(root)
+        served = served_from_checkpoint(root, out)
+    io = {what: {k: r[k] for k in ("steps", "bytes", "saves", "restore_s")}
+          for what, r in (("element", element), ("block", block))}
+    io["serving"] = {k: served[k] for k in ("bytes", "save_s", "restore_s")}
+    print(json.dumps({"checkpoint_io": dict(io, card=out["smi"])}))
+    print(json.dumps({"checkpoint_history": {
+        "element": element["history"], "block": block["history"], "wasap": was["history"],
+        "launches": {"element": element["launches"], "block": block["launches"],
+                     "wasap": was["launches"], "served": served["launches"]}}}))
+    return (
+        f"element and block, 3 epochs (device SET, pruning, dropout 0.3) resumed after epoch 0: "
+        f"history and final state bit-equal (element n_params {element['history']['n_params']}, "
+        f"block {block['history']['n_params']}; A {element['launches']['coo_matmul_T']}, F "
+        f"{element['launches']['coo_dw']}; C {block['launches']['bsmm_fwd']}, D "
+        f"{block['launches']['bsmm_dx']}, E {block['launches']['bsmm_dw']} launches); WASAP "
+        f"resumed at a phase-1 and a phase-2 boundary bit-equal; served from a checkpoint "
+        f"bit-equal to the live engine (A {served['launches']['coo_matmul_T']} launches, "
+        f"jit_entry_sizes {served['jit_entry_sizes']}), on the CPU within "
+        f"{served['cpu_max_abs_err']:.3g}; bytes element {element['bytes'][0]}, block "
+        f"{block['bytes'][0]}"
+    )
+
+
 def kernel_entry(meta: dict, rows: list, launches: int, max_abs_err: float) -> dict:
     """A ``kernels``-line entry: device times summed over ``rows`` (the
     launches of one call of the path), its bound, and the library's."""
@@ -2001,9 +2190,9 @@ def main() -> int:
         ("element_train_device_evolution", phase_element_train_device_evolution),
         ("block_train_device_evolution", phase_block_train_device_evolution),
         ("timings", phase_timings), ("train_timings", phase_train_timings),
-        # last: run before the timing phases, it made their torch.profiler
-        # sessions lose device events (PERF.md §7)
-        ("wasap", phase_wasap),
+        # after the timing phases: run before them, it made their
+        # torch.profiler sessions lose device events (PERF.md §7)
+        ("wasap", phase_wasap), ("checkpoint", phase_checkpoint),
     ):
         t0 = time.perf_counter()
         try:

@@ -21,7 +21,7 @@ are stacked and averaged in worker order (a sum over workers 0..K-1, then
 steps: they launch ctypes-bound kernels through a ``torch.autograd.
 Function``, which has no batching rule. ``worker_axis="vmap"`` is that
 loop; ``"shard_map"`` (the pod program) raises until the pod machinery
-(ROADMAP Queue 1, item 13: ``torch.distributed``).
+(ROADMAP Queue 1, item 9: ``torch.distributed``).
 
 The master's SET evolution between phase-1 epochs runs on the device on
 fixed-capacity arrays (``core.topology.evolve_element_layers_device``),
@@ -50,13 +50,21 @@ dispatch, host replication, numpy batch stacking, per-batch phase 2) with
 host evolution on the reference's numpy rng, so at dropout 0 it follows
 the reference's own draws.
 
+The fused path resumes at any epoch boundary (DESIGN.md §8):
+``epoch_end_hook(trainer, epoch)`` runs after each epoch of either phase,
+and ``save_checkpoint`` writes, in the reference's layout, the averaged
+master (phase 1) or the master and every worker's params, velocity,
+topology and generator state (phase 2), with the history and both random
+streams; a fresh trainer restored from it (``restore_checkpoint``: the
+phase, ``start_epoch``, ``_p1_state`` or ``_p2_workers``) runs on to the
+same bits. The checkpoint crosses between the packages in both directions.
+
 Not in this slice, and refused with an error naming the ROADMAP item: the
-``shard_map`` worker axis (item 13); a heartbeat ``monitor`` (elastic
-rounds), a ``fault_hook`` and ``step_retries`` (runtime, item 9);
-``save_checkpoint``/``restore_checkpoint`` and resuming at an epoch
-boundary (item 5); training-dynamics probes, ``probe=True`` (item 10); and
-buffer donation (item 9). The reference's ``obs`` spans come with item 10,
-its contract-auditor registration (``analysis_programs``) with item 12.
+``shard_map`` worker axis (item 9); a heartbeat ``monitor`` (elastic
+rounds), a ``fault_hook`` and ``step_retries`` (runtime, item 5);
+training-dynamics probes, ``probe=True`` (item 4); and buffer donation
+(item 5). The reference's ``obs`` spans come with item 4, its
+contract-auditor registration (``analysis_programs``) with item 8.
 """
 from __future__ import annotations
 
@@ -84,7 +92,14 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig
 from repro_torch.optim.sgd import MomentumSGD, SGDState, replace_values_velocity
-from repro_torch.train.trainer import evaluate, make_segment_program
+from repro_torch.train.trainer import (
+    _params_like,
+    evaluate,
+    generator_entry,
+    jax_key_words,
+    make_segment_program,
+    restore_generator,
+)
 from repro_torch.tree import tree_map
 
 __all__ = [
@@ -94,9 +109,9 @@ __all__ = [
     "sparse_average_and_resparsify",
 ]
 
-_SHARD_MAP = ("worker_axis='shard_map' comes with the pod machinery (ROADMAP Queue 1, item 13: "
+_SHARD_MAP = ("worker_axis='shard_map' comes with the pod machinery (ROADMAP Queue 1, item 9: "
               "torch.distributed); one card runs worker_axis='vmap'")
-_PROBES = "training-dynamics probes come with the probes slice (ROADMAP Queue 1, item 10)"
+_PROBES = "training-dynamics probes come with the probes slice (ROADMAP Queue 1, item 4)"
 
 
 @dataclasses.dataclass
@@ -117,8 +132,8 @@ class WASAPConfig:
     batch_size: int = 32
     average_momentum: bool = True
     fused: bool = True           # device-resident epochs and SET (False: seed loop)
-    worker_axis: str = "vmap"    # vmap | shard_map (refused: ROADMAP Queue 1, item 13)
-    probe: bool = False          # refused: ROADMAP Queue 1, item 10
+    worker_axis: str = "vmap"    # vmap | shard_map (refused: ROADMAP Queue 1, item 9)
+    probe: bool = False          # refused: ROADMAP Queue 1, item 4
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +225,8 @@ def make_phase1_epoch_fn(
     validity weights over the worker axis, renormalised inside the average
     — so a dead worker contributes zero while the round completes with the
     survivors. ``mesh`` goes with ``worker_axis="shard_map"``, which is
-    refused here (ROADMAP Queue 1, item 13), as are ``donate`` (item 9)
-    and ``probe`` (item 10).
+    refused here (ROADMAP Queue 1, item 9), as are ``donate`` (item 5)
+    and ``probe`` (item 4).
     """
     if worker_axis not in ("vmap", "shard_map"):
         raise ValueError(f"worker_axis must be vmap|shard_map, got {worker_axis!r}")
@@ -219,7 +234,7 @@ def make_phase1_epoch_fn(
         raise NotImplementedError(_SHARD_MAP)
     if donate is not None:
         raise NotImplementedError(
-            "buffer donation comes with the runtime slice (ROADMAP Queue 1, item 9)")
+            "buffer donation comes with the runtime slice (ROADMAP Queue 1, item 5)")
     if probe:
         raise NotImplementedError(_PROBES)
 
@@ -410,6 +425,13 @@ class WASAPTrainer:
             "n_params": [], "epoch_seconds": [],
         }
         self._device_data = None  # lazy: one upload shared by both phases
+        # -- resume surface (DESIGN.md §8), fused path -----------------------
+        self.start_epoch = 0            # absolute epoch run() continues from
+        self.epoch_next = 0
+        self.epoch_end_hook = None      # hook(trainer, epoch) at boundaries
+        self._phase = 1                 # 1 | 2 — which phase run() enters
+        self._p1_state = None           # (params, opt_state, topo) at a boundary
+        self._p2_workers = None         # phase-2 replicas at a boundary
         # the reference's elasticity and fault-tolerance seams; refused by run()
         self.monitor = None
         self.fault_hook = None
@@ -441,10 +463,12 @@ class WASAPTrainer:
         if self.monitor is not None or self.fault_hook is not None or self.step_retries:
             raise NotImplementedError(
                 "heartbeat monitors, fault hooks and step retries come with the runtime "
-                "slice (ROADMAP Queue 1, item 9)"
+                "slice (ROADMAP Queue 1, item 5)"
             )
         if self._fused:
-            self._run_phase1_fused()
+            if self._phase == 1:
+                self._run_phase1_fused()
+                self._phase = 2
             worker_states = self._run_phase2_fused()
         else:
             self._run_phase1_roundloop()
@@ -495,11 +519,15 @@ class WASAPTrainer:
         wc, model, dev = self.wc, self.model, self.device
         k, steps = wc.n_workers, self._phase1_steps()
         x_all, y_all = self._data_on_device()
-        params = model.params()
-        opt_state = self.opt.init(params)
-        topo = model.topo_arrays()
-        gstep = 0
-        for epoch in range(wc.phase1_epochs):
+        if self._p1_state is not None:  # resumed at an epoch boundary
+            params, opt_state, topo = self._p1_state
+        else:
+            params = model.params()
+            opt_state = self.opt.init(params)
+            topo = model.topo_arrays()
+        start = min(self.start_epoch, wc.phase1_epochs)
+        gstep = start * steps
+        for epoch in range(start, wc.phase1_epochs):
             t0 = time.perf_counter()
             params, opt_state, loss_sums = self._epoch_fn(
                 params, opt_state, topo, x_all, y_all, *self._phase1_inputs(epoch, gstep),
@@ -517,8 +545,13 @@ class WASAPTrainer:
             acc = evaluate(model, self.data.x_test, self.data.y_test, params=params,
                            topo_arrays=topo)
             self._log(epoch, 1, train_loss, dt, acc)
+            self._p1_state = (params, opt_state, topo)
+            self.epoch_next = epoch + 1
+            if self.epoch_end_hook is not None:
+                self.epoch_end_hook(self, epoch)
         model.set_params(params)
         self._sync_topos_to_host(topo)
+        self.epoch_next = wc.phase1_epochs
 
     def _run_phase1_roundloop(self) -> None:
         """Seed-era phase 1: per-round dispatch, host replication, numpy
@@ -580,16 +613,20 @@ class WASAPTrainer:
         cfg = model.config
         k, bsz = wc.n_workers, wc.batch_size
         x_all, y_all = self._data_on_device()
-        base = model.params()
-        seeds = torch.randint(0, 2**62, (k,), generator=self.key, device=dev).tolist()
-        workers = []
-        for wk in range(k):
-            key = torch.Generator(device=dev)
-            key.manual_seed(seeds[wk])
-            # fresh velocity: phase 2 starts every worker from opt.init
-            workers.append({"params": base, "opt": self.opt.init(base),
-                            "topo": model.topo_arrays(), "key": key})
-        for epoch in range(wc.phase1_epochs, wc.phase1_epochs + wc.phase2_epochs):
+        if self._p2_workers is not None:  # resumed at an epoch boundary
+            workers = self._p2_workers
+        else:
+            base = model.params()
+            seeds = torch.randint(0, 2**62, (k,), generator=self.key, device=dev).tolist()
+            workers = []
+            for wk in range(k):
+                key = torch.Generator(device=dev)
+                key.manual_seed(seeds[wk])
+                # fresh velocity: phase 2 starts every worker from opt.init
+                workers.append({"params": base, "opt": self.opt.init(base),
+                                "topo": model.topo_arrays(), "key": key})
+        start = max(self.start_epoch, wc.phase1_epochs)
+        for epoch in range(start, wc.phase1_epochs + wc.phase2_epochs):
             t0 = time.perf_counter()
             losses = []
             for wk, w in enumerate(workers):
@@ -607,6 +644,10 @@ class WASAPTrainer:
             _sync(dev)
             dt = time.perf_counter() - t0
             self._log(epoch, 2, float(torch.stack(losses).mean()), dt, float("nan"))
+            self._p2_workers = workers
+            self.epoch_next = epoch + 1
+            if self.epoch_end_hook is not None:
+                self.epoch_end_hook(self, epoch)
         out = []
         for w in workers:
             topos = [
@@ -681,15 +722,124 @@ class WASAPTrainer:
             model.values[l] = torch.as_tensor(vals, device=self.device)
             model.biases[l] = _average_pytree(torch.stack([ws[2][l] for ws in worker_states]))
 
-    # -- refused until their slices -------------------------------------------
+    # -- resume (DESIGN.md §8) ------------------------------------------------
 
     def save_checkpoint(self, manager) -> None:
-        raise NotImplementedError("checkpoints come with the checkpoint slice "
-                                  "(ROADMAP Queue 1, item 5)")
+        """Phase-aware epoch-boundary snapshot of the fused path, at step
+        ``epoch_next``, in the reference's layout. Phase 1 saves the averaged
+        master (params, velocity, topology); phase 2 also saves every worker
+        replica (``w{k}_params``, ``w{k}_velocity`` and ``w{k}_layer{l}``
+        topologies), since the replicas have diverged, with the reference's
+        ``worker_keys`` (:func:`jax_key_words`) and ``worker_opt_steps`` and
+        each worker generator's state (``worker_generators``). Both carry
+        the trainer's generator state, its numpy rng and the history."""
+        if not self._fused:
+            raise RuntimeError(
+                "WASAP checkpointing covers the fused path; the seed-era "
+                "round loop is a measured baseline, not a production path"
+            )
+        cfg = self.model.config
+        resume = {
+            "kind": "wasap",
+            "phase": self._phase,
+            "epoch_next": int(self.epoch_next),
+            "jax_key": jax_key_words(self.key),
+            "numpy_rng": self.rng.bit_generator.state,
+            "history": self.history,
+            "torch_generator": generator_entry(self.key),
+        }
+
+        def topo_entry(t):
+            return {"rows": t.rows, "cols": t.cols}
+
+        if self._phase == 1 and self._p1_state is not None:
+            params, opt_state, topo = self._p1_state
+            resume["opt_step"] = int(opt_state.step)
+            manager.save(self.epoch_next, params, extra={"velocity": opt_state.velocity},
+                         topologies={f"layer{l}": topo_entry(topo[l])
+                                     for l in range(cfg.n_layers)},
+                         meta={"resume": resume})
+            return
+        # phase 2 (or the phase boundary itself): master + worker replicas
+        topologies = {f"layer{l}": topo_entry(self.model.topos[l]) for l in range(cfg.n_layers)}
+        extra = {}
+        worker_keys, worker_opt_steps, worker_generators = [], [], []
+        for wk, w in enumerate(self._p2_workers or []):
+            extra[f"w{wk}_params"] = w["params"]
+            extra[f"w{wk}_velocity"] = w["opt"].velocity
+            worker_keys.append(jax_key_words(w["key"]))
+            worker_opt_steps.append(int(w["opt"].step))
+            worker_generators.append(generator_entry(w["key"]))
+            for l in range(cfg.n_layers):
+                topologies[f"w{wk}_layer{l}"] = topo_entry(w["topo"][l])
+        resume.update(phase=2, n_saved_workers=len(worker_keys), worker_keys=worker_keys,
+                      worker_opt_steps=worker_opt_steps, worker_generators=worker_generators)
+        manager.save(self.epoch_next, self.model.params(), extra=extra,
+                     topologies=topologies, meta={"resume": resume})
 
     def restore_checkpoint(self, manager, step=None) -> int:
-        raise NotImplementedError("checkpoints come with the checkpoint slice "
-                                  "(ROADMAP Queue 1, item 5)")
+        """Rewind to a saved epoch boundary (the newest *valid* checkpoint by
+        default: corrupt ones are quarantined by the scan); ``run()`` then
+        continues from the saved phase and epoch. The device arrays, with
+        kernel A's offsets and kernel F's run plan, are made from the saved
+        host topologies; the generators resume their saved streams, or, from
+        a reference checkpoint, are seeded from its keys
+        (``train.trainer.restore_generator``). Returns the step."""
+        if step is None:
+            step = manager.latest_valid_step()
+            if step is None:
+                raise FileNotFoundError(f"no valid checkpoints under {manager.dir}")
+        manifest = manager.read_manifest(step)
+        res = manifest["meta"]["resume"]
+        cfg, dev = self.model.config, self.device
+        like = _params_like(manifest["shapes"], cfg.n_layers)
+
+        def layer_topo(l, entry) -> ElementTopology:
+            return ElementTopology(cfg.layer_dims[l], cfg.layer_dims[l + 1],
+                                   entry["rows"], entry["cols"])
+
+        def sgd_state(velocity, opt_step) -> SGDState:
+            return SGDState(velocity=velocity,
+                            step=torch.tensor(int(opt_step), dtype=torch.int32, device=dev))
+
+        if res["phase"] == 1:
+            params, extra, topologies, _ = manager.restore(
+                step, like=like, like_extra={"velocity": like}, device=dev)
+            topo = tuple(layer_topo(l, topologies[f"layer{l}"]).device_arrays(dev)
+                         for l in range(cfg.n_layers))
+            self._p1_state = (params, sgd_state(extra["velocity"], res["opt_step"]), topo)
+            self._phase = 1
+        else:
+            n_saved = int(res.get("n_saved_workers", self.wc.n_workers))
+            like_extra = {}
+            for wk in range(n_saved):
+                like_extra[f"w{wk}_params"] = like
+                like_extra[f"w{wk}_velocity"] = like
+            params, extra, topologies, _ = manager.restore(
+                step, like=like, like_extra=like_extra, device=dev)
+            for l in range(cfg.n_layers):
+                self.model.topos[l] = layer_topo(l, topologies[f"layer{l}"])
+            self.model.set_params(params)
+            generators = res.get("worker_generators")
+            workers = []
+            for wk in range(n_saved):
+                key = torch.Generator(device=dev)
+                restore_generator(key, generators[wk] if generators else None,
+                                  res["worker_keys"][wk])
+                workers.append({
+                    "params": extra[f"w{wk}_params"],
+                    "opt": sgd_state(extra[f"w{wk}_velocity"], res["worker_opt_steps"][wk]),
+                    "topo": tuple(layer_topo(l, topologies[f"w{wk}_layer{l}"]).device_arrays(dev)
+                                  for l in range(cfg.n_layers)),
+                    "key": key,
+                })
+            self._p2_workers = workers if workers else None
+            self._phase = 2
+        restore_generator(self.key, res.get("torch_generator"), res["jax_key"])
+        self.rng.bit_generator.state = res["numpy_rng"]
+        self.start_epoch = self.epoch_next = int(res["epoch_next"])
+        self.history = {k: list(v) for k, v in res["history"].items()}
+        return step
 
     # -- helpers --------------------------------------------------------------
 

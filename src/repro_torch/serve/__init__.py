@@ -1,11 +1,12 @@
-"""Serving: deployment-time compaction and the inference engine (MLP kind)."""
+"""Serving: deployment-time compaction, the inference engine (MLP kind) and
+the checkpoint glue that serves a trained model."""
 from repro_torch.serve.compact import (
     CompactionReport,
     compact_element_mlp,
     eliminate_dead_neurons,
     importance_prune_mlp,
 )
-from repro_torch.serve.engine import EngineConfig, SparseInferenceEngine
+from repro_torch.serve.engine import EngineConfig, SparseInferenceEngine, save_mlp_for_serving
 
 __all__ = [
     "CompactionReport",
@@ -14,4 +15,5 @@ __all__ = [
     "compact_element_mlp",
     "eliminate_dead_neurons",
     "importance_prune_mlp",
+    "save_mlp_for_serving",
 ]

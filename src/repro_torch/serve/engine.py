@@ -8,11 +8,18 @@ never change again), and serve ``classify`` through the forward-only
 
 PyTorch runs eagerly, so a bucket's entry is the forward bound to that
 bucket's shape, and a bucket's first use counts as its "compile" in
-``stats`` (the reference counts XLA compilations there). The counters keep
-their meaning for the later per-bucket CUDA-graph cache.
+``stats`` (the reference counts XLA compilations there); ``jit_entry_sizes``
+counts the built entries per bucket, the reference's executable count: 1
+after warm-up. The counters keep their meaning for the later per-bucket
+CUDA-graph cache.
 
-The LM kind, ``from_checkpoint``, ``jit_entry_sizes`` and the ``obs`` spans
-come with later slices.
+``save_mlp_for_serving`` writes a trained model in the reference's
+checkpoint layout and ``SparseInferenceEngine.from_checkpoint`` serves it
+(either package's), with the saved connectivity.
+
+Not in this slice, and refused naming the ROADMAP item: block models
+(Queue 1, item 6) and the LM kind with ``save_lm_for_serving`` (item 7).
+The ``obs`` spans come with item 4.
 """
 from __future__ import annotations
 
@@ -23,12 +30,18 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.importance import PruningSchedule
+from repro_torch.core.sparsity import ElementTopology
 from repro_torch.device import resolve_device
-from repro_torch.models.mlp import SparseMLP, mlp_forward
+from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, mlp_forward
 from repro_torch.serve.compact import CompactionReport, compact_element_mlp
 
-__all__ = ["EngineConfig", "SparseInferenceEngine"]
+__all__ = ["EngineConfig", "SparseInferenceEngine", "save_mlp_for_serving"]
+
+DeviceLike = Optional[Union[str, torch.device]]
+_BLOCK = ("the engine serves element (COO) models; block compaction and serving come with "
+          "a later slice (ROADMAP Queue 1, item 6)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +83,10 @@ class _BucketCache:
     def __len__(self) -> int:
         return len(self._d)
 
+    def entry_sizes(self) -> Dict[Tuple, int]:
+        # an entry is one forward built for its bucket's one input shape
+        return {k: 1 for k in self._d}
+
 
 class SparseInferenceEngine:
     def __init__(
@@ -89,10 +106,7 @@ class SparseInferenceEngine:
                 "the LM kind comes with the LM slice"
             )
         if model.config.impl != "element":
-            raise NotImplementedError(
-                f"impl={model.config.impl!r}: the engine serves element (COO) "
-                "models; block compaction comes with a later slice"
-            )
+            raise NotImplementedError(f"impl={model.config.impl!r}: {_BLOCK}")
         self.device = resolve_device(device)
         self.cfg = engine
         self.report: Optional[CompactionReport] = None
@@ -114,6 +128,41 @@ class SparseInferenceEngine:
         # the host's longest segment)
         self._topo = self.model.topo_arrays()
 
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        directory,
+        *,
+        step: Optional[int] = None,
+        engine: EngineConfig = EngineConfig(),
+        compaction: Optional[PruningSchedule] = None,
+        compact: bool = True,
+        device: DeviceLike = None,
+    ) -> "SparseInferenceEngine":
+        """Restore the model a training run saved with
+        ``save_mlp_for_serving`` (this package's or the reference's) and
+        serve it on ``device`` (``None``: the card). The manifest's
+        ``serve_kind`` selects the restore path; the topology files rebuild
+        the host topologies, so the served connectivity is exactly the
+        trained one, not the seed's draw."""
+        mgr = (directory if isinstance(directory, CheckpointManager)
+               else CheckpointManager(str(directory)))
+        meta = mgr.read_manifest(step).get("meta", {})
+        kind = meta.get("serve_kind")
+        if kind == "lm":
+            raise NotImplementedError(
+                "serving an LM checkpoint comes with the LM slice (ROADMAP Queue 1, item 7)")
+        if kind != "mlp":
+            raise ValueError(
+                f"checkpoint has no serve_kind meta (got {kind!r}); save it "
+                "with serve.engine.save_mlp_for_serving"
+            )
+        model = _restore_mlp(mgr, step, meta, device)
+        return cls(model, engine=engine, compaction=compaction, compact=compact,
+                   device=device)
+
     # -- stats --------------------------------------------------------------
 
     @property
@@ -125,7 +174,13 @@ class SparseInferenceEngine:
             "cache_hits": c.hits,
             "cache_evictions": c.evictions,
             "hit_rate": c.hits / total if total else 0.0,
+            "jit_entries": sum(c.entry_sizes().values()),
         }
+
+    def jit_entry_sizes(self) -> Dict[Tuple, int]:
+        """Per (kind, bucket) count of built entries: exactly 1 after
+        warm-up (shape-stable serving, no rebuild)."""
+        return self._cache.entry_sizes()
 
     def _enter(self, op: str) -> None:
         """Fault-hook seam at the top of every served entry point."""
@@ -163,3 +218,43 @@ class SparseInferenceEngine:
             return mlp_forward(self._params, self._topo, xb, config, infer=True)
 
         return fn
+
+
+# ---------------------------------------------------------------------------
+# checkpoint glue (save at the end of training, restore in the engine)
+# ---------------------------------------------------------------------------
+
+
+def save_mlp_for_serving(mgr: CheckpointManager, model: SparseMLP, step: int = 0,
+                         meta=None) -> None:
+    """Params, element topologies and config, tagged for the engine's
+    restore (``serve_kind: "mlp"``), in the reference's layout; waits for
+    the write."""
+    if model.config.impl != "element":
+        raise NotImplementedError(f"impl={model.config.impl!r}: {_BLOCK}")
+    topologies = {f"layer{l}": {"rows": t.rows, "cols": t.cols}
+                  for l, t in enumerate(model.topos)}
+    mgr.save(step, model.params(), topologies=topologies,
+             meta={"serve_kind": "mlp", "mlp_config": dataclasses.asdict(model.config),
+                   **(meta or {})})
+    mgr.wait()
+
+
+def _restore_mlp(mgr: CheckpointManager, step, meta, device: DeviceLike) -> SparseMLP:
+    fields = dict(meta["mlp_config"])
+    fields["layer_dims"] = tuple(fields["layer_dims"])
+    config = SparseMLPConfig(**fields)
+    dtype = getattr(torch, config.dtype)
+    _, _, topo_npz, _ = mgr.restore(step)  # the topologies carry the slot counts
+    topos, like_vals, like_biases = [], [], []
+    for l in range(config.n_layers):
+        t = topo_npz[f"layer{l}"]
+        topo = ElementTopology(config.layer_dims[l], config.layer_dims[l + 1], t["rows"],
+                               t["cols"])
+        topos.append(topo)
+        like_vals.append(torch.empty((topo.nnz,), dtype=dtype, device="meta"))
+        like_biases.append(torch.empty((config.layer_dims[l + 1],), dtype=dtype, device="meta"))
+    like = {"values": tuple(like_vals), "biases": tuple(like_biases)}
+    params, _, _, _ = mgr.restore(step, like=like, verify=False)
+    return SparseMLP.from_state(config, topos, params["values"], params["biases"],
+                                device=device)

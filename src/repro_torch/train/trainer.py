@@ -43,13 +43,23 @@ draws (``core.topology.evolution_draws``). After a host topology phase the
 device arrays (and an element topology's offsets and run plan) are made
 once, from the host, and serve the evaluation and the next epoch.
 
-Not in this slice, and refused with an error that says so: the
-masked/dense impls, training-dynamics probes, checkpoints, and the fault
-hook / step retries.
+Checkpoints (``save_checkpoint``/``restore_checkpoint``, DESIGN.md §8)
+are taken at an epoch boundary, usually from ``epoch_end_hook``, in the
+reference's layout (``checkpoint.manager``): params, velocity, topology,
+the counters, both random streams and the history, so that a fresh trainer
+restored from one runs the remaining epochs to the same bits as the run
+that never stopped. A checkpoint crosses between the packages in both
+directions (see ``restore_checkpoint`` for the random streams).
+
+Not in this slice, and refused with an error naming the ROADMAP item: the
+masked/dense impls (Queue 1, item 2), training-dynamics probes (item 4),
+the fault hook and step retries (the runtime, item 5), and ``XLTrainer``,
+the out-of-core trainer (item 3).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -72,14 +82,17 @@ from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import Dataset
 from repro_torch.launch.steps import make_mlp_step_core, make_mlp_train_step, scan_segment
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward
-from repro_torch.optim.sgd import MomentumSGD, replace_values_velocity
+from repro_torch.optim.sgd import MomentumSGD, SGDState, replace_values_velocity
 
 __all__ = [
     "SequentialTrainer",
     "TrainerConfig",
+    "XLTrainer",
     "evaluate",
     "make_segment_program",
 ]
+
+_PROBES = "training-dynamics probes come with the probes slice (ROADMAP Queue 1, item 4)"
 
 
 @dataclasses.dataclass
@@ -107,7 +120,7 @@ def make_segment_program(config: SparseMLPConfig, opt: MomentumSGD, probe: bool 
     index permutation and runs them in order; ``losses`` stay on the
     device."""
     if probe:
-        raise NotImplementedError("training-dynamics probes come with the probes slice")
+        raise NotImplementedError(_PROBES)
 
     def segment(params, opt_state, topo_arrays, x_all, y_all, perm, lrs, key):
         step_core = make_mlp_step_core(config, opt, topo_arrays, x_all, y_all)
@@ -145,6 +158,68 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# -- checkpoint glue (DESIGN.md §8) -------------------------------------------
+
+
+def _params_like(shapes: Dict, n_layers: int):
+    """A tree in the trainer's params structure with the *checkpoint's* leaf
+    shapes and dtypes (``meta`` tensors: no memory), the restore target: SET
+    keeps the slot count but importance pruning shrinks it, so the live
+    model's shapes need not match the saved ones."""
+
+    def leaf(name):
+        shape, dtype = shapes[name]
+        return torch.empty(tuple(shape), dtype=getattr(torch, dtype), device="meta")
+
+    return {
+        "values": tuple(leaf(f"values__{l}") for l in range(n_layers)),
+        "biases": tuple(leaf(f"biases__{l}") for l in range(n_layers)),
+    }
+
+
+def generator_entry(generator: torch.Generator) -> Dict:
+    """A generator's state for a checkpoint's JSON meta: its device type and
+    ``get_state()``'s bytes (a CPU generator's Mersenne Twister state; a
+    CUDA generator's seed and offset)."""
+    return {"device": generator.device.type,
+            "state": generator.get_state().tolist()}
+
+
+def jax_key_words(generator: torch.Generator) -> List[int]:
+    """The two uint32 words written as the reference's ``jax_key``, which
+    its ``restore_checkpoint`` reads: the first 8 bytes of the SHA-256 of
+    the generator's state. They are not the port's stream (a
+    ``torch.Generator`` cannot be a jax key); they only give the reference
+    a key that follows the port's state."""
+    digest = hashlib.sha256(bytes(generator.get_state().tolist())).digest()
+    return [int.from_bytes(digest[:4], "big"), int.from_bytes(digest[4:8], "big")]
+
+
+def seed_from_jax_key(words) -> int:
+    """The seed the port gives its generator when a checkpoint carries only
+    a reference ``jax_key`` (two uint32 words ``k0, k1``): ``k0 * 2**32 +
+    k1``, the key's 64 bits read as one integer."""
+    k0, k1 = (int(w) for w in words)
+    return (k0 << 32) | k1
+
+
+def restore_generator(generator: torch.Generator, entry: Optional[Dict], jax_key) -> None:
+    """Put a saved stream into ``generator``: the state of ``entry``
+    (:func:`generator_entry`), which must come from a generator of the same
+    device type, else a ``ValueError`` naming both, never a quiet reseed;
+    without one (a reference checkpoint), the seed
+    :func:`seed_from_jax_key` makes of ``jax_key``."""
+    if entry is None:
+        generator.manual_seed(seed_from_jax_key(jax_key))
+        return
+    if entry["device"] != generator.device.type:
+        raise ValueError(
+            f"the checkpoint's generator state is a {entry['device']} generator's; it "
+            f"cannot resume a {generator.device.type} generator's stream"
+        )
+    generator.set_state(torch.tensor(entry["state"], dtype=torch.uint8))
+
+
 class SequentialTrainer:
     """Paper §2.2 protocol (1 worker). History mirrors Table 2 columns."""
 
@@ -152,10 +227,10 @@ class SequentialTrainer:
         if model.config.impl not in ("element", "block"):
             raise NotImplementedError(
                 f"impl={model.config.impl!r}: the port trains element and block models; "
-                "the masked and dense impls come with a later slice"
+                "the masked and dense impls come with a later slice (ROADMAP Queue 1, item 2)"
             )
         if tc.probe:
-            raise NotImplementedError("training-dynamics probes come with the probes slice")
+            raise NotImplementedError(_PROBES)
         self.model = model
         self.data = data
         self.tc = tc
@@ -301,18 +376,81 @@ class SequentialTrainer:
                 topo, topo_dirty = self._host_topology_op(topo, topo_dirty, self._evolve), False
         return topo, topo_dirty
 
+    # -- resume (DESIGN.md §8) ----------------------------------------------
+
     def save_checkpoint(self, manager) -> None:
-        raise NotImplementedError("checkpoints come with the checkpoint slice")
+        """Epoch-boundary snapshot carrying the whole resume state at step
+        ``gstep``: params, velocity, topology (the host mirror, which the
+        fused loop syncs before the epoch-end hook), the epoch and step
+        counters, the numpy rng, the generator's state
+        (``resume.torch_generator``) and the history. The reference's meta
+        keys are all there, ``jax_key`` as :func:`jax_key_words` makes it,
+        so the reference restores the checkpoint too."""
+        model, cfg = self.model, self.model.config
+        topologies = {
+            f"layer{l}": {"rows": model.topos[l].rows, "cols": model.topos[l].cols}
+            for l in range(cfg.n_layers)
+        }
+        meta = {
+            "kind": "sequential",
+            "resume": {
+                "epoch_next": int(self.epoch_next),
+                "gstep": int(self.gstep),
+                "jax_key": jax_key_words(self.key),
+                "numpy_rng": self.rng.bit_generator.state,
+                "opt_step": int(self.opt_state.step),
+                "history": self.history,
+                "seed": self.tc.seed,
+                "torch_generator": generator_entry(self.key),
+            },
+        }
+        manager.save(self.gstep, model.params(), extra={"velocity": self.opt_state.velocity},
+                     topologies=topologies, meta=meta)
 
     def restore_checkpoint(self, manager, step: Optional[int] = None) -> int:
-        raise NotImplementedError("checkpoints come with the checkpoint slice")
+        """Rewind the trainer to a saved epoch boundary; ``run()`` then
+        continues from there. Defaults to the newest checkpoint that passes
+        verification (corrupt ones are quarantined by the scan). The
+        generator resumes the saved stream exactly; a reference checkpoint,
+        which has none, seeds it from its ``jax_key``
+        (:func:`restore_generator`). Returns the restored step."""
+        if step is None:
+            step = manager.latest_valid_step()
+            if step is None:
+                raise FileNotFoundError(f"no valid checkpoints under {manager.dir}")
+        manifest = manager.read_manifest(step)
+        res = manifest["meta"]["resume"]
+        cfg = self.model.config
+        like = _params_like(manifest["shapes"], cfg.n_layers)
+        params, extra, topologies, _ = manager.restore(
+            step, like=like, like_extra={"velocity": like}, device=self.device)
+        # topology first: the values' shapes follow the saved topology
+        for l in range(cfg.n_layers):
+            t = topologies[f"layer{l}"]
+            if cfg.impl == "element":
+                self.model.topos[l] = ElementTopology(cfg.layer_dims[l], cfg.layer_dims[l + 1],
+                                                      t["rows"], t["cols"])
+            else:
+                self.model.topos[l] = BlockTopology(block_meta(cfg, l), t["rows"], t["cols"])
+        self.model.set_params(params)
+        self.opt_state = SGDState(
+            velocity=extra["velocity"],
+            step=torch.tensor(int(res["opt_step"]), dtype=torch.int32, device=self.device),
+        )
+        restore_generator(self.key, res.get("torch_generator"), res["jax_key"])
+        self.rng.bit_generator.state = res["numpy_rng"]
+        self.start_epoch = self.epoch_next = int(res["epoch_next"])
+        self.gstep = int(res["gstep"])
+        self.history = {k: list(v) for k, v in res["history"].items()}
+        return step
 
     # -- main loop -----------------------------------------------------------
 
     def run(self, log_every: int = 0) -> Dict[str, List]:
         if self.fault_hook is not None or self.step_retries:
             raise NotImplementedError(
-                "fault hooks and step retries come with the runtime slice"
+                "fault hooks and step retries come with the runtime slice (ROADMAP Queue 1, "
+                "item 5)"
             )
         if self.tc.fused_epochs:
             return self._run_fused(log_every)
@@ -410,3 +548,14 @@ class SequentialTrainer:
             self._end_epoch(epoch, t0, float(torch.stack(losses).mean()), gstep, log_every,
                             topo)
         return self.history
+
+
+class XLTrainer:
+    """The reference's out-of-core trainer (the paper's Table-4 regime, with
+    its streamed checkpoints): refused until the XL slice."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "XLTrainer, out-of-core training with streamed checkpoints, comes with the XL "
+            "slice (ROADMAP Queue 1, item 3)"
+        )

@@ -19,7 +19,9 @@ on the same inputs are held bit-equal (the kernels split long sums, and add
 the partials in a fixed order). Device SET evolution is held slot for slot
 to its numpy version fed the same draws, and runs without a host sync;
 kernel F over the run plan made on the device (padded) is held bit-equal
-to the host-made plan.
+to the host-made plan. A training run on the card, saved at every epoch and
+resumed from epoch 0 in a fresh trainer, is held bit-equal to the run that
+never stopped.
 """
 import dataclasses
 
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.set_mlp import mlp_config
 from repro_torch.core import sparsity as tsp
 from repro_torch.core.topology import (
@@ -50,6 +53,7 @@ from repro_torch.launch.steps import make_mlp_train_step
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward
 from repro_torch.optim.sgd import MomentumSGD
 from repro_torch.serve import EngineConfig, SparseInferenceEngine, importance_prune_mlp
+from repro_torch.train.trainer import SequentialTrainer, TrainerConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -1123,3 +1127,35 @@ def test_wasap_phase2_worker_evolution_runs_without_a_host_sync(cuda):
         assert all(bool(torch.isfinite(v).all()) for v in w[1]["values"])
     # the workers drew from their own generators: their topologies differ
     assert not torch.equal(workers[0][0][0].rows, workers[1][0][0].rows)
+
+
+@pytest.mark.parametrize("impl", ["element", "block"])
+def test_card_resume_is_bit_equal(cuda, tmp_path, impl):
+    """A 3-epoch fused run on the card (device SET, pruning, dropout 0.2)
+    saving at every epoch; a fresh trainer restored from the epoch-0
+    checkpoint runs on to the same history and the same final values,
+    biases and topologies, bit for bit, on the path's kernels."""
+    cfg = SparseMLPConfig(layer_dims=(784, 64, 32, 10), epsilon=8, alpha=0.6, block_m=8,
+                          block_n=8, impl=impl, dropout=0.2)
+    data = load("fashionmnist", scale=0.01)
+    tc = TrainerConfig(epochs=3, batch_size=32, seed=1,
+                       pruning=PruningSchedule(tau=1, period=1, percentile=10.0))
+    mgr = CheckpointManager(str(tmp_path), keep_last=5)
+    live = SequentialTrainer(SparseMLP(cfg, seed=1, device=cuda), data, tc)
+    live.epoch_end_hook = lambda tr, epoch: tr.save_checkpoint(mgr)
+    hist = live.run()
+    mgr.wait()
+    resumed = SequentialTrainer(SparseMLP(cfg, seed=1, device=cuda), data, tc)
+    resumed.restore_checkpoint(mgr, mgr.all_steps()[0])
+    wrappers = ((tsp.coo_matmul_T, tsp.coo_dw) if impl == "element"
+                else (bsm.bsmm_fwd, bsm.bsmm_dx, bsm.bsmm_dw))
+    before = [w.launches for w in wrappers]
+    got = resumed.run()
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    for key in ("epoch", "train_loss", "test_acc", "n_params"):
+        assert got[key] == hist[key], key
+    for a, b in zip(resumed.model.values + resumed.model.biases,
+                    live.model.values + live.model.biases):
+        assert a.is_cuda and torch.equal(a, b)
+    for a, b in zip(resumed.model.topos, live.model.topos):
+        assert np.array_equal(a.rows, b.rows) and np.array_equal(a.cols, b.cols)

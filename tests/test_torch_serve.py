@@ -4,6 +4,9 @@ JAX reference on the CPU (the engine on the card: ``test_torch_gpu.py``).
 Compaction is host numpy in both packages, so topologies, dims, values and
 reports are held equal; compacted logits are held bit-equal to the model
 they came from (the plain version adds in slot order, as kernel A does).
+A model saved for serving and restored by ``from_checkpoint`` answers
+bit-equal to the live one; a reference-saved one within rtol = atol = 1e-5
+of the reference's engine.
 """
 import dataclasses
 
@@ -14,12 +17,15 @@ import torch
 jax = pytest.importorskip("jax")  # the reference; the card's machine has none
 import jax.numpy as jnp  # noqa: E402
 
+from repro.checkpoint.manager import CheckpointManager as JManager
 from repro.core.importance import PruningSchedule as JSchedule
 from repro.core.sparsity import ElementTopology as JTopo
 from repro.models import mlp as jmlp
 from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import SparseInferenceEngine as JEngine
 from repro.serve import compact as jcompact
+from repro.serve import save_mlp_for_serving as jsave_mlp_for_serving
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.importance import PruningSchedule
 from repro_torch.interop import mlp_from_numpy
 from repro_torch.models import mlp as tmlp
@@ -29,6 +35,7 @@ from repro_torch.serve import (
     compact_element_mlp,
     eliminate_dead_neurons,
     importance_prune_mlp,
+    save_mlp_for_serving,
 )
 
 jax.config.update("jax_platform_name", "cpu")
@@ -210,3 +217,66 @@ def test_engine_compaction_matches_reference_engine():
 def test_engine_rejects_other_models():
     with pytest.raises(TypeError, match="SparseMLP"):
         SparseInferenceEngine(object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# checkpoint glue
+# ---------------------------------------------------------------------------
+
+
+def test_mlp_engine_checkpoint_roundtrip(tmp_path):
+    """The twin of tests/test_serve.py's: saved, then from_checkpoint, then
+    the live model's logits, bit-equal, with the saved connectivity."""
+    model = _port(_jax_model(3))
+    x = _x(3, 5)
+    want = _logits(model, x)
+    mgr = CheckpointManager(str(tmp_path), async_write=False)
+    save_mlp_for_serving(mgr, model, step=4)
+    eng = SparseInferenceEngine.from_checkpoint(
+        str(tmp_path), engine=EngineConfig(batch_buckets=(8,)), compact=False, device="cpu")
+    np.testing.assert_array_equal(eng.classify(x), want)
+    # restored connectivity is the saved one, not a fresh seed draw
+    _assert_same_model(eng.model, _jax_model(3))
+    # the reference's engine serves the port's checkpoint too
+    j_eng = JEngine.from_checkpoint(str(tmp_path), engine=JEngineConfig(batch_buckets=(8,)),
+                                    compact=False)
+    np.testing.assert_allclose(j_eng.classify(x), want, rtol=1e-5, atol=1e-5)
+
+
+def test_reference_checkpoint_served_by_port(tmp_path):
+    jm = _jax_model(8)
+    jsave_mlp_for_serving(JManager(str(tmp_path), async_write=False), jm, step=2)
+    sched = dict(SCHEDULE, percentile=20.0)
+    t_eng = SparseInferenceEngine.from_checkpoint(
+        CheckpointManager(str(tmp_path)), step=2, compaction=PruningSchedule(**sched),
+        device="cpu")
+    j_eng = JEngine(jm, compaction=JSchedule(**sched))
+    assert dataclasses.asdict(t_eng.report) == dataclasses.asdict(j_eng.report)
+    x = _x(8, 40)
+    np.testing.assert_allclose(t_eng.classify(x), j_eng.classify(x), rtol=1e-5, atol=1e-5)
+
+
+def test_jit_entry_sizes_one_per_bucket_after_warmup():
+    _, t_eng, j_eng = _engines(9, batch_buckets=(2, 4))
+    x = _x(9, 9)  # buckets 4 (chunks) and 2 (the padded tail)
+    for _ in range(3):
+        t_eng.classify(x)
+        t_eng.classify(x[:1])
+    j_eng.classify(x)
+    assert t_eng.jit_entry_sizes() == {("classify", 2): 1, ("classify", 4): 1}
+    assert t_eng.jit_entry_sizes().keys() == j_eng.jit_entry_sizes().keys()
+    assert t_eng.stats["jit_entries"] == 2 and t_eng.stats["compiles"] == 2
+
+
+def test_checkpoint_glue_refuses_what_this_slice_lacks(tmp_path):
+    block = tmlp.SparseMLP(tmlp.SparseMLPConfig(**dict(FIELDS, impl="block", block_m=8,
+                                                       block_n=8)), device="cpu")
+    mgr = CheckpointManager(str(tmp_path), async_write=False)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        save_mlp_for_serving(mgr, block)
+    mgr.save(1, {"w": torch.zeros(1)}, meta={"serve_kind": "lm"})
+    with pytest.raises(NotImplementedError, match="item 7"):
+        SparseInferenceEngine.from_checkpoint(mgr, device="cpu")
+    mgr.save(2, {"w": torch.zeros(1)})
+    with pytest.raises(ValueError, match="serve_kind"):
+        SparseInferenceEngine.from_checkpoint(mgr, device="cpu")
