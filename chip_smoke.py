@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's SET-MLP serving and training paths (block and element)
-on one NVIDIA card and check them.
+"""Drive the port's SET-MLP serving and training paths (block, element and
+out-of-core) on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -142,7 +142,40 @@ Phases, one line each (any failure exits non-zero):
                    ``checkpoint_io`` line: bytes on disk, save (snapshot and
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
-                   runs last, as it profiles nothing.
+                   profiles nothing;
+15. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+                   of the paper's first Table-4 row at full width,
+                   65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
+                   17,655,362 parameters), batch 32, the device budget 0.6 x
+                   the in-core bytes, on 512 synthetic extreme-scale samples:
+                   the plan (an ``xl_plan`` line) equal to the reference
+                   planner's numbers for these inputs; one batch's streamed
+                   logits and one streamed step (values, velocity, biases,
+                   loss) bit-equal to the in-core element forward and step
+                   (kernel A with its fused epilogue, F with G's); 2 epochs
+                   streamed (the main path: A, B, F and G launched exactly
+                   as the plan's shards say, by the wrappers' counters)
+                   against the in-core trainer (loss within rtol 1e-6, test
+                   accuracy and n_params equal); the allocator's peak over
+                   each run (``xl_memory``: the streamed one within the
+                   budget plus the port's extra buffers, and below the
+                   in-core one); 2 epochs with shard-wise SET, where after
+                   the evolution the invariants hold and the next streamed
+                   step is bit-equal to an in-core step on the evolved
+                   topology, and the run resumed from its epoch-0 streamed
+                   checkpoint is bit-equal to the one that never stopped;
+                   K8 (``xl_shard_acc``, ``xl_shard_dw``) on every shard of
+                   layer 1 against its plain versions, chained bit-equal to
+                   kernels A and F over the whole layer, writing nothing
+                   outside a shard's window; kernel B's (features, batch)
+                   pass and G's standalone call at (500000, 32) against
+                   theirs; ``kernel_timing`` rows for the four, and an
+                   ``xl_timing`` line: the streamed step's median and
+                   quartiles, its host split (gather, copy issue, waits,
+                   host update), device busy, the H2D copies' device time,
+                   idle share, bytes each way per step, the in-core step,
+                   the evolution's, invariants' and checkpoint's seconds,
+                   with the card's name and power limit. It runs last.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Without a card it exits non-zero and prints no result.
@@ -168,22 +201,29 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.set_mlp import mlp_config  # noqa: E402
 from repro_torch.core import sparsity, topology, wasap  # noqa: E402
 from repro_torch.core.importance import PruningSchedule  # noqa: E402
-from repro_torch.data.datasets import load  # noqa: E402
+from repro_torch.data.datasets import load, make_extreme_dataset  # noqa: E402
+from repro_torch.data.loader import ShardedLoader  # noqa: E402
 from repro_torch.core.all_relu import activation_fn  # noqa: E402
 from repro_torch.core.topology import block_device_arrays  # noqa: E402
 from repro_torch.core.wasap import WASAPConfig, WASAPTrainer  # noqa: E402
 from repro_torch.core.wasap_ps import AsyncParameterServer, AsyncPSConfig  # noqa: E402
-from repro_torch.kernels import all_relu_fused, build, ref  # noqa: E402
+from repro_torch.kernels import all_relu_fused, build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
 from repro_torch.launch.steps import make_mlp_train_step  # noqa: E402
-from repro_torch.models.mlp import SparseMLP, block_meta  # noqa: E402
-from repro_torch.optim.sgd import MomentumSGD  # noqa: E402
+from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward  # noqa: E402
+from repro_torch.optim.sgd import MomentumSGD, SGDState  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     SparseInferenceEngine,
     importance_prune_mlp,
     save_mlp_for_serving,
 )
-from repro_torch.train.trainer import SequentialTrainer, TrainerConfig, evaluate  # noqa: E402
+from repro_torch.train.trainer import (  # noqa: E402
+    SequentialTrainer,
+    TrainerConfig,
+    XLTrainer,
+    evaluate,
+)
+from repro_torch import xl  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32
 # (non-tensor-core) rate and dense TF32 tensor-core rate. The bound of a call
@@ -241,6 +281,7 @@ WRAPPERS = {
     "coo_matmul_T": sparsity.coo_matmul_T, "bias_all_relu": all_relu_fused.bias_all_relu,
     "bsmm_fwd": bsm.bsmm_fwd, "bsmm_dx": bsm.bsmm_dx, "bsmm_dw": bsm.bsmm_dw,
     "coo_dw": sparsity.coo_dw, "all_relu_bwd": all_relu_fused.all_relu_bwd,
+    "xl_shard_acc": ops.xl_shard_acc, "xl_shard_dw": ops.xl_shard_dw,
 }
 # The element training path's batches: the trainer's 128, a ragged 33, and
 # WASAP's 32
@@ -269,6 +310,8 @@ class SmokeFailure(RuntimeError):
 # kernels A's and F's counts of launches with an epilogue, and with a mask
 SUB_COUNTS = {f"{name}.{sub}": (WRAPPERS[name], f"{sub}_launches")
               for name in ("coo_matmul_T", "coo_dw") for sub in ("epilogue", "mask")}
+# kernel B's launches by its (features, batch) entry (the out-of-core stream)
+SUB_COUNTS["bias_all_relu.T"] = (all_relu_fused.bias_all_relu, "T_launches")
 
 
 def reset_counts() -> None:
@@ -2163,6 +2206,495 @@ def phase_checkpoint(out: dict) -> str:
     )
 
 
+# -- out-of-core XL: the paper's Table-4 regime --------------------------------
+
+# The paper's first Table-4 row at full width (benchmarks/table4_extreme.py
+# scales it down to (512, 2, 10)): 65536-500000-500000-2, epsilon 10,
+# All-ReLU with alpha 0.5, f32, dropout 0, batch 32, and a device budget of
+# 0.6 x the in-core bytes, so that every layer streams.
+XL_DIMS = (65536, 500000, 500000, 2)
+XL_EPSILON = 10
+XL_ALPHA = 0.5
+XL_BATCH = 32
+XL_BUDGET_FRACTION = 0.6
+XL_SAMPLES = 512  # make_extreme_dataset: 358 training samples (11 steps), 154 test
+XL_EPOCHS = 2
+XL_LR = 0.01
+# the streamed run's history against the in-core run's: the epoch means of
+# the same per-step losses, taken in f64 by one and in f32 by the other
+XL_HISTORY_RTOL = 1e-6
+# what the reference's planner gives for these inputs (tests/test_torch_xl.py
+# computes both planners)
+XL_PLAN = dict(in_core_bytes=880_370_704, budget_bytes=528_222_422,
+               peak_device_bytes=528_161_560, shard_capacity=73_728, chunk=8_192,
+               shards=[77, 136, 14])
+XL_TIMED_STEPS = 8
+KERNEL_XL_ACC = dict(
+    name="xl_shard_acc", route="cuda", source="src/repro_torch/csrc/coo_matmul_T.cu",
+    replaces="src/repro/kernels/ops.py:347",
+)
+KERNEL_XL_DW = dict(
+    name="xl_shard_dw", route="cuda", source="src/repro_torch/csrc/coo_dw.cu",
+    replaces="src/repro/kernels/ops.py:393",
+)
+# kernel B's own pass in the stream's (features, batch) layout, and kernel
+# G's standalone call there (once per layer and step)
+KERNEL_B_T = dict(
+    name="bias_all_relu_T", route="cuda", source="src/repro_torch/csrc/bias_all_relu.cu",
+    replaces="src/repro/kernels/all_relu_fused.py:23",
+)
+KERNEL_G_XL = dict(
+    name="all_relu_bwd.xl", route="cuda", source="src/repro_torch/csrc/coo_dw.cu",
+    replaces="src/repro/core/all_relu.py:21",
+)
+
+
+def xl_config(chunk: int) -> SparseMLPConfig:
+    return SparseMLPConfig(layer_dims=XL_DIMS, epsilon=XL_EPSILON, activation="all_relu",
+                           alpha=XL_ALPHA, dropout=0.0, impl="element", element_impl="custom",
+                           spmm_chunk=chunk)
+
+
+def xl_train_config(evolve: bool) -> TrainerConfig:
+    return TrainerConfig(epochs=XL_EPOCHS, batch_size=XL_BATCH, lr=XL_LR, zeta=0.3, seed=SEED,
+                         pruning=None, evolve=evolve, device_evolution=False)
+
+
+def xl_copy(state):
+    """A copy of an XL state's host leaves."""
+    layers = [dataclasses.replace(l, **{f.name: np.array(getattr(l, f.name))
+                                        for f in dataclasses.fields(l)
+                                        if isinstance(getattr(l, f.name), np.ndarray)})
+              for l in state.layers]
+    return dataclasses.replace(state, layers=layers)
+
+
+def xl_in_core_step(cfg, core: SparseMLP, topo, xb, yb, opt_state=None):
+    """One in-core step of ``core`` (kernel A with its fused epilogue, F
+    with G's work) from ``opt_state`` (a fresh one by default): the new
+    params, optimizer state and loss."""
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)  # TrainerConfig's
+    params = core.params()
+    return make_mlp_train_step(cfg, opt)(
+        params, opt.init(params) if opt_state is None else opt_state, topo,
+        torch.as_tensor(xb, device=CARD), torch.as_tensor(yb, device=CARD).long(),
+        torch.tensor(XL_LR, device=CARD), None)
+
+
+def xl_in_core_of(cfg, state):
+    """The in-core model and optimizer state of an XL state: its topology,
+    values, biases and velocities on the card."""
+    topos = [sparsity.ElementTopology(l.in_dim, l.out_dim, l.rows, l.cols)
+             for l in state.layers]
+    core = SparseMLP.from_state(cfg, topos, [l.values for l in state.layers],
+                                [l.bias for l in state.layers], device=CARD)
+    vel = {k: tuple(torch.as_tensor(np.array(getattr(l, f)), device=CARD) for l in state.layers)
+           for k, f in (("values", "velocity"), ("biases", "bias_vel"))}
+    return core, SGDState(velocity=vel, step=torch.zeros((), dtype=torch.int32, device=CARD))
+
+
+def xl_same_as_in_core(state, params, opt_state, what: str) -> None:
+    """An XL state bit-equal to an in-core step's params and velocity."""
+    for l, layer in enumerate(state.layers):
+        for got, want in ((layer.values, params["values"][l]),
+                          (layer.velocity, opt_state.velocity["values"][l]),
+                          (layer.bias, params["biases"][l]),
+                          (layer.bias_vel, opt_state.velocity["biases"][l])):
+            check(np.array_equal(got, want.cpu().numpy()), f"{what}: layer {l} differs")
+
+
+def xl_same_states(a, b, what: str) -> None:
+    for l, (x, y) in enumerate(zip(a.layers, b.layers)):
+        for f in ("rows", "cols", "perm_r", "values", "velocity", "bias", "bias_vel"):
+            check(np.array_equal(np.asarray(getattr(x, f)), np.asarray(getattr(y, f))),
+                  f"{what}: layer {l} {f} differs")
+
+
+def xl_shard_checks(ex, rng: np.random.Generator) -> dict:
+    """K8 on every shard of layer 1, at the main path's operands (layer 1's
+    input from a streamed forward, a normal dz): ``xl_shard_acc`` chained
+    over the shards, in place, against its plain version after every shard
+    (within RTOL, ATOL) and, at the end, bit-equal to kernel A over the whole
+    layer in one call (segments span shard edges); every row outside a
+    shard's window untouched; ``xl_shard_dw`` on each shard bit-equal to
+    kernel F over the whole layer, and against its plain version. Then
+    kernel B's (features, batch) pass and G's standalone call at the
+    layer's (500000, 32), against their plain versions. Returns the errors
+    and the operands of a middle shard for the timings."""
+    layer, C, d, B = ex.state.layers[1], ex.C, ex.d_max, ex.B
+    src = ex.h[0]
+    dz = torch.as_tensor(rng.standard_normal((d, B)).astype(np.float32), device=CARD)
+    acc = torch.zeros((d, B), device=CARD)
+    plain = torch.zeros((d, B), device=CARD)
+    v_all = torch.as_tensor(np.asarray(layer.values), device=CARD)
+    r_all = torch.as_tensor(np.asarray(layer.rows), device=CARD)
+    c_all = torch.as_tensor(np.asarray(layer.cols), device=CARD)
+    dv_whole = sparsity.coo_dw(src[: layer.in_dim], dz[: layer.out_dim], r_all, c_all)
+    dv = torch.empty((C,), device=CARD)
+    err_acc = err_dw = 0.0
+    picked = None
+    bounds = topology.element_shard_bounds(layer.nnz, C)
+    for s, (lo, hi) in enumerate(bounds):
+        vals = torch.zeros((C,), device=CARD)
+        vals[: hi - lo] = v_all[lo:hi]
+        gather = torch.zeros((C,), dtype=torch.int32, device=CARD)
+        gather[: hi - lo] = r_all[lo:hi]
+        seg = torch.full((C,), d, dtype=torch.int32, device=CARD)
+        seg[: hi - lo] = c_all[lo:hi]
+        window = ops.shard_window(seg, d, rows=gather)
+        before = acc.clone()
+        ops.xl_shard_acc(acc, src, vals, gather, n_segments=d, window=window)
+        ops._xl_shard_acc_plain(plain, src, vals, gather, window, None)
+        w = slice(window.lo, window.lo + window.n)
+        err_acc = max(err_acc, float((acc[w] - plain[w]).abs().max()))
+        torch.testing.assert_close(acc[w], plain[w], rtol=RTOL, atol=ATOL)
+        outside = torch.ones(d, dtype=torch.bool, device=CARD)
+        outside[w] = False
+        check(torch.equal(acc[outside], before[outside]),
+              f"xl_shard_acc wrote outside shard {s}'s window")
+        ops.xl_shard_dw(src, dz, gather, window=window, out=dv)
+        check(torch.equal(dv[: hi - lo], dv_whole[lo:hi]),
+              f"xl_shard_dw on shard {s} differs from kernel F over the layer")
+        want = ops._xl_shard_dw_plain(src, dz, gather, window, None, torch.zeros_like(dv))
+        err_dw = max(err_dw, float((dv[: hi - lo] - want[: hi - lo]).abs().max()))
+        torch.testing.assert_close(dv[: hi - lo], want[: hi - lo], rtol=RTOL, atol=ATOL)
+        if s == len(bounds) // 2:
+            picked = dict(vals=vals, gather=gather, window=window, hi_lo=hi - lo)
+    seg_ptr = torch.searchsorted(c_all, torch.arange(layer.out_dim + 1, dtype=torch.int32,
+                                                     device=CARD))
+    whole = sparsity._coo_matmul_T_cuda(src, v_all, r_all, c_all, seg_ptr, layer.out_dim, None)
+    check(torch.equal(acc[: layer.out_dim], whole),
+          "xl_shard_acc over layer 1's shards is not bit-equal to kernel A over the layer")
+    # kernel B's (features, batch) pass and G's standalone call at the layer's shape
+    n = layer.out_dim
+    bias = torch.as_tensor((0.1 * rng.standard_normal(n)).astype(np.float32), device=CARD)
+    slope = ref.slope_for(XL_ALPHA, 2)
+    y, mask = all_relu_fused.bias_all_relu_T(acc[:n], bias, slope,
+                                             mask=torch.empty((n, B), dtype=torch.uint8,
+                                                              device=CARD))
+    py, pmask = all_relu_fused.bias_all_relu_T_plain(acc[:n], bias, slope, with_mask=True)
+    check(torch.equal(y, py) and torch.equal(mask, pmask),
+          "kernel B's (features, batch) pass differs from its plain version")
+    gz, gb = all_relu_fused.all_relu_bwd(dz[:n], mask, slope)
+    pz, pb = all_relu_fused.all_relu_bwd_plain(dz[:n], mask, slope)
+    check(torch.equal(gz, pz), "kernel G's dz differs from its plain version")
+    torch.testing.assert_close(gb, pb, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    torch.cuda.synchronize()
+    return dict(err_acc=err_acc, err_dw=err_dw, err_b=float((y - py).abs().max()),
+                err_g=float((gb - pb).abs().max()),
+                shards=len(bounds), src=src, dz=dz, picked=picked, acc=acc, bias=bias,
+                slope=slope, mask=mask, n=n)
+
+
+def xl_timing_rows(chk: dict) -> list:
+    """Device times of K8 on layer 1's middle shard (per shard), kernel B's
+    (features, batch) pass and G's standalone call at (500000, 32), beside
+    their bounds, plain versions and library calls: ``torch.sparse``'s CSR
+    product over the shard's window for ``xl_shard_acc``, its sampled
+    product (``sampled_addmm``) for ``xl_shard_dw``."""
+    p, src, dz = chk["picked"], chk["src"], chk["dz"]
+    w, k = p["window"], p["hi_lo"]
+    B = src.shape[1]
+    scratch = torch.zeros_like(chk["acc"])
+    rows_used = int(torch.unique(p["gather"][:k]).numel())
+    acc_bytes = (rows_used * B * 4 + k * 8 + (w.n + 1) * 8 + 2 * w.n * B * 4)
+    dw_bytes = (rows_used * B * 4 + w.n * B * 4 + k * 4 + w.n_runs * 12 + k * 4)
+    seg_ptr = w.seg_ptr[: w.n + 1]
+    csr = torch.sparse_csr_tensor(seg_ptr, p["gather"][:k].long(), p["vals"][:k],
+                                  (w.n, src.shape[0]))
+    mask_csr = torch.sparse_csr_tensor(seg_ptr, p["gather"][:k].long(),
+                                       torch.zeros(k, device=CARD), (w.n, src.shape[0]))
+    dz_win = dz[w.lo: w.lo + w.n]
+    dv = torch.empty_like(p["vals"])
+    common = dict(layer=1, batch=B, shard_slots=k, segments=w.n, route=sparsity.coo_route(w.longest))
+    n, y = chk["n"], chk["acc"][: chk["n"]]
+    out_y = torch.empty_like(y)
+    mask = torch.empty_like(chk["mask"])
+    dz_n = dz[:n]
+    return [
+        dict(kernel="xl_shard_acc", **common,
+             ms=device_ms(lambda: ops.xl_shard_acc(scratch, src, p["vals"], p["gather"],
+                                                   n_segments=src.shape[0], window=w)),
+             plain_ms=device_ms(lambda: ops._xl_shard_acc_plain(scratch, src, p["vals"],
+                                                                p["gather"], w, None)),
+             library_ms=library_ms(lambda: torch.sparse.mm(csr, src)),
+             **bound(acc_bytes, 2 * k * B)),
+        dict(kernel="xl_shard_dw", **common, runs=w.n_runs,
+             ms=device_ms(lambda: ops.xl_shard_dw(src, dz, p["gather"], window=w, out=dv)),
+             plain_ms=device_ms(lambda: ops._xl_shard_dw_plain(src, dz, p["gather"], w, None,
+                                                               dv)),
+             library_ms=library_ms(lambda: torch.sparse.sampled_addmm(mask_csr, dz_win, src.T)),
+             **bound(dw_bytes, 2 * k * B)),
+        dict(kernel="bias_all_relu_T", layer=1, batch=B, shape=[n, B],
+             ms=device_ms(lambda: all_relu_fused.bias_all_relu_T(y, chk["bias"], chk["slope"],
+                                                                 out=out_y, mask=mask)),
+             plain_ms=device_ms(lambda: all_relu_fused.bias_all_relu_T_plain(
+                 y, chk["bias"], chk["slope"], with_mask=True)),
+             library_ms=None, **bound(n * B * 9 + n * 4, 3 * n * B)),
+        dict(kernel="all_relu_bwd.xl", layer=1, batch=B, shape=[n, B],
+             ms=device_ms(lambda: all_relu_fused.all_relu_bwd(dz_n, chk["mask"], chk["slope"])),
+             plain_ms=device_ms(lambda: all_relu_fused.all_relu_bwd_plain(dz_n, chk["mask"],
+                                                                          chk["slope"])),
+             library_ms=None, **bound(n * B * 9 + n * 4, 2 * n * B)),
+    ]
+
+
+def xl_step_timings(ex, loader, out: dict) -> dict:
+    """The streamed step (host clock, each ending in the loss's sync):
+    median and quartiles over XL_TIMED_STEPS steps, the executor's split of
+    the host's time (gather into the pinned ring, issuing copies, waiting
+    for events, the host update) and the bus's bytes per step, then a
+    profile of two steps (device busy, idle share, the H2D copies' device
+    time)."""
+    batches = list(loader.epoch(0))
+    ts, splits = [], []
+    for i in range(XL_TIMED_STEPS):
+        xb, yb = batches[i % len(batches)]
+        ex.reset_stats()
+        t0 = time.perf_counter()
+        ex.train_step(xb, yb, XL_LR, momentum=0.9, weight_decay=2e-4)
+        ts.append((time.perf_counter() - t0) * 1e3)
+        splits.append(dict(ex.stats))
+    q25, q50, q75 = np.percentile(ts, [25, 50, 75])
+    split = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
+    xb, yb = batches[0]
+    prof = profile_train_step(
+        lambda: ex.train_step(xb, yb, XL_LR, momentum=0.9, weight_decay=2e-4), float(q50),
+        steps=2)
+    h2d_us = sum(v for k, v in prof["device_us_by_name"].items() if "HtoD" in k)
+    d2h_us = sum(v for k, v in prof["device_us_by_name"].items() if "DtoH" in k)
+    top = sorted(prof["device_us_by_name"].items(), key=lambda kv: -kv[1])[:8]
+    return dict(streamed_step_ms=dict(median=float(q50), q25=float(q25), q75=float(q75),
+                                      all=ts),
+                host_gather_ms=split["gather_s"] * 1e3, host_copy_issue_ms=split["copy_s"] * 1e3,
+                host_wait_ms=split["wait_s"] * 1e3, host_update_ms=split["update_s"] * 1e3,
+                h2d_bytes_per_step=split["h2d_bytes"], d2h_bytes_per_step=split["d2h_bytes"],
+                device_busy_us=prof["device_busy_us"], h2d_copy_device_us=h2d_us,
+                d2h_copy_device_us=d2h_us, device_idle_share=prof["device_idle_share"],
+                device_launches_per_step=prof["device_launches"],
+                profiled_step_ms=prof["profiled_step_ms"], device_us_top=dict(top),
+                host_self_us_top=prof["host_self_us_top"][:8], card=out["smi"])
+
+
+def xl_in_core_step_ms(cfg, core: SparseMLP, topo, xb, yb) -> float:
+    """The in-core element step of ``core`` at batch 32 (kernel A with its
+    epilogue, F with G's): median of 20 after 5 warm-up steps."""
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+    step = make_mlp_train_step(cfg, opt)
+    x, y = torch.as_tensor(xb, device=CARD), torch.as_tensor(yb, device=CARD).long()
+    lr = torch.tensor(XL_LR, device=CARD)
+    st = {"p": core.params(), "o": opt.init(core.params())}
+    ts = []
+    for i in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st["p"], st["o"], _ = step(st["p"], st["o"], topo, x, y, lr, None)
+        torch.cuda.synchronize()
+        if i >= 5:
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def xl_launches_expected(plan, steps: int, eval_batches: int) -> dict:
+    """The streamed run's launches: per forward, kernel A (xl_shard_acc) on
+    every canonical shard and kernel B's (features, batch) pass on every
+    layer; per step also A on every dual-order shard of layers 1 and up,
+    F (xl_shard_dw) on every canonical shard, and G once per layer."""
+    fwd = plan.n_shards_total
+    dx = sum(lp.n_shards for lp in plan.layers[1:])
+    n = plan.n_layers
+    acc = (steps + eval_batches) * fwd + steps * dx
+    return dict(NO_LAUNCHES, **{
+        "coo_matmul_T": acc, "xl_shard_acc": acc, "coo_dw": steps * fwd, "xl_shard_dw": steps * fwd,
+        "bias_all_relu": (steps + eval_batches) * n, "bias_all_relu.T": (steps + eval_batches) * n,
+        "all_relu_bwd": steps * n})
+
+
+def phase_xl(out: dict) -> str:
+    t0 = time.perf_counter()
+    data = make_extreme_dataset(n_samples=XL_SAMPLES, n_features=XL_DIMS[0], seed=SEED)
+    nnz = [sparsity.erdos_renyi_nnz(XL_EPSILON, a, b) for a, b in zip(XL_DIMS, XL_DIMS[1:])]
+    in_core_bytes = xl.estimate_in_core_bytes(XL_DIMS, nnz, XL_BATCH)
+    plan = xl.plan_memory_budget(XL_DIMS, nnz, XL_BATCH,
+                                 int(XL_BUDGET_FRACTION * in_core_bytes))
+    got_plan = dict(in_core_bytes=in_core_bytes, budget_bytes=plan.budget_bytes,
+                    peak_device_bytes=plan.peak_device_bytes,
+                    shard_capacity=plan.shard_capacity, chunk=plan.chunk,
+                    shards=[lp.n_shards for lp in plan.layers])
+    cfg = xl_config(plan.chunk)
+    host_model = SparseMLP(cfg, seed=SEED, device="cpu")  # the ER draw and init, on the host
+    setup_s = time.perf_counter() - t0
+    print(json.dumps({"xl_plan": dict(got_plan, layer_dims=list(XL_DIMS), nnz=nnz,
+                                      topo_resident=[lp.topo_resident for lp in plan.layers],
+                                      setup_s=setup_s)}))
+    check(got_plan == XL_PLAN, f"the plan {got_plan} is not the reference's {XL_PLAN}")
+    check([t.nnz for t in host_model.topos] == nnz, "the model's connections are not the plan's")
+    loader = ShardedLoader(data.x_train, data.y_train, XL_BATCH, seed=SEED)
+    steps = XL_EPOCHS * loader.steps_per_epoch
+    eval_batches = XL_EPOCHS * -(-len(data.x_test) // XL_BATCH)
+    xb, yb = next(loader.epoch(0))
+
+    # one batch's logits and one step, streamed against in core
+    state = xl.XLModelState.from_model(host_model, plan)
+    ex = xl.StreamExecutor(state, CARD)
+    logits = ex.logits(xb)
+    core = SparseMLP.from_state(cfg, host_model.topos, host_model.values, host_model.biases,
+                                device=CARD)
+    topo = core.topo_arrays()
+    with torch.no_grad():
+        want = mlp_forward(core.params(), topo, torch.as_tensor(xb, device=CARD),
+                           cfg).cpu().numpy()
+    check(np.array_equal(logits, want), "streamed logits differ from the in-core forward's")
+    loss = ex.train_step(xb, yb, XL_LR, momentum=0.9, weight_decay=2e-4)
+    params, opt_state, ref_loss = xl_in_core_step(cfg, core, topo, xb, yb)
+    check(loss == float(ref_loss), f"streamed step loss {loss} vs in-core {float(ref_loss)}")
+    xl_same_as_in_core(state, params, opt_state, "one streamed step vs in core")
+    in_core_step_ms = xl_in_core_step_ms(cfg, core, topo, xb, yb)
+    del state, ex, core, topo, params, opt_state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the main path: 2 epochs streamed (no evolution), launches counted, the
+    # allocator's peak over the run; then the in-core run in a window of its own
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = XLTrainer(xl.XLModelState.from_model(host_model, plan), data, xl_train_config(False),
+                   plan, device=CARD)
+    reset_counts()
+    hist = tr.run()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    mem = dict(streamed_peak_bytes=torch.cuda.max_memory_allocated() - base,
+               streamed_base_bytes=base, plan_peak_device_bytes=plan.peak_device_bytes,
+               budget_bytes=plan.budget_bytes, port_extra_bytes=tr.executor.port_extra_bytes,
+               measured_peak_bytes=tr.executor.measured_peak_bytes)
+    want_launches = xl_launches_expected(plan, steps, eval_batches)
+    check(launches == want_launches, f"streamed run launches {launches}, expected {want_launches}")
+    del tr
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    core_tr = SequentialTrainer(
+        SparseMLP.from_state(cfg, host_model.topos, host_model.values, host_model.biases,
+                             device=CARD), data, xl_train_config(False))
+    core_hist = core_tr.run()
+    torch.cuda.synchronize()
+    mem.update(in_core_peak_bytes=torch.cuda.max_memory_allocated() - base, in_core_base_bytes=base,
+               card=out["smi"])
+    print(json.dumps({"xl_memory": mem}))
+    del core_tr
+    torch.cuda.empty_cache()
+    np.testing.assert_allclose(hist["train_loss"], core_hist["train_loss"], rtol=XL_HISTORY_RTOL)
+    check(hist["test_acc"] == core_hist["test_acc"] and hist["n_params"] == core_hist["n_params"],
+          f"streamed history {hist} vs in core {core_hist}")
+    check(mem["streamed_peak_bytes"] <= plan.budget_bytes + mem["port_extra_bytes"],
+          f"the streamed run's allocator peak exceeds the budget: {mem}")
+    check(mem["streamed_peak_bytes"] < mem["in_core_peak_bytes"],
+          f"the streamed run's allocator peak is not below the in-core run's: {mem}")
+
+    # 2 epochs with shard-wise SET, saved after epoch 0: after the evolution
+    # the invariants hold and the next streamed step is bit-equal to an
+    # in-core step on the evolved topology; resumed from the checkpoint, the
+    # run is bit-equal to the one that never stopped
+    post: dict = {}
+    evolve = xl.evolve_model_streamed
+
+    def timed_evolve(*args, **kwargs):
+        t = time.perf_counter()
+        res = evolve(*args, **kwargs)
+        post["evolution_s"] = time.perf_counter() - t
+        post["evolution_stats"] = [{k: r[k] for k in ("n_pruned", "n_fallback")} for r in res]
+        return res
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xl_") as tmp:
+        mgr = CheckpointManager(tmp, keep_last=XL_EPOCHS)
+
+        def hook(trainer, epoch):
+            if epoch != 0:
+                return
+            t = time.perf_counter()
+            trainer.state.check_invariants()
+            post["invariants_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            trainer.save_checkpoint(mgr)
+            post["save_s"] = time.perf_counter() - t
+            nxt = xl_copy(trainer.state)
+            xb1, yb1 = next(loader.epoch(epoch + 1))
+            core1, opt1 = xl_in_core_of(cfg, nxt)
+            p2, s2, ref1 = xl_in_core_step(cfg, core1, core1.topo_arrays(), xb1, yb1, opt1)
+            got1 = xl.StreamExecutor(nxt, CARD).train_step(xb1, yb1, XL_LR, momentum=0.9,
+                                                           weight_decay=2e-4)
+            check(got1 == float(ref1), f"post-evolution step loss {got1} vs {float(ref1)}")
+            xl_same_as_in_core(nxt, p2, s2, "the step after the evolution vs in core")
+            post["post_evolution_step"] = True
+
+        evo = XLTrainer(xl.XLModelState.from_model(host_model, plan), data, xl_train_config(True),
+                        plan, device=CARD)
+        evo.epoch_end_hook = hook
+        xl.evolve_model_streamed = timed_evolve
+        try:
+            evo_hist = evo.run()
+        finally:
+            xl.evolve_model_streamed = evolve
+        check(post.get("post_evolution_step", False), "the post-evolution step was not checked")
+        t = time.perf_counter()
+        res = XLTrainer.from_checkpoint(mgr, data, xl_train_config(True), plan, device=CARD)
+        post["restore_s"] = time.perf_counter() - t
+        post["checkpoint_bytes"] = dir_bytes(Path(tmp))
+        res_hist = res.run()
+    same_history(res_hist, evo_hist, "the resumed XL run")
+    xl_same_states(res.state, evo.state, "the resumed XL run's final state")
+    print(json.dumps({"xl_history": {"streamed": hist, "in_core": core_hist,
+                                     "streamed_evolution": evo_hist, "resumed": res_hist}}))
+
+    # K8, kernel B's pass and G against their plain versions; the timings
+    chk_ex = xl.StreamExecutor(res.state, CARD)
+    chk_ex.forward(xb, train=True)
+    chk = xl_shard_checks(chk_ex, np.random.default_rng(SEED))
+    rows = xl_timing_rows(chk)
+    for r in rows:
+        print(json.dumps({"kernel_timing": r}))
+    n_checked = chk["shards"]
+    errs = {"xl_shard_acc": chk["err_acc"], "xl_shard_dw": chk["err_dw"],
+            "bias_all_relu_T": chk["err_b"], "all_relu_bwd.xl": chk["err_g"]}
+    del chk_ex, chk
+    torch.cuda.empty_cache()
+    timing = xl_step_timings(res.executor, loader, out)
+    timing.update(in_core_step_ms=in_core_step_ms,
+                  epoch_seconds={"streamed": hist["epoch_seconds"],
+                                 "in_core": core_hist["epoch_seconds"]},
+                  **{k: post[k] for k in ("evolution_s", "evolution_stats", "invariants_s",
+                                          "save_s", "restore_s", "checkpoint_bytes")},
+                  setup_s=setup_s)
+    print(json.dumps({"xl_timing": timing}))
+    per_step = {k: (launches[k] - (eval_batches * plan.n_shards_total if k == "xl_shard_acc"
+                                   else 0)) / steps for k in ("xl_shard_acc", "xl_shard_dw")}
+    counts = {"xl_shard_acc": launches["xl_shard_acc"], "xl_shard_dw": launches["xl_shard_dw"],
+              "bias_all_relu_T": launches["bias_all_relu.T"],
+              "all_relu_bwd.xl": launches["all_relu_bwd"]}
+    for meta in (KERNEL_XL_ACC, KERNEL_XL_DW, KERNEL_B_T, KERNEL_G_XL):
+        mine = [r for r in rows if r["kernel"] == meta["name"]]
+        extra = dict(per="shard", shard_slots=mine[0]["shard_slots"],
+                     launches_per_step=per_step[meta["name"]]) if "shard_slots" in mine[0] else {}
+        out["kernels"].append(dict(kernel_entry(meta, mine, counts[meta["name"]],
+                                                errs[meta["name"]]), **extra))
+    return (
+        f"dims {XL_DIMS}, nnz {nnz}, budget {plan.budget_bytes} B < in-core {in_core_bytes} B, "
+        f"capacity {plan.shard_capacity}, shards {got_plan['shards']}; logits and one step "
+        f"bit-equal to in core; 2 epochs loss {hist['train_loss']} vs in core "
+        f"{core_hist['train_loss']}, acc {hist['test_acc']} equal; after the evolution the "
+        f"invariants hold and the next step is bit-equal to in core; resumed from epoch 0 "
+        f"bit-equal; K8 on layer 1's {n_checked} shards max_abs_err acc "
+        f"{errs['xl_shard_acc']:.3g}, dw {errs['xl_shard_dw']:.3g}, chained bit-equal to A over "
+        f"the layer; allocator peak {mem['streamed_peak_bytes']} B (budget {plan.budget_bytes} + "
+        f"port extra {mem['port_extra_bytes']}; in core {mem['in_core_peak_bytes']} B); launches "
+        f"{launches}; streamed step median {timing['streamed_step_ms']['median']:.1f} ms (in core "
+        f"{timing['in_core_step_ms']:.2f} ms), H2D {timing['h2d_bytes_per_step'] / 1e6:.1f} MB a "
+        f"step, idle share {timing['device_idle_share']:.3f}; evolution {post['evolution_s']:.1f} s"
+    )
+
+
 def kernel_entry(meta: dict, rows: list, launches: int, max_abs_err: float) -> dict:
     """A ``kernels``-line entry: device times summed over ``rows`` (the
     launches of one call of the path), its bound, and the library's."""
@@ -2192,7 +2724,7 @@ def main() -> int:
         ("timings", phase_timings), ("train_timings", phase_train_timings),
         # after the timing phases: run before them, it made their
         # torch.profiler sessions lose device events (PERF.md §7)
-        ("wasap", phase_wasap), ("checkpoint", phase_checkpoint),
+        ("wasap", phase_wasap), ("checkpoint", phase_checkpoint), ("xl", phase_xl),
     ):
         t0 = time.perf_counter()
         try:

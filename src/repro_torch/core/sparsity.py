@@ -743,29 +743,48 @@ def _coo_matmul_T_cuda(
     _check_epilogue_args(bias, slope, n_segments, with_mask)
     if bias is not None:
         build.check_tensor(bias, "bias", dtype=f32, shape=(n_segments,), device=device)
-    # kernel A's epilogue: 0 none, 1 + bias, 2 + bias then All-ReLU, 3 as 2
-    # and the mask of the pre-activation's sign
-    mode = 0 if bias is None else 1 if slope is None else 3 if with_mask else 2
     if route is None:
         route = coo_route(_longest_segment(seg_ptr, nnz, n_segments))
     out = torch.empty((n_segments, batch), dtype=f32, device=device)
     mask = torch.empty((n_segments, batch), dtype=torch.uint8, device=device) if with_mask else None
-    if out.numel():
-        fn = build.kernel("coo_matmul_T", "coo_matmul_T_f32", _COO_MATMUL_T_ARGTYPES)
-        rc = fn(
-            srcT.data_ptr(), values.data_ptr(), gather_idx.data_ptr(),
-            seg_ptr.data_ptr(), None if acc is None else acc.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            None if mask is None else mask.data_ptr(), n_segments, batch, route,
-            0.0 if slope is None else slope, mode, *build.stream_args(device),
-        )
-        build.check_launch(rc, "coo_matmul_T kernel")
-        coo_matmul_T.launches += 1
-        if mode:
-            coo_matmul_T.epilogue_launches += 1
-        if with_mask:
-            coo_matmul_T.mask_launches += 1
+    launch_coo_matmul_T(srcT, values, gather_idx, seg_ptr, acc, out, route, bias=bias,
+                        slope=slope, mask=mask)
     return (out, mask) if with_mask else out
+
+
+def launch_coo_matmul_T(
+    srcT: torch.Tensor, values: torch.Tensor, gather_idx: torch.Tensor,
+    seg_ptr: torch.Tensor, acc: Optional[torch.Tensor], out: torch.Tensor, route: int, *,
+    bias: Optional[torch.Tensor] = None, slope: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> None:
+    """Launch kernel A on the caller's stream into ``out`` ((n_segments, B),
+    f32, contiguous; it may be ``acc`` itself: each output is read and
+    written by one thread), over the first ``n_segments`` segments of
+    ``seg_ptr``, with the epilogue ``bias``, ``slope`` and ``mask`` ask for,
+    and count it. Nothing is checked here: the callers check the operands
+    (:func:`coo_matmul_T`), or made them so (the out-of-core stream's shard
+    windows, ``kernels.ops.xl_shard_acc``)."""
+    n_segments, batch = out.shape
+    # kernel A's epilogue: 0 none, 1 + bias, 2 + bias then All-ReLU, 3 as 2
+    # and the mask of the pre-activation's sign
+    mode = 0 if bias is None else 1 if slope is None else 3 if mask is not None else 2
+    if out.numel() == 0:
+        return
+    fn = build.kernel("coo_matmul_T", "coo_matmul_T_f32", _COO_MATMUL_T_ARGTYPES)
+    rc = fn(
+        srcT.data_ptr(), values.data_ptr(), gather_idx.data_ptr(),
+        seg_ptr.data_ptr(), None if acc is None else acc.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if mask is None else mask.data_ptr(), n_segments, batch, route,
+        0.0 if slope is None else slope, mode, *build.stream_args(out.device),
+    )
+    build.check_launch(rc, "coo_matmul_T kernel")
+    coo_matmul_T.launches += 1
+    if mode:
+        coo_matmul_T.epilogue_launches += 1
+    if mask is not None:
+        coo_matmul_T.mask_launches += 1
 
 
 def coo_matmul_T_plain(
@@ -1018,8 +1037,11 @@ def _check_dw_epilogue_args(with_dbias: bool, mask: Optional[torch.Tensor],
 
 def _coo_dw_cuda(dyT: torch.Tensor, mask: Optional[torch.Tensor], slope: Optional[float],
                  with_dbias: bool, *, xT: Optional[torch.Tensor] = None,
-                 rows: Optional[torch.Tensor] = None, runs: Optional[DwRuns] = None):
-    """Check the epilogue's operands, allocate the outputs and launch
+                 rows: Optional[torch.Tensor] = None, runs: Optional[DwRuns] = None,
+                 dv_out: Optional[torch.Tensor] = None, dz_out: Optional[torch.Tensor] = None,
+                 dbias_out: Optional[torch.Tensor] = None):
+    """Check the epilogue's operands, allocate the outputs (or take
+    ``dv_out``, ``dz_out`` and ``dbias_out``, checked here) and launch
     kernel F on the caller's stream over ``runs`` (its slot runs alone
     without an epilogue), or, with no run plan, its epilogue alone over one
     empty run per row of ``dyT`` (kernel G's standalone pass); the caller
@@ -1030,12 +1052,24 @@ def _coo_dw_cuda(dyT: torch.Tensor, mask: Optional[torch.Tensor], slope: Optiona
     if dyT.dim() != 2:
         raise ValueError(f"dy must be (N, B), got shape {tuple(dyT.shape)}")
     device = dyT.device
-    build.check_tensor(dyT, "dy", dtype=torch.float32, shape=dyT.shape, device=device)
+    f32 = torch.float32
+    build.check_tensor(dyT, "dy", dtype=f32, shape=dyT.shape, device=device)
     if mask is not None:
         build.check_tensor(mask, "mask", dtype=torch.uint8, shape=dyT.shape, device=device)
-    dv = None if rows is None else torch.empty(rows.shape, dtype=torch.float32, device=device)
-    dz = dyT if mask is None else torch.empty_like(dyT)
-    dbias = torch.empty((dyT.shape[0],), dtype=torch.float32, device=device) if with_dbias else None
+
+    def output(given, name, shape, make):
+        if given is None:
+            return make()
+        build.check_tensor(given, name, dtype=f32, shape=shape, device=device)
+        return given
+
+    dv = None if rows is None else output(
+        dv_out, "dv_out", rows.shape, lambda: torch.empty(rows.shape, dtype=f32, device=device))
+    dz = dyT if mask is None else output(dz_out, "dz_out", dyT.shape,
+                                         lambda: torch.empty_like(dyT))
+    dbias = None if not with_dbias else output(
+        dbias_out, "dbias_out", (dyT.shape[0],),
+        lambda: torch.empty((dyT.shape[0],), dtype=f32, device=device))
     if runs is None:
         n_runs = dyT.shape[0]
     else:

@@ -31,6 +31,28 @@
 // PyTorch version (the add comes before the multiply, so no fused
 // multiply-add can form), so the two agree bit for bit.
 //
+// The (features, batch) entry, bias_act_T_f32. The out-of-core stream
+// (src/repro_torch/xl/stream.py) keeps kernel A's (features, batch) layout
+// and runs kernel A with no epilogue over each connection shard of a layer,
+// since a segment may span two shards and only the layer's last shard ends
+// its sum; this pass is then the layer's epilogue, with one bias value per
+// row (= output feature), in kernel A's store modes:
+//
+//   v = __fadd_rn(x[r, b], bias[r])
+//   mode 1: y = v                      (the output layer: the bias alone)
+//   mode 2: y = v > 0 ? v : __fmul_rn(slope, v)
+//   mode 3: y as mode 2, and mask[r, b] = v > 0 (uint8): the branch the
+//           backward (kernel G, csrc/coo_dw.cu's epilogue) needs
+//
+// the same IEEE add, compare and multiply as kernel A's epilogue
+// (csrc/coo_matmul_T.cu), so kernel A with no epilogue followed by this pass
+// gives kernel A's fused store bit for bit, mask included. y may be x (in
+// place): each element is read once, then written once, by one thread. A
+// thread takes 4 consecutive batch columns of one row (16-byte loads and
+// stores, a 4-byte mask store) where the batch is a multiple of 4 and the
+// pointers are 16-byte aligned, else one element. Bound by bytes like the
+// pass above: 8 bytes an element (9 with the mask).
+//
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
 #include <cstdint>
@@ -94,7 +116,69 @@ dim3 grid_for(int64_t width, int64_t rows) {
   return dim3(static_cast<unsigned int>(gx), static_cast<unsigned int>(gy));
 }
 
+__device__ __forceinline__ float act_T(float x, float b, float slope, int mode, bool* pos) {
+  const float v = __fadd_rn(x, b);
+  *pos = v > 0.0f;
+  return mode == 1 || *pos ? v : __fmul_rn(slope, v);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bias_act_T_vec4(const float4* x, const float* __restrict__ bias, float4* y,
+                uchar4* __restrict__ mask, int64_t n_vec, int64_t batch_vec, float slope,
+                int mode) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= n_vec) return;
+  const float b = __ldg(bias + t / batch_vec);
+  const float4 a = x[t];
+  bool p0, p1, p2, p3;
+  const float4 o = make_float4(act_T(a.x, b, slope, mode, &p0), act_T(a.y, b, slope, mode, &p1),
+                               act_T(a.z, b, slope, mode, &p2), act_T(a.w, b, slope, mode, &p3));
+  y[t] = o;
+  if (mode == 3) mask[t] = make_uchar4(p0, p1, p2, p3);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bias_act_T_scalar(const float* x, const float* __restrict__ bias, float* y,
+                  uint8_t* __restrict__ mask, int64_t n, int64_t batch, float slope, int mode) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= n) return;
+  bool p;
+  y[t] = act_T(x[t], __ldg(bias + t / batch), slope, mode, &p);
+  if (mode == 3) mask[t] = p ? 1 : 0;
+}
+
 }  // namespace
+
+// x and y: (n_rows, batch) f32, contiguous, y may be x; bias: (n_rows,);
+// mask: (n_rows, batch) uint8, read only in mode 3. mode: 1 + bias, 2 + bias
+// then All-ReLU with slope, 3 as 2 and the mask of v > 0.
+extern "C" int bias_act_T_f32(const void* x, const void* bias, void* y, void* mask,
+                              int64_t n_rows, int64_t batch, float slope, int mode,
+                              int device, void* stream) {
+  if (n_rows < 0 || batch < 0 || mode < 1 || mode > 3 || (mode == 3 && mask == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = n_rows * batch;
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const bool vec = batch % 4 == 0 && aligned16(x) && aligned16(y) &&
+                   (mask == nullptr || (reinterpret_cast<uintptr_t>(mask) & 3u) == 0);
+  const int64_t work = vec ? n / 4 : n;
+  const int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec) {
+    bias_act_T_vec4<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+        static_cast<const float4*>(x), static_cast<const float*>(bias), static_cast<float4*>(y),
+        static_cast<uchar4*>(mask), work, batch / 4, slope, mode);
+  } else {
+    bias_act_T_scalar<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(bias), static_cast<float*>(y),
+        static_cast<uint8_t*>(mask), n, batch, slope, mode);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x: rows of n floats, pitch floats apart (pitch >= n); y: (rows, n), contiguous.
 extern "C" int bias_all_relu_f32(const void* x, const void* bias, void* y,

@@ -60,6 +60,15 @@
 // offset arithmetic is 64-bit. An empty segment yields acc, or exactly 0
 // (then the epilogue's value of it).
 //
+// out may be acc itself: the out-of-core stream (src/repro_torch/xl/
+// stream.py) accumulates each connection shard in place into the rows of
+// its carried (d_max, B) buffer that the shard's segments cover, the torch
+// form of the reference's donated accumulator. It is safe because the one
+// thread (route 0) or lane (route 1) that owns an output reads its acc once,
+// before its chain, and writes its out once, after it, and no other thread
+// touches that element; so acc and out carry no __restrict__, and acc is
+// read with a plain load, not through the read-only cache.
+//
 // The epilogue (kernel B's work, fused into the store). The served forward
 // keeps every activation in this (features, batch) layout, and each layer
 // ends in its bias and, on a hidden layer, All-ReLU (paper Eq. 3), so the
@@ -134,9 +143,9 @@ coo_matmul_T_kernel(const float* __restrict__ srcT,
                     const float* __restrict__ values,
                     const int32_t* __restrict__ gather,
                     const int64_t* __restrict__ seg_ptr,
-                    const float* __restrict__ acc,
+                    const float* acc,
                     const float* __restrict__ bias,
-                    float* __restrict__ out,
+                    float* out,
                     uint8_t* __restrict__ mask,
                     int64_t n_segments,
                     int64_t batch,
@@ -148,7 +157,7 @@ coo_matmul_T_kernel(const float* __restrict__ srcT,
   const int64_t b = t - s * batch;
   const int64_t end = seg_ptr[s + 1];
   int64_t j = seg_ptr[s];
-  float sum = acc != nullptr ? __ldg(acc + t) : 0.0f;
+  float sum = acc != nullptr ? acc[t] : 0.0f;
   const float bias_s = mode != 0 ? __ldg(bias + s) : 0.0f;
   for (; j + kUnroll <= end; j += kUnroll) {
     float x[kUnroll];
@@ -197,9 +206,9 @@ coo_matmul_T_staged(const float* __restrict__ srcT,
                     const float* __restrict__ values,
                     const int32_t* __restrict__ gather,
                     const int64_t* __restrict__ seg_ptr,
-                    const float* __restrict__ acc,
+                    const float* acc,
                     const float* __restrict__ bias,
-                    float* __restrict__ out,
+                    float* out,
                     uint8_t* __restrict__ mask,
                     int64_t batch,
                     float slope,
@@ -264,7 +273,7 @@ coo_matmul_T_staged(const float* __restrict__ srcT,
   const int lane = tid, b = tid;  // warp 0: one lane per batch column
   const bool summer = tid < b_valid;
   float sum = 0.0f;
-  if (summer && acc != nullptr) sum = __ldg(acc + s * batch + b0 + b);
+  if (summer && acc != nullptr) sum = acc[s * batch + b0 + b];
   const float bias_s = summer && mode != 0 ? __ldg(bias + s) : 0.0f;  // a broadcast
   for (int c = 0; c < n_chunks; ++c) {
     if (loader) tf32x3::cp_async_wait<kStagedStages - 2>();  // chunk c has landed

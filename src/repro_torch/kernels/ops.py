@@ -31,10 +31,15 @@ epilogue's backward, kernel G's work, in its pass):
                       among plain versions on the CPU only: on the card
                       every impl runs the kernels.
 * ``espmm_infer`` — the reference's forward-only (batch, features) entry.
+
+Out-of-core shards (K8, ``repro_torch.xl``): ``xl_shard_acc`` is kernel A
+over one connection shard's window of segments, accumulating in place into
+the carried (d_max, B) buffer (forward and dX); ``xl_shard_dw`` is kernel F
+over one shard, without its epilogue (dW).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,18 +52,26 @@ from repro_torch.core.sparsity import (
     SPMM_INFER_NNZ,
     BlockMeta,
     BlockTopoArrays,
+    DwRuns,
     ElemTopoArrays,
+    _coo_dw_cuda,
     coo_dw,
     coo_matmul_T,
+    coo_route,
+    dw_runs,
     element_spmm,
     element_spmm_segment,
+    launch_coo_matmul_T,
+    spmm_chunk_for,
 )
+from repro_torch.kernels import build
 from repro_torch.kernels import block_sparse_matmul as _k
 from repro_torch.kernels.all_relu_fused import all_relu_bwd
 
 __all__ = [
-    "bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm", "espmm_custom", "espmm_infer",
-    "espmm_infer_T", "espmm_train_T",
+    "XLWindow", "bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm", "espmm_custom",
+    "espmm_infer", "espmm_infer_T", "espmm_train_T", "make_xl_shard_acc", "make_xl_shard_dw",
+    "shard_runs", "shard_window", "window_offsets", "xl_shard_acc", "xl_shard_dw",
 ]
 
 
@@ -334,3 +347,268 @@ def espmm_infer_T(
         hT, values, topo.rows, topo.cols, out_dim, chunk=chunk, seg_ptr=col_ptr,
         bias=bias, slope=slope,
     )
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core per-shard entries (repro_torch.xl, DESIGN.md §7): K8
+# ---------------------------------------------------------------------------
+#
+# The XL substrate streams a layer's COO topology through the device as
+# fixed-capacity connection shards (slices of a sorted order); these are the
+# only two products its forward and backward run. The reference's are XLA
+# programs (src/repro/kernels/ops.py:347 _xl_shard_acc_impl, :393
+# _xl_shard_dw_impl); here they are kernels A and F:
+#
+# * a shard is a slice of a sorted order, so its segment ids cover one
+#   contiguous window [lo, lo + n) of segments. Kernel A runs over that
+#   window alone, on the rows acc[lo:lo + n] of the carried buffer, in
+#   place: each chain starts at acc and keeps slot order, so shards streamed
+#   in order give the same bits as one in-core call, a segment spanning two
+#   shards included, and no launch touches the d_max - n rows outside the
+#   window (64 MB a shard at d_max = 500,000 and B = 32);
+# * the window's offsets (n + 1 int64, made on the host with the shard)
+#   stand for its segment ids: kernel A walks them, and its route comes from
+#   their longest segment, a host int, so no shard pays a device sync. A
+#   padded tail past the shard's real slots is never read;
+# * kernel F takes a run plan per shard, made on the host with it (the
+#   window-local columns), and writes the shard's real extent of dv.
+
+
+class XLWindow(NamedTuple):
+    """One connection shard's window on the compute device: its real slots
+    ``n_real`` fall in the segments ``[lo, lo + n)`` (host ints, with the
+    longest segment, kernel A's route); ``seg_ptr`` (int64, at least
+    ``n + 1`` entries, the first ``n + 1`` used) holds the slot offsets of
+    those segments, from 0 to ``n_real``. A canonical shard's window also
+    carries kernel F's slot runs (``runs``, int32 rows of (window column,
+    first slot, slots), the first ``n_runs`` used)."""
+
+    lo: int
+    n: int
+    n_real: int
+    longest: int
+    seg_ptr: torch.Tensor
+    runs: Optional[torch.Tensor] = None
+    n_runs: int = 0
+
+
+def window_offsets(segment_idx: np.ndarray, out: np.ndarray) -> Tuple[int, int, int]:
+    """The window of a shard's real, non-decreasing segment ids (trusted:
+    a decrease is caught only where it leaves the window's span): writes
+    its offsets into ``out[:n + 1]`` and returns ``(lo, n, longest)``."""
+    if segment_idx.size == 0:
+        raise ValueError("a shard has at least one slot")
+    lo = int(segment_idx[0])
+    n = int(segment_idx[-1]) - lo + 1
+    if n > out.shape[0] - 1 or n <= 0:
+        raise ValueError(f"segment ids [{lo}, {lo + n}) do not fit {out.shape[0]} offsets "
+                         "(are they sorted?)")
+    counts = np.bincount(segment_idx - lo, minlength=n)
+    if counts.size != n:
+        raise ValueError("segment ids must be non-decreasing")
+    out[0] = 0
+    np.cumsum(counts, out=out[1:n + 1])
+    return lo, n, int(counts.max())
+
+
+def shard_runs(rows: np.ndarray, seg_ptr: np.ndarray, out: np.ndarray) -> int:
+    """Kernel F's slot runs of one canonical shard (``core.sparsity.
+    dw_runs``, window-local columns) into ``out``; returns their count."""
+    runs, n_runs = dw_runs(rows, seg_ptr)
+    out[:n_runs] = runs[:n_runs]
+    return n_runs
+
+
+def shard_window(segment_idx: torch.Tensor, n_segments: int, *,
+                 rows: Optional[torch.Tensor] = None) -> XLWindow:
+    """The window of a padded shard given by its segment ids (the
+    reference's operands: tail slots carry ``n_segments``), made on the host
+    from them (one device sync for a CUDA tensor), with kernel F's runs
+    where ``rows`` is given."""
+    seg = segment_idx.cpu().numpy()
+    real = seg[seg < n_segments]
+    if real.size and (np.diff(real) < 0).any():
+        raise ValueError("segment ids must be non-decreasing")
+    offsets = np.empty(real.size + 1, np.int64)
+    lo, n, longest = window_offsets(real, offsets)
+    dev = segment_idx.device
+    runs, n_runs = None, 0
+    if rows is not None:
+        plan = np.empty((max(real.size, 1), 3), np.int32)
+        n_runs = shard_runs(rows.cpu().numpy()[:real.size], offsets[:n + 1], plan)
+        runs = torch.from_numpy(plan[:n_runs]).to(dev)
+    return XLWindow(lo, n, int(real.size), longest, torch.from_numpy(offsets[:n + 1]).to(dev),
+                    runs, n_runs)
+
+
+def _window_segments(window: XLWindow) -> torch.Tensor:
+    """The shard's real slots' segment ids, from its window's offsets."""
+    counts = window.seg_ptr[: window.n + 1].diff()
+    ids = torch.arange(window.lo, window.lo + window.n, device=counts.device)
+    return torch.repeat_interleave(ids, counts)
+
+
+def _check_window(window: XLWindow, n_segments: int, capacity: int, device) -> None:
+    if window.n_real > capacity or window.lo < 0 or window.lo + window.n > n_segments:
+        raise ValueError(
+            f"window [{window.lo}, {window.lo + window.n}) of {window.n_real} slots does not "
+            f"fit {n_segments} segments and a capacity of {capacity}")
+    build.check_tensor(window.seg_ptr[: window.n + 1], "seg_ptr", dtype=torch.int64,
+                       shape=(window.n + 1,), device=device)
+
+
+def xl_shard_acc(
+    acc: torch.Tensor,
+    srcT: torch.Tensor,
+    values: torch.Tensor,
+    gather_idx: torch.Tensor,
+    segment_idx: Optional[torch.Tensor] = None,
+    *,
+    n_segments: int,
+    chunk: Optional[int] = None,
+    window: Optional[XLWindow] = None,
+) -> torch.Tensor:
+    """One connection shard's product, accumulated in place into the
+    running ``(n_segments, B)`` buffer ``acc``, which it returns:
+
+        acc[segment_idx[j], :] += srcT[gather_idx[j], :] * values[j]
+
+    The one streamed product for both directions: forward shards pass the
+    canonical order (gather ``rows``, segment ``cols``); dX shards the
+    row-sorted dual order (gather ``cols_r``, segment ``rows_r``) with
+    values gathered through ``perm_r`` on the host. ``values`` and
+    ``gather_idx`` are the shard's buffers at capacity; the real slots come
+    first. ``window`` (:class:`XLWindow`, made on the host with the shard)
+    gives its segments; without it they come from ``segment_idx``, the
+    reference's operand (non-decreasing, padded tail slots ``n_segments``),
+    at the cost of a device sync for a CUDA tensor. A CUDA tensor launches
+    kernel A over the window, in place; a CPU tensor takes the plain
+    version (``index_add_`` in slot order, chunks of ``chunk``)."""
+    if window is None:
+        window = shard_window(segment_idx, n_segments)
+        real = gather_idx[: window.n_real]
+        if real.numel() and not bool((real.min() >= 0) & (real.max() < srcT.shape[0])):
+            raise ValueError(f"gather_idx has indices outside [0, {srcT.shape[0]})")
+    if acc.device.type == "cpu":
+        return _xl_shard_acc_plain(acc, srcT, values, gather_idx, window, chunk)
+    if acc.device.type != "cuda":
+        raise ValueError(f"xl_shard_acc runs on cuda or cpu tensors, not {acc.device}")
+    device, cap = acc.device, values.shape[0]
+    batch = acc.shape[1]
+    build.check_tensor(acc, "acc", dtype=torch.float32, shape=(n_segments, batch), device=device)
+    build.check_tensor(srcT, "srcT", dtype=torch.float32, shape=(srcT.shape[0], batch),
+                       device=device)
+    build.check_tensor(values, "values", dtype=torch.float32, shape=(cap,), device=device)
+    build.check_tensor(gather_idx, "gather_idx", dtype=torch.int32, shape=(cap,), device=device)
+    _check_window(window, n_segments, cap, device)
+    rows = acc[window.lo: window.lo + window.n]
+    launch_coo_matmul_T(srcT, values, gather_idx, window.seg_ptr, rows, rows,
+                        coo_route(window.longest))
+    xl_shard_acc.launches += 1
+    return acc
+
+
+xl_shard_acc.launches = 0  # kernel A launches over a shard window
+
+
+def _xl_shard_acc_plain(acc, srcT, values, gather_idx, window: XLWindow,
+                        chunk: Optional[int]) -> torch.Tensor:
+    """Plain version of :func:`xl_shard_acc`, on any device: the window's
+    segment ids from its offsets, then ``index_add_`` into ``acc`` in chunks
+    (in slot order on the CPU, as the in-core plain product adds)."""
+    n_real = window.n_real
+    seg = _window_segments(window)
+    chunk = spmm_chunk_for(acc.shape[1], n_real, chunk)
+    for lo in range(0, n_real, chunk):
+        hi = min(lo + chunk, n_real)
+        g = gather_idx[lo:hi].long()
+        acc.index_add_(0, seg[lo:hi], srcT[g] * values[lo:hi, None])
+    return acc
+
+
+def make_xl_shard_acc(donate: Optional[bool] = None):
+    """The reference's factory of its jitted shard product, whose ``donate``
+    hands the accumulator's buffer to the result. In torch that is the
+    in-place update: by default, or with ``donate=True``, the result is
+    :func:`xl_shard_acc`, which accumulates into ``acc``; ``donate=False``
+    gives one that leaves ``acc`` as it was and returns a new buffer."""
+    if donate is None or donate:
+        return xl_shard_acc
+
+    def shard_acc(acc, *args, **kwargs):
+        return xl_shard_acc(acc.clone(), *args, **kwargs)
+
+    return shard_acc
+
+
+def xl_shard_dw(
+    xT: torch.Tensor,
+    dyT: torch.Tensor,
+    rows: torch.Tensor,
+    cols: Optional[torch.Tensor] = None,
+    *,
+    chunk: Optional[int] = None,
+    window: Optional[XLWindow] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One canonical shard's dW, ``dv[j] = sum_b xT[rows[j], b] *
+    dyT[cols[j], b]``: each slot's batch contraction is independent, so
+    sharding cannot change its sum (the bits of the in-core ``coo_dw``).
+    ``rows`` is the shard's buffer at capacity; ``window`` (with its runs)
+    gives its columns, else ``cols`` does, the reference's operand (padded
+    tail slots ``dyT.shape[0]``; a device sync for a CUDA tensor). Writes
+    the shard's real extent of ``out`` ((capacity,) f32; a new zeroed
+    buffer without one) and returns it. A CUDA tensor launches kernel F's
+    slot runs (no epilogue) on the window's rows of ``dyT``; a CPU tensor
+    takes the plain version."""
+    cap = rows.shape[0]
+    if window is None:
+        window = shard_window(cols, dyT.shape[0], rows=rows)
+        real = rows[: window.n_real]
+        if real.numel() and not bool((real.min() >= 0) & (real.max() < xT.shape[0])):
+            raise ValueError(f"rows has indices outside [0, {xT.shape[0]})")
+    if out is None:
+        out = torch.zeros((cap,), dtype=torch.float32, device=xT.device)
+    if xT.device.type == "cpu":
+        return _xl_shard_dw_plain(xT, dyT, rows, window, chunk, out)
+    if xT.device.type != "cuda":
+        raise ValueError(f"xl_shard_dw runs on cuda or cpu tensors, not {xT.device}")
+    device, batch = xT.device, xT.shape[1]
+    build.check_tensor(xT, "xT", dtype=torch.float32, shape=(xT.shape[0], batch), device=device)
+    build.check_tensor(dyT, "dyT", dtype=torch.float32, shape=(dyT.shape[0], batch),
+                       device=device)
+    build.check_tensor(rows, "rows", dtype=torch.int32, shape=(cap,), device=device)
+    _check_window(window, dyT.shape[0], cap, device)
+    if window.runs is None:
+        raise ValueError("kernel F needs the window's run plan (XLWindow.runs)")
+    runs = DwRuns(window.runs, window.n_runs, window.n)
+    _, _, _, launched = _coo_dw_cuda(dyT[window.lo: window.lo + window.n], None, None, False,
+                                     xT=xT, rows=rows, runs=runs, dv_out=out)
+    if launched:
+        coo_dw.launches += 1
+        xl_shard_dw.launches += 1
+    return out
+
+
+xl_shard_dw.launches = 0  # kernel F launches over a shard
+
+
+def _xl_shard_dw_plain(xT, dyT, rows, window: XLWindow, chunk: Optional[int],
+                       out: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`xl_shard_dw`, on any device (the reference's
+    chunked slabs, reduced over the batch)."""
+    n_real = window.n_real
+    cols = _window_segments(window)
+    chunk = spmm_chunk_for(xT.shape[-1], n_real, chunk)
+    for lo in range(0, n_real, chunk):
+        hi = min(lo + chunk, n_real)
+        out[lo:hi] = (xT[rows[lo:hi].long()] * dyT[cols[lo:hi]]).sum(-1)
+    return out
+
+
+def make_xl_shard_dw(donate: Optional[bool] = None):
+    """The reference's factory of its jitted shard dW, which donates
+    nothing (``donate`` exists for symmetry with :func:`make_xl_shard_acc`):
+    :func:`xl_shard_dw`."""
+    del donate
+    return xl_shard_dw

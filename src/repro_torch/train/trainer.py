@@ -51,10 +51,13 @@ restored from one runs the remaining epochs to the same bits as the run
 that never stopped. A checkpoint crosses between the packages in both
 directions (see ``restore_checkpoint`` for the random streams).
 
+:class:`XLTrainer` is the out-of-core trainer (the paper's Table-4
+regime): the same epoch protocol on the shard-streamed substrate
+(``repro_torch.xl``), with streamed checkpoints.
+
 Not in this slice, and refused with an error naming the ROADMAP item: the
 masked/dense impls (Queue 1, item 2), training-dynamics probes (item 4),
-the fault hook and step retries (the runtime, item 5), and ``XLTrainer``,
-the out-of-core trainer (item 3).
+and the fault hook and step retries (the runtime, item 5).
 """
 from __future__ import annotations
 
@@ -551,11 +554,202 @@ class SequentialTrainer:
 
 
 class XLTrainer:
-    """The reference's out-of-core trainer (the paper's Table-4 regime, with
-    its streamed checkpoints): refused until the XL slice."""
+    """Out-of-core SET trainer: the paper's Table-4 regime, where the live
+    parameters exceed the device budget. Twin of the reference's
+    ``XLTrainer``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "XLTrainer, out-of-core training with streamed checkpoints, comes with the XL "
-            "slice (ROADMAP Queue 1, item 3)"
+    Same epoch protocol and history columns as :class:`SequentialTrainer`
+    (same ``ShardedLoader`` order for the same seed, same loss/optimizer
+    semantics as ``launch.steps.make_mlp_step_core``), but every minibatch
+    step runs on the shard-streamed substrate (``repro_torch.xl.
+    StreamExecutor``: kernels A, B, F and G on the card) under the memory
+    plan's device budget, values/momentum stay on the host (memmap above the
+    plan threshold), and SET evolution runs shard-wise on the host
+    (``repro_torch.xl.evolve_model_streamed``, the numpy rng) instead of
+    whole-layer. It runs on ``device`` (the card unless the caller asks for
+    the CPU; a model's own device when it is built from one).
+
+    Constraints vs the in-core trainer: element impl only, ``dropout == 0``
+    (the streamed backward is hand-derived) and no importance-pruning
+    schedule (shape changes would re-plan). Refused with the ROADMAP item
+    that brings them: ``TrainerConfig(probe=True)`` (item 4), and the fault
+    hook and step retries (item 5).
+    """
+
+    def __init__(self, model_or_state, data: Dataset, tc: TrainerConfig, plan,
+                 spool_dir: Optional[str] = None, device=None):
+        from repro_torch.xl import StreamExecutor, XLModelState
+
+        if isinstance(model_or_state, XLModelState):
+            self.state = model_or_state
+        else:
+            cfg = model_or_state.config
+            if cfg.dropout != 0:
+                raise ValueError("XLTrainer requires dropout == 0")
+            self.state = XLModelState.from_model(
+                model_or_state, plan, spool_dir=spool_dir
+            )
+            if device is None:
+                device = model_or_state.device
+        if tc.pruning is not None:
+            raise ValueError("XLTrainer does not support importance pruning")
+        if tc.probe:
+            raise NotImplementedError(_PROBES)
+        if tc.batch_size != plan.batch:
+            raise ValueError(
+                f"plan solved for batch {plan.batch}, trainer uses "
+                f"{tc.batch_size}: re-plan"
+            )
+        self.plan = plan
+        self.data = data
+        self.tc = tc
+        self.executor = StreamExecutor(self.state, device)
+        self.device = self.executor.device
+        self.rng = np.random.default_rng(tc.seed)
+        self.history: Dict[str, List] = {
+            "epoch": [], "train_loss": [], "test_acc": [], "n_params": [],
+            "epoch_seconds": [],
+        }
+        # resume surface, as SequentialTrainer's (DESIGN.md §8), streamed
+        # state instead of tensors
+        self.start_epoch = 0
+        self.epoch_next = 0
+        self.gstep = 0
+        self.epoch_end_hook: Optional[Callable] = None
+        # the reference's fault-tolerance seams; refused by run() if set
+        self.fault_hook: Optional[Callable[[int], None]] = None
+        self.step_retries = 0
+
+    @property
+    def n_params(self) -> int:
+        return sum(st.nnz + st.out_dim for st in self.state.layers)
+
+    def evaluate(self, x: np.ndarray, y: np.ndarray) -> float:
+        correct = 0
+        b = self.plan.batch
+        for s in range(0, x.shape[0], b):
+            logits = self.executor.logits(x[s : s + b])
+            correct += int((np.argmax(logits, -1) == y[s : s + b]).sum())
+        return correct / x.shape[0]
+
+    def save_checkpoint(self, manager, step: Optional[int] = None) -> None:
+        """Streamed shard-group save (``CheckpointManager.save_streamed``),
+        carrying the trainer's resume state so :meth:`from_checkpoint`
+        continues the run (DESIGN.md §8); the reference's layout and meta
+        keys, so either package restores it."""
+        self.state.save(
+            manager,
+            self.gstep if step is None else step,
+            extra_meta={
+                "plan": self.plan.to_json(),
+                "resume": {
+                    "epoch_next": int(self.epoch_next),
+                    "gstep": int(self.gstep),
+                    "numpy_rng": self.rng.bit_generator.state,
+                    "history": self.history,
+                    "seed": self.tc.seed,
+                },
+            },
         )
+
+    def _resume_from(self, manager, step: int) -> None:
+        res = manager.read_manifest(step)["meta"].get("resume")
+        if res:
+            self.start_epoch = self.epoch_next = int(res["epoch_next"])
+            self.gstep = int(res["gstep"])
+            self.rng.bit_generator.state = res["numpy_rng"]
+            self.history = {k: list(v) for k, v in res["history"].items()}
+
+    def restore_checkpoint(
+        self, manager, step: Optional[int] = None, spool_dir: Optional[str] = None
+    ) -> int:
+        """Rewind to a saved epoch boundary: streamed-restore the host state
+        (fresh StreamExecutor) and rewind the counters so ``run()``
+        continues the interrupted trajectory. Defaults to the newest *valid*
+        checkpoint (corrupt ones are quarantined by the backward scan).
+        Returns the restored step."""
+        from repro_torch.xl import StreamExecutor, XLModelState
+
+        if step is None:
+            step = manager.latest_valid_step()
+            if step is None:
+                raise FileNotFoundError(f"no valid checkpoints under {manager.dir}")
+        self.state = XLModelState.restore(
+            manager, self.plan, step, spool_dir=spool_dir
+        )
+        self.executor = StreamExecutor(self.state, self.device)
+        self._resume_from(manager, step)
+        return step
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        manager,
+        data: Dataset,
+        tc: TrainerConfig,
+        plan,
+        step: Optional[int] = None,
+        spool_dir: Optional[str] = None,
+        device=None,
+    ) -> "XLTrainer":
+        """Build a fresh trainer directly from a checkpoint (no in-core
+        model required: the streamed state is the source of truth)."""
+        from repro_torch.xl import XLModelState
+
+        if step is None:
+            step = manager.latest_valid_step()
+            if step is None:
+                raise FileNotFoundError(f"no valid checkpoints under {manager.dir}")
+        state = XLModelState.restore(manager, plan, step, spool_dir=spool_dir)
+        trainer = cls(state, data, tc, plan, device=device)
+        trainer._resume_from(manager, step)
+        return trainer
+
+    def run(self, log_every: int = 0) -> Dict[str, List]:
+        from repro_torch.xl import evolve_model_streamed
+
+        if self.fault_hook is not None or self.step_retries:
+            raise NotImplementedError(
+                "fault hooks and step retries come with the runtime slice (ROADMAP Queue 1, "
+                "item 5)"
+            )
+        tc = self.tc
+        loader = ShardedLoader(
+            self.data.x_train, self.data.y_train, tc.batch_size, seed=tc.seed
+        )
+        if loader.steps_per_epoch == 0:
+            raise ValueError("batch_size larger than the training shard")
+        lr_fn = tc.lr_schedule or (lambda step: tc.lr)
+        gstep = self.gstep
+        for epoch in range(self.start_epoch, tc.epochs):
+            t0 = time.perf_counter()
+            losses = []
+            for xb, yb in loader.epoch(epoch):
+                losses.append(self.executor.train_step(
+                    xb, yb, float(lr_fn(gstep)), momentum=tc.momentum,
+                    weight_decay=tc.weight_decay,
+                ))
+                gstep += 1
+            if epoch < tc.epochs - 1 and tc.evolve:
+                evolve_model_streamed(self.state, tc.zeta, self.rng)
+            dt = time.perf_counter() - t0
+            if (epoch + 1) % tc.eval_every == 0 or epoch == tc.epochs - 1:
+                acc = self.evaluate(self.data.x_test, self.data.y_test)
+            else:
+                acc = float("nan")
+            self.history["epoch"].append(epoch)
+            self.history["train_loss"].append(float(np.mean(losses)))
+            self.history["test_acc"].append(acc)
+            self.history["n_params"].append(self.n_params)
+            self.history["epoch_seconds"].append(dt)
+            if log_every and (epoch + 1) % log_every == 0:
+                print(
+                    f"epoch {epoch:4d} loss {self.history['train_loss'][-1]:.4f} "
+                    f"acc {acc:.4f} params {self.n_params} "
+                    f"peak_dev {self.executor.measured_peak_bytes}"
+                )
+            self.gstep = gstep
+            self.epoch_next = epoch + 1
+            if self.epoch_end_hook is not None:
+                self.epoch_end_hook(self, epoch)
+        return self.history

@@ -21,7 +21,12 @@ to its numpy version fed the same draws, and runs without a host sync;
 kernel F over the run plan made on the device (padded) is held bit-equal
 to the host-made plan. A training run on the card, saved at every epoch and
 resumed from epoch 0 in a fresh trainer, is held bit-equal to the run that
-never stopped.
+never stopped. The out-of-core stream: K8 over shards (segments across
+shard edges, padded tails) bit-equal to kernels A and F over the whole
+layer and within 1e-5 of the plain versions; kernel B's (features, batch)
+pass bit-equal to A's fused store; the pinned ring against a run
+synchronised after every copy, with each copy held back ~10 ms, bit-equal;
+a streamed step bit-equal to the in-core step.
 """
 import dataclasses
 
@@ -1159,3 +1164,213 @@ def test_card_resume_is_bit_equal(cuda, tmp_path, impl):
         assert a.is_cuda and torch.equal(a, b)
     for a, b in zip(resumed.model.topos, live.model.topos):
         assert np.array_equal(a.rows, b.rows) and np.array_equal(a.cols, b.cols)
+
+
+# -- the out-of-core stream (repro_torch.xl): K8, kernel B's (features,
+# batch) pass, the pinned ring, and a streamed step -------------------------
+
+
+def _shards(seg: np.ndarray, cap: int):
+    """Canonical-order shard bounds of ``cap`` slots over ``seg``."""
+    return [(lo, min(lo + cap, seg.size)) for lo in range(0, seg.size, cap)]
+
+
+def _padded(a: np.ndarray, cap: int, fill, device):
+    out = np.full(cap, fill, a.dtype)
+    out[: a.size] = a
+    return torch.as_tensor(out, device=device)
+
+
+@pytest.mark.parametrize("layer", ["short", "long"])
+@pytest.mark.parametrize("batch", [32, 33])
+def test_xl_shard_acc_kernel(cuda, layer, batch):
+    """Kernel A over shard windows, in place into a carried buffer: shards
+    (segments spanning shard edges; a padded last shard; 1,024-slot shards
+    of 2,800-slot segments on the staged route) give the bits of one call of
+    kernel A over the whole layer, on both routes, leave every row outside
+    the windows as it was, and match the plain version (index_add_: other
+    rounding) within 1e-5."""
+    if layer == "long":
+        rng, gather, vals, srcT = _long_segments(LONG, batch)
+        seg = np.repeat(np.arange(len(LONG)), LONG).astype(np.int32)
+        n = len(LONG) + 3  # three rows no shard touches
+        cap = 1024
+    else:
+        topo, vals, x = _layer(4, 300, 500, 20, batch)
+        rng = np.random.default_rng(4)
+        gather, seg, n, srcT = topo.rows, topo.cols, topo.out_dim, np.ascontiguousarray(x.T)
+        cap = 96
+    src = torch.as_tensor(srcT, device=cuda)
+    acc0 = torch.as_tensor(rng.standard_normal((n, batch)).astype(np.float32), device=cuda)
+    acc, plain = acc0.clone(), acc0.clone()
+    launches = ops.xl_shard_acc.launches
+    for lo, hi in _shards(seg, cap):
+        vals_d = _padded(vals[lo:hi], cap, 0.0, cuda)
+        gather_d = _padded(gather[lo:hi], cap, 0, cuda)
+        seg_d = _padded(seg[lo:hi], cap, n, cuda)
+        window = ops.shard_window(seg_d, n)
+        assert ops.xl_shard_acc(acc, src, vals_d, gather_d, n_segments=n, window=window) is acc
+        plain = ops._xl_shard_acc_plain(plain, src, vals_d, gather_d, window, None)
+    torch.cuda.synchronize()
+    assert ops.xl_shard_acc.launches - launches == len(_shards(seg, cap))
+    seg_all = torch.as_tensor(seg, device=cuda)
+    ptr = torch.searchsorted(seg_all, torch.arange(n + 1, dtype=torch.int32, device=cuda))
+    whole = [tsp._coo_matmul_T_cuda(src, torch.as_tensor(vals, device=cuda),
+                                    torch.as_tensor(gather, device=cuda), seg_all, ptr, n,
+                                    acc0, route) for route in (tsp.COO_THREAD, tsp.COO_STAGED)]
+    assert torch.equal(acc, whole[0]) and torch.equal(acc, whole[1])
+    untouched = torch.ones(n, dtype=torch.bool, device=cuda)
+    untouched[seg_all.long()] = False
+    assert torch.equal(acc[untouched], acc0[untouched])
+    torch.testing.assert_close(acc, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [32, 33])
+def test_xl_shard_dw_kernel(cuda, batch):
+    """Kernel F over shards with host-made run plans: each shard's real
+    extent bit-equal to kernel F over the whole layer (a slot's sum does not
+    depend on its run), the padded tail of the output untouched, and within
+    1e-5 of the plain version."""
+    topo, _, x = _layer(5, 300, 500, 20, batch)
+    rng = np.random.default_rng(5)
+    xT = torch.as_tensor(np.ascontiguousarray(x.T), device=cuda)
+    dy = torch.as_tensor(rng.standard_normal((topo.out_dim, batch)).astype(np.float32),
+                         device=cuda)
+    arrays = topo.device_arrays(cuda)
+    whole = tsp.coo_dw(xT, dy, arrays.rows, arrays.cols)
+    cap = 96
+    for lo, hi in _shards(topo.cols, cap):
+        rows_d = _padded(topo.rows[lo:hi], cap, 0, cuda)
+        cols_d = _padded(topo.cols[lo:hi], cap, topo.out_dim, cuda)
+        out = torch.full((cap,), 7.0, device=cuda)
+        got = ops.xl_shard_dw(xT, dy, rows_d, cols_d, out=out)
+        torch.cuda.synchronize()
+        assert got is out and torch.equal(out[: hi - lo], whole[lo:hi])
+        assert bool((out[hi - lo:] == 7.0).all())
+        want = ops._xl_shard_dw_plain(xT, dy, rows_d, ops.shard_window(cols_d, topo.out_dim),
+                                      None, torch.zeros(cap, device=cuda))
+        torch.testing.assert_close(out[: hi - lo], want[: hi - lo], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [32, 33, 1])
+def test_kernel_b_features_batch_pass_equals_kernel_a_epilogue(cuda, batch):
+    """Kernel A with no epilogue, then kernel B's (features, batch) pass,
+    bit-equal to kernel A's fused store in each mode (the bias alone;
+    All-ReLU of either slope sign; with the mask), in place or not, on the
+    16-byte (batch 32) and scalar paths."""
+    topo, vals, x = _layer(6, 300, 500, 20, batch)
+    rng = np.random.default_rng(6)
+    src = torch.as_tensor(np.ascontiguousarray(x.T), device=cuda)
+    arrays = topo.device_arrays(cuda)
+    v = torch.as_tensor(vals, device=cuda)
+    n = topo.out_dim
+    prod = tsp.coo_matmul_T(src, v, arrays.rows, arrays.cols, n)
+    bias = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=cuda)
+    bias[::5] = -prod[::5, 0]  # some pre-activations exactly 0
+    fused = tsp.coo_matmul_T(src, v, arrays.rows, arrays.cols, n, bias=bias)
+    assert torch.equal(all_relu_fused.bias_all_relu_T(prod, bias, None), fused)
+    for layer_index in (1, 2):
+        slope = slope_for(0.5, layer_index)
+        f_out, f_mask = tsp.coo_matmul_T(src, v, arrays.rows, arrays.cols, n, bias=bias,
+                                         slope=slope, with_mask=True)
+        mask = torch.empty_like(f_mask)
+        before = all_relu_fused.bias_all_relu.T_launches
+        y, m = all_relu_fused.bias_all_relu_T(prod, bias, slope, mask=mask)
+        assert torch.equal(y, f_out) and torch.equal(m, f_mask) and m is mask
+        assert torch.equal(all_relu_fused.bias_all_relu_T(prod, bias, slope), f_out)
+        inplace = prod.clone()
+        all_relu_fused.bias_all_relu_T(inplace, bias, slope, out=inplace)
+        assert torch.equal(inplace, f_out)
+        assert all_relu_fused.bias_all_relu.T_launches == before + 3
+        plain = all_relu_fused.bias_all_relu_T_plain(prod, bias, slope, with_mask=True)
+        assert torch.equal(plain[0], f_out) and torch.equal(plain[1], f_mask)
+
+
+XL_DIMS = (96, 160, 128, 5)
+
+
+XL_BUDGET = 210_000  # shards of 256 slots: [8, 9, 3] a layer
+XL_RESIDENT_BUDGET = 5_000_000  # one shard a layer, every index shard cached
+
+
+def _xl_setup(cuda, budget=XL_BUDGET, seed=0):
+    """A small XL model on the card and its plan (multi-shard at the
+    default budget)."""
+    from repro_torch.xl import XLModelState, plan_memory_budget
+
+    cfg = SparseMLPConfig(layer_dims=XL_DIMS, epsilon=8, alpha=0.6, dropout=0.0,
+                          impl="element")
+    model = SparseMLP(cfg, seed=seed, device=cuda)
+    plan = plan_memory_budget(XL_DIMS, [t.nnz for t in model.topos], 32, budget,
+                              chunk=128, min_chunk=32)
+    assert budget != XL_BUDGET or [lp.n_shards for lp in plan.layers] == [8, 9, 3]
+    return model, plan, XLModelState.from_model(model, plan)
+
+
+def _xl_batches(n=3):
+    rng = np.random.default_rng(9)
+    return [(rng.standard_normal((32, XL_DIMS[0])).astype(np.float32),
+             rng.integers(0, XL_DIMS[-1], 32)) for _ in range(n)]
+
+
+def _xl_run(cuda, **knobs):
+    """Three streamed steps and the logits after them, with the executor's
+    knobs set; returns the values, biases and logits."""
+    from repro_torch.xl import StreamExecutor
+
+    _, _, state = _xl_setup(cuda)
+    ex = StreamExecutor(state, cuda)
+    for k, v in knobs.items():
+        setattr(ex, k, v)
+    losses = [ex.train_step(x, y, 0.05, momentum=0.9, weight_decay=2e-4)
+              for x, y in _xl_batches()]
+    logits = ex.logits(_xl_batches(1)[0][0])
+    return losses, [l.values.copy() for l in state.layers], [l.bias.copy() for l in state.layers], logits
+
+
+def test_xl_pinned_ring_has_no_race(cuda):
+    """The pipelined ring (each shard gathered into a pinned slot while the
+    one before computes) against a run that synchronises after every copy,
+    with the copy stream spun before each copy so that copies are still in
+    flight when the host comes back to a slot: the same bits. A slot reused
+    before its copy completed would have shipped the next shard's data."""
+    ref = _xl_run(cuda, sync_copies=True)
+    stressed = _xl_run(cuda, copy_delay_cycles=20_000_000)  # ~10 ms a copy
+    plain = _xl_run(cuda)
+    for got in (stressed, plain):
+        assert got[0] == ref[0]
+        for a, b in zip(got[1] + got[2], ref[1] + ref[2]):
+            assert np.array_equal(a, b)
+        assert np.array_equal(got[3], ref[3])
+
+
+@pytest.mark.parametrize("budget", [XL_BUDGET, XL_RESIDENT_BUDGET], ids=["streamed", "resident"])
+def test_xl_streamed_step_bit_equal_to_in_core(cuda, budget):
+    """On the card, streamed logits and one streamed step (kernels A, B, F
+    and G over shards) bit-equal to the in-core element forward and step
+    (kernel A with its fused epilogue, F with G's work in its epilogue), and
+    each kernel launched."""
+    from repro_torch.xl import StreamExecutor
+
+    model, _, state = _xl_setup(cuda, budget)
+    ex = StreamExecutor(state, cuda)
+    x, y = _xl_batches(1)[0]
+    with torch.no_grad():
+        want = mlp_forward(model.params(), model.topo_arrays(), torch.as_tensor(x, device=cuda),
+                           model.config).cpu().numpy()
+    assert np.array_equal(ex.logits(x), want)
+    counts = (ops.xl_shard_acc, ops.xl_shard_dw, all_relu_fused.bias_all_relu,
+              all_relu_fused.all_relu_bwd)
+    before = [c.launches for c in counts]
+    loss = ex.train_step(x, y, 0.01, momentum=0.9, weight_decay=2e-4)
+    assert all(c.launches > b for c, b in zip(counts, before))
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+    params = model.params()
+    p2, s2, ref_loss = make_mlp_train_step(model.config, opt)(
+        params, opt.init(params), model.topo_arrays(), torch.as_tensor(x, device=cuda),
+        torch.as_tensor(y, device=cuda).long(), torch.tensor(0.01, device=cuda), None)
+    assert loss == float(ref_loss)
+    for l, layer in enumerate(state.layers):
+        assert np.array_equal(layer.values, p2["values"][l].cpu().numpy()), l
+        assert np.array_equal(layer.velocity, s2.velocity["values"][l].cpu().numpy()), l
+        assert np.array_equal(layer.bias, p2["biases"][l].cpu().numpy()), l

@@ -34,6 +34,7 @@ from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.optim import sgd as tsgd  # noqa: E402
 from repro_torch.train import trainer as ttrainer  # noqa: E402
+from repro_torch.xl import plan_memory_budget  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -255,8 +256,16 @@ def test_trainer_refuses_what_this_slice_lacks():
     tr.fault_hook = lambda step: None
     with pytest.raises(NotImplementedError, match="fault hooks.*item 5"):
         tr.run()
-    with pytest.raises(NotImplementedError, match="XL.*item 3"):
-        ttrainer.XLTrainer(tm, data)
+    # the out-of-core trainer is ported (tests/test_torch_xl.py holds it
+    # against the reference); it refuses the probes and the fault hook too
+    plan = plan_memory_budget(el.config.layer_dims, [t.nnz for t in el.topos], 32,
+                              budget_bytes=10**8)
+    with pytest.raises(NotImplementedError, match="probes.*item 4"):
+        ttrainer.XLTrainer(el, data, ttrainer.TrainerConfig(batch_size=32, probe=True), plan)
+    xl = ttrainer.XLTrainer(el, data, ttrainer.TrainerConfig(batch_size=32, epochs=1), plan)
+    xl.fault_hook = lambda step: None
+    with pytest.raises(NotImplementedError, match="fault hooks.*item 5"):
+        xl.run()
     assert dataclasses.asdict(ttrainer.TrainerConfig()) == dataclasses.asdict(
         jtrainer.TrainerConfig())
 
