@@ -3,10 +3,11 @@
 The paper's tables (``PAPER_*``) live once in the port, in
 ``repro_torch.data.datasets``, as they do in the reference.
 """
+from repro_torch.configs import ArchSpec
 from repro_torch.data.datasets import PAPER_ARCHS, PAPER_DATASETS, PAPER_HPARAMS
 from repro_torch.models.mlp import SparseMLPConfig
 
-__all__ = ["extreme_config", "mlp_config"]
+__all__ = ["SPEC", "extreme_config", "mlp_config"]
 
 
 def mlp_config(dataset: str, impl: str = "element") -> SparseMLPConfig:
@@ -25,3 +26,12 @@ def extreme_config(n_hidden: int, n_layers: int, epsilon: float) -> SparseMLPCon
         layer_dims=(65536, *([n_hidden] * n_layers), 2),
         epsilon=epsilon, activation="all_relu", alpha=0.5, impl="element",
     )
+
+
+SPEC = ArchSpec(
+    arch_id="set-mlp", family="mlp",
+    config=mlp_config("cifar10"),
+    smoke=SparseMLPConfig(layer_dims=(64, 32, 16, 4), epsilon=8, impl="element"),
+    shapes={},
+    source="the paper (Tables 2-4)",
+)

@@ -53,10 +53,23 @@
 // pointers are 16-byte aligned, else one element. Bound by bytes like the
 // pass above: 8 bytes an element (9 with the mask).
 //
+// The bf16 entry, bias_all_relu_bf16. The port's bfloat16 LM runs All-ReLU
+// between its sparse FFN's two products (models/layers.py::sparse_ffn_fwd),
+// with no bias, the slope -alpha or +alpha by the layer's parity, in x's
+// dtype, as the reference's all_relu does with a traced layer index
+// (src/repro/core/all_relu.py:27-28, the slope cast to bf16). It computes the
+// reference's bf16 arithmetic exactly: v = bf16(x + b) where there is a
+// bias, bf16(slope * v) with the slope a bf16 value, the select on v > 0; so
+// it is bit-equal to the plain version and to the Pallas bias_all_relu in
+// bf16. 16-byte loads and stores (8 bf16) where n and the pitch are
+// multiples of 8 and the pointers 16-byte aligned, else one element. Bound by
+// bytes: 4 an element. The f32 row-major entry takes a null bias too.
+//
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,33 +84,82 @@ __device__ __forceinline__ float all_relu(float v, float slope) {
 
 // Block (bx, by) covers columns bx * kThreads + threadIdx.x of rows by,
 // by + gridDim.y, ...: each thread loads its bias once, and no index is
-// divided.
+// divided. Without a bias (kBias false) v is x itself.
+template <bool kBias>
 __global__ void __launch_bounds__(kThreads)
 bias_all_relu_vec4(const float4* __restrict__ x, const float4* __restrict__ bias,
                    float4* __restrict__ y, int64_t rows, int64_t row_vec,
                    int64_t pitch_vec, float slope) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (c >= row_vec) return;
-  const float4 b = __ldg(bias + c);
+  const float4 b = kBias ? __ldg(bias + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
     float4 a = x[r * pitch_vec + c];
-    a.x = all_relu(a.x + b.x, slope);
-    a.y = all_relu(a.y + b.y, slope);
-    a.z = all_relu(a.z + b.z, slope);
-    a.w = all_relu(a.w + b.w, slope);
+    a.x = all_relu(kBias ? a.x + b.x : a.x, slope);
+    a.y = all_relu(kBias ? a.y + b.y : a.y, slope);
+    a.z = all_relu(kBias ? a.z + b.z : a.z, slope);
+    a.w = all_relu(kBias ? a.w + b.w : a.w, slope);
     y[r * row_vec + c] = a;
   }
 }
 
+template <bool kBias>
 __global__ void __launch_bounds__(kThreads)
 bias_all_relu_scalar(const float* __restrict__ x, const float* __restrict__ bias,
                      float* __restrict__ y, int64_t rows, int64_t row,
                      int64_t pitch, float slope) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (c >= row) return;
-  const float b = __ldg(bias + c);
+  const float b = kBias ? __ldg(bias + c) : 0.0f;
   for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
-    y[r * row + c] = all_relu(x[r * pitch + c] + b, slope);
+    const float v = x[r * pitch + c];
+    y[r * row + c] = all_relu(kBias ? v + b : v, slope);
+  }
+}
+
+// The bf16 arithmetic of the reference's bfloat16 All-ReLU, step by step:
+// v = bf16(x + b) (with a bias), then bf16(slope * v) with the slope already
+// a bf16 value, then the select on v > 0. Each step is an f32 operation
+// (exact or rounded to nearest) rounded to nearest bf16, as PyTorch's and
+// XLA's bf16 elementwise ops are, so the plain version gives the same bits.
+template <bool kBias>
+__device__ __forceinline__ __nv_bfloat16 all_relu_bf16(__nv_bfloat16 xv, __nv_bfloat16 bv,
+                                                       float slope) {
+  float v = __bfloat162float(xv);
+  if (kBias) v = __bfloat162float(__float2bfloat16_rn(__fadd_rn(v, __bfloat162float(bv))));
+  const __nv_bfloat16 neg = __float2bfloat16_rn(__fmul_rn(slope, v));
+  return v > 0.0f ? __float2bfloat16_rn(v) : neg;  // v is a bf16 value: exact
+}
+
+// 8 bf16 (16 bytes) a thread and row; the same walk as bias_all_relu_vec4.
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads)
+bias_all_relu_bf16_vec8(const uint4* __restrict__ x, const uint4* __restrict__ bias,
+                        uint4* __restrict__ y, int64_t rows, int64_t row_vec,
+                        int64_t pitch_vec, float slope) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (c >= row_vec) return;
+  uint4 braw = kBias ? __ldg(bias + c) : make_uint4(0u, 0u, 0u, 0u);
+  const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&braw);
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    uint4 a = x[r * pitch_vec + c];
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&a);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) e[q] = all_relu_bf16<kBias>(e[q], b[q], slope);
+    y[r * row_vec + c] = a;
+  }
+}
+
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads)
+bias_all_relu_bf16_scalar(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                          int64_t rows, int64_t row, int64_t pitch, float slope) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (c >= row) return;
+  const __nv_bfloat16 b = kBias ? bias[c] : __float2bfloat16_rn(0.0f);
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    y[r * row + c] = all_relu_bf16<kBias>(x[r * pitch + c], b, slope);
   }
 }
 
@@ -180,7 +242,8 @@ extern "C" int bias_act_T_f32(const void* x, const void* bias, void* y, void* ma
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: rows of n floats, pitch floats apart (pitch >= n); y: (rows, n), contiguous.
+// x: rows of n floats, pitch floats apart (pitch >= n); y: (rows, n), contiguous;
+// bias: (n,), or null for All-ReLU alone.
 extern "C" int bias_all_relu_f32(const void* x, const void* bias, void* y,
                                  int64_t rows, int64_t n, int64_t pitch, float slope,
                                  int device, void* stream) {
@@ -189,14 +252,47 @@ extern "C" int bias_all_relu_f32(const void* x, const void* bias, void* y,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows > 0 && n > 0) {
-    if (n % 4 == 0 && pitch % 4 == 0 && aligned16(x) && aligned16(bias) && aligned16(y)) {
-      bias_all_relu_vec4<<<grid_for(n / 4, rows), kThreads, 0, s>>>(
+    const bool has_bias = bias != nullptr;
+    if (n % 4 == 0 && pitch % 4 == 0 && aligned16(x) && (!has_bias || aligned16(bias)) &&
+        aligned16(y)) {
+      auto kernel = has_bias ? &bias_all_relu_vec4<true> : &bias_all_relu_vec4<false>;
+      kernel<<<grid_for(n / 4, rows), kThreads, 0, s>>>(
           static_cast<const float4*>(x), static_cast<const float4*>(bias),
           static_cast<float4*>(y), rows, n / 4, pitch / 4, slope);
     } else {
-      bias_all_relu_scalar<<<grid_for(n, rows), kThreads, 0, s>>>(
+      auto kernel = has_bias ? &bias_all_relu_scalar<true> : &bias_all_relu_scalar<false>;
+      kernel<<<grid_for(n, rows), kThreads, 0, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(bias),
           static_cast<float*>(y), rows, n, pitch, slope);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 entry: x rows of n bf16, pitch elements apart; y: (rows, n) bf16,
+// contiguous; bias: (n,) bf16, or null (the LM's sparse FFN has none); slope:
+// a bf16 value (the wrapper rounds it).
+extern "C" int bias_all_relu_bf16(const void* x, const void* bias, void* y,
+                                  int64_t rows, int64_t n, int64_t pitch, float slope,
+                                  int device, void* stream) {
+  if (rows < 0 || n < 0 || pitch < n) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows > 0 && n > 0) {
+    const bool has_bias = bias != nullptr;
+    if (n % 8 == 0 && pitch % 8 == 0 && aligned16(x) && (!has_bias || aligned16(bias)) &&
+        aligned16(y)) {
+      auto kernel = has_bias ? &bias_all_relu_bf16_vec8<true> : &bias_all_relu_bf16_vec8<false>;
+      kernel<<<grid_for(n / 8, rows), kThreads, 0, s>>>(
+          static_cast<const uint4*>(x), static_cast<const uint4*>(bias),
+          static_cast<uint4*>(y), rows, n / 8, pitch / 8, slope);
+    } else {
+      auto kernel =
+          has_bias ? &bias_all_relu_bf16_scalar<true> : &bias_all_relu_bf16_scalar<false>;
+      kernel<<<grid_for(n, rows), kThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(bias),
+          static_cast<__nv_bfloat16*>(y), rows, n, pitch, slope);
     }
   }
   return static_cast<int>(cudaGetLastError());

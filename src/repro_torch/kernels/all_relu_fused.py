@@ -10,7 +10,10 @@ As in the reference, it is the block product's epilogue: the block model's
 no-grad forward runs it on kernel C's output, whose first ``out_dim``
 columns of a block-padded row it reads in place (a row pitch, no copy). The
 element paths apply the same arithmetic in kernel A's store
-(``core.sparsity.coo_matmul_T``'s epilogue) instead.
+(``core.sparsity.coo_matmul_T``'s epilogue) instead. The bfloat16 LM's
+sparse FFN runs its bf16 entry with no bias between its two kernel-C
+products (``models.layers.sparse_ffn_fwd``), with the reference's bf16
+rounding at every step, so it is bit-equal to the plain version.
 
 :func:`bias_all_relu_T` is its (features, batch) entry, with the bias along
 the rows: the out-of-core stream (``xl/stream.py``) runs kernel A with no
@@ -34,7 +37,7 @@ import torch
 
 from repro_torch.core import sparsity
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import all_relu_ref, slope_for
+from repro_torch.kernels.ref import all_relu_ref, scalar_in, slope_for
 
 __all__ = [
     "all_relu_bwd", "all_relu_bwd_plain", "bias_all_relu", "bias_all_relu_T",
@@ -43,25 +46,29 @@ __all__ = [
 
 
 def bias_all_relu_plain(
-    x: torch.Tensor, bias: torch.Tensor, *, alpha: float, layer_index: int
+    x: torch.Tensor, bias: Optional[torch.Tensor], *, alpha: float, layer_index: int
 ) -> torch.Tensor:
-    """Plain PyTorch version of kernel B, on any device."""
-    return all_relu_ref(x + bias, alpha, layer_index)
+    """Plain PyTorch version of kernel B, on any device. In bfloat16 each
+    step rounds, as the reference's bf16 arithmetic does: ``x + bias``, the
+    slope (``ref.scalar_in``) and the product."""
+    return all_relu_ref(x if bias is None else x + bias, alpha, layer_index)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p,
 ]
+_SYMBOLS = {torch.float32: "bias_all_relu_f32", torch.bfloat16: "bias_all_relu_bf16"}
 
 
 def bias_all_relu(
-    x: torch.Tensor, bias: torch.Tensor, *, alpha: float, layer_index: int
+    x: torch.Tensor, bias: Optional[torch.Tensor], *, alpha: float, layer_index: int
 ) -> torch.Tensor:
-    """x: (..., N), bias: (N,); returns a contiguous (..., N). A CUDA
-    tensor launches kernel B (f32; x's rows contiguous, at one row pitch,
-    as a column slice of a wider contiguous tensor is); a CPU tensor takes
-    the plain version."""
+    """x: (..., N), bias: (N,) of x's dtype, or None for All-ReLU alone;
+    returns a contiguous (..., N). A CUDA tensor launches kernel B (f32 or
+    bfloat16, the bf16 entry for the LM's sparse FFN; x's rows contiguous, at
+    one row pitch, as a column slice of a wider contiguous tensor is) and
+    raises for another dtype; a CPU tensor takes the plain version."""
     if x.device.type == "cpu":
         return bias_all_relu_plain(x, bias, alpha=alpha, layer_index=layer_index)
     if x.device.type != "cuda":
@@ -69,17 +76,19 @@ def bias_all_relu(
     if x.dim() == 0:
         raise ValueError("x must have a feature axis")
     n = x.shape[-1]
-    if x.dtype != torch.float32:
-        raise ValueError(f"x has dtype {x.dtype}, the kernel takes {torch.float32}")
-    build.check_tensor(bias, "bias", dtype=torch.float32, shape=(n,), device=x.device)
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if x.dtype not in _SYMBOLS:
+        raise ValueError(f"x has dtype {x.dtype}; kernel B takes {list(_SYMBOLS)}")
+    if bias is not None:
+        build.check_tensor(bias, "bias", dtype=x.dtype, shape=(n,), device=x.device)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     pitch = _row_pitch(x)
-    fn = build.kernel("bias_all_relu", "bias_all_relu_f32", _ARGTYPES)
+    fn = build.kernel("bias_all_relu", _SYMBOLS[x.dtype], _ARGTYPES)
     rc = fn(
-        x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // n, n, pitch,
-        slope_for(alpha, layer_index), *build.stream_args(x.device),
+        x.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(), x.numel() // n,
+        n, pitch, scalar_in(slope_for(alpha, layer_index), x.dtype),
+        *build.stream_args(x.device),
     )
     build.check_launch(rc, "bias_all_relu kernel")
     bias_all_relu.launches += 1

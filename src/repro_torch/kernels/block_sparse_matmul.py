@@ -25,7 +25,8 @@ block-row's, E the batch. How many runs is a pure function of host ints
 from the device.
 
 Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, block
-sizes 1..128) or raises, and takes its plain version for a CPU tensor. It
+sizes 1..128; kernel C also bfloat16, for the LM's sparse FFN) or raises,
+and takes its plain version for a CPU tensor. It
 counts its launches (one per call, the second pass of a split included).
 Topology arrays are checked once per tensor (one device sync on first
 use): every coordinate inside the grid and the slot order sorted, so the
@@ -134,7 +135,12 @@ def bsmm_fwd_plain(
 ) -> torch.Tensor:
     """Plain version of kernel C: gather the x tiles, one einsum, and an
     ``index_add_`` into the output block-columns. x: (B, grid_m*bm) ->
-    (B, grid_n*bn)."""
+    (B, grid_n*bn). bfloat16 operands are taken to f32 and the f32 sums
+    rounded once to bfloat16, as the Pallas kernel's f32 accumulator is
+    (not the reference's ``bsmm_xla``, which rounds each tile's product)."""
+    if x.dtype == torch.bfloat16:
+        y = bsmm_fwd_plain(x.float(), values.float(), rows, cols, first_col, grid_n=grid_n)
+        return y.to(torch.bfloat16)
     B = x.shape[0]
     _, bm, bn = values.shape
     xg = x.reshape(B, -1, bm)[:, rows.long()]                 # (B, nb, bm)
@@ -254,6 +260,7 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
 
 
 _I64 = ctypes.c_int64
+_FWD_SYMBOLS = {torch.float32: "bsmm_fwd_f32", torch.bfloat16: "bsmm_fwd_bf16"}
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DX_ARGTYPES = [ctypes.c_void_p] * 7 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -268,9 +275,11 @@ def bsmm_fwd(
     x: torch.Tensor, values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     first_col: torch.Tensor, *, grid_n: int,
 ) -> torch.Tensor:
-    """x: (B, grid_m*bm) @ block-sparse W -> (B, grid_n*bn). ``cols`` must
-    be non-decreasing (canonical order). A CUDA tensor launches kernel C; a
-    CPU tensor takes the plain version."""
+    """x: (B, grid_m*bm) @ block-sparse W -> (B, grid_n*bn), in x's dtype
+    (f32 or bfloat16; values of the same dtype). ``cols`` must be
+    non-decreasing (canonical order). A CUDA tensor launches kernel C's
+    instance for its dtype and raises for another; a CPU tensor takes the
+    plain version."""
     if x.device.type == "cpu":
         return bsmm_fwd_plain(x, values, rows, cols, first_col, grid_n=grid_n)
     _require_cuda(x, "bsmm_fwd")
@@ -278,11 +287,13 @@ def bsmm_fwd(
     _check_block_sizes(bm, bn)
     if x.dim() != 2 or x.shape[1] % bm or x.shape[1] == 0:
         raise ValueError(f"x must be (B, grid_m*{bm}), got shape {tuple(x.shape)}")
+    if x.dtype not in _FWD_SYMBOLS:
+        raise ValueError(f"x has dtype {x.dtype}; kernel C takes {list(_FWD_SYMBOLS)}")
     batch, grid_m = x.shape[0], x.shape[1] // bm
     dev = x.device
     f32 = torch.float32
-    build.check_tensor(x, "x", dtype=f32, shape=x.shape, device=dev)
-    build.check_tensor(values, "values", dtype=f32, shape=(nb, bm, bn), device=dev)
+    build.check_tensor(x, "x", dtype=x.dtype, shape=x.shape, device=dev)
+    build.check_tensor(values, "values", dtype=x.dtype, shape=(nb, bm, bn), device=dev)
     _check_index(rows, "rows", nb, dev)
     _check_index(cols, "cols", nb, dev)
 
@@ -294,10 +305,11 @@ def bsmm_fwd(
 
     _check_once("fwd", (grid_m, grid_n), (rows, cols), check)
     col_ptr = _offsets_once(cols, grid_n)
-    y = torch.empty((batch, grid_n * bn), dtype=f32, device=dev)
+    y = torch.empty((batch, grid_n * bn), dtype=x.dtype, device=dev)
     parts = fwd_parts(nb, grid_n, batch, bn)
+    # a split's partials stay f32 in both instances
     part = torch.empty((parts, batch, grid_n * bn), dtype=f32, device=dev) if parts > 1 else None
-    fn = build.kernel("bsmm_fwd", "bsmm_fwd_f32", _FWD_ARGTYPES)
+    fn = build.kernel("bsmm_fwd", _FWD_SYMBOLS[x.dtype], _FWD_ARGTYPES)
     rc = fn(
         x.data_ptr(), values.data_ptr(), rows.data_ptr(), col_ptr.data_ptr(),
         y.data_ptr(), None if part is None else part.data_ptr(), batch, grid_m, grid_n,

@@ -156,8 +156,10 @@ def bsmm(
 def bsmm_infer(
     x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta
 ) -> torch.Tensor:
-    """Block-sparse ``y = x @ W`` for serving (``mlp_forward(infer=True)``):
-    kernel C alone, with autograd off."""
+    """Block-sparse ``y = x @ W`` for serving (``mlp_forward(infer=True)``,
+    the LM's sparse FFN): kernel C alone, with autograd off, in x's dtype
+    (f32, or bfloat16 for the LM; the backward kernels D and E are f32
+    only)."""
     with torch.no_grad():
         return bsmm_kernel(x, values, topo, meta)
 

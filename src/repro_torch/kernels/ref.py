@@ -3,6 +3,8 @@ products (kernels C, D, E), and All-ReLU (kernel B). Twins of
 ``repro.kernels.ref``."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -40,6 +42,19 @@ def slope_for(alpha: float, layer_index: int) -> float:
     return -alpha if layer_index % 2 == 0 else alpha
 
 
+@functools.lru_cache(maxsize=256)
+def scalar_in(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float. JAX rounds a Python
+    scalar to a bfloat16 operand's type before it multiplies; PyTorch
+    multiplies a bfloat16 tensor by a Python float in f32 and rounds only the
+    product. Multiplying by the rounded scalar gives JAX's bits, since the
+    product of two bfloat16 values is exact in f32. An f32 scalar is unchanged
+    by this."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def all_relu_ref(x: torch.Tensor, alpha: float, layer_index: int) -> torch.Tensor:
-    """Eq. (3): ``where(x > 0, x, slope * x)``."""
-    return torch.where(x > 0, x, slope_for(alpha, layer_index) * x)
+    """Eq. (3): ``where(x > 0, x, slope * x)``, the slope rounded to
+    ``x.dtype`` first (:func:`scalar_in`), as the reference's bfloat16 LM
+    rounds it."""
+    return torch.where(x > 0, x, scalar_in(slope_for(alpha, layer_index), x.dtype) * x)

@@ -1,5 +1,7 @@
-"""Step functions of the SET-MLP training loop. Twin of the MLP part of
-``repro.launch.steps`` (the LM steps come with the LM stack).
+"""Step functions: the SET-MLP training loop, and the LM's prefill and
+decode steps. Twin of ``repro.launch.steps``; the LM's train step
+(``make_train_step``) and the Whisper steps come with the LM training slice
+(ROADMAP Queue 1, item 7).
 
 A step is loss -> gradients (autograd; on a block model the backward runs
 kernels D and E) -> momentum-SGD update. PyTorch runs eagerly, so the
@@ -14,10 +16,12 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.models.mlp import SparseMLPConfig, cross_entropy_loss, mlp_forward
+from repro_torch.models.transformer import PatternLM
 from repro_torch.optim.sgd import MomentumSGD, SGDState
 from repro_torch.tree import tree_map
 
-__all__ = ["make_mlp_step_core", "make_mlp_train_step", "scan_masked_segment", "scan_segment"]
+__all__ = ["make_decode_step", "make_mlp_step_core", "make_mlp_train_step",
+           "make_prefill_step", "scan_masked_segment", "scan_segment"]
 
 
 def make_mlp_step_core(config: SparseMLPConfig, opt: MomentumSGD, topo_arrays,
@@ -102,3 +106,42 @@ def scan_masked_segment(step_core: Callable, params, opt_state, key: Any,
         opt_state = tree_map(lambda n, o: torch.where(keep, n, o), new_s, opt_state)
         metrics.append(m * valid[i])
     return params, opt_state, key, torch.stack(metrics)
+
+
+def _require_lm(model) -> None:
+    if not isinstance(model, PatternLM):
+        raise NotImplementedError(
+            f"steps for {type(model).__name__} (the Whisper encoder-decoder) come with the "
+            "LM training slice (ROADMAP Queue 1, item 7)")
+
+
+def make_prefill_step(model: PatternLM):
+    """``prefill(params, batch, topo) -> logits[:, -1:, :]`` over
+    ``batch["tokens"]`` (and ``batch["patch_embeds"]``, a VLM prefix),
+    without gradients."""
+    _require_lm(model)
+
+    @torch.inference_mode()
+    def prefill(params, batch, topo):
+        logits, _, _ = model.forward(params, batch["tokens"], topo=topo,
+                                     prefix_embeds=batch.get("patch_embeds"))
+        return logits[:, -1:, :]
+
+    return prefill
+
+
+def make_decode_step(model: PatternLM):
+    """``decode(params, batch, topo) -> (logits, caches)``: one token at
+    ``batch["position"]`` (a scalar), the caches updated in place."""
+    _require_lm(model)
+
+    @torch.inference_mode()
+    def decode(params, batch, topo):
+        position = torch.as_tensor(batch["position"]).reshape(1)
+        logits, new_caches, _ = model.forward(
+            params, batch["tokens"], topo=topo,
+            positions=position.to(batch["tokens"].device), mode="decode",
+            caches=batch["caches"])
+        return logits, new_caches
+
+    return decode

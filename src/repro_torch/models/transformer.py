@@ -1,0 +1,426 @@
+"""PatternLM, the pattern-scan language model. Twin of
+``repro.models.transformer`` for the attention block kinds.
+
+An architecture is a repeating ``pattern`` of block kinds:
+
+  'global'  full causal GQA attention + FFN     (qwen, internlm, paligemma, ...)
+  'local'   sliding-window GQA attention + FFN  (gemma local layers, mixtral SWA)
+
+``n_layers = n_rep * len(pattern) + remainder``. The parameter tree is the
+reference's, so a checkpoint has the same leaf names in both packages:
+``params["stack"][f"s{i}_{kind}"]`` holds each pattern slot's layers stacked
+on a leading ``n_rep`` axis, ``params["rest"]`` the remainder layers as a
+list, and ``params["embed"]``, ``params["final_norm"]`` (and
+``params["unembed"]`` where the embeddings are untied). The FFN of a block
+is ``gated`` (the dense baseline) or ``sparse`` (the paper's SET
+block-sparse FFN with All-ReLU, on kernels C and B).
+
+The reference runs the repeats under one ``lax.scan``; here a Python loop
+visits the layers in the same order (repeat-major, then pattern slot), with
+the same 1-based layer index for All-ReLU's parity. The reference's
+``scan_barrier`` argument (an XLA optimisation barrier between scan
+iterations) and ``remat`` (gradient checkpointing of the scan body) mean
+nothing to eager inference: the forward takes no ``scan_barrier``, and
+``remat`` stays in the config for the training slice. A forward
+memoizes its per-layer views of one (params, topology) pair: the weights of
+repeat r and each layer's topology arrays are the same tensor objects on
+every call, so kernel C's per-topology checks and offsets run once.
+
+Not in this slice, and refused naming ROADMAP Queue 1 item 7 (the LM
+training slice): the ``mamba`` and ``rglru`` block kinds, the ``moe`` FFN,
+``chunked_softmax_xent`` and training. The reference's ``abstract=True``
+(the dry run's shape-only build) is not offered: it comes with the pod
+machinery, item 9.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import scalar_in
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+__all__ = ["ModelConfig", "PatternLM"]
+
+Tree = Any
+DeviceLike = Optional[Union[str, torch.device]]
+_ITEM_7 = "comes with the LM training slice (ROADMAP Queue 1, item 7)"
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} {_ITEM_7}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    n_heads: int = 0
+    n_kv: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    pattern: Tuple[str, ...] = ("global",)
+    window: int = 4096
+    softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rope_theta_local: Optional[float] = None   # gemma3: local layers 10k, global 1M
+    norm: str = "rms"
+    tied_embeddings: bool = True
+    embed_scale: bool = False                  # gemma: x *= sqrt(d_model)
+    post_norms: bool = False                   # gemma2/3 post-attn/ffn norms
+    activation: str = "silu"
+    ffn: str = "gated"                         # gated | sparse | moe | none
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    moe_groups: int = 1
+    # ssm / rnn
+    d_inner: int = 0
+    d_state: int = 16
+    d_rnn: int = 0
+    # sparse FFN (the paper's technique)
+    sparse_epsilon: float = 64.0
+    sparse_block: int = 128
+    sparse_alpha: float = 0.6
+    sparse_density: Optional[float] = None
+    # vlm / enc-dec hooks
+    prefix_len: int = 0                        # paligemma image-prefix tokens
+    # runtime
+    dtype: str = "bfloat16"
+    kv_chunk: int = 1024
+    causal_skip: bool = False
+    ssm_chunk: int = 256
+    remat: str = "block"                       # block | none
+    decode_window_cache: bool = True           # ring buffers for local layers
+
+    # -- derived -------------------------------------------------------------
+
+    @property
+    def n_rep(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def remainder(self) -> int:
+        return self.n_layers - self.n_rep * len(self.pattern)
+
+    def attn_cfg(self, kind: str) -> L.AttnConfig:
+        theta = self.rope_theta
+        if kind == "local" and self.rope_theta_local is not None:
+            theta = self.rope_theta_local
+        return L.AttnConfig(
+            n_heads=self.n_heads,
+            n_kv=self.n_kv,
+            head_dim=self.head_dim,
+            d_model=self.d_model,
+            qkv_bias=self.qkv_bias,
+            softcap=self.softcap,
+            window=self.window if kind == "local" else None,
+            rope_theta=theta,
+            kv_chunk=self.kv_chunk,
+            causal_skip=self.causal_skip,
+        )
+
+    def sparse_cfg(self) -> L.SparseFFNConfig:
+        return L.SparseFFNConfig(
+            epsilon=self.sparse_epsilon,
+            block_m=self.sparse_block,
+            block_n=self.sparse_block,
+            activation="all_relu",
+            alpha=self.sparse_alpha,
+            density=self.sparse_density,
+        )
+
+
+# ---------------------------------------------------------------------------
+# block init / fwd
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                np_rng: np.random.Generator, device: torch.device):
+    """Returns (params, topos | None, metas | None)."""
+    dtype = getattr(torch, cfg.dtype)
+    if kind in ("mamba", "rglru"):
+        raise _not_ported(f"the {kind!r} block")
+    if kind not in ("global", "local"):
+        raise ValueError(kind)
+    if cfg.ffn == "moe":
+        raise _not_ported("the 'moe' FFN")
+    if cfg.ffn not in ("gated", "sparse"):
+        raise ValueError(cfg.ffn)
+
+    def norm():
+        return (L.init_rmsnorm(cfg.d_model, dtype, device) if cfg.norm == "rms"
+                else L.init_layernorm(cfg.d_model, dtype, device))
+
+    params: Dict[str, Tree] = {"ln1": norm()}
+    params["attn"] = L.init_attention(gen, cfg.attn_cfg(kind), dtype, device)
+    if cfg.post_norms:
+        params["post_attn"] = norm()
+    params["ln2"] = norm()
+    if cfg.post_norms:
+        params["post_ffn"] = norm()
+    topos = metas = None
+    if cfg.ffn == "gated":
+        params["ffn"] = L.init_gated_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    else:
+        params["ffn"], topos, metas = L.init_sparse_ffn(
+            np_rng, cfg.d_model, cfg.d_ff, cfg.sparse_cfg(), dtype, device)
+    return params, topos, metas
+
+
+def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    return L.rmsnorm(p, x) if cfg.norm == "rms" else L.layernorm(p, x)
+
+
+def _block_fwd(cfg: ModelConfig, kind: str, params, h: torch.Tensor, *,
+               positions: torch.Tensor, layer_index: int, mode: str, cache,
+               topo: Optional[Tuple[BlockTopoArrays, BlockTopoArrays]],
+               metas, prefix_len: Optional[int]):
+    """One residual block. Returns (h, new_cache)."""
+    a, new_cache = L.attention_fwd(
+        params["attn"], _norm(cfg, params["ln1"], h), cfg.attn_cfg(kind),
+        positions=positions, mode=mode, cache=cache, prefix_len=prefix_len,
+    )
+    if cfg.post_norms:
+        a = _norm(cfg, params["post_attn"], a)
+    h = h + a
+    f_in = _norm(cfg, params["ln2"], h)
+    if cfg.ffn == "gated":
+        f = L.gated_ffn_fwd(params["ffn"], f_in, cfg.activation)
+    else:
+        f = L.sparse_ffn_fwd(params["ffn"], topo[0], topo[1], metas, f_in,
+                             cfg.sparse_cfg(), layer_index)
+    if cfg.post_norms:
+        f = _norm(cfg, params["post_ffn"], f)
+    return h + f, new_cache
+
+
+def _rep(stacked: BlockTopoArrays, r: int) -> BlockTopoArrays:
+    return BlockTopoArrays(*(a[r] for a in stacked))
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+class PatternLM:
+    """Builds the parameters and the sparse FFN's host topologies; exposes
+    the forward. ``device=None`` means the card; without one it raises
+    (pass ``device="cpu"`` for the plain versions)."""
+
+    def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
+        self.cfg = cfg
+        self._seed = seed
+        self.device = resolve_device(device)
+        self.topologies: Dict[str, List] = {}
+        self.block_metas: Optional[Tuple[BlockMeta, BlockMeta]] = None
+        self._views = None
+        self.params = self._build()
+
+    def _build(self) -> Dict[str, Tree]:
+        """The reference's build order. The sparse FFN draws from
+        ``np.random.default_rng(seed)`` per layer in that order (t_in,
+        t_out, then their values), so a seed gives the reference's
+        topologies and values; the dense weights draw from a CPU
+        ``torch.Generator`` seeded alike (not jax.random's draws)."""
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator().manual_seed(self._seed)
+        np_rng = np.random.default_rng(self._seed)
+        dtype = getattr(torch, cfg.dtype)
+        self.topologies = {}
+        params: Dict[str, Tree] = {
+            "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model, dtype, dev),
+            "final_norm": (L.init_rmsnorm(cfg.d_model, dtype, dev) if cfg.norm == "rms"
+                           else L.init_layernorm(cfg.d_model, dtype, dev)),
+        }
+        if not cfg.tied_embeddings:
+            params["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model,
+                                             dtype, dev)
+        P = len(cfg.pattern)
+        stack: Dict[str, Tree] = {}
+        for s_idx, kind in enumerate(cfg.pattern):
+            slot = f"s{s_idx}_{kind}"
+            per_layer, slot_topos = [], []
+            for _ in range(cfg.n_rep):
+                pr, topos, metas = _init_block(gen, cfg, kind, np_rng, dev)
+                per_layer.append(pr)
+                if topos is not None:
+                    slot_topos.append(topos)
+                    self.block_metas = metas
+            if per_layer:
+                stack[slot] = tree_map(lambda *xs: torch.stack(xs), *per_layer)
+            if slot_topos:
+                self.topologies[slot] = slot_topos
+        params["stack"] = stack
+        rest = []
+        for i in range(cfg.remainder):
+            pr, topos, metas = _init_block(gen, cfg, cfg.pattern[i % P], np_rng, dev)
+            rest.append(pr)
+            if topos is not None:
+                self.topologies[f"rest{i}"] = [topos]
+                self.block_metas = metas
+        params["rest"] = rest
+        return params
+
+    def to(self, device: DeviceLike) -> "PatternLM":
+        """Move the parameters to ``device`` (``None``: the card), in place."""
+        device = resolve_device(device)
+        if device != self.device:
+            self.params = tree_map(lambda a: a.to(device), self.params)
+            self.device = device
+            self._views = None
+        return self
+
+    # -- topology device views ---------------------------------------------
+
+    def topo_arrays(self) -> Optional[Dict[str, Tuple[BlockTopoArrays, BlockTopoArrays]]]:
+        """Stacked ``BlockTopoArrays`` per slot, (n_rep, nb) each (``None``
+        without a sparse FFN)."""
+        if not self.topologies:
+            return None
+        out = {}
+        for slot, topos in self.topologies.items():
+            ins = [t[0].device_arrays(self.device) for t in topos]
+            outs = [t[1].device_arrays(self.device) for t in topos]
+            out[slot] = (BlockTopoArrays(*(torch.stack(f) for f in zip(*ins))),
+                         BlockTopoArrays(*(torch.stack(f) for f in zip(*outs))))
+        return out
+
+    def _layers(self, params, topo) -> List[tuple]:
+        """(kind, layer_index, where, layer params, layer topology) per
+        layer in order, memoized for the last (params, topo) pair: the same
+        view objects on every call with them."""
+        if self._views is not None and self._views[0] is params and self._views[1] is topo:
+            return self._views[2]
+        cfg = self.cfg
+        P = len(cfg.pattern)
+        layers = []
+        for r in range(cfg.n_rep):
+            for s_idx, kind in enumerate(cfg.pattern):
+                slot = f"s{s_idx}_{kind}"
+                lt = None
+                if topo is not None and slot in topo:
+                    lt = (_rep(topo[slot][0], r), _rep(topo[slot][1], r))
+                lp = tree_map(lambda a, r=r: a[r], params["stack"][slot])
+                layers.append((kind, r * P + s_idx + 1, ("stack", slot, r), lp, lt))
+        for i in range(cfg.remainder):
+            lt = None
+            if topo is not None and f"rest{i}" in topo:
+                lt = tuple(_rep(t, 0) for t in topo[f"rest{i}"])
+            layers.append((cfg.pattern[i % P], cfg.n_rep * P + i + 1, ("rest", i),
+                           params["rest"][i], lt))
+        self._views = (params, topo, layers)
+        return layers
+
+    # -- forward -------------------------------------------------------------
+
+    def forward(
+        self,
+        params,
+        tokens: torch.Tensor,
+        *,
+        topo=None,
+        positions: Optional[torch.Tensor] = None,
+        mode: str = "train",
+        caches=None,
+        prefix_embeds: Optional[torch.Tensor] = None,
+        return_hidden: bool = False,
+    ):
+        """tokens: (B, S). Returns (hidden_or_logits, new_caches, aux).
+
+        Modes: ``train`` (no caches), ``decode`` (one step with caches,
+        written in place: the returned caches are the caches given; positions
+        (S,) shared by every row, or (B, S) one row each), ``prefill`` (the
+        full causal forward over the prompt that also returns every layer's
+        K/V of prompt length, stacked as the reference's scan stacks them,
+        for the engine to insert into its decode caches). ``aux`` is the MoE
+        auxiliary loss, 0 here."""
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode!r}")
+        cfg = self.cfg
+        h = L.embed(params["embed"], tokens)
+        if cfg.embed_scale:
+            h = h * scalar_in(math.sqrt(cfg.d_model), h.dtype)
+        prefix_len = None
+        if prefix_embeds is not None:
+            h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+            prefix_len = prefix_embeds.shape[1]
+        elif cfg.prefix_len and mode != "decode":
+            prefix_len = cfg.prefix_len
+        if positions is None:
+            positions = torch.arange(h.shape[1], device=h.device)
+        if mode == "decode" and caches is None:
+            raise ValueError("decode needs caches")
+
+        collected: Dict[str, List] = {}
+        for kind, layer_index, where, lp, lt in self._layers(params, topo):
+            cache = None
+            if caches is not None:
+                cache = (tree_map(lambda a, r=where[2]: a[r], caches["stack"][where[1]])
+                         if where[0] == "stack" else caches["rest"][where[1]])
+            h, nc = _block_fwd(cfg, kind, lp, h, positions=positions, layer_index=layer_index,
+                               mode=mode, cache=cache, topo=lt, metas=self.block_metas,
+                               prefix_len=prefix_len)
+            if mode == "prefill":
+                collected.setdefault(where[1] if where[0] == "stack" else "rest", []).append(nc)
+
+        new_caches = None
+        if mode == "decode":
+            new_caches = caches
+        elif mode == "prefill":
+            rest = collected.pop("rest", [])
+            new_caches = {"stack": {slot: tree_map(lambda *xs: torch.stack(xs), *ncs)
+                                    for slot, ncs in collected.items()},
+                          "rest": rest}
+        h = _norm(cfg, params["final_norm"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if return_hidden:
+            return h, new_caches, aux
+        return self.logits(params, h), new_caches, aux
+
+    def logits(self, params, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        out = L.unembed(params["embed"], h) if cfg.tied_embeddings else h @ params["unembed"]
+        if cfg.final_softcap:
+            cap = scalar_in(cfg.final_softcap, out.dtype)
+            out = torch.tanh(out / cap) * cap
+        return out
+
+    # -- caches ----------------------------------------------------------------
+
+    def init_caches(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16):
+        """Decode caches: full K/V for global slots, ring buffers for local
+        ones (with ``decode_window_cache``), stacked along n_rep per slot;
+        zeros, since decode writes into them in place."""
+        cfg, dev = self.cfg, self.device
+
+        def one(kind, lead=()):
+            if kind not in ("global", "local"):
+                raise _not_ported(f"the {kind!r} block's state")
+            ring = kind == "local" and cfg.decode_window_cache
+            w = min(cfg.window, max_len) if ring else max_len
+            shape = lead + (batch, w, cfg.n_kv, cfg.head_dim)
+            c = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            if ring:
+                c["pos"] = torch.full(lead + (w,), -1, dtype=torch.int32, device=dev)
+            return c
+
+        stack = {f"s{s_idx}_{kind}": one(kind, (cfg.n_rep,))
+                 for s_idx, kind in enumerate(cfg.pattern) if cfg.n_rep}
+        rest = [one(cfg.pattern[i % len(cfg.pattern)]) for i in range(cfg.remainder)]
+        return {"stack": stack, "rest": rest}

@@ -26,7 +26,13 @@ shard edges, padded tails) bit-equal to kernels A and F over the whole
 layer and within 1e-5 of the plain versions; kernel B's (features, batch)
 pass bit-equal to A's fused store; the pinned ring against a run
 synchronised after every copy, with each copy held back ~10 ms, bit-equal;
-a streamed step bit-equal to the in-core step.
+a streamed step bit-equal to the in-core step. The bfloat16 LM: kernel C's
+bf16 instance within 1e-2 of its plain version (both round an f32 sum
+once, in other orders) and 5e-2 of ``ref.bsmm_ref`` (the reference's bf16
+tolerance), on the reference's kernel sweep and the full-width sparse FFN,
+bit-equal over 3 launches; kernel B's bf16 entry bit-equal to its plain
+version, with and without a bias; the smoke LM in bf16 on the card within
+5e-2 of the CPU run, on kernels C and B, served through the batcher.
 """
 import dataclasses
 
@@ -52,7 +58,7 @@ from repro_torch.core.importance import PruningSchedule
 from repro_torch.data.datasets import load
 from repro_torch.kernels import all_relu_fused
 from repro_torch.kernels import block_sparse_matmul as bsm
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import all_relu_ref, slope_for
 from repro_torch.launch.steps import make_mlp_train_step
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward
@@ -1374,3 +1380,156 @@ def test_xl_streamed_step_bit_equal_to_in_core(cuda, budget):
         assert np.array_equal(layer.values, p2["values"][l].cpu().numpy()), l
         assert np.array_equal(layer.velocity, s2.velocity["values"][l].cpu().numpy()), l
         assert np.array_equal(layer.bias, p2["biases"][l].cpu().numpy()), l
+
+
+# -- the bfloat16 LM: kernel C's bf16 instance, kernel B's bf16 entry ----------
+
+# The reference's kernel sweep (tests/test_kernels.py:32): B, gm, gn, bm, bn, density
+LM_KERNEL_SHAPES = [
+    (8, 2, 3, 8, 16, 0.7), (16, 4, 4, 16, 16, 0.4), (32, 3, 5, 8, 8, 0.9),
+    (8, 1, 2, 16, 8, 1.0), (24, 5, 2, 8, 16, 0.5),
+]
+# Qwen1.5-0.5B's sparse FFN at full width, seed 0: W_in 1024 -> 2816 (22 of 8 x 22
+# tiles), W_out 2816 -> 1024 (15 of 22 x 8), at 1 row, a decode step's 8 and a
+# 4-prompt prefill's 64, 128 and 256 (buckets 16, 32 and 64)
+FULL_WIDTH_FFN = [(rows, which) for which in ("win", "wout")
+                  for rows in (1, 8, 64, 128, 256)]
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # both keep an f32 sum and round once, in other orders
+
+
+def _bf16_case(cuda, B, meta, topo, rng):
+    values = topo.init_values(rng, dtype=torch.bfloat16, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((B, meta.padded_in)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16)
+    return topo.device_arrays(cuda), values, x
+
+
+def _full_width_ffn(cuda, which, rows):
+    rng = np.random.default_rng(0)
+    t_in = tsp.BlockTopology.from_epsilon(tsp.BlockMeta(1024, 2816), 64.0, rng)
+    t_out = tsp.BlockTopology.from_epsilon(tsp.BlockMeta(2816, 1024), 64.0, rng)
+    assert (t_in.n_blocks, t_out.n_blocks) == (22, 15)
+    topo = t_in if which == "win" else t_out
+    return (topo.meta,) + _bf16_case(cuda, rows, topo.meta, topo, rng)
+
+
+@pytest.mark.parametrize("case", [("sweep", s) for s in LM_KERNEL_SHAPES]
+                         + [("full", c) for c in FULL_WIDTH_FFN])
+def test_kernel_c_bf16_matches_plain_and_oracle_and_repeats(cuda, case):
+    kind, shape = case
+    if kind == "sweep":
+        B, gm, gn, bm, bn, density = shape
+        rng = np.random.default_rng(0)
+        meta = tsp.BlockMeta(gm * bm, gn * bn, bm, bn)
+        topo = tsp.BlockTopology.erdos_renyi(meta, density, rng)
+        t, v, x = _bf16_case(cuda, B, meta, topo, rng)
+    else:
+        meta, t, v, x = _full_width_ffn(cuda, shape[1], shape[0])
+    before = bsm.bsmm_fwd.launches
+    ys = [bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+          for _ in range(3)]
+    torch.cuda.synchronize()
+    assert bsm.bsmm_fwd.launches == before + 3
+    assert ys[0].dtype == torch.bfloat16
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    want = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    torch.testing.assert_close(ys[0].float(), want.float(), **BF16_TOL)
+    oracle = ref.bsmm_ref(x.float(), v.float(), t.rows, t.cols, grid_m=meta.grid_m,
+                          grid_n=meta.grid_n)
+    torch.testing.assert_close(ys[0].float(), oracle, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("shape", [(8, 2816), (256, 2816), (5, 1001), (3, 7)])
+@pytest.mark.parametrize("layer_index", [1, 2])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_kernel_b_bf16_bit_equal_to_plain(cuda, shape, layer_index, with_bias):
+    rng = np.random.default_rng(layer_index)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 3,
+                        device=cuda).to(torch.bfloat16)
+    b = (torch.as_tensor(rng.standard_normal(shape[1:]).astype(np.float32), device=cuda)
+         .to(torch.bfloat16) if with_bias else None)
+    before = all_relu_fused.bias_all_relu.launches
+    got = all_relu_fused.bias_all_relu(x, b, alpha=0.6, layer_index=layer_index)
+    torch.cuda.synchronize()
+    assert all_relu_fused.bias_all_relu.launches == before + 1
+    want = all_relu_fused.bias_all_relu_plain(x, b, alpha=0.6, layer_index=layer_index)
+    assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16),
+                                                       want.view(torch.int16))
+    # rows at a pitch (a column slice of a wider product), and f32 without a bias
+    wide = torch.cat([x, x], dim=1)[:, : shape[1]]
+    assert torch.equal(all_relu_fused.bias_all_relu(wide, b, alpha=0.6, layer_index=layer_index),
+                       got)
+    xf = x.float()
+    assert torch.equal(all_relu_fused.bias_all_relu(xf, None, alpha=0.6, layer_index=layer_index),
+                       all_relu_fused.bias_all_relu_plain(xf, None, alpha=0.6,
+                                                          layer_index=layer_index))
+
+
+def test_kernels_b_c_refuse_dtypes_they_lack(cuda):
+    x = torch.zeros((8, 16), dtype=torch.float16, device=cuda)
+    launches = (all_relu_fused.bias_all_relu.launches, bsm.bsmm_fwd.launches)
+    with pytest.raises(ValueError, match="dtype"):
+        all_relu_fused.bias_all_relu(x, None, alpha=0.6, layer_index=1)
+    topo = tsp.BlockTopology(tsp.BlockMeta(16, 16, 16, 16), np.array([0]), np.array([0]))
+    t = topo.device_arrays(cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        bsm.bsmm_fwd(x, torch.zeros((1, 16, 16), dtype=torch.float16, device=cuda), t.rows,
+                     t.cols, t.first_col, grid_n=1)
+    with pytest.raises(ValueError, match="dtype"):  # values of another dtype than x
+        bsm.bsmm_fwd(x.to(torch.bfloat16), torch.zeros((1, 16, 16), device=cuda), t.rows,
+                     t.cols, t.first_col, grid_n=1)
+    assert (all_relu_fused.bias_all_relu.launches, bsm.bsmm_fwd.launches) == launches
+
+
+def test_lm_engine_bf16_on_card_matches_cpu(cuda):
+    """The reference's serving LM (tests/test_serve.py's LM_CFG) in bf16: the
+    card's forward, prefill caches and teacher-forced decode within 5e-2 of
+    the CPU run (plain versions), every sparse FFN on kernels C and B, and
+    the card's engine serving a trace through the continuous batcher."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import PatternLM
+    from repro_torch.serve import ContinuousBatcher, poisson_trace
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(configs.get_spec("qwen1.5-0.5b").smoke, ffn="sparse",
+                              sparse_block=16, sparse_density=0.5, d_ff=64, dtype="bfloat16")
+    cpu = PatternLM(cfg, seed=0, device="cpu")
+    card = PatternLM(cfg, seed=0, device=cuda)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+    tol = dict(rtol=5e-2, atol=5e-2)
+    want, wc, _ = cpu.forward(cpu.params, torch.as_tensor(toks), topo=cpu.topo_arrays(),
+                              mode="prefill")
+    c0, b0 = bsm.bsmm_fwd.launches, all_relu_fused.bias_all_relu.launches
+    got, gc, _ = card.forward(card.params, torch.as_tensor(toks, device=cuda),
+                              topo=card.topo_arrays(), mode="prefill")
+    torch.cuda.synchronize()
+    assert (bsm.bsmm_fwd.launches - c0, all_relu_fused.bias_all_relu.launches - b0) == (
+        2 * cfg.n_layers, cfg.n_layers)
+    torch.testing.assert_close(got.float().cpu(), want.float(), **tol)
+    torch.testing.assert_close(gc["stack"]["s0_global"]["k"].float().cpu(),
+                               wc["stack"]["s0_global"]["k"].float(), **tol)
+    caches = {d: m.init_caches(2, 12) for d, m in (("cpu", cpu), ("card", card))}
+    for pos in range(12):
+        step = toks[:, pos:pos + 1]
+        lw, _, _ = cpu.forward(cpu.params, torch.as_tensor(step), topo=cpu.topo_arrays(),
+                               positions=torch.tensor([pos]), mode="decode",
+                               caches=caches["cpu"])
+        lg, _, _ = card.forward(card.params, torch.as_tensor(step, device=cuda),
+                                topo=card.topo_arrays(), positions=torch.tensor([pos],
+                                                                                device=cuda),
+                                mode="decode", caches=caches["card"])
+        torch.testing.assert_close(lg.float().cpu(), lw.float(), **tol)
+    engine = SparseInferenceEngine(card, engine=EngineConfig(
+        max_slots=4, max_len=48, prefill_buckets=(8, 16), prefill_batch=2))
+
+    def trace(seed):
+        return poisson_trace(8, rate=500.0, vocab=cfg.vocab, prompt_lens=(3, 14),
+                             new_tokens=(1, 6), seed=seed)
+
+    ContinuousBatcher(engine, queue_capacity=16).run(trace(0))
+    builds = engine.stats["compiles"]
+    c0 = bsm.bsmm_fwd.launches
+    stats = ContinuousBatcher(engine, queue_capacity=16).run(trace(7))
+    assert stats.completed == 8 and engine.stats["compiles"] == builds
+    assert bsm.bsmm_fwd.launches - c0 == 2 * cfg.n_layers * (stats.decode_steps
+                                                             + stats.prefill_calls)

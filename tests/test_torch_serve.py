@@ -25,16 +25,19 @@ from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import SparseInferenceEngine as JEngine
 from repro.serve import compact as jcompact
 from repro.serve import save_mlp_for_serving as jsave_mlp_for_serving
+from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.importance import PruningSchedule
 from repro_torch.interop import mlp_from_numpy
 from repro_torch.models import mlp as tmlp
+from repro_torch.models.transformer import PatternLM
 from repro_torch.serve import (
     EngineConfig,
     SparseInferenceEngine,
     compact_element_mlp,
     eliminate_dead_neurons,
     importance_prune_mlp,
+    save_lm_for_serving,
     save_mlp_for_serving,
 )
 
@@ -274,9 +277,13 @@ def test_checkpoint_glue_refuses_what_this_slice_lacks(tmp_path):
     mgr = CheckpointManager(str(tmp_path), async_write=False)
     with pytest.raises(NotImplementedError, match="item 6"):
         save_mlp_for_serving(mgr, block)
-    mgr.save(1, {"w": torch.zeros(1)}, meta={"serve_kind": "lm"})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SparseInferenceEngine.from_checkpoint(mgr, device="cpu")
+    # an LM checkpoint serves (tests/test_torch_lm_serve.py), but not compacted
+    lm_cfg = dataclasses.replace(configs.get_spec("qwen1.5-0.5b").smoke, ffn="sparse",
+                                 sparse_block=16, sparse_density=0.5, d_ff=64)
+    save_lm_for_serving(mgr, PatternLM(lm_cfg, seed=0, device="cpu"), step=1)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        SparseInferenceEngine.from_checkpoint(mgr, device="cpu",
+                                              compaction=PruningSchedule(**SCHEDULE))
     mgr.save(2, {"w": torch.zeros(1)})
     with pytest.raises(ValueError, match="serve_kind"):
         SparseInferenceEngine.from_checkpoint(mgr, device="cpu")
