@@ -112,30 +112,41 @@ Phases, one line each (any failure exits non-zero):
                    weights from the seed. Kernel C's bf16 instance against its
                    plain version (1e-2) and ``ref.bsmm_ref`` (5e-2) on the
                    reference's kernel sweep and the full-width W_in (22 tiles)
-                   and W_out (15 tiles) at 1, 8 and 256 rows, the same bits on
-                   three launches; kernel B's bf16 entry bit-equal to its
-                   plain version at 8 and 256 rows, both parities, with and
-                   without a bias; the model with depth cut to 2 layers on the
-                   card against the CPU run (plain versions; 4 bucket-16
-                   prompts, 4 decode steps), and at full depth decode against
-                   the teacher-forced forward (2 prompts, 8 steps), logits
-                   within 5e-2 of the other's, relative and as a fraction of
-                   their largest magnitude; ``SparseInferenceEngine`` (8 slots,
-                   256 positions, buckets 16/32/64, 4 prompts a prefill)
-                   launching 48 C and 24 B a prefill and a decode step; the
+                   and W_out (15 tiles) at 1 row and the main path's 8, 64,
+                   128 and 256, the same bits on three launches on the route
+                   ``fwd_plan`` gives (decode up to 16 rows, rows above,
+                   tiled for the sweep; its counters show the route and no
+                   second pass on the served shapes); its All-ReLU store
+                   bit-equal to C then kernel B, both parities; a decode-route
+                   row the same alone as within the call; kernel B's bf16
+                   entry bit-equal to its plain version at the main path's
+                   rows, both parities, with and without a bias; the model
+                   with depth cut to 2 layers on the card against the CPU run
+                   (plain versions; 4 bucket-16 prompts, 4 decode steps), and
+                   at full depth decode against the teacher-forced forward (2
+                   prompts, 8 steps), logits within 0.1 + 5e-2 x |want| and
+                   the argmax held where the top-2 margin exceeds 0.1;
+                   ``SparseInferenceEngine`` (8 slots, 256 positions, buckets
+                   16/32/64, 4 prompts a prefill) launching 48 C (24 with
+                   All-ReLU in the store, all on the decode route for a step
+                   and the rows route for a prefill) and no B a call; the
                    main path, a ``ContinuousBatcher`` over 16 Poisson requests
                    (prompts of 4-64 tokens, 8-32 new) after a warm-up trace:
                    every request completed with its budget, no build after
-                   warm-up, C and B launched 48 and 24 times a call, the same
-                   tokens as ``serve_sequential`` on the same engine; a
-                   ``kernel_timing`` row for C bf16 (W_in, W_out at 8 and 256
-                   rows; bound at the bf16 tensor rate, 989 TFLOP/s; library
-                   ``torch.matmul`` against the densified W) and for B bf16
+                   warm-up, C launched 48 times a call and B never, the same
+                   tokens as ``serve_sequential`` on the same engine;
+                   ``kernel_timing`` rows for C bf16 (W_in, W_out at 1, 8, 64,
+                   128 and 256 rows, without and with All-ReLU, the tiled
+                   route's earlier time beside; bound at the bf16 tensor
+                   rate, 989 TFLOP/s; library ``torch.matmul`` against the
+                   densified W) and for B bf16
                    (library ``torch.where``), and an ``lm_timing`` line:
                    prefill per bucket, the decode step (median, quartiles,
                    device busy time, idle share and launches from
-                   ``torch.profiler``), the batcher's tokens/s, latency and
-                   TTFT, the allocator's peak, the card's name and power limit;
+                   ``torch.profiler``), the host time of one ``bsmm_infer``
+                   and of the autograd path it replaced, the batcher's
+                   tokens/s, latency and TTFT, the allocator's peak, the
+                   card's name and power limit;
 14. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
@@ -355,16 +366,23 @@ SUB_COUNTS["bias_all_relu.T"] = (all_relu_fused.bias_all_relu, "T_launches")
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0, kernels A's and F's epilogue
-    and mask counts too."""
+    and mask counts and kernel C's sub-counts too."""
     for fn in WRAPPERS.values():
         fn.launches = 0
     for fn, attr in SUB_COUNTS.values():
         setattr(fn, attr, 0)
+    for sub in C_SUB:
+        setattr(bsm.bsmm_fwd, f"{sub}_launches", 0)
 
 
 def read_counts() -> dict:
     return dict({name: fn.launches for name, fn in WRAPPERS.items()},
                 **{k: getattr(fn, attr) for k, (fn, attr) in SUB_COUNTS.items()})
+
+
+def c_sub_counts() -> dict:
+    """Kernel C's second passes, All-ReLU stores and launches by route."""
+    return {sub: getattr(bsm.bsmm_fwd, f"{sub}_launches") for sub in C_SUB}
 
 
 NO_LAUNCHES = {name: 0 for name in (*WRAPPERS, *SUB_COUNTS)}
@@ -2298,6 +2316,16 @@ KERNEL_B_BF16 = dict(
     name="bias_all_relu.bf16", route="cuda", source="src/repro_torch/csrc/bias_all_relu.cu",
     replaces="src/repro/kernels/all_relu_fused.py:23",
 )
+# The rows kernel_timing times C bf16 at: 1 row and the main path's
+LM_TIMED_ROWS = (1,) + LM_PATH_ROWS
+# C bf16 on W_in's grid with every block-column holding L slots: columns
+# longer than the routes' rings (4 slot stages; 3 on the rows route's 64 x
+# 64 tile), at rows that take the decode route (one and two x-fragments) and
+# both rows tiles (32 x 32 at 64 rows, 64 x 64 at 256)
+LONG_COLUMNS = (4, 5, 8)
+LONG_COLUMN_ROWS = (8, 16, 64, 256)
+# kernel C's counts of second passes, All-ReLU stores and launches by route
+C_SUB = ("second_pass", "epilogue", "decode", "rows")
 
 
 def lm_config(n_layers=None) -> ModelConfig:
@@ -2320,11 +2348,20 @@ def bf16_block_case(meta, topo, rows: int, rng: np.random.Generator):
     return topo.device_arrays(CARD), values, x
 
 
+def long_columns(meta, length: int, rng: np.random.Generator):
+    """A topology whose every block-column holds ``length`` slots, on block-rows
+    drawn without replacement."""
+    rows = np.concatenate([np.sort(rng.choice(meta.grid_m, length, replace=False))
+                           for _ in range(meta.grid_n)])
+    return sparsity.BlockTopology(meta, rows, np.repeat(np.arange(meta.grid_n), length))
+
+
 def lm_kernel_cases():
     """Kernel C's bf16 cases: the reference's sweep (tests/test_kernels.py:32,
     seed 0), then the served model's sparse FFN at full width (seed 0's
     first layer: W_in 1024 -> 2816 over 22 tiles, W_out 2816 -> 1024 over 15)
-    at 1 row and at every row count of the main path (LM_PATH_ROWS)."""
+    at 1 row and at every row count of the main path (LM_PATH_ROWS), then
+    W_in's grid with columns of LONG_COLUMNS slots at LONG_COLUMN_ROWS."""
     cases = []
     for B, gm, gn, bm, bn, density in ((8, 2, 3, 8, 16, 0.7), (16, 4, 4, 16, 16, 0.4),
                                        (32, 3, 5, 8, 8, 0.9), (8, 1, 2, 16, 8, 1.0),
@@ -2346,19 +2383,45 @@ def lm_kernel_cases():
         for rows in (1,) + LM_PATH_ROWS:
             cases.append((f"{name} {rows} rows", meta, topo) + bf16_block_case(
                 meta, topo, rows, rng))
+    meta = topos["win"][0]
+    for length in LONG_COLUMNS:
+        topo = long_columns(meta, length, rng)
+        for rows in LONG_COLUMN_ROWS:
+            cases.append((f"columns of {length} {rows} rows", meta, topo) + bf16_block_case(
+                meta, topo, rows, rng))
     return cases
 
 
 def lm_kernel_checks() -> dict:
     """Kernel C's bf16 instance against its plain version and ref.bsmm_ref,
-    the same bits on three launches; kernel B's bf16 entry bit-equal to its
-    plain version at every row count of the main path, both parities, with
-    and without a bias. Each kernel's largest |difference| from its plain
-    version, measured."""
+    the same bits on three launches, on the route ``fwd_plan`` gives (its
+    counters show the route taken and no second pass on the served shapes);
+    its All-ReLU store bit-equal to C followed by kernel B's bf16 entry, both
+    parities; on the decode route, the first and last rows of a call the
+    same alone. Kernel B's bf16 entry bit-equal to its plain version at every
+    row count of the main path, both parities, with and without a bias.
+    Each kernel's largest |difference| from its plain version, measured, and
+    the route each case took."""
     err_c = err_b = 0.0
+    routes = {}
+    cfg = lm_config()
     for what, meta, topo, t, v, x in lm_kernel_cases():
-        y = thrice(lambda: bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n),
-                   f"kernel C bf16 ({what})")
+        def c(**kw):
+            return bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n, **kw)
+
+        plan = bsm.fwd_plan(topo.n_blocks, meta.grid_n, x.shape[0], meta.block_m, meta.block_n,
+                            bf16=True)
+        before = c_sub_counts()
+        y = thrice(c, f"kernel C bf16 ({what})")
+        taken = {k: n - before[k] for k, n in c_sub_counts().items()}
+        check(taken == dict(second_pass=3 * (plan.parts > 1), epilogue=0,
+                            decode=3 * (plan.route == "decode"),
+                            rows=3 * (plan.route == "rows")),
+              f"kernel C bf16 ({what}) counted {taken} on three launches of {plan}")
+        if not what.startswith("sweep"):
+            check(plan.route in ("decode", "rows") and plan.parts == 1,
+                  f"kernel C bf16 ({what}) planned {plan}")
+        routes[what] = plan.route
         check(y.dtype == torch.bfloat16, f"kernel C bf16 ({what}) gave {y.dtype}")
         want = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
         oracle = ref.bsmm_ref(x.float(), v.float(), t.rows, t.cols, grid_m=meta.grid_m,
@@ -2366,7 +2429,19 @@ def lm_kernel_checks() -> dict:
         torch.testing.assert_close(y.float(), want.float(), rtol=C_BF16_TOL, atol=C_BF16_TOL)
         torch.testing.assert_close(y.float(), oracle, rtol=C_ORACLE_TOL, atol=C_ORACLE_TOL)
         err_c = max(err_c, float((y.float() - want.float()).abs().max()))
-    cfg = lm_config()
+        for layer_index in (1, 2):
+            fused = thrice(lambda: c(all_relu=(cfg.sparse_alpha, layer_index)),
+                           f"kernel C bf16 with All-ReLU ({what})")
+            after = all_relu_fused.bias_all_relu(y, None, alpha=cfg.sparse_alpha,
+                                                 layer_index=layer_index)
+            check(_bits_equal(fused, after), f"kernel C bf16's All-ReLU store ({what}, layer "
+                                             f"{layer_index}) is not C then B bit for bit")
+        if plan.route == "decode" and x.shape[0] > 1:
+            for r in (0, x.shape[0] - 1):
+                alone = bsm.bsmm_fwd(x[r:r + 1].clone(), v, t.rows, t.cols, t.first_col,
+                                     grid_n=meta.grid_n)
+                check(_bits_equal(alone[0], y[r]), f"kernel C bf16 ({what}): row {r} alone "
+                                                   f"is not row {r} within the call")
     rng = np.random.default_rng(SEED)
     for rows in LM_PATH_ROWS:
         x = torch.as_tensor(rng.standard_normal((rows, cfg.d_ff)).astype(np.float32) * 3,
@@ -2385,7 +2460,55 @@ def lm_kernel_checks() -> dict:
                     f"kernel B bf16 at {rows} rows, layer {layer_index}, bias "
                     f"{bias is not None}: not bit-equal to its plain version")
                 err_b = max(err_b, float((got.float() - want.float()).abs().max()))
-    return {KERNEL_C_BF16["name"]: err_c, KERNEL_B_BF16["name"]: err_b}
+    return {KERNEL_C_BF16["name"]: err_c, KERNEL_B_BF16["name"]: err_b, "routes": routes}
+
+
+def lm_layer_checks(model) -> dict:
+    """Kernel C bf16 on every layer's W_in and W_out of the served model
+    (each layer draws its own topology, so its own column lengths) at every
+    row count of the main path, on the route ``fwd_plan`` gives: within
+    C_BF16_TOL of its plain version and, with All-ReLU in its store at the
+    layer's parity, bit-equal to C then kernel B; each the same bits on
+    three launches. Returns the largest |difference|, the layers checked and
+    the longest block-column among them."""
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED)
+    err, longest, layers = 0.0, 0, 0
+    for slot, topos in model.topologies.items():
+        check(slot in model.params["stack"], f"sparse FFN topology {slot} outside the stack")
+        ffn = model.params["stack"][slot]["ffn"]
+        stacked = model.topo_arrays()[slot]
+        for i, pair in enumerate(topos):
+            layers += 1
+            layer_index = layers  # the parity differs from layer to layer
+            for host, arrays, v in zip(pair, stacked, (ffn["win"][i], ffn["wout"][i])):
+                t = sparsity.BlockTopoArrays(*(a[i].contiguous() for a in arrays))
+                meta = host.meta
+                longest = max(longest, int(np.bincount(host.cols, minlength=meta.grid_n).max()))
+                for rows in LM_PATH_ROWS:
+                    x = torch.as_tensor(rng.standard_normal((rows, meta.padded_in)).astype(
+                        np.float32), device=CARD).to(torch.bfloat16)
+
+                    def c(**kw):
+                        return bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
+                                            grid_n=meta.grid_n, **kw)
+
+                    what = f"kernel C bf16 ({slot} layer {i}, {meta.in_dim} -> {meta.out_dim}, " \
+                           f"{rows} rows)"
+                    y = thrice(c, what)
+                    want = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col,
+                                              grid_n=meta.grid_n)
+                    torch.testing.assert_close(y.float(), want.float(), rtol=C_BF16_TOL,
+                                               atol=C_BF16_TOL)
+                    err = max(err, float((y.float() - want.float()).abs().max()))
+                    fused = thrice(lambda: c(all_relu=(cfg.sparse_alpha, layer_index)),
+                                   f"{what} with All-ReLU")
+                    after = all_relu_fused.bias_all_relu(y, None, alpha=cfg.sparse_alpha,
+                                                         layer_index=layer_index)
+                    check(_bits_equal(fused, after), f"{what}: the All-ReLU store is not C "
+                                                     "then B bit for bit")
+    check(layers == cfg.n_layers, f"{layers} of {cfg.n_layers} layers' sparse FFNs checked")
+    return dict(max_abs_err=err, layers=layers, longest_column=longest, rows=list(LM_PATH_ROWS))
 
 
 def lm_served_logits(model, prompts: np.ndarray, steps: np.ndarray) -> torch.Tensor:
@@ -2438,31 +2561,40 @@ def logits_close(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
 
 
 def lm_timing_rows(model) -> list:
-    """Kernel C bf16 on the served model's first layer (W_in, W_out) and
-    kernel B bf16 at a decode step's 8 rows and a 4 x 64 prefill's 256, with
-    bounds, plain versions and library calls: ``torch.matmul`` against the
-    densified bf16 W for C, ``torch.where`` for B."""
+    """Kernel C bf16 on the served model's first layer (W_in, W_out) at
+    ``LM_TIMED_ROWS``, without and with All-ReLU in its store (the path runs
+    W_in with it), on the route ``fwd_plan`` gives; kernel B bf16 at a decode step's 8
+    rows and a 4 x 64 prefill's 256. Bounds, plain versions and library
+    calls: ``torch.matmul`` against the densified bf16 W for C,
+    ``torch.where`` for B."""
     cfg = model.cfg
     ffn = model.params["stack"]["s0_global"]["ffn"]
     topo = model.topo_arrays()["s0_global"]
     t_in = model.topologies["s0_global"][0]
     rows = []
     rng = np.random.default_rng(SEED)
+    all_relu = (cfg.sparse_alpha, 1)
     for name, host, t, v in (("win", t_in[0], topo[0], ffn["win"][0]),
                              ("wout", t_in[1], topo[1], ffn["wout"][0])):
         t = sparsity.BlockTopoArrays(*(a[0].contiguous() for a in t))
         meta = host.meta
         dense = ref.blocks_to_dense(v, t.rows, t.cols, meta.grid_m, meta.grid_n)
         used = int(np.unique(host.rows).size)
-        for n_rows in (LM_ENGINE["max_slots"], 256):
+        for n_rows in LM_TIMED_ROWS:
             x = torch.as_tensor(rng.standard_normal((n_rows, meta.padded_in)).astype(np.float32),
                                 device=CARD).to(torch.bfloat16)
+
+            def c(**kw):
+                return bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n, **kw)
+
+            plan = bsm.fwd_plan(host.n_blocks, meta.grid_n, n_rows, meta.block_m, meta.block_n,
+                                bf16=True)
             nbytes = 2 * (n_rows * used * meta.block_m + v.numel() + n_rows * meta.padded_out)
             rows.append(dict(
                 kernel=KERNEL_C_BF16["name"], weight=name, rows=n_rows,
-                shape=[meta.in_dim, meta.out_dim], n_blocks=host.n_blocks,
-                ms=device_ms(lambda: bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
-                                                  grid_n=meta.grid_n)),
+                shape=[meta.in_dim, meta.out_dim], n_blocks=host.n_blocks, route=plan.route,
+                tile=[plan.tile_rows, plan.tile_feat], ms=device_ms(c),
+                epilogue_ms=device_ms(lambda: c(all_relu=all_relu)),
                 plain_ms=device_ms(lambda: bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col,
                                                               grid_n=meta.grid_n)),
                 library_ms=library_ms(lambda: torch.matmul(x, dense)),
@@ -2480,6 +2612,36 @@ def lm_timing_rows(model) -> list:
             library_ms=library_ms(lambda: torch.where(x > 0, x, x * slope)),
             **bound(2 * 2 * x.numel(), 2 * x.numel())))
     return rows
+
+
+def bsmm_infer_host_us(model, calls: int = 200) -> dict:
+    """Host time of one ``ops.bsmm_infer`` call at a decode step's W_in
+    (max_slots rows, All-ReLU in the store), and of the autograd path the
+    serving product took before (``ops.bsmm_kernel`` under
+    ``inference_mode``, no All-ReLU): the host clock around ``calls`` calls
+    enqueued back to back, which the host's time per call sets (each call's
+    device work is a few microseconds)."""
+    ffn = model.params["stack"]["s0_global"]["ffn"]
+    topo = model.topo_arrays()["s0_global"]
+    t = sparsity.BlockTopoArrays(*(a[0].contiguous() for a in topo[0]))
+    meta = model.topologies["s0_global"][0][0].meta
+    v = ffn["win"][0]
+    x = torch.zeros((LM_ENGINE["max_slots"], meta.in_dim), dtype=torch.bfloat16, device=CARD)
+    all_relu = (model.cfg.sparse_alpha, 1)
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("bsmm_infer_host_us", lambda: ops.bsmm_infer(x, v, t, meta,
+                                                                        all_relu=all_relu)),
+                         ("autograd_path_host_us", lambda: ops.bsmm_kernel(x, v, t, meta))):
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            out[name] = (time.perf_counter() - t0) * 1e6 / calls
+            torch.cuda.synchronize()
+    return out
 
 
 def lm_warm(engine) -> None:
@@ -2551,6 +2713,7 @@ def phase_lm(out: dict) -> str:
 
     model = PatternLM(cfg, seed=SEED, device=CARD)
     n_params = sum(t.numel() for t in tree_leaves(model.params))
+    per_layer = lm_layer_checks(model)
     # decode against the teacher-forced forward, full depth: 2 prompts, 8 steps
     tf_prompts, tf_steps = rng.integers(0, V, (2, 24)), rng.integers(0, V, (2, 8))
     with torch.inference_mode():
@@ -2572,8 +2735,14 @@ def phase_lm(out: dict) -> str:
             ("decode_step", lambda: engine.decode_step(np.zeros(8, np.int32), np.full(8, b)))):
         reset_counts()
         call()
-        per_call[what] = read_counts()
-        want = dict(NO_LAUNCHES, bsmm_fwd=2 * cfg.n_layers, bias_all_relu=cfg.n_layers)
+        per_call[what] = dict(read_counts(), **{f"bsmm_fwd.{k}": n
+                                               for k, n in c_sub_counts().items()})
+        # W_in with All-ReLU in its store and W_out a layer, on the decode
+        # route for a step and the rows route for a prefill, no second pass
+        route = "decode" if what == "decode_step" else "rows"
+        want = dict(NO_LAUNCHES, bsmm_fwd=2 * cfg.n_layers, **{
+            "bsmm_fwd.second_pass": 0, "bsmm_fwd.epilogue": cfg.n_layers,
+            "bsmm_fwd.decode": 0, "bsmm_fwd.rows": 0, f"bsmm_fwd.{route}": 2 * cfg.n_layers})
         check(per_call[what] == want, f"a {what} launched {per_call[what]}, expected {want}")
     engine.reset_slots()
 
@@ -2584,6 +2753,7 @@ def phase_lm(out: dict) -> str:
     reset_counts()
     stats = ContinuousBatcher(engine, queue_capacity=64).run(trace)
     launches = read_counts()
+    c_sub = c_sub_counts()
     peak = torch.cuda.max_memory_allocated()
     calls = stats.decode_steps + stats.prefill_calls
     check(stats.completed == LM_REQUESTS and stats.rejected == 0,
@@ -2593,8 +2763,12 @@ def phase_lm(out: dict) -> str:
     check(engine.stats["compiles"] == builds, f"{engine.stats['compiles'] - builds} builds after "
                                               "warm-up")
     check(set(engine.jit_entry_sizes().values()) == {1}, f"{engine.jit_entry_sizes()}")
-    want = dict(NO_LAUNCHES, bsmm_fwd=2 * cfg.n_layers * calls, bias_all_relu=cfg.n_layers * calls)
+    want = dict(NO_LAUNCHES, bsmm_fwd=2 * cfg.n_layers * calls)
     check(launches == want, f"the trace launched {launches}, expected {want}")
+    want = dict(second_pass=0, epilogue=cfg.n_layers * calls,
+                decode=2 * cfg.n_layers * stats.decode_steps,
+                rows=2 * cfg.n_layers * stats.prefill_calls)
+    check(c_sub == want, f"the trace's kernel C launches were {c_sub}, expected {want}")
     # one request at a time on the same engine: its calls have the batcher's
     # shapes (prefill_batch rows, max_slots rows), so the same tokens
     seq_trace = poisson_trace(LM_REQUESTS, vocab=V, seed=1, **LM_TRACE)
@@ -2605,6 +2779,7 @@ def phase_lm(out: dict) -> str:
     engine.reset_slots()
 
     timing = lm_timings(engine)
+    timing.update(bsmm_infer_host_us(model))
     rows = lm_timing_rows(model)
     for r in rows:
         print(json.dumps({"kernel_timing": r}))
@@ -2614,23 +2789,36 @@ def phase_lm(out: dict) -> str:
         tokens_per_s=stats.throughput_tok_s, latency_p50_ms=stats.latency_p50_ms,
         latency_p95_ms=stats.latency_p95_ms, ttft_p50_ms=stats.ttft_p50_ms,
         wall_s=stats.wall_seconds, sequential_tokens_per_s=seq.throughput_tok_s,
-        launches_per_call={"bsmm_fwd": 2 * cfg.n_layers, "bias_all_relu": cfg.n_layers},
+        launches_per_call={"bsmm_fwd": 2 * cfg.n_layers, "bias_all_relu": 0,
+                           "bsmm_fwd.second_pass": 0, "bsmm_fwd.epilogue": cfg.n_layers},
+        kernel_c_routes=err["routes"], kernel_c_every_layer=per_layer,
         max_memory_allocated=peak, n_params=n_params, vs_cpu=vs_cpu, vs_teacher_forced=vs_tf,
         card=out["smi"])
     print(json.dumps({"lm_timing": timing}))
     for meta, count in ((KERNEL_C_BF16, launches["bsmm_fwd"]),
                         (KERNEL_B_BF16, launches["bias_all_relu"])):
-        # one layer's sparse FFN at a decode step's 8 rows: W_in and W_out for C
-        mine = [r for r in rows if r["kernel"] == meta["name"] and r["rows"] == 8]
+        # one layer's sparse FFN at a decode step's 8 rows: W_in with All-ReLU
+        # in its store and W_out for C; B's standalone pass, which the path no
+        # longer launches, at (8, d_ff)
+        mine = [dict(r, ms=r["epilogue_ms"]) if r.get("weight") == "win" else r
+                for r in rows if r["kernel"] == meta["name"] and r["rows"] == 8]
         entry = kernel_entry(meta, mine, count, err[meta["name"]])
         if meta is KERNEL_C_BF16:
             entry["bound_by"] = bound_bf16(sum(r["bytes"] for r in mine),
                                            sum(r["ops"] for r in mine))["bound_by"]
-        out["kernels"].append(dict(entry, per="one layer's sparse FFN at a decode step"))
+            entry["per"] = "one layer's sparse FFN at a decode step (W_in with All-ReLU, W_out)"
+        else:
+            entry["per"] = "its pass at (8, d_ff); the LM path runs it in C's store"
+        out["kernels"].append(entry)
     return (
         f"{LM_ARCH} full width and depth, sparse FFN, bf16, {n_params} parameters; kernel C "
         f"bf16 within {C_BF16_TOL} of its plain version (max {err[KERNEL_C_BF16['name']]:.3g}) and "
-        f"{C_ORACLE_TOL} of ref.bsmm_ref, B bf16 bit-equal; {LM_CPU_LAYERS} layers card vs CPU max "
+        f"{C_ORACLE_TOL} of ref.bsmm_ref, its All-ReLU store bit-equal to C then B, decode "
+        f"rows batch-invariant, columns of up to {max(LONG_COLUMNS)} slots held; on all "
+        f"{per_layer['layers']} layers' W_in and W_out at rows {list(LM_PATH_ROWS)} (longest "
+        f"column {per_layer['longest_column']} slots) within {C_BF16_TOL} (max "
+        f"{per_layer['max_abs_err']:.3g}), the store C then B; B bf16 bit-equal; "
+        f"{LM_CPU_LAYERS} layers card vs CPU max "
         f"|diff| {vs_cpu['max_abs_err']:.3g} (scale {vs_cpu['logit_scale']:.3g}, argmax agreement "
         f"{vs_cpu['argmax_agreement']:.3f}, {vs_cpu['rows_held']} of {vs_cpu['rows']} rows held); "
         f"decode vs teacher-forced max |diff| {vs_tf['max_abs_err']:.3g} (argmax agreement "
@@ -2638,8 +2826,9 @@ def phase_lm(out: dict) -> str:
         f"{LM_REQUESTS} requests served, "
         f"{stats.generated_tokens} tokens in {stats.decode_steps} decode steps and "
         f"{stats.prefill_calls} prefill calls, {stats.throughput_tok_s:.1f} tok/s; C "
-        f"{launches['bsmm_fwd']} and B {launches['bias_all_relu']} launches ({2 * cfg.n_layers} "
-        f"and {cfg.n_layers} a call); 0 builds after warm-up; sequential tokens equal; decode "
+        f"{launches['bsmm_fwd']} launches ({2 * cfg.n_layers} a call, {c_sub['epilogue']} with "
+        f"All-ReLU, {c_sub['decode']} decode and {c_sub['rows']} rows route, 0 second passes), "
+        f"B 0; 0 builds after warm-up; sequential tokens equal; decode "
         f"step median {timing['decode_step_ms']['median']:.2f} ms, idle share "
         f"{timing['decode_device_idle_share']:.3f}, {timing['decode_launches']:g} launches"
     )

@@ -10,10 +10,11 @@ As in the reference, it is the block product's epilogue: the block model's
 no-grad forward runs it on kernel C's output, whose first ``out_dim``
 columns of a block-padded row it reads in place (a row pitch, no copy). The
 element paths apply the same arithmetic in kernel A's store
-(``core.sparsity.coo_matmul_T``'s epilogue) instead. The bfloat16 LM's
-sparse FFN runs its bf16 entry with no bias between its two kernel-C
-products (``models.layers.sparse_ffn_fwd``), with the reference's bf16
-rounding at every step, so it is bit-equal to the plain version.
+(``core.sparsity.coo_matmul_T``'s epilogue) instead. The bf16 entry (no
+bias in the LM) keeps the reference's bf16 rounding at every step, so it is
+bit-equal to the plain version; the bfloat16 LM's sparse FFN
+(``models.layers.sparse_ffn_fwd``) runs the same arithmetic in kernel C's
+store on W_in, bit for bit this entry after kernel C.
 
 :func:`bias_all_relu_T` is its (features, batch) entry, with the bias along
 the rows: the out-of-core stream (``xl/stream.py``) runs kernel A with no
@@ -66,9 +67,9 @@ def bias_all_relu(
 ) -> torch.Tensor:
     """x: (..., N), bias: (N,) of x's dtype, or None for All-ReLU alone;
     returns a contiguous (..., N). A CUDA tensor launches kernel B (f32 or
-    bfloat16, the bf16 entry for the LM's sparse FFN; x's rows contiguous, at
-    one row pitch, as a column slice of a wider contiguous tensor is) and
-    raises for another dtype; a CPU tensor takes the plain version."""
+    bfloat16; x's rows contiguous, at one row pitch, as a column slice of a
+    wider contiguous tensor is) and raises for another dtype; a CPU tensor
+    takes the plain version."""
     if x.device.type == "cpu":
         return bias_all_relu_plain(x, bias, alpha=alpha, layer_index=layer_index)
     if x.device.type != "cuda":

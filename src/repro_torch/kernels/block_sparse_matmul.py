@@ -22,12 +22,20 @@ add the runs' partials in index order in a second pass (no atomics: the same
 inputs give the same bits on every run): C a block-column's slots, D a
 block-row's, E the batch. How many runs is a pure function of host ints
 (``fwd_parts``, ``dx_parts``, ``dw_splits``), so choosing it reads nothing
-from the device.
+from the device. Kernel C's bf16 instance has two more routes for tiles
+whose sides are multiples of 32 (``fwd_plan``): ``decode`` (up to 16 rows,
+the operands swapped) and ``rows`` (more rows); both split a column's k
+over the warps of one block and add the warps' partials in shared memory,
+so they pay no second pass. Its wrapper can also apply All-ReLU in the
+store (``all_relu=(alpha, layer_index)``), bit for bit kernel B's bf16
+entry after it: the LM's sparse FFN runs W_in so.
 
 Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, block
 sizes 1..128; kernel C also bfloat16, for the LM's sparse FFN) or raises,
 and takes its plain version for a CPU tensor. It
-counts its launches (one per call, the second pass of a split included).
+counts its launches (one per call, the second pass of a split included;
+kernel C also counts its second passes, its calls with All-ReLU and its
+calls by route).
 Topology arrays are checked once per tensor (one device sync on first
 use): every coordinate inside the grid and the slot order sorted, so the
 kernels never index out of bounds. Arrays that device SET evolution made
@@ -38,15 +46,20 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.sparsity import forget_on_death, segment_offsets
 from repro_torch.kernels import build
+from repro_torch.kernels.all_relu_fused import bias_all_relu_plain
+from repro_torch.kernels.ref import scalar_in, slope_for
 
 __all__ = [
+    "DECODE_ROWS",
+    "FwdPlan",
     "MAX_BLOCK",
+    "ROWS_TILES",
     "SMS",
     "bsmm_dw",
     "bsmm_dw_plain",
@@ -58,6 +71,7 @@ __all__ = [
     "dw_splits",
     "dx_parts",
     "fwd_parts",
+    "fwd_plan",
     "split_runs",
     "trust_block_arrays",
 ]
@@ -67,6 +81,11 @@ SMS = 132  # an H100 SXM's streaming multiprocessors: the splits aim at one wave
 FWD_TILE = 64  # kernels C and D: a block's 64 batch rows x 64 output columns
 DW_TILE = 64  # kernel E: a block's 64 x 64 part of one slot's tile
 DW_CHUNK = 32  # kernel E: samples per pipeline stage; batch runs are whole chunks
+DECODE_ROWS = 16  # kernel C bf16: calls of up to this many rows take the decode route
+# kernel C bf16's rows route: its block tiles (batch rows, features) from the
+# smallest, each with the blocks an SM holds at once (sm_90a: 72 and 107
+# registers a thread, rings of 76 and 108 KB)
+ROWS_TILES = ((32, 32, 3), (64, 64, 2))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -88,6 +107,39 @@ def fwd_parts(nb: int, grid_n: int, batch: int, bn: int) -> int:
     if blocks == 0:
         return 1
     return max(1, min(_cdiv(nb, grid_n), SMS // blocks))
+
+
+class FwdPlan(NamedTuple):
+    """How kernel C runs one call. ``route``: ``"tiled"`` (the f32
+    instance's design, both dtypes), ``"decode"`` or ``"rows"`` (bf16
+    only); ``parts``: the runs of the tiled route's split (1 elsewhere: no
+    second pass); ``tile_rows``, ``tile_feat``: the batch rows and output
+    features of a block on the new routes (0 where unused)."""
+
+    route: str
+    parts: int
+    tile_rows: int
+    tile_feat: int
+
+
+def fwd_plan(nb: int, grid_n: int, batch: int, bm: int, bn: int, *, bf16: bool,
+             aligned: bool = True) -> FwdPlan:
+    """Kernel C's route for a call, from host ints alone. bf16 tiles whose
+    sides are multiples of 32, with 16-byte aligned x and values, take the
+    decode route up to ``DECODE_ROWS`` rows (16 features a block, whatever
+    the batch, so a row's bits do not depend on the call's other rows) and
+    the rows route above it, on the smallest of ``ROWS_TILES`` whose blocks
+    the card holds in one wave (else the largest that divides bn).
+    Everything else (f32, the reference sweep's 8- and 16-wide tiles,
+    unaligned operands) keeps the tiled route with ``fwd_parts``' split."""
+    if bf16 and aligned and bm % 32 == 0 and bn % 32 == 0:
+        if batch <= DECODE_ROWS:
+            return FwdPlan("decode", 1, 0, 16)
+        for tile_rows, tile_feat, per_sm in (t for t in ROWS_TILES if bn % t[1] == 0):
+            if grid_n * _cdiv(batch, tile_rows) * (bn // tile_feat) <= per_sm * SMS:
+                break
+        return FwdPlan("rows", 1, tile_rows, tile_feat)
+    return FwdPlan("tiled", fwd_parts(nb, grid_n, batch, bn), 0, 0)
 
 
 def dx_parts(nb: int, grid_m: int, batch: int, bm: int) -> int:
@@ -131,13 +183,19 @@ def dw_batch_runs(batch: int, splits: int) -> List[Tuple[int, int]]:
 
 def bsmm_fwd_plain(
     x: torch.Tensor, values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-    first_col: torch.Tensor, *, grid_n: int,
+    first_col: torch.Tensor, *, grid_n: int, all_relu: Optional[Tuple[float, int]] = None,
 ) -> torch.Tensor:
     """Plain version of kernel C: gather the x tiles, one einsum, and an
     ``index_add_`` into the output block-columns. x: (B, grid_m*bm) ->
     (B, grid_n*bn). bfloat16 operands are taken to f32 and the f32 sums
     rounded once to bfloat16, as the Pallas kernel's f32 accumulator is
-    (not the reference's ``bsmm_xla``, which rounds each tile's product)."""
+    (not the reference's ``bsmm_xla``, which rounds each tile's product).
+    With ``all_relu=(alpha, layer_index)``, kernel B's plain version
+    (``bias_all_relu_plain``, no bias) follows, in x's dtype."""
+    if all_relu is not None:
+        y = bsmm_fwd_plain(x, values, rows, cols, first_col, grid_n=grid_n)
+        alpha, layer_index = all_relu
+        return bias_all_relu_plain(y, None, alpha=alpha, layer_index=layer_index)
     if x.dtype == torch.bfloat16:
         y = bsmm_fwd_plain(x.float(), values.float(), rows, cols, first_col, grid_n=grid_n)
         return y.to(torch.bfloat16)
@@ -261,7 +319,13 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
 
 _I64 = ctypes.c_int64
 _FWD_SYMBOLS = {torch.float32: "bsmm_fwd_f32", torch.bfloat16: "bsmm_fwd_bf16"}
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_FWD_ARGTYPES = {
+    torch.float32: [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # ... parts, route, tile_rows, tile_feat, epilogue, slope, device, stream
+    torch.bfloat16: [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
+_FWD_ROUTES = {"tiled": 0, "decode": 1, "rows": 2}
 _DX_ARGTYPES = [ctypes.c_void_p] * 7 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -273,15 +337,17 @@ _DW_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 4 + [ctypes.c_int] * 4 + [ctypes
 
 def bsmm_fwd(
     x: torch.Tensor, values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-    first_col: torch.Tensor, *, grid_n: int,
+    first_col: torch.Tensor, *, grid_n: int, all_relu: Optional[Tuple[float, int]] = None,
 ) -> torch.Tensor:
     """x: (B, grid_m*bm) @ block-sparse W -> (B, grid_n*bn), in x's dtype
     (f32 or bfloat16; values of the same dtype). ``cols`` must be
-    non-decreasing (canonical order). A CUDA tensor launches kernel C's
-    instance for its dtype and raises for another; a CPU tensor takes the
-    plain version."""
+    non-decreasing (canonical order). ``all_relu=(alpha, layer_index)``
+    applies All-ReLU with that layer's slope in the bf16 instance's store
+    (the f32 instance has no epilogue and raises). A CUDA tensor launches
+    kernel C's instance for its dtype, on the route ``fwd_plan`` gives, and
+    raises for another dtype; a CPU tensor takes the plain version."""
     if x.device.type == "cpu":
-        return bsmm_fwd_plain(x, values, rows, cols, first_col, grid_n=grid_n)
+        return bsmm_fwd_plain(x, values, rows, cols, first_col, grid_n=grid_n, all_relu=all_relu)
     _require_cuda(x, "bsmm_fwd")
     nb, bm, bn = values.shape
     _check_block_sizes(bm, bn)
@@ -289,9 +355,12 @@ def bsmm_fwd(
         raise ValueError(f"x must be (B, grid_m*{bm}), got shape {tuple(x.shape)}")
     if x.dtype not in _FWD_SYMBOLS:
         raise ValueError(f"x has dtype {x.dtype}; kernel C takes {list(_FWD_SYMBOLS)}")
+    bf16 = x.dtype == torch.bfloat16
+    if all_relu is not None and not bf16:
+        raise ValueError("kernel C's All-ReLU store is in its bfloat16 instance, not for "
+                         f"{x.dtype}")
     batch, grid_m = x.shape[0], x.shape[1] // bm
     dev = x.device
-    f32 = torch.float32
     build.check_tensor(x, "x", dtype=x.dtype, shape=x.shape, device=dev)
     build.check_tensor(values, "values", dtype=x.dtype, shape=(nb, bm, bn), device=dev)
     _check_index(rows, "rows", nb, dev)
@@ -306,21 +375,33 @@ def bsmm_fwd(
     _check_once("fwd", (grid_m, grid_n), (rows, cols), check)
     col_ptr = _offsets_once(cols, grid_n)
     y = torch.empty((batch, grid_n * bn), dtype=x.dtype, device=dev)
-    parts = fwd_parts(nb, grid_n, batch, bn)
+    plan = fwd_plan(nb, grid_n, batch, bm, bn, bf16=bf16,
+                    aligned=x.data_ptr() % 16 == 0 and values.data_ptr() % 16 == 0)
     # a split's partials stay f32 in both instances
-    part = torch.empty((parts, batch, grid_n * bn), dtype=f32, device=dev) if parts > 1 else None
-    fn = build.kernel("bsmm_fwd", _FWD_SYMBOLS[x.dtype], _FWD_ARGTYPES)
-    rc = fn(
-        x.data_ptr(), values.data_ptr(), rows.data_ptr(), col_ptr.data_ptr(),
-        y.data_ptr(), None if part is None else part.data_ptr(), batch, grid_m, grid_n,
-        bm, bn, parts, *build.stream_args(dev),
-    )
-    build.check_launch(rc, "bsmm_fwd kernel")
+    part = (torch.empty((plan.parts, batch, grid_n * bn), dtype=torch.float32, device=dev)
+            if plan.parts > 1 else None)
+    args = (x.data_ptr(), values.data_ptr(), rows.data_ptr(), col_ptr.data_ptr(),
+            y.data_ptr(), None if part is None else part.data_ptr(), batch, grid_m, grid_n,
+            bm, bn, plan.parts)
+    if bf16:
+        slope = 0.0 if all_relu is None else scalar_in(slope_for(*all_relu), torch.bfloat16)
+        args += (_FWD_ROUTES[plan.route], plan.tile_rows, plan.tile_feat,
+                 int(all_relu is not None), slope)
+    fn = build.kernel("bsmm_fwd", _FWD_SYMBOLS[x.dtype], _FWD_ARGTYPES[x.dtype])
+    build.check_launch(fn(*args, *build.stream_args(dev)), "bsmm_fwd kernel")
     bsmm_fwd.launches += 1
+    bsmm_fwd.second_pass_launches += plan.parts > 1
+    bsmm_fwd.epilogue_launches += all_relu is not None
+    bsmm_fwd.decode_launches += plan.route == "decode"
+    bsmm_fwd.rows_launches += plan.route == "rows"
     return y
 
 
 bsmm_fwd.launches = 0  # kernel C launches, so a run can show it went through the kernel
+bsmm_fwd.second_pass_launches = 0  # of which split, with a second pass over the partials
+bsmm_fwd.epilogue_launches = 0  # of which with All-ReLU in the store
+bsmm_fwd.decode_launches = 0  # of which on the bf16 decode route
+bsmm_fwd.rows_launches = 0  # ... and on the bf16 rows route
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,7 @@ from repro_torch.core.sparsity import (
 )
 from repro_torch.kernels import build
 from repro_torch.kernels import block_sparse_matmul as _k
-from repro_torch.kernels.all_relu_fused import all_relu_bwd
+from repro_torch.kernels.all_relu_fused import all_relu_bwd, bias_all_relu
 
 __all__ = [
     "XLWindow", "bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm", "espmm_custom",
@@ -106,20 +106,29 @@ class _BsmmCore(torch.autograd.Function):
         return dx, dw, None, None
 
 
-def bsmm_kernel(
-    x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta
-) -> torch.Tensor:
-    """Block-sparse ``y = x @ W`` for x of shape (..., in_dim), on kernels
-    C, D and E. Twin of the reference's ``bsmm_pallas``: it pads the
-    features to the block grid and slices the output; the batch needs no
-    padding, since the kernels mask a ragged batch tile."""
+def _on_block_grid(x: torch.Tensor, meta: BlockMeta, launch) -> torch.Tensor:
+    """``launch`` on x (..., in_dim) as a contiguous (B, padded_in) matrix,
+    its features padded to the block grid, and its (B, padded_out) result
+    sliced back to (..., out_dim). The batch needs no padding, since the
+    kernels mask a ragged batch tile."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     pad_m = meta.padded_in - meta.in_dim
     if pad_m:
         x2 = F.pad(x2, (0, pad_m))
-    y = _BsmmCore.apply(x2.contiguous(), values, topo, meta)
-    return y[:, : meta.out_dim].reshape(*lead, meta.out_dim)
+    y = launch(x2.contiguous())
+    if meta.padded_out != meta.out_dim:  # a slice costs host time: only where padded
+        y = y[:, : meta.out_dim]
+    return y.reshape(*lead, meta.out_dim)
+
+
+def bsmm_kernel(
+    x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta
+) -> torch.Tensor:
+    """Block-sparse ``y = x @ W`` for x of shape (..., in_dim), on kernels
+    C, D and E. Twin of the reference's ``bsmm_pallas``: it pads the
+    features to the block grid and slices the output."""
+    return _on_block_grid(x, meta, lambda x2: _BsmmCore.apply(x2, values, topo, meta))
 
 
 def bsmm_xla(
@@ -154,14 +163,24 @@ def bsmm(
 
 
 def bsmm_infer(
-    x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta
+    x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta, *,
+    all_relu: Optional[Tuple[float, int]] = None,
 ) -> torch.Tensor:
     """Block-sparse ``y = x @ W`` for serving (``mlp_forward(infer=True)``,
-    the LM's sparse FFN): kernel C alone, with autograd off, in x's dtype
-    (f32, or bfloat16 for the LM; the backward kernels D and E are f32
-    only)."""
+    the LM's sparse FFN): kernel C called directly, with no autograd Function
+    (pad the features, launch, slice), in x's dtype (f32, or bfloat16 for
+    the LM; the backward kernels D and E are f32 only). With
+    ``all_relu=(alpha, layer_index)`` All-ReLU with that layer's slope
+    follows: in kernel C's store in bfloat16, as kernel B after the f32
+    instance, which has no epilogue."""
+    in_store = all_relu if x.dtype == torch.bfloat16 else None
     with torch.no_grad():
-        return bsmm_kernel(x, values, topo, meta)
+        y = _on_block_grid(x, meta, lambda x2: _k.bsmm_fwd(
+            x2, values, topo.rows, topo.cols, topo.first_col, grid_n=meta.grid_n,
+            all_relu=in_store))
+        if all_relu is not None and in_store is None:
+            y = bias_all_relu(y, None, alpha=all_relu[0], layer_index=all_relu[1])
+    return y
 
 
 # ---------------------------------------------------------------------------

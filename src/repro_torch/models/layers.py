@@ -17,9 +17,9 @@ chunked softmax, and Python scalars rounded to the operand's dtype before a
 multiply (``kernels.ref.scalar_in``), as JAX rounds a weakly typed scalar.
 The dense products (``x @ wq``, the unembedding) are ``torch.matmul``, as
 the reference leaves them to XLA; attention is plain PyTorch, as it is an
-XLA pass there. The sparse FFN is the kernels: kernel C (W_in), kernel B's
-bias-free All-ReLU, kernel C (W_out) on the card, their plain versions on
-the CPU.
+XLA pass there. The sparse FFN is the kernels: kernel C (W_in) with kernel
+B's bias-free All-ReLU in its store, kernel C (W_out) on the card, their
+plain versions on the CPU.
 
 Not here yet: ``init_plain_ffn``/``plain_ffn_fwd`` and
 ``cross_attention_fwd`` (Whisper), which come with the LM training slice
@@ -37,7 +37,6 @@ import torch
 from repro_torch.core.all_relu import activation_fn
 from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays, BlockTopology
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.all_relu_fused import bias_all_relu
 from repro_torch.kernels.ref import scalar_in
 
 __all__ = [
@@ -391,17 +390,18 @@ def init_sparse_ffn(rng: np.random.Generator, d_model: int, d_ff: int, sc: Spars
 def sparse_ffn_fwd(params: Params, topo_in: BlockTopoArrays, topo_out: BlockTopoArrays,
                    metas: Tuple[BlockMeta, BlockMeta], x: torch.Tensor, sc: SparseFFNConfig,
                    layer_index: int) -> torch.Tensor:
-    """W_in (kernel C), All-ReLU with the layer's parity (kernel B, no
-    bias), W_out (kernel C), in x's dtype. The reference runs its plain
-    ``bsmm_xla`` here, which rounds each tile's product to the model dtype
-    before it adds a column's tiles; kernel C and its plain version round
-    once, so in bfloat16 the two differ by bf16 rounding where a column
-    holds more than one tile (equal in f32 to within the sums' order)."""
+    """W_in with All-ReLU of the layer's parity in its store (kernel C, no
+    bias), then W_out (kernel C), in x's dtype: two launches a layer in
+    bfloat16 (in f32, kernel B follows W_in: C's f32 instance has no
+    epilogue). The reference runs its plain ``bsmm_xla`` here, which rounds
+    each tile's product to the model dtype before it adds a column's tiles;
+    kernel C and its plain version round once, so in bfloat16 the two differ
+    by bf16 rounding where a column holds more than one tile (equal in f32
+    to within the sums' order)."""
     if sc.activation != "all_relu":
         raise ValueError(f"the sparse FFN runs All-ReLU, not {sc.activation!r}")
     meta_in, meta_out = metas
-    h = kops.bsmm_infer(x, params["win"], topo_in, meta_in)
-    h = bias_all_relu(h, None, alpha=sc.alpha, layer_index=layer_index)
+    h = kops.bsmm_infer(x, params["win"], topo_in, meta_in, all_relu=(sc.alpha, layer_index))
     return kops.bsmm_infer(h, params["wout"], topo_out, meta_out)
 
 

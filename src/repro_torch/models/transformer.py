@@ -13,7 +13,7 @@ on a leading ``n_rep`` axis, ``params["rest"]`` the remainder layers as a
 list, and ``params["embed"]``, ``params["final_norm"]`` (and
 ``params["unembed"]`` where the embeddings are untied). The FFN of a block
 is ``gated`` (the dense baseline) or ``sparse`` (the paper's SET
-block-sparse FFN with All-ReLU, on kernels C and B).
+block-sparse FFN with All-ReLU, on kernel C: All-ReLU in W_in's store).
 
 The reference runs the repeats under one ``lax.scan``; here a Python loop
 visits the layers in the same order (repeat-major, then pattern slot), with

@@ -16,8 +16,9 @@ behind a bounded LRU keyed by padding bucket. Two model kinds:
   batch-1 decode over the slots instead). Padded prompt tails land in the
   cache past the true length and stay masked by causality until the slot's
   own decode steps overwrite them. The caches are updated in place. The
-  sparse FFN runs kernel C in bfloat16 and kernel B's bias-free bf16
-  All-ReLU on the card; each layer's topology arrays are the same tensors
+  sparse FFN runs kernel C in bfloat16 on the card, W_in with All-ReLU in
+  its store (kernel B's bias-free bf16 arithmetic); each layer's topology
+  arrays are the same tensors
   on every call (``PatternLM`` memoizes its per-layer views), so kernel C
   checks them and makes their offsets once.
 

@@ -30,9 +30,14 @@ a streamed step bit-equal to the in-core step. The bfloat16 LM: kernel C's
 bf16 instance within 1e-2 of its plain version (both round an f32 sum
 once, in other orders) and 5e-2 of ``ref.bsmm_ref`` (the reference's bf16
 tolerance), on the reference's kernel sweep and the full-width sparse FFN,
-bit-equal over 3 launches; kernel B's bf16 entry bit-equal to its plain
+bit-equal over 3 launches, on the route ``fwd_plan`` gives (one launch, no
+second pass on the served shapes); its All-ReLU store bit-equal to kernel
+C followed by kernel B on every route; columns longer than the new
+routes' rings held the same way; a decode-route row the same alone
+as within 8 or 16 rows; kernel B's bf16 entry bit-equal to its plain
 version, with and without a bias; the smoke LM in bf16 on the card within
-5e-2 of the CPU run, on kernels C and B, served through the batcher.
+5e-2 of the CPU run, on kernel C with All-ReLU in W_in's store, served
+through the batcher.
 """
 import dataclasses
 
@@ -1413,18 +1418,27 @@ def _full_width_ffn(cuda, which, rows):
     return (topo.meta,) + _bf16_case(cuda, rows, topo.meta, topo, rng)
 
 
+# W_in's 8 x 22 grid with every block-column holding L slots: columns longer
+# than the decode and rows routes' rings (4 slot stages, 3 on the 64 x 64
+# rows tile), at the decode route's one and two x-fragments (8, 16 rows) and
+# the rows route's 32 x 32 (64 rows) and 64 x 64 (256 rows) tiles
+LONG_COLUMNS = [(length, rows) for length in (4, 5, 8) for rows in (8, 16, 64, 256)]
+
+
+def _long_columns(cuda, length, rows):
+    rng = np.random.default_rng(length)
+    meta = tsp.BlockMeta(1024, 2816, 128, 128)
+    block_rows = np.concatenate([np.sort(rng.choice(meta.grid_m, length, replace=False))
+                                 for _ in range(meta.grid_n)])
+    topo = tsp.BlockTopology(meta, block_rows, np.repeat(np.arange(meta.grid_n), length))
+    return (meta,) + _bf16_case(cuda, rows, meta, topo, rng)
+
+
 @pytest.mark.parametrize("case", [("sweep", s) for s in LM_KERNEL_SHAPES]
-                         + [("full", c) for c in FULL_WIDTH_FFN])
+                         + [("full", c) for c in FULL_WIDTH_FFN]
+                         + [("columns", c) for c in LONG_COLUMNS])
 def test_kernel_c_bf16_matches_plain_and_oracle_and_repeats(cuda, case):
-    kind, shape = case
-    if kind == "sweep":
-        B, gm, gn, bm, bn, density = shape
-        rng = np.random.default_rng(0)
-        meta = tsp.BlockMeta(gm * bm, gn * bn, bm, bn)
-        topo = tsp.BlockTopology.erdos_renyi(meta, density, rng)
-        t, v, x = _bf16_case(cuda, B, meta, topo, rng)
-    else:
-        meta, t, v, x = _full_width_ffn(cuda, shape[1], shape[0])
+    meta, t, v, x = _c_bf16_case(cuda, case)
     before = bsm.bsmm_fwd.launches
     ys = [bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
           for _ in range(3)]
@@ -1437,6 +1451,88 @@ def test_kernel_c_bf16_matches_plain_and_oracle_and_repeats(cuda, case):
     oracle = ref.bsmm_ref(x.float(), v.float(), t.rows, t.cols, grid_m=meta.grid_m,
                           grid_n=meta.grid_n)
     torch.testing.assert_close(ys[0].float(), oracle, rtol=5e-2, atol=5e-2)
+
+
+C_BF16_CASES = ([("sweep", s) for s in LM_KERNEL_SHAPES]
+                + [("full", c) for c in FULL_WIDTH_FFN + [(16, "win"), (16, "wout")]]
+                + [("columns", c) for c in LONG_COLUMNS])
+
+
+def _c_bf16_case(cuda, case):
+    kind, shape = case
+    if kind == "sweep":
+        B, gm, gn, bm, bn, density = shape
+        rng = np.random.default_rng(0)
+        meta = tsp.BlockMeta(gm * bm, gn * bn, bm, bn)
+        topo = tsp.BlockTopology.erdos_renyi(meta, density, rng)
+        return (meta,) + _bf16_case(cuda, B, meta, topo, rng)
+    if kind == "columns":
+        return _long_columns(cuda, *shape)
+    return _full_width_ffn(cuda, shape[1], shape[0])
+
+
+@pytest.mark.parametrize("layer_index", [1, 2])
+@pytest.mark.parametrize("case", C_BF16_CASES)
+def test_kernel_c_bf16_all_relu_store_is_c_then_b(cuda, case, layer_index):
+    """Kernel C bf16 with All-ReLU in its store, on every route: bit-equal
+    to kernel C followed by kernel B's bf16 entry, the same bits on three
+    launches, and counted as an epilogue launch."""
+    meta, t, v, x = _c_bf16_case(cuda, case)
+    before = (bsm.bsmm_fwd.launches, bsm.bsmm_fwd.epilogue_launches)
+    ys = [bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n,
+                       all_relu=(0.6, layer_index)) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert (bsm.bsmm_fwd.launches, bsm.bsmm_fwd.epilogue_launches) == (before[0] + 3,
+                                                                       before[1] + 3)
+    assert all(torch.equal(ys[0].view(torch.int16), y.view(torch.int16)) for y in ys[1:])
+    c = bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    after = all_relu_fused.bias_all_relu(c, None, alpha=0.6, layer_index=layer_index)
+    assert torch.equal(ys[0].view(torch.int16), after.view(torch.int16))
+    want = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n,
+                              all_relu=(0.6, layer_index))
+    torch.testing.assert_close(ys[0].float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("rows", [8, 16])
+@pytest.mark.parametrize("which", ["win", "wout"])
+def test_kernel_c_bf16_decode_row_does_not_depend_on_the_batch(cuda, which, rows):
+    """On the decode route a row's bits are the same alone as within the
+    call: nothing in the swapped product mixes batch columns."""
+    meta, t, v, x = _full_width_ffn(cuda, which, rows)
+    assert bsm.fwd_plan(t.rows.numel(), meta.grid_n, rows, 128, 128, bf16=True).route == "decode"
+    y = bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    for r in range(rows):
+        alone = bsm.bsmm_fwd(x[r:r + 1].clone(), v, t.rows, t.cols, t.first_col,
+                             grid_n=meta.grid_n)
+        assert torch.equal(alone[0].view(torch.int16), y[r].view(torch.int16)), r
+
+
+@pytest.mark.parametrize("case", C_BF16_CASES)
+def test_kernel_c_bf16_launches_its_planned_route(cuda, case):
+    """One launch a call on the route ``fwd_plan`` gives; no second pass on
+    the served shapes (the decode and rows routes never split)."""
+    meta, t, v, x = _c_bf16_case(cuda, case)
+    plan = bsm.fwd_plan(t.rows.numel(), meta.grid_n, x.shape[0], meta.block_m, meta.block_n,
+                        bf16=True)
+    names = ("launches", "second_pass_launches", "decode_launches", "rows_launches")
+    before = [getattr(bsm.bsmm_fwd, n) for n in names]
+    bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    torch.cuda.synchronize()
+    got = [getattr(bsm.bsmm_fwd, n) - b for n, b in zip(names, before)]
+    assert got == [1, int(plan.parts > 1), int(plan.route == "decode"),
+                   int(plan.route == "rows")]
+    if case[0] != "sweep":
+        assert plan.route == ("decode" if x.shape[0] <= 16 else "rows") and plan.parts == 1
+
+
+def test_kernel_c_f32_refuses_the_all_relu_store(cuda):
+    topo = tsp.BlockTopology(tsp.BlockMeta(16, 16, 16, 16), np.array([0]), np.array([0]))
+    t = topo.device_arrays(cuda)
+    launches = bsm.bsmm_fwd.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        bsm.bsmm_fwd(torch.zeros((8, 16), device=cuda), torch.zeros((1, 16, 16), device=cuda),
+                     t.rows, t.cols, t.first_col, grid_n=1, all_relu=(0.6, 1))
+    assert bsm.bsmm_fwd.launches == launches
 
 
 @pytest.mark.parametrize("shape", [(8, 2816), (256, 2816), (5, 1001), (3, 7)])
@@ -1484,8 +1580,9 @@ def test_kernels_b_c_refuse_dtypes_they_lack(cuda):
 def test_lm_engine_bf16_on_card_matches_cpu(cuda):
     """The reference's serving LM (tests/test_serve.py's LM_CFG) in bf16: the
     card's forward, prefill caches and teacher-forced decode within 5e-2 of
-    the CPU run (plain versions), every sparse FFN on kernels C and B, and
-    the card's engine serving a trace through the continuous batcher."""
+    the CPU run (plain versions), every sparse FFN on kernel C (All-ReLU in
+    W_in's store), and the card's engine serving a trace through the
+    continuous batcher."""
     from repro_torch import configs
     from repro_torch.models.transformer import PatternLM
     from repro_torch.serve import ContinuousBatcher, poisson_trace
@@ -1500,11 +1597,13 @@ def test_lm_engine_bf16_on_card_matches_cpu(cuda):
     want, wc, _ = cpu.forward(cpu.params, torch.as_tensor(toks), topo=cpu.topo_arrays(),
                               mode="prefill")
     c0, b0 = bsm.bsmm_fwd.launches, all_relu_fused.bias_all_relu.launches
+    e0 = bsm.bsmm_fwd.epilogue_launches
     got, gc, _ = card.forward(card.params, torch.as_tensor(toks, device=cuda),
                               topo=card.topo_arrays(), mode="prefill")
     torch.cuda.synchronize()
-    assert (bsm.bsmm_fwd.launches - c0, all_relu_fused.bias_all_relu.launches - b0) == (
-        2 * cfg.n_layers, cfg.n_layers)
+    # All-ReLU in W_in's store: two kernel-C launches a layer, no kernel B
+    assert (bsm.bsmm_fwd.launches - c0, bsm.bsmm_fwd.epilogue_launches - e0,
+            all_relu_fused.bias_all_relu.launches - b0) == (2 * cfg.n_layers, cfg.n_layers, 0)
     torch.testing.assert_close(got.float().cpu(), want.float(), **tol)
     torch.testing.assert_close(gc["stack"]["s0_global"]["k"].float().cpu(),
                                wc["stack"]["s0_global"]["k"].float(), **tol)

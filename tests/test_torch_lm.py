@@ -157,6 +157,114 @@ def test_all_relu_bf16_bias_free_bit_equal_to_traced_reference(alpha, layer_inde
         _np(torch.where(xf > 0, xf, ref.slope_for(alpha, layer_index) * xf)))
 
 
+@pytest.mark.parametrize("shape", SHAPES + [(8, 3, 4, 32, 32, 0.5), (24, 2, 3, 128, 128, 0.7),
+                                   (8, 8, 2, 32, 32, 1.0)])
+@pytest.mark.parametrize("layer_index", [1, 2])
+def test_bsmm_fwd_all_relu_store_plain_is_c_then_b(shape, layer_index):
+    """Kernel C with All-ReLU in its store, on the CPU (its plain version):
+    bit-equal in bf16 to kernel C's plain version followed by kernel B's,
+    and held to the reference's Pallas ``bsmm_fwd`` (interpret) followed by
+    its ``bias_all_relu`` at the bf16 tolerance of C alone."""
+    jmeta, jtopo, values, x = _bsmm_case(shape, jnp.bfloat16)
+    t = jtopo.device_arrays()
+    xt, vt = _t(x), _t(values)
+    rows, cols = torch.as_tensor(np.array(t.rows)), torch.as_tensor(np.array(t.cols))
+    got = bsm.bsmm_fwd(xt, vt, rows, cols, None, grid_n=jmeta.grid_n,
+                       all_relu=(0.6, layer_index))
+    c = bsm.bsmm_fwd_plain(xt, vt, rows, cols, None, grid_n=jmeta.grid_n)
+    want = all_relu_fused.bias_all_relu_plain(c, None, alpha=0.6, layer_index=layer_index)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
+    jc = jbsmm_fwd(x, values, t.rows, t.cols, t.first_col, grid_n=jmeta.grid_n, block_b=8,
+                   interpret=True)
+    jwant = jbias_all_relu(jc, jnp.zeros((jc.shape[1],), jnp.bfloat16), alpha=0.6,
+                           layer_index=layer_index, interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(jwant, np.float32), rtol=1e-2, atol=1e-2)
+
+
+# (name, nb, grid_n, rows, bm, bn, bf16, aligned) -> (route, parts, tile_rows): the
+# served sparse FFN (W_in 22 tiles over 22 block-columns, W_out 15 over 8)
+# at 1 row, the decode rows (8, 16), one past them, and the prefills (64,
+# 128, 256); W_in's grid with columns of 8 slots (the card's ring checks); the reference sweep's 8- and 16-wide tiles; f32; unaligned
+FWD_PLAN_CASES = [
+    (("win", 22, 22, 1, 128, 128, True, True), ("decode", 1, 0)),
+    (("win", 22, 22, 8, 128, 128, True, True), ("decode", 1, 0)),
+    (("win", 22, 22, 16, 128, 128, True, True), ("decode", 1, 0)),
+    (("win", 22, 22, 17, 128, 128, True, True), ("rows", 1, 32)),
+    (("win", 22, 22, 64, 128, 128, True, True), ("rows", 1, 32)),
+    (("win", 22, 22, 128, 128, 128, True, True), ("rows", 1, 32)),
+    (("win", 22, 22, 256, 128, 128, True, True), ("rows", 1, 64)),
+    (("wout", 15, 8, 1, 128, 128, True, True), ("decode", 1, 0)),
+    (("wout", 15, 8, 8, 128, 128, True, True), ("decode", 1, 0)),
+    (("wout", 15, 8, 16, 128, 128, True, True), ("decode", 1, 0)),
+    (("wout", 15, 8, 64, 128, 128, True, True), ("rows", 1, 32)),
+    (("wout", 15, 8, 128, 128, 128, True, True), ("rows", 1, 32)),
+    (("wout", 15, 8, 256, 128, 128, True, True), ("rows", 1, 32)),
+    (("columns of 8", 176, 22, 8, 128, 128, True, True), ("decode", 1, 0)),
+    (("columns of 8", 176, 22, 16, 128, 128, True, True), ("decode", 1, 0)),
+    (("columns of 8", 176, 22, 64, 128, 128, True, True), ("rows", 1, 32)),
+    (("columns of 8", 176, 22, 256, 128, 128, True, True), ("rows", 1, 64)),
+    (("sweep 8x16", 4, 3, 8, 8, 16, True, True), ("tiled", 2, 0)),
+    (("sweep 16x16", 6, 4, 16, 16, 16, True, True), ("tiled", 2, 0)),
+    (("sweep 8x8", 13, 5, 32, 8, 8, True, True), ("tiled", 3, 0)),
+    (("sweep 16x8", 2, 2, 8, 16, 8, True, True), ("tiled", 1, 0)),
+    (("f32 wout", 15, 8, 8, 128, 128, False, True), ("tiled", 2, 0)),
+    (("unaligned wout", 15, 8, 8, 128, 128, True, False), ("tiled", 2, 0)),
+]
+
+
+@pytest.mark.parametrize("case,want", FWD_PLAN_CASES, ids=[f"{c[0]}-{c[3]}" for c, _ in
+                                                           FWD_PLAN_CASES])
+def test_fwd_plan_routes(case, want):
+    """Kernel C's route rule on host ints: the bf16 decode route up to 16
+    rows (16 features a block), the rows route above (32 x 32 tiles where
+    their blocks fit one wave, else 64 x 64), neither with a second pass;
+    everything else the tiled route with ``fwd_parts``' split."""
+    _, nb, grid_n, rows, bm, bn, bf16, aligned = case
+    plan = bsm.fwd_plan(nb, grid_n, rows, bm, bn, bf16=bf16, aligned=aligned)
+    assert (plan.route, plan.parts, plan.tile_rows) == want
+    if plan.route == "tiled":
+        assert plan.parts == bsm.fwd_parts(nb, grid_n, rows, bn)
+    else:
+        assert plan.tile_feat == (16 if plan.route == "decode" else plan.tile_rows)
+
+
+def test_fwd_plan_decode_tile_does_not_depend_on_the_batch():
+    """A decode-route row's bits may not depend on the call's other rows:
+    the route's block tile is the same at every batch it takes."""
+    plans = {bsm.fwd_plan(15, 8, b, 128, 128, bf16=True)._replace(parts=1)
+             for b in range(1, bsm.DECODE_ROWS + 1)}
+    assert len(plans) == 1 and plans.pop().route == "decode"
+
+
+def test_bsmm_infer_calls_kernel_c_without_autograd(monkeypatch):
+    """The serving product calls kernel C directly: it never enters the
+    training path's autograd Function, and with ``all_relu`` it is the
+    product followed by All-ReLU (in C's store in bf16, kernel B after C's
+    f32 instance)."""
+    from repro_torch.kernels import ops as kops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("bsmm_infer entered _BsmmCore")
+
+    monkeypatch.setattr(kops._BsmmCore, "apply", refuse)
+    rng = np.random.default_rng(4)
+    meta = BlockMeta(40, 56, 16, 16)
+    topo = BlockTopology.erdos_renyi(meta, 0.5, rng)
+    arrays = topo.device_arrays(torch.device("cpu"))
+    for dtype in (torch.float32, torch.bfloat16):
+        values = topo.init_values(rng, dtype=dtype, device=torch.device("cpu"))
+        values.requires_grad_(True)
+        x = torch.as_tensor(rng.standard_normal((3, 2, 40)).astype(np.float32)).to(dtype)
+        y = kops.bsmm_infer(x, values, arrays, meta)
+        assert y.shape == (3, 2, 56) and y.dtype == dtype and y.grad_fn is None
+        want = kops.bsmm_xla(x, values, arrays, meta)
+        np.testing.assert_allclose(_np(y), _np(want), rtol=1e-2, atol=1e-2)
+        fused = kops.bsmm_infer(x, values, arrays, meta, all_relu=(0.6, 2))
+        after = all_relu_fused.bias_all_relu_plain(y, None, alpha=0.6, layer_index=2)
+        np.testing.assert_array_equal(_np(fused), _np(after))
+
+
 # ---------------------------------------------------------------------------
 # layers, f32
 # ---------------------------------------------------------------------------
@@ -297,6 +405,35 @@ def test_sparse_ffn_matches_reference(layer_index):
                            t_out.device_arrays(torch.device("cpu")), tmetas, _t(x), tsc,
                            layer_index)
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("layer_index", [1, 2])
+def test_sparse_ffn_bf16_with_all_relu_in_w_in_store(layer_index):
+    """The bf16 sparse FFN, W_in with All-ReLU in kernel C's store: bit-equal
+    to kernel C, kernel B and kernel C as three calls of their plain
+    versions, and within the reference's bf16 tolerance of the reference's
+    ``sparse_ffn_fwd`` run in f32 on the same bf16 weights and inputs (its
+    CPU backend has no bf16 x bf16 -> f32 dot)."""
+    sc = JL.SparseFFNConfig(block_m=16, block_n=16, density=0.5)
+    rng = np.random.default_rng(6)
+    jp, _, (jt_in, jt_out), metas = JL.init_sparse_ffn(rng, 64, 48, sc, jnp.bfloat16)
+    tsc = L.SparseFFNConfig(block_m=16, block_n=16, density=0.5)
+    tp, (t_in, t_out), tmetas = L.init_sparse_ffn(np.random.default_rng(6), 64, 48, tsc,
+                                                  torch.bfloat16, torch.device("cpu"))
+    np.testing.assert_array_equal(_bf16_bits(tp["wout"]), _bf16_bits(jp["wout"]))
+    x = jnp.asarray(rng.standard_normal((3, 5, 64)), jnp.bfloat16)
+    a_in, a_out = (t.device_arrays(torch.device("cpu")) for t in (t_in, t_out))
+    got = L.sparse_ffn_fwd(tp, a_in, a_out, tmetas, _t(x), tsc, layer_index)
+    assert got.dtype == torch.bfloat16
+    x2 = _t(x).reshape(15, 64)
+    h = bsm.bsmm_fwd_plain(x2, tp["win"], a_in.rows, a_in.cols, None, grid_n=tmetas[0].grid_n)
+    h = all_relu_fused.bias_all_relu_plain(h, None, alpha=tsc.alpha, layer_index=layer_index)
+    y = bsm.bsmm_fwd_plain(h, tp["wout"], a_out.rows, a_out.cols, None, grid_n=tmetas[1].grid_n)
+    np.testing.assert_array_equal(_bf16_bits(got.reshape(15, 64)), _bf16_bits(y))
+    j32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    want = JL.sparse_ffn_fwd(j32, jt_in.device_arrays(), jt_out.device_arrays(), metas,
+                             x.astype(jnp.float32), sc, layer_index)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=5e-2, atol=5e-2)
 
 
 # ---------------------------------------------------------------------------
