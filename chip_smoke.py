@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's SET-MLP serving and training paths (block, element and
-out-of-core) and its bf16 language model's serving path on one NVIDIA card
-and check them.
+out-of-core) and its bf16 language model's serving and training paths on
+one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -147,7 +147,32 @@ Phases, one line each (any failure exits non-zero):
                    and of the autograd path it replaced, the batcher's
                    tokens/s, latency and TTFT, the allocator's peak, the
                    card's name and power limit;
-14. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+14. lm_train      — training the same model (full width and depth, bf16,
+                   ``remat="block"``) through ``examples/train_lm_torch.py``'s
+                   loop, the twin of the reference's LM training example: 4
+                   steps of 8 x 257 tokens of its Zipf stream
+                   (``make_train_step``: lr 1e-2, momentum 0.9), host SET
+                   (zeta 0.3) after steps 2 and 4, a checkpoint at the end;
+                   every loss finite; each step launching kernel C bf16 96
+                   times (48 forward, 48 in remat's recompute, all on the rows
+                   route) and kernels D and E bf16 48 times each (E with its
+                   second pass), nothing else, by the wrappers' counters.
+                   Kernels D and E bf16 against their plain versions (1e-2 +
+                   1e-2 x |want|) on every layer's W_in and W_out topology at
+                   2,048 rows, before and after SET, and on W_in's grid with
+                   columns of 4, 5 and 8 slots (block-rows of up to 22 slots),
+                   the same bits on three launches, dx's uncovered block-rows
+                   exactly 0; one full-depth step's gradients against the same
+                   step with the sparse FFN on ``bsmm_xla`` (relative L2 per
+                   leaf within 5e-2); ``kernel_timing`` rows for D and E bf16
+                   on the first layer at 2,048 rows (bound at the bf16 rate;
+                   library ``torch.matmul`` against the densified W^T for D,
+                   ``torch.bmm`` on the gathered tiles for E) and an
+                   ``lm_train_timing`` line: the step's median and quartiles,
+                   device busy, idle share, launches, the kernels and host
+                   operators with the most time, the allocator's peak, the
+                   card's name and power limit;
+15. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
                    worker-epoch: 2 rounds, the second with a padded step). The
@@ -167,7 +192,7 @@ Phases, one line each (any failure exits non-zero):
                    phase-1 epoch's device busy time, launches and idle share).
                    It runs after the timing phases: before them it made
                    their profiler sessions lose device events.
-15. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+16. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
                    full width on the card: the element and the block model
                    trained 3 epochs with device SET, pruning and the paper's
                    dropout 0.3, saved at every epoch; a fresh trainer
@@ -186,7 +211,7 @@ Phases, one line each (any failure exits non-zero):
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
                    profiles nothing;
-16. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+17. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
                    of the paper's first Table-4 row at full width,
                    65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
                    17,655,362 parameters), batch 32, the device budget 0.6 x
@@ -362,17 +387,21 @@ SUB_COUNTS = {f"{name}.{sub}": (WRAPPERS[name], f"{sub}_launches")
               for name in ("coo_matmul_T", "coo_dw") for sub in ("epilogue", "mask")}
 # kernel B's launches by its (features, batch) entry (the out-of-core stream)
 SUB_COUNTS["bias_all_relu.T"] = (all_relu_fused.bias_all_relu, "T_launches")
+# kernels D's and E's launches of their bf16 instances (the LM's training step)
+SUB_COUNTS.update({f"{name}.bf16": (WRAPPERS[name], "bf16_launches")
+                   for name in ("bsmm_dx", "bsmm_dw")})
 
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0, kernels A's and F's epilogue
-    and mask counts and kernel C's sub-counts too."""
+    and mask counts, kernel C's sub-counts and D's and E's too."""
     for fn in WRAPPERS.values():
         fn.launches = 0
     for fn, attr in SUB_COUNTS.values():
         setattr(fn, attr, 0)
     for sub in C_SUB:
         setattr(bsm.bsmm_fwd, f"{sub}_launches", 0)
+    bsm.bsmm_dx.second_pass_launches = bsm.bsmm_dw.second_pass_launches = 0
 
 
 def read_counts() -> dict:
@@ -2834,6 +2863,346 @@ def phase_lm(out: dict) -> str:
     )
 
 
+# -- the bfloat16 LM trained: Qwen1.5-0.5B with the paper's sparse FFN --------
+
+# The served model (lm_config: full width and depth, bf16, remat="block") trained
+# through examples/train_lm_torch.py's loop on its Zipf stream: 8 x 257 tokens a
+# step (2,048 token rows in each sparse product), make_train_step's step (lr
+# 1e-2, momentum 0.9), host SET every 2 steps: 2 steps, SET, 2 more steps on
+# the new topology, SET (the loop's rule: after every 2nd step), a checkpoint.
+LM_TRAIN = dict(batch=8, seq=256, lr=1e-2, evolve_every=2, zeta=0.3)
+LM_TRAIN_STEPS = 4
+LM_TRAIN_ROWS = LM_TRAIN["batch"] * LM_TRAIN["seq"]
+LM_TRAIN_TIMED_STEPS = 10
+# The kernel path's gradients against the same step through bsmm_xla (the
+# reference's plain autograd formulation) on the card: relative L2 per leaf,
+# the reference's bf16 tolerance (tests/test_kernels.py:57).
+LM_GRAD_RTOL = 5e-2
+KERNEL_D_BF16 = dict(
+    name="bsmm_dx.bf16", route="cuda", source="src/repro_torch/csrc/bsmm_dx.cu",
+    replaces="src/repro/kernels/block_sparse_matmul.py:127",
+)
+KERNEL_E_BF16 = dict(
+    name="bsmm_dw.bf16", route="cuda", source="src/repro_torch/csrc/bsmm_dw.cu",
+    replaces="src/repro/kernels/block_sparse_matmul.py:186",
+)
+
+
+def train_lm_example():
+    """examples/train_lm_torch.py, the twin of the reference's LM training
+    example, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def de_second_passes() -> dict:
+    """Kernels D's and E's second passes (the sums of split runs)."""
+    return {"bsmm_dx.second_pass": bsm.bsmm_dx.second_pass_launches,
+            "bsmm_dw.second_pass": bsm.bsmm_dw.second_pass_launches}
+
+
+def de_bf16_case(what: str, meta, t, rows: int, rng: np.random.Generator) -> tuple:
+    """Kernels D and E bf16 on one topology at ``rows`` rows, random tiles
+    and operands: within C_BF16_TOL + C_BF16_TOL x |want| of their plain
+    versions, the same bits on three launches, dx's uncovered block-rows
+    exactly 0. Returns their largest |difference|."""
+    nb = t.rows.numel()
+    v = torch.as_tensor(rng.standard_normal((nb, meta.block_m, meta.block_n)).astype(np.float32)
+                        * 0.05, device=CARD).to(torch.bfloat16)
+    x = torch.as_tensor(rng.standard_normal((rows, meta.padded_in)).astype(np.float32),
+                        device=CARD).to(torch.bfloat16)
+    dy = torch.as_tensor(rng.standard_normal((rows, meta.padded_out)).astype(np.float32),
+                         device=CARD).to(torch.bfloat16)
+    dx = thrice(lambda: bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                    grid_m=meta.grid_m), f"kernel D bf16 ({what})")
+    dw = thrice(lambda: bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m,
+                                    block_n=meta.block_n), f"kernel E bf16 ({what})")
+    want_dx = bsm.bsmm_dx_plain(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                grid_m=meta.grid_m)
+    want_dw = bsm.bsmm_dw_plain(x, dy, t.rows, t.cols, block_m=meta.block_m,
+                                block_n=meta.block_n)
+    errs = []
+    for name, got, want in (("D", dx, want_dx), ("E", dw, want_dw)):
+        check(got.dtype == torch.bfloat16, f"kernel {name} bf16 ({what}) gave {got.dtype}")
+        diff = (got.float() - want.float()).abs()
+        check(bool((diff <= C_BF16_TOL + C_BF16_TOL * want.float().abs()).all()),
+              f"kernel {name} bf16 ({what}): max |diff| {float(diff.max()):.4g} beyond "
+              f"{C_BF16_TOL} + {C_BF16_TOL} x |want|")
+        errs.append(float(diff.max()))
+    covered = torch.zeros(meta.grid_m, dtype=torch.bool, device=CARD)
+    covered[t.rows.long()] = True
+    uncovered = ~covered.repeat_interleave(meta.block_m)
+    check(bool((dx[:, uncovered] == 0).all()), f"kernel D bf16 ({what}): an uncovered "
+                                               "block-row is not exactly 0")
+    return tuple(errs)
+
+
+def de_bf16_checks(model, when: str, rng: np.random.Generator) -> dict:
+    """Kernels D and E bf16 (``de_bf16_case``) on every layer's W_in and
+    W_out topology at the step's 2,048 rows; before the evolution also on
+    W_in's grid with columns of LONG_COLUMNS slots (block-rows of 11 to 22
+    slots, longer than D's ring). Returns the largest differences and the
+    longest block-row."""
+    err_d = err_e = 0.0
+    longest, layers = 0, 0
+    stacked = model.topo_arrays()
+    for slot, topos in model.topologies.items():
+        for i, pair in enumerate(topos):
+            layers += 1
+            for host, arrays in zip(pair, stacked[slot]):
+                t = sparsity.BlockTopoArrays(*(a[i].contiguous() for a in arrays))
+                longest = max(longest, int(np.bincount(host.rows,
+                                                       minlength=host.meta.grid_m).max()))
+                d, e = de_bf16_case(f"{when}, {slot} layer {i}, {host.meta.in_dim} -> "
+                                    f"{host.meta.out_dim}", host.meta, t, LM_TRAIN_ROWS, rng)
+                err_d, err_e = max(err_d, d), max(err_e, e)
+    check(layers == model.cfg.n_layers, f"{layers} of {model.cfg.n_layers} layers checked")
+    if when == "before the evolution":
+        meta = sparsity.BlockMeta(model.cfg.d_model, model.cfg.d_ff, model.cfg.sparse_block,
+                                  model.cfg.sparse_block)
+        for length in LONG_COLUMNS:
+            host = long_columns(meta, length, rng)
+            longest = max(longest, int(np.bincount(host.rows, minlength=meta.grid_m).max()))
+            d, e = de_bf16_case(f"columns of {length}", meta, host.device_arrays(CARD),
+                                LM_TRAIN_ROWS, rng)
+            err_d, err_e = max(err_d, d), max(err_e, e)
+    return {KERNEL_D_BF16["name"]: err_d, KERNEL_E_BF16["name"]: err_e, "layers": layers,
+            "longest_row": longest}
+
+
+def lm_grad_vs_xla(model, batch) -> dict:
+    """One full-depth step's gradients on the kernel path (C, D, E bf16)
+    against the same step with the sparse FFN on ``bsmm_xla`` (the
+    reference's plain autograd formulation), on the card: relative L2 per
+    leaf within LM_GRAD_RTOL, and the launches of each."""
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.tree import tree_flatten_with_names
+
+    topo = model.topo_arrays()
+    grads, launches = {}, {}
+    for impl in ("kernel", "xla"):
+        model.sparse_impl = impl
+        reset_counts()
+        _, loss, g = lm_steps._microbatched_grad(lm_steps.lm_loss_fn(model, topo), model.params,
+                                                 batch, 1)
+        torch.cuda.synchronize()
+        launches[impl] = {k: n for k, n in read_counts().items() if n}
+        grads[impl] = (float(loss), tree_flatten_with_names(g)[0])
+    model.sparse_impl = "kernel"
+    check(launches["xla"] == {}, f"the bsmm_xla step launched {launches['xla']}")
+    errs = {}
+    for (name, a), (_, b) in zip(grads["kernel"][1], grads["xla"][1]):
+        check(bool(torch.isfinite(a).all()), f"gradient {name} is not finite")
+        errs[name] = float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= LM_GRAD_RTOL, f"gradient {worst}: relative L2 {errs[worst]:.4g} from "
+                                       f"bsmm_xla's, beyond {LM_GRAD_RTOL}")
+    return dict(loss_kernel=grads["kernel"][0], loss_xla=grads["xla"][0],
+                worst_leaf=worst, worst_rel_l2=errs[worst],
+                rel_l2_by_leaf=dict(sorted(errs.items(), key=lambda kv: -kv[1])[:8]),
+                launches_kernel=launches["kernel"])
+
+
+def lm_train_timing_rows(model) -> list:
+    """Kernels D and E bf16 on the trained model's first layer (W_in, W_out)
+    at the step's 2,048 rows, beside their bounds (bytes: each input read
+    once, dy and x only at the block-columns and -rows a tile touches, the
+    output written once; flops at the bf16 tensor rate), plain versions and
+    one library call: ``torch.matmul`` against the densified W^T for D,
+    ``torch.bmm`` on the tiles gathered beforehand for E."""
+    ffn = model.params["stack"]["s0_global"]["ffn"]
+    topo = model.topo_arrays()["s0_global"]
+    pair = model.topologies["s0_global"][0]
+    rng = np.random.default_rng(SEED)
+    B = LM_TRAIN_ROWS
+    rows = []
+    for name, host, arrays, v in (("win", pair[0], topo[0], ffn["win"][0]),
+                                  ("wout", pair[1], topo[1], ffn["wout"][0])):
+        t = sparsity.BlockTopoArrays(*(a[0].contiguous() for a in arrays))
+        meta = host.meta
+        bm, bn = meta.block_m, meta.block_n
+        x = torch.as_tensor(rng.standard_normal((B, meta.padded_in)).astype(np.float32),
+                            device=CARD).to(torch.bfloat16)
+        dy = torch.as_tensor(rng.standard_normal((B, meta.padded_out)).astype(np.float32),
+                             device=CARD).to(torch.bfloat16)
+        dense = ref.blocks_to_dense(v, t.rows, t.cols, meta.grid_m, meta.grid_n)
+        xg = x.reshape(B, meta.grid_m, bm)[:, t.rows.long()].permute(1, 2, 0).contiguous()
+        dyg = dy.reshape(B, meta.grid_n, bn)[:, t.cols.long()].transpose(0, 1).contiguous()
+        rows_used = int(np.unique(host.rows).size)
+        cols_used = int(np.unique(host.cols).size)
+        tiles, idx = 2 * v.numel(), 4 * 3 * host.n_blocks
+        flops = 2 * B * v.numel()
+        common = dict(weight=name, rows=B, shape=[meta.in_dim, meta.out_dim],
+                      n_blocks=host.n_blocks)
+        rows.append(dict(
+            kernel=KERNEL_D_BF16["name"], **common,
+            ms=device_ms(lambda: bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                             grid_m=meta.grid_m)),
+            plain_ms=device_ms(lambda: bsm.bsmm_dx_plain(dy, v, t.rows_r, t.cols_r, t.first_row,
+                                                         t.perm_r, grid_m=meta.grid_m), 10),
+            library_ms=library_ms(lambda: torch.matmul(dy, dense.t())),
+            **bound_bf16(2 * B * cols_used * bn + tiles + idx + 8 * (meta.grid_m + 1)
+                         + 2 * B * meta.padded_in, flops)))
+        rows.append(dict(
+            kernel=KERNEL_E_BF16["name"], **common,
+            splits=bsm.dw_splits_bf16(host.n_blocks, B, bm, bn),
+            ms=device_ms(lambda: bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=bm, block_n=bn)),
+            plain_ms=device_ms(lambda: bsm.bsmm_dw_plain(x, dy, t.rows, t.cols, block_m=bm,
+                                                         block_n=bn), 10),
+            # the tiles gathered beforehand: the gather is not timed
+            library_ms=library_ms(lambda: torch.bmm(xg, dyg)),
+            **bound_bf16(2 * B * rows_used * bm + 2 * B * cols_used * bn + idx + tiles,
+                         flops)))
+    return rows
+
+
+def time_lm_train_step(model, example) -> dict:
+    """The trained model's step on the stream's next batches: the median of
+    LM_TRAIN_TIMED_STEPS host-clock steps that end in a synchronise, after 2
+    warm-up steps, then its profile over 3 steps (device busy, idle share,
+    launches, kernels by device time)."""
+    from repro_torch.launch.steps import make_train_step
+
+    step, opt = make_train_step(model, lr=LM_TRAIN["lr"])
+    stream = example.synthetic_stream(np.random.default_rng(1), model.cfg.vocab,
+                                      LM_TRAIN["batch"], LM_TRAIN["seq"] + 1)
+    batches = []
+    for _ in range(4):
+        tokens = torch.as_tensor(next(stream), device=CARD).long()
+        batches.append({"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+    topo = model.topo_arrays()
+    state = {"p": model.params, "s": opt.init(model.params), "i": 0}
+
+    def one_step():
+        b = batches[state["i"] % len(batches)]
+        state["i"] += 1
+        state["p"], state["s"], m = step(state["p"], state["s"], b, topo)
+        return m
+
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(LM_TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    q25, q50, q75 = np.percentile(ts, [25, 50, 75])
+    prof = profile_train_step(one_step, float(q50), steps=3)
+    return dict(step_ms=dict(median=float(q50), q25=float(q25), q75=float(q75)),
+                device_busy_us=prof["device_busy_us"],
+                device_idle_share=prof["device_idle_share"],
+                device_launches=prof["device_launches"],
+                device_us_top=dict(sorted(prof["device_us_by_name"].items(),
+                                          key=lambda kv: -kv[1])[:12]),
+                host_self_us_top=prof["host_self_us_top"][:6])
+
+
+def phase_lm_train(out: dict) -> str:
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    example = train_lm_example()
+    cfg = lm_config()
+    check(cfg.dtype == "bfloat16" and cfg.remat == "block", f"{cfg.dtype}, remat {cfg.remat}")
+    model = PatternLM(cfg, seed=SEED, device=CARD)
+    rng = np.random.default_rng(SEED)
+    before = de_bf16_checks(model, "before the evolution", rng)
+    start_topos = {slot: list(pairs) for slot, pairs in model.topologies.items()}
+
+    def counts() -> dict:
+        return dict(read_counts(), **de_second_passes(), **c_sub_counts())
+
+    # the main path: the example's loop, 2 steps, host SET, 2 steps, a checkpoint
+    per_step, snaps = [], []
+
+    def on_step(i, params, metrics):
+        snap = counts()
+        per_step.append(dict(loss=float(metrics["loss"]), **{
+            k: n - snaps[-1][k] for k, n in snap.items() if n - snaps[-1][k]}))
+        snaps.append(snap)
+
+    ckpt = Path(tempfile.mkdtemp(prefix="lm_train_ckpt_"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    snaps.append(counts())
+    t0 = time.perf_counter()
+    run = example.train(model, steps=LM_TRAIN_STEPS, ckpt_dir=ckpt, meta={"arch": LM_ARCH},
+                        on_step=on_step, verbose=False, **LM_TRAIN)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    # a step: C twice a layer in the forward and again in remat's recompute
+    # (rows route, no store, no second pass), D and E bf16 twice a layer, each
+    # E with its second pass (3 and 4 runs at 2,048 rows), nothing else
+    want_step = {"bsmm_fwd": 4 * L, "rows": 4 * L, "bsmm_dx": 2 * L, "bsmm_dx.bf16": 2 * L,
+                 "bsmm_dw": 2 * L, "bsmm_dw.bf16": 2 * L, "bsmm_dw.second_pass": 2 * L}
+    for i, s in enumerate(per_step):
+        got = {k: n for k, n in s.items() if k != "loss"}
+        check(got == want_step, f"step {i} launched {got}, expected {want_step}")
+        check(np.isfinite(s["loss"]), f"step {i}'s loss is {s['loss']}")
+    check(launches == dict(NO_LAUNCHES, **{k: LM_TRAIN_STEPS * n for k, n in want_step.items()
+                                           if k in NO_LAUNCHES}),
+          f"the run launched {launches}")
+    n_evolved = LM_TRAIN_STEPS // LM_TRAIN["evolve_every"]
+    check(len(run["evolved"]) == n_evolved, f"{len(run['evolved'])} evolutions, expected "
+                                            f"{n_evolved}")
+    # SET keeps every block-column covered: W_in's 22 columns hold one tile
+    # each, so only W_out's tiles move
+    moved = [int(not (np.array_equal(a.rows, b.rows) and np.array_equal(a.cols, b.cols)))
+             for slot, pairs in model.topologies.items()
+             for pa, pb in zip(pairs, start_topos[slot]) for a, b in zip(pa, pb)]
+    check(sum(moved) > 0, "the evolutions moved no tile")
+    mgr = CheckpointManager(str(ckpt))
+    check(mgr.latest_step() == LM_TRAIN_STEPS, f"checkpoint step {mgr.latest_step()}")
+    after = de_bf16_checks(model, "after the evolution", rng)
+
+    stream = example.synthetic_stream(np.random.default_rng(2), cfg.vocab, LM_TRAIN["batch"],
+                                      LM_TRAIN["seq"] + 1)
+    tokens = torch.as_tensor(next(stream), device=CARD).long()
+    vs_xla = lm_grad_vs_xla(model, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+    timing = time_lm_train_step(model, example)
+    rows = lm_train_timing_rows(model)
+    for r in rows:
+        print(json.dumps({"kernel_timing": r}))
+    err = {k: max(before[k], after[k]) for k in (KERNEL_D_BF16["name"], KERNEL_E_BF16["name"])}
+    timing.update(losses=run["losses"], run_s=run_s, per_step_launches=per_step,
+                  weights_moved_by_set=sum(moved),
+                  max_memory_allocated=peak, vs_xla=vs_xla, de_checks=dict(
+                      before=before, after=after), card=out["smi"])
+    print(json.dumps({"lm_train_timing": timing}))
+    for meta in (KERNEL_D_BF16, KERNEL_E_BF16):
+        mine = [r for r in rows if r["kernel"] == meta["name"]]
+        entry = kernel_entry(meta, mine, launches[meta["name"]], err[meta["name"]])
+        entry["bound_by"] = bound_bf16(sum(r["bytes"] for r in mine),
+                                       sum(r["ops"] for r in mine))["bound_by"]
+        entry["per"] = "one layer's sparse FFN backward at 2,048 rows (W_in, W_out)"
+        out["kernels"].append(entry)
+    return (
+        f"{LM_ARCH} full width and depth, sparse FFN, bf16, remat block: {LM_TRAIN_STEPS} steps "
+        f"of {LM_TRAIN['batch']} x {LM_TRAIN['seq'] + 1} tokens through the example's loop, "
+        f"host SET (zeta {LM_TRAIN['zeta']}) after steps 2 and 4, losses "
+        f"{[round(v, 4) for v in run['losses']]}, tiles moved in {sum(moved)} of {len(moved)} "
+        f"weights, checkpoint at step {mgr.latest_step()}; a "
+        f"step launched {want_step}; D and E bf16 "
+        f"within {C_BF16_TOL} of their plain versions on all {before['layers']} layers' W_in "
+        f"and W_out before and after the evolution and on columns of {list(LONG_COLUMNS)} "
+        f"slots (longest block-row {before['longest_row']}; max D "
+        f"{err[KERNEL_D_BF16['name']]:.3g}, E {err[KERNEL_E_BF16['name']]:.3g}), the same bits "
+        f"on three launches; gradients vs bsmm_xla worst {vs_xla['worst_leaf']} "
+        f"{vs_xla['worst_rel_l2']:.3g} (<= {LM_GRAD_RTOL}); step median "
+        f"{timing['step_ms']['median']:.1f} ms, idle share {timing['device_idle_share']:.3f}, "
+        f"{timing['device_launches']:g} launches; peak {peak} B"
+    )
+
+
 # -- out-of-core XL: the paper's Table-4 regime --------------------------------
 
 # The paper's first Table-4 row at full width (benchmarks/table4_extreme.py
@@ -3359,6 +3728,8 @@ def main() -> int:
         ("timings", phase_timings), ("train_timings", phase_train_timings),
         # the bf16 LM's serving path, its profile beside the other timing phases'
         ("lm", phase_lm),
+        # its training path: kernels D and E bf16 as C bf16's backward
+        ("lm_train", phase_lm_train),
         # after the timing phases: run before them, it made their
         # torch.profiler sessions lose device events (PERF.md §7)
         ("wasap", phase_wasap), ("checkpoint", phase_checkpoint), ("xl", phase_xl),

@@ -28,14 +28,17 @@ the operands swapped) and ``rows`` (more rows); both split a column's k
 over the warps of one block and add the warps' partials in shared memory,
 so they pay no second pass. Its wrapper can also apply All-ReLU in the
 store (``all_relu=(alpha, layer_index)``), bit for bit kernel B's bf16
-entry after it: the LM's sparse FFN runs W_in so.
+entry after it: the LM's sparse FFN runs W_in so. Kernels D and E have
+bf16 instances too, kernel C's backward in the LM's training step: D on
+kernel C's rows-route design (no split), E with its batch cut into runs of
+64-sample chunks (``dw_splits_bf16``); both round an f32 sum once.
 
-Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, block
-sizes 1..128; kernel C also bfloat16, for the LM's sparse FFN) or raises,
-and takes its plain version for a CPU tensor. It
-counts its launches (one per call, the second pass of a split included;
-kernel C also counts its second passes, its calls with All-ReLU and its
-calls by route).
+Each wrapper launches its kernel for a CUDA tensor (f32 or bfloat16,
+contiguous, block sizes 1..128; in bfloat16 kernels D and E take sides
+that are multiples of 16) or raises, and takes its plain version for a CPU
+tensor. It counts its launches (one per call, the second pass of a split
+included; each also counts its second passes, D and E their bfloat16
+calls, and kernel C its calls with All-ReLU and by route).
 Topology arrays are checked once per tensor (one device sync on first
 use): every coordinate inside the grid and the slot order sorted, so the
 kernels never index out of bounds. Arrays that device SET evolution made
@@ -69,6 +72,7 @@ __all__ = [
     "bsmm_fwd_plain",
     "dw_batch_runs",
     "dw_splits",
+    "dw_splits_bf16",
     "dx_parts",
     "fwd_parts",
     "fwd_plan",
@@ -81,6 +85,7 @@ SMS = 132  # an H100 SXM's streaming multiprocessors: the splits aim at one wave
 FWD_TILE = 64  # kernels C and D: a block's 64 batch rows x 64 output columns
 DW_TILE = 64  # kernel E: a block's 64 x 64 part of one slot's tile
 DW_CHUNK = 32  # kernel E: samples per pipeline stage; batch runs are whole chunks
+DW_CHUNK_BF16 = 64  # kernel E's bf16 instance: samples per stage
 DECODE_ROWS = 16  # kernel C bf16: calls of up to this many rows take the decode route
 # kernel C bf16's rows route: its block tiles (batch rows, features) from the
 # smallest, each with the blocks an SM holds at once (sm_90a: 72 and 107
@@ -168,6 +173,18 @@ def dw_splits(nb: int, batch: int, bm: int, bn: int) -> int:
     return max(1, min(_cdiv(batch, DW_CHUNK), SMS // blocks))
 
 
+def dw_splits_bf16(nb: int, batch: int, bm: int, bn: int) -> int:
+    """S, the runs kernel E's bf16 instance cuts the batch into: about two
+    of its blocks an SM (each holds 72 KB of ring, so three fit), at most
+    one run per 64-sample chunk. 3 on the LM's W_in (22 128x128 tiles, 88
+    blocks a run) and 4 on its W_out (15 tiles) at 2,048 rows; 1 at 64 rows
+    or fewer."""
+    blocks = nb * _cdiv(bm, DW_TILE) * _cdiv(bn, DW_TILE)
+    if blocks == 0:
+        return 1
+    return max(1, min(_cdiv(batch, DW_CHUNK_BF16), 2 * SMS // blocks))
+
+
 def dw_batch_runs(batch: int, splits: int) -> List[Tuple[int, int]]:
     """The ``splits`` contiguous sample runs of kernel E, in order: run s
     holds chunks ``[C*s//S, C*(s+1)//S)`` of the C = ceil(batch/32)."""
@@ -212,7 +229,13 @@ def bsmm_dx_plain(
     first_row: torch.Tensor, perm_r: torch.Tensor, *, grid_m: int,
 ) -> torch.Tensor:
     """Plain version of kernel D over the row-sorted order. dy:
-    (B, grid_n*bn) -> (B, grid_m*bm); uncovered block-rows are zero."""
+    (B, grid_n*bn) -> (B, grid_m*bm); uncovered block-rows are zero.
+    bfloat16 operands are taken to f32 and the f32 sums rounded once, as
+    the Pallas kernel's f32 scratch is."""
+    if dy.dtype == torch.bfloat16:
+        dx = bsmm_dx_plain(dy.float(), values.float(), rows_r, cols_r, first_row, perm_r,
+                           grid_m=grid_m)
+        return dx.to(torch.bfloat16)
     B = dy.shape[0]
     _, bm, bn = values.shape
     dyg = dy.reshape(B, -1, bn)[:, cols_r.long()]             # (B, nb, bn)
@@ -225,7 +248,11 @@ def bsmm_dw_plain(
     x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     *, block_m: int, block_n: int,
 ) -> torch.Tensor:
-    """Plain version of kernel E: (nb, bm, bn) tile gradients."""
+    """Plain version of kernel E: (nb, bm, bn) tile gradients, in x's
+    dtype; bfloat16 operands summed in f32 and rounded once, as kernel D's."""
+    if x.dtype == torch.bfloat16:
+        dw = bsmm_dw_plain(x.float(), dy.float(), rows, cols, block_m=block_m, block_n=block_n)
+        return dw.to(torch.bfloat16)
     B = x.shape[0]
     xg = x.reshape(B, -1, block_m)[:, rows.long()]            # (B, nb, bm)
     dyg = dy.reshape(B, -1, block_n)[:, cols.long()]          # (B, nb, bn)
@@ -317,6 +344,29 @@ def _require_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} runs on cuda or cpu tensors, not {t.device}")
 
 
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dtype(t: torch.Tensor, what: str) -> bool:
+    """Raise unless ``t`` is f32 or bfloat16; True for bfloat16."""
+    if t.dtype not in _DTYPES:
+        raise ValueError(f"{what} has dtype {t.dtype}; the kernel takes {list(_DTYPES)}")
+    return t.dtype == torch.bfloat16
+
+
+def _check_bf16_sides(bm: int, bn: int, what: str) -> None:
+    if bm % 16 or bn % 16:
+        raise ValueError(f"block size {bm}x{bn}: {what}'s bfloat16 instance takes tile sides "
+                         "that are multiples of 16 (the bf16 MMA's k)")
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its storage does not start on a 16-byte
+    boundary (a view at an offset): the bf16 instances of D and E stage
+    16-byte chunks."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 _I64 = ctypes.c_int64
 _FWD_SYMBOLS = {torch.float32: "bsmm_fwd_f32", torch.bfloat16: "bsmm_fwd_bf16"}
 _FWD_ARGTYPES = {
@@ -327,7 +377,9 @@ _FWD_ARGTYPES = {
 }
 _FWD_ROUTES = {"tiled": 0, "decode": 1, "rows": 2}
 _DX_ARGTYPES = [ctypes.c_void_p] * 7 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_DX_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _DW_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_DW_SYMBOLS = {torch.float32: "bsmm_dw_f32", torch.bfloat16: "bsmm_dw_bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -413,10 +465,12 @@ def bsmm_dx(
     dy: torch.Tensor, values: torch.Tensor, rows_r: torch.Tensor, cols_r: torch.Tensor,
     first_row: torch.Tensor, perm_r: torch.Tensor, *, grid_m: int,
 ) -> torch.Tensor:
-    """dy: (B, grid_n*bn) -> dx = dy @ W^T, (B, grid_m*bm), over the
-    row-sorted order (``rows_r`` non-decreasing). Input block-rows that no
-    slot covers come out as exact zeros. A CUDA tensor launches kernel D; a
-    CPU tensor takes the plain version."""
+    """dy: (B, grid_n*bn) -> dx = dy @ W^T, (B, grid_m*bm), in dy's dtype
+    (f32 or bfloat16, values of the same dtype), over the row-sorted order
+    (``rows_r`` non-decreasing). Input block-rows that no slot covers come
+    out as exact zeros. A CUDA tensor launches kernel D's instance for its
+    dtype (bfloat16: tile sides multiples of 16) and raises for another
+    dtype; a CPU tensor takes the plain version."""
     if dy.device.type == "cpu":
         return bsmm_dx_plain(dy, values, rows_r, cols_r, first_row, perm_r, grid_m=grid_m)
     _require_cuda(dy, "bsmm_dx")
@@ -426,11 +480,13 @@ def bsmm_dx(
         raise ValueError(f"dy must be (B, grid_n*{bn}), got shape {tuple(dy.shape)}")
     if grid_m < 1:
         raise ValueError(f"grid_m must be positive, got {grid_m}")
+    bf16 = _check_dtype(dy, "dy")
+    if bf16:
+        _check_bf16_sides(bm, bn, "kernel D")
     batch, grid_n = dy.shape[0], dy.shape[1] // bn
     dev = dy.device
-    f32 = torch.float32
-    build.check_tensor(dy, "dy", dtype=f32, shape=dy.shape, device=dev)
-    build.check_tensor(values, "values", dtype=f32, shape=(nb, bm, bn), device=dev)
+    build.check_tensor(dy, "dy", dtype=dy.dtype, shape=dy.shape, device=dev)
+    build.check_tensor(values, "values", dtype=dy.dtype, shape=(nb, bm, bn), device=dev)
     _check_index(rows_r, "rows_r", nb, dev)
     _check_index(cols_r, "cols_r", nb, dev)
     _check_index(perm_r, "perm_r", nb, dev)
@@ -446,6 +502,18 @@ def bsmm_dx(
 
     _check_once("dx", (grid_m, grid_n, nb), (rows_r, cols_r, perm_r), check)
     row_ptr = _offsets_once(rows_r, grid_m)
+    if bf16:
+        dx = torch.empty((batch, grid_m * bm), dtype=dy.dtype, device=dev)
+        dy, values = _aligned16(dy), _aligned16(values)
+        fn = build.kernel("bsmm_dx", "bsmm_dx_bf16", _DX_BF16_ARGTYPES)
+        rc = fn(dy.data_ptr(), values.data_ptr(), cols_r.data_ptr(),
+                perm_r.data_ptr(), row_ptr.data_ptr(), dx.data_ptr(), batch, grid_m, grid_n,
+                bm, bn, *build.stream_args(dev))
+        build.check_launch(rc, "bsmm_dx bf16 kernel")
+        bsmm_dx.launches += 1
+        bsmm_dx.bf16_launches += 1
+        return dx
+    f32 = torch.float32
     dx = torch.empty((batch, grid_m * bm), dtype=f32, device=dev)
     parts = dx_parts(nb, grid_m, batch, bm)
     part = torch.empty((parts, batch, grid_m * bm), dtype=f32, device=dev) if parts > 1 else None
@@ -457,10 +525,13 @@ def bsmm_dx(
     )
     build.check_launch(rc, "bsmm_dx kernel")
     bsmm_dx.launches += 1
+    bsmm_dx.second_pass_launches += parts > 1
     return dx
 
 
 bsmm_dx.launches = 0  # kernel D launches
+bsmm_dx.second_pass_launches = 0  # of which split, with a second pass (f32 only)
+bsmm_dx.bf16_launches = 0  # of which the bfloat16 instance
 
 
 # ---------------------------------------------------------------------------
@@ -473,8 +544,10 @@ def bsmm_dw(
     *, block_m: int, block_n: int,
 ) -> torch.Tensor:
     """Tile gradients ``dw[i] = x_tile(rows[i])^T @ dy_tile(cols[i])``,
-    (nb, bm, bn), summed over the whole batch. A CUDA tensor launches kernel
-    E; a CPU tensor takes the plain version."""
+    (nb, bm, bn) in x's dtype (f32 or bfloat16, dy of the same dtype),
+    summed over the whole batch. A CUDA tensor launches kernel E's instance
+    for its dtype (bfloat16: tile sides multiples of 16) and raises for
+    another dtype; a CPU tensor takes the plain version."""
     if x.device.type == "cpu":
         return bsmm_dw_plain(x, dy, rows, cols, block_m=block_m, block_n=block_n)
     _require_cuda(x, "bsmm_dw")
@@ -486,12 +559,15 @@ def bsmm_dw(
         raise ValueError(
             f"dy must be ({x.shape[0]}, grid_n*{bn}), got shape {tuple(dy.shape)}"
         )
+    bf16 = _check_dtype(x, "x")
+    if bf16:
+        _check_bf16_sides(bm, bn, "kernel E")
     batch, grid_m, grid_n = x.shape[0], x.shape[1] // bm, dy.shape[1] // bn
     nb = rows.numel()
     dev = x.device
     f32 = torch.float32
-    build.check_tensor(x, "x", dtype=f32, shape=x.shape, device=dev)
-    build.check_tensor(dy, "dy", dtype=f32, shape=dy.shape, device=dev)
+    build.check_tensor(x, "x", dtype=x.dtype, shape=x.shape, device=dev)
+    build.check_tensor(dy, "dy", dtype=x.dtype, shape=dy.shape, device=dev)
     _check_index(rows, "rows", nb, dev)
     _check_index(cols, "cols", nb, dev)
 
@@ -500,10 +576,13 @@ def bsmm_dw(
             raise ValueError(f"rows must lie in [0, {grid_m}) and cols in [0, {grid_n})")
 
     _check_once("dw", (grid_m, grid_n), (rows, cols), check)
-    dw = torch.empty((nb, bm, bn), dtype=f32, device=dev)
-    splits = dw_splits(nb, batch, bm, bn)
+    dw = torch.empty((nb, bm, bn), dtype=x.dtype, device=dev)
+    # the runs' partials stay f32 in both instances
+    splits = (dw_splits_bf16 if bf16 else dw_splits)(nb, batch, bm, bn)
     part = torch.empty((splits, nb, bm, bn), dtype=f32, device=dev) if splits > 1 else None
-    fn = build.kernel("bsmm_dw", "bsmm_dw_f32", _DW_ARGTYPES)
+    if bf16:
+        x, dy = _aligned16(x), _aligned16(dy)
+    fn = build.kernel("bsmm_dw", _DW_SYMBOLS[x.dtype], _DW_ARGTYPES)
     rc = fn(
         x.data_ptr(), dy.data_ptr(), rows.data_ptr(), cols.data_ptr(), dw.data_ptr(),
         None if part is None else part.data_ptr(), nb, batch, grid_m, grid_n, bm, bn, splits,
@@ -511,7 +590,11 @@ def bsmm_dw(
     )
     build.check_launch(rc, "bsmm_dw kernel")
     bsmm_dw.launches += 1
+    bsmm_dw.second_pass_launches += splits > 1
+    bsmm_dw.bf16_launches += bf16
     return dw
 
 
 bsmm_dw.launches = 0  # kernel E launches
+bsmm_dw.second_pass_launches = 0  # of which split, with a second pass over the runs
+bsmm_dw.bf16_launches = 0  # of which the bfloat16 instance

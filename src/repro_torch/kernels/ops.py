@@ -6,7 +6,9 @@ topology arrays:
 * ``bsmm_kernel`` — kernels C, D and E (``kernels/block_sparse_matmul.py``)
                     joined by a ``torch.autograd.Function``: the forward is
                     kernel C, the backward kernel D (only where dx is
-                    needed) and kernel E. On CPU tensors each runs its plain
+                    needed) and kernel E, each in the operands' dtype (f32
+                    for the block SET-MLP, bfloat16 for the LM's sparse FFN
+                    in training). On CPU tensors each runs its plain
                     version. Twin of the reference's ``bsmm_pallas``.
 * ``bsmm_xla``    — plain PyTorch gather / einsum / ``index_add``,
                     natively differentiable: the oracle of the whole op.
@@ -126,7 +128,8 @@ def bsmm_kernel(
     x: torch.Tensor, values: torch.Tensor, topo: BlockTopoArrays, meta: BlockMeta
 ) -> torch.Tensor:
     """Block-sparse ``y = x @ W`` for x of shape (..., in_dim), on kernels
-    C, D and E. Twin of the reference's ``bsmm_pallas``: it pads the
+    C, D and E, f32 or bfloat16 (the training entry; ``bsmm_infer`` is the
+    no-grad one). Twin of the reference's ``bsmm_pallas``: it pads the
     features to the block grid and slices the output."""
     return _on_block_grid(x, meta, lambda x2: _BsmmCore.apply(x2, values, topo, meta))
 
@@ -169,7 +172,7 @@ def bsmm_infer(
     """Block-sparse ``y = x @ W`` for serving (``mlp_forward(infer=True)``,
     the LM's sparse FFN): kernel C called directly, with no autograd Function
     (pad the features, launch, slice), in x's dtype (f32, or bfloat16 for
-    the LM; the backward kernels D and E are f32 only). With
+    the LM). With
     ``all_relu=(alpha, layer_index)`` All-ReLU with that layer's slope
     follows: in kernel C's store in bfloat16, as kernel B after the f32
     instance, which has no epilogue."""

@@ -1,13 +1,13 @@
-"""Step functions: the SET-MLP training loop, and the LM's prefill and
-decode steps. Twin of ``repro.launch.steps``; the LM's train step
-(``make_train_step``) and the Whisper steps come with the LM training slice
-(ROADMAP Queue 1, item 7).
+"""Step functions: the SET-MLP training loop, and the LM's train, prefill
+and decode steps. Twin of ``repro.launch.steps``; the Whisper steps come
+with the rest of LM training (ROADMAP Queue 1, item 7b).
 
-A step is loss -> gradients (autograd; on a block model the backward runs
-kernels D and E) -> momentum-SGD update. PyTorch runs eagerly, so the
-reference's jitted ``lax.scan`` over an epoch becomes a Python loop that
-keeps every per-step loss on the device: an epoch costs the host one
-synchronisation, when it reads the losses.
+A step is loss -> gradients (autograd; on a block model, and on the LM's
+sparse FFN, the backward runs kernels D and E) -> momentum-SGD update.
+PyTorch runs eagerly, so the reference's jitted ``lax.scan`` over an epoch
+becomes a Python loop that keeps every per-step loss on the device: an
+epoch costs the host one synchronisation, when it reads the losses. The
+LM's step (:func:`make_train_step`) keeps its loss on the device too.
 """
 from __future__ import annotations
 
@@ -16,12 +16,12 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.models.mlp import SparseMLPConfig, cross_entropy_loss, mlp_forward
-from repro_torch.models.transformer import PatternLM
+from repro_torch.models.transformer import PatternLM, chunked_softmax_xent
 from repro_torch.optim.sgd import MomentumSGD, SGDState
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map
 
-__all__ = ["make_decode_step", "make_mlp_step_core", "make_mlp_train_step",
-           "make_prefill_step", "scan_masked_segment", "scan_segment"]
+__all__ = ["lm_loss_fn", "make_decode_step", "make_mlp_step_core", "make_mlp_train_step",
+           "make_prefill_step", "make_train_step", "scan_masked_segment", "scan_segment"]
 
 
 def make_mlp_step_core(config: SparseMLPConfig, opt: MomentumSGD, topo_arrays,
@@ -112,7 +112,79 @@ def _require_lm(model) -> None:
     if not isinstance(model, PatternLM):
         raise NotImplementedError(
             f"steps for {type(model).__name__} (the Whisper encoder-decoder) come with the "
-            "LM training slice (ROADMAP Queue 1, item 7)")
+            "rest of LM training (ROADMAP Queue 1, item 7b)")
+
+
+def _microbatched_grad(loss_fn: Callable, params, batch, microbatches: int):
+    """``(total, loss, grads)`` of ``loss_fn(params, batch) -> (total,
+    loss)``, the batch cut along its leading axis into ``microbatches``
+    that run one after another (activation memory scales 1/microbatches).
+    With more than one, the gradients accumulate in f32 and every result is
+    the mean over the microbatches, as the reference's scan computes it."""
+    leaves, unflatten = tree_flatten(params)
+
+    def grad_of(b):
+        ps = [p.detach().requires_grad_(True) for p in leaves]
+        total, loss = loss_fn(unflatten(ps), b)
+        grads = torch.autograd.grad(total, ps, allow_unused=True)
+        return total.detach(), loss.detach(), [
+            torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads)]
+
+    if microbatches <= 1:
+        total, loss, grads = grad_of(batch)
+        return total, loss, unflatten(grads)
+    mb = tree_map(lambda a: a.reshape(microbatches, a.shape[0] // microbatches, *a.shape[1:]),
+                  batch)
+    g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+    t_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    l_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for i in range(microbatches):
+        total, loss, grads = grad_of(tree_map(lambda a, i=i: a[i], mb))
+        g_acc = [a + g.float() for a, g in zip(g_acc, grads)]
+        t_acc, l_acc = t_acc + total, l_acc + loss
+    inv = 1.0 / microbatches
+    return t_acc * inv, l_acc * inv, unflatten([a * inv for a in g_acc])
+
+
+def make_train_step(model: PatternLM, *, lr: float = 1e-2, momentum: float = 0.9,
+                    microbatches: int = 1):
+    """The LM's train step and its optimizer, ``(train_step, opt)``:
+    ``train_step(params, opt_state, batch, topo) -> (params, opt_state,
+    {"loss", "total"})``, with ``batch["tokens"]`` and ``batch["labels"]``
+    (B, S) (and ``batch["patch_embeds"]``, a VLM prefix whose positions
+    carry no loss). The loss is :func:`chunked_softmax_xent` of the final
+    hidden states, plus the MoE auxiliary loss (0 here) (:func:`lm_loss_fn`);
+    gradients by :func:`_microbatched_grad`; momentum SGD with weight decay
+    1e-4. Both metrics stay on the device."""
+    _require_lm(model)
+    opt = MomentumSGD(momentum=momentum, weight_decay=1e-4)
+
+    def train_step(params, opt_state, batch, topo):
+        total, loss, grads = _microbatched_grad(lm_loss_fn(model, topo), params, batch,
+                                                microbatches)
+        params, opt_state = opt.update(grads, opt_state, params, lr)
+        return params, opt_state, {"loss": loss, "total": total}
+
+    return train_step, opt
+
+
+def lm_loss_fn(model: PatternLM, topo, chunk: int = 512) -> Callable:
+    """The train step's loss, ``loss_fn(params, batch) -> (total, loss)``:
+    :func:`chunked_softmax_xent` (``chunk`` positions at a time) of the
+    final hidden states against ``batch["labels"]``, and ``total`` = loss +
+    the MoE auxiliary loss (0 here), whose gradient the step takes."""
+
+    def loss_fn(p, b):
+        h, _, aux = model.forward(p, b["tokens"], topo=topo,
+                                  prefix_embeds=b.get("patch_embeds"), return_hidden=True)
+        labels = b["labels"]
+        if "patch_embeds" in b:
+            h = h[:, b["patch_embeds"].shape[1]:]
+            labels = labels[:, : h.shape[1]]
+        loss = chunked_softmax_xent(model, p, h, labels, chunk=chunk)
+        return loss + aux, loss
+
+    return loss_fn
 
 
 def make_prefill_step(model: PatternLM):

@@ -19,11 +19,12 @@ The dense products (``x @ wq``, the unembedding) are ``torch.matmul``, as
 the reference leaves them to XLA; attention is plain PyTorch, as it is an
 XLA pass there. The sparse FFN is the kernels: kernel C (W_in) with kernel
 B's bias-free All-ReLU in its store, kernel C (W_out) on the card, their
-plain versions on the CPU.
+plain versions on the CPU; under autograd, kernel C's autograd Function on
+each weight (backward: kernels D and E) with All-ReLU between them.
 
 Not here yet: ``init_plain_ffn``/``plain_ffn_fwd`` and
-``cross_attention_fwd`` (Whisper), which come with the LM training slice
-(ROADMAP Queue 1, item 7).
+``cross_attention_fwd`` (Whisper), which come with the rest of the LM
+training slice (ROADMAP Queue 1, item 7b).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.all_relu import activation_fn
+from repro_torch.core.all_relu import activation_fn, all_relu
 from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays, BlockTopology
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import scalar_in
@@ -389,7 +390,7 @@ def init_sparse_ffn(rng: np.random.Generator, d_model: int, d_ff: int, sc: Spars
 
 def sparse_ffn_fwd(params: Params, topo_in: BlockTopoArrays, topo_out: BlockTopoArrays,
                    metas: Tuple[BlockMeta, BlockMeta], x: torch.Tensor, sc: SparseFFNConfig,
-                   layer_index: int) -> torch.Tensor:
+                   layer_index: int, impl: str = "kernel") -> torch.Tensor:
     """W_in with All-ReLU of the layer's parity in its store (kernel C, no
     bias), then W_out (kernel C), in x's dtype: two launches a layer in
     bfloat16 (in f32, kernel B follows W_in: C's f32 instance has no
@@ -397,12 +398,33 @@ def sparse_ffn_fwd(params: Params, topo_in: BlockTopoArrays, topo_out: BlockTopo
     each tile's product to the model dtype before it adds a column's tiles;
     kernel C and its plain version round once, so in bfloat16 the two differ
     by bf16 rounding where a column holds more than one tile (equal in f32
-    to within the sums' order)."""
+    to within the sums' order).
+
+    Where autograd records (training), each weight runs ``bsmm_kernel``
+    (kernel C forward; kernels D and E backward) and All-ReLU runs between
+    them as plain autograd, the reference's ``act(h, layer_index)``: C's
+    store keeps no branch mask, so it has no backward. The forward's bits
+    are the same on both paths: the store rounds C's f32 sum to the dtype,
+    then applies ``core.all_relu.all_relu``'s arithmetic.
+
+    ``impl="xla"`` runs the reference's own formulation instead, ``bsmm_xla``
+    (plain autograd PyTorch) around All-ReLU: the oracle the kernel path is
+    held to on the card."""
     if sc.activation != "all_relu":
         raise ValueError(f"the sparse FFN runs All-ReLU, not {sc.activation!r}")
     meta_in, meta_out = metas
-    h = kops.bsmm_infer(x, params["win"], topo_in, meta_in, all_relu=(sc.alpha, layer_index))
-    return kops.bsmm_infer(h, params["wout"], topo_out, meta_out)
+    win, wout = params["win"], params["wout"]
+    if impl == "xla":
+        h = all_relu(kops.bsmm_xla(x, win, topo_in, meta_in), sc.alpha, layer_index)
+        return kops.bsmm_xla(h, wout, topo_out, meta_out)
+    if impl != "kernel":
+        raise ValueError(f"unknown sparse FFN impl {impl!r}")
+    if torch.is_grad_enabled() and (x.requires_grad or win.requires_grad
+                                    or wout.requires_grad):
+        h = all_relu(kops.bsmm_kernel(x, win, topo_in, meta_in), sc.alpha, layer_index)
+        return kops.bsmm_kernel(h, wout, topo_out, meta_out)
+    h = kops.bsmm_infer(x, win, topo_in, meta_in, all_relu=(sc.alpha, layer_index))
+    return kops.bsmm_infer(h, wout, topo_out, meta_out)
 
 
 # ---------------------------------------------------------------------------

@@ -19,18 +19,24 @@ The reference runs the repeats under one ``lax.scan``; here a Python loop
 visits the layers in the same order (repeat-major, then pattern slot), with
 the same 1-based layer index for All-ReLU's parity. The reference's
 ``scan_barrier`` argument (an XLA optimisation barrier between scan
-iterations) and ``remat`` (gradient checkpointing of the scan body) mean
-nothing to eager inference: the forward takes no ``scan_barrier``, and
-``remat`` stays in the config for the training slice. A forward
-memoizes its per-layer views of one (params, topology) pair: the weights of
-repeat r and each layer's topology arrays are the same tensor objects on
-every call, so kernel C's per-topology checks and offsets run once.
+iterations) means nothing to eager PyTorch: the forward takes none.
+``remat="block"`` (the reference's ``jax.checkpoint`` of the scan body)
+wraps each stacked layer in ``torch.utils.checkpoint`` where autograd
+records in ``train`` mode: its activations are recomputed in the backward,
+which changes memory, not numbers.
 
-Not in this slice, and refused naming ROADMAP Queue 1 item 7 (the LM
-training slice): the ``mamba`` and ``rglru`` block kinds, the ``moe`` FFN,
-``chunked_softmax_xent`` and training. The reference's ``abstract=True``
-(the dry run's shape-only build) is not offered: it comes with the pod
-machinery, item 9.
+Each layer's topology arrays are views memoized per topology: the same
+tensor objects on every call, so the block kernels' per-topology checks
+and offsets run once. Each stacked weight is split into its repeats once a
+forward (``torch.unbind``, whose backward stacks the repeats' gradients
+once); the views of one (params, topology) pair are memoized where
+autograd does not record (serving), and made anew where it does, since they
+belong to one graph. :func:`chunked_softmax_xent` is the training loss.
+
+Not in this slice, and refused naming ROADMAP Queue 1 item 7b (the rest of
+LM training): the ``mamba`` and ``rglru`` block kinds and the ``moe`` FFN.
+The reference's ``abstract=True`` (the dry run's shape-only build) is not
+offered: it comes with the pod machinery, item 9.
 """
 from __future__ import annotations
 
@@ -40,22 +46,25 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import scalar_in
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map
 
-__all__ = ["ModelConfig", "PatternLM"]
+__all__ = ["ModelConfig", "PatternLM", "chunked_softmax_xent"]
 
 Tree = Any
 DeviceLike = Optional[Union[str, torch.device]]
-_ITEM_7 = "comes with the LM training slice (ROADMAP Queue 1, item 7)"
+_ITEM_7B = ("comes with the rest of LM training: moe, mamba, griffin, whisper "
+            "(ROADMAP Queue 1, item 7b)")
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {_ITEM_7}")
+    return NotImplementedError(f"{what} {_ITEM_7B}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,11 +194,12 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return L.rmsnorm(p, x) if cfg.norm == "rms" else L.layernorm(p, x)
 
 
-def _block_fwd(cfg: ModelConfig, kind: str, params, h: torch.Tensor, *,
+def _block_fwd(params, h: torch.Tensor, *, cfg: ModelConfig, kind: str,
                positions: torch.Tensor, layer_index: int, mode: str, cache,
                topo: Optional[Tuple[BlockTopoArrays, BlockTopoArrays]],
-               metas, prefix_len: Optional[int]):
-    """One residual block. Returns (h, new_cache)."""
+               metas, prefix_len: Optional[int], sparse_impl: str = "kernel"):
+    """One residual block. Returns (h, new_cache). The configuration is
+    keyword-only: static, as the repository's convention has it."""
     a, new_cache = L.attention_fwd(
         params["attn"], _norm(cfg, params["ln1"], h), cfg.attn_cfg(kind),
         positions=positions, mode=mode, cache=cache, prefix_len=prefix_len,
@@ -202,7 +212,7 @@ def _block_fwd(cfg: ModelConfig, kind: str, params, h: torch.Tensor, *,
         f = L.gated_ffn_fwd(params["ffn"], f_in, cfg.activation)
     else:
         f = L.sparse_ffn_fwd(params["ffn"], topo[0], topo[1], metas, f_in,
-                             cfg.sparse_cfg(), layer_index)
+                             cfg.sparse_cfg(), layer_index, impl=sparse_impl)
     if cfg.post_norms:
         f = _norm(cfg, params["post_ffn"], f)
     return h + f, new_cache
@@ -220,7 +230,11 @@ def _rep(stacked: BlockTopoArrays, r: int) -> BlockTopoArrays:
 class PatternLM:
     """Builds the parameters and the sparse FFN's host topologies; exposes
     the forward. ``device=None`` means the card; without one it raises
-    (pass ``device="cpu"`` for the plain versions)."""
+    (pass ``device="cpu"`` for the plain versions). ``sparse_impl`` is the
+    sparse FFN's products: ``"kernel"`` (kernels C, D and E) or ``"xla"``
+    (the reference's plain autograd ``bsmm_xla``, an oracle)."""
+
+    sparse_impl = "kernel"
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
         self.cfg = cfg
@@ -229,6 +243,9 @@ class PatternLM:
         self.topologies: Dict[str, List] = {}
         self.block_metas: Optional[Tuple[BlockMeta, BlockMeta]] = None
         self._views = None
+        self._topo_views = None
+        if cfg.remat not in ("block", "none"):
+            raise ValueError(f"remat must be 'block' or 'none', not {cfg.remat!r}")
         self.params = self._build()
 
     def _build(self) -> Dict[str, Tree]:
@@ -282,7 +299,7 @@ class PatternLM:
         if device != self.device:
             self.params = tree_map(lambda a: a.to(device), self.params)
             self.device = device
-            self._views = None
+            self._views = self._topo_views = None
         return self
 
     # -- topology device views ---------------------------------------------
@@ -300,30 +317,52 @@ class PatternLM:
                          BlockTopoArrays(*(torch.stack(f) for f in zip(*outs))))
         return out
 
+    def _layer_topos(self, topo) -> List[Optional[tuple]]:
+        """Each layer's (W_in, W_out) topology views, in layer order,
+        memoized for the last ``topo``: the same view objects on every call
+        with it."""
+        if self._topo_views is not None and self._topo_views[0] is topo:
+            return self._topo_views[1]
+        cfg = self.cfg
+        views = []
+        for r in range(cfg.n_rep):
+            for s_idx, kind in enumerate(cfg.pattern):
+                slot = f"s{s_idx}_{kind}"
+                has = topo is not None and slot in topo
+                views.append((_rep(topo[slot][0], r), _rep(topo[slot][1], r)) if has else None)
+        for i in range(cfg.remainder):
+            has = topo is not None and f"rest{i}" in topo
+            views.append(tuple(_rep(t, 0) for t in topo[f"rest{i}"]) if has else None)
+        self._topo_views = (topo, views)
+        return views
+
     def _layers(self, params, topo) -> List[tuple]:
         """(kind, layer_index, where, layer params, layer topology) per
-        layer in order, memoized for the last (params, topo) pair: the same
-        view objects on every call with them."""
-        if self._views is not None and self._views[0] is params and self._views[1] is topo:
+        layer in order. Each stacked leaf is split into its repeats once
+        (``torch.unbind``). Where autograd does not record, memoized for the
+        last (params, topo) pair: the same view objects on every call."""
+        record = torch.is_grad_enabled()
+        if (not record and self._views is not None and self._views[0] is params
+                and self._views[1] is topo):
             return self._views[2]
         cfg = self.cfg
         P = len(cfg.pattern)
+        topos = iter(self._layer_topos(topo))
+        reps = {}
+        for slot, stacked in params["stack"].items():
+            leaves, unflatten = tree_flatten(stacked)
+            parts = [a.unbind(0) for a in leaves]
+            reps[slot] = [unflatten([p[r] for p in parts]) for r in range(cfg.n_rep)]
         layers = []
         for r in range(cfg.n_rep):
             for s_idx, kind in enumerate(cfg.pattern):
                 slot = f"s{s_idx}_{kind}"
-                lt = None
-                if topo is not None and slot in topo:
-                    lt = (_rep(topo[slot][0], r), _rep(topo[slot][1], r))
-                lp = tree_map(lambda a, r=r: a[r], params["stack"][slot])
-                layers.append((kind, r * P + s_idx + 1, ("stack", slot, r), lp, lt))
+                layers.append((kind, r * P + s_idx + 1, ("stack", slot, r), reps[slot][r],
+                               next(topos)))
         for i in range(cfg.remainder):
-            lt = None
-            if topo is not None and f"rest{i}" in topo:
-                lt = tuple(_rep(t, 0) for t in topo[f"rest{i}"])
             layers.append((cfg.pattern[i % P], cfg.n_rep * P + i + 1, ("rest", i),
-                           params["rest"][i], lt))
-        self._views = (params, topo, layers)
+                           params["rest"][i], next(topos)))
+        self._views = None if record else (params, topo, layers)
         return layers
 
     # -- forward -------------------------------------------------------------
@@ -367,14 +406,22 @@ class PatternLM:
             raise ValueError("decode needs caches")
 
         collected: Dict[str, List] = {}
+        # the reference checkpoints its scan body (the stacked layers) in
+        # train mode; the LM draws nothing random, so no RNG state is kept
+        remat = cfg.remat == "block" and mode == "train" and torch.is_grad_enabled()
         for kind, layer_index, where, lp, lt in self._layers(params, topo):
             cache = None
             if caches is not None:
                 cache = (tree_map(lambda a, r=where[2]: a[r], caches["stack"][where[1]])
                          if where[0] == "stack" else caches["rest"][where[1]])
-            h, nc = _block_fwd(cfg, kind, lp, h, positions=positions, layer_index=layer_index,
-                               mode=mode, cache=cache, topo=lt, metas=self.block_metas,
-                               prefix_len=prefix_len)
+            block = dict(cfg=cfg, kind=kind, positions=positions, layer_index=layer_index,
+                         mode=mode, cache=cache, topo=lt, metas=self.block_metas,
+                         prefix_len=prefix_len, sparse_impl=self.sparse_impl)
+            if remat and where[0] == "stack":
+                h, nc = checkpoint(_block_fwd, lp, h, use_reentrant=False,
+                                   preserve_rng_state=False, **block)
+            else:
+                h, nc = _block_fwd(lp, h, **block)
             if mode == "prefill":
                 collected.setdefault(where[1] if where[0] == "stack" else "rest", []).append(nc)
 
@@ -424,3 +471,33 @@ class PatternLM:
                  for s_idx, kind in enumerate(cfg.pattern) if cfg.n_rep}
         rest = [one(cfg.pattern[i % len(cfg.pattern)]) for i in range(cfg.remainder)]
         return {"stack": stack, "rest": rest}
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def chunked_softmax_xent(model: PatternLM, params, h: torch.Tensor, labels: torch.Tensor,
+                         chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over the vocabulary, the logits made in f32 one
+    sequence chunk at a time (the reference's scan over chunks). ``h``
+    (B, S, d) are the final hidden states, ``labels`` (B, S) the targets;
+    a label of -1 (and the padding of a last chunk shorter than ``chunk``)
+    counts in neither the sum nor the mean."""
+    B, S, _ = h.shape
+    c = min(chunk, S)
+    n_chunks = -(-S // c)
+    pad = n_chunks * c - S
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        lx = labels[:, i * c:(i + 1) * c]
+        logits = model.logits(params, h[:, i * c:(i + 1) * c]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lx.clamp(min=0).long()[..., None])[..., 0]
+        tot = tot + torch.where(lx >= 0, lse - gold, 0.0).sum()
+    n_valid = (labels >= 0).sum().clamp(min=1)
+    return tot / n_valid

@@ -7,9 +7,10 @@ Momentum SGD implements paper Eq. (1):
 
 in velocity form (v_t = W_t - W_{t-1}):  v <- mu*v - eta*g;  W <- W + v.
 Weight decay is added to the gradient (coupled, the paper's classic
-formulation). It operates on the model's parameter dict
-``{"values": (...), "biases": (...)}`` — a dict of tuples of tensors — and
-returns new tensors; ``lr`` may be a float or a 0-d tensor on the device.
+formulation). It operates on any tree of tensors (``repro_torch.tree``):
+the SET-MLP's ``{"values": (...), "biases": (...)}``, the LM's nested
+parameter dict; it returns new tensors, and ``lr`` may be a float or a 0-d
+tensor on the device.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
     "MomentumSGD",
@@ -55,7 +56,7 @@ class MomentumSGD:
 
     def init(self, params: Params) -> SGDState:
         vel = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-        device = next(iter(params.values()))[0].device
+        device = tree_leaves(params)[0].device
         return SGDState(velocity=vel, step=torch.zeros((), dtype=torch.int32, device=device))
 
     def update(

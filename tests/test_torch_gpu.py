@@ -37,7 +37,12 @@ routes' rings held the same way; a decode-route row the same alone
 as within 8 or 16 rows; kernel B's bf16 entry bit-equal to its plain
 version, with and without a bias; the smoke LM in bf16 on the card within
 5e-2 of the CPU run, on kernel C with All-ReLU in W_in's store, served
-through the batcher.
+through the batcher. Its training backward: kernels D and E bf16 within
+1e-2 of their plain versions and 5e-2 of ``ref.bsmm_*_ref`` at 1 to 2,048
+rows, on every layer's topology of the served model, long block-rows and
+tile sides from 16 to 128, bit-equal over 3 launches and counted as bf16
+launches; the bf16 block op's gradients within 5e-2 of ``bsmm_xla``'s; the
+smoke LM's bf16 train step on the card within 5e-2 of the f32 step.
 """
 import dataclasses
 
@@ -1632,3 +1637,216 @@ def test_lm_engine_bf16_on_card_matches_cpu(cuda):
     assert stats.completed == 8 and engine.stats["compiles"] == builds
     assert bsm.bsmm_fwd.launches - c0 == 2 * cfg.n_layers * (stats.decode_steps
                                                              + stats.prefill_calls)
+
+
+# -- the bfloat16 LM's training: kernels D and E bf16, kernel C's backward ------
+
+DE_BF16_ROWS = (1, 8, 256, 2048)  # one row, a decode step's, a prefill's, a train step's
+
+
+def _de_bf16_inputs(cuda, meta, topo, rows, seed):
+    """Random bf16 tiles (the init's scale), x and dy for one topology."""
+    rng = np.random.default_rng(seed)
+    shape = (topo.n_blocks, meta.block_m, meta.block_n)
+    v = torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 0.05, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((rows, meta.padded_in)).astype(np.float32),
+                        device=cuda)
+    dy = torch.as_tensor(rng.standard_normal((rows, meta.padded_out)).astype(np.float32),
+                         device=cuda)
+    return (topo.device_arrays(cuda),) + tuple(a.to(torch.bfloat16) for a in (v, x, dy))
+
+
+def _check_de_bf16(meta, topo, t, v, x, dy):
+    """D and E bf16 within 1e-2 of their plain versions (both round an f32
+    sum once, in other orders) and 5e-2 of ``ref.bsmm_*_ref`` (the
+    reference's bf16 tolerance), the same bits on three launches, each
+    launch counted as a bf16 one, uncovered dx block-rows exactly 0."""
+    names = ("launches", "bf16_launches")
+    before = [getattr(k, n) for k in (bsm.bsmm_dx, bsm.bsmm_dw) for n in names]
+    dxs = [bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
+           for _ in range(3)]
+    dws = [bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m, block_n=meta.block_n)
+           for _ in range(3)]
+    torch.cuda.synchronize()
+    after = [getattr(k, n) for k in (bsm.bsmm_dx, bsm.bsmm_dw) for n in names]
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 3, 3]
+    for got in (dxs, dws):
+        assert got[0].dtype == torch.bfloat16
+        assert all(torch.equal(got[0].view(torch.int16), g.view(torch.int16)) for g in got[1:])
+    dx, dw = dxs[0], dws[0]
+    torch.testing.assert_close(dx.float(), bsm.bsmm_dx_plain(
+        dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m).float(),
+        **BF16_TOL)
+    torch.testing.assert_close(dw.float(), bsm.bsmm_dw_plain(
+        x, dy, t.rows, t.cols, block_m=meta.block_m, block_n=meta.block_n).float(), **BF16_TOL)
+    torch.testing.assert_close(dx.float(), ref.bsmm_dx_ref(
+        dy.float(), v.float(), t.rows, t.cols, grid_m=meta.grid_m, grid_n=meta.grid_n),
+        rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(dw.float(), ref.bsmm_dw_ref(
+        x.float(), dy.float(), t.rows, t.cols, block_m=meta.block_m, block_n=meta.block_n),
+        rtol=5e-2, atol=5e-2)
+    covered = np.zeros(meta.grid_m, bool)
+    covered[topo.rows] = True
+    uncovered = torch.as_tensor(np.repeat(~covered, meta.block_m), device=dx.device)
+    assert (dx[:, uncovered] == 0).all()
+
+
+def _full_width_topo(which):
+    """The served LM's first-layer W_in or W_out topology (seed 0)."""
+    rng = np.random.default_rng(0)
+    t_in = tsp.BlockTopology.from_epsilon(tsp.BlockMeta(1024, 2816), 64.0, rng)
+    t_out = tsp.BlockTopology.from_epsilon(tsp.BlockMeta(2816, 1024), 64.0, rng)
+    return t_in if which == "win" else t_out
+
+
+@pytest.mark.parametrize("rows", DE_BF16_ROWS)
+@pytest.mark.parametrize("which", ["win", "wout"])
+def test_kernels_d_e_bf16_on_the_lm_ffn(cuda, which, rows):
+    """The served LM's first-layer W_in (22 tiles on 8 x 22) and W_out (15 on
+    22 x 8, block-rows with no tile) at 1, 8, 256 and 2,048 rows."""
+    topo = _full_width_topo(which)
+    _check_de_bf16(topo.meta, topo, *_de_bf16_inputs(cuda, topo.meta, topo, rows, rows))
+
+
+@pytest.mark.parametrize("case", [(length, rows) for length in (4, 5, 8)
+                                  for rows in (8, 256, 2048)])
+def test_kernels_d_e_bf16_on_long_columns(cuda, case):
+    """W_in's grid with every block-column holding 4, 5 or 8 slots: block-rows
+    of 11 to 22 slots, longer than kernel D's ring of 3."""
+    length, rows = case
+    rng = np.random.default_rng(length)
+    meta = tsp.BlockMeta(1024, 2816, 128, 128)
+    block_rows = np.concatenate([np.sort(rng.choice(meta.grid_m, length, replace=False))
+                                 for _ in range(meta.grid_n)])
+    topo = tsp.BlockTopology(meta, block_rows, np.repeat(np.arange(meta.grid_n), length))
+    _check_de_bf16(meta, topo, *_de_bf16_inputs(cuda, meta, topo, rows, length))
+
+
+def test_kernels_d_e_bf16_on_every_served_layer(cuda):
+    """Every layer's W_in and W_out topology of the served model
+    (Qwen1.5-0.5B, the sparse FFN, seed 0) at a train step's 2,048 rows."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import PatternLM
+
+    cfg = dataclasses.replace(configs.get_spec("qwen1.5-0.5b").config, ffn="sparse")
+    model = PatternLM(cfg, seed=0, device="cpu")  # the host topologies only
+    layers = 0
+    for pairs in model.topologies.values():
+        for pair in pairs:
+            layers += 1
+            for topo in pair:
+                _check_de_bf16(topo.meta, topo,
+                               *_de_bf16_inputs(cuda, topo.meta, topo, 2048, layers))
+    assert layers == cfg.n_layers
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 48), (96, 16), (128, 64), (48, 128)])
+def test_kernels_d_e_bf16_take_tile_sides_multiples_of_16(cuda, tile):
+    """Sides below the blocks' 64 features (masked) at a ragged batch of 77."""
+    bm, bn = tile
+    meta = tsp.BlockMeta(5 * bm, 3 * bn, bm, bn)
+    topo = tsp.BlockTopology.erdos_renyi(meta, 0.5, np.random.default_rng(bm + bn))
+    _check_de_bf16(meta, topo, *_de_bf16_inputs(cuda, meta, topo, 77, bm))
+
+
+def test_kernels_d_e_bf16_refuse_what_they_cannot_take(cuda):
+    meta = tsp.BlockMeta(16, 16, 8, 8)
+    topo = tsp.BlockTopology.erdos_renyi(meta, 1.0, np.random.default_rng(0))
+    t, v, x, dy = _de_bf16_inputs(cuda, meta, topo, 4, 0)
+    before = (bsm.bsmm_dx.launches, bsm.bsmm_dw.launches)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=8, block_n=8)
+    topo = _full_width_topo("wout")
+    t, v, x, dy = _de_bf16_inputs(cuda, topo.meta, topo, 4, 1)
+    with pytest.raises(ValueError, match="dtype"):  # tiles of another dtype than dy
+        bsm.bsmm_dx(dy, v.float(), t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                    grid_m=meta.grid_m)
+    with pytest.raises(ValueError, match="dtype"):
+        bsm.bsmm_dw(x.half(), dy.half(), t.rows, t.cols, block_m=128, block_n=128)
+    assert (bsm.bsmm_dx.launches, bsm.bsmm_dw.launches) == before
+
+
+def test_kernels_d_e_bf16_take_an_unaligned_input(cuda):
+    """A contiguous dy whose storage starts 2 bytes past a 16-byte boundary
+    (a view at an offset) gives the aligned call's bits."""
+    topo = _full_width_topo("win")
+    meta = topo.meta
+    t, v, x, dy = _de_bf16_inputs(cuda, meta, topo, 100, 2)
+    flat = torch.empty(dy.numel() + 1, dtype=dy.dtype, device=cuda)
+    du = flat[1:].view(dy.shape)
+    du.copy_(dy)
+    assert du.is_contiguous() and du.data_ptr() % 16 == 2
+    assert torch.equal(bsm.bsmm_dx(du, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                   grid_m=meta.grid_m),
+                       bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
+                                   grid_m=meta.grid_m))
+    assert torch.equal(bsm.bsmm_dw(x, du, t.rows, t.cols, block_m=128, block_n=128),
+                       bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=128, block_n=128))
+
+
+def test_bf16_block_op_gradients_match_plain_autograd(cuda):
+    """``ops.bsmm`` in bf16: kernels C, D and E against ``bsmm_xla``'s
+    autograd, at the reference's bf16 tolerance."""
+    meta = tsp.BlockMeta(1024, 2816)
+    topo = tsp.BlockTopology.from_epsilon(meta, 64.0, np.random.default_rng(3))
+    t, v, _, _ = _de_bf16_inputs(cuda, meta, topo, 1, 3)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal((4, 64, 1024)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16)
+    g = torch.as_tensor(rng.standard_normal((4, 64, 2816)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16)
+    grads = []
+    for impl in ("kernel", "xla"):
+        xx, vv = x.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        (ops.bsmm(xx, vv, t, meta, impl=impl).float() * g.float()).sum().backward()
+        grads.append((xx.grad, vv.grad))
+    for a, b in zip(*grads):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=5e-2, atol=5e-2)
+
+
+def test_lm_train_step_bf16_on_card_matches_f32(cuda):
+    """The smoke LM's bf16 train step on the card (kernels C, D and E, remat)
+    against the f32 step on the CPU on the same bf16 weights: the loss and
+    each gradient leaf within 5e-2 (relative, relative L2), on a batch of the
+    training stream (examples/train_lm_torch.py's, seed 0, 8 x 32); and the
+    launches: C four times a layer (forward, recompute), D and E bf16 twice."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import PatternLM
+    from repro_torch.tree import tree_flatten_with_names, tree_map
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    path = Path(__file__).resolve().parents[1] / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = dataclasses.replace(configs.get_spec("qwen1.5-0.5b").smoke, ffn="sparse",
+                              sparse_block=32, sparse_density=0.5, dtype="bfloat16")
+    card = PatternLM(cfg, seed=0, device=cuda)
+    cpu = PatternLM(dataclasses.replace(cfg, dtype="float32"), seed=0, device="cpu")
+    cpu.params = tree_map(lambda a: a.float().cpu(), card.params)
+    toks = torch.as_tensor(next(example.synthetic_stream(np.random.default_rng(0), cfg.vocab,
+                                                         8, 33))).long()
+    grads = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        batch = {"tokens": toks[:, :-1].to(model.device), "labels": toks[:, 1:].to(model.device)}
+        c0, d0, e0 = bsm.bsmm_fwd.launches, bsm.bsmm_dx.bf16_launches, bsm.bsmm_dw.bf16_launches
+        _, loss, g = steps._microbatched_grad(steps.lm_loss_fn(model, model.topo_arrays()),
+                                              model.params, batch, 1)
+        if name == "card":
+            torch.cuda.synchronize()
+            assert (bsm.bsmm_fwd.launches - c0, bsm.bsmm_dx.bf16_launches - d0,
+                    bsm.bsmm_dw.bf16_launches - e0) == (4 * cfg.n_layers, 2 * cfg.n_layers,
+                                                        2 * cfg.n_layers)
+        grads[name] = (float(loss), tree_flatten_with_names(g)[0])
+    assert abs(grads["card"][0] - grads["cpu"][0]) <= 5e-2 * abs(grads["cpu"][0])
+    for (name, a), (_, b) in zip(grads["card"][1], grads["cpu"][1]):
+        assert a.dtype == torch.bfloat16, name
+        err = float((a.float().cpu() - b).norm() / b.norm())
+        assert err <= 5e-2, (name, err)
