@@ -3009,12 +3009,13 @@ def lm_grad_vs_xla(model, batch) -> dict:
 
 
 def lm_train_timing_rows(model) -> list:
-    """Kernels D and E bf16 on the trained model's first layer (W_in, W_out)
-    at the step's 2,048 rows, beside their bounds (bytes: each input read
-    once, dy and x only at the block-columns and -rows a tile touches, the
-    output written once; flops at the bf16 tensor rate), plain versions and
-    one library call: ``torch.matmul`` against the densified W^T for D,
-    ``torch.bmm`` on the tiles gathered beforehand for E."""
+    """Kernels C (rows route, no store), D and E bf16 on the trained model's
+    first layer (W_in, W_out) at the step's 2,048 rows, beside their bounds
+    (bytes: each input read once, x and dy only at the block-rows and
+    -columns a tile touches, the output written once; flops at the bf16
+    tensor rate), plain versions and one library call: ``torch.matmul``
+    against the densified W for C and W^T for D, ``torch.bmm`` on the tiles
+    gathered beforehand for E. D's rows carry its runs P, E's its runs S."""
     ffn = model.params["stack"]["s0_global"]["ffn"]
     topo = model.topo_arrays()["s0_global"]
     pair = model.topologies["s0_global"][0]
@@ -3039,8 +3040,20 @@ def lm_train_timing_rows(model) -> list:
         flops = 2 * B * v.numel()
         common = dict(weight=name, rows=B, shape=[meta.in_dim, meta.out_dim],
                       n_blocks=host.n_blocks)
+        plan = bsm.fwd_plan(host.n_blocks, meta.grid_n, B, bm, bn, bf16=True)
+        rows.append(dict(
+            kernel=KERNEL_C_BF16["name"], **common, route=plan.route,
+            tile=[plan.tile_rows, plan.tile_feat],
+            ms=device_ms(lambda: bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
+                                              grid_n=meta.grid_n)),
+            plain_ms=device_ms(lambda: bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col,
+                                                          grid_n=meta.grid_n), 10),
+            library_ms=library_ms(lambda: torch.matmul(x, dense)),
+            **bound_bf16(2 * B * rows_used * bm + tiles + idx + 8 * (meta.grid_n + 1)
+                         + 2 * B * meta.padded_out, flops)))
         rows.append(dict(
             kernel=KERNEL_D_BF16["name"], **common,
+            longest_block_row=int(np.bincount(host.rows, minlength=meta.grid_m).max()),
             ms=device_ms(lambda: bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
                                              grid_m=meta.grid_m)),
             plain_ms=device_ms(lambda: bsm.bsmm_dx_plain(dy, v, t.rows_r, t.cols_r, t.first_row,
@@ -3050,7 +3063,7 @@ def lm_train_timing_rows(model) -> list:
                          + 2 * B * meta.padded_in, flops)))
         rows.append(dict(
             kernel=KERNEL_E_BF16["name"], **common,
-            splits=bsm.dw_splits_bf16(host.n_blocks, B, bm, bn),
+            splits=bsm.dw_splits_bf16(host.n_blocks, B),
             ms=device_ms(lambda: bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=bm, block_n=bn)),
             plain_ms=device_ms(lambda: bsm.bsmm_dw_plain(x, dy, t.rows, t.cols, block_m=bm,
                                                          block_n=bn), 10),
@@ -3111,6 +3124,15 @@ def phase_lm_train(out: dict) -> str:
     check(cfg.dtype == "bfloat16" and cfg.remat == "block", f"{cfg.dtype}, remat {cfg.remat}")
     model = PatternLM(cfg, seed=SEED, device=CARD)
     rng = np.random.default_rng(SEED)
+    splits = {}
+    for name, host in zip(("W_in", "W_out"), model.topologies["s0_global"][0]):
+        meta = host.meta
+        splits[name] = dict(n_blocks=host.n_blocks, grid=[meta.grid_m, meta.grid_n],
+                            rows=LM_TRAIN_ROWS,
+                            D_longest_block_row=int(np.bincount(
+                                host.rows, minlength=meta.grid_m).max()),
+                            E_splits=bsm.dw_splits_bf16(host.n_blocks, LM_TRAIN_ROWS))
+    print(json.dumps({"lm_train_splits": splits}), flush=True)
     before = de_bf16_checks(model, "before the evolution", rng)
     start_topos = {slot: list(pairs) for slot, pairs in model.topologies.items()}
 
@@ -3140,10 +3162,11 @@ def phase_lm_train(out: dict) -> str:
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
     # a step: C twice a layer in the forward and again in remat's recompute
-    # (rows route, no store, no second pass), D and E bf16 twice a layer, each
-    # E with its second pass (3 and 4 runs at 2,048 rows), nothing else
+    # (rows route, no store, no second pass), D and E bf16 twice a layer, one
+    # launch each (D sums a block-row whole, E's runs meet in the clusters'
+    # shared memory: no second pass), nothing else
     want_step = {"bsmm_fwd": 4 * L, "rows": 4 * L, "bsmm_dx": 2 * L, "bsmm_dx.bf16": 2 * L,
-                 "bsmm_dw": 2 * L, "bsmm_dw.bf16": 2 * L, "bsmm_dw.second_pass": 2 * L}
+                 "bsmm_dw": 2 * L, "bsmm_dw.bf16": 2 * L}
     for i, s in enumerate(per_step):
         got = {k: n for k, n in s.items() if k != "loss"}
         check(got == want_step, f"step {i} launched {got}, expected {want_step}")

@@ -545,7 +545,8 @@ def evolve_element_layers_device(
     tensor; nothing syncs. ``probe`` (the reference's churn probe) comes
     with the probes slice."""
     if probe:
-        raise NotImplementedError("training-dynamics probes come with the probes slice")
+        raise NotImplementedError(
+            "training-dynamics probes come with the probes slice (ROADMAP Queue 1, item 4)")
     new_topo, new_vals, new_vel, n_pruned = [], [], [], []
     for l, arrays in enumerate(topo_arrays):
         n_in, n_out = layer_dims[l], layer_dims[l + 1]

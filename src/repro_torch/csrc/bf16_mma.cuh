@@ -1,7 +1,7 @@
-// Shared pieces of the bf16 instances of kernels C, D and E (bsmm_fwd.cu,
-// bsmm_dx.cu, bsmm_dw.cu): the bf16 tensor-core product (mma.sync
-// m16n8k16 into f32), its f32 accumulation, 16-byte cp.async of bf16 rows,
-// and ldmatrix of b16 matrices, plain and transposed.
+// Pieces of kernel C's bf16 instance (bsmm_fwd.cu): the bf16 tensor-core
+// product (mma.sync m16n8k16 into f32), its f32 accumulation, 16-byte
+// cp.async of bf16 rows, and ldmatrix of b16 matrices, plain and transposed.
+// (Kernels D's and E's bf16 instances run on wgmma: sm90.cuh.)
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16 with .bf16 operands, for lane
 // = 4 * g + t; a register holds two bf16, the lower index in its low half:

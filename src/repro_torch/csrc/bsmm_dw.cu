@@ -42,40 +42,56 @@
 // The bf16 instance, bsmm_dw_bf16: the tile gradients of kernel C's bf16
 // instance, which the bfloat16 LM's training step runs twice a layer (W_in:
 // x (2048, 1024) and dy (2048, 2816) -> (22, 128, 128); W_out: x (2048,
-// 2816) and dy (2048, 1024) -> (15, 128, 128)). The Pallas _dw_kernel sums
-// bf16 products on the MXU into an f32 VMEM scratch across the batch tiles
-// of its sequential grid and rounds once. Here:
-//   * the batch is cut into S runs of 64-sample chunks, S from host ints
-//     (block_sparse_matmul.py::dw_splits_bf16: about two blocks an SM);
-//     one block of 8 warps per (slot, 64 x 64 part of its tile, run). S = 1
-//     rounds the f32 sum once into dw; S > 1 writes the runs' f32 partials
-//     to part (S, nb, bm, bn) and a second pass adds them in index order and
-//     rounds once: no atomics, the same bits every run;
-//   * a cp.async ring of 4 stages, 3 issued before the loop (the f32
-//     instance's ring): a stage is 64 samples of the slot's x columns
-//     xs[b][m] and dy columns ys[b][n] at 144-byte rows, so the 8 row
-//     addresses of every ldmatrix fall on distinct bank groups; both
-//     operands by ldmatrix.trans (A[m][b] = x[b][m] and B[b][n] from
-//     batch-major slabs), mma.sync m16n8k16 bf16 into f32, the 8 warps 4 x 2
-//     over the 64 x 64 output, each product taken into a zero fragment and
-//     added in f32 (mma_bf16_add);
-//   * tile sides are multiples of 16 (the wrapper raises for others); a
-//     ragged last chunk and features past a side below 64 are zero-filled.
-// What bounds it: bytes. On W_in at 2,048 rows it reads dy's 22
+// 2816) and dy (2048, 1024) -> (15, 128, 128)). It replaces the same Pallas
+// _dw_kernel (src/repro/kernels/block_sparse_matmul.py:170, bsmm_dw at
+// :186), which sums bf16 products on the MXU into an f32 VMEM scratch across
+// the batch tiles of its sequential grid and rounds once.
+// What bounds it on an H100: bytes. At 2,048 rows, on W_in it reads dy's 22
 // block-columns (11.5 MB) and x's touched block-rows (at most 4.2 MB) and
-// writes 0.7 MB, 4.9 us at 3.35 TB/s; its 1.48 GFLOP take 1.5 us at the
-// bf16 rate. Each block reads its run of x and dy columns once; a
-// block-column of dy is read again by every slot that holds it and each
-// part of a tile, through L2.
+// writes 0.7 MB, 4.8 us at 3.35 TB/s; on W_out x's touched block-rows and
+// dy (4.2 MB), 2.8 us. Their 1.5 and 1.0 GFLOP take 1.5 and 1.0 us at the
+// 989 TFLOP/s bf16 rate.
+// Design (sm90.cuh): dW[i] = x[:, rows[i]]^T dy[:, cols[i]] over the batch:
+// A[m][b] = x[b][m] and B[b][n] = dy[b][n] both come MN-major from
+// batch-major boxes, through wgmma's transpose bits.
+//   * One cluster of S CTAs per tile, each CTA over the whole tile, so x and
+//     dy are read once a tile: CTA s sums the batch run s (chunks [C*s/S,
+//     C*(s+1)/S) of the C = ceil(B/64) 64-row chunks). S comes from host
+//     ints (block_sparse_matmul.py::dw_splits_bf16: at least 8 chunks a run,
+//     the clusters on at most 3/4 of the 132 SMs, at most 8, the portable
+//     cluster size): 4 on W_in (22 tiles) and W_out (15) at 2,048 rows, 1
+//     below 961 rows.
+//   * Warp-specialised: a producer warp sets up the mbarriers and starts
+//     loading at once, keeping a ring of 3 stages in flight by TMA (a stage:
+//     64 rows of x's block-row and of dy's block-column, two 64-wide boxes
+//     each, 32 KB, the 128-byte swizzle); two consumer warpgroups each take
+//     64 of the tile's rows, wgmma m64n128k16 into f32 registers, four k16
+//     steps a stage.
+//   * The sum (sm90.cuh::ClusterSum): each CTA stages its f32 partial in its
+//     ring, sends each other CTA its share of the tile's rows by one bulk
+//     copy into a receive area after the ring (ready before any CTA's loads
+//     began), and adds its share over the ranks 0, 1, ..., S - 1 in that
+//     order, spread over all its threads, and rounds once
+//     (__float2bfloat16_rn). One launch a call: no second pass, no f32
+//     partials in device memory, no atomics, the same bits on every launch.
+//     Up to 166 KB of shared memory: one CTA an SM. Without a cluster the
+//     tile rounds straight from the registers.
+//   * A ragged last chunk and tile sides below the boxes' 64 are zero-filled
+//     by TMA (x and dy are mapped as (batch, grid, side)); only the tile's
+//     bm x bn are stored.
+// Where x and dy sit in L2 the L2's rate bounds the product: 22.5 MB pass
+// through it on W_in at 2,048 rows (x's block-rows once a tile), as they do
+// for torch.bmm on the gathered tiles.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launches.
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "bf16_mma.cuh"
+#include "sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -214,145 +230,131 @@ bool smem_set[2][64];
 
 // --- the bf16 instance --------------------------------------------------------
 
-using namespace bf16mma;
+constexpr int kWarpgroup = 128;
+constexpr int kConsumersH = 2;                               // warpgroups of 64 tile rows
+constexpr int kThreadsH = kConsumersH * kWarpgroup + 32;     // + the producer warp
+constexpr int kChunkH = 64;                                  // batch rows a stage
+constexpr int kBoxBytes = kChunkH * 64 * 2;                  // a 64 x 64 box: 8 KB
+constexpr int kStagesH = 3;                                  // ring stages
+constexpr int kCtasH = 2;                                    // CTAs an SM
+using RingH = sm90::Ring<kStagesH, 4 * kBoxBytes>;           // x boxes m 0.., 64..; dy boxes
+constexpr int kPitchH = kMaxBlock + 8;                       // f32 partial rows
+constexpr int kPitchB = kMaxBlock + 8;                       // bf16 output rows
+constexpr int kMaxSplits = 8;                                // the portable cluster size
+static_assert(kMaxBlock * kPitchH * 4 <= kStagesH * 4 * kBoxBytes, "the partial fits in the ring");
+// The cluster's receive slots lie after the ring: one CTA an SM.
+using SumH = sm90::ClusterSum<kPitchH, kMaxSplits>;
+constexpr int area_max() {
+  int most = 0;
+  for (int size = 2; size <= kMaxSplits; ++size)
+    most = SumH::recv_area_bytes(size) > most ? SumH::recv_area_bytes(size) : most;
+  return most;
+}
+constexpr int kSmemMaxH = RingH::kSmem + area_max();
+static_assert(kSmemMaxH <= 232448, "a CTA's shared memory on sm_90");
 
-constexpr int kTileH = 64;            // output: a 64 x 64 part of the slot's bm x bn
-constexpr int kChunkH = 64;           // samples per stage
-constexpr int kRingH = 4;
-constexpr int kLdH = kTileH + 8;      // slab rows: 72 bf16 = 144 bytes
-constexpr int kStageH = 2 * kChunkH * kLdH;  // bf16 elements: x slab, then dy slab
-constexpr int kSmemH = kRingH * kStageH * static_cast<int>(sizeof(__nv_bfloat16));
-constexpr int kNFH = 4;               // a warp's n8 fragments: 16 x 32 of the 64 x 64
-
-// One block per (slot i, 64 x 64 part of its tile, run of the batch). A
-// stage is 64 samples of the slot's x columns xs[b][m] and dy columns
-// ys[b][n]; the 8 warps tile the output as 4 x 2, each 16 m x 32 n, and
-// every warp takes every k16 step of every stage. Both operands come by
-// ldmatrix.trans: A[m][b] = x[b][m] is a row-major fragment of the [b][m]
-// slab transposed, B[b][n] a column-major one of the [b][n] slab.
-__global__ void __launch_bounds__(kThreads)
-bsmm_dw_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ dy,
-                    const int32_t* __restrict__ rows,
-                    const int32_t* __restrict__ cols,
-                    __nv_bfloat16* __restrict__ dw,  // splits == 1
-                    float* __restrict__ part,        // splits > 1: f32 partials
-                    int64_t n_blocks, int64_t batch, int64_t x_stride, int64_t dy_stride,
-                    int bm, int bn) {
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_bytes);
-  const int64_t i = blockIdx.x;
-  const int n_tiles = (bn + kTileH - 1) / kTileH;
-  const int m0 = static_cast<int>(blockIdx.y) / n_tiles * kTileH;
-  const int n0 = static_cast<int>(blockIdx.y) % n_tiles * kTileH;
-  const int64_t split = blockIdx.z, splits = gridDim.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
-  const int m_valid = min(kTileH, bm - m0);
-  const int n_valid = min(kTileH, bn - n0);
-
-  const int64_t chunks = (batch + kChunkH - 1) / kChunkH;
-  const int64_t first = chunks * split / splits;
-  const int64_t n_steps = chunks * (split + 1) / splits - first;
-  const __nv_bfloat16* xt = x + static_cast<int64_t>(rows[i]) * bm + m0;
-  const __nv_bfloat16* yt = dy + static_cast<int64_t>(cols[i]) * bn + n0;
-
-  // Stage `step` of the run: samples [(first + step) * kChunkH, ... + kChunkH);
-  // samples past the batch and features past m_valid / n_valid zero-filled
-  // (multiples of 16: a 16-byte chunk is all in or all out).
-  auto load = [&](int64_t step) {
-    __nv_bfloat16* xs = smem + (step % kRingH) * kStageH;
-    __nv_bfloat16* ys = xs + kChunkH * kLdH;
-    const int64_t b0 = (first + step) * kChunkH;
-    const int k_valid = batch - b0 < kChunkH ? static_cast<int>(batch - b0) : kChunkH;
-    for (int idx = tid; idx < kChunkH * (kTileH / 8); idx += kThreads) {
-      const int k = idx / (kTileH / 8), e = (idx % (kTileH / 8)) * 8;
-      const bool okx = k < k_valid && e < m_valid;
-      const bool oky = k < k_valid && e < n_valid;
-      cp_async16_bf16(xs + k * kLdH + e, okx ? xt + (b0 + k) * x_stride + e : x, okx ? 16 : 0);
-      cp_async16_bf16(ys + k * kLdH + e, oky ? yt + (b0 + k) * dy_stride + e : dy, oky ? 16 : 0);
-    }
-  };
-
-  float acc[kNFH][4];
-#pragma unroll
-  for (int f = 0; f < kNFH; ++f)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[f][q] = 0.0f;
-
-  // this lane's ldmatrix rows: A's matrices (b lo, m lo), (b lo, m hi),
-  // (b hi, m lo), (b hi, m hi) = a0..a3; B's (n lo, b lo), (n lo, b hi),
-  // (n hi, b lo), (n hi, b hi) = b[2h][0], b[2h][1], b[2h + 1][0], b[2h + 1][1]
-  const int mat = lane >> 3, row = lane & 7;
-  const int a_off = (8 * (mat >> 1) + row) * kLdH + wm + 8 * (mat & 1);
-  const int b_off = kChunkH * kLdH + (8 * (mat & 1) + row) * kLdH + wn + 8 * (mat >> 1);
-
-#pragma unroll
-  for (int st = 0; st < kRingH - 1; ++st) {
-    if (st < n_steps) load(st);
-    tf32x3::cp_async_commit();
-  }
-  for (int64_t step = 0; step < n_steps; ++step) {
-    tf32x3::cp_async_wait<kRingH - 2>();  // this step's stage has landed
-    __syncthreads();                      // ... for every thread; the oldest buffer is free
-    if (step + kRingH - 1 < n_steps) load(step + kRingH - 1);
-    tf32x3::cp_async_commit();
-
-    const __nv_bfloat16* stage = smem + (step % kRingH) * kStageH;
-    const int64_t b0 = (first + step) * kChunkH;
-    const int k_valid = batch - b0 < kChunkH ? static_cast<int>(batch - b0) : kChunkH;
-#pragma unroll
-    for (int kb = 0; kb < kChunkH; kb += 16) {
-      if (kb >= k_valid) break;  // the rest of the chunk is zero-filled
-      uint32_t a[4], b[kNFH][2];
-      ldmatrix_x4_trans(smem_addr(stage + a_off + kb * kLdH), a[0], a[1], a[2], a[3]);
-#pragma unroll
-      for (int h = 0; h < kNFH / 2; ++h)
-        ldmatrix_x4_trans(smem_addr(stage + b_off + kb * kLdH + 16 * h), b[2 * h][0],
-                          b[2 * h][1], b[2 * h + 1][0], b[2 * h + 1][1]);
-#pragma unroll
-      for (int f = 0; f < kNFH; ++f) mma_bf16_add(acc[f], a, b[f]);
-    }
-  }
-  tf32x3::cp_async_wait<0>();
-
-  // c0, c1 = dw[wm + g][wn + 8f + 2t..] and c2, c3 row + 8: bf16 rounded
-  // once (one run) or the run's f32 partial
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t tile = i * bm * bn + static_cast<int64_t>(m0) * bn + n0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = wm + g + 8 * h;
-    if (m >= m_valid) continue;
-#pragma unroll
-    for (int f = 0; f < kNFH; ++f) {
-      const int n = wn + 8 * f + 2 * t;
-      if (n >= n_valid) break;  // n_valid is a multiple of 16
-      const int64_t at = tile + static_cast<int64_t>(m) * bn + n;
-      if (splits == 1) {
-        __nv_bfloat162 v;
-        v.x = __float2bfloat16_rn(acc[f][2 * h]);
-        v.y = __float2bfloat16_rn(acc[f][2 * h + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dw + at) = v;
-      } else {
-        *reinterpret_cast<float2*>(part + split * n_blocks * bm * bn + at) =
-            make_float2(acc[f][2 * h], acc[f][2 * h + 1]);
-      }
-    }
-  }
+// Dynamic shared memory of a launch in clusters of `size`.
+constexpr int smem_for(int size) {
+  return RingH::kSmem + (size > 1 ? SumH::recv_area_bytes(size) : 0);
 }
 
-// out[i] = bf16(part[0][i] + ... + part[parts-1][i]): the runs' f32 sums in
-// index order, rounded once.
-__global__ void sum_parts_bf16(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
-                               int64_t total, int parts) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
-       e += stride) {
-    float s = part[e];
-    for (int q = 1; q < parts; ++q) s += part[q * total + e];
-    out[e] = __float2bfloat16_rn(s);
+// One CTA per (tile i = blockIdx.x / splits, batch run s = blockIdx.x %
+// splits = its rank in the cluster).
+__global__ void __launch_bounds__(kThreadsH, kCtasH)
+bsmm_dw_bf16_kernel(const __grid_constant__ CUtensorMap x_map,   // (bm, grid_m, batch)
+                    const __grid_constant__ CUtensorMap dy_map,  // (bn, grid_n, batch)
+                    const int32_t* __restrict__ rows,
+                    const int32_t* __restrict__ cols,
+                    __nv_bfloat16* __restrict__ dw,
+                    int64_t batch, int bm, int bn, int splits) {
+  extern __shared__ unsigned char smem_raw[];
+  const int64_t i = blockIdx.x / splits;
+  const int s_run = static_cast<int>(blockIdx.x % splits);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int64_t chunks = (batch + kChunkH - 1) / kChunkH;
+  const int64_t first = chunks * s_run / splits;
+  const int steps = static_cast<int>(chunks * (s_run + 1) / splits - first);
+  const RingH ring(smem_raw);
+  const SumH sum(bm, splits, s_run);
+
+  float acc[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) acc[k] = 0.0f;
+  if (warp == kConsumersH * 4) {
+    // The producer: lane 0 sets up the barriers and starts loading at once;
+    // it waits for a free stage and issues its four boxes.
+    if (lane == 0) ring.init(kConsumersH, sum.recv_bytes());
+    __syncwarp();
+    sm90::bar_arrive(1, kThreadsH);  // the barriers are ready for the consumers
+    // the sum's receive slots lie after the ring: ready once the barriers are
+    if (splits > 1) sm90::cluster_arrive_relaxed();
+    if (lane == 0) {
+      const int row = rows[i], col = cols[i];
+      for (int step = 0; step < steps; ++step) {
+        const int s = step % kStagesH;
+        const int b0 = static_cast<int>((first + step) * kChunkH);
+        if (step >= kStagesH) sm90::mbar_wait(ring.empty(s), (step / kStagesH - 1) & 1);
+        sm90::mbar_arrive_expect_tx(ring.full(s), 4 * kBoxBytes);
+        for (int h = 0; h < 2; ++h) {
+          sm90::tma_load_3d(ring.stage(s) + h * kBoxBytes, &x_map, ring.full(s), 64 * h, row, b0);
+          sm90::tma_load_3d(ring.stage(s) + (2 + h) * kBoxBytes, &dy_map, ring.full(s), 64 * h,
+                            col, b0);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // A consumer warpgroup: tile rows 64 * wg.. (x box wg, one 64-wide atom
+    // of M) against all 128 columns (dy's two boxes, LBO apart); a k16 step
+    // is 16 batch rows of both.
+    const int wg = warp / 4;
+    sm90::bar_sync(1, kThreadsH);
+    if (splits > 1) sm90::cluster_arrive_relaxed();
+    sm90::wgmma_fence();
+    sm90::fence_operands(acc);
+    for (int step = 0; step < steps; ++step) {
+      const int s = step % kStagesH;
+      sm90::mbar_wait(ring.full(s), (step / kStagesH) & 1);
+      const uint32_t a = ring.stage(s) + wg * kBoxBytes;
+      const uint32_t b = ring.stage(s) + 2 * kBoxBytes;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kChunkH / 16; ++k)
+        sm90::wgmma_m64n128k16<1, 1>(acc, sm90::desc_sw128(a + 2048 * k, kBoxBytes, 1024),
+                                     sm90::desc_sw128(b + 2048 * k, kBoxBytes, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (step > 0 && tid % kWarpgroup == 0) sm90::mbar_arrive(ring.empty((step - 1) % kStagesH));
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
   }
+  const bool consumer = warp < kConsumersH * 4;
+  const int row0 = 64 * (warp / 4), tid_in_wg = tid % kWarpgroup;
+  __nv_bfloat16* out = dw + i * bm * bn;
+  if (splits == 1) {  // no cluster: the tile rounds once into the ring, then out
+    auto* stage_b = reinterpret_cast<__nv_bfloat16*>(ring.ptr);
+    __syncthreads();  // every product has read its stage
+    if (consumer) sm90::stage_bf16<kPitchB>(stage_b, row0, tid_in_wg, acc);
+    __syncthreads();
+    sm90::copy_rows<kPitchB>(stage_b, bm, bn, out, bn, tid, kThreadsH);
+    return;
+  }
+  // The cluster's sum (sm90::ClusterSum): the partial takes the ring once its
+  // products are done; the receive slots lie after the ring, ready before any
+  // CTA's loads began.
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(ring.ptr);
+  float* recv = reinterpret_cast<float*>(ring.ptr + RingH::kAreaOffset);
+  if (consumer) sm90::store_partial<kPitchH>(part, row0, tid_in_wg, acc);
+  sm90::fence_proxy_async();
+  __syncthreads();
+  sm90::cluster_wait();
+  if (tid == 0) sum.send(ring.base, sm90::smem_u32(recv), ring.recv_bar());
+  sm90::mbar_wait<true>(ring.recv_bar(), 0);
+  sum.sum_store(part, recv, bn, out, bn, tid, kThreadsH);
+  sm90::cluster_arrive_relaxed();  // this CTA has every byte sent to it: ...
+  sm90::cluster_wait();            // ... once all have, no copy still reads a staging
 }
 
 bool smem_set_bf16[64];
@@ -390,38 +392,45 @@ extern "C" int bsmm_dw_f32(const void* x, const void* dy, const void* rows,
       static_cast<const float*>(part), static_cast<float*>(dw), n_blocks * bm * bn, splits, s));
 }
 
-// The bf16 instance: x, dy and dw bf16, part (splits > 1) f32. bm and bn are
-// multiples of 16 up to 128; x and dy 16-byte aligned, dw 4-byte, part 8-byte.
+// The bf16 instance: x, dy and dw bf16, one launch in clusters of `splits`
+// CTAs (1..8). bm and bn are multiples of 16 up to 128; x, dy and dw 16-byte
+// aligned; batch and n_blocks positive.
 extern "C" int bsmm_dw_bf16(const void* x, const void* dy, const void* rows,
-                            const void* cols, void* dw, void* part,
+                            const void* cols, void* dw,
                             int64_t n_blocks, int64_t batch, int64_t grid_m, int64_t grid_n,
                             int bm, int bn, int splits, int device, void* stream) {
   if (bm < 16 || bm > kMaxBlock || bm % 16 || bn < 16 || bn > kMaxBlock || bn % 16 ||
-      batch < 0 || n_blocks < 0 || n_blocks > 0x7fffffff || grid_m < 1 || grid_n < 1 ||
-      splits < 1 || splits > 65535 || (splits > 1 && part == nullptr) ||
-      !tf32x3::aligned16(x) || !tf32x3::aligned16(dy) ||
-      (reinterpret_cast<uintptr_t>(dw) & 3) || (reinterpret_cast<uintptr_t>(part) & 7)) {
+      batch < 1 || batch > 0x7fffffff || n_blocks < 1 || grid_m < 1 || grid_n < 1 ||
+      splits < 1 || splits > kMaxSplits || n_blocks * splits > 0x7fffffff ||
+      !tf32x3::aligned16(x) || !tf32x3::aligned16(dy) || !tf32x3::aligned16(dw)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  err = tf32x3::allow_smem(&bsmm_dw_bf16_kernel, device, kSmemH, smem_set_bf16);
+  CUtensorMap x_map, dy_map;
+  err = sm90::encode_bf16_3d(&x_map, x, bm, grid_m, batch, bm, grid_m * bm, 64, 1, kChunkH);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int tiles = ((bm + kTileH - 1) / kTileH) * ((bn + kTileH - 1) / kTileH);
-  const dim3 grid(static_cast<unsigned int>(n_blocks), static_cast<unsigned int>(tiles),
-                  static_cast<unsigned int>(splits));
-  bsmm_dw_bf16_kernel<<<grid, kThreads, kSmemH, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+  err = sm90::encode_bf16_3d(&dy_map, dy, bn, grid_n, batch, bn, grid_n * bn, 64, 1, kChunkH);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = tf32x3::allow_smem(&bsmm_dw_bf16_kernel, device, kSmemMaxH, smem_set_bf16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = sm90::launch_clusters(
+      &bsmm_dw_bf16_kernel, dim3(static_cast<unsigned>(n_blocks * splits)), splits, kThreadsH,
+      smem_for(splits), static_cast<cudaStream_t>(stream), x_map, dy_map,
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
-      static_cast<__nv_bfloat16*>(dw), static_cast<float*>(part), n_blocks, batch,
-      grid_m * bm, grid_n * bn, bm, bn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t total = n_blocks * bm * bn;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  sum_parts_bf16<<<static_cast<unsigned int>(blocks < 4096 ? blocks : 4096), kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dw), total, splits);
+      static_cast<__nv_bfloat16*>(dw), batch, bm, bn, splits);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of `splits` CTAs of the bf16 instance the card holds at
+// once (cudaOccupancyMaxActiveClusters), into *out: for the probe.
+extern "C" int bsmm_dw_bf16_max_clusters(int splits, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = tf32x3::allow_smem(&bsmm_dw_bf16_kernel, device, kSmemMaxH, smem_set_bf16);
+  if (err == cudaSuccess)
+    err = sm90::max_active_clusters(&bsmm_dw_bf16_kernel, splits, kThreadsH,
+                                     smem_for(splits), out);
+  return static_cast<int>(err);
 }

@@ -67,45 +67,55 @@
 // instance, which the bfloat16 LM's training step runs twice a layer
 // (models/layers.py::sparse_ffn_fwd under autograd: dx through W_out, dy
 // (2048, 1024) -> (2048, 2816), and through W_in, (2048, 2816) -> (2048,
-// 1024), at 8 x 256 tokens). The Pallas _dx_kernel takes bf16 as it is: dy
-// and the tiles in bf16, each product on the MXU into its f32 VMEM scratch,
-// rounded once at the flush. Here the same: mma.sync m16n8k16 bf16 into f32,
-// the products of a block-row summed in f32 in one fixed order, rounded once
-// (__float2bfloat16_rn). Tile sides are multiples of 16 (the MMA's k; the
-// wrapper raises for others). The design is kernel C's rows route with the
-// tile's axes turned:
-//   * one block of 8 warps per (block-row r, 64 features of bm, 64 batch
-//     rows); warps are 4 groups of 16 rows x 2 k-groups, and the block-row's
-//     flattened k (bn / 16 steps a slot, slot after slot in the row-sorted
-//     order, values[perm_r]) is dealt to the k-groups in turn; the two
-//     groups' f32 partials meet in shared memory after the ring and the
-//     first adds the second's before the single store: no second pass, no
-//     f32 partials in device memory, no atomics, the same bits every run;
-//   * a cp.async ring of 3 slot stages, all issued before the loop, with
-//     the wait that counts them (ring - 2 pending from step 1: slot j is
-//     commit group j): the W slab ws[m][n] as values[perm] lies (64 rows of
-//     bn) and the dy slab ds[b][n] (64 rows of the slot's block-column), both
-//     at 272-byte rows, so the 8 row addresses of every ldmatrix fall on 8
-//     distinct 16-byte bank groups; dy's A fragments by ldmatrix, W^T's B
-//     fragments by ldmatrix of the [m][n] slab without .trans (B[k][m] =
-//     W[m][k] is a column-major fragment there);
-//   * a block-row with no slot stores +0 (W_out's 22 block-rows hold 15
-//     tiles, and autograd reads every row of dx); no split: at the LM's
-//     2,048 rows the grid already holds 32 batch tiles per block-row.
-// What bounds it: bytes. Through W_out at 2,048 rows dy is 4.2 MB, the 15
-// tiles 0.5 MB and dx 11.5 MB, 4.8 us at 3.35 TB/s; its 1.0 GFLOP take
-// 1.0 us at the 989 TFLOP/s bf16 rate. Each block reads its slots' dy slabs
-// and tiles once; dy is read again by each of a block-row's 2 feature slices
-// and each tile by each of the 32 batch tiles, through L2.
+// 1024), at 8 x 256 tokens). It replaces the same Pallas _dx_kernel
+// (src/repro/kernels/block_sparse_matmul.py:108, bsmm_dx at :127), which
+// takes bf16 as it is: each product on the MXU into an f32 VMEM scratch,
+// rounded once at the flush.
+// What bounds it on an H100: bytes. At 2,048 rows, through W_in: dy 11.5 MB,
+// the 22 tiles 0.7 MB, dx 4.2 MB, 4.9 us at 3.35 TB/s; through W_out: dy 4.2
+// MB, the 15 tiles 0.5 MB, dx 11.5 MB, 4.8 us. Their 1.5 and 1.0 GFLOP take
+// 1.5 and 1.0 us at the 989 TFLOP/s bf16 rate. Where the operands sit in L2
+// (a training step's dy was just written), the L2's rate is the limit: the
+// tiles are read again by every 128 rows, 22.5 MB through W_in.
+// Design (sm90.cuh): per slot a plain "TN" product, dx[b][m] += sum_n
+// dy[b][n] W[m][n]: A = the dy slab [b][n] and B[n][m] = W[m][n] as the tile
+// lies in values[perm_r] are both K-major, so neither is transposed.
+//   * One CTA per (block-row r, 128 batch rows), over all of bm and the
+//     whole block-row: each dy element is read once per tile that uses it,
+//     each tile once per 128 rows (through L2), and the block-row's slots
+//     are added in their order in the CTA's registers and rounded once
+//     (__float2bfloat16_rn): no atomics, no f32 partials, the same bits on
+//     every launch.
+//   * Warp-specialised: a producer warp sets up the mbarriers and starts
+//     loading at once, keeping a ring of 3 stages in flight by TMA (a stage:
+//     the dy box 128 rows x 64 of the slot's bn and the W box 128 of bm x the
+//     same 64, 32 KB, the 128-byte swizzle); two consumer warpgroups each run
+//     wgmma m64n128k16 over 64 rows into f32 registers and free a stage once
+//     the next one's products are issued and its own have completed. 97 KB
+//     of shared memory, 90 registers: two CTAs an SM.
+//   * A long block-row is not split. W_in's row of 8 slots sets the time at
+//     2,048 rows, but cut into runs over a cluster of 2 or 3 CTAs, summed in
+//     distributed shared memory, it ran slower than whole on an H100: the
+//     sum cost more than the shorter loop saved (and 3 runs took more than
+//     one wave of CTAs).
+//   * The rows round once into the freed ring and leave as whole 16-byte
+//     rows (copy_rows), not as the accumulators' 8-byte pieces.
+//   * A block-row with no slot stores +0 (W_out's 22 block-rows hold 15
+//     tiles, and autograd reads every row of dx) and takes no ring.
+//   * Ragged batches and tiles narrower than the boxes: TMA zero-fills what
+//     lies outside dy or the tile (dy is mapped as (batch, grid_n, bn), so a
+//     box never reaches into the next block-column), and rows past the batch
+//     are not stored.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launches.
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "bf16_mma.cuh"
+#include "sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -268,180 +278,107 @@ bool smem_set[2][64];
 
 // --- the bf16 instance --------------------------------------------------------
 
-using namespace bf16mma;
+constexpr int kWarpgroup = 128;
+constexpr int kConsumersH = 2;                               // warpgroups of 64 rows
+constexpr int kThreadsH = kConsumersH * kWarpgroup + 32;     // + the producer warp
+constexpr int kRowsH = 128;                                  // batch rows a CTA
+constexpr int kBoxK = 64;                                    // k (of bn) a stage: 128 bytes
+constexpr int kBoxBytes = kRowsH * kBoxK * 2;                // 16 KB
+constexpr int kStagesH = 3;                                  // ring stages
+constexpr int kCtasH = 2;                                    // CTAs an SM
+using RingH = sm90::Ring<kStagesH, 2 * kBoxBytes>;           // dy box, then W box
+constexpr int kPitchB = kMaxBlock + 8;                       // bf16 output rows
+static_assert(kRowsH * kPitchB * 2 <= kStagesH * 2 * kBoxBytes, "the rows fit in the ring");
 
-constexpr int kLdSlab = kMaxBlock + 8;  // slab rows: 136 bf16 = 272 bytes
-constexpr int kRowsH = 64;              // batch rows per block
-constexpr int kFeatH = 64;              // dx features (of bm) per block
-constexpr int kRingH = 3;               // slot stages
-constexpr int kWarpsH = kThreads / 32;
-constexpr int kMWH = kRowsH / 16;       // warps: 4 groups of 16 rows ...
-constexpr int kKWH = kWarpsH / kMWH;    // ... x 2 k-groups
-constexpr int kNFH = kFeatH / 8;        // a warp's n8 fragments: 8
-constexpr int kStageH = (kFeatH + kRowsH) * kLdSlab;  // bf16 elements
-constexpr int kSmemH = kRingH * kStageH * static_cast<int>(sizeof(__nv_bfloat16));
-
-// Load one slot into a stage: the W slab ws[m][n] (kFeatH rows of the
-// tile's rows m0.., all bn columns, as values[perm] lies in memory) and the
-// dy slab ds[b][n] (kRowsH batch rows from b0, the slot's block-column).
-// Rows past m_valid or b_valid are zero-filled; bn is a multiple of 16 and
-// both operands 16-byte aligned, so every 16-byte chunk is all in or all out.
-__device__ __forceinline__ void load_dx_slot(__nv_bfloat16* ws,
-                                             const __nv_bfloat16* __restrict__ dy,
-                                             const __nv_bfloat16* __restrict__ values,
-                                             int32_t col, int32_t perm, int64_t b0, int b_valid,
-                                             int m0, int m_valid, int64_t dy_stride, int bm,
-                                             int bn, int tid) {
-  const int chunks = bn / 8;
-  __nv_bfloat16* ds = ws + kFeatH * kLdSlab;
-  const __nv_bfloat16* wt = values + static_cast<int64_t>(perm) * bm * bn +
-                            static_cast<int64_t>(m0) * bn;
-  for (int idx = tid; idx < kFeatH * chunks; idx += kThreads) {
-    const int m = idx / chunks, k = (idx % chunks) * 8;
-    const bool ok = m < m_valid;
-    cp_async16_bf16(ws + m * kLdSlab + k, ok ? wt + static_cast<int64_t>(m) * bn + k : values,
-                    ok ? 16 : 0);
-  }
-  const __nv_bfloat16* dt = dy + b0 * dy_stride + static_cast<int64_t>(col) * bn;
-  for (int idx = tid; idx < kRowsH * chunks; idx += kThreads) {
-    const int b = idx / chunks, k = (idx % chunks) * 8;
-    const bool ok = b < b_valid;
-    cp_async16_bf16(ds + b * kLdSlab + k, ok ? dt + b * dy_stride + k : dy, ok ? 16 : 0);
-  }
-}
-
-// One block per (block-row r, kFeatH features from m0, kRowsH batch rows
-// from b0). The block-row's slots [row_ptr[r], row_ptr[r+1]) are walked in
-// the row-sorted order through a ring of kRingH slot stages; the slot's
-// flattened k (bn / 16 steps a slot, slot after slot) is dealt to the
-// k-groups in turn, step j to group j mod kKWH, as kernel C's rows route
-// deals a column's. A warp holds dy (16 rows x 16 k, ldmatrix) and W^T (16 k
-// x 8 features, ldmatrix of the [m][n] slab without .trans: B[k][m] =
-// W[m][k] is a column-major fragment there) a step.
-__global__ void __launch_bounds__(kThreads)
-bsmm_dx_bf16_kernel(const __nv_bfloat16* __restrict__ dy,
-                    const __nv_bfloat16* __restrict__ values,
+// One CTA per (block-row r = blockIdx.x, 128 batch rows from blockIdx.y * 128).
+__global__ void __launch_bounds__(kThreadsH, kCtasH)
+bsmm_dx_bf16_kernel(const __grid_constant__ CUtensorMap dy_map,  // (bn, grid_n, batch)
+                    const __grid_constant__ CUtensorMap w_map,   // (bn, bm, nb)
                     const int32_t* __restrict__ cols_r,
                     const int32_t* __restrict__ perm_r,
                     const int64_t* __restrict__ row_ptr,
                     __nv_bfloat16* __restrict__ dx,
-                    int64_t batch, int64_t dy_stride, int64_t dx_stride, int bm, int bn) {
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_bytes);
-  const int slices = (bm + kFeatH - 1) / kFeatH;
-  const int64_t r = blockIdx.x / slices;
-  const int m0 = static_cast<int>(blockIdx.x % slices) * kFeatH;
-  const int m_valid = min(kFeatH, bm - m0);
+                    int64_t batch, int64_t dx_stride, int bm, int bn) {
+  extern __shared__ unsigned char smem_raw[];
+  const int64_t r = blockIdx.x;
   const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kRowsH;
   const int b_valid = batch - b0 < kRowsH ? static_cast<int>(batch - b0) : kRowsH;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int mw = warp % kMWH, kw = warp / kMWH;
-  const int64_t lo = row_ptr[r];
-  const int len = static_cast<int>(row_ptr[r + 1] - lo);
-  const int ks = bn / 16;
-
-  float acc[kNFH][4];
-#pragma unroll
-  for (int f = 0; f < kNFH; ++f)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[f][q] = 0.0f;
-
-  // The first kRingH slots go out at once; their (and the next slot's)
-  // indices are read before any copy is issued, as in kernel C's routes.
-  int32_t col[kRingH + 1], perm[kRingH + 1];
-#pragma unroll
-  for (int st = 0; st <= kRingH; ++st) {
-    col[st] = st < len ? cols_r[lo + st] : 0;
-    perm[st] = st < len ? perm_r[lo + st] : 0;
+  __nv_bfloat16* out = dx + b0 * dx_stride + r * bm;
+  const int64_t begin = row_ptr[r], len = row_ptr[r + 1] - begin;
+  if (len == 0) {  // exact +0, no ring
+    sm90::store_zero_rows(out, dx_stride, b_valid, bm, tid, kThreadsH);
+    return;
   }
+  const int64_t lo = begin, hi = begin + len;
+  const int chunks = (bn + kBoxK - 1) / kBoxK;  // stages a slot
+  const int steps = static_cast<int>(len) * chunks;
+  const RingH ring(smem_raw);
+
+  float acc[64];
 #pragma unroll
-  for (int st = 0; st < kRingH; ++st) {
-    if (st < len)
-      load_dx_slot(smem + st * kStageH, dy, values, col[st], perm[st], b0, b_valid, m0, m_valid,
-                   dy_stride, bm, bn, tid);
-    tf32x3::cp_async_commit();
-  }
-  int32_t next_col = col[kRingH], next_perm = perm[kRingH];
-  // this lane's ldmatrix rows: A from the dy slab (rows 16 * mw.., k from
-  // kk), B from the W slab (features 16h.., k from kk)
-  const int a_off = kFeatH * kLdSlab +
-                    (16 * mw + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLdSlab + (lane >> 4) * 8;
-  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * kLdSlab + ((lane >> 3) & 1) * 8;
-  for (int step = 0; step < len; ++step) {
-    // slot j is commit group j (the prologue's kRingH, then one a step from
-    // step 1): before step s's wait kRingH + s - 1 groups are out (kRingH at
-    // step 0) and group s must be done
-    if (step == 0) {
-      tf32x3::cp_async_wait<kRingH - 1>();
-    } else {
-      tf32x3::cp_async_wait<kRingH - 2>();
-    }
-    __syncthreads();  // ... for every thread; the last step's stage is free
-    if (step > 0) {
-      if (step + kRingH - 1 < len) {
-        load_dx_slot(smem + ((step + kRingH - 1) % kRingH) * kStageH, dy, values, next_col,
-                     next_perm, b0, b_valid, m0, m_valid, dy_stride, bm, bn, tid);
-        if (step + kRingH < len) {
-          next_col = cols_r[lo + step + kRingH];
-          next_perm = perm_r[lo + step + kRingH];
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  if (warp == kConsumersH * 4) {
+    // The producer: lane 0 sets up the barriers and starts loading at once;
+    // its lanes read 32 slots' indices at a time; lane 0 waits for a free
+    // stage and issues its two boxes.
+    if (lane == 0) ring.init(kConsumersH, 0);  // no cluster: recv is unused
+    __syncwarp();
+    sm90::bar_arrive(1, kThreadsH);  // the barriers are ready for the consumers
+    for (int64_t base = lo; base < hi; base += 32) {
+      const int64_t j = base + lane;
+      const int32_t my_col = j < hi ? cols_r[j] : 0, my_perm = j < hi ? perm_r[j] : 0;
+      const int n = hi - base < 32 ? static_cast<int>(hi - base) : 32;
+      for (int q = 0; q < n; ++q) {
+        const int col = __shfl_sync(0xffffffffu, my_col, q);
+        const int perm = __shfl_sync(0xffffffffu, my_perm, q);
+        for (int k = 0; k < chunks; ++k) {
+          const int step = static_cast<int>(base - lo + q) * chunks + k;
+          const int s = step % kStagesH;
+          if (lane == 0) {
+            if (step >= kStagesH) sm90::mbar_wait(ring.empty(s), (step / kStagesH - 1) & 1);
+            sm90::mbar_arrive_expect_tx(ring.full(s), 2 * kBoxBytes);
+            sm90::tma_load_3d(ring.stage(s), &dy_map, ring.full(s), k * kBoxK, col,
+                              static_cast<int>(b0));
+            sm90::tma_load_3d(ring.stage(s) + kBoxBytes, &w_map, ring.full(s), k * kBoxK, 0,
+                              perm);
+          }
+          __syncwarp();
         }
       }
-      tf32x3::cp_async_commit();
     }
-
-    const __nv_bfloat16* stage = smem + (step % kRingH) * kStageH;
-    for (int q = ((kw - step * ks) % kKWH + kKWH) % kKWH; q < ks; q += kKWH) {
-      const int kk = 16 * q;
-      uint32_t a[4], b[kNFH][2];
-      tf32x3::ldmatrix_x4(smem_addr(stage + a_off + kk), a[0], a[1], a[2], a[3]);
+  } else {
+    // A consumer warpgroup: rows 64 * wg.. of the dy box against the whole
+    // W box, four k16 steps a stage; a stage is freed once the next one's
+    // products are issued and its own have completed.
+    const int wg = warp / 4;
+    sm90::bar_sync(1, kThreadsH);
+    sm90::wgmma_fence();
+    sm90::fence_operands(acc);
+    for (int step = 0; step < steps; ++step) {
+      const int s = step % kStagesH;
+      sm90::mbar_wait(ring.full(s), (step / kStagesH) & 1);
+      const uint32_t a = ring.stage(s) + wg * 64 * (kBoxK * 2);
+      const uint32_t b = ring.stage(s) + kBoxBytes;
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < kNFH / 2; ++h)
-        tf32x3::ldmatrix_x4(smem_addr(stage + b_off + 16 * h * kLdSlab + kk), b[2 * h][0],
-                            b[2 * h][1], b[2 * h + 1][0], b[2 * h + 1][1]);
-#pragma unroll
-      for (int f = 0; f < kNFH; ++f) mma_bf16_add(acc[f], a, b[f]);
+      for (int k = 0; k < kBoxK / 16; ++k)
+        sm90::wgmma_m64n128k16<0, 0>(acc, sm90::desc_sw128(a + 32 * k, 16, 1024),
+                                     sm90::desc_sw128(b + 32 * k, 16, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (step > 0 && tid % kWarpgroup == 0) sm90::mbar_arrive(ring.empty((step - 1) % kStagesH));
     }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
   }
-  tf32x3::cp_async_wait<0>();
-  __syncthreads();  // the ring is free: the k-groups' partials meet in it
-
-  float4* red = reinterpret_cast<float4*>(smem_bytes);  // [kKWH][kMWH][kNFH][32]
-  if (kw > 0) {
-#pragma unroll
-    for (int f = 0; f < kNFH; ++f)
-      red[((kw * kMWH + mw) * kNFH + f) * 32 + lane] =
-          make_float4(acc[f][0], acc[f][1], acc[f][2], acc[f][3]);
-  }
+  // The rows round once into the ring, then out.
+  const bool consumer = warp < kConsumersH * 4;
+  auto* stage_b = reinterpret_cast<__nv_bfloat16*>(ring.ptr);
+  __syncthreads();  // every product has read its stage
+  if (consumer) sm90::stage_bf16<kPitchB>(stage_b, 64 * (warp / 4), tid % kWarpgroup, acc);
   __syncthreads();
-  if (kw > 0) return;
-  for (int w = 1; w < kKWH; ++w) {
-#pragma unroll
-    for (int f = 0; f < kNFH; ++f) {
-      const float4 p = red[((w * kMWH + mw) * kNFH + f) * 32 + lane];
-      acc[f][0] += p.x;
-      acc[f][1] += p.y;
-      acc[f][2] += p.z;
-      acc[f][3] += p.w;
-    }
-  }
-  // c0, c1 = dx[g][2t..2t+1] of fragment f's 8 features, c2, c3 row g + 8:
-  // the f32 sum rounded once, one 4-byte store a pair. An empty block-row
-  // stores +0.
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int b = 16 * mw + g + 8 * h;
-    if (b >= b_valid) continue;
-    __nv_bfloat16* xr = dx + (b0 + b) * dx_stride + r * bm + m0 + 2 * t;
-#pragma unroll
-    for (int f = 0; f < kNFH; ++f) {
-      if (8 * f >= m_valid) break;  // m_valid is a multiple of 16
-      __nv_bfloat162 v;
-      v.x = __float2bfloat16_rn(acc[f][2 * h]);
-      v.y = __float2bfloat16_rn(acc[f][2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(xr + 8 * f) = v;
-    }
-  }
+  sm90::copy_rows<kPitchB>(stage_b, b_valid, bm, out, dx_stride, tid, kThreadsH);
 }
 
 bool smem_set_bf16[64];
@@ -482,30 +419,35 @@ extern "C" int bsmm_dx_f32(const void* dy, const void* values, const void* cols_
       static_cast<const float*>(part), static_cast<float*>(dx), batch * grid_m * bm, parts, s));
 }
 
-// The bf16 instance: dy, values and dx bf16, one launch (no split). bm and bn
-// are multiples of 16 up to 128; dy and values 16-byte aligned, dx 4-byte.
+// The bf16 instance: dy, values and dx bf16, one launch. bm and bn are
+// multiples of 16 up to 128; dy, values and dx 16-byte aligned; batch and
+// n_blocks positive.
 extern "C" int bsmm_dx_bf16(const void* dy, const void* values, const void* cols_r,
                             const void* perm_r, const void* row_ptr, void* dx,
-                            int64_t batch, int64_t grid_m, int64_t grid_n,
+                            int64_t batch, int64_t grid_m, int64_t grid_n, int64_t n_blocks,
                             int bm, int bn, int device, void* stream) {
   if (bm < 16 || bm > kMaxBlock || bm % 16 || bn < 16 || bn > kMaxBlock || bn % 16 ||
-      batch < 0 || grid_m < 1 || grid_n < 1 || !tf32x3::aligned16(dy) ||
-      !tf32x3::aligned16(values) || (reinterpret_cast<uintptr_t>(dx) & 3)) {
+      batch < 1 || batch > 0x7fffffff || n_blocks < 1 || n_blocks > 0x7fffffff ||
+      grid_m < 1 || grid_m > 0x7fffffff || grid_n < 1 || !tf32x3::aligned16(dy) ||
+      !tf32x3::aligned16(values) || !tf32x3::aligned16(dx)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t batch_tiles = (batch + kRowsH - 1) / kRowsH;
-  const int64_t blocks_x = grid_m * ((bm + kFeatH - 1) / kFeatH);
-  if (batch_tiles > 65535 || blocks_x > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch_tiles == 0) return static_cast<int>(cudaGetLastError());
-  err = tf32x3::allow_smem(&bsmm_dx_bf16_kernel, device, kSmemH, smem_set_bf16);
+  if (batch_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap dy_map, w_map;
+  err = sm90::encode_bf16_3d(&dy_map, dy, bn, grid_n, batch, bn, grid_n * bn, kBoxK, 1, kRowsH);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>(blocks_x), static_cast<unsigned int>(batch_tiles));
-  bsmm_dx_bf16_kernel<<<grid, kThreads, kSmemH, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(values),
-      static_cast<const int32_t*>(cols_r), static_cast<const int32_t*>(perm_r),
+  err = sm90::encode_bf16_3d(&w_map, values, bn, bm, n_blocks, bn, static_cast<int64_t>(bm) * bn,
+                             kBoxK, kRowsH, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = tf32x3::allow_smem(&bsmm_dx_bf16_kernel, device, RingH::kSmem, smem_set_bf16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(grid_m), static_cast<unsigned>(batch_tiles));
+  bsmm_dx_bf16_kernel<<<grid, kThreadsH, RingH::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      dy_map, w_map, static_cast<const int32_t*>(cols_r), static_cast<const int32_t*>(perm_r),
       static_cast<const int64_t*>(row_ptr), static_cast<__nv_bfloat16*>(dx), batch,
-      grid_n * bn, grid_m * bm, bm, bn);
+      grid_m * bm, bm, bn);
   return static_cast<int>(cudaGetLastError());
 }

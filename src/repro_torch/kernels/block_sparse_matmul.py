@@ -29,16 +29,19 @@ over the warps of one block and add the warps' partials in shared memory,
 so they pay no second pass. Its wrapper can also apply All-ReLU in the
 store (``all_relu=(alpha, layer_index)``), bit for bit kernel B's bf16
 entry after it: the LM's sparse FFN runs W_in so. Kernels D and E have
-bf16 instances too, kernel C's backward in the LM's training step: D on
-kernel C's rows-route design (no split), E with its batch cut into runs of
-64-sample chunks (``dw_splits_bf16``); both round an f32 sum once.
+bf16 instances too, kernel C's backward in the LM's training step, on
+Hopper's wgmma fed by a TMA ring, one launch each: D sums each block-row
+whole, one CTA per block-row and 128 rows; E cuts the batch into runs of 64-sample
+chunks over a cluster per tile (``dw_splits_bf16``) and sums the runs' f32
+partials in distributed shared memory in rank order; both round once.
 
 Each wrapper launches its kernel for a CUDA tensor (f32 or bfloat16,
 contiguous, block sizes 1..128; in bfloat16 kernels D and E take sides
 that are multiples of 16) or raises, and takes its plain version for a CPU
 tensor. It counts its launches (one per call, the second pass of a split
 included; each also counts its second passes, D and E their bfloat16
-calls, and kernel C its calls with All-ReLU and by route).
+calls, and kernel C its calls with All-ReLU and by route). The bfloat16
+instances of D and E launch nothing for an empty batch or topology.
 Topology arrays are checked once per tensor (one device sync on first
 use): every coordinate inside the grid and the slot order sorted, so the
 kernels never index out of bounds. Arrays that device SET evolution made
@@ -86,6 +89,8 @@ FWD_TILE = 64  # kernels C and D: a block's 64 batch rows x 64 output columns
 DW_TILE = 64  # kernel E: a block's 64 x 64 part of one slot's tile
 DW_CHUNK = 32  # kernel E: samples per pipeline stage; batch runs are whole chunks
 DW_CHUNK_BF16 = 64  # kernel E's bf16 instance: samples per stage
+CLUSTER_MAX = 8  # the portable cluster size: E's bf16 runs a cluster at most
+DW_RUN_CHUNKS_BF16 = 8  # kernel E's bf16 instance: 64-row chunks a batch run at least
 DECODE_ROWS = 16  # kernel C bf16: calls of up to this many rows take the decode route
 # kernel C bf16's rows route: its block tiles (batch rows, features) from the
 # smallest, each with the blocks an SM holds at once (sm_90a: 72 and 107
@@ -173,23 +178,26 @@ def dw_splits(nb: int, batch: int, bm: int, bn: int) -> int:
     return max(1, min(_cdiv(batch, DW_CHUNK), SMS // blocks))
 
 
-def dw_splits_bf16(nb: int, batch: int, bm: int, bn: int) -> int:
-    """S, the runs kernel E's bf16 instance cuts the batch into: about two
-    of its blocks an SM (each holds 72 KB of ring, so three fit), at most
-    one run per 64-sample chunk. 3 on the LM's W_in (22 128x128 tiles, 88
-    blocks a run) and 4 on its W_out (15 tiles) at 2,048 rows; 1 at 64 rows
-    or fewer."""
-    blocks = nb * _cdiv(bm, DW_TILE) * _cdiv(bn, DW_TILE)
-    if blocks == 0:
+def dw_splits_bf16(nb: int, batch: int) -> int:
+    """S, the runs kernel E's bf16 instance cuts the batch into, one CTA of
+    a tile's cluster each (every CTA covers the whole tile): at least
+    ``DW_RUN_CHUNKS_BF16`` 64-row chunks a run, so that a run's loads pay
+    for its share of the cluster's sum, the nb clusters on at most 3/4 of
+    the SMs (one CTA an SM; the rest absorbs how clusters pack onto the
+    card's GPCs), at most ``CLUSTER_MAX``. 4 on the LM's W_in (22 tiles)
+    and W_out (15 tiles) at 2,048 rows; 1 below 961 rows."""
+    if nb == 0:
         return 1
-    return max(1, min(_cdiv(batch, DW_CHUNK_BF16), 2 * SMS // blocks))
+    chunks = _cdiv(batch, DW_CHUNK_BF16)
+    return max(1, min(CLUSTER_MAX, chunks // DW_RUN_CHUNKS_BF16, (3 * SMS // 4) // nb))
 
 
-def dw_batch_runs(batch: int, splits: int) -> List[Tuple[int, int]]:
+def dw_batch_runs(batch: int, splits: int, chunk: int = DW_CHUNK) -> List[Tuple[int, int]]:
     """The ``splits`` contiguous sample runs of kernel E, in order: run s
-    holds chunks ``[C*s//S, C*(s+1)//S)`` of the C = ceil(batch/32)."""
-    chunks = _cdiv(batch, DW_CHUNK)
-    edge = [min(batch, DW_CHUNK * (chunks * s // splits)) for s in range(splits + 1)]
+    holds chunks ``[C*s//S, C*(s+1)//S)`` of the C = ceil(batch/chunk)
+    (``DW_CHUNK``; ``DW_CHUNK_BF16`` for the bf16 instance)."""
+    chunks = _cdiv(batch, chunk)
+    edge = [min(batch, chunk * (chunks * s // splits)) for s in range(splits + 1)]
     return list(zip(edge[:-1], edge[1:]))
 
 
@@ -377,9 +385,11 @@ _FWD_ARGTYPES = {
 }
 _FWD_ROUTES = {"tiled": 0, "decode": 1, "rows": 2}
 _DX_ARGTYPES = [ctypes.c_void_p] * 7 + [_I64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_DX_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# ... batch, grid_m, grid_n, n_blocks, bm, bn, parts, device, stream
+_DX_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _DW_ARGTYPES = [ctypes.c_void_p] * 6 + [_I64] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_DW_SYMBOLS = {torch.float32: "bsmm_dw_f32", torch.bfloat16: "bsmm_dw_bf16"}
+# no part buffer: the runs meet in the cluster's shared memory
+_DW_BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [_I64] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 # ---------------------------------------------------------------------------
@@ -503,12 +513,14 @@ def bsmm_dx(
     _check_once("dx", (grid_m, grid_n, nb), (rows_r, cols_r, perm_r), check)
     row_ptr = _offsets_once(rows_r, grid_m)
     if bf16:
+        if batch == 0 or nb == 0:  # nothing to launch: every block-row is uncovered
+            return torch.zeros((batch, grid_m * bm), dtype=dy.dtype, device=dev)
         dx = torch.empty((batch, grid_m * bm), dtype=dy.dtype, device=dev)
         dy, values = _aligned16(dy), _aligned16(values)
         fn = build.kernel("bsmm_dx", "bsmm_dx_bf16", _DX_BF16_ARGTYPES)
         rc = fn(dy.data_ptr(), values.data_ptr(), cols_r.data_ptr(),
                 perm_r.data_ptr(), row_ptr.data_ptr(), dx.data_ptr(), batch, grid_m, grid_n,
-                bm, bn, *build.stream_args(dev))
+                nb, bm, bn, *build.stream_args(dev))
         build.check_launch(rc, "bsmm_dx bf16 kernel")
         bsmm_dx.launches += 1
         bsmm_dx.bf16_launches += 1
@@ -576,13 +588,24 @@ def bsmm_dw(
             raise ValueError(f"rows must lie in [0, {grid_m}) and cols in [0, {grid_n})")
 
     _check_once("dw", (grid_m, grid_n), (rows, cols), check)
-    dw = torch.empty((nb, bm, bn), dtype=x.dtype, device=dev)
-    # the runs' partials stay f32 in both instances
-    splits = (dw_splits_bf16 if bf16 else dw_splits)(nb, batch, bm, bn)
-    part = torch.empty((splits, nb, bm, bn), dtype=f32, device=dev) if splits > 1 else None
     if bf16:
+        if batch == 0 or nb == 0:  # nothing to launch: a sum over no samples
+            return torch.zeros((nb, bm, bn), dtype=x.dtype, device=dev)
+        dw = torch.empty((nb, bm, bn), dtype=x.dtype, device=dev)
         x, dy = _aligned16(x), _aligned16(dy)
-    fn = build.kernel("bsmm_dw", _DW_SYMBOLS[x.dtype], _DW_ARGTYPES)
+        fn = build.kernel("bsmm_dw", "bsmm_dw_bf16", _DW_BF16_ARGTYPES)
+        rc = fn(x.data_ptr(), dy.data_ptr(), rows.data_ptr(), cols.data_ptr(), dw.data_ptr(),
+                nb, batch, grid_m, grid_n, bm, bn, dw_splits_bf16(nb, batch),
+                *build.stream_args(dev))
+        build.check_launch(rc, "bsmm_dw bf16 kernel")
+        bsmm_dw.launches += 1
+        bsmm_dw.bf16_launches += 1
+        return dw
+    dw = torch.empty((nb, bm, bn), dtype=f32, device=dev)
+    # the runs' partials, summed in a second pass
+    splits = dw_splits(nb, batch, bm, bn)
+    part = torch.empty((splits, nb, bm, bn), dtype=f32, device=dev) if splits > 1 else None
+    fn = build.kernel("bsmm_dw", "bsmm_dw_f32", _DW_ARGTYPES)
     rc = fn(
         x.data_ptr(), dy.data_ptr(), rows.data_ptr(), cols.data_ptr(), dw.data_ptr(),
         None if part is None else part.data_ptr(), nb, batch, grid_m, grid_n, bm, bn, splits,
@@ -591,10 +614,9 @@ def bsmm_dw(
     build.check_launch(rc, "bsmm_dw kernel")
     bsmm_dw.launches += 1
     bsmm_dw.second_pass_launches += splits > 1
-    bsmm_dw.bf16_launches += bf16
     return dw
 
 
 bsmm_dw.launches = 0  # kernel E launches
-bsmm_dw.second_pass_launches = 0  # of which split, with a second pass over the runs
+bsmm_dw.second_pass_launches = 0  # of which split, with a second pass over the runs (f32 only)
 bsmm_dw.bf16_launches = 0  # of which the bfloat16 instance

@@ -70,7 +70,8 @@ def _require_sparse(config: SparseMLPConfig) -> None:
     if config.impl not in ("element", "block"):
         raise NotImplementedError(
             f"impl={config.impl!r}: the port has the element (COO) and block "
-            "impls; the masked and dense impls come with a later slice"
+            "impls; the masked and dense impls come with a later slice (ROADMAP Queue 1, "
+            "item 2)"
         )
 
 
@@ -199,7 +200,8 @@ def mlp_forward(
     """
     _require_sparse(config)
     if return_preacts:
-        raise NotImplementedError("return_preacts comes with the probes slice")
+        raise NotImplementedError(
+            "return_preacts comes with the probes slice (ROADMAP Queue 1, item 4)")
     if x.shape[-1] != config.layer_dims[0]:
         raise ValueError(f"x has {x.shape[-1]} features, the model takes {config.layer_dims[0]}")
     if config.impl == "block":

@@ -62,6 +62,7 @@ and the fault hook and step retries (the runtime, item 5).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import time
 from typing import Callable, Dict, List, Optional
@@ -92,7 +93,10 @@ __all__ = [
     "TrainerConfig",
     "XLTrainer",
     "evaluate",
+    "make_eval_fn",
+    "make_segment_fn",
     "make_segment_program",
+    "make_step_fn",
 ]
 
 _PROBES = "training-dynamics probes come with the probes slice (ROADMAP Queue 1, item 4)"
@@ -116,6 +120,13 @@ class TrainerConfig:
     probe: bool = False  # training-dynamics probes: not in this slice
 
 
+def make_step_fn(config: SparseMLPConfig, opt: MomentumSGD):
+    """The single-minibatch step, ``launch.steps.make_mlp_train_step``:
+    ``step(params, opt_state, topo_arrays, x, y, lr, rng) -> (params,
+    opt_state, loss)``. The reference jits it; PyTorch runs it eagerly."""
+    return make_mlp_train_step(config, opt)
+
+
 def make_segment_program(config: SparseMLPConfig, opt: MomentumSGD, probe: bool = False):
     """The epoch segment: ``segment(params, opt_state, topo_arrays, x_all,
     y_all, perm, lrs, key) -> (params, opt_state, key, losses)`` gathers the
@@ -130,6 +141,30 @@ def make_segment_program(config: SparseMLPConfig, opt: MomentumSGD, probe: bool 
         return scan_segment(step_core, params, opt_state, key, (perm, lrs))
 
     return segment
+
+
+@functools.lru_cache(maxsize=32)
+def make_segment_fn(config: SparseMLPConfig, opt: MomentumSGD, probe: bool = False):
+    """The epoch segment of :func:`make_segment_program`, cached per (model
+    config, optimizer, probe) as the reference's is, so repeated trainers
+    share one program. The reference jits the segment and donates the
+    parameters' and optimizer state's buffers; there is no ``jit`` in
+    PyTorch: the program runs eagerly, and nothing is donated.
+    ``probe=True`` raises (Queue 1, item 4)."""
+    return make_segment_program(config, opt, probe)
+
+
+@functools.lru_cache(maxsize=64)
+def make_eval_fn(config: SparseMLPConfig):
+    """The evaluation forward ``fwd(params, topo_arrays, x) -> logits``
+    (``mlp_forward(..., train=False)``, with no autograd record), cached
+    per config as the reference's jitted one is."""
+
+    def fwd(params, topo_arrays, x):
+        with torch.no_grad():
+            return mlp_forward(params, topo_arrays, x, config, train=False)
+
+    return fwd
 
 
 def evaluate(model: SparseMLP, x: np.ndarray, y: np.ndarray, batch: int = 512, *,
@@ -244,7 +279,7 @@ class SequentialTrainer:
         self.key = torch.Generator(device=self.device)  # dropout and device evolution draws
         self.key.manual_seed(tc.seed)
         self._step = make_mlp_train_step(model.config, self.opt)
-        self._segment = make_segment_program(model.config, self.opt)
+        self._segment = make_segment_fn(model.config, self.opt)
         self.history: Dict[str, List] = {
             "epoch": [], "train_loss": [], "test_acc": [], "n_params": [],
             "epoch_seconds": [],

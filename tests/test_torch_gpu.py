@@ -38,10 +38,11 @@ as within 8 or 16 rows; kernel B's bf16 entry bit-equal to its plain
 version, with and without a bias; the smoke LM in bf16 on the card within
 5e-2 of the CPU run, on kernel C with All-ReLU in W_in's store, served
 through the batcher. Its training backward: kernels D and E bf16 within
-1e-2 of their plain versions and 5e-2 of ``ref.bsmm_*_ref`` at 1 to 2,048
-rows, on every layer's topology of the served model, long block-rows and
-tile sides from 16 to 128, bit-equal over 3 launches and counted as bf16
-launches; the bf16 block op's gradients within 5e-2 of ``bsmm_xla``'s; the
+1e-2 of their plain versions and 5e-2 of ``ref.bsmm_*_ref`` at 1 to 4,100
+rows (every cluster size of E, ragged last chunks), on every layer's
+topology of the served model, long block-rows and tile sides from 16 to
+128, bit-equal over 3 launches, counted as bf16 launches with no second
+pass; the bf16 block op's gradients within 5e-2 of ``bsmm_xla``'s; the
 smoke LM's bf16 train step on the card within 5e-2 of the f32 step.
 """
 import dataclasses
@@ -1663,6 +1664,7 @@ def _check_de_bf16(meta, topo, t, v, x, dy):
     launch counted as a bf16 one, uncovered dx block-rows exactly 0."""
     names = ("launches", "bf16_launches")
     before = [getattr(k, n) for k in (bsm.bsmm_dx, bsm.bsmm_dw) for n in names]
+    passes = (bsm.bsmm_dx.second_pass_launches, bsm.bsmm_dw.second_pass_launches)
     dxs = [bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r, grid_m=meta.grid_m)
            for _ in range(3)]
     dws = [bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m, block_n=meta.block_n)
@@ -1670,6 +1672,9 @@ def _check_de_bf16(meta, topo, t, v, x, dy):
     torch.cuda.synchronize()
     after = [getattr(k, n) for k in (bsm.bsmm_dx, bsm.bsmm_dw) for n in names]
     assert [a - b for a, b in zip(after, before)] == [3, 3, 3, 3]
+    # one launch a call: D sums a block-row whole, E's runs meet in its
+    # clusters' shared memory
+    assert (bsm.bsmm_dx.second_pass_launches, bsm.bsmm_dw.second_pass_launches) == passes
     for got in (dxs, dws):
         assert got[0].dtype == torch.bfloat16
         assert all(torch.equal(got[0].view(torch.int16), g.view(torch.int16)) for g in got[1:])
@@ -1706,6 +1711,26 @@ def test_kernels_d_e_bf16_on_the_lm_ffn(cuda, which, rows):
     22 x 8, block-rows with no tile) at 1, 8, 256 and 2,048 rows."""
     topo = _full_width_topo(which)
     _check_de_bf16(topo.meta, topo, *_de_bf16_inputs(cuda, topo.meta, topo, rows, rows))
+
+
+@pytest.mark.parametrize("rows", (63, 64, 65, 255, 256, 257, 4096))
+@pytest.mark.parametrize("which", ["win", "wout"])
+def test_kernels_d_e_bf16_on_ragged_chunks(cuda, which, rows):
+    """Batches one row either side of E's 64-row chunks and of D's 128-row
+    tiles, and 4,096 rows (E in 4 or 6 runs, D in one run)."""
+    topo = _full_width_topo(which)
+    _check_de_bf16(topo.meta, topo, *_de_bf16_inputs(cuda, topo.meta, topo, rows, rows + 1))
+
+
+@pytest.mark.parametrize("rows", (960, 1100, 1536, 2100, 2600, 3100, 3600, 4100))
+def test_kernel_e_bf16_every_cluster_size(cuda, rows):
+    """One 128 x 128 tile: E's runs S = 1, 2, ..., 8 (dw_splits_bf16), most
+    with a ragged last chunk; D on the same tile (its other block-row 0)."""
+    meta = tsp.BlockMeta(256, 128, 128, 128)
+    topo = tsp.BlockTopology(meta, np.array([1]), np.array([0]))
+    assert bsm.dw_splits_bf16(1, rows) == [960, 1100, 1536, 2100, 2600, 3100, 3600,
+                                           4100].index(rows) + 1
+    _check_de_bf16(meta, topo, *_de_bf16_inputs(cuda, meta, topo, rows, rows))
 
 
 @pytest.mark.parametrize("case", [(length, rows) for length in (4, 5, 8)

@@ -238,13 +238,49 @@ def test_bsmm_dw_plain_bf16_matches_pallas_and_oracle(shape):
     assert torch.equal(bsm.bsmm_dw(_t(x), _t(dy), rows, cols, block_m=bm, block_n=bn), got)
 
 
+# (what, nb, rows, S): kernel E's bf16 batch runs (one CTA of a tile's
+# cluster each), from host ints alone
+BF16_SPLITS = [
+    ("W_in at 2,048 rows", 22, 2048, 4),
+    ("W_out at 2,048 rows", 15, 2048, 4),
+    ("W_in at 64 rows", 22, 64, 1),
+    ("W_out at 64 rows", 15, 64, 1),
+    ("W_in at 4,096 rows", 22, 4096, 4),  # 22 clusters of 4 on 3/4 of the SMs
+    ("W_out at 4,096 rows", 15, 4096, 6),
+    ("16 x 16 tiles, 8 on 5 x 3, 2,048 rows", 8, 2048, 4),
+    ("one 16 x 16 tile, 4,096 rows", 1, 4096, 8),  # the portable cluster size
+]
+
+
 def test_bf16_batch_runs_fill_the_card():
-    """Kernel E's bf16 runs: 3 on the LM's W_in and 4 on its W_out at 2,048
-    rows (about two blocks an SM), one at a chunk of rows or fewer."""
-    assert bsm.dw_splits_bf16(22, 2048, 128, 128) == 3
-    assert bsm.dw_splits_bf16(15, 2048, 128, 128) == 4
-    assert bsm.dw_splits_bf16(22, 64, 128, 128) == 1
-    assert bsm.dw_splits_bf16(1, 2048, 16, 16) == 32  # one run per 64-sample chunk at most
+    """Kernel E's bf16 runs: at least 8 chunks of 64 rows a run, the nb
+    clusters on at most 3/4 of the SMs, at most 8: 4 on the LM's W_in and
+    W_out at 2,048 rows, 1 below 961 rows; runs are whole 64-row chunks."""
+    for what, nb, rows, want in BF16_SPLITS:
+        assert bsm.dw_splits_bf16(nb, rows) == want, what
+    assert [bsm.dw_splits_bf16(1, rows) for rows in (960, 961, 1536, 2048, 2560, 3072,
+                                                     3584, 4096, 8192)] == [1, 2, 3, 4, 5, 6,
+                                                                            7, 8, 8]
+    assert bsm.dw_splits_bf16(0, 2048) == 1
+    assert bsm.dw_batch_runs(2048, 4, bsm.DW_CHUNK_BF16) == [(0, 512), (512, 1024),
+                                                             (1024, 1536), (1536, 2048)]
+    assert bsm.dw_batch_runs(1100, 2, bsm.DW_CHUNK_BF16) == [(0, 576), (576, 1100)]
+
+
+@pytest.mark.parametrize("case", BF16_SPLITS, ids=[c[0] for c in BF16_SPLITS])
+def test_bf16_backward_splits_from_host_ints(case):
+    """E's S as above, at most the portable cluster size; its runs cover the
+    batch as contiguous ranges of whole 64-row chunks, in order, none empty.
+    D's bf16 instance takes no split (one CTA per block-row and 128 rows):
+    the split rule is gone from the module."""
+    what, nb, rows, s = case
+    assert bsm.dw_splits_bf16(nb, rows) == s
+    assert 1 <= s <= bsm.CLUSTER_MAX
+    edges = bsm.dw_batch_runs(rows, s, bsm.DW_CHUNK_BF16)
+    assert len(edges) == s and edges[0][0] == 0 and edges[-1][1] == rows
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(edges, edges[1:] + [(rows, rows)]))
+    assert all(lo % bsm.DW_CHUNK_BF16 == 0 for lo, _ in edges)
+    assert not hasattr(bsm, "dx_parts_bf16")
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.optim import sgd as tsgd  # noqa: E402
 from repro_torch.train import trainer as ttrainer  # noqa: E402
+from repro_torch.core.topology import evolve_element_layers_device  # noqa: E402
 from repro_torch.xl import plan_memory_budget  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -268,6 +269,19 @@ def test_trainer_refuses_what_this_slice_lacks():
         xl.run()
     assert dataclasses.asdict(ttrainer.TrainerConfig()) == dataclasses.asdict(
         jtrainer.TrainerConfig())
+    # the masked and dense impls, the forward's pre-activations and device
+    # evolution's churn probe each name the ROADMAP item that brings them
+    for impl in ("masked", "dense"):
+        with pytest.raises(NotImplementedError, match="impls.*item 2"):
+            tmlp.SparseMLP(tmlp.SparseMLPConfig(**dict(FIELDS, impl=impl)), seed=0,
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="return_preacts.*item 4"):
+        tmlp.mlp_forward(tm.params(), tm.topo_arrays(), torch.zeros((2, 784)), tm.config,
+                         return_preacts=True)
+    vel = [torch.zeros_like(v) for v in el.values]
+    with pytest.raises(NotImplementedError, match="probes.*item 4"):
+        evolve_element_layers_device(el.topo_arrays(), el.values, vel, torch.Generator(),
+                                     layer_dims=el.config.layer_dims, zeta=0.3, probe=True)
 
 
 def test_evaluate_matches_reference():

@@ -72,6 +72,16 @@ XL_BATCH = 32
 XL_BUDGET_FRACTION = 0.6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_reference_programs():
+    """The reference's XL tests count its jitted programs' cache entries
+    (``tests/test_xl.py::test_zero_recompiles_across_shards_layers_epochs``);
+    this file's runs of the reference at other shapes would add to them
+    when a test worker runs both files, so it clears JAX's caches after."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
     """Small tensors: one intra-op thread, so that parallel test workers do

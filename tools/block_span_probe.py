@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where one block of kernels A (staged route) and D spends its cycles, on
-the card: clock64 spans inside copies of the kernels' sources.
+"""Where one block of kernels A (staged route) and D, and one CTA of kernels
+D's and E's bf16 instances, spends its cycles, on the card: clock64 spans
+inside copies of the kernels' sources.
 
 It copies ``src/repro_torch/csrc/coo_matmul_T.cu`` and ``bsmm_dx.cu`` into
 ``build/probe/`` (gitignored), adds clock64 reads at fixed points and a
@@ -19,9 +20,26 @@ give them:
 It also times a chain of dependent FMAs on one warp (cycles per FMA and the
 clock rate), the floor under kernel A's long segments. Timings of the
 instrumented kernels (CUDA events) are printed beside them; the clock reads
-cost a few cycles each. Nothing here is part of the port.
+cost a few cycles each.
 
-    python3 tools/block_span_probe.py        # from the repository root, on the card
+``bf16``: kernels D's and E's bf16 instances on Qwen1.5-0.5B's first-layer
+W_in (1024 -> 2816, 22 tiles) and W_out (2816 -> 1024, 15 tiles) at the LM
+train step's 2,048 rows, E at S = 1, 2, 4, 8 runs a cluster, through the
+kernels' own C entry points, beside three copies of each source with one
+change:
+
+    empty   each CTA returns at its first instruction: a launch's floor;
+    loop    each CTA returns after its main loop: the loads and products
+            without the sum or the store;
+    spans   clock64 reads in thread 0 (a consumer): entry to the consumers'
+            start (the barriers set up), the main loop, and the rest (E's
+            cluster sum and the stores), in thousands of cycles, mean and
+            largest over the CTAs; and the main loop's TMA bytes over its
+            longest span, in bytes a cycle, summed over the card.
+
+Nothing here is part of the port.
+
+    python3 tools/block_span_probe.py [f32] [bf16]   # from the repository root, on the card
 """
 import ctypes
 import json
@@ -44,6 +62,29 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.serve import SparseInferenceEngine  # noqa: E402
 
 OUT = ROOT / "build" / "probe"
+N_SPANS = 8192
+SPANS = (f"\n__device__ long long g_spans[{N_SPANS}][4];\n"
+         "extern \"C\" int read_spans(void* dst) {\n"
+         "  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_spans, sizeof(g_spans)));\n}\n"
+         "extern \"C\" int clear_spans() {\n  void* p = nullptr;\n"
+         "  cudaError_t err = cudaGetSymbolAddress(&p, g_spans);\n"
+         "  if (err == cudaSuccess) err = cudaMemset(p, 0, sizeof(g_spans));\n"
+         "  return static_cast<int>(err);\n}\n")
+RECORD = ("  if (tid == 0) {\n"
+          "    long long* o = g_spans[blockIdx.x + gridDim.x * blockIdx.y];\n"
+          "    o[0] = t_ready - t_entry; o[1] = t_loop - t_ready; o[2] = clock64() - t_loop;"
+          " o[3] = 1;\n  }\n")
+ENTRY = "  extern __shared__ unsigned char smem_raw[];\n"
+LOOP_END = "  const bool consumer = warp < kConsumersH * 4;\n"
+# the ends of the bf16 kernels' epilogues: D's one; E's without a cluster,
+# then with one
+BF16_ENDS = {
+    "bsmm_dx": ("  sm90::copy_rows<kPitchB>(stage_b, b_valid, bm, out, dx_stride, tid, kThreadsH);"
+                "\n}\n",),
+    "bsmm_dw": (
+        "    sm90::copy_rows<kPitchB>(stage_b, bm, bn, out, bn, tid, kThreadsH);\n    return;\n",
+        "  sm90::cluster_wait();            // ... once all have, no copy still reads a staging\n}\n"),
+}
 N_CLK = 1 << 17
 GLOBALS = f"__device__ long long g_clk[{N_CLK}];\n"
 READ = ("\nextern \"C\" int read_clk(void* dst, int n) {\n"
@@ -127,6 +168,27 @@ def probe_d(src: str) -> str:
     return src + READ
 
 
+def probe_bf16(variant: str, source: str, src: str) -> str:
+    """One of the copies of a bf16 kernel that the module's doc lists."""
+    if variant == "empty":
+        return sub(src, ENTRY, ENTRY + "  if (batch > 0) return;\n")
+    if variant == "loop":
+        return sub(src, LOOP_END, "  if (batch > 0) return;\n" + LOOP_END)
+    src = sub(src, '#include "tf32x3.cuh"\n', '#include "tf32x3.cuh"\n' + SPANS)
+    src = sub(src, ENTRY, ENTRY + "  const long long t_entry = clock64();\n"
+              "  long long t_ready = t_entry;\n")
+    src = sub(src, "    sm90::bar_sync(1, kThreadsH);\n",
+              "    sm90::bar_sync(1, kThreadsH);\n    t_ready = clock64();\n")
+    src = sub(src, LOOP_END, "  const long long t_loop = clock64();\n" + LOOP_END)
+    for end in BF16_ENDS[source]:
+        if end.endswith("    return;\n"):
+            src = sub(src, end, end.replace("    return;\n", "  " + RECORD.replace("\n  ", "\n    ")
+                                            + "    return;\n"))
+        else:
+            src = sub(src, end, end[:-2] + RECORD + "}\n")
+    return src
+
+
 def build_all(srcs: dict) -> dict:
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -153,12 +215,80 @@ def spans(lib, n: int) -> np.ndarray:
     return buf
 
 
+def bf16_spans(dev) -> None:
+    """The ``bf16`` section of the module's doc."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(smi.strip(), flush=True)
+    libs = build_all({f"{variant}_{source}": probe_bf16(
+        variant, source, (build.CSRC / f"{source}.cu").read_text())
+        for variant in ("empty", "loop", "spans") for source in ("bsmm_dx", "bsmm_dw")})
+    build.build(("bsmm_dx", "bsmm_dw"))
+    for source in ("bsmm_dx", "bsmm_dw"):
+        libs[f"kernel_{source}"] = ctypes.CDLL(str(build.library_path(source)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(0)
+    t_in = tsp.BlockTopology.from_epsilon(tsp.BlockMeta(1024, 2816), 64.0, rng)
+    t_out = tsp.BlockTopology.from_epsilon(tsp.BlockMeta(2816, 1024), 64.0, rng)
+    for wname, topo in (("win", t_in), ("wout", t_out)):
+        meta = topo.meta
+        t = topo.device_arrays(dev)
+        v = topo.init_values(rng, dtype=torch.bfloat16, device=dev)
+        x = torch.as_tensor(rng.standard_normal((2048, meta.padded_in)).astype(np.float32),
+                            device=dev).bfloat16()
+        dy = torch.as_tensor(rng.standard_normal((2048, meta.padded_out)).astype(np.float32),
+                             device=dev).bfloat16()
+        row_ptr = bsm._offsets_once(t.rows_r, meta.grid_m)
+        for source, sizes in (("bsmm_dx", (1,)), ("bsmm_dw", (1, 2, 4, 8))):
+            for size in sizes:
+                if source == "bsmm_dx":
+                    out = torch.empty((2048, meta.padded_in), dtype=torch.bfloat16, device=dev)
+                    args = (dy.data_ptr(), v.data_ptr(), t.cols_r.data_ptr(), t.perm_r.data_ptr(),
+                            row_ptr.data_ptr(), out.data_ptr(), 2048, meta.grid_m, meta.grid_n,
+                            topo.n_blocks, 128, 128, 0, stream)
+                    argtypes, ctas = bsm._DX_BF16_ARGTYPES, meta.grid_m * 16
+                    loaded = topo.n_blocks * 16 * 2 * 32768  # slots x batch tiles x stages
+                else:
+                    out = torch.empty((topo.n_blocks, 128, 128), dtype=torch.bfloat16, device=dev)
+                    args = (x.data_ptr(), dy.data_ptr(), t.rows.data_ptr(), t.cols.data_ptr(),
+                            out.data_ptr(), topo.n_blocks, 2048, meta.grid_m, meta.grid_n, 128,
+                            128, size, 0, stream)
+                    argtypes, ctas = bsm._DW_BF16_ARGTYPES, topo.n_blocks * size
+                    loaded = topo.n_blocks * 32 * 32768  # tiles x 64-row chunks x stage
+                lib = libs[f"spans_{source}"]
+                build.check_launch(lib.clear_spans(), "clear_spans")
+                us = {}
+                for variant in ("kernel", "empty", "loop", "spans"):
+                    fn = getattr(libs[f"{variant}_{source}"], f"{source}_bf16")
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    us[variant] = 1e3 * cs.device_ms(
+                        lambda: build.check_launch(fn(*args), variant))  # noqa: B023
+                buf = np.zeros((N_SPANS, 4), np.int64)
+                torch.cuda.synchronize()
+                build.check_launch(lib.read_spans(buf.ctypes.data_as(ctypes.c_void_p)),
+                                   "read_spans")
+                live = buf[:ctas][buf[:ctas, 3] == 1] / 1000.0
+                print(json.dumps({"bf16_spans": dict(
+                    weight=wname, kernel=source, cluster=size, us=us, ctas=len(live),
+                    kcycles_mean={n: float(live[:, k].mean())
+                                  for k, n in enumerate(("ready", "loop", "rest"))},
+                    kcycles_max={n: float(live[:, k].max())
+                                 for k, n in enumerate(("ready", "loop", "rest"))},
+                    loop_mb=loaded / 1e6,
+                    loop_bytes_a_cycle=loaded / (live[:, 1].max() * 1000.0))}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("block_span_probe: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    what = set(sys.argv[1:]) or {"f32", "bf16"}
+    if "bf16" in what:
+        bf16_spans(dev)
+    if "f32" not in what:
+        return 0
     libs = build_all({"span_a": probe_a((build.CSRC / "coo_matmul_T.cu").read_text()),
                       "span_d": probe_d((build.CSRC / "bsmm_dx.cu").read_text()),
                       "chain": CHAIN})
