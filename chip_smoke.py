@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's SET-MLP serving and training paths (block, element and
-out-of-core) and its bf16 language model's serving and training paths on
-one NVIDIA card and check them.
+out-of-core, and the paper's masked and dense baselines) and its bf16
+language model's serving (also compacted at deployment) and training paths
+on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -99,13 +100,31 @@ Phases, one line each (any failure exits non-zero):
                    (A also with its other route's time and with its
                    epilogue; B as the epilogue's cost in A and as its
                    standalone pass);
-12. train_timings — the block and the element training step's time and
+12. train_timings — the block and the element training step's time, allocator peak and
                    device idle share, the epochs' seconds, and per-kernel rows
                    for C, D and E (C and E also with ``bound_tc_ms``, their
                    bound at the 3xTF32 tensor-core rate) and for kernel A's
                    dX use, F (with and without its epilogue) and G (as the
                    epilogue's cost in F and as its standalone call);
-13. lm            — serving the paper's sparse-FFN language model:
+13. baselines     — the paper's baselines, the full-width CIFAR-10 model
+                   (3072-4000-1000-4000-10, f32, seed 0) as the masked
+                   (``h @ (W * mask)``, the element model's ER mask) and the
+                   dense SET-MLP: their forward on the card (served and
+                   evaluation) against the CPU's plain forward within 1e-5;
+                   the ``train`` phase's 3-epoch run (SET and pruning
+                   scheduled, which these impls skip) with ``n_params``
+                   390,450 and 20,337,010 every epoch, the mask unmoved, the
+                   loss falling, the history against the same run on the CPU,
+                   and only kernel B launched (the evaluations' hidden
+                   layers); a step's median of 30 with quartiles, device busy,
+                   idle share, launches and the allocator's peak beside the
+                   element and block steps of the ``train_timings`` phase; a
+                   served ``classify`` at buckets 1, 8, 32 and 128 (3 B
+                   launches a call) beside the element engine's, compacted
+                   and not, and the block model's, served as it is (4 C f32
+                   and 3 B a call, against the CPU engine within 1e-4) (a
+                   ``baselines`` line);
+14. lm            — serving the paper's sparse-FFN language model:
                    Qwen1.5-0.5B at full width and depth (24 layers, d_model
                    1024, vocab 151,936) with the SET sparse FFN (128 x 128
                    tiles, epsilon 64, All-ReLU alpha 0.6) in bf16, random
@@ -147,7 +166,24 @@ Phases, one line each (any failure exits non-zero):
                    and of the autograd path it replaced, the batcher's
                    tokens/s, latency and TTFT, the allocator's peak, the
                    card's name and power limit;
-14. lm_train      — training the same model (full width and depth, bf16,
+15. lm_compact    — the same LM compacted at deployment by the engine
+                   (``serve.compact.compact_block_lm``): (a) one W_out block
+                   zeroed in every layer (a second in odd layers), freed at
+                   threshold 0 (nothing pruned): W_out 15 -> 14 blocks, the
+                   odd layers re-padded with a zero block at a freed
+                   position, the prefill and decode logits bit-equal to the
+                   uncompacted model's, kernel C bf16 on every layer's
+                   re-padded W_out held as in ``lm``; (b) compacted at the
+                   30th percentile (the element serving cell's): the report
+                   and every slot's block counts before and after (an
+                   ``lm_compaction`` line); (c) on (b)'s model, kernel C bf16
+                   with and without its All-ReLU store on every layer at the
+                   main path's rows, and the ``lm`` phase's main path (16
+                   Poisson requests at 20/s, 48 C a call, no B, sequential
+                   tokens equal): an ``lm_compact_timing`` line with
+                   tokens/s, latency, TTFT, the decode step's profile and one
+                   ``bsmm_infer``'s host time;
+16. lm_train      — training the same model (full width and depth, bf16,
                    ``remat="block"``) through ``examples/train_lm_torch.py``'s
                    loop, the twin of the reference's LM training example: 4
                    steps of 8 x 257 tokens of its Zipf stream
@@ -172,7 +208,7 @@ Phases, one line each (any failure exits non-zero):
                    device busy, idle share, launches, the kernels and host
                    operators with the most time, the allocator's peak, the
                    card's name and power limit;
-15. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+17. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
                    worker-epoch: 2 rounds, the second with a padded step). The
@@ -192,7 +228,7 @@ Phases, one line each (any failure exits non-zero):
                    phase-1 epoch's device busy time, launches and idle share).
                    It runs after the timing phases: before them it made
                    their profiler sessions lose device events.
-16. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+18. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
                    full width on the card: the element and the block model
                    trained 3 epochs with device SET, pruning and the paper's
                    dropout 0.3, saved at every epoch; a fresh trainer
@@ -211,7 +247,7 @@ Phases, one line each (any failure exits non-zero):
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
                    profiles nothing;
-17. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+19. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
                    of the paper's first Table-4 row at full width,
                    65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
                    17,655,362 parameters), batch 32, the device budget 0.6 x
@@ -765,11 +801,13 @@ def profile_classify(engine, x: np.ndarray, latency_ms: float, calls: int = 20,
                 kernel_a_counted_per_call=counted / calls)
 
 
-def phase_timings(out: dict) -> str:
-    engine = out["engine"]
+def classify_latency(engine, x_test: np.ndarray) -> dict:
+    """A classify's latency at each batch bucket: the median of 30 calls
+    after 5 warm-up calls, with quartiles (host clock; a call ends in its
+    copy to the host)."""
     latency = {}
     for bucket in engine.cfg.batch_buckets:
-        x = requests(out["x_test"], bucket)
+        x = requests(x_test, bucket)
         for _ in range(5):
             engine.classify(x)
         ts = []
@@ -779,6 +817,12 @@ def phase_timings(out: dict) -> str:
             ts.append((time.perf_counter() - t0) * 1e3)
         q25, q50, q75 = np.percentile(ts, [25, 50, 75])
         latency[bucket] = dict(median=float(q50), q25=float(q25), q75=float(q75))
+    return latency
+
+
+def phase_timings(out: dict) -> str:
+    engine = out["engine"]
+    latency = out["classify_ms"] = classify_latency(engine, out["x_test"])
     print(json.dumps({"classify_ms": latency}))
     cfg = engine.model.config
     profiles = {}
@@ -1948,7 +1992,9 @@ def time_train_step(model: SparseMLP, data, name: str) -> dict:
     """One training step of ``model`` at batch 128 (forward, backward,
     momentum-SGD update): the median of 30 host-clock steps that end in a
     synchronise, after 5 warm-up steps, with quartiles (``<name>_ms``), then
-    its profile (``<name>_profile``)."""
+    its profile (``<name>_profile``), and the allocator's peak over the
+    steps, also less what was allocated before them (``step_peak_bytes``:
+    the step's own gradients, velocity and temporaries)."""
     dev = model.device
     xb = torch.as_tensor(data.x_train[:128], device=dev)
     yb = torch.as_tensor(data.y_train[:128], device=dev).long()
@@ -1962,6 +2008,9 @@ def time_train_step(model: SparseMLP, data, name: str) -> dict:
         state["params"], state["opt"], _ = step(state["params"], state["opt"], topo, xb, yb,
                                                 lr, None)
 
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(5):
         one_step()
     torch.cuda.synchronize()
@@ -1972,10 +2021,14 @@ def time_train_step(model: SparseMLP, data, name: str) -> dict:
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     q25, q50, q75 = np.percentile(ts, [25, 50, 75])
-    print(json.dumps({f"{name}_ms": dict(median=float(q50), q25=float(q25), q75=float(q75))}))
+    peak = torch.cuda.max_memory_allocated()
+    print(json.dumps({f"{name}_ms": dict(median=float(q50), q25=float(q25), q75=float(q75),
+                                         max_memory_allocated=peak,
+                                         step_peak_bytes=peak - resident)}))
     prof = profile_train_step(one_step, float(q50))
     print(json.dumps({f"{name}_profile": prof}))
-    return dict(prof, q25=float(q25), q75=float(q75))
+    return dict(prof, q25=float(q25), q75=float(q75), max_memory_allocated=peak,
+                step_peak_bytes=peak - resident)
 
 
 def element_timing_rows(data) -> list:
@@ -2064,6 +2117,7 @@ def phase_train_timings(out: dict) -> str:
     data = load("cifar10", scale=TRAIN_SCALE)
     prof = time_train_step(model, data, "train_step")
     eprof = time_train_step(element_model(CARD), data, "element_train_step")
+    out["step_timing"] = {"block": prof, "element": eprof}
     print(json.dumps({"epoch_seconds": out["train_hist"]["epoch_seconds"],
                       "element_epoch_seconds": out["element_hist"]["epoch_seconds"]}))
 
@@ -2140,6 +2194,148 @@ def phase_train_timings(out: dict) -> str:
         f"block step {step_line(prof)}; element step {step_line(eprof)}; epoch_seconds block "
         f"{out['train_hist']['epoch_seconds']}, element {out['element_hist']['epoch_seconds']}; "
         f"per-kernel rows above"
+    )
+
+
+# -- the paper's baselines: the masked and the dense SET-MLP -----------------
+
+BASELINES = ("masked", "dense")
+# The full-width CIFAR-10 model's n_params: the masked model counts its
+# mask's connections (the element model's ER counts, 381,440) and the
+# biases (9,010), the dense model every weight and the biases.
+BASELINE_N_PARAMS = {"masked": 390_450, "dense": 20_337_010}
+# torch.matmul on the card against the CPU's, both IEEE f32: other sum
+# orders over up to 4,000 products an output
+BASELINE_RTOL = BASELINE_ATOL = 1e-5
+# The dense run against the CPU run: at the paper's lr the dense model's
+# loss swings (45, 54, then 15: its logits reach tens), so the sum orders'
+# last-bit differences grow from epoch to epoch: card against CPU 0,
+# 1.7e-6 and 3.7e-4 relative over the 3 epochs, the CPU at 8 threads
+# against 2 threads 3.3e-5 (NVIDIA H100 80GB HBM3, 700.00 W). It is held
+# at 2e-3 and its test accuracy within 3 of the 200 test samples; the
+# masked run keeps the block and element runs' TRAIN_LOSS_RTOL and one
+# sample.
+DENSE_LOSS_RTOL = 2e-3
+DENSE_ACC_SAMPLES = 3
+
+
+def baseline_model(impl: str, device) -> SparseMLP:
+    """The full-width CIFAR-10 SET-MLP as the paper's masked or dense
+    baseline, seeded, dropout 0."""
+    return SparseMLP(dataclasses.replace(mlp_config("cifar10", impl=impl), dropout=0.0),
+                     seed=SEED, device=device)
+
+
+def baseline_forward_vs_cpu(impl: str, x: np.ndarray) -> float:
+    """The forward on the card (infer and evaluation) against the CPU's plain
+    forward on the same weights, within BASELINE_RTOL; the largest
+    |difference|."""
+    card, cpu = baseline_model(impl, CARD), baseline_model(impl, "cpu")
+    err = 0.0
+    with torch.no_grad():
+        for infer in (True, False):
+            got = mlp_forward(card.params(), card.topo_arrays(), torch.as_tensor(x, device=CARD),
+                              card.config, infer=infer).cpu()
+            want = mlp_forward(cpu.params(), cpu.topo_arrays(), torch.as_tensor(x), cpu.config,
+                               infer=infer)
+            torch.testing.assert_close(got, want, rtol=BASELINE_RTOL, atol=BASELINE_ATOL)
+            err = max(err, float((got - want).abs().max()))
+    return err
+
+
+def baseline_run(impl: str, device) -> tuple:
+    """The ``train`` phase's 3-epoch run (``train_config()``: SET and
+    importance pruning scheduled, which a masked or dense model skips) of
+    the baseline on ``device``: the trainer and its history."""
+    trainer = SequentialTrainer(baseline_model(impl, device),
+                                load("cifar10", scale=TRAIN_SCALE), train_config())
+    return trainer, trainer.run()
+
+
+def phase_baselines(out: dict) -> str:
+    data = load("cifar10", scale=TRAIN_SCALE)
+    res = {}
+    for impl in BASELINES:
+        err = baseline_forward_vs_cpu(impl, data.x_test[:128])
+        reset_counts()
+        card, hist = baseline_run(impl, CARD)
+        launches = read_counts()
+        cfg = card.model.config
+        steps, evals = run_steps(card)
+        # torch.matmul in every product; kernel B on the hidden layers of
+        # each evaluation batch (autograd off), nothing else
+        want = dict(NO_LAUNCHES, bias_all_relu=evals * (cfg.n_layers - 1))
+        check(launches == want, f"{impl}: launch counts {launches}, expected {want}")
+        n_params = card.model.n_params
+        check(n_params == BASELINE_N_PARAMS[impl],
+              f"{impl}: n_params {n_params}, expected {BASELINE_N_PARAMS[impl]}")
+        check(hist["n_params"] == [n_params] * TRAIN_EPOCHS, f"{impl}: n_params {hist['n_params']}")
+        check(bool(np.isfinite(hist["train_loss"]).all())
+              and hist["train_loss"][-1] < hist["train_loss"][0],
+              f"{impl}: loss {hist['train_loss']} is not finite and falling")
+        if impl == "masked":  # no topology phase: the mask is the seed's
+            seeded = baseline_model(impl, "cpu")
+            check(all(np.array_equal(a.rows, b.rows) and np.array_equal(a.cols, b.cols)
+                      for a, b in zip(card.model.topos, seeded.topos)), "the mask moved")
+        _, cpu_hist = baseline_run(impl, "cpu")
+        dense = impl == "dense"
+        np.testing.assert_allclose(hist["train_loss"], cpu_hist["train_loss"],
+                                   rtol=DENSE_LOSS_RTOL if dense else TRAIN_LOSS_RTOL)
+        np.testing.assert_allclose(hist["test_acc"], cpu_hist["test_acc"],
+                                   atol=(DENSE_ACC_SAMPLES if dense else 1) / len(data.y_test)
+                                   + 1e-9)
+        step = time_train_step(baseline_model(impl, CARD), data, f"{impl}_train_step")
+        engine = SparseInferenceEngine(baseline_model(impl, CARD), compact=False)
+        reset_counts()
+        logits = engine.classify(data.x_test[:128])
+        served = read_counts()
+        check(served == dict(NO_LAUNCHES, bias_all_relu=cfg.n_layers - 1),
+              f"{impl}: a classify launched {served}")
+        check(bool(np.isfinite(logits).all()), f"{impl}: non-finite served logits")
+        res[impl] = dict(n_params=n_params, history=hist, cpu_history=cpu_hist,
+                         forward_max_abs_err=err, launches=launches, step=step,
+                         classify_ms=classify_latency(engine, data.x_test))
+        del card, engine
+    # the truly sparse paths of the same run: the element model served
+    # uncompacted too (phase main's engine is compacted)
+    element_engine = SparseInferenceEngine(seeded_model(CARD), compact=False)
+    res["element"] = dict(n_params=element_model(CARD).n_params, step=out["step_timing"]["element"],
+                          classify_ms=out["classify_ms"],
+                          uncompacted_classify_ms=classify_latency(element_engine, data.x_test))
+    # the block model served as it is: kernel C f32 a layer, then B on the hidden ones
+    block_engine = SparseInferenceEngine(block_model(CARD), compact=False)
+    reset_counts()
+    logits = block_engine.classify(data.x_test[:128])
+    served = read_counts()
+    n_layers = block_engine.model.config.n_layers
+    check(served == dict(NO_LAUNCHES, bsmm_fwd=n_layers, bias_all_relu=n_layers - 1),
+          f"block: a classify launched {served}")
+    want = SparseInferenceEngine(block_model("cpu"), compact=False, device="cpu").classify(
+        data.x_test[:128])
+    np.testing.assert_allclose(logits, want, rtol=BLOCK_RTOL, atol=BLOCK_ATOL)
+    res["block"] = dict(n_params=block_model(CARD).n_params, step=out["step_timing"]["block"],
+                        served_max_abs_err=float(np.abs(logits - want).max()),
+                        classify_ms=classify_latency(block_engine, data.x_test))
+    step_keys = ("step_ms", "q25", "q75", "device_busy_us", "device_idle_share",
+                 "device_launches", "max_memory_allocated", "step_peak_bytes")
+    print(json.dumps({"baselines": dict(card=out["smi"], **{
+        k: dict({f: v for f, v in r.items() if f != "step"},
+                step={f: r["step"][f] for f in step_keys}) for k, r in res.items()})}))
+
+    def line(k):
+        st = res[k]["step"]
+        return (f"{k} {res[k]['n_params']} params, step {st['step_ms']:.3f} ms (busy "
+                f"{st['device_busy_us']:.1f} us, idle {st['device_idle_share']:.3f}, "
+                f"{st['device_launches']:g} launches, peak +{st['step_peak_bytes'] / 1e6:.1f} MB)")
+
+    cls = {k: res[k]["classify_ms"][128]["median"] for k in ("element", "block", *BASELINES)}
+    return (
+        "; ".join(line(k) for k in ("element", "block", *BASELINES))
+        + f"; masked and dense forward card vs CPU within {BASELINE_RTOL} (max "
+        + ", ".join(f"{res[k]['forward_max_abs_err']:.3g}" for k in BASELINES)
+        + "), histories card vs CPU held, loss " + ", ".join(
+            f"{k} {res[k]['history']['train_loss']}" for k in BASELINES)
+        + "; classify at 128 " + ", ".join(f"{k} {v:.3f} ms" for k, v in cls.items())
     )
 
 
@@ -2725,34 +2921,19 @@ def lm_timings(engine) -> dict:
                 decode_host_self_us_top=prof["host_self_us_top"][:6])
 
 
-def phase_lm(out: dict) -> str:
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    err = lm_kernel_checks()
-    cfg = lm_config()
+def lm_serve_checked(engine) -> dict:
+    """The LM engine's main path, checked: a warm-up trace and every bucket;
+    a prefill and a decode step launching 48 C (W_in with All-ReLU in its
+    store, then W_out, a layer; the decode route for a step, the rows route
+    for a prefill, no second pass) and nothing else; then 16 Poisson
+    requests through ``ContinuousBatcher`` after the warm-up: every request
+    completed with its budget of vocabulary ids, no build after warm-up, C
+    launched 48 times a call and B never, and the same tokens as
+    ``serve_sequential`` on the same engine. Returns the batcher's and the
+    sequential run's stats, the trace's launches, C's sub-counts and the
+    allocator's peak."""
+    cfg = engine.model.cfg
     V = cfg.vocab
-
-    # the card against the CPU (plain versions): full width, 2 layers
-    rng = np.random.default_rng(SEED)
-    prompts = rng.integers(0, V, (LM_ENGINE["prefill_batch"], 16))
-    steps = rng.integers(0, V, (LM_ENGINE["prefill_batch"], 4))
-    short = lm_config(LM_CPU_LAYERS)
-    vs_cpu = logits_close(lm_served_logits(PatternLM(short, seed=SEED, device=CARD), prompts, steps),
-                          lm_served_logits(PatternLM(short, seed=SEED, device="cpu"), prompts, steps),
-                          f"the {LM_CPU_LAYERS}-layer model on the card against the CPU")
-
-    model = PatternLM(cfg, seed=SEED, device=CARD)
-    n_params = sum(t.numel() for t in tree_leaves(model.params))
-    per_layer = lm_layer_checks(model)
-    # decode against the teacher-forced forward, full depth: 2 prompts, 8 steps
-    tf_prompts, tf_steps = rng.integers(0, V, (2, 24)), rng.integers(0, V, (2, 8))
-    with torch.inference_mode():
-        tf, _, _ = model.forward(model.params, torch.as_tensor(
-            np.concatenate([tf_prompts, tf_steps], 1), device=CARD), topo=model.topo_arrays())
-    tf = tf[:, tf_prompts.shape[1] - 1:].float().cpu()
-    vs_tf = logits_close(lm_served_logits(model, tf_prompts, tf_steps), tf,
-                         "decode against the teacher-forced forward")
-
-    engine = SparseInferenceEngine(model, engine=EngineConfig(**LM_ENGINE))
     ContinuousBatcher(engine).run(poisson_trace(8, 50.0, vocab=V, prompt_lens=(4, 64),
                                                 new_tokens=(2, 4), seed=0))
     lm_warm(engine)
@@ -2806,6 +2987,40 @@ def phase_lm(out: dict) -> str:
     check(same == LM_REQUESTS, f"continuous batching and one request at a time agree on "
                                f"{same} of {LM_REQUESTS} requests' tokens")
     engine.reset_slots()
+    return dict(stats=stats, seq=seq, launches=launches, c_sub=c_sub, peak=peak)
+
+
+def phase_lm(out: dict) -> str:
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    err = lm_kernel_checks()
+    cfg = lm_config()
+    V = cfg.vocab
+
+    # the card against the CPU (plain versions): full width, 2 layers
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, V, (LM_ENGINE["prefill_batch"], 16))
+    steps = rng.integers(0, V, (LM_ENGINE["prefill_batch"], 4))
+    short = lm_config(LM_CPU_LAYERS)
+    vs_cpu = logits_close(lm_served_logits(PatternLM(short, seed=SEED, device=CARD), prompts, steps),
+                          lm_served_logits(PatternLM(short, seed=SEED, device="cpu"), prompts, steps),
+                          f"the {LM_CPU_LAYERS}-layer model on the card against the CPU")
+
+    model = PatternLM(cfg, seed=SEED, device=CARD)
+    n_params = sum(t.numel() for t in tree_leaves(model.params))
+    per_layer = lm_layer_checks(model)
+    # decode against the teacher-forced forward, full depth: 2 prompts, 8 steps
+    tf_prompts, tf_steps = rng.integers(0, V, (2, 24)), rng.integers(0, V, (2, 8))
+    with torch.inference_mode():
+        tf, _, _ = model.forward(model.params, torch.as_tensor(
+            np.concatenate([tf_prompts, tf_steps], 1), device=CARD), topo=model.topo_arrays())
+    tf = tf[:, tf_prompts.shape[1] - 1:].float().cpu()
+    vs_tf = logits_close(lm_served_logits(model, tf_prompts, tf_steps), tf,
+                         "decode against the teacher-forced forward")
+
+    engine = SparseInferenceEngine(model, engine=EngineConfig(**LM_ENGINE))
+    served = lm_serve_checked(engine)
+    stats, seq, launches, c_sub, peak = (served[k] for k in ("stats", "seq", "launches",
+                                                              "c_sub", "peak"))
 
     timing = lm_timings(engine)
     timing.update(bsmm_infer_host_us(model))
@@ -2860,6 +3075,133 @@ def phase_lm(out: dict) -> str:
         f"B 0; 0 builds after warm-up; sequential tokens equal; decode "
         f"step median {timing['decode_step_ms']['median']:.2f} ms, idle share "
         f"{timing['decode_device_idle_share']:.3f}, {timing['decode_launches']:g} launches"
+    )
+
+
+# -- the LM compacted at deployment (the paper's Importance Pruning, Table 6) --
+
+LM_SLOT = "s0_global"  # the served config's one stacked slot (pattern ("global",))
+LM_COMPACT_PERCENTILE = SCHEDULE.percentile  # the element serving cell's
+
+
+def block_counts(model) -> dict:
+    """The stacked W_in and W_out block counts of every slot, and per layer
+    the blocks holding a nonzero weight."""
+    out = {}
+    for slot, reps in model.topologies.items():
+        ffn = model.params["stack"][slot]["ffn"]
+        out[slot] = {name: dict(
+            stacked=int(ffn[name].shape[1]),
+            live=[int(n) for n in (ffn[name].abs().sum((2, 3)) > 0).sum(1).tolist()])
+            for name in ("win", "wout")}
+    return out
+
+
+def zero_wout_blocks(model) -> list:
+    """In every layer, zero one W_out block whose block-column holds two or
+    more; in odd layers a second one, in a column that still holds two: so
+    compaction frees one block everywhere and re-pads the odd layers' 13
+    live blocks to the slot's 14 with a zero block at a freed position.
+    Returns each layer's zeroed slots."""
+    ffn = model.params["stack"][LM_SLOT]["ffn"]
+    zeroed = []
+    for r, (_, t_out) in enumerate(model.topologies[LM_SLOT]):
+        counts = np.bincount(t_out.cols, minlength=t_out.meta.grid_n)
+        picks = []
+        for _ in range(1 + r % 2):
+            col = int(np.argmax(counts))
+            check(counts[col] >= 2, f"layer {r}: no W_out block-column holds two blocks")
+            picks.append(int(next(i for i in np.flatnonzero(t_out.cols == col)
+                                  if i not in picks)))
+            counts[col] -= 1
+        ffn["wout"][r, picks] = 0
+        zeroed.append(picks)
+    return zeroed
+
+
+def phase_lm_compact(out: dict) -> str:
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = lm_config()
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (LM_ENGINE["prefill_batch"], 16))
+    steps = rng.integers(0, cfg.vocab, (LM_ENGINE["prefill_batch"], 4))
+
+    # (a) zero blocks freed at threshold 0: nothing pruned, the forward's bits kept
+    model = PatternLM(cfg, seed=SEED, device=CARD)
+    zeroed = zero_wout_blocks(model)
+    before = block_counts(model)
+    check(before[LM_SLOT]["win"]["stacked"] == 22 and before[LM_SLOT]["wout"]["stacked"] == 15,
+          f"the full-width sparse FFN's tile counts {before}")
+    want = lm_served_logits(model, prompts, steps)
+    engine = SparseInferenceEngine(model, engine=EngineConfig(**LM_ENGINE),
+                                   compaction=PruningSchedule(tau=0, period=1, threshold=0.0))
+    freed = block_counts(engine.model)[LM_SLOT]
+    check(freed["win"]["stacked"] == 22 and freed["wout"]["stacked"] == 14,
+          f"freeing the zero blocks left {freed}")
+    repadded = [r for r, live in enumerate(freed["wout"]["live"]) if live == 13]
+    check(repadded == list(range(1, cfg.n_layers, 2)), f"re-padded layers {repadded}")
+    check(engine.report.pruned_neurons == 0
+          and engine.report.params_after == engine.report.params_before,
+          f"threshold 0 changed the model: {engine.report}")
+    got = lm_served_logits(engine.model, prompts, steps)
+    # a removed zero block adds exact zeros, and neither route depends on the
+    # slot count (each slot's 8 k-steps are dealt to the same warps)
+    check(torch.equal(got, want), "freeing zero blocks changed the logits: max |diff| "
+                                  f"{float((got - want).abs().max()):.4g}")
+    freed_checks = lm_layer_checks(engine.model)
+    del model, engine
+    torch.cuda.empty_cache()
+
+    # (b) compacted at the 30th percentile, the element serving cell's
+    model = PatternLM(cfg, seed=SEED, device=CARD)
+    counts_before = block_counts(model)
+    engine = SparseInferenceEngine(model, engine=EngineConfig(**LM_ENGINE),
+                                   compaction=PruningSchedule(tau=0, period=1,
+                                                              percentile=LM_COMPACT_PERCENTILE))
+    report = dataclasses.asdict(engine.report)
+    counts_after = block_counts(engine.model)
+    check(0 < engine.report.params_after < engine.report.params_before
+          and engine.report.pruned_neurons > 0, f"compaction at the 30th percentile: {report}")
+    print(json.dumps({"lm_compaction": dict(percentile=LM_COMPACT_PERCENTILE, report=report,
+                                            blocks_before=counts_before,
+                                            blocks_after=counts_after, zero_blocks=dict(
+                                                zeroed=zeroed, freed=freed,
+                                                logits_bit_equal=True))}))
+
+    # (c) the compacted model's kernels and main path
+    per_layer = lm_layer_checks(engine.model)
+    served = lm_serve_checked(engine)
+    stats = served["stats"]
+    timing = lm_timings(engine)
+    timing.update(bsmm_infer_host_us(engine.model))
+    timing.update(
+        requests=LM_REQUESTS, generated_tokens=stats.generated_tokens,
+        decode_steps=stats.decode_steps, prefill_calls=stats.prefill_calls,
+        tokens_per_s=stats.throughput_tok_s, latency_p50_ms=stats.latency_p50_ms,
+        latency_p95_ms=stats.latency_p95_ms, ttft_p50_ms=stats.ttft_p50_ms,
+        wall_s=stats.wall_seconds, sequential_tokens_per_s=served["seq"].throughput_tok_s,
+        c_launches_per_decode_step=2 * cfg.n_layers,
+        trace_launches=served["launches"], kernel_c_routes=served["c_sub"],
+        kernel_c_every_layer=per_layer, kernel_c_every_layer_freed=freed_checks,
+        max_memory_allocated=served["peak"], card=out["smi"])
+    print(json.dumps({"lm_compact_timing": timing}))
+    r = engine.report
+    return (
+        f"(a) one W_out block zeroed a layer (two in odd layers) and freed at threshold 0: "
+        f"W_out 15 -> 14 blocks, odd layers re-padded, logits bit-equal, C bf16 on all "
+        f"{freed_checks['layers']} layers within {C_BF16_TOL} (max "
+        f"{freed_checks['max_abs_err']:.3g}); (b) percentile {LM_COMPACT_PERCENTILE}: "
+        f"{r.params_before} -> {r.params_after} live FFN params ({100 * r.shrink:.1f}% freed), "
+        f"{r.pruned_neurons} neurons pruned, W_in {counts_before[LM_SLOT]['win']['stacked']} -> "
+        f"{counts_after[LM_SLOT]['win']['stacked']}, W_out "
+        f"{counts_before[LM_SLOT]['wout']['stacked']} -> "
+        f"{counts_after[LM_SLOT]['wout']['stacked']} blocks; (c) C bf16 on all "
+        f"{per_layer['layers']} layers within {C_BF16_TOL} (max {per_layer['max_abs_err']:.3g}), "
+        f"its store C then B; {LM_REQUESTS} requests, {stats.generated_tokens} tokens, "
+        f"{stats.throughput_tok_s:.1f} tok/s, latency p50/p95 {stats.latency_p50_ms:.0f}/"
+        f"{stats.latency_p95_ms:.0f} ms, TTFT p50 {stats.ttft_p50_ms:.0f} ms, C "
+        f"{2 * cfg.n_layers} a decode step; one bsmm_infer {timing['bsmm_infer_host_us']:.1f} us "
+        f"host; decode step median {timing['decode_step_ms']['median']:.2f} ms"
     )
 
 
@@ -3749,8 +4091,12 @@ def main() -> int:
         ("element_train_device_evolution", phase_element_train_device_evolution),
         ("block_train_device_evolution", phase_block_train_device_evolution),
         ("timings", phase_timings), ("train_timings", phase_train_timings),
+        # the paper's masked and dense baselines beside the truly sparse steps
+        ("baselines", phase_baselines),
         # the bf16 LM's serving path, its profile beside the other timing phases'
         ("lm", phase_lm),
+        # the LM compacted at deployment: zero blocks freed, importance pruning
+        ("lm_compact", phase_lm_compact),
         # its training path: kernels D and E bf16 as C bf16's backward
         ("lm_train", phase_lm_train),
         # after the timing phases: run before them, it made their

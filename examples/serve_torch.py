@@ -2,7 +2,9 @@
 ``examples/serve.py``.
 
 Saves a smoke-scale sparse-FFN LM through ``CheckpointManager``, restores it
-into a ``SparseInferenceEngine`` and serves a synthetic Poisson trace with
+into a ``SparseInferenceEngine`` (with ``--prune-pct``, deployment-time
+block compaction: the sparse FFN importance-pruned at that percentile, the
+paper's Table 6 as a serving feature) and serves a synthetic Poisson trace with
 continuous batching: prompts are prefilled in one batched causal forward per
 bucket, and decode advances every slot in one call per token. On the card
 (the default) the sparse FFN runs kernels C and B; ``--device cpu`` runs
@@ -11,13 +13,13 @@ depth (random weights from the seed) in bfloat16, on the card.
 
     PYTHONPATH=src python examples/serve_torch.py --arch qwen1.5-0.5b --requests 12 [--device cpu]
     PYTHONPATH=src python examples/serve_torch.py --full --requests 16
+    PYTHONPATH=src python examples/serve_torch.py --prune-pct 30 [--full] [--device cpu]
 
 bf16 matrix products on the card are pinned to full-precision reductions
 (``allow_bf16_reduced_precision_reduction = False``) here, not inside the
 library.
 
-Not yet: ``--prune-pct`` (the LM's compaction, ROADMAP Queue 1, item 6) and
-``--trace`` (the obs trace, item 4) are refused.
+Not yet: ``--trace`` (the obs trace, ROADMAP Queue 1, item 4) is refused.
 """
 import argparse
 import dataclasses
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.importance import PruningSchedule
 from repro_torch.models.transformer import PatternLM
 from repro_torch.serve import (
     ContinuousBatcher,
@@ -47,7 +50,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--rate", type=float, default=50.0, help="req/s (Poisson)")
     ap.add_argument("--prune-pct", type=float, default=0.0,
-                    help="refused: the LM's compaction comes with ROADMAP Queue 1, item 6")
+                    help=">0: importance-prune the sparse FFN at this percentile before "
+                    "serving (Table 6 as a feature)")
     ap.add_argument("--naive", action="store_true",
                     help="also run the sequential per-request baseline")
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -55,10 +59,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; the card by default, 'cpu' for the plain versions")
     args = ap.parse_args(argv)
-    if args.prune_pct > 0:
-        raise NotImplementedError(
-            "--prune-pct: an LM's compaction (serve.compact.compact_block_lm) comes with "
-            "ROADMAP Queue 1, item 6")
     if args.trace:
         raise NotImplementedError("--trace: the obs trace comes with ROADMAP Queue 1, item 4")
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -78,10 +78,17 @@ def main(argv=None):
                           prefill_batch=min(4, args.slots))
         prompt_lens, new_tokens = (4, 32), (4, 12)
     model = PatternLM(cfg, seed=0, device="cpu")
+    schedule = (PruningSchedule(tau=0, period=1, percentile=args.prune_pct)
+                if args.prune_pct > 0 else None)
     with tempfile.TemporaryDirectory() as ckpt_dir:
         mgr = CheckpointManager(ckpt_dir, async_write=False)
         save_lm_for_serving(mgr, model, step=0)
-        engine = SparseInferenceEngine.from_checkpoint(ckpt_dir, engine=ec, device=args.device)
+        engine = SparseInferenceEngine.from_checkpoint(ckpt_dir, engine=ec, compaction=schedule,
+                                                       device=args.device)
+        if engine.report:
+            r = engine.report
+            print(f"compaction: {r.params_before} -> {r.params_after} live FFN params "
+                  f"({100 * r.shrink:.1f}% freed, {r.pruned_neurons} neurons pruned)")
 
         def make_trace(seed):
             return poisson_trace(args.requests, args.rate, vocab=cfg.vocab,
@@ -106,7 +113,8 @@ def main(argv=None):
 
         if args.naive:
             naive_engine = SparseInferenceEngine.from_checkpoint(
-                ckpt_dir, engine=dataclasses.replace(ec, max_slots=1, prefill_batch=1),
+                ckpt_dir, compaction=schedule,
+                engine=dataclasses.replace(ec, max_slots=1, prefill_batch=1),
                 device=args.device)
             serve_sequential(naive_engine, make_trace(0))  # warm-up
             nstats = serve_sequential(naive_engine, make_trace(1))

@@ -396,6 +396,16 @@ class ElementTopology:
         vals = _init_numpy(rng, (self.nnz,), fan_in_dense=self.in_dim, scheme=scheme)
         return torch.as_tensor(vals, device=device).to(dtype)
 
+    def to_dense(self, values: torch.Tensor) -> torch.Tensor:
+        """Scatter ``values`` (nnz,) into the dense (in_dim, out_dim) matrix
+        on their device."""
+        dense = torch.zeros((self.in_dim, self.out_dim), dtype=values.dtype,
+                            device=values.device)
+        rows = torch.as_tensor(self.rows, device=values.device).long()
+        cols = torch.as_tensor(self.cols, device=values.device).long()
+        dense[rows, cols] = values
+        return dense
+
 
 def element_spmm(
     x: torch.Tensor, values: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,

@@ -32,8 +32,10 @@ def mlp_from_numpy(
 ) -> SparseMLP:
     """Build the port's ``SparseMLP`` from a reference model's state:
     ``topos_np`` holds each layer's ``(rows, cols)`` — connections for an
-    element model, block coordinates for a block model, whose values are
-    then ``(n_blocks, block_m, block_n)``; ``device=None`` means the card."""
+    element or a masked model (the mask's), block coordinates for a block
+    model, whose values are then ``(n_blocks, block_m, block_n)``, ``None``
+    for a dense model; a masked or dense model's values are the dense
+    ``(in_dim, out_dim)`` matrices. ``device=None`` means the card."""
     fields = dict(config_fields)
     fields["layer_dims"] = tuple(fields["layer_dims"])
     config = SparseMLPConfig(**fields)
@@ -44,6 +46,8 @@ def mlp_from_numpy(
                           rows, cols)
             for l, (rows, cols) in enumerate(topos_np)
         ]
+    elif config.impl == "dense":
+        topos = [None] * len(topos_np)
     else:
         topos = [
             ElementTopology(dims[l], dims[l + 1], rows, cols)

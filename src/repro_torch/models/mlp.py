@@ -21,9 +21,15 @@ topology and init (bit-equal). What each impl runs:
   gradient is recorded, a hidden All-ReLU layer's bias and All-ReLU run in
   kernel B, as the reference's fused epilogue; dropout draws from an
   explicit ``torch.Generator``.
+* ``masked`` and ``dense`` — the paper's baselines, which simulate sparsity
+  with a binary mask (``h @ (W * mask)``) or have none (``h @ W``): W is the
+  dense (in_dim, out_dim) matrix, the product ``torch.matmul`` in IEEE f32
+  (the reference computes it outside any Pallas kernel too), and bias,
+  activation and dropout follow the block path, kernel B included. Under
+  autograd the masked gradient is ``(h^T dy) * mask``: zero off the mask.
 
-The masked and dense impls and ``return_preacts`` come with later slices and
-raise ``NotImplementedError`` here.
+``return_preacts`` comes with a later slice and raises
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.all_relu import activation_fn
-from repro_torch.core.sparsity import BlockMeta, BlockTopology, ElementTopology
+from repro_torch.core.sparsity import BlockMeta, BlockTopology, ElementTopology, _init_numpy
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.all_relu_fused import bias_all_relu
@@ -66,13 +72,13 @@ class SparseMLPConfig:
         return len(self.layer_dims) - 1
 
 
-def _require_sparse(config: SparseMLPConfig) -> None:
-    if config.impl not in ("element", "block"):
-        raise NotImplementedError(
-            f"impl={config.impl!r}: the port has the element (COO) and block "
-            "impls; the masked and dense impls come with a later slice (ROADMAP Queue 1, "
-            "item 2)"
-        )
+IMPLS = ("element", "block", "masked", "dense")
+SPARSE_IMPLS = ("element", "block")  # the impls whose topology SET and pruning change
+
+
+def _check_impl(config: SparseMLPConfig) -> None:
+    if config.impl not in IMPLS:
+        raise ValueError(f"impl={config.impl!r}; the impls are {IMPLS}")
 
 
 def block_meta(config: SparseMLPConfig, layer: int) -> BlockMeta:
@@ -95,24 +101,31 @@ class SparseMLP:
     ``device="cpu"`` for the plain versions)."""
 
     def __init__(self, config: SparseMLPConfig, seed: int = 0, device: DeviceLike = None):
-        _require_sparse(config)
+        _check_impl(config)
         self.config = config
         self.device = resolve_device(device)
         rng = np.random.default_rng(seed)
         dtype = getattr(torch, config.dtype)
-        self.topos: List[Union[ElementTopology, BlockTopology]] = []
+        self.topos: List[Optional[Union[ElementTopology, BlockTopology]]] = []
         self.values: List[torch.Tensor] = []
         self.biases: List[torch.Tensor] = []
         for l in range(config.n_layers):
             n_in, n_out = config.layer_dims[l], config.layer_dims[l + 1]
-            if config.impl == "element":
-                topo = ElementTopology.erdos_renyi(n_in, n_out, config.epsilon, rng)
+            if config.impl in ("masked", "dense"):
+                # the reference's draws in its order: the masked model's ER
+                # topology, then the dense matrix at the dense fan-in
+                topo = (ElementTopology.erdos_renyi(n_in, n_out, config.epsilon, rng)
+                        if config.impl == "masked" else None)
+                w = _init_numpy(rng, (n_in, n_out), fan_in_dense=n_in, scheme=config.init)
+                vals = torch.as_tensor(w, device=self.device).to(dtype)
             else:
-                topo = BlockTopology.from_epsilon(block_meta(config, l), config.epsilon, rng)
+                if config.impl == "element":
+                    topo = ElementTopology.erdos_renyi(n_in, n_out, config.epsilon, rng)
+                else:
+                    topo = BlockTopology.from_epsilon(block_meta(config, l), config.epsilon, rng)
+                vals = topo.init_values(rng, dtype=dtype, scheme=config.init, device=self.device)
             self.topos.append(topo)
-            self.values.append(topo.init_values(
-                rng, dtype=dtype, scheme=config.init, device=self.device
-            ))
+            self.values.append(vals)
             self.biases.append(torch.zeros((n_out,), dtype=dtype, device=self.device))
 
     @classmethod
@@ -126,8 +139,9 @@ class SparseMLP:
     ) -> "SparseMLP":
         """Rebuild a model from explicit state (numpy arrays or tensors) —
         deployment-time compaction and interop construct models whose
-        topologies are not the seeded Erdős–Rényi draw."""
-        _require_sparse(config)
+        topologies are not the seeded Erdős–Rényi draw. A masked model's
+        topologies are its masks' connections, a dense model's are ``None``."""
+        _check_impl(config)
         if not len(topos) == len(values) == len(biases) == config.n_layers:
             raise ValueError(
                 f"expected {config.n_layers} layers of topology, values and "
@@ -147,6 +161,17 @@ class SparseMLP:
         return {"values": tuple(self.values), "biases": tuple(self.biases)}
 
     def topo_arrays(self):
+        """Per layer what the forward reads besides the parameters: the
+        device arrays of an element or block topology; a masked layer's 0/1
+        mask, dense (in_dim, out_dim) in the config's dtype, made on the
+        device; ``None`` for a dense layer."""
+        impl = self.config.impl
+        if impl == "dense":
+            return tuple(None for _ in self.topos)
+        if impl == "masked":
+            dtype = getattr(torch, self.config.dtype)
+            return tuple(t.to_dense(torch.ones(t.nnz, dtype=dtype, device=self.device))
+                         for t in self.topos)
         return tuple(t.device_arrays(self.device) for t in self.topos)
 
     def set_params(self, params) -> None:
@@ -155,12 +180,16 @@ class SparseMLP:
 
     @property
     def n_params(self) -> int:
-        """Biases plus live connections. A block layer counts its nonzero
-        values, the padded margin of its tiles included, as the reference
-        does."""
+        """Biases plus live connections, as the reference counts them: an
+        element or masked layer its connections; a block layer its nonzero
+        values, the padded margin of its tiles included; a dense layer every
+        weight."""
         total = sum(int(b.numel()) for b in self.biases)
-        if self.config.impl == "element":
+        impl = self.config.impl
+        if impl in ("element", "masked"):
             return total + sum(t.nnz for t in self.topos)
+        if impl == "dense":
+            return total + sum(int(v.numel()) for v in self.values)
         return total + sum(int(torch.count_nonzero(v)) for v in self.values)
 
 
@@ -179,7 +208,8 @@ def mlp_forward(
 
     ``infer=True`` is the serving entry. ``infer=False`` (training and
     evaluation) is differentiable: an element model through kernels A, F
-    and G, a block model through C, D and E. ``train=True`` applies dropout
+    and G, a block model through C, D and E, a masked or dense model through
+    ``torch.matmul``. ``train=True`` applies dropout
     after each hidden layer, drawn from ``rng``, a ``torch.Generator`` on
     the input's device.
 
@@ -198,14 +228,15 @@ def mlp_forward(
     as in evaluation) it is the served forward, ``espmm_infer_T``; else
     ``espmm_train_T``.
     """
-    _require_sparse(config)
+    _check_impl(config)
     if return_preacts:
         raise NotImplementedError(
             "return_preacts comes with the probes slice (ROADMAP Queue 1, item 4)")
     if x.shape[-1] != config.layer_dims[0]:
         raise ValueError(f"x has {x.shape[-1]} features, the model takes {config.layer_dims[0]}")
-    if config.impl == "block":
-        return _block_forward(params, topo_arrays, x, config, train=train, rng=rng, infer=infer)
+    if config.impl != "element":
+        return _batch_major_forward(params, topo_arrays, x, config, train=train, rng=rng,
+                                    infer=infer)
     act = activation_fn(config.activation, alpha=config.alpha)
     dropout = _dropout_fn(config, train, rng)
     served = infer or not torch.is_grad_enabled()
@@ -248,21 +279,33 @@ def _dropout_fn(config: SparseMLPConfig, train: bool, rng: Optional[torch.Genera
     return dropout
 
 
-def _block_forward(params, topo_arrays, x, config, *, train, rng, infer):
-    """Block layers as the reference runs them: the block product, ``+ bias``,
-    then the activation under autograd, and dropout in training. Where no
-    gradient is recorded (``infer=True``, or autograd off, as in
-    evaluation), a hidden All-ReLU layer's bias and All-ReLU are kernel B,
-    reading the product's columns in place; it computes what ``act(h +
-    bias)`` does, bit for bit."""
+def _layer_product(config: SparseMLPConfig, infer: bool):
+    """``product(h, values, topo, layer) -> h @ W`` of a batch-major impl:
+    the block product (kernel C, and under autograd D and E), or
+    ``torch.matmul`` with the masked or the dense W."""
+    if config.impl == "block":
+        block = kops.bsmm_infer if infer else kops.bsmm_kernel
+        return lambda h, v, topo, l: block(h, v, topo, block_meta(config, l))
+    if config.impl == "masked":
+        return lambda h, v, mask, l: torch.matmul(h, v * mask)
+    return lambda h, v, _, l: torch.matmul(h, v)
+
+
+def _batch_major_forward(params, topo_arrays, x, config, *, train, rng, infer):
+    """Block, masked and dense layers as the reference runs them: the
+    layer's product, ``+ bias``, then the activation under autograd, and
+    dropout in training. Where no gradient is recorded (``infer=True``, or
+    autograd off, as in evaluation), a hidden All-ReLU layer's bias and
+    All-ReLU are kernel B, reading the product's columns in place; it
+    computes what ``act(h + bias)`` does, bit for bit."""
     act = activation_fn(config.activation, alpha=config.alpha)
-    product = kops.bsmm_infer if infer else kops.bsmm_kernel
+    product = _layer_product(config, infer)
     fused = config.activation == "all_relu" and (infer or not torch.is_grad_enabled())
     dropout = _dropout_fn(config, train, rng)
     h = x
     n_layers = config.n_layers
     for l in range(n_layers):
-        h = product(h, params["values"][l], topo_arrays[l], block_meta(config, l))
+        h = product(h, params["values"][l], topo_arrays[l], l)
         bias = params["biases"][l]
         if l == n_layers - 1:  # output layer: linear (paper: exclude output)
             h = h + bias

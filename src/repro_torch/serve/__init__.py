@@ -11,6 +11,7 @@ from repro_torch.serve.batcher import (
 )
 from repro_torch.serve.compact import (
     CompactionReport,
+    compact_block_lm,
     compact_element_mlp,
     eliminate_dead_neurons,
     importance_prune_mlp,
@@ -29,6 +30,7 @@ __all__ = [
     "Request",
     "ServeStats",
     "SparseInferenceEngine",
+    "compact_block_lm",
     "compact_element_mlp",
     "eliminate_dead_neurons",
     "importance_prune_mlp",

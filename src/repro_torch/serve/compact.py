@@ -1,7 +1,8 @@
-"""Deployment-time compaction, element (COO) granularity.
+"""Deployment-time compaction (the paper's Table 6 Importance Pruning as a
+serving feature).
 
-Twin of ``repro.serve.compact`` for the SET-MLP serving path, on host numpy
-as in the reference:
+Twin of ``repro.serve.compact``, on host numpy as in the reference. Element
+(COO) granularity, the SET-MLP serving path:
 
 1. **Importance pruning** (``importance_prune_mlp``) — the *lossy* stage:
    neurons whose strength (Eq. 4) falls below a percentile/absolute threshold
@@ -17,12 +18,21 @@ as in the reference:
    input model's on the card as on the CPU. Elimination cascades, so the
    pass iterates to a fixpoint.
 
-The block (LM) compaction comes with the LM slice.
+Block granularity, the LM's sparse FFN (:func:`compact_block_lm`): per
+repeat, ``importance_prune_block`` zeroes the weak neurons' columns of
+``win`` and frees its empty blocks; the pruned neurons' rows of ``wout``
+are zeroed and its empty blocks freed; every block-column keeps at least one
+slot (the coverage invariant). The stacked repeats of a slot must share one
+block count, so each is re-padded to the slot's largest surviving count with
+zero-valued blocks at positions it freed, and re-sorted into canonical
+(col, row) order. A removed zero block adds exact zeros, so beyond the
+pruning decision the compacted forward computes what the uncompacted one
+does with those blocks zeroed.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,13 +41,15 @@ from repro_torch.core.all_relu import activation_fn
 from repro_torch.core.importance import (
     PruningSchedule,
     element_degrees,
+    importance_prune_block,
     importance_prune_element,
 )
-from repro_torch.core.sparsity import ElementTopology
+from repro_torch.core.sparsity import BlockMeta, BlockTopology, ElementTopology
 from repro_torch.models.mlp import SparseMLP
 
 __all__ = [
     "CompactionReport",
+    "compact_block_lm",
     "compact_element_mlp",
     "eliminate_dead_neurons",
     "importance_prune_mlp",
@@ -206,3 +218,128 @@ def compact_element_mlp(
     report.pruned_neurons = pruned
     report.params_before = before
     return out, report
+
+
+# ---------------------------------------------------------------------------
+# block granularity — the LM's sparse FFN
+# ---------------------------------------------------------------------------
+
+
+def _free_empty_blocks(
+    topo: BlockTopology, values: np.ndarray
+) -> Tuple[np.ndarray, BlockTopology, np.ndarray]:
+    """Keep mask freeing all-zero blocks while preserving >= 1 slot per
+    output block-column (the coverage invariant: every output tile has a
+    slot that writes it)."""
+    empty = np.abs(values).sum(axis=(1, 2)) == 0
+    col_counts = np.bincount(topo.cols, minlength=topo.meta.grid_n)
+    keep = np.ones(topo.n_blocks, bool)
+    for i in np.flatnonzero(empty):
+        c = topo.cols[i]
+        if col_counts[c] > 1:
+            keep[i] = False
+            col_counts[c] -= 1
+    return keep, BlockTopology(topo.meta, topo.rows[keep], topo.cols[keep]), values[keep]
+
+
+def _repad_blocks(
+    meta: BlockMeta,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    values: np.ndarray,
+    dropped_rows: np.ndarray,
+    dropped_cols: np.ndarray,
+    target: int,
+) -> Tuple[BlockTopology, np.ndarray]:
+    """Resurrect ``target - kept`` previously dropped positions as zero-valued
+    blocks so every rep of a stacked slot keeps the same n_blocks."""
+    need = target - rows.size
+    if need > 0:
+        rows = np.concatenate([rows, dropped_rows[:need]])
+        cols = np.concatenate([cols, dropped_cols[:need]])
+        values = np.concatenate(
+            [values, np.zeros((need,) + values.shape[1:], values.dtype)]
+        )
+    order = np.lexsort((rows, cols))  # canonical (col, row) order
+    return BlockTopology(meta, rows[order], cols[order]), values[order]
+
+
+def compact_block_lm(model, schedule: PruningSchedule) -> CompactionReport:
+    """Compact a sparse-FFN ``PatternLM`` in place: per rep, importance-prune
+    ``win`` (zero weak neuron columns, free empty blocks), zero the pruned
+    neurons' rows in ``wout`` and free its empty blocks, then re-pad each
+    slot's reps to a uniform block count so the stacked shapes hold. The new
+    weights go back to the model's device in its dtype; the caller makes
+    the topology arrays afterwards (``model.topo_arrays()``), from which
+    kernel C plans for the new block counts. Lossless beyond the pruning
+    decision itself: pruned neurons emit ``act(0) == 0``, so zeroed and
+    freed blocks contribute nothing.
+
+    Only the pattern's stacked slots are compacted, as in the reference; a
+    model with remainder layers raises ``ValueError``."""
+    rest = [slot for slot in model.topologies if slot not in model.params["stack"]]
+    if rest:
+        raise ValueError(f"compact_block_lm compacts the stacked slots; {rest} are not")
+    params = model.params
+    before = _lm_live_params(model)
+    dims = (model.cfg.d_model, model.cfg.d_ff)
+    pruned_total = 0
+    for slot, topo_list in model.topologies.items():
+        ffn = params["stack"][slot]["ffn"]
+        win, wout = _host_f32(ffn["win"]), _host_f32(ffn["wout"])
+        kept: List[Tuple] = []
+        for r, (t_in, t_out) in enumerate(topo_list):
+            meta_out = t_out.meta
+            res = importance_prune_block(t_in, win[r], schedule)
+            pruned_total += int(res.pruned_neurons.size)
+            keep_in = _keep_mask_from(t_in, res.topology)
+            # wout: zero the pruned neurons' rows (their input is act(0)=0)
+            v_out = wout[r].copy()
+            pr_blocks = res.pruned_neurons // meta_out.block_m
+            pr_offs = res.pruned_neurons % meta_out.block_m
+            for b, o in zip(pr_blocks, pr_offs):
+                v_out[t_out.rows == b, o, :] = 0.0
+            keep_out, t_out2, v_out2 = _free_empty_blocks(t_out, v_out)
+            kept.append((res.topology, res.values, t_in, keep_in, t_out2, v_out2, t_out,
+                         keep_out))
+        nb_in = max(k[0].n_blocks for k in kept)
+        nb_out = max(k[4].n_blocks for k in kept)
+        new_topos, win_new, wout_new = [], [], []
+        for t_in2, v_in2, t_in, keep_in, t_out2, v_out2, t_out, keep_out in kept:
+            ti, vi = _repad_blocks(t_in.meta, t_in2.rows, t_in2.cols, v_in2,
+                                   t_in.rows[~keep_in], t_in.cols[~keep_in], nb_in)
+            to, vo = _repad_blocks(t_out.meta, t_out2.rows, t_out2.cols, v_out2,
+                                   t_out.rows[~keep_out], t_out.cols[~keep_out], nb_out)
+            new_topos.append((ti, to))
+            win_new.append(vi)
+            wout_new.append(vo)
+        model.topologies[slot] = new_topos
+        for name, new in (("win", win_new), ("wout", wout_new)):
+            old = ffn[name]
+            ffn[name] = torch.as_tensor(np.stack(new)).to(device=old.device, dtype=old.dtype)
+    # the model's memoized per-layer views belong to the old tensors
+    model._views = model._topo_views = None
+    return CompactionReport(
+        params_before=before,
+        params_after=_lm_live_params(model),
+        dims_before=dims,
+        dims_after=dims,
+        pruned_neurons=pruned_total,
+    )
+
+
+def _keep_mask_from(old: BlockTopology, new: BlockTopology) -> np.ndarray:
+    """Boolean mask over old slots marking those surviving in ``new``."""
+    old_flat = old.rows.astype(np.int64) * old.meta.grid_n + old.cols
+    new_flat = new.rows.astype(np.int64) * new.meta.grid_n + new.cols
+    return np.isin(old_flat, new_flat)
+
+
+def _lm_live_params(model) -> int:
+    """The sparse FFN's nonzero weights over every stacked slot."""
+    total = 0
+    for slot in model.topologies:
+        ffn = model.params["stack"][slot]["ffn"]
+        total += int(torch.count_nonzero(ffn["win"]))
+        total += int(torch.count_nonzero(ffn["wout"]))
+    return total

@@ -4,10 +4,13 @@
 Freeze the topology on the device ONCE (they never change again) and serve
 behind a bounded LRU keyed by padding bucket. Two model kinds:
 
-* ``SparseMLP`` (element/COO) — ``classify(x)``: deployment-time compaction
-  (``serve.compact``), the dual-order COO views plus each layer's column
-  offsets for kernel A, and the forward-only ``mlp_forward(..., infer=True)``
-  per batch bucket.
+* ``SparseMLP`` — ``classify(x)``: the forward-only ``mlp_forward(...,
+  infer=True)`` per batch bucket. An element (COO) model takes
+  deployment-time compaction (``serve.compact``) and the dual-order COO
+  views plus each layer's column offsets for kernel A. A block model (kernel
+  C f32, then kernel B) and the masked and dense baselines (``torch.matmul``,
+  then kernel B) are served as they are, with ``compact=False``: compaction
+  is for element models, and asking for it raises ``ValueError``.
 * ``PatternLM`` — ``prefill(prompts, slots)`` / ``decode_step(tokens, pos)``:
   prompts padded to length buckets, one batched causal forward seeds the
   slots' KV caches (no token-by-token replay), and decode runs all slots
@@ -15,7 +18,10 @@ behind a bounded LRU keyed by padding bucket. Two model kinds:
   own cache row at its own position and masks by it (the reference vmaps a
   batch-1 decode over the slots instead). Padded prompt tails land in the
   cache past the true length and stay masked by causality until the slot's
-  own decode steps overwrite them. The caches are updated in place. The
+  own decode steps overwrite them. The caches are updated in place. With a
+  ``compaction`` schedule the LM's sparse FFN is compacted first
+  (``serve.compact.compact_block_lm``), then moved to the device, and its
+  topology arrays are made from the compacted topologies. The
   sparse FFN runs kernel C in bfloat16 on the card, W_in with All-ReLU in
   its store (kernel B's bias-free bf16 arithmetic); each layer's topology
   arrays are the same tensors
@@ -37,9 +43,8 @@ CUDA-graph cache.
 reference's checkpoint layout and ``SparseInferenceEngine.from_checkpoint``
 serves it (either package's), with the saved connectivity.
 
-Not in this slice, and refused naming the ROADMAP item: block SET-MLPs and
-an LM's compaction schedule (``compact_block_lm``; Queue 1, item 6). The
-``obs`` spans come with item 4.
+``from_checkpoint`` restores element SET-MLPs and LMs, as the reference's
+does. The ``obs`` spans come with ROADMAP Queue 1, item 4.
 """
 from __future__ import annotations
 
@@ -56,16 +61,12 @@ from repro_torch.core.sparsity import BlockTopology, ElementTopology
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, mlp_forward
 from repro_torch.models.transformer import ModelConfig, PatternLM
-from repro_torch.serve.compact import CompactionReport, compact_element_mlp
+from repro_torch.serve.compact import CompactionReport, compact_block_lm, compact_element_mlp
 
 __all__ = ["EngineConfig", "SparseInferenceEngine", "save_lm_for_serving",
            "save_mlp_for_serving"]
 
 DeviceLike = Optional[Union[str, torch.device]]
-_BLOCK = ("the engine serves element (COO) models; block compaction and serving come with "
-          "a later slice (ROADMAP Queue 1, item 6)")
-_LM_COMPACT = ("an LM's compaction (serve.compact.compact_block_lm) comes with a later slice "
-               "(ROADMAP Queue 1, item 6)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +127,8 @@ class SparseInferenceEngine:
         device: Optional[Union[str, torch.device]] = None,
     ):
         """``device=None`` means the card; without one it raises (pass
-        ``device="cpu"`` for the plain versions). An LM is moved there."""
+        ``device="cpu"`` for the plain versions). An LM is moved there, after
+        its compaction."""
         self.device = resolve_device(device)
         self.cfg = engine
         self.report: Optional[CompactionReport] = None
@@ -137,18 +139,21 @@ class SparseInferenceEngine:
         self.fault_hook: Optional[Callable[[str, int], None]] = None
         self._engine_calls = 0
         if isinstance(model, SparseMLP):
-            if model.config.impl != "element":
-                raise NotImplementedError(f"impl={model.config.impl!r}: {_BLOCK}")
             self.kind = "mlp"
+            if compact and model.config.impl != "element":
+                raise ValueError(
+                    f"impl={model.config.impl!r}: deployment-time compaction is for element "
+                    "models; serve this one with compact=False")
             if compact:
                 model, self.report = compact_element_mlp(model, compaction)
             self.model = SparseMLP.from_state(
                 model.config, model.topos, model.values, model.biases, device=self.device
             )
             self._params = self.model.params()
-            # frozen once: the dual-order COO views, with kernel A's column
-            # offsets registered to them (which also give kernel A its route,
-            # from the host's longest segment)
+            # frozen once: an element model's dual-order COO views, with
+            # kernel A's column offsets registered to them (which also give
+            # kernel A its route, from the host's longest segment); a block
+            # model's tile arrays; a masked model's masks
             self._topo = self.model.topo_arrays()
         elif isinstance(model, PatternLM):
             self.kind = "lm"
@@ -167,7 +172,7 @@ class SparseInferenceEngine:
                 # positions; full-length caches + windowed masking do
                 model.cfg = dataclasses.replace(model.cfg, decode_window_cache=False)
             if compact and compaction is not None and model.topologies:
-                raise NotImplementedError(_LM_COMPACT)
+                self.report = compact_block_lm(model, compaction)
             self.model = model.to(self.device)
             self._params = self.model.params
             self._topo = self.model.topo_arrays()  # frozen once
@@ -379,7 +384,8 @@ def save_mlp_for_serving(mgr: CheckpointManager, model: SparseMLP, step: int = 0
     restore (``serve_kind: "mlp"``), in the reference's layout; waits for
     the write."""
     if model.config.impl != "element":
-        raise NotImplementedError(f"impl={model.config.impl!r}: {_BLOCK}")
+        raise ValueError(f"impl={model.config.impl!r}: save_mlp_for_serving writes element "
+                         "models, whose restore is the reference's")
     topologies = {f"layer{l}": {"rows": t.rows, "cols": t.cols}
                   for l, t in enumerate(model.topos)}
     mgr.save(step, model.params(), topologies=topologies,

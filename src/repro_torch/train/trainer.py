@@ -1,8 +1,11 @@
 """Sequential SET trainer — paper Algorithm 2 (SET + Importance Pruning).
 
 Twin of ``repro.train.trainer.SequentialTrainer`` for element-sparse (COO,
-the paper's) and block-sparse SET-MLPs, with the same ``TrainerConfig``,
-the same epoch protocol and the same ``history`` keys. Two execution modes
+the paper's) and block-sparse SET-MLPs and the paper's masked and dense
+baselines, with the same ``TrainerConfig``, the same epoch protocol and the
+same ``history`` keys. A masked or dense model has no topology phase: SET
+and importance pruning are skipped where the reference skips them, so its
+mask (and a dense model's full matrix) stays as drawn. Two execution modes
 (``TrainerConfig.fused_epochs``):
 
 * **Fused (default)** — the training set lives on the device, the host ships
@@ -55,9 +58,9 @@ directions (see ``restore_checkpoint`` for the random streams).
 regime): the same epoch protocol on the shard-streamed substrate
 (``repro_torch.xl``), with streamed checkpoints.
 
-Not in this slice, and refused with an error naming the ROADMAP item: the
-masked/dense impls (Queue 1, item 2), training-dynamics probes (item 4),
-and the fault hook and step retries (the runtime, item 5).
+Not in this slice, and refused with an error naming the ROADMAP item:
+training-dynamics probes (Queue 1, item 4), and the fault hook and step
+retries (the runtime, item 5).
 """
 from __future__ import annotations
 
@@ -85,7 +88,13 @@ from repro_torch.core.topology import (
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.data.synthetic import Dataset
 from repro_torch.launch.steps import make_mlp_step_core, make_mlp_train_step, scan_segment
-from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward
+from repro_torch.models.mlp import (
+    SPARSE_IMPLS,
+    SparseMLP,
+    SparseMLPConfig,
+    block_meta,
+    mlp_forward,
+)
 from repro_torch.optim.sgd import MomentumSGD, SGDState, replace_values_velocity
 
 __all__ = [
@@ -262,11 +271,6 @@ class SequentialTrainer:
     """Paper §2.2 protocol (1 worker). History mirrors Table 2 columns."""
 
     def __init__(self, model: SparseMLP, data: Dataset, tc: TrainerConfig):
-        if model.config.impl not in ("element", "block"):
-            raise NotImplementedError(
-                f"impl={model.config.impl!r}: the port trains element and block models; "
-                "the masked and dense impls come with a later slice (ROADMAP Queue 1, item 2)"
-            )
         if tc.probe:
             raise NotImplementedError(_PROBES)
         self.model = model
@@ -402,8 +406,11 @@ class SequentialTrainer:
         """Importance pruning if it fires, then SET (none after the last
         epoch, as in the paper), on the device or on the host. Returns the
         topology's device arrays, which serve the evaluation and the next
-        epoch, and whether the host mirror lags them."""
+        epoch, and whether the host mirror lags them. A masked or dense
+        model has none."""
         tc = self.tc
+        if self.model.config.impl not in SPARSE_IMPLS:
+            return topo, topo_dirty
         if tc.pruning is not None and tc.pruning.should_prune(epoch):
             topo = self._host_topology_op(topo, topo_dirty, lambda: self._importance_prune(epoch))
             topo_dirty = False
@@ -423,12 +430,16 @@ class SequentialTrainer:
         counters, the numpy rng, the generator's state
         (``resume.torch_generator``) and the history. The reference's meta
         keys are all there, ``jax_key`` as :func:`jax_key_words` makes it,
-        so the reference restores the checkpoint too."""
+        so the reference restores the checkpoint too. A masked or dense
+        model saves no topology, as the reference's: its restore keeps the
+        live model's mask."""
         model, cfg = self.model, self.model.config
-        topologies = {
-            f"layer{l}": {"rows": model.topos[l].rows, "cols": model.topos[l].cols}
-            for l in range(cfg.n_layers)
-        }
+        topologies = None
+        if cfg.impl in SPARSE_IMPLS:
+            topologies = {
+                f"layer{l}": {"rows": model.topos[l].rows, "cols": model.topos[l].cols}
+                for l in range(cfg.n_layers)
+            }
         meta = {
             "kind": "sequential",
             "resume": {
@@ -463,7 +474,7 @@ class SequentialTrainer:
         params, extra, topologies, _ = manager.restore(
             step, like=like, like_extra={"velocity": like}, device=self.device)
         # topology first: the values' shapes follow the saved topology
-        for l in range(cfg.n_layers):
+        for l in range(cfg.n_layers if cfg.impl in SPARSE_IMPLS else 0):
             t = topologies[f"layer{l}"]
             if cfg.impl == "element":
                 self.model.topos[l] = ElementTopology(cfg.layer_dims[l], cfg.layer_dims[l + 1],

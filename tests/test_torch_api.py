@@ -38,9 +38,8 @@ NOT_YET = {
     "serve": {name: "6" for name in (
         "BROWNED_OUT", "CircuitBreaker", "DEGRADED", "GatewayConfig", "GatewayStats",
         "HEALTHY", "HealthMonitor", "HealthThresholds", "RollingWindow", "ServeMetrics",
-        "ServingGateway", "compact_block_lm")},
+        "ServingGateway")},
     "serve.batcher": {"TELEMETRY_SAMPLE_STRIDE": "4"},
-    "serve.compact": {"compact_block_lm": "6"},
 }
 
 

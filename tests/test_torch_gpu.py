@@ -534,6 +534,48 @@ def test_full_width_block_train_step_matches_cpu(cuda):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("impl", ["masked", "dense"])
+def test_full_width_masked_dense_train_step_matches_cpu(cuda, impl):
+    """One step of the paper's baselines at the full CIFAR-10 width
+    (3072-4000-1000-4000-10) on the card and on the CPU from the same state:
+    ``torch.matmul`` (IEEE f32), then plain autograd for bias and All-ReLU;
+    no kernel launched; the masked model's weights off its mask unmoved by
+    the gradient (only weight decay and momentum, which start at 0 here,
+    reach them: with momentum 0 and no decay they stay as they were)."""
+    cfg = dataclasses.replace(mlp_config("cifar10", impl=impl), dropout=0.0)
+    data = load("cifar10", scale=0.003)
+    x, y = data.x_train[:128], data.y_train[:128]
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+    step = make_mlp_train_step(cfg, opt)
+    wrappers = (bsm.bsmm_fwd, bsm.bsmm_dx, bsm.bsmm_dw, tsp.coo_matmul_T, tsp.coo_dw,
+                all_relu_fused.bias_all_relu)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = SparseMLP(cfg, seed=0, device=dev)
+        before = [w.launches for w in wrappers]
+        p, s, loss = step(model.params(), opt.init(model.params()), model.topo_arrays(),
+                          torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev).long(),
+                          torch.tensor(0.01, device=dev), None)
+        assert [w.launches for w in wrappers] == before
+        out[dev.type] = (p, s, loss, model)
+    torch.testing.assert_close(out["cuda"][2].cpu(), out["cpu"][2], rtol=1e-5, atol=1e-5)
+    for k in ("values", "biases"):
+        for a, b in zip(out["cuda"][0][k], out["cpu"][0][k]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+        for a, b in zip(out["cuda"][1].velocity[k], out["cpu"][1].velocity[k]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    if impl == "masked":
+        model = out["cuda"][3]
+        bare = MomentumSGD(momentum=0.0, weight_decay=0.0)
+        p, _, _ = make_mlp_train_step(cfg, bare)(
+            model.params(), bare.init(model.params()), model.topo_arrays(),
+            torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda).long(),
+            torch.tensor(0.01, device=cuda), None)
+        for a, b, mask in zip(p["values"], model.values, model.topo_arrays()):
+            off = mask == 0
+            assert torch.equal(a[off], b[off]) and not torch.equal(a, b)
+
+
 def _skewed_layer(cuda, counts, bm, bn, batch, seed=0):
     """A topology whose block-columns hold ``counts`` slots each (canonical
     order, distinct rows per column), with seeded inputs and values at the
@@ -1529,6 +1571,65 @@ def test_kernel_c_bf16_launches_its_planned_route(cuda, case):
                    int(plan.route == "rows")]
     if case[0] != "sweep":
         assert plan.route == ("decode" if x.shape[0] <= 16 else "rows") and plan.parts == 1
+
+
+def _repadded_case(cuda, rows):
+    """Kernel C bf16's input on a topology as ``compact_block_lm`` leaves
+    it: W_in's 8 x 22 grid with block-columns of 6 slots; some blocks zeroed
+    and freed by ``_free_empty_blocks``, then ``_repad_blocks`` resurrects a
+    few freed positions as zero blocks, re-sorted among the live ones, so
+    that columns of 6 (longer than C's 4-stage ring) hold zero blocks. Also
+    the topology before freeing, with the zeroed values."""
+    from repro_torch.serve import compact
+
+    rng = np.random.default_rng(7)
+    meta = tsp.BlockMeta(1024, 2816, 128, 128)
+    length = 6
+    block_rows = np.concatenate([np.sort(rng.choice(meta.grid_m, length, replace=False))
+                                 for _ in range(meta.grid_n)])
+    full = tsp.BlockTopology(meta, block_rows, np.repeat(np.arange(meta.grid_n), length))
+    lim = np.sqrt(6.0 / meta.in_dim)
+    vals = rng.uniform(-lim, lim, (full.n_blocks, 128, 128)).astype(np.float32)
+    vals = torch.as_tensor(vals).to(torch.bfloat16).float().numpy()  # bf16-exact
+    vals[rng.random(full.n_blocks) < 0.3] = 0.0
+    keep, live, live_vals = compact._free_empty_blocks(full, vals)
+    freed = int((~keep).sum())
+    assert freed >= 8
+    topo, v = compact._repad_blocks(meta, live.rows, live.cols, live_vals, full.rows[~keep],
+                                    full.cols[~keep], live.n_blocks + freed // 2)
+    zero = np.abs(v).sum(axis=(1, 2)) == 0
+    counts = np.bincount(topo.cols, minlength=meta.grid_n)
+    assert zero.any() and counts.max() == length
+    assert (counts[topo.cols[zero]] > 4).any()  # a zero block in a column longer than the ring
+    x = torch.as_tensor(rng.standard_normal((rows, meta.padded_in)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16)
+
+    def on_card(t, values):
+        return t.device_arrays(cuda), torch.as_tensor(values, device=cuda).to(torch.bfloat16)
+
+    return meta, on_card(topo, v), on_card(full, vals), x
+
+
+@pytest.mark.parametrize("rows", [8, 16, 64, 256])
+def test_kernel_c_bf16_on_a_repadded_topology(cuda, rows):
+    """Kernel C bf16 on a compacted LM's kind of topology (zero blocks at
+    freed positions, re-sorted into canonical order, in columns longer than
+    its ring): within 1e-2 of its plain version, with and without All-ReLU
+    in its store, the same bits on three launches, and equal to C on the
+    topology before the blocks were freed (a zero block adds exact zeros,
+    and the route is the same)."""
+    meta, (t, v), (t_full, v_full), x = _repadded_case(cuda, rows)
+    for all_relu in (None, (0.6, 1), (0.6, 2)):
+        def c(t=t, v=v):
+            return bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n,
+                                all_relu=all_relu)
+
+        ys = [c() for _ in range(3)]
+        assert all(torch.equal(ys[0].view(torch.int16), y.view(torch.int16)) for y in ys[1:])
+        want = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n,
+                                  all_relu=all_relu)
+        torch.testing.assert_close(ys[0].float(), want.float(), **BF16_TOL)
+        assert torch.equal(ys[0], c(t_full, v_full))
 
 
 def test_kernel_c_f32_refuses_the_all_relu_store(cuda):

@@ -272,11 +272,14 @@ def test_port_save_writes_the_reference_files(tmp_path, dtype):
 
 
 def test_lm_engine_refusals():
+    # a compaction schedule is taken now (tests/test_torch_compact.py holds
+    # it against the reference's): the engine compacts, then serves
     model = PatternLM(LM_CFG, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        SparseInferenceEngine(model, compaction=PruningSchedule(tau=0, period=1,
-                                                                percentile=10.0),
-                              device="cpu")
+    eng = SparseInferenceEngine(model, compaction=PruningSchedule(tau=0, period=1,
+                                                                  percentile=10.0),
+                                engine=EngineConfig(**EC), device="cpu")
+    assert eng.report is not None and eng.report.pruned_neurons > 0
+    assert eng.report.params_after < eng.report.params_before
     with pytest.raises(ValueError, match="prefix-LM"):
         SparseInferenceEngine(PatternLM(dataclasses.replace(LM_CFG, prefix_len=4), seed=0,
                                         device="cpu"), device="cpu")
@@ -295,8 +298,9 @@ def test_serve_example_refuses_unported_flags_and_runs_on_cpu(capsys):
     spec = importlib.util.spec_from_file_location("serve_torch_example", path)
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        example.main(["--prune-pct", "10", "--device", "cpu"])
+    pruned = example.main(["--prune-pct", "10", "--requests", "4", "--rate", "400",
+                           "--device", "cpu"])
+    assert pruned.completed == 4 and "neurons pruned" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         example.main(["--trace", "out.jsonl", "--device", "cpu"])
     stats = example.main(["--requests", "4", "--rate", "400", "--device", "cpu"])

@@ -127,14 +127,21 @@ def test_unported_paths_raise():
         tmlp.mlp_forward(tm.params(), tm.topo_arrays(), x, tm.config, train=True)
     with pytest.raises(ValueError, match="features"):
         tmlp.mlp_forward(tm.params(), tm.topo_arrays(), torch.zeros((2, 63)), tm.config, infer=True)
+    # the masked and dense baselines are ported (tests/test_torch_mlp_training.py
+    # holds them against the reference); an unknown impl is refused
     for impl in ("masked", "dense"):
-        with pytest.raises(NotImplementedError):
-            tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE, impl=impl), device="cpu")
-    # the engine serves element models only
+        m = tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE, impl=impl), device="cpu")
+        out = tmlp.mlp_forward(m.params(), m.topo_arrays(), x, m.config, infer=True)
+        assert out.shape == (2, 4) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="impls"):
+        tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE, impl="sparse"), device="cpu")
+    # the engine serves a block model as it is; compaction is for element models
     block = tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE, impl="block", block_m=8, block_n=8),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="element"):
+    with pytest.raises(ValueError, match="element"):
         SparseInferenceEngine(block, device="cpu")
+    assert SparseInferenceEngine(block, compact=False, device="cpu").classify(
+        np.zeros((2, 64), np.float32)).shape == (2, 4)
     with pytest.raises(ValueError, match="layers"):
         tmlp.SparseMLP.from_state(tm.config, tm.topos[:2], tm.values, tm.biases, device="cpu")
 

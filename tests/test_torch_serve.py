@@ -275,15 +275,17 @@ def test_checkpoint_glue_refuses_what_this_slice_lacks(tmp_path):
     block = tmlp.SparseMLP(tmlp.SparseMLPConfig(**dict(FIELDS, impl="block", block_m=8,
                                                        block_n=8)), device="cpu")
     mgr = CheckpointManager(str(tmp_path), async_write=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the serving checkpoint holds element models, as the reference's restore
+    # is element-only
+    with pytest.raises(ValueError, match="element"):
         save_mlp_for_serving(mgr, block)
-    # an LM checkpoint serves (tests/test_torch_lm_serve.py), but not compacted
+    # an LM checkpoint serves (tests/test_torch_lm_serve.py), compacted too
     lm_cfg = dataclasses.replace(configs.get_spec("qwen1.5-0.5b").smoke, ffn="sparse",
                                  sparse_block=16, sparse_density=0.5, d_ff=64)
     save_lm_for_serving(mgr, PatternLM(lm_cfg, seed=0, device="cpu"), step=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SparseInferenceEngine.from_checkpoint(mgr, device="cpu",
-                                              compaction=PruningSchedule(**SCHEDULE))
+    eng = SparseInferenceEngine.from_checkpoint(mgr, device="cpu",
+                                                compaction=PruningSchedule(**SCHEDULE))
+    assert eng.kind == "lm" and eng.report.params_after < eng.report.params_before
     mgr.save(2, {"w": torch.zeros(1)})
     with pytest.raises(ValueError, match="serve_kind"):
         SparseInferenceEngine.from_checkpoint(mgr, device="cpu")

@@ -269,12 +269,17 @@ def test_trainer_refuses_what_this_slice_lacks():
         xl.run()
     assert dataclasses.asdict(ttrainer.TrainerConfig()) == dataclasses.asdict(
         jtrainer.TrainerConfig())
-    # the masked and dense impls, the forward's pre-activations and device
-    # evolution's churn probe each name the ROADMAP item that brings them
+    # the masked and dense impls train now (tests/test_torch_mlp_training.py
+    # holds them against the reference), with no topology phase; the
+    # forward's pre-activations and device evolution's churn probe each
+    # name the ROADMAP item that brings them
     for impl in ("masked", "dense"):
-        with pytest.raises(NotImplementedError, match="impls.*item 2"):
-            tmlp.SparseMLP(tmlp.SparseMLPConfig(**dict(FIELDS, impl=impl)), seed=0,
+        m = tmlp.SparseMLP(tmlp.SparseMLPConfig(**dict(FIELDS, impl=impl)), seed=0,
                            device="cpu")
+        tr = ttrainer.SequentialTrainer(m, data, ttrainer.TrainerConfig(
+            epochs=1, batch_size=32, pruning=PruningSchedule(tau=0, period=1, percentile=50.0)))
+        hist = tr.run()
+        assert hist["n_params"] == [m.n_params] and np.isfinite(hist["train_loss"]).all()
     with pytest.raises(NotImplementedError, match="return_preacts.*item 4"):
         tmlp.mlp_forward(tm.params(), tm.topo_arrays(), torch.zeros((2, 784)), tm.config,
                          return_preacts=True)
