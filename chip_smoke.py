@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port's SET-MLP serving and training paths (block, element and
-out-of-core, and the paper's masked and dense baselines) and its bf16
-language model's serving (also compacted at deployment) and training paths
-on one NVIDIA card and check them.
+out-of-core, and the paper's masked and dense baselines), its bf16
+language model's serving (also compacted at deployment) and training paths,
+and the RG-LRU, Mamba-1 and MoE models of its architecture zoo on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -208,7 +209,39 @@ Phases, one line each (any failure exits non-zero):
                    device busy, idle share, launches, the kernels and host
                    operators with the most time, the allocator's peak, the
                    card's name and power limit;
-17. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+17. lm_archs      — the rest of the zoo at full width, bf16, random weights
+                   from the seed (each model's parameter count and the host
+                   seconds of drawing it printed): (a) recurrentgemma-2b at
+                   full depth (26 layers, rglru/rglru/local) with the sparse
+                   FFN (W_in 60 tiles on 20 x 60, W_out 40 on 60 x 20): E
+                   bf16's runs legal on both grids (``lm_archs_splits``);
+                   kernels C (with and without its All-ReLU store), D and E
+                   bf16 against their plain versions on every layer at 8 and
+                   2,048 rows, before and after a host SET; the main path,
+                   3 steps of the example's loop (8 x 257 tokens, host SET
+                   after the third), every loss finite, each step launching
+                   100 C (the 2 remainder layers run without remat), 52 D and
+                   52 E bf16 and nothing else; one step's gradients against
+                   ``bsmm_xla``'s (5e-2 a leaf); decode from ``init_caches``
+                   (RG-LRU and conv states, the local ring) against the
+                   teacher-forced forward over 8 x 64 tokens (0.1 + 5e-2 x
+                   |want|), 52 C a step (26 with the store, decode route),
+                   no B; ``kernel_timing`` rows for C, D and E bf16 on the
+                   first layer at 8 and 2,048 rows and their ``kernels``-line
+                   entries; (b) falcon-mamba-7b at full depth (64 layers):
+                   decode against the forward held through the f32 twin of
+                   the same weights, no kernel launched; its train step at
+                   full width on 2 layers in f32, card against CPU (logits
+                   1e-4, gradients 1e-4 relative L2 a leaf); (c)
+                   qwen3-moe-30b-a3b cut to 4 layers: the dispatch
+                   invariants, the combine against a loop over each token's
+                   kept experts and bit-equal twice; a forward, a train step
+                   whose total carries the auxiliary loss, decode steps. An
+                   ``lm_archs_timing`` line each: forward tokens/s, a decode
+                   step's median, busy, idle share and launches, the train
+                   step's median, the allocator's peak, the draw's seconds,
+                   the card's name and power limit;
+18. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
                    worker-epoch: 2 rounds, the second with a padded step). The
@@ -228,7 +261,7 @@ Phases, one line each (any failure exits non-zero):
                    phase-1 epoch's device busy time, launches and idle share).
                    It runs after the timing phases: before them it made
                    their profiler sessions lose device events.
-18. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+19. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
                    full width on the card: the element and the block model
                    trained 3 epochs with device SET, pruning and the paper's
                    dropout 0.3, saved at every epoch; a fresh trainer
@@ -247,7 +280,7 @@ Phases, one line each (any failure exits non-zero):
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
                    profiles nothing;
-19. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+20. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
                    of the paper's first Table-4 row at full width,
                    65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
                    17,655,362 parameters), batch 32, the device budget 0.6 x
@@ -286,6 +319,7 @@ Without a card it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import re
@@ -334,7 +368,7 @@ from repro_torch.train.trainer import (  # noqa: E402
     evaluate,
 )
 from repro_torch import xl  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32
 # (non-tensor-core) rate and dense TF32 tensor-core rate. The bound of a call
@@ -2688,52 +2722,78 @@ def lm_kernel_checks() -> dict:
     return {KERNEL_C_BF16["name"]: err_c, KERNEL_B_BF16["name"]: err_b, "routes": routes}
 
 
-def lm_layer_checks(model) -> dict:
+def host_normal(rng: np.random.Generator):
+    """Standard normal f32 draws of a shape from numpy's ``rng``, on the card."""
+    return lambda shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                         device=CARD)
+
+
+def card_normal(seed: int):
+    """Standard normal f32 draws of a shape from a generator on the card: the
+    inputs of recurrentgemma's kernel checks (~10^7 values a case, which
+    numpy draws on the host in ~0.2 s)."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    return lambda shape: torch.randn(shape, generator=gen, device=CARD)
+
+
+def ffn_layers(model):
+    """Every sparse FFN layer of ``model`` in its topologies' order: (slot,
+    repeat, the host (W_in, W_out) topologies, their device arrays, the
+    W_in and W_out tiles). A remainder layer's slot is ``rest{i}``, its one
+    repeat 0."""
+    stacked = model.topo_arrays()
+    for slot, topos in model.topologies.items():
+        in_stack = slot in model.params["stack"]
+        ffn = (model.params["stack"][slot] if in_stack
+               else model.params["rest"][int(slot[len("rest"):])])["ffn"]
+        for i, pair in enumerate(topos):
+            arrays = tuple(sparsity.BlockTopoArrays(*(a[i].contiguous() for a in t))
+                           for t in stacked[slot])
+            tiles = (ffn["win"][i], ffn["wout"][i]) if in_stack else (ffn["win"], ffn["wout"])
+            yield slot, i, pair, arrays, tiles
+
+
+def lm_layer_checks(model, path_rows=LM_PATH_ROWS, normal=None) -> dict:
     """Kernel C bf16 on every layer's W_in and W_out of the served model
     (each layer draws its own topology, so its own column lengths) at every
     row count of the main path, on the route ``fwd_plan`` gives: within
     C_BF16_TOL of its plain version and, with All-ReLU in its store at the
     layer's parity, bit-equal to C then kernel B; each the same bits on
     three launches. Returns the largest |difference|, the layers checked and
-    the longest block-column among them."""
+    the longest block-column among them. The inputs come from ``normal``
+    (numpy's seeded draws by default)."""
     cfg = model.cfg
-    rng = np.random.default_rng(SEED)
+    normal = normal or host_normal(np.random.default_rng(SEED))
     err, longest, layers = 0.0, 0, 0
-    for slot, topos in model.topologies.items():
-        check(slot in model.params["stack"], f"sparse FFN topology {slot} outside the stack")
-        ffn = model.params["stack"][slot]["ffn"]
-        stacked = model.topo_arrays()[slot]
-        for i, pair in enumerate(topos):
-            layers += 1
-            layer_index = layers  # the parity differs from layer to layer
-            for host, arrays, v in zip(pair, stacked, (ffn["win"][i], ffn["wout"][i])):
-                t = sparsity.BlockTopoArrays(*(a[i].contiguous() for a in arrays))
-                meta = host.meta
-                longest = max(longest, int(np.bincount(host.cols, minlength=meta.grid_n).max()))
-                for rows in LM_PATH_ROWS:
-                    x = torch.as_tensor(rng.standard_normal((rows, meta.padded_in)).astype(
-                        np.float32), device=CARD).to(torch.bfloat16)
+    for slot, i, pair, stacked, tiles in ffn_layers(model):
+        layers += 1
+        layer_index = layers  # the parity differs from layer to layer
+        for host, t, v in zip(pair, stacked, tiles):
+            meta = host.meta
+            longest = max(longest, int(np.bincount(host.cols, minlength=meta.grid_n).max()))
+            for rows in path_rows:
+                x = normal((rows, meta.padded_in)).to(torch.bfloat16)
 
-                    def c(**kw):
-                        return bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
-                                            grid_n=meta.grid_n, **kw)
+                def c(**kw):
+                    return bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col,
+                                        grid_n=meta.grid_n, **kw)
 
-                    what = f"kernel C bf16 ({slot} layer {i}, {meta.in_dim} -> {meta.out_dim}, " \
-                           f"{rows} rows)"
-                    y = thrice(c, what)
-                    want = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col,
-                                              grid_n=meta.grid_n)
-                    torch.testing.assert_close(y.float(), want.float(), rtol=C_BF16_TOL,
-                                               atol=C_BF16_TOL)
-                    err = max(err, float((y.float() - want.float()).abs().max()))
-                    fused = thrice(lambda: c(all_relu=(cfg.sparse_alpha, layer_index)),
-                                   f"{what} with All-ReLU")
-                    after = all_relu_fused.bias_all_relu(y, None, alpha=cfg.sparse_alpha,
-                                                         layer_index=layer_index)
-                    check(_bits_equal(fused, after), f"{what}: the All-ReLU store is not C "
-                                                     "then B bit for bit")
+                what = f"kernel C bf16 ({slot} layer {i}, {meta.in_dim} -> {meta.out_dim}, " \
+                       f"{rows} rows)"
+                y = thrice(c, what)
+                want = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col,
+                                          grid_n=meta.grid_n)
+                torch.testing.assert_close(y.float(), want.float(), rtol=C_BF16_TOL,
+                                           atol=C_BF16_TOL)
+                err = max(err, float((y.float() - want.float()).abs().max()))
+                fused = thrice(lambda: c(all_relu=(cfg.sparse_alpha, layer_index)),
+                               f"{what} with All-ReLU")
+                after = all_relu_fused.bias_all_relu(y, None, alpha=cfg.sparse_alpha,
+                                                     layer_index=layer_index)
+                check(_bits_equal(fused, after), f"{what}: the All-ReLU store is not C "
+                                                 "then B bit for bit")
     check(layers == cfg.n_layers, f"{layers} of {cfg.n_layers} layers' sparse FFNs checked")
-    return dict(max_abs_err=err, layers=layers, longest_column=longest, rows=list(LM_PATH_ROWS))
+    return dict(max_abs_err=err, layers=layers, longest_column=longest, rows=list(path_rows))
 
 
 def lm_served_logits(model, prompts: np.ndarray, steps: np.ndarray) -> torch.Tensor:
@@ -3248,18 +3308,15 @@ def de_second_passes() -> dict:
             "bsmm_dw.second_pass": bsm.bsmm_dw.second_pass_launches}
 
 
-def de_bf16_case(what: str, meta, t, rows: int, rng: np.random.Generator) -> tuple:
+def de_bf16_case(what: str, meta, t, rows: int, normal) -> tuple:
     """Kernels D and E bf16 on one topology at ``rows`` rows, random tiles
-    and operands: within C_BF16_TOL + C_BF16_TOL x |want| of their plain
-    versions, the same bits on three launches, dx's uncovered block-rows
-    exactly 0. Returns their largest |difference|."""
+    and operands from ``normal``: within C_BF16_TOL + C_BF16_TOL x |want|
+    of their plain versions, the same bits on three launches, dx's
+    uncovered block-rows exactly 0. Returns their largest |difference|."""
     nb = t.rows.numel()
-    v = torch.as_tensor(rng.standard_normal((nb, meta.block_m, meta.block_n)).astype(np.float32)
-                        * 0.05, device=CARD).to(torch.bfloat16)
-    x = torch.as_tensor(rng.standard_normal((rows, meta.padded_in)).astype(np.float32),
-                        device=CARD).to(torch.bfloat16)
-    dy = torch.as_tensor(rng.standard_normal((rows, meta.padded_out)).astype(np.float32),
-                         device=CARD).to(torch.bfloat16)
+    v = (normal((nb, meta.block_m, meta.block_n)) * 0.05).to(torch.bfloat16)
+    x = normal((rows, meta.padded_in)).to(torch.bfloat16)
+    dy = normal((rows, meta.padded_out)).to(torch.bfloat16)
     dx = thrice(lambda: bsm.bsmm_dx(dy, v, t.rows_r, t.cols_r, t.first_row, t.perm_r,
                                     grid_m=meta.grid_m), f"kernel D bf16 ({what})")
     dw = thrice(lambda: bsm.bsmm_dw(x, dy, t.rows, t.cols, block_m=meta.block_m,
@@ -3284,24 +3341,26 @@ def de_bf16_case(what: str, meta, t, rows: int, rng: np.random.Generator) -> tup
     return tuple(errs)
 
 
-def de_bf16_checks(model, when: str, rng: np.random.Generator) -> dict:
+def de_bf16_checks(model, when: str, rng: np.random.Generator,
+                   path_rows=(LM_TRAIN_ROWS,), normal=None) -> dict:
     """Kernels D and E bf16 (``de_bf16_case``) on every layer's W_in and
-    W_out topology at the step's 2,048 rows; before the evolution also on
-    W_in's grid with columns of LONG_COLUMNS slots (block-rows of 11 to 22
-    slots, longer than D's ring). Returns the largest differences and the
-    longest block-row."""
+    W_out topology at each of ``path_rows`` (the step's 2,048 rows); before
+    the evolution also on W_in's grid with columns of LONG_COLUMNS slots
+    (block-rows of LONG_COLUMNS x grid_n / grid_m slots, longer than D's
+    ring). Returns the largest differences and the longest block-row. The
+    long columns' topologies come from ``rng``, the inputs from ``normal``
+    (``rng``'s draws by default)."""
+    normal = normal or host_normal(rng)
     err_d = err_e = 0.0
     longest, layers = 0, 0
-    stacked = model.topo_arrays()
-    for slot, topos in model.topologies.items():
-        for i, pair in enumerate(topos):
-            layers += 1
-            for host, arrays in zip(pair, stacked[slot]):
-                t = sparsity.BlockTopoArrays(*(a[i].contiguous() for a in arrays))
-                longest = max(longest, int(np.bincount(host.rows,
-                                                       minlength=host.meta.grid_m).max()))
+    for slot, i, pair, stacked, _ in ffn_layers(model):
+        layers += 1
+        for host, t in zip(pair, stacked):
+            longest = max(longest, int(np.bincount(host.rows, minlength=host.meta.grid_m).max()))
+            for rows in path_rows:
                 d, e = de_bf16_case(f"{when}, {slot} layer {i}, {host.meta.in_dim} -> "
-                                    f"{host.meta.out_dim}", host.meta, t, LM_TRAIN_ROWS, rng)
+                                    f"{host.meta.out_dim}, {rows} rows", host.meta, t, rows,
+                                    normal)
                 err_d, err_e = max(err_d, d), max(err_e, e)
     check(layers == model.cfg.n_layers, f"{layers} of {model.cfg.n_layers} layers checked")
     if when == "before the evolution":
@@ -3311,7 +3370,7 @@ def de_bf16_checks(model, when: str, rng: np.random.Generator) -> dict:
             host = long_columns(meta, length, rng)
             longest = max(longest, int(np.bincount(host.rows, minlength=meta.grid_m).max()))
             d, e = de_bf16_case(f"columns of {length}", meta, host.device_arrays(CARD),
-                                LM_TRAIN_ROWS, rng)
+                                LM_TRAIN_ROWS, normal)
             err_d, err_e = max(err_d, d), max(err_e, e)
     return {KERNEL_D_BF16["name"]: err_d, KERNEL_E_BF16["name"]: err_e, "layers": layers,
             "longest_row": longest}
@@ -3350,23 +3409,20 @@ def lm_grad_vs_xla(model, batch) -> dict:
                 launches_kernel=launches["kernel"])
 
 
-def lm_train_timing_rows(model) -> list:
-    """Kernels C (rows route, no store), D and E bf16 on the trained model's
-    first layer (W_in, W_out) at the step's 2,048 rows, beside their bounds
-    (bytes: each input read once, x and dy only at the block-rows and
-    -columns a tile touches, the output written once; flops at the bf16
-    tensor rate), plain versions and one library call: ``torch.matmul``
-    against the densified W for C and W^T for D, ``torch.bmm`` on the tiles
-    gathered beforehand for E. D's rows carry its runs P, E's its runs S."""
-    ffn = model.params["stack"]["s0_global"]["ffn"]
-    topo = model.topo_arrays()["s0_global"]
-    pair = model.topologies["s0_global"][0]
+def lm_train_timing_rows(model, batches=(LM_TRAIN_ROWS,)) -> list:
+    """Kernels C (on the route ``fwd_plan`` gives, no store), D and E bf16
+    on the trained model's first layer (W_in, W_out) at each of
+    ``batches`` rows (the step's 2,048), beside their bounds (bytes: each
+    input read once, x and dy only at the block-rows and -columns a tile
+    touches, the output written once; flops at the bf16 tensor rate), plain
+    versions and one library call: ``torch.matmul`` against the densified W
+    for C and W^T for D, ``torch.bmm`` on the tiles gathered beforehand for
+    E. D's rows carry its runs P, E's its runs S."""
+    _, _, pair, arrays, weights = next(ffn_layers(model))
+    cases = list(zip(("win", "wout"), pair, arrays, weights))
     rng = np.random.default_rng(SEED)
-    B = LM_TRAIN_ROWS
     rows = []
-    for name, host, arrays, v in (("win", pair[0], topo[0], ffn["win"][0]),
-                                  ("wout", pair[1], topo[1], ffn["wout"][0])):
-        t = sparsity.BlockTopoArrays(*(a[0].contiguous() for a in arrays))
+    for B, (name, host, t, v) in [(B, case) for B in batches for case in cases]:
         meta = host.meta
         bm, bn = meta.block_m, meta.block_n
         x = torch.as_tensor(rng.standard_normal((B, meta.padded_in)).astype(np.float32),
@@ -3565,6 +3621,507 @@ def phase_lm_train(out: dict) -> str:
         f"{vs_xla['worst_rel_l2']:.3g} (<= {LM_GRAD_RTOL}); step median "
         f"{timing['step_ms']['median']:.1f} ms, idle share {timing['device_idle_share']:.3f}, "
         f"{timing['device_launches']:g} launches; peak {peak} B"
+    )
+
+
+# -- the architecture zoo: RG-LRU, Mamba-1 and MoE blocks ----------------------
+
+# recurrentgemma-2b at full width and depth (configs/recurrentgemma_2b.py: 26
+# layers of rglru/rglru/local, d_model and d_rnn 2,560, 10 heads, kv 1, window
+# 2,048, vocab 256,000, tied) with the paper's sparse FFN at the reference's
+# defaults (128 x 128 tiles, epsilon 64, All-ReLU alpha 0.6) in bf16, remat
+# "block": the model the reference's serving demo and LM example run for
+# --arch recurrentgemma-2b with the sparse FFN. Its FFN puts kernels C, D and E
+# bf16 on grids no other phase runs: W_in 20 x 60 (60 tiles, block-rows of up
+# to 5), W_out 60 x 20 (40 tiles, columns of up to 6).
+RG_ARCH = "recurrentgemma-2b"
+RG_TILES = (60, 40)  # W_in, W_out at epsilon 64, seed 0 (BlockTopology.from_epsilon)
+RG_TRAIN_STEPS = 3  # host SET after the last: the kernels are held before and after
+RG_KERNEL_ROWS = (8, LM_TRAIN_ROWS)  # a decode step's 8 rows, a train step's 2,048
+# The prompts every arch is driven with: 8 of the lm_train phase's Zipf stream,
+# 64 tokens each (a decode step: 8 rows, kernel C's decode route)
+ARCH_BATCH = 8
+ARCH_PROMPT = 64
+ARCH_TIMED = 10  # timed calls of a forward, a decode step, a train step
+# falcon-mamba-7b at full width and depth (64 layers, d_model 4,096, d_inner
+# 8,192, d_state 16, vocab 65,024, untied), bf16: no hand kernel on its path.
+# Its train step runs at full width on a cut of MAMBA_CUT_LAYERS layers in f32,
+# card against CPU (all 64 layers' f32 gradients and velocity would not fit
+# beside the weights): logits within rtol = atol = MAMBA_RTOL, gradients within
+# MAMBA_RTOL relative L2 a leaf (f32 sums in other orders).
+MAMBA_ARCH = "falcon-mamba-7b"
+# Its decode in bf16 at 64 layers parts from its bf16 forward by more than
+# the lm phase's LM_LOGIT_ATOL + LM_LOGIT_RTOL x |want| (0.352 on an H100
+# against 0.1 + 0.05 x |want|): two bf16 roundings of one function, 64 layers deep. So the decode is
+# held through the f32 twin of the same weights (vs_f32_twin): the twin's
+# decode within the reference's f32 decode tolerance of its forward, and the
+# bf16 decode within DECODE_BF16_SPREAD times the bf16 forward's own distance
+# from the twin's forward.
+DECODE_F32_TOL = 5e-3
+DECODE_BF16_SPREAD = 2.0
+MAMBA_CUT_LAYERS = 2
+MAMBA_CUT_BATCH = dict(batch=2, seq=32)
+MAMBA_RTOL = 1e-4
+# qwen3-moe-30b-a3b at full width (d_model 2,048, 128 experts, top-8, expert
+# d_ff 768, vocab 151,936, untied), bf16, depth cut from 48 to MOE_LAYERS.
+# The dispatch invariants' combine is held against a loop over each token's
+# kept experts within MOE_TOL + MOE_TOL x |want|: three bf16 products, each
+# rounded once by cuBLAS kernels of other shapes, a few bf16 ulps (2**-8) apart.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 4
+MOE_TOL = 2e-2
+
+
+def arch_prompts(vocab: int, batch: int = ARCH_BATCH, seq: int = ARCH_PROMPT) -> torch.Tensor:
+    """``batch`` x (``seq`` + 1) tokens of the example's Zipf stream (seed 2)."""
+    stream = train_lm_example().synthetic_stream(np.random.default_rng(2), vocab, batch, seq + 1)
+    return torch.as_tensor(next(stream), device=CARD).long()
+
+
+def drawn_model(cfg: ModelConfig, device=None) -> tuple:
+    """``PatternLM(cfg)`` from the seed on ``device`` (None: the card), its
+    parameter count and the host seconds of drawing its weights (the dense
+    draws come from the CPU generator, then move)."""
+    t0 = time.perf_counter()
+    model = PatternLM(cfg, seed=SEED, device=CARD if device is None else device)
+    torch.cuda.synchronize()
+    return model, sum(a.numel() for a in tree_leaves(model.params)), time.perf_counter() - t0
+
+
+def median_ms(fn, reps: int = ARCH_TIMED) -> dict:
+    """Host-clock milliseconds of ``fn`` ending in a synchronise: the median
+    and quartiles of ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    q25, q50, q75 = np.percentile(ts, [25, 50, 75])
+    return dict(median=float(q50), q25=float(q25), q75=float(q75))
+
+
+def decode_logits(model, tokens: torch.Tensor, what: str) -> tuple:
+    """The teacher-forced forward's logits over ``tokens`` (B, P) and the
+    logits of decoding them token by token from ``init_caches(B, P)`` (in
+    the model's dtype: attention's K/V or ring, the recurrent states), in
+    ``torch.inference_mode``; both finite, (B, P, vocab). Also the caches
+    and the decode steps' kernel launches."""
+    B, P = tokens.shape
+    topo = model.topo_arrays()
+    with torch.inference_mode():
+        want, _, _ = model.forward(model.params, tokens, topo=topo)
+        caches = model.init_caches(B, P, dtype=getattr(torch, model.cfg.dtype))
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = []
+        for i in range(P):
+            lg, caches, _ = model.forward(model.params, tokens[:, i:i + 1], topo=topo,
+                                          positions=torch.tensor([i], device=CARD),
+                                          mode="decode", caches=caches)
+            outs.append(lg)
+        torch.cuda.synchronize()
+        launches = dict(read_counts(), **c_sub_counts())
+        got = torch.cat(outs, 1)
+    check(got.shape == want.shape == (B, P, model.cfg.vocab)
+          and bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+          f"{what}: decode logits {tuple(got.shape)}, forward {tuple(want.shape)}, "
+          "not finite or not (batch, prompt, vocab)")
+    return want, got, caches, launches
+
+
+def f32_twin(model):
+    """The same model with its weights (bf16-exact) in f32."""
+    twin = copy.copy(model)
+    twin.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    twin.params = tree_map(lambda a: a.float(), model.params)
+    return twin
+
+
+def vs_f32_twin(model, tokens: torch.Tensor, fwd: torch.Tensor, dec: torch.Tensor,
+                what: str) -> dict:
+    """A bf16 model's decode held through its f32 twin (``f32_twin``): the
+    twin's decode within the reference's f32 decode tolerance
+    (DECODE_F32_TOL) of its teacher-forced forward, and the bf16 decode
+    ``dec`` no further from the twin's forward than DECODE_BF16_SPREAD times
+    the bf16 forward ``fwd`` is: both are bf16 roundings of one function
+    (cuBLAS sums a decode step's 8 rows and a forward's 512 in other
+    orders), and a decode fault would part from it by the logits' scale."""
+    twin = f32_twin(model)
+    fwd32, dec32, _, _ = decode_logits(twin, tokens, f"{what} in f32")
+    del twin
+    torch.testing.assert_close(dec32, fwd32, rtol=DECODE_F32_TOL, atol=DECODE_F32_TOL)
+    e_fwd = float((fwd.float() - fwd32).abs().max())
+    e_dec = float((dec.float() - fwd32).abs().max())
+    check(e_dec <= DECODE_BF16_SPREAD * e_fwd,
+          f"{what}: the bf16 decode is {e_dec:.4g} from the f32 forward, beyond "
+          f"{DECODE_BF16_SPREAD} x the bf16 forward's {e_fwd:.4g}")
+    same = (dec.float().argmax(-1) == fwd32.argmax(-1)).float().mean()
+    return dict(f32_decode_max_abs_err=float((dec32 - fwd32).abs().max()),
+                bf16_forward_vs_f32=e_fwd, bf16_decode_vs_f32=e_dec,
+                max_abs_err=float((dec.float() - fwd.float()).abs().max()),
+                logit_scale=float(fwd32.abs().max()), argmax_agreement_vs_f32=float(same))
+
+
+def decoded_vs_forward(model, tokens: torch.Tensor, what: str, compare: str = "bf16") -> dict:
+    """``decode_logits``, the decode held to the forward: directly
+    (``logits_close``, ``compare="bf16"``), through the f32 twin
+    (``vs_f32_twin``, ``"f32"``) or not at all (None). Returns the
+    comparison, the decode steps' kernel launches, the forward's tokens/s
+    and a decode step's median, device busy, idle share and launches
+    (``torch.profiler``)."""
+    B, P = tokens.shape
+    want, got, caches, launches = decode_logits(model, tokens, what)
+    close = None
+    if compare == "bf16":
+        close = logits_close(got.float(), want.float(), f"{what}: decode vs teacher-forced")
+    elif compare == "f32":
+        close = vs_f32_twin(model, tokens, want, got, what)
+    del got, want
+    topo = model.topo_arrays()
+    pos = torch.tensor([P - 1], device=CARD)
+    with torch.inference_mode():
+        fwd = median_ms(lambda: model.forward(model.params, tokens, topo=topo))
+
+        def step():
+            model.forward(model.params, tokens[:, -1:], topo=topo, positions=pos,
+                          mode="decode", caches=caches)
+
+        dec = median_ms(step)
+        prof = profile_train_step(step, dec["median"], steps=5)
+    return dict(vs_forward=close, decode_launches=launches,
+                forward_ms=fwd, forward_tokens_per_s=B * P / (fwd["median"] * 1e-3),
+                decode_step_ms=dec, decode_device_busy_us=prof["device_busy_us"],
+                decode_device_idle_share=prof["device_idle_share"],
+                decode_device_launches=prof["device_launches"],
+                decode_device_us_top=dict(sorted(prof["device_us_by_name"].items(),
+                                                 key=lambda kv: -kv[1])[:8]))
+
+
+def rg_splits(model) -> dict:
+    """Kernel E bf16's batch runs S (``dw_splits_bf16``, tuned on Qwen's
+    W_in grid) on recurrentgemma's W_in and W_out at the train step's 2,048
+    rows: legal (1 <= S <= CLUSTER_MAX, the nb x S CTAs of the clusters in
+    one wave of the SMs) and every CTA of a cluster given a run of whole
+    64-row chunks that is not empty; and the grids' longest block-row (D's
+    loop) and block-column (C's)."""
+    splits = {}
+    for name, host in zip(("W_in", "W_out"), model.topologies["s0_rglru"][0]):
+        meta, nb = host.meta, host.n_blocks
+        S = bsm.dw_splits_bf16(nb, LM_TRAIN_ROWS)
+        runs = bsm.dw_batch_runs(LM_TRAIN_ROWS, S, bsm.DW_CHUNK_BF16)
+        check(1 <= S <= bsm.CLUSTER_MAX and nb * S <= bsm.SMS,
+              f"E bf16 on {name} ({nb} tiles): S = {S} is not a legal cluster in one wave")
+        check(runs[0][0] == 0 and runs[-1][1] == LM_TRAIN_ROWS
+              and all(b > a and a % bsm.DW_CHUNK_BF16 == 0 for a, b in runs)
+              and all(r0[1] == r1[0] for r0, r1 in zip(runs, runs[1:])),
+              f"E bf16 on {name}: the runs {runs} leave a CTA of a cluster empty")
+        splits[name] = dict(n_blocks=nb, grid=[meta.grid_m, meta.grid_n], rows=LM_TRAIN_ROWS,
+                            E_splits=S, E_runs=runs, E_ctas=nb * S,
+                            longest_block_row=int(np.bincount(host.rows,
+                                                              minlength=meta.grid_m).max()),
+                            longest_column=int(np.bincount(host.cols,
+                                                           minlength=meta.grid_n).max()))
+    return splits
+
+
+def lm_arch_recurrentgemma(out: dict) -> dict:
+    """(a) recurrentgemma-2b, full width and depth, bf16, the sparse FFN:
+    kernels C (with and without its store), D and E bf16 on every layer at
+    RG_KERNEL_ROWS before and after a host SET; the main path, 3 steps of
+    the example's loop (``make_train_step``, remat "block") with host SET
+    after the third, each step's launches counted; one step's gradients
+    against ``bsmm_xla``'s; decode against the teacher-forced forward."""
+    example = train_lm_example()
+    cfg = dataclasses.replace(get_spec(RG_ARCH).config, ffn="sparse")
+    check(cfg.dtype == "bfloat16" and cfg.remat == "block", f"{cfg.dtype}, remat {cfg.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params, draw_s = drawn_model(cfg)
+    print(json.dumps({"lm_archs_params": {RG_ARCH: n_params}}), flush=True)
+    first = model.topologies["s0_rglru"][0]
+    check((first[0].n_blocks, first[1].n_blocks) == RG_TILES,
+          f"{RG_ARCH}'s sparse FFN tiles {(first[0].n_blocks, first[1].n_blocks)}, "
+          f"expected {RG_TILES}")
+    splits = rg_splits(model)
+    print(json.dumps({"lm_archs_splits": splits}), flush=True)
+    rng, normal = np.random.default_rng(SEED), card_normal(SEED)
+    c_before = lm_layer_checks(model, RG_KERNEL_ROWS, normal)
+    de_before = de_bf16_checks(model, "before the evolution", rng, RG_KERNEL_ROWS, normal)
+
+    def counts() -> dict:
+        return dict(read_counts(), **de_second_passes(), **c_sub_counts())
+
+    per_step, snaps = [], []
+
+    def on_step(i, params, metrics):
+        snap = counts()
+        per_step.append(dict(loss=float(metrics["loss"]), **{
+            k: n - snaps[-1][k] for k, n in snap.items() if n - snaps[-1][k]}))
+        snaps.append(snap)
+
+    # the main path: the example's loop, 3 steps, host SET after the third
+    torch.cuda.synchronize()
+    reset_counts()
+    snaps.append(counts())
+    t0 = time.perf_counter()
+    run = example.train(model, steps=RG_TRAIN_STEPS, batch=LM_TRAIN["batch"],
+                        seq=LM_TRAIN["seq"], lr=LM_TRAIN["lr"], evolve_every=RG_TRAIN_STEPS,
+                        zeta=LM_TRAIN["zeta"], on_step=on_step, verbose=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    L = cfg.n_layers
+    remat_layers = cfg.n_rep * len(cfg.pattern)  # the remainder layers run without remat
+    # a step: C twice a layer in the forward and again in remat's recompute of
+    # the stacked layers (rows route, no store, no second pass), D and E bf16
+    # twice a layer, one launch each, nothing else
+    want_step = {"bsmm_fwd": 2 * (L + remat_layers), "rows": 2 * (L + remat_layers),
+                 "bsmm_dx": 2 * L, "bsmm_dx.bf16": 2 * L, "bsmm_dw": 2 * L,
+                 "bsmm_dw.bf16": 2 * L}
+    for i, s in enumerate(per_step):
+        got = {k: n for k, n in s.items() if k != "loss"}
+        check(got == want_step, f"{RG_ARCH} step {i} launched {got}, expected {want_step}")
+        check(np.isfinite(s["loss"]), f"{RG_ARCH} step {i}'s loss is {s['loss']}")
+    check(launches == dict(NO_LAUNCHES, **{k: RG_TRAIN_STEPS * n for k, n in want_step.items()
+                                           if k in NO_LAUNCHES}),
+          f"{RG_ARCH}'s run launched {launches}")
+    check(len(run["evolved"]) == 1, f"{len(run['evolved'])} evolutions, expected 1")
+    del run
+    c_after = lm_layer_checks(model, RG_KERNEL_ROWS, normal)
+    de_after = de_bf16_checks(model, "after the evolution", rng, RG_KERNEL_ROWS, normal)
+    tokens = arch_prompts(cfg.vocab, LM_TRAIN["batch"], LM_TRAIN["seq"])
+    vs_xla = lm_grad_vs_xla(model, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+    decode = decoded_vs_forward(model, arch_prompts(cfg.vocab)[:, :-1], RG_ARCH)
+    per_call = decode["decode_launches"]
+    want_decode = dict(NO_LAUNCHES, bsmm_fwd=2 * L * ARCH_PROMPT)
+    check({k: per_call[k] for k in NO_LAUNCHES} == want_decode
+          and per_call["epilogue"] == L * ARCH_PROMPT
+          and per_call["decode"] == 2 * L * ARCH_PROMPT
+          and per_call["rows"] == per_call["second_pass"] == 0,
+          f"{RG_ARCH}'s {ARCH_PROMPT} decode steps launched {per_call}: expected {2 * L} C "
+          f"a step ({L} with All-ReLU in the store, decode route) and no B")
+    train = time_lm_train_step(model, example)
+    peak = torch.cuda.max_memory_allocated()
+    rows = [dict(r, arch=RG_ARCH) for r in lm_train_timing_rows(model, RG_KERNEL_ROWS)]
+    for r in rows:
+        print(json.dumps({"kernel_timing": r}))
+    errs = {KERNEL_C_BF16["name"]: max(c_before["max_abs_err"], c_after["max_abs_err"]),
+            **{k: max(de_before[k], de_after[k])
+               for k in (KERNEL_D_BF16["name"], KERNEL_E_BF16["name"])}}
+    for meta in (KERNEL_C_BF16, KERNEL_D_BF16, KERNEL_E_BF16):
+        mine = [r for r in rows if r["kernel"] == meta["name"] and r["rows"] == LM_TRAIN_ROWS]
+        # every C launch of the run is bf16: the wrapper's count is C bf16's
+        count = launches["bsmm_fwd" if meta is KERNEL_C_BF16 else meta["name"]]
+        entry = kernel_entry(dict(meta, name=f"{meta['name']}@{RG_ARCH}"), mine, count,
+                             errs[meta["name"]])
+        entry["bound_by"] = bound_bf16(sum(r["bytes"] for r in mine),
+                                       sum(r["ops"] for r in mine))["bound_by"]
+        entry["per"] = (f"one {RG_ARCH} layer's sparse FFN at {LM_TRAIN_ROWS:,} rows (W_in, "
+                        "W_out), forward for C, backward for D and E")
+        out["kernels"].append(entry)
+    result = dict(arch=RG_ARCH, n_params=n_params, draw_s=draw_s, losses=[
+        s["loss"] for s in per_step], run_s=run_s, per_step_launches=want_step,
+        kernel_checks=dict(C_before=c_before, C_after=c_after, DE_before=de_before,
+                           DE_after=de_after),
+        vs_xla=vs_xla, **decode, train_step_ms=train["step_ms"],
+        train_device_idle_share=train["device_idle_share"],
+        train_device_launches=train["device_launches"],
+        train_device_us_top=dict(list(train["device_us_top"].items())[:8]),
+        train_host_self_us_top=train["host_self_us_top"], max_memory_allocated=peak,
+        card=out["smi"])
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def lm_arch_mamba(out: dict) -> dict:
+    """(b) falcon-mamba-7b, full width and depth, bf16: decode against the
+    teacher-forced forward, no kernel launched; then its train step at full
+    width on MAMBA_CUT_LAYERS layers in f32, card against CPU."""
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.tree import tree_flatten_with_names
+
+    cfg = get_spec(MAMBA_ARCH).config
+    check(cfg.dtype == "bfloat16", cfg.dtype)
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params, draw_s = drawn_model(cfg)
+    print(json.dumps({"lm_archs_params": {MAMBA_ARCH: n_params}}), flush=True)
+    decode = decoded_vs_forward(model, arch_prompts(cfg.vocab)[:, :-1], MAMBA_ARCH, "f32")
+    check({k: decode["decode_launches"][k] for k in NO_LAUNCHES} == NO_LAUNCHES,
+          f"{MAMBA_ARCH}'s decode launched {decode['decode_launches']}")
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=MAMBA_CUT_LAYERS, dtype="float32")
+    cpu, cut_params, cut_draw_s = drawn_model(cut, "cpu")
+    card = copy.copy(cpu).to(CARD)
+    tokens = arch_prompts(cut.vocab, MAMBA_CUT_BATCH["batch"], MAMBA_CUT_BATCH["seq"])
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    got, want = {}, {}
+    for m, b, res in ((card, batch, got), (cpu, cpu_batch, want)):
+        with torch.no_grad():
+            res["logits"] = m.forward(m.params, b["tokens"])[0].cpu()
+        _, loss, grads = lm_steps._microbatched_grad(lm_steps.lm_loss_fn(m, None), m.params, b, 1)
+        res["loss"] = float(loss)
+        res["grads"] = [(n, g.cpu()) for n, g in tree_flatten_with_names(grads)[0]]
+    torch.testing.assert_close(got["logits"], want["logits"], rtol=MAMBA_RTOL, atol=MAMBA_RTOL)
+    rel = {n: float((a - b).norm() / b.norm().clamp(min=1e-30))
+           for (n, a), (_, b) in zip(got["grads"], want["grads"])}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= MAMBA_RTOL, f"{MAMBA_ARCH} cut: gradient {worst} relative L2 "
+                                    f"{rel[worst]:.3g} from the CPU's, beyond {MAMBA_RTOL}")
+    step, opt = lm_steps.make_train_step(card, lr=LM_TRAIN["lr"])
+    state = {"p": card.params, "s": opt.init(card.params)}
+
+    def one_step():
+        state["p"], state["s"], m = step(state["p"], state["s"], batch, None)
+        return m
+
+    reset_counts()
+    m = one_step()
+    torch.cuda.synchronize()
+    check(np.isfinite(float(m["loss"])) and read_counts() == NO_LAUNCHES,
+          f"{MAMBA_ARCH} cut's train step: loss {float(m['loss'])}, launches {read_counts()}")
+    train = median_ms(one_step)
+    del card, cpu, state
+    torch.cuda.empty_cache()
+    return dict(arch=MAMBA_ARCH, n_params=n_params, draw_s=draw_s, **decode,
+                max_memory_allocated=peak,
+                cut=dict(layers=MAMBA_CUT_LAYERS, dtype="float32", n_params=cut_params,
+                         draw_s=cut_draw_s, **MAMBA_CUT_BATCH,
+                         logits_max_abs_err=float((got["logits"] - want["logits"]).abs().max()),
+                         loss_card=got["loss"], loss_cpu=want["loss"], worst_leaf=worst,
+                         worst_rel_l2=rel[worst], train_step_ms=train),
+                card=out["smi"])
+
+
+def moe_invariants(model) -> dict:
+    """The dispatch invariants of tests/test_model_numerics.py on the card,
+    at full width, on the first layer's MoE FFN and ARCH_BATCH x ARCH_PROMPT
+    random token rows: every kept entry in a slot of its own (the dropped
+    ones in the scratch row), each token K entries, at most C an expert;
+    the combine within MOE_TOL of a loop over each token's kept experts
+    (batched by expert: plain matmuls, no capacity buffers), summed over k in
+    order; the same bits on two runs."""
+    from repro_torch.models import moe as moe_mod
+
+    cfg = model.cfg
+    mcfg = cfg.moe_cfg()
+    p = {k: v[0] for k, v in model.params["stack"]["s0_global"]["ffn"].items()}
+    T, E, K, d = ARCH_BATCH * ARCH_PROMPT, mcfg.n_experts, mcfg.top_k, cfg.d_model
+    C = max(1, int(np.ceil(T * K * mcfg.capacity_factor / E)))
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    x = torch.randn((T, d), generator=gen, device=CARD).to(torch.bfloat16)
+    with torch.inference_mode():
+        _, slot, st, sg, keep, order = moe_mod._dispatch(p, x[None], mcfg, C)
+        slot, st, sg, keep, order = slot[0], st[0], sg[0], keep[0], order[0]
+        kept = slot[keep]
+        check(kept.unique().numel() == kept.numel(), "MoE: two kept entries share a slot")
+        check(bool((slot[~keep] == E * C).all()), "MoE: a dropped entry outside the scratch row")
+        check(bool((torch.bincount(st, minlength=T) == K).all()), "MoE: a token without K entries")
+        per_expert = torch.bincount(torch.div(kept, C, rounding_mode="floor"), minlength=E)
+        check(int(per_expert.max()) <= C, f"MoE: an expert holds {int(per_expert.max())} > {C}")
+        y1, aux1 = moe_mod.moe_fwd(p, x, mcfg)
+        y2, aux2 = moe_mod.moe_fwd(p, x, mcfg)
+        check(_bits_equal(y1, y2) and _bits_equal(aux1, aux2), "MoE: two runs differ")
+        contrib = torch.zeros((T * K, d), dtype=x.dtype, device=CARD)
+        expert = torch.div(slot, C, rounding_mode="floor")
+        for e in range(E):
+            j = torch.nonzero(keep & (expert == e)).flatten()
+            xe = x[st[j]]
+            h = F.silu(xe @ p["wi_gate"][e]) * (xe @ p["wi_up"][e])
+            contrib[j] = (h @ p["wo"][e]) * sg[j].to(x.dtype)[:, None]
+        per_k = contrib[torch.argsort(order)].reshape(T, K, d)
+        want = per_k[:, 0]
+        for k in range(1, K):
+            want = want + per_k[:, k]
+    diff = (y1.float() - want.float()).abs()
+    check(bool((diff <= MOE_TOL + MOE_TOL * want.float().abs()).all()),
+          f"MoE: the combine is {float(diff.max()):.4g} from the per-token loop, beyond "
+          f"{MOE_TOL} + {MOE_TOL} x |want|")
+    return dict(tokens=T, capacity=C, kept=int(keep.sum()), dropped=int((~keep).sum()),
+                fullest_expert=int(per_expert.max()), aux=float(aux1),
+                combine_max_abs_err=float(diff.max()))
+
+
+def lm_arch_moe(out: dict) -> dict:
+    """(c) qwen3-moe-30b-a3b at full width, depth cut to MOE_LAYERS, bf16:
+    the dispatch invariants, a forward, one train step whose total carries
+    the auxiliary loss, and decode steps (capacity is per call, so a decode
+    step's dispatch differs from the forward's: finite, not compared)."""
+    from repro_torch.launch.steps import make_train_step
+
+    cfg = dataclasses.replace(get_spec(MOE_ARCH).config, n_layers=MOE_LAYERS)
+    check(cfg.dtype == "bfloat16" and cfg.ffn == "moe", f"{cfg.dtype}, {cfg.ffn}")
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params, draw_s = drawn_model(cfg)
+    print(json.dumps({"lm_archs_params": {MOE_ARCH: n_params}}), flush=True)
+    inv = moe_invariants(model)
+    decode = decoded_vs_forward(model, arch_prompts(cfg.vocab)[:, :-1], MOE_ARCH, None)
+    check({k: decode["decode_launches"][k] for k in NO_LAUNCHES} == NO_LAUNCHES,
+          f"{MOE_ARCH}'s decode launched {decode['decode_launches']}")
+    step, opt = make_train_step(model, lr=LM_TRAIN["lr"])
+    tokens = arch_prompts(cfg.vocab)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    state = {"p": model.params, "s": opt.init(model.params)}
+
+    def one_step():
+        state["p"], state["s"], m = step(state["p"], state["s"], batch, None)
+        return m
+
+    reset_counts()
+    m = one_step()
+    torch.cuda.synchronize()
+    loss, total = float(m["loss"]), float(m["total"])
+    check(np.isfinite(total) and total > loss and read_counts() == NO_LAUNCHES,
+          f"{MOE_ARCH}'s train step: loss {loss}, total with the aux loss {total}, launches "
+          f"{read_counts()}")
+    train = median_ms(one_step)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state
+    torch.cuda.empty_cache()
+    return dict(arch=MOE_ARCH, layers=MOE_LAYERS, n_params=n_params, draw_s=draw_s,
+                invariants=inv, **decode, train_loss=loss, train_aux=total - loss,
+                train_step_ms=train, max_memory_allocated=peak, card=out["smi"])
+
+
+def phase_lm_archs(out: dict) -> str:
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    res = {}
+    for fn in (lm_arch_recurrentgemma, lm_arch_mamba, lm_arch_moe):
+        t0 = time.perf_counter()
+        r = fn(out)
+        r["seconds"] = time.perf_counter() - t0
+        print(json.dumps({"lm_archs_timing": r}), flush=True)
+        res[r["arch"]] = r
+    rg, mb, mo = res[RG_ARCH], res[MAMBA_ARCH], res[MOE_ARCH]
+    ck = rg["kernel_checks"]
+    return (
+        f"{RG_ARCH} full width and depth, sparse FFN, bf16, {rg['n_params']} parameters (drawn "
+        f"in {rg['draw_s']:.1f} s): {RG_TRAIN_STEPS} steps of {LM_TRAIN['batch']} x "
+        f"{LM_TRAIN['seq'] + 1} tokens, losses {[round(v, 4) for v in rg['losses']]}, a step "
+        f"launched {rg['per_step_launches']}; C, D and E bf16 on all {ck['C_before']['layers']} "
+        f"layers at rows {list(RG_KERNEL_ROWS)} before and after host SET within {C_BF16_TOL} "
+        f"(max C {max(ck['C_before']['max_abs_err'], ck['C_after']['max_abs_err']):.3g}, D "
+        f"{max(ck['DE_before'][KERNEL_D_BF16['name']], ck['DE_after'][KERNEL_D_BF16['name']]):.3g}"
+        f", E {max(ck['DE_before'][KERNEL_E_BF16['name']], ck['DE_after'][KERNEL_E_BF16['name']]):.3g}"
+        f"); gradients vs bsmm_xla worst {rg['vs_xla']['worst_leaf']} "
+        f"{rg['vs_xla']['worst_rel_l2']:.3g}; decode vs teacher-forced max |diff| "
+        f"{rg['vs_forward']['max_abs_err']:.3g}; train step {rg['train_step_ms']['median']:.1f} "
+        f"ms, decode step {rg['decode_step_ms']['median']:.2f} ms; "
+        f"{MAMBA_ARCH} full width and depth, {mb['n_params']} parameters (drawn in "
+        f"{mb['draw_s']:.1f} s): decode vs teacher-forced max |diff| "
+        f"{mb['vs_forward']['max_abs_err']:.3g}, decode step {mb['decode_step_ms']['median']:.2f} "
+        f"ms; {MAMBA_CUT_LAYERS}-layer f32 cut card vs CPU logits {mb['cut']['logits_max_abs_err']:.3g}, "
+        f"gradients worst {mb['cut']['worst_rel_l2']:.3g}; {MOE_ARCH} {MOE_LAYERS} layers, "
+        f"{mo['n_params']} parameters: dispatch invariants held (capacity "
+        f"{mo['invariants']['capacity']}, {mo['invariants']['dropped']} dropped, combine "
+        f"{mo['invariants']['combine_max_abs_err']:.3g}), aux {mo['train_aux']:.4g}, train step "
+        f"{mo['train_step_ms']['median']:.1f} ms"
     )
 
 
@@ -4099,6 +4656,8 @@ def main() -> int:
         ("lm_compact", phase_lm_compact),
         # its training path: kernels D and E bf16 as C bf16's backward
         ("lm_train", phase_lm_train),
+        # the rest of the zoo: RG-LRU (on C, D and E bf16), Mamba-1 and MoE
+        ("lm_archs", phase_lm_archs),
         # after the timing phases: run before them, it made their
         # torch.profiler sessions lose device events (PERF.md §7)
         ("wasap", phase_wasap), ("checkpoint", phase_checkpoint), ("xl", phase_xl),

@@ -59,12 +59,17 @@ def synthetic_stream(rng: np.random.Generator, vocab: int, batch: int, seq: int)
 
 
 def evolve_ffn(model: PatternLM, params, zeta: float, rng: np.random.Generator) -> None:
-    """Host SET (Algorithm 2) on every stacked slot's sparse FFN, each
+    """Host SET (Algorithm 2) on every sparse FFN, slot by slot, each
     repeat's W_in then W_out (``core.topology.evolve_block``): the model's
-    host topologies and ``params``' tiles replaced in place."""
+    host topologies and ``params``' tiles replaced in place. A remainder
+    layer (slot ``rest{i}``, its tiles unstacked in ``params["rest"]``) is
+    one repeat."""
     for slot, topos in model.topologies.items():
-        ffn = params["stack"][slot]["ffn"]
+        in_stack = slot in params["stack"]
+        ffn = (params["stack"][slot] if in_stack else params["rest"][int(slot[len("rest"):])])["ffn"]
         vals_in, vals_out = ffn["win"].float().cpu().numpy(), ffn["wout"].float().cpu().numpy()
+        if not in_stack:
+            vals_in, vals_out = vals_in[None], vals_out[None]
         new_in, new_out = [], []
         for r, (t_in, t_out) in enumerate(topos):
             res_i = evolve_block(t_in, vals_in[r], zeta, rng)
@@ -73,8 +78,8 @@ def evolve_ffn(model: PatternLM, params, zeta: float, rng: np.random.Generator) 
             new_in.append(res_i.values)
             new_out.append(res_o.values)
         for name, new in (("win", new_in), ("wout", new_out)):
-            ffn[name] = torch.from_numpy(np.stack(new)).to(dtype=ffn[name].dtype,
-                                                            device=ffn[name].device)
+            ffn[name] = torch.from_numpy(np.stack(new) if in_stack else new[0]).to(
+                dtype=ffn[name].dtype, device=ffn[name].device)
 
 
 def train(model: PatternLM, *, steps: int, batch: int, seq: int, lr: float,

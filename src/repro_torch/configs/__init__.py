@@ -4,7 +4,7 @@ Twin of ``repro.configs``.
 Each ``src/repro_torch/configs/<arch>.py`` defines ``SPEC: ArchSpec`` with the
 exact published FULL config, a structurally identical reduced SMOKE config,
 and the shape-cell applicability map, as the reference's do (dataclass
-literals, copied). The port serves the attention archs' ``PatternLM``; the
+literals, copied). The port builds every ``PatternLM`` arch; the
 encoder-decoder ``whisper-medium`` has no twin yet and is refused.
 """
 from __future__ import annotations
@@ -61,7 +61,7 @@ def get_spec(arch_id: str) -> ArchSpec:
         raise KeyError(f"unknown arch {arch_id!r}; options: {list(_MODULES)}")
     if arch_id == "whisper-medium":
         raise NotImplementedError(
-            "whisper-medium (WhisperConfig, the encoder-decoder) comes with the LM "
-            "training slice (ROADMAP Queue 1, item 7)")
+            "whisper-medium (WhisperConfig, the encoder-decoder) comes with Whisper "
+            "(ROADMAP Queue 1, item 7b)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.SPEC

@@ -1,6 +1,6 @@
 """Step functions: the SET-MLP training loop, and the LM's train, prefill
 and decode steps. Twin of ``repro.launch.steps``; the Whisper steps come
-with the rest of LM training (ROADMAP Queue 1, item 7b).
+with Whisper (ROADMAP Queue 1, item 7b, the next slice).
 
 A step is loss -> gradients (autograd; on a block model, and on the LM's
 sparse FFN, the backward runs kernels D and E) -> momentum-SGD update.
@@ -111,8 +111,8 @@ def scan_masked_segment(step_core: Callable, params, opt_state, key: Any,
 def _require_lm(model) -> None:
     if not isinstance(model, PatternLM):
         raise NotImplementedError(
-            f"steps for {type(model).__name__} (the Whisper encoder-decoder) come with the "
-            "rest of LM training (ROADMAP Queue 1, item 7b)")
+            f"steps for {type(model).__name__} (the Whisper encoder-decoder) come with "
+            "Whisper (ROADMAP Queue 1, item 7b)")
 
 
 def _microbatched_grad(loss_fn: Callable, params, batch, microbatches: int):
@@ -153,7 +153,8 @@ def make_train_step(model: PatternLM, *, lr: float = 1e-2, momentum: float = 0.9
     {"loss", "total"})``, with ``batch["tokens"]`` and ``batch["labels"]``
     (B, S) (and ``batch["patch_embeds"]``, a VLM prefix whose positions
     carry no loss). The loss is :func:`chunked_softmax_xent` of the final
-    hidden states, plus the MoE auxiliary loss (0 here) (:func:`lm_loss_fn`);
+    hidden states, plus the MoE auxiliary loss summed over the layers
+    (:func:`lm_loss_fn`);
     gradients by :func:`_microbatched_grad`; momentum SGD with weight decay
     1e-4. Both metrics stay on the device."""
     _require_lm(model)
@@ -172,7 +173,8 @@ def lm_loss_fn(model: PatternLM, topo, chunk: int = 512) -> Callable:
     """The train step's loss, ``loss_fn(params, batch) -> (total, loss)``:
     :func:`chunked_softmax_xent` (``chunk`` positions at a time) of the
     final hidden states against ``batch["labels"]``, and ``total`` = loss +
-    the MoE auxiliary loss (0 here), whose gradient the step takes."""
+    the MoE auxiliary loss (0 without an MoE FFN), whose gradient the step
+    takes."""
 
     def loss_fn(p, b):
         h, _, aux = model.forward(p, b["tokens"], topo=topo,

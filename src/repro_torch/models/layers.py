@@ -23,8 +23,8 @@ plain versions on the CPU; under autograd, kernel C's autograd Function on
 each weight (backward: kernels D and E) with All-ReLU between them.
 
 Not here yet: ``init_plain_ffn``/``plain_ffn_fwd`` and
-``cross_attention_fwd`` (Whisper), which come with the rest of the LM
-training slice (ROADMAP Queue 1, item 7b).
+``cross_attention_fwd`` (Whisper), which come with Whisper (ROADMAP
+Queue 1, item 7b).
 """
 from __future__ import annotations
 

@@ -1,10 +1,12 @@
-"""PatternLM, the pattern-scan language model. Twin of
-``repro.models.transformer`` for the attention block kinds.
+"""PatternLM, the pattern-scan language model covering the whole zoo. Twin
+of ``repro.models.transformer``.
 
 An architecture is a repeating ``pattern`` of block kinds:
 
   'global'  full causal GQA attention + FFN     (qwen, internlm, paligemma, ...)
   'local'   sliding-window GQA attention + FFN  (gemma local layers, mixtral SWA)
+  'mamba'   Mamba-1 SSM block (no FFN)          (falcon-mamba)
+  'rglru'   RG-LRU recurrent block + FFN        (recurrentgemma)
 
 ``n_layers = n_rep * len(pattern) + remainder``. The parameter tree is the
 reference's, so a checkpoint has the same leaf names in both packages:
@@ -12,8 +14,10 @@ reference's, so a checkpoint has the same leaf names in both packages:
 on a leading ``n_rep`` axis, ``params["rest"]`` the remainder layers as a
 list, and ``params["embed"]``, ``params["final_norm"]`` (and
 ``params["unembed"]`` where the embeddings are untied). The FFN of a block
-is ``gated`` (the dense baseline) or ``sparse`` (the paper's SET
-block-sparse FFN with All-ReLU, on kernel C: All-ReLU in W_in's store).
+is ``gated`` (the dense baseline), ``sparse`` (the paper's SET
+block-sparse FFN with All-ReLU, on kernel C: All-ReLU in W_in's store) or
+``moe`` (``models.moe``, whose auxiliary loss the forward sums over the
+layers).
 
 The reference runs the repeats under one ``lax.scan``; here a Python loop
 visits the layers in the same order (repeat-major, then pattern slot), with
@@ -33,10 +37,14 @@ once); the views of one (params, topology) pair are memoized where
 autograd does not record (serving), and made anew where it does, since they
 belong to one graph. :func:`chunked_softmax_xent` is the training loss.
 
-Not in this slice, and refused naming ROADMAP Queue 1 item 7b (the rest of
-LM training): the ``mamba`` and ``rglru`` block kinds and the ``moe`` FFN.
+Decode writes every cache in place: attention's K/V at the step's
+positions, and a recurrent block's state (``models.mamba``,
+``models.griffin``) with the new one. As in the reference, a recurrent
+block keeps no state in ``train`` or ``prefill`` mode: ``prefill`` returns
+none for it.
+
 The reference's ``abstract=True`` (the dry run's shape-only build) is not
-offered: it comes with the pod machinery, item 9.
+offered: it comes with the pod machinery, ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -53,18 +61,15 @@ from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import scalar_in
 from repro_torch.models import layers as L
+from repro_torch.models.griffin import RGLRUConfig, init_rglru_block, init_rglru_state, rglru_fwd
+from repro_torch.models.mamba import MambaConfig, init_mamba_block, init_mamba_state, mamba_fwd
+from repro_torch.models.moe import MoEConfig, init_moe, moe_fwd
 from repro_torch.tree import tree_flatten, tree_map
 
 __all__ = ["ModelConfig", "PatternLM", "chunked_softmax_xent"]
 
 Tree = Any
 DeviceLike = Optional[Union[str, torch.device]]
-_ITEM_7B = ("comes with the rest of LM training: moe, mamba, griffin, whisper "
-            "(ROADMAP Queue 1, item 7b)")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {_ITEM_7B}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +146,27 @@ class ModelConfig:
             causal_skip=self.causal_skip,
         )
 
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(
+            n_experts=self.n_experts,
+            top_k=self.top_k,
+            d_model=self.d_model,
+            d_ff=self.expert_d_ff,
+            activation=self.activation,
+            groups=self.moe_groups,
+        )
+
+    def mamba_cfg(self) -> MambaConfig:
+        return MambaConfig(
+            d_model=self.d_model,
+            d_inner=self.d_inner,
+            d_state=self.d_state,
+            chunk=self.ssm_chunk,
+        )
+
+    def rglru_cfg(self) -> RGLRUConfig:
+        return RGLRUConfig(d_model=self.d_model, d_rnn=self.d_rnn, chunk=self.ssm_chunk)
+
     def sparse_cfg(self) -> L.SparseFFNConfig:
         return L.SparseFFNConfig(
             epsilon=self.sparse_epsilon,
@@ -161,32 +187,37 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 np_rng: np.random.Generator, device: torch.device):
     """Returns (params, topos | None, metas | None)."""
     dtype = getattr(torch, cfg.dtype)
-    if kind in ("mamba", "rglru"):
-        raise _not_ported(f"the {kind!r} block")
-    if kind not in ("global", "local"):
-        raise ValueError(kind)
-    if cfg.ffn == "moe":
-        raise _not_ported("the 'moe' FFN")
-    if cfg.ffn not in ("gated", "sparse"):
-        raise ValueError(cfg.ffn)
 
     def norm():
         return (L.init_rmsnorm(cfg.d_model, dtype, device) if cfg.norm == "rms"
                 else L.init_layernorm(cfg.d_model, dtype, device))
 
     params: Dict[str, Tree] = {"ln1": norm()}
-    params["attn"] = L.init_attention(gen, cfg.attn_cfg(kind), dtype, device)
-    if cfg.post_norms:
-        params["post_attn"] = norm()
-    params["ln2"] = norm()
-    if cfg.post_norms:
-        params["post_ffn"] = norm()
+    if kind in ("global", "local"):
+        params["attn"] = L.init_attention(gen, cfg.attn_cfg(kind), dtype, device)
+        if cfg.post_norms:
+            params["post_attn"] = norm()
+        params["ln2"] = norm()
+        if cfg.post_norms:
+            params["post_ffn"] = norm()
+    elif kind == "mamba":
+        params["mamba"] = init_mamba_block(gen, cfg.mamba_cfg(), dtype, device)
+        return params, None, None
+    elif kind == "rglru":
+        params["rglru"] = init_rglru_block(gen, cfg.rglru_cfg(), dtype, device)
+        params["ln2"] = norm()
+    else:
+        raise ValueError(kind)
     topos = metas = None
     if cfg.ffn == "gated":
         params["ffn"] = L.init_gated_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device)
-    else:
+    elif cfg.ffn == "moe":
+        params["ffn"] = init_moe(gen, cfg.moe_cfg(), dtype, device)
+    elif cfg.ffn == "sparse":
         params["ffn"], topos, metas = L.init_sparse_ffn(
             np_rng, cfg.d_model, cfg.d_ff, cfg.sparse_cfg(), dtype, device)
+    else:
+        raise ValueError(cfg.ffn)
     return params, topos, metas
 
 
@@ -198,24 +229,43 @@ def _block_fwd(params, h: torch.Tensor, *, cfg: ModelConfig, kind: str,
                positions: torch.Tensor, layer_index: int, mode: str, cache,
                topo: Optional[Tuple[BlockTopoArrays, BlockTopoArrays]],
                metas, prefix_len: Optional[int], sparse_impl: str = "kernel"):
-    """One residual block. Returns (h, new_cache). The configuration is
+    """One residual block. Returns (h, new_cache, aux): ``aux`` is the MoE
+    FFN's auxiliary loss (None without one: nothing to add). A recurrent
+    block's state is written into ``cache`` in place. The configuration is
     keyword-only: static, as the repository's convention has it."""
-    a, new_cache = L.attention_fwd(
-        params["attn"], _norm(cfg, params["ln1"], h), cfg.attn_cfg(kind),
-        positions=positions, mode=mode, cache=cache, prefix_len=prefix_len,
-    )
-    if cfg.post_norms:
-        a = _norm(cfg, params["post_attn"], a)
-    h = h + a
+    aux = None
+    if kind in ("mamba", "rglru"):
+        fwd, cfg_of = (mamba_fwd, cfg.mamba_cfg) if kind == "mamba" else (rglru_fwd,
+                                                                          cfg.rglru_cfg)
+        r, new_state = fwd(params[kind], _norm(cfg, params["ln1"], h), cfg_of(), state=cache)
+        if new_state is not None:
+            for name, t in new_state.items():
+                cache[name].copy_(t)
+        new_cache = None if new_state is None else cache
+        h = h + r
+        if kind == "mamba":
+            return h, new_cache, aux
+    elif kind in ("global", "local"):
+        a, new_cache = L.attention_fwd(
+            params["attn"], _norm(cfg, params["ln1"], h), cfg.attn_cfg(kind),
+            positions=positions, mode=mode, cache=cache, prefix_len=prefix_len,
+        )
+        if cfg.post_norms:
+            a = _norm(cfg, params["post_attn"], a)
+        h = h + a
+    else:
+        raise ValueError(kind)
     f_in = _norm(cfg, params["ln2"], h)
     if cfg.ffn == "gated":
         f = L.gated_ffn_fwd(params["ffn"], f_in, cfg.activation)
+    elif cfg.ffn == "moe":
+        f, aux = moe_fwd(params["ffn"], f_in, cfg.moe_cfg())
     else:
         f = L.sparse_ffn_fwd(params["ffn"], topo[0], topo[1], metas, f_in,
                              cfg.sparse_cfg(), layer_index, impl=sparse_impl)
-    if cfg.post_norms:
+    if cfg.post_norms and kind != "rglru":
         f = _norm(cfg, params["post_ffn"], f)
-    return h + f, new_cache
+    return h + f, new_cache, aux
 
 
 def _rep(stacked: BlockTopoArrays, r: int) -> BlockTopoArrays:
@@ -386,8 +436,9 @@ class PatternLM:
         (S,) shared by every row, or (B, S) one row each), ``prefill`` (the
         full causal forward over the prompt that also returns every layer's
         K/V of prompt length, stacked as the reference's scan stacks them,
-        for the engine to insert into its decode caches). ``aux`` is the MoE
-        auxiliary loss, 0 here."""
+        for the engine to insert into its decode caches; a recurrent block
+        returns no state, as in the reference). ``aux`` is the MoE auxiliary
+        loss summed over the layers in order (0 without an MoE FFN)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -406,6 +457,7 @@ class PatternLM:
             raise ValueError("decode needs caches")
 
         collected: Dict[str, List] = {}
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         # the reference checkpoints its scan body (the stacked layers) in
         # train mode; the LM draws nothing random, so no RNG state is kept
         remat = cfg.remat == "block" and mode == "train" and torch.is_grad_enabled()
@@ -418,11 +470,13 @@ class PatternLM:
                          mode=mode, cache=cache, topo=lt, metas=self.block_metas,
                          prefix_len=prefix_len, sparse_impl=self.sparse_impl)
             if remat and where[0] == "stack":
-                h, nc = checkpoint(_block_fwd, lp, h, use_reentrant=False,
-                                   preserve_rng_state=False, **block)
+                h, nc, aux_b = checkpoint(_block_fwd, lp, h, use_reentrant=False,
+                                          preserve_rng_state=False, **block)
             else:
-                h, nc = _block_fwd(lp, h, **block)
-            if mode == "prefill":
+                h, nc, aux_b = _block_fwd(lp, h, **block)
+            if aux_b is not None:
+                aux = aux + aux_b
+            if mode == "prefill" and (nc is not None or where[0] == "rest"):
                 collected.setdefault(where[1] if where[0] == "stack" else "rest", []).append(nc)
 
         new_caches = None
@@ -434,7 +488,6 @@ class PatternLM:
                                     for slot, ncs in collected.items()},
                           "rest": rest}
         h = _norm(cfg, params["final_norm"], h)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if return_hidden:
             return h, new_caches, aux
         return self.logits(params, h), new_caches, aux
@@ -451,13 +504,18 @@ class PatternLM:
 
     def init_caches(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16):
         """Decode caches: full K/V for global slots, ring buffers for local
-        ones (with ``decode_window_cache``), stacked along n_rep per slot;
-        zeros, since decode writes into them in place."""
+        ones (with ``decode_window_cache``), recurrent states for mamba and
+        rglru (``ssm``/``rnn`` in f32, ``conv`` in ``dtype``), stacked along
+        n_rep per slot; zeros, since decode writes into them in place."""
         cfg, dev = self.cfg, self.device
 
         def one(kind, lead=()):
+            if kind in ("mamba", "rglru"):
+                init = (init_mamba_state(cfg.mamba_cfg(), batch, dtype, dev) if kind == "mamba"
+                        else init_rglru_state(cfg.rglru_cfg(), batch, dtype, dev))
+                return tree_map(lambda a: a.new_zeros(lead + a.shape), init)
             if kind not in ("global", "local"):
-                raise _not_ported(f"the {kind!r} block's state")
+                raise ValueError(kind)
             ring = kind == "local" and cfg.decode_window_cache
             w = min(cfg.window, max_len) if ring else max_len
             shape = lead + (batch, w, cfg.n_kv, cfg.head_dim)

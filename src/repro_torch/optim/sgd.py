@@ -1,5 +1,4 @@
-"""Momentum SGD and LR schedules. Twin of ``repro.optim.sgd`` (AdamW, which
-only the LM driver uses, comes with the LM stack).
+"""Momentum SGD, AdamW and LR schedules. Twin of ``repro.optim.sgd``.
 
 Momentum SGD implements paper Eq. (1):
 
@@ -11,6 +10,11 @@ formulation). It operates on any tree of tensors (``repro_torch.tree``):
 the SET-MLP's ``{"values": (...), "biases": (...)}``, the LM's nested
 parameter dict; it returns new tensors, and ``lr`` may be a float or a 0-d
 tensor on the device.
+
+AdamW (decoupled weight decay) is the reference's, which no caller there
+uses either: its moments in f32, its order of operations, and the decay
+term ``weight_decay * p`` computed in p's dtype, the scalar rounded to it
+first (``kernels.ref.scalar_in``), as JAX rounds a weakly typed scalar.
 """
 from __future__ import annotations
 
@@ -19,13 +23,16 @@ from typing import Any, Callable, Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.ref import scalar_in
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
+    "AdamWState",
     "MomentumSGD",
     "SGDState",
     "constant_lr",
     "cosine_lr",
+    "adamw",
     "large_then_fixed_lr",
     "replace_values_velocity",
     "step_decay_lr",
@@ -71,6 +78,46 @@ class MomentumSGD:
         vel = tree_map(upd, state.velocity, grads, params)
         new_params = tree_map(lambda p, v: (p.float() + v).to(p.dtype), params, vel)
         return new_params, SGDState(velocity=vel, step=state.step + 1)
+
+
+# ---------------------------------------------------------------------------
+# AdamW (for LM training; not used by the paper's MLP experiments)
+# ---------------------------------------------------------------------------
+
+
+class AdamWState(NamedTuple):
+    mu: Any
+    nu: Any
+    step: torch.Tensor  # int32, 0-d
+
+
+@dataclasses.dataclass(frozen=True)
+class adamw:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+
+    def init(self, params) -> AdamWState:
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+        device = tree_leaves(params)[0].device
+        return AdamWState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
+                          step=torch.zeros((), dtype=torch.int32, device=device))
+
+    def update(self, grads, state: AdamWState, params, lr: Any) -> Tuple[Any, AdamWState]:
+        step = state.step + 1
+        b1, b2 = self.b1, self.b2
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state.mu, grads)
+        nu = tree_map(lambda n, g: b2 * n + (1 - b2) * g.float().square(), state.nu, grads)
+        c1 = 1 - b1 ** step.float()
+        c2 = 1 - b2 ** step.float()
+
+        def upd(p, m, n):
+            u = (m / c1) / (torch.sqrt(n / c2) + self.eps)
+            decay = scalar_in(self.weight_decay, p.dtype) * p
+            return (p.float() - lr * (u + decay)).to(p.dtype)
+
+        return tree_map(upd, params, mu, nu), AdamWState(mu=mu, nu=nu, step=step)
 
 
 # ---------------------------------------------------------------------------

@@ -159,7 +159,16 @@ class SparseInferenceEngine:
             self.kind = "lm"
             bad = [k for k in model.cfg.pattern if k not in ("global", "local")]
             if bad:
+                # as the reference's: a prefill returns no recurrent state to
+                # seed a slot's decode from
                 raise ValueError(f"LM engine serves attention patterns only, got {bad}")
+            if model.cfg.ffn == "moe":
+                # the engine decodes its slots as the rows of one forward, so
+                # one dispatch would share capacity across slots; the
+                # reference's per-slot decode gives each slot its own
+                raise NotImplementedError(
+                    "ffn='moe' in the LM engine comes with MoE in the serving engine "
+                    "(dispatch groups = slots; ROADMAP Queue 1, item 17)")
             if model.cfg.prefix_len:
                 # prefix-LM masks attend bidirectionally inside the prefix:
                 # bucket padding would put pad tokens INSIDE that window, and

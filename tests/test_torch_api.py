@@ -34,7 +34,6 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 # names of a reference module's __all__ that the port does not export yet,
 # by module, with the ROADMAP Queue 1 item that brings them
 NOT_YET = {
-    "optim.sgd": {"AdamWState": "7b", "adamw": "7b"},
     "serve": {name: "6" for name in (
         "BROWNED_OUT", "CircuitBreaker", "DEGRADED", "GatewayConfig", "GatewayStats",
         "HEALTHY", "HealthMonitor", "HealthThresholds", "RollingWindow", "ServeMetrics",

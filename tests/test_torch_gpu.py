@@ -44,6 +44,11 @@ topology of the served model, long block-rows and tile sides from 16 to
 128, bit-equal over 3 launches, counted as bf16 launches with no second
 pass; the bf16 block op's gradients within 5e-2 of ``bsmm_xla``'s; the
 smoke LM's bf16 train step on the card within 5e-2 of the f32 step.
+recurrentgemma-2b's sparse FFN grids (W_in 20 x 60, W_out 60 x 20): C, D
+and E bf16 held the same way, on columns and block-rows longer than their
+rings. The RG-LRU, Mamba-1 and MoE smoke models in f32 on the card within
+1e-4 of the CPU run (logits, loss with the auxiliary loss, gradients, a
+decode step).
 """
 import dataclasses
 
@@ -1976,3 +1981,116 @@ def test_lm_train_step_bf16_on_card_matches_f32(cuda):
         assert a.dtype == torch.bfloat16, name
         err = float((a.float().cpu() - b).norm() / b.norm())
         assert err <= 5e-2, (name, err)
+
+
+# -- recurrentgemma-2b's sparse FFN: kernels C, D and E bf16 on its grids -------
+
+# recurrentgemma-2b with the paper's sparse FFN (128 x 128 tiles, epsilon 64,
+# seed 0): W_in 2560 -> 7680 holds 60 tiles on 20 x 60 (a tile a column,
+# block-rows of up to 5 slots), W_out 7680 -> 2560 holds 40 on 60 x 20
+# (columns of up to 6 slots, block-rows of up to 3). The ring rule: C's rings
+# hold 4 slot stages (3 on the rows route's 64 x 64 tile) and D's 3, so
+# W_out's columns of 6 run C's rings round and W_in's block-rows of 5 run D's.
+C_RING, D_RING = 4, 3
+
+
+def _rg_topo(which):
+    rng = np.random.default_rng(0)
+    t_in = tsp.BlockTopology.from_epsilon(tsp.BlockMeta(2560, 7680), 64.0, rng)
+    t_out = tsp.BlockTopology.from_epsilon(tsp.BlockMeta(7680, 2560), 64.0, rng)
+    assert (t_in.n_blocks, t_out.n_blocks) == (60, 40)
+    assert (t_in.meta.grid_m, t_in.meta.grid_n) == (20, 60)
+    longest_col = np.bincount(t_out.cols, minlength=t_out.meta.grid_n).max()
+    longest_row = np.bincount(t_in.rows, minlength=t_in.meta.grid_m).max()
+    assert longest_col == 6 > C_RING and longest_row == 5 > D_RING
+    return t_in if which == "win" else t_out
+
+
+@pytest.mark.parametrize("rows", [8, 16, 64, 2048])
+@pytest.mark.parametrize("which", ["win", "wout"])
+def test_kernel_c_bf16_on_recurrentgemma_ffn(cuda, which, rows):
+    """Kernel C bf16 on recurrentgemma-2b's W_in and W_out at a decode
+    step's rows (8, 16: the decode route) and a prefill's and a train step's
+    (64, 2,048: the rows route): within 1e-2 of its plain version and 5e-2 of
+    ``ref.bsmm_ref``, one launch on the planned route, the same bits on three
+    launches; with All-ReLU in its store, both parities, bit-equal to C then
+    kernel B."""
+    topo = _rg_topo(which)
+    meta = topo.meta
+    t, v, x = _bf16_case(cuda, rows, meta, topo, np.random.default_rng(rows))
+    plan = bsm.fwd_plan(topo.n_blocks, meta.grid_n, rows, 128, 128, bf16=True)
+    assert plan.route == ("decode" if rows <= 16 else "rows") and plan.parts == 1
+    names = ("launches", "second_pass_launches", "decode_launches", "rows_launches")
+    before = [getattr(bsm.bsmm_fwd, n) for n in names]
+    ys = [bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n) for _ in range(3)]
+    torch.cuda.synchronize()
+    got = [getattr(bsm.bsmm_fwd, n) - b for n, b in zip(names, before)]
+    assert got == [3, 0, 3 * (plan.route == "decode"), 3 * (plan.route == "rows")]
+    assert all(torch.equal(ys[0].view(torch.int16), y.view(torch.int16)) for y in ys[1:])
+    want = bsm.bsmm_fwd_plain(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n)
+    torch.testing.assert_close(ys[0].float(), want.float(), **BF16_TOL)
+    oracle = ref.bsmm_ref(x.float(), v.float(), t.rows, t.cols, grid_m=meta.grid_m,
+                          grid_n=meta.grid_n)
+    torch.testing.assert_close(ys[0].float(), oracle, rtol=5e-2, atol=5e-2)
+    for layer_index in (1, 2):
+        fused = [bsm.bsmm_fwd(x, v, t.rows, t.cols, t.first_col, grid_n=meta.grid_n,
+                              all_relu=(0.6, layer_index)) for _ in range(3)]
+        assert all(torch.equal(fused[0].view(torch.int16), f.view(torch.int16))
+                   for f in fused[1:])
+        after = all_relu_fused.bias_all_relu(ys[0], None, alpha=0.6, layer_index=layer_index)
+        assert torch.equal(fused[0].view(torch.int16), after.view(torch.int16))
+
+
+@pytest.mark.parametrize("rows", [8, 2048])
+@pytest.mark.parametrize("which", ["win", "wout"])
+def test_kernels_d_e_bf16_on_recurrentgemma_ffn(cuda, which, rows):
+    """Kernels D and E bf16 on recurrentgemma-2b's W_in (block-rows of 5,
+    longer than D's ring) and W_out (60 block-rows, 20 columns) at 8 and a
+    train step's 2,048 rows (E's runs S by ``dw_splits_bf16``: 1 on W_in's 60
+    tiles, 2 on W_out's 40)."""
+    topo = _rg_topo(which)
+    assert bsm.dw_splits_bf16(topo.n_blocks, 2048) == {"win": 1, "wout": 2}[which]
+    _check_de_bf16(topo.meta, topo, *_de_bf16_inputs(cuda, topo.meta, topo, rows, rows + 3))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "falcon-mamba-7b", "qwen3-moe-30b-a3b"])
+def test_recurrent_and_moe_archs_on_card_match_cpu(cuda, arch):
+    """The RG-LRU, Mamba-1 and MoE blocks (plain PyTorch: the chunked scans,
+    the stable dispatch sort, the fixed-order combine) at their SMOKE
+    configs in f32: logits, loss with the auxiliary loss, and gradients on
+    the card within 1e-4 of the CPU's (relative L2 a leaf for gradients);
+    a decode step's logits too; the MoE forward the same bits twice."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import PatternLM
+    from repro_torch.tree import tree_flatten_with_names
+
+    cfg = configs.get_spec(arch).smoke
+    cpu = PatternLM(cfg, seed=0, device="cpu")
+    card = PatternLM(cfg, seed=0, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 33)))
+    res = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = model.device
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        total, loss, g = steps._microbatched_grad(steps.lm_loss_fn(model, model.topo_arrays()),
+                                                  model.params, batch, 1)
+        with torch.no_grad():
+            logits, _, aux = model.forward(model.params, batch["tokens"],
+                                           topo=model.topo_arrays())
+            again, _, _ = model.forward(model.params, batch["tokens"], topo=model.topo_arrays())
+            caches = model.init_caches(2, 16, dtype=torch.float32)
+            step, _, _ = model.forward(model.params, batch["tokens"][:, :1],
+                                       topo=model.topo_arrays(),
+                                       positions=torch.tensor([0], device=dev), mode="decode",
+                                       caches=caches)
+        assert torch.equal(logits, again)
+        res[name] = (logits.cpu(), float(total), float(aux), step.cpu(),
+                     [(n, a.cpu()) for n, a in tree_flatten_with_names(g)[0]])
+    (l0, t0, a0, s0, g0), (l1, t1, a1, s1, g1) = res["cpu"], res["card"]
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s1, s0, rtol=1e-4, atol=1e-4)
+    assert abs(t1 - t0) <= 1e-4 * abs(t0) and abs(a1 - a0) <= 1e-4 * max(abs(a0), 1e-6)
+    assert (a0 > 0) == (cfg.ffn == "moe")
+    for (name, a), (_, b) in zip(g1, g0):
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-7, name

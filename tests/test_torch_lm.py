@@ -47,6 +47,7 @@ from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
 from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.transformer import ModelConfig, PatternLM  # noqa: E402
+from repro_torch.serve.engine import SparseInferenceEngine  # noqa: E402
 from repro_torch.tree import tree_flatten_with_names, tree_map  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -632,12 +633,20 @@ def test_registry_matches_reference():
     ("recurrentgemma-2b", "'rglru'"),
 ])
 def test_unported_blocks_are_refused(arch, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*Queue 1, item 7"):
-        PatternLM(configs.get_spec(arch).smoke, seed=0, device="cpu")
+    """The model builds (``tests/test_torch_arch_smoke.py``); the serving
+    engine refuses it: a recurrent pattern as the reference's engine does
+    (a prefill returns no state), the MoE FFN naming its ROADMAP item."""
+    model = PatternLM(configs.get_spec(arch).smoke, seed=0, device="cpu")
+    if what == "'moe'":
+        with pytest.raises(NotImplementedError, match="MoE in the serving engine.*item 17"):
+            SparseInferenceEngine(model, device="cpu")
+    else:
+        with pytest.raises(ValueError, match=f"attention patterns only.*{what}"):
+            SparseInferenceEngine(model, device="cpu")
 
 
 def test_whisper_and_abstract_are_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7b"):
         configs.get_spec("whisper-medium")
     with pytest.raises(TypeError, match="abstract"):  # no shape-only build (Queue 1, item 9)
         PatternLM(LM_CFG, seed=0, abstract=True, device="cpu")
