@@ -2,8 +2,8 @@
 """Drive the port's SET-MLP serving and training paths (block, element and
 out-of-core, and the paper's masked and dense baselines), its bf16
 language model's serving (also compacted at deployment) and training paths,
-and the RG-LRU, Mamba-1 and MoE models of its architecture zoo on one
-NVIDIA card and check them.
+the RG-LRU, Mamba-1 and MoE models of its architecture zoo, Whisper-medium
+and the observability layer on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -241,7 +241,54 @@ Phases, one line each (any failure exits non-zero):
                    step's median, busy, idle share and launches, the train
                    step's median, the allocator's peak, the draw's seconds,
                    the card's name and power limit;
-18. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+18. whisper       — Whisper-medium (``models/whisper.py``) at full width and
+                   depth, bf16, 792,024,064 parameters drawn on the card from
+                   the seed: 3 steps of ``launch.steps.make_train_step`` at
+                   batch 4 (1,500 seeded frame embeddings, 448 tokens of the
+                   LM example's Zipf stream), finite losses, no kernel of the
+                   port launched (its FFN is the plain GELU MLP: the path is
+                   dense); the model cut to 2 + 2 layers in f32 on 1 x 64
+                   frames and 16 tokens, card vs CPU: logits at rtol 1e-4,
+                   each gradient leaf at 1e-4 relative L2, the cross
+                   attention's bias gradients exact zeros; 8 x 1,500 frames
+                   encoded, 64 tokens decoded one at a time from position 0
+                   (``make_decode_step``, ``init_caches(8, 448)``) against
+                   the teacher-forced logits of ``decode_train``
+                   (``logits_close``), and ``make_prefill_step`` on the
+                   first 32 tokens against them at position 31. A
+                   ``whisper_timing`` line: the train step's median, the
+                   encode's, a decode step's median with device busy, idle
+                   share and launches (``torch.profiler``), the allocator's
+                   peak, the draw's seconds, the card's name and power limit;
+19. obs           — the observability layer (``repro_torch.obs``): (a) the
+                   full-width element model, the element_train phase's data
+                   and settings with device SET, 3 epochs with
+                   ``TrainerConfig(probe=True)`` under ``obs.trace_to`` and
+                   ``timeline.timeline_to`` with an ``AnomalyMonitor``: both
+                   files valid, the reference's span taxonomy, every
+                   snapshot's layer stats against numpy over the tensors the
+                   probe read, no alert, the seeded dead layer
+                   (``zero_layer_transform(1)``) caught on layer 1, the run
+                   bit-equal to the unprobed one under ``obs.disabled()``
+                   (history, topologies, weights), the unprobed run's
+                   launches ``element_launches`` and the probed run's those
+                   plus one probe an epoch (A 7, 4 of them with the bias
+                   epilogue, B 3, F 4, G 3), ``python -m repro_torch.obs
+                   report`` rendering the timeline; (b) a classify burst at
+                   buckets 1 and 128 on a fresh engine: a ``serve.classify``
+                   span a call, a ``serve.compile`` point a new bucket; (c)
+                   the LM example's loop at full width (Qwen1.5-0.5B, bf16)
+                   for 2 steps with host SET after each, with its probe,
+                   trace and timeline: both files valid, the sparse FFN's
+                   stats finite, C, D and E bf16 launched a step as in
+                   lm_train; (d) ``sample_device_memory`` equal to the
+                   allocator's figures, ``profile_trace`` writing a Chrome
+                   trace that holds kernel A's launches; and the overhead:
+                   (a)'s run 5 times each, interleaved, disabled, traced,
+                   and traced + probed, in an ``obs_timing`` line with the
+                   card's name and power limit (the reference's budget,
+                   < 2 %, is reported, not enforced);
+20. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
                    worker-epoch: 2 rounds, the second with a padded step). The
@@ -261,7 +308,7 @@ Phases, one line each (any failure exits non-zero):
                    phase-1 epoch's device busy time, launches and idle share).
                    It runs after the timing phases: before them it made
                    their profiler sessions lose device events.
-19. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+21. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
                    full width on the card: the element and the block model
                    trained 3 epochs with device SET, pruning and the paper's
                    dropout 0.3, saved at every epoch; a fresh trainer
@@ -280,7 +327,7 @@ Phases, one line each (any failure exits non-zero):
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
                    profiles nothing;
-20. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+22. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
                    of the paper's first Table-4 row at full width,
                    65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
                    17,655,362 parameters), batch 32, the device budget 0.6 x
@@ -319,6 +366,7 @@ Without a card it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -4125,6 +4173,529 @@ def phase_lm_archs(out: dict) -> str:
     )
 
 
+# -- Whisper-medium: the encoder-decoder at full width and depth ---------------
+
+# configs/whisper_medium.py's FULL config: 24 + 24 layers, d_model 1,024, 16
+# heads, d_ff 4,096, vocab 51,865, a 32,768-row position table, bf16, remat
+# "block"; random weights from the seed, drawn on the card. Its FFN is the
+# plain GELU MLP: the path runs no kernel of the port (dense products).
+WHISPER_ARCH = "whisper-medium"
+WHISPER_PARAMS = 792_024_064  # the reference's eval_shape count of FULL
+WHISPER_TRAIN = dict(batch=4, frames=1500, tokens=448)  # a 30 s window, 448 text tokens
+WHISPER_TRAIN_STEPS = 3
+# the card against the CPU: full width, 2 + 2 layers, f32, 1 x 64 frames, 16 tokens
+WHISPER_CUT = dict(layers=2, frames=64, tokens=16)
+WHISPER_CUT_RTOL = 1e-4
+# decode: 8 rows over 1,500 encoded frames, 64 tokens teacher-forced from
+# position 0 into init_caches(8, 448); prefill of the first 32
+WHISPER_DECODE = dict(batch=8, frames=1500, tokens=64, max_len=448, prefill=32)
+WHISPER_TIMED = 3
+
+
+def whisper_frames(batch: int, frames: int, d_model: int, dtype: torch.dtype, seed: int,
+                   device=None) -> torch.Tensor:
+    """Frame embeddings (the stubbed frontend's output): seeded normals drawn
+    on the card, cast to ``dtype``."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    x = torch.randn((batch, frames, d_model), generator=gen, device=CARD).to(dtype)
+    return x if device is None else x.to(device)
+
+
+def whisper_cut_vs_cpu(cfg) -> dict:
+    """The model cut to WHISPER_CUT's layers in f32, its weights drawn on the
+    card and copied to the CPU: logits within WHISPER_CUT_RTOL, each
+    gradient leaf within WHISPER_CUT_RTOL relative L2, the cross
+    attention's bias gradients exact zeros, on both."""
+    from repro_torch.interop import whisper_from_numpy
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models.whisper import WhisperModel
+    from repro_torch.tree import tree_flatten_with_names
+
+    cut = dataclasses.replace(cfg, n_layers=WHISPER_CUT["layers"], dtype="float32")
+    card = WhisperModel(cut, seed=SEED, device=CARD)
+    cpu = whisper_from_numpy(dataclasses.asdict(cut),
+                             tree_map(lambda a: a.cpu().numpy(), card.params), device="cpu")
+    frames = whisper_frames(1, WHISPER_CUT["frames"], cut.d_model, torch.float32, SEED + 1,
+                            device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cut.vocab, (1, WHISPER_CUT["tokens"] + 1)))
+    res = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = model.device
+        batch = {"frames": frames.to(dev), "tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        _, loss, g = lsteps._microbatched_grad(lsteps.whisper_loss_fn(model), model.params,
+                                               batch, 1)
+        with torch.no_grad():
+            logits = model.logits(model.params, model.decode_train(
+                model.params, batch["tokens"], model.encode(model.params, batch["frames"])))
+        res[name] = (logits.cpu(), float(loss),
+                     [(n, a.cpu()) for n, a in tree_flatten_with_names(g)[0]])
+    (l0, s0, g0), (l1, s1, g1) = res["cpu"], res["card"]
+    torch.testing.assert_close(l1, l0, rtol=WHISPER_CUT_RTOL, atol=WHISPER_CUT_RTOL)
+    check(abs(s1 - s0) <= WHISPER_CUT_RTOL * abs(s0), f"whisper cut: loss {s1} vs CPU {s0}")
+    worst, zeros = ("", 0.0), 0
+    for (name, a), (_, b) in zip(g1, g0):
+        if "cross_attn" in name and name.endswith(("bq", "bk", "bv")):
+            check(not a.any() and not b.any(), f"whisper cut: {name}'s gradient is not zero")
+            zeros += 1
+            continue
+        rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        worst = max(worst, (name, rel), key=lambda t: t[1])
+    check(worst[1] <= WHISPER_CUT_RTOL, f"whisper cut: gradient {worst[0]} rel L2 {worst[1]:.3g}")
+    check(zeros == 3, f"whisper cut: {zeros} cross-attention bias gradients, expected 3")
+    return dict(logits_max_abs_err=float((l1 - l0).abs().max()), loss=s1, loss_cpu=s0,
+                worst_leaf=worst[0], worst_rel_l2=worst[1], leaves=len(g1))
+
+
+def phase_whisper(out: dict) -> str:
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models.whisper import WhisperModel
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_spec(WHISPER_ARCH).config
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab, cfg.max_text, cfg.dtype)
+          == (24, 1024, 16, 4096, 51865, 32768, "bfloat16"), f"whisper config {cfg}")
+    dtype = torch.bfloat16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = WhisperModel(cfg, seed=SEED, device=CARD)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    check(model.n_params == WHISPER_PARAMS, f"{model.n_params} parameters, expected "
+                                            f"{WHISPER_PARAMS}")
+    # training: the Zipf stream of the lm_train phase, seeded frames
+    B, S = WHISPER_TRAIN["batch"], WHISPER_TRAIN["tokens"]
+    stream = train_lm_example().synthetic_stream(np.random.default_rng(SEED), cfg.vocab, B, S + 1)
+    train_step, opt = lsteps.make_train_step(model)
+    params, state = model.params, opt.init(model.params)
+    batches = []
+    for i in range(WHISPER_TRAIN_STEPS):
+        toks = torch.as_tensor(next(stream), device=CARD).long()
+        batches.append({"frames": whisper_frames(B, WHISPER_TRAIN["frames"], cfg.d_model, dtype,
+                                                 SEED + i),
+                        "tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = []
+    for batch in batches:
+        params, state, met = train_step(params, state, batch)
+        losses.append(float(met["loss"]))
+    launches = read_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    check(launches == NO_LAUNCHES, f"whisper's train steps launched {launches}: its path is "
+                                   "dense, no kernel of the port")
+    check(bool(np.isfinite(losses).all()), f"whisper losses {losses}")
+    step_ms = median_ms(lambda: train_step(params, state, batches[-1]), reps=WHISPER_TIMED)
+    del state, batches
+    cut = whisper_cut_vs_cpu(cfg)
+
+    # decode, teacher-forced: the decode steps against decode_train's logits
+    D = WHISPER_DECODE
+    decode = lsteps.make_decode_step(model)
+    prefill = lsteps.make_prefill_step(model)
+    frames = whisper_frames(D["batch"], D["frames"], cfg.d_model, dtype, SEED + 7)
+    toks = torch.as_tensor(next(train_lm_example().synthetic_stream(
+        np.random.default_rng(SEED + 2), cfg.vocab, D["batch"], D["tokens"])), device=CARD).long()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        enc_ms = median_ms(lambda: model.encode(params, frames), reps=WHISPER_TIMED)
+        memory = model.encode(params, frames)
+        want = model.logits(params, model.decode_train(params, toks, memory))
+        caches = model.init_caches(D["batch"], D["max_len"])
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = [decode(params, {"tokens": toks[:, i:i + 1], "position": i, "caches": caches,
+                                "memory": memory})[0] for i in range(D["tokens"])]
+        torch.cuda.synchronize()
+        dec_launches = read_counts()
+        got = torch.cat(outs, 1)
+        pre = prefill(params, {"frames": frames, "tokens": toks[:, :D["prefill"]]})
+    check(dec_launches == NO_LAUNCHES, f"whisper's decode steps launched {dec_launches}")
+    vs_forward = logits_close(got.float(), want.float(), "whisper decode vs teacher-forced")
+    vs_prefill = logits_close(pre.float(), want[:, D["prefill"] - 1:D["prefill"]].float(),
+                              "whisper prefill vs teacher-forced")
+    del got, outs, want
+    last = {"tokens": toks[:, -1:], "position": D["tokens"] - 1, "caches": caches,
+            "memory": memory}
+    with torch.inference_mode():
+        dec_ms = median_ms(lambda: decode(params, last))
+        prof = profile_train_step(lambda: decode(params, last), dec_ms["median"], steps=5)
+    peak = max(train_peak, torch.cuda.max_memory_allocated())
+    # a decode step's cross attention recomputes the memory's K and V in
+    # every layer: 2 products of (B x frames, d) x (d, d) a layer
+    cross_kv_flops = 2 * 2 * D["batch"] * D["frames"] * cfg.d_model * cfg.d_model * cfg.n_layers
+    timing = dict(arch=WHISPER_ARCH, n_params=model.n_params, draw_s=draw_s, losses=losses,
+                  train=dict(WHISPER_TRAIN), train_step_ms=step_ms, train_peak_bytes=train_peak,
+                  encode=dict(batch=D["batch"], frames=D["frames"]), encode_ms=enc_ms,
+                  decode_step_ms=dec_ms, decode_device_busy_us=prof["device_busy_us"],
+                  decode_device_idle_share=prof["device_idle_share"],
+                  decode_device_launches=prof["device_launches"],
+                  decode_device_us_top=dict(sorted(prof["device_us_by_name"].items(),
+                                                   key=lambda kv: -kv[1])[:8]),
+                  decode_cross_kv_tflop=cross_kv_flops / 1e12,
+                  max_memory_allocated=peak, vs_forward=vs_forward, vs_prefill=vs_prefill,
+                  cut_vs_cpu=cut, card=out["smi"])
+    print(json.dumps({"whisper_timing": timing}), flush=True)
+    out["whisper"] = timing
+    return (
+        f"{WHISPER_ARCH} full width and depth (24 + 24 layers), bf16, {model.n_params} "
+        f"parameters (drawn on the card in {draw_s:.1f} s): {WHISPER_TRAIN_STEPS} train steps of "
+        f"{B} x {WHISPER_TRAIN['frames']} frames + {S} tokens, losses "
+        f"{[round(v, 4) for v in losses]}, no port kernel launched (dense path), step median "
+        f"{step_ms['median']:.1f} ms, peak {peak} B; {WHISPER_CUT['layers']}+"
+        f"{WHISPER_CUT['layers']}-layer f32 cut card vs CPU logits {cut['logits_max_abs_err']:.3g}, "
+        f"gradients worst {cut['worst_leaf']} {cut['worst_rel_l2']:.3g}, cross-attention bias "
+        f"gradients 0; decode of {D['tokens']} tokens x {D['batch']} rows vs teacher-forced max "
+        f"|diff| {vs_forward['max_abs_err']:.3g} (argmax agreement "
+        f"{vs_forward['argmax_agreement']:.3f}), prefill vs teacher-forced "
+        f"{vs_prefill['max_abs_err']:.3g}; encode {enc_ms['median']:.1f} ms, decode step "
+        f"{dec_ms['median']:.2f} ms (device busy {prof['device_busy_us']:.0f} us, idle share "
+        f"{prof['device_idle_share']:.3f})"
+    )
+
+
+# -- obs: the observability layer on the paper's main path ---------------------
+
+OBS_TIMED = 5  # interleaved runs of each variant
+OBS_LM_STEPS = 2
+OBS_SERVE_BURST = (1, 128, 1, 128, 1)  # classify calls: buckets 1 and 128, each new once
+
+
+def obs_trainer(probe: bool) -> SequentialTrainer:
+    """The element_train phase's data and settings with device SET (the
+    trainer's default: its churn is probed) and ``probe``."""
+    return SequentialTrainer(element_model(CARD), load("cifar10", scale=TRAIN_SCALE),
+                             dataclasses.replace(train_config(device_evolution=True),
+                                                 probe=probe))
+
+
+def probe_launches(cfg) -> dict:
+    """One probe's launches on the element model: a forward keeping z + bias
+    (A with the bias epilogue a layer, B's All-ReLU on each hidden layer)
+    and a backward (F with the bias's gradient a layer, G standalone on
+    each hidden layer, A's dX on all but layer 0)."""
+    L = cfg.n_layers
+    return {"coo_matmul_T": 2 * L - 1, "coo_matmul_T.epilogue": L, "bias_all_relu": L - 1,
+            "bias_all_relu.T": L - 1, "coo_dw": L, "coo_dw.epilogue": L, "all_relu_bwd": L - 1}
+
+
+def probe_oracle(snaps: list, seen: list) -> float:
+    """Each snapshot's stats against numpy over the tensors the probe read
+    (copied to the host by a spy on ``probes.segment_probe``), at
+    tests/test_probes.py's tolerances: value L2 rtol 1e-4, fractions 1e-6
+    absolute, quantiles rtol 1e-4, histograms exact. Returns the largest
+    relative error."""
+    worst = 0.0
+    for snap, (values, grads, rows, cols, preacts, dims) in zip(snaps, seen):
+        for l, st in enumerate(snap["layers"]):
+            v, g = values[l].astype(np.float64), grads[l].astype(np.float64)
+            imp = np.bincount(cols[l], weights=np.abs(v), minlength=dims[l + 1])
+            q = np.quantile(imp, (0.1, 0.5, 0.9))
+            rel = {"value_l2": np.sqrt(np.sum(v * v)), "grad_l2": np.sqrt(np.sum(g * g)),
+                   "imp_q10": q[0], "imp_q50": q[1], "imp_q90": q[2]}
+            for k, want in rel.items():
+                err = abs(st[k] - want) / max(abs(want), 1e-30)
+                check(err <= 1e-4, f"probe {k} layer {l}: {st[k]} vs numpy {want}")
+                worst = max(worst, err)
+            frac = {"value_zero_frac": np.mean(v == 0), "grad_zero_frac": np.mean(g == 0),
+                    "saturation": np.mean(preacts[l] <= 0),
+                    "dead_out_frac": np.mean(np.bincount(cols[l], minlength=dims[l + 1]) == 0),
+                    "dead_in_frac": np.mean(np.bincount(rows[l], minlength=dims[l]) == 0)}
+            for k, want in frac.items():
+                check(abs(st[k] - want) <= 1e-6, f"probe {k} layer {l}: {st[k]} vs {want}")
+            for k, idx, dim in (("in_deg_hist", cols[l], dims[l + 1]),
+                                ("out_deg_hist", rows[l], dims[l])):
+                deg = np.bincount(idx, minlength=dim)
+                b = np.where(deg == 0, 0, 1 + np.floor(np.log2(np.maximum(deg, 1))).astype(int))
+                want = np.bincount(np.clip(b, 0, 7), minlength=8).tolist()
+                check(st[k] == want, f"probe {k} layer {l}: {st[k]} vs {want}")
+    return worst
+
+
+def obs_element_run(work: Path) -> dict:
+    """(a): the probed, traced element run against the unprobed one under
+    ``obs.disabled()``, its launches, its snapshots against numpy, the
+    monitor, the seeded dead layer and the CLI's report."""
+    from repro_torch import obs
+    from repro_torch.obs import detect, probes, timeline
+
+    seen = []
+    real_probe = probes.segment_probe
+
+    def spy(params, grads, topo_arrays, preacts, layer_dims):
+        seen.append(([a.cpu().numpy() for a in params["values"]],
+                     [a.cpu().numpy() for a in grads["values"]],
+                     [t.rows.cpu().numpy() for t in topo_arrays],
+                     [t.cols.cpu().numpy() for t in topo_arrays],
+                     [z.cpu().numpy() for z in preacts], tuple(layer_dims)))
+        return real_probe(params, grads, topo_arrays, preacts, layer_dims)
+
+    probed = obs_trainer(True)
+    cfg = probed.model.config
+    trace, tl = work / "train.jsonl", work / "train_timeline.jsonl"
+    monitor = detect.configure(detect.AnomalyMonitor())
+    probes.segment_probe = spy
+    try:
+        reset_counts()
+        with obs.trace_to(str(trace), meta={"phase": "obs"}), \
+                timeline.timeline_to(tl, run_id="element_probe"):
+            hist = probed.run()
+        launches = read_counts()
+    finally:
+        probes.segment_probe = real_probe
+        detect.configure(None)
+    plain = obs_trainer(False)
+    reset_counts()
+    with obs.disabled():
+        plain_hist = plain.run()
+    plain_launches = read_counts()
+    steps, evals = run_steps(plain)
+    want = element_launches(cfg, steps, evals)
+    check(plain_launches == want, f"unprobed run launched {plain_launches}, expected {want}")
+    extra = probe_launches(cfg)
+    want_probed = {k: n + TRAIN_EPOCHS * extra.get(k, 0) for k, n in want.items()}
+    check(launches == want_probed, f"probed run launched {launches}, expected {want_probed}")
+    # a probe reads and never writes: the runs are the same bits
+    np.testing.assert_equal({k: v for k, v in hist.items() if k != "epoch_seconds"},
+                            {k: v for k, v in plain_hist.items() if k != "epoch_seconds"})
+    for a, b in zip(probed.model.topos, plain.model.topos):
+        check(np.array_equal(a.rows, b.rows) and np.array_equal(a.cols, b.cols),
+              "probed and unprobed topologies differ")
+    for a, b in zip(probed.model.values + probed.model.biases,
+                    plain.model.values + plain.model.biases):
+        check(torch.equal(a, b), "probed and unprobed weights differ")
+    events = obs.read_events(str(trace))
+    check(obs.validate_events(events) == [], f"trace: {obs.validate_events(events)[:3]}")
+    spans = [e for e in events if e["ev"] == "span"]
+    names = {e["name"] for e in spans}
+    check({"train.run", "train.epoch", "train.segment"} <= names, f"spans {names}")
+    run_span = next(e for e in spans if e["name"] == "train.run")
+    epochs = [e for e in spans if e["name"] == "train.epoch"]
+    check(len(epochs) == TRAIN_EPOCHS and all(e["parent"] == run_span["id"] for e in epochs),
+          "train.epoch spans are not the run's children")
+    points = sorted({e["name"] for e in events if e["ev"] == "point"})
+    tev = timeline.read_timeline(tl)
+    check(timeline.validate_timeline(tev) == [], f"timeline: {timeline.validate_timeline(tev)}")
+    snaps = timeline.snapshots(tev, "train")
+    check(len(snaps) == TRAIN_EPOCHS == len(seen), f"{len(snaps)} snapshots, {len(seen)} probes")
+    keys = {"grad_l2", "grad_zero_frac", "value_l2", "value_zero_frac", "saturation", "imp_q10",
+            "imp_q50", "imp_q90", "dead_out_frac", "dead_in_frac", "in_deg_hist", "out_deg_hist"}
+    for s in snaps:
+        check(len(s["layers"]) == cfg.n_layers and all(keys <= set(st) for st in s["layers"]),
+              f"snapshot at step {s['step']} lacks stats")
+    check(all("churn_frac" in st for s in snaps[:-1] for st in s["layers"]),
+          "the device SET's churn is missing")
+    worst = probe_oracle(snaps, seen)
+    check(timeline.alerts(tev) == [] and monitor.active_alerts == [],
+          f"the healthy run raised {timeline.alerts(tev)}")
+    # the seeded dead layer: the run's snapshots recorded again through a
+    # fresh monitor with layer 1 zeroed
+    sick = work / "sick_timeline.jsonl"
+    detect.configure(detect.AnomalyMonitor())
+    probes.set_snapshot_transform(probes.zero_layer_transform(layer=1))
+    try:
+        with timeline.timeline_to(sick, run_id="sick"):
+            for s in snaps:
+                probes.record_snapshot(s["step"], "train", layers=s["layers"], extra=s["extra"])
+    finally:
+        probes.set_snapshot_transform(None)
+        detect.configure(None)
+    alerts = sorted({(a["rule"], a["layer"]) for a in timeline.alerts(timeline.read_timeline(sick))})
+    check(alerts == [("dead_layer", 1)], f"the seeded dead layer raised {alerts}")
+    rep = subprocess.run([sys.executable, "-m", "repro_torch.obs", "report", str(tl)],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+                                  PATH="/usr/bin:/bin:/usr/local/bin"))
+    check(rep.returncode == 0 and "[train]" in rep.stdout and "alerts: none" in rep.stdout,
+          f"obs report: rc {rep.returncode} {rep.stderr[-300:]}")
+    return dict(history=hist, launches=launches, probe_launches_per_epoch=extra,
+                spans=sorted(names), points=points, n_events=len(events),
+                snapshots=len(snaps), oracle_worst_rel=worst, pathology=alerts,
+                report_lines=len(rep.stdout.splitlines()))
+
+
+def obs_served_spans(out: dict, work: Path) -> dict:
+    """(b): a classify burst under a trace, on a fresh engine with buckets 1
+    and 128: one serve.classify span a call, one serve.compile point a new
+    bucket."""
+    from repro_torch import obs
+
+    engine = SparseInferenceEngine(out["model"], engine=EngineConfig(batch_buckets=(1, 128)))
+    path = work / "serve.jsonl"
+    with obs.trace_to(str(path)):
+        for n in OBS_SERVE_BURST:
+            engine.classify(requests(out["x_test"], n))
+    events = obs.read_events(str(path))
+    check(obs.validate_events(events) == [], "serve trace invalid")
+    spans = [e for e in events if e["ev"] == "span" and e["name"] == "serve.classify"]
+    compiles = [e["attrs"]["bucket"] for e in events
+                if e["ev"] == "point" and e["name"] == "serve.compile"]
+    check(len(spans) == len(OBS_SERVE_BURST), f"{len(spans)} serve.classify spans")
+    check(sorted(compiles) == [1, 128], f"serve.compile points {compiles}")
+    return dict(calls=len(spans), compiles=compiles,
+                classify_ms={str(n): 1e3 * float(np.median([e["dur_s"] for e in spans
+                                                            if e["attrs"]["bucket"] == n]))
+                             for n in (1, 128)})
+
+
+def obs_lm_run(work: Path) -> dict:
+    """(c): the LM example's loop at full width (bf16) for OBS_LM_STEPS
+    steps with host SET after each, ``--probe --trace --timeline``: both
+    files valid, the sparse FFN's snapshot stats finite, and C, D and E
+    bf16 launched a step as in lm_train."""
+    from repro_torch import obs
+    from repro_torch.obs import timeline
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    example = train_lm_example()
+    model = PatternLM(lm_config(), seed=SEED, device=CARD)
+    L = model.cfg.n_layers
+    want_step = {"bsmm_fwd": 4 * L, "rows": 4 * L, "bsmm_dx": 2 * L, "bsmm_dx.bf16": 2 * L,
+                 "bsmm_dw": 2 * L, "bsmm_dw.bf16": 2 * L}
+    snaps_n, per_step = [], []
+
+    def counts():
+        return dict(read_counts(), **de_second_passes(), **c_sub_counts())
+
+    def on_step(i, params, metrics):
+        snap = counts()
+        per_step.append({k: n - snaps_n[-1][k] for k, n in snap.items() if n - snaps_n[-1][k]})
+        snaps_n.append(snap)
+
+    trace, tl = work / "lm.jsonl", work / "lm_timeline.jsonl"
+    reset_counts()
+    snaps_n.append(counts())
+    run = example.train(model, steps=OBS_LM_STEPS, batch=LM_TRAIN["batch"], seq=LM_TRAIN["seq"],
+                        lr=LM_TRAIN["lr"], evolve_every=1, zeta=LM_TRAIN["zeta"],
+                        on_step=on_step, verbose=False, trace=str(trace), probe=True,
+                        timeline=str(tl))
+    for i, got in enumerate(per_step):
+        check(got == want_step, f"LM step {i} launched {got}, expected {want_step}")
+    events = obs.read_events(str(trace))
+    check(obs.validate_events(events) == [], "LM trace invalid")
+    names = [e["name"] for e in events if e["ev"] == "span"]
+    check(names.count("train.step") == OBS_LM_STEPS and names.count("train.evolve")
+          == OBS_LM_STEPS and names.count("train.run") == 1, f"LM spans {sorted(set(names))}")
+    tev = run["timeline"]
+    check(timeline.validate_timeline(tev) == [], "LM timeline invalid")
+    snaps = timeline.snapshots(tev, "lm")
+    check(len(snaps) == OBS_LM_STEPS + 1, f"{len(snaps)} LM snapshots")
+    vals = [v for s in snaps for st in s["layers"] for v in st.values()]
+    check(bool(np.isfinite(vals).all()), "LM snapshot stats not finite")
+    return dict(losses=run["losses"], per_step_launches=per_step, spans=sorted(set(names)),
+                snapshots=[s["layers"] for s in snaps], alerts=timeline.alerts(tev))
+
+
+def obs_profiling(work: Path, attempts: int = 3) -> dict:
+    """(d): ``sample_device_memory`` against the allocator, and
+    ``profile_trace`` around kernel A's launches writing a Chrome trace that
+    holds them. torch.profiler can drop the device events of whole calls
+    late in a run (PERF.md §7): every capture must hold kernel A launches,
+    and one that holds fewer than A's wrapper counted is taken again, up to
+    ``attempts`` times, as ``profile_classify`` does; each capture's count
+    is reported."""
+    from repro_torch import obs
+
+    x = torch.empty(1 << 26, dtype=torch.uint8, device=CARD)
+    mem = obs.sample_device_memory(obs.MetricsRegistry(control=True))
+    dev = torch.cuda.current_device()
+    check(mem[f"device_bytes_in_use{{device={dev}}}"] == torch.cuda.memory_allocated(dev)
+          and mem[f"device_peak_bytes_in_use{{device={dev}}}"]
+          == torch.cuda.max_memory_allocated(dev), f"device memory {mem}")
+    del x
+    model = element_model(CARD)
+    xb = torch.as_tensor(load("cifar10", scale=TRAIN_SCALE).x_test[:128], device=CARD)
+    held = []
+    for attempt in range(attempts):
+        reset_counts()
+        with obs.profile_trace(str(work / "prof"), name="kernel_a"):
+            with torch.no_grad():
+                for _ in range(3):
+                    mlp_forward(model.params(), model.topo_arrays(), xb, model.config)
+        launched = read_counts()["coo_matmul_T"]
+        trace = json.loads((work / "prof" / "kernel_a.pt.trace.json").read_text())
+        held.append(sum(1 for e in trace.get("traceEvents", [])
+                        if e.get("cat") == "kernel" and "coo_matmul_T" in e.get("name", "")))
+        check(launched == 3 * model.config.n_layers, f"kernel A launched {launched}")
+        check(0 < held[-1] <= launched, f"the profile holds {held[-1]} of kernel A's "
+                                        f"{launched} launches")
+        if held[-1] == launched:
+            break
+    return dict(memory=mem, kernel_a_launches=launched, kernel_a_events=held[-1],
+                kernel_a_events_per_capture=held)
+
+
+def obs_overhead() -> dict:
+    """One 3-epoch run of (a)'s model, OBS_TIMED times each, interleaved:
+    under ``obs.disabled()``, traced, and traced + probed (timeline and
+    monitor). Host-clock seconds of ``run()`` and its epoch_seconds."""
+    from repro_torch import obs
+    from repro_torch.obs import detect, timeline
+
+    work = Path(tempfile.mkdtemp(prefix="obs_timing_"))
+    secs = {"disabled": [], "traced": [], "traced_probed": []}
+    epochs = {k: [] for k in secs}
+    for rep in range(OBS_TIMED):
+        for variant in secs:
+            trainer = obs_trainer(variant == "traced_probed")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if variant == "disabled":
+                with obs.disabled():
+                    hist = trainer.run()
+            else:
+                ctx = timeline.timeline_to(work / f"tl{rep}.jsonl", run_id="t") \
+                    if variant == "traced_probed" else contextlib.nullcontext()
+                detect.configure(detect.AnomalyMonitor() if variant == "traced_probed" else None)
+                with obs.trace_to(str(work / f"t{rep}.jsonl")), ctx:
+                    hist = trainer.run()
+                detect.configure(None)
+            torch.cuda.synchronize()
+            secs[variant].append(time.perf_counter() - t0)
+            epochs[variant].extend(hist["epoch_seconds"])
+    med = {k: float(np.median(v)) for k, v in secs.items()}
+    return dict(run_s=secs, run_s_median=med,
+                epoch_s_median={k: float(np.median(v)) for k, v in epochs.items()},
+                per_epoch_s_median={k: v / TRAIN_EPOCHS for k, v in med.items()},
+                overhead_traced=med["traced"] / med["disabled"] - 1,
+                overhead_traced_probed=med["traced_probed"] / med["disabled"] - 1,
+                budget=0.02)
+
+
+def phase_obs(out: dict) -> str:
+    work = Path(tempfile.mkdtemp(prefix="obs_"))
+    res = {}
+    for key, fn in (("element", lambda: obs_element_run(work)),
+                    ("serve", lambda: obs_served_spans(out, work)),
+                    ("lm", lambda: obs_lm_run(work)),
+                    ("profiling", lambda: obs_profiling(work)),
+                    ("overhead", obs_overhead)):
+        t0 = time.perf_counter()
+        res[key] = fn()
+        res[key]["seconds"] = time.perf_counter() - t0
+    res["card"] = out["smi"]
+    ov = res["overhead"]
+    res["holds_budget"] = bool(ov["overhead_traced_probed"] < ov["budget"])
+    print(json.dumps({"obs_timing": res}), flush=True)
+    el, lm = res["element"], res["lm"]
+    return (
+        f"(a) the element model 3 epochs probed + traced: spans {el['spans']}, points "
+        f"{el['points']}, {el['snapshots']} snapshots within {el['oracle_worst_rel']:.3g} of numpy, "
+        f"no alert, bit-equal to the unprobed run, probe launches an epoch "
+        f"{el['probe_launches_per_epoch']}, dead layer caught {el['pathology']}; (b) "
+        f"{res['serve']['calls']} classify spans, compiles at buckets {res['serve']['compiles']}; "
+        f"(c) Qwen1.5-0.5B {OBS_LM_STEPS} steps probed + traced, losses "
+        f"{[round(v, 4) for v in lm['losses']]}, C/D/E bf16 a step as lm_train; (d) memory "
+        f"gauges = allocator, profile holds kernel A's {res['profiling']['kernel_a_events']} of "
+        f"{res['profiling']['kernel_a_launches']} launches (captures "
+        f"{res['profiling']['kernel_a_events_per_capture']}); overhead traced {100 * ov['overhead_traced']:.2f} %, traced + probed "
+        f"{100 * ov['overhead_traced_probed']:.2f} % (run medians {ov['run_s_median']}), "
+        f"budget 2 % {'held' if res['holds_budget'] else 'not held'}"
+    )
+
+
 # -- out-of-core XL: the paper's Table-4 regime --------------------------------
 
 # The paper's first Table-4 row at full width (benchmarks/table4_extreme.py
@@ -4658,6 +5229,8 @@ def main() -> int:
         ("lm_train", phase_lm_train),
         # the rest of the zoo: RG-LRU (on C, D and E bf16), Mamba-1 and MoE
         ("lm_archs", phase_lm_archs),
+        # Whisper-medium at full width and depth, and the observability layer
+        ("whisper", phase_whisper), ("obs", phase_obs),
         # after the timing phases: run before them, it made their
         # torch.profiler sessions lose device events (PERF.md §7)
         ("wasap", phase_wasap), ("checkpoint", phase_checkpoint), ("xl", phase_xl),

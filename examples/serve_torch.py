@@ -19,15 +19,18 @@ bf16 matrix products on the card are pinned to full-precision reductions
 (``allow_bf16_reduced_precision_reduction = False``) here, not inside the
 library.
 
-Not yet: ``--trace`` (the obs trace, ROADMAP Queue 1, item 4) is refused.
+``--trace PATH`` writes a JSONL obs trace of the measured serving run (the
+engine's ``serve.prefill``/``serve.decode_step`` spans, the batcher's
+``serve.queue``/``serve.request`` spans) and prints its per-span summary.
 """
 import argparse
+import contextlib
 import dataclasses
 import tempfile
 
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, obs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.importance import PruningSchedule
 from repro_torch.models.transformer import PatternLM
@@ -55,12 +58,11 @@ def main(argv=None):
     ap.add_argument("--naive", action="store_true",
                     help="also run the sequential per-request baseline")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="refused: the obs trace comes with ROADMAP Queue 1, item 4")
+                    help="write a JSONL obs trace of the measured serving run (DESIGN.md §11) "
+                    "and print the per-span summary")
     ap.add_argument("--device", default=None,
                     help="torch device; the card by default, 'cpu' for the plain versions")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError("--trace: the obs trace comes with ROADMAP Queue 1, item 4")
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     spec = configs.get_spec(args.arch)
@@ -97,7 +99,11 @@ def main(argv=None):
         # warm-up: every bucket's and decode's first use
         ContinuousBatcher(engine).run(make_trace(0))
         warm_compiles = engine.stats["compiles"]
-        stats = ContinuousBatcher(engine).run(make_trace(1))
+        # trace only the measured run: the warm-up's first uses would dominate it
+        trace_ctx = (obs.trace_to(args.trace, meta={"example": "serve_torch", "arch": args.arch})
+                     if args.trace else contextlib.nullcontext())
+        with trace_ctx:
+            stats = ContinuousBatcher(engine).run(make_trace(1))
         print(f"arch={args.arch} ({'full' if args.full else 'reduced'}, sparse FFN, "
               f"{cfg.dtype}) device={engine.device} slots={ec.max_slots}")
         print(f"continuous batching: {stats.generated_tokens} tokens in "
@@ -110,6 +116,10 @@ def main(argv=None):
         print(f"bucket cache: {post['compiles']} builds "
               f"({post['compiles'] - warm_compiles} after warm-up), "
               f"hit rate {post['hit_rate']:.2f}")
+        if args.trace:
+            summary = obs.summarize_events(obs.read_events(args.trace))
+            print(f"\ntrace written to {args.trace} ({summary['n_events']} events)")
+            print(obs.format_summary(summary))
 
         if args.naive:
             naive_engine = SparseInferenceEngine.from_checkpoint(

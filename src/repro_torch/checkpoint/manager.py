@@ -27,9 +27,9 @@ no bfloat16.
 * Integrity (DESIGN.md §8): ``verify_step`` re-reads every file against the
   manifest's crc32 and byte count; ``latest_valid_step`` scans backward past
   a bad step and moves it to ``quarantine/`` with a ``QUARANTINE_REASON.txt``
-  (the reference's ``obs.point("checkpoint.quarantine")`` comes with the
-  observability slice, ROADMAP Queue 1, item 4); ``restore`` verifies first
-  and raises :class:`CheckpointCorruptError` naming the step and leaf.
+  and an ``obs`` point, ``checkpoint.quarantine``; ``restore`` verifies
+  first and raises :class:`CheckpointCorruptError` naming the step and
+  leaf.
 * ``restore`` returns numpy leaves, as the reference does without
   ``shardings`` (a bfloat16 leaf as a CPU ``torch.bfloat16`` tensor), or
   tensors on ``device=``. Re-sharding onto a mesh (``shardings``) comes with
@@ -388,6 +388,8 @@ class CheckpointManager:
             shutil.rmtree(dst)
         src.rename(dst)
         (dst / "QUARANTINE_REASON.txt").write_text(reason + "\n")
+        from repro_torch import obs
+        obs.point("checkpoint.quarantine", step=step, reason=reason)
         return dst
 
     def latest_valid_step(self, quarantine: bool = True) -> Optional[int]:

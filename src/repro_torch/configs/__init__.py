@@ -4,8 +4,8 @@ Twin of ``repro.configs``.
 Each ``src/repro_torch/configs/<arch>.py`` defines ``SPEC: ArchSpec`` with the
 exact published FULL config, a structurally identical reduced SMOKE config,
 and the shape-cell applicability map, as the reference's do (dataclass
-literals, copied). The port builds every ``PatternLM`` arch; the
-encoder-decoder ``whisper-medium`` has no twin yet and is refused.
+literals, copied). The port builds every arch: the ``PatternLM`` archs and
+the encoder-decoder ``whisper-medium`` (``models.whisper``).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ SHAPES = {
 class ArchSpec:
     arch_id: str
     family: str                      # moe | dense | vlm | ssm | hybrid | audio | mlp
-    config: object                   # ModelConfig | SparseMLPConfig
+    config: object                   # ModelConfig | WhisperConfig | SparseMLPConfig
     smoke: object
     shapes: Dict[str, object]        # shape_id -> True | "skip reason"
     prefix_tokens: int = 0           # vlm image prefix (stub embeddings)
@@ -59,9 +59,5 @@ def list_archs():
 def get_spec(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; options: {list(_MODULES)}")
-    if arch_id == "whisper-medium":
-        raise NotImplementedError(
-            "whisper-medium (WhisperConfig, the encoder-decoder) comes with Whisper "
-            "(ROADMAP Queue 1, item 7b)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.SPEC

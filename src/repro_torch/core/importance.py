@@ -5,7 +5,8 @@ Importance of neuron j in layer l is its graph *strength*:
 
     I_j = sum_{i in Gamma_j} |w_ij|
 
-i.e. the L1 norm of the incoming-weight column.
+i.e. the L1 norm of the incoming-weight column. :func:`neuron_importance_jnp`
+computes it on the device (the probes' importance quantiles).
 """
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.sparsity import BlockTopology, ElementTopology
+from repro_torch.core.sparsity import BlockTopology, ElementTopology, segment_offsets
 
 __all__ = [
     "element_degrees",
@@ -182,3 +184,26 @@ def importance_prune_block(
         pruned,
         removed,
     )
+
+
+# ---------------------------------------------------------------------------
+# device-side importance (for the probes)
+# ---------------------------------------------------------------------------
+
+
+def neuron_importance_jnp(values: torch.Tensor, cols: torch.Tensor, out_dim: int, *,
+                          col_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. (4) on the device for COO values, O(nnz), in ``values``' dtype;
+    the twin of the reference's function of this name. Each output neuron
+    sums |w| over its slots in slot order (``torch.segment_reduce`` over
+    the column offsets), never by float atomics, so it gives the same bits
+    every run. ``col_ptr`` (int64 (out_dim + 1,)) are the offsets of a
+    column-sorted ``cols``, as an element topology keeps them; without
+    them the slots are sorted by column first (a stable sort: ties keep
+    their order)."""
+    a = values.abs()
+    if col_ptr is None:
+        order = torch.argsort(cols, stable=True)
+        cols, a = cols[order], a[order]
+        col_ptr = segment_offsets(cols, out_dim)
+    return torch.segment_reduce(a, "sum", offsets=col_ptr.long(), axis=0, unsafe=True)

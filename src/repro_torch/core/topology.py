@@ -542,11 +542,9 @@ def evolve_element_layers_device(
     (:func:`element_device_arrays`, kernel A's route hint carried from the
     layer's old arrays). Returns ``(topo_arrays, values, velocity,
     n_pruned)``, ``n_pruned`` the per-layer pruned counts as one device
-    tensor; nothing syncs. ``probe`` (the reference's churn probe) comes
-    with the probes slice."""
-    if probe:
-        raise NotImplementedError(
-            "training-dynamics probes come with the probes slice (ROADMAP Queue 1, item 4)")
+    tensor; nothing syncs. ``n_pruned`` is what the reference returns only
+    with ``probe=True`` (the churn probe's counts); here it is always
+    returned, so ``probe`` changes nothing."""
     new_topo, new_vals, new_vel, n_pruned = [], [], [], []
     for l, arrays in enumerate(topo_arrays):
         n_in, n_out = layer_dims[l], layer_dims[l + 1]

@@ -59,12 +59,19 @@ streams; a fresh trainer restored from it (``restore_checkpoint``: the
 phase, ``start_epoch``, ``_p1_state`` or ``_p2_workers``) runs on to the
 same bits. The checkpoint crosses between the packages in both directions.
 
+Observability, as the reference's: the spans ``wasap.run``,
+``wasap.epoch``, ``wasap.sync_rounds`` (phase 1), ``wasap.worker_segments``
+(phase 2) and ``wasap.merge``, the point ``wasap.evolve``, and with
+``WASAPConfig(probe=True)`` one ``"wasap"`` snapshot per fused epoch: in
+phase 1 the epoch function's probe of the averaged master on the epoch's
+first batch, in phase 2 worker 0's segment probe, each with its SET churn.
+A probe reads the weights and never writes them.
+
 Not in this slice, and refused with an error naming the ROADMAP item: the
 ``shard_map`` worker axis (item 9); a heartbeat ``monitor`` (elastic
-rounds), a ``fault_hook`` and ``step_retries`` (runtime, item 5);
-training-dynamics probes, ``probe=True`` (item 4); and buffer donation
-(item 5). The reference's ``obs`` spans come with item 4, its
-contract-auditor registration (``analysis_programs``) with item 8.
+rounds), a ``fault_hook`` and ``step_retries`` (runtime, item 5); and
+buffer donation (item 5). Its contract-auditor registration
+(``analysis_programs``) comes with item 8.
 """
 from __future__ import annotations
 
@@ -77,6 +84,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.sparsity import ElementTopology
 from repro_torch.core.topology import (
     evolve_element,
@@ -90,7 +98,8 @@ from repro_torch.launch.steps import (
     make_mlp_train_step,
     scan_masked_segment,
 )
-from repro_torch.models.mlp import SparseMLP, SparseMLPConfig
+from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, cross_entropy_loss, mlp_forward
+from repro_torch.obs import probes
 from repro_torch.optim.sgd import MomentumSGD, SGDState, replace_values_velocity
 from repro_torch.train.trainer import (
     _params_like,
@@ -111,7 +120,6 @@ __all__ = [
 
 _SHARD_MAP = ("worker_axis='shard_map' comes with the pod machinery (ROADMAP Queue 1, item 9: "
               "torch.distributed); one card runs worker_axis='vmap'")
-_PROBES = "training-dynamics probes come with the probes slice (ROADMAP Queue 1, item 4)"
 
 
 @dataclasses.dataclass
@@ -133,7 +141,7 @@ class WASAPConfig:
     average_momentum: bool = True
     fused: bool = True           # device-resident epochs and SET (False: seed loop)
     worker_axis: str = "vmap"    # vmap | shard_map (refused: ROADMAP Queue 1, item 9)
-    probe: bool = False          # refused: ROADMAP Queue 1, item 4
+    probe: bool = False          # training-dynamics probes (obs.probes, DESIGN.md §12)
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +233,13 @@ def make_phase1_epoch_fn(
     validity weights over the worker axis, renormalised inside the average
     — so a dead worker contributes zero while the round completes with the
     survivors. ``mesh`` goes with ``worker_axis="shard_map"``, which is
-    refused here (ROADMAP Queue 1, item 9), as are ``donate`` (item 5)
-    and ``probe`` (item 4).
+    refused here (ROADMAP Queue 1, item 9), as is ``donate`` (item 5).
+
+    ``probe=True`` appends a fourth output: the per-layer training-dynamics
+    stats of ``obs.probes.segment_probe`` (device tensors), from one
+    forward and backward at the epoch's final averaged weights on its first
+    batch (round 0, worker 0: always a valid step), after the rounds. It
+    draws nothing and writes no weight.
     """
     if worker_axis not in ("vmap", "shard_map"):
         raise ValueError(f"worker_axis must be vmap|shard_map, got {worker_axis!r}")
@@ -235,8 +248,6 @@ def make_phase1_epoch_fn(
     if donate is not None:
         raise NotImplementedError(
             "buffer donation comes with the runtime slice (ROADMAP Queue 1, item 5)")
-    if probe:
-        raise NotImplementedError(_PROBES)
 
     def local_steps(params, opt_state, topo, x_all, y_all, idx_h, lrs_h, valid_h, key):
         step_core = make_mlp_step_core(config, opt, topo, x_all, y_all)
@@ -259,7 +270,18 @@ def make_phase1_epoch_fn(
                          if average_momentum else _take_worker0(so))
             params = new_params
             loss_sums.append(torch.stack([o[2] for o in outs]).sum())
-        return params, opt_state, torch.stack(loss_sums)
+        if not probe:
+            return params, opt_state, torch.stack(loss_sums)
+        # probe on the epoch's first batch (round 0, worker 0: always valid;
+        # padding only reaches tail rounds)
+        xb, yb = x_all.index_select(0, idx[0, 0, 0]), y_all.index_select(0, idx[0, 0, 0])
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        logits, preacts = mlp_forward(leaves, topo, xb, config, train=False,
+                                      return_preacts=True)
+        grads = torch.autograd.grad(cross_entropy_loss(logits, yb), leaves["values"])
+        stats = probes.segment_probe(params, {"values": grads}, topo,
+                                     [z.detach() for z in preacts], config.layer_dims)
+        return params, opt_state, torch.stack(loss_sums), stats
 
     if weighted:
         return epoch_program
@@ -381,8 +403,6 @@ class WASAPTrainer:
             raise ValueError(f"worker_axis must be vmap|shard_map, got {wc.worker_axis!r}")
         if wc.worker_axis == "shard_map":
             raise NotImplementedError(_SHARD_MAP)
-        if wc.probe:
-            raise NotImplementedError(_PROBES)
         self.model = model
         self.data = data
         self.wc = wc
@@ -408,9 +428,11 @@ class WASAPTrainer:
         if self._fused:
             self._epoch_fn = make_phase1_epoch_fn(
                 cfg, self.opt, n_workers=wc.n_workers, average_momentum=wc.average_momentum,
-                worker_axis=wc.worker_axis,
+                worker_axis=wc.worker_axis, probe=wc.probe,
             )
             self._segment = make_segment_program(cfg, self.opt)
+            # phase 2's probe segment, for worker 0 only
+            self._probe_segment = make_segment_program(cfg, self.opt, True) if wc.probe else None
         else:
             self._round = _make_worker_round(cfg, self.opt)
         self.loaders = [
@@ -432,6 +454,7 @@ class WASAPTrainer:
         self._phase = 1                 # 1 | 2 — which phase run() enters
         self._p1_state = None           # (params, opt_state, topo) at a boundary
         self._p2_workers = None         # phase-2 replicas at a boundary
+        self._last_churn = None         # (n_pruned, nnz) of the last probed SET
         # the reference's elasticity and fault-tolerance seams; refused by run()
         self.monitor = None
         self.fault_hook = None
@@ -465,15 +488,18 @@ class WASAPTrainer:
                 "heartbeat monitors, fault hooks and step retries come with the runtime "
                 "slice (ROADMAP Queue 1, item 5)"
             )
-        if self._fused:
-            if self._phase == 1:
-                self._run_phase1_fused()
-                self._phase = 2
-            worker_states = self._run_phase2_fused()
-        else:
-            self._run_phase1_roundloop()
-            worker_states = self._run_phase2_perbatch()
-        self._merge_workers(worker_states)
+        with obs.span("wasap.run", mode=self.wc.mode, workers=self.wc.n_workers,
+                      fused=self._fused, worker_axis=self.wc.worker_axis):
+            if self._fused:
+                if self._phase == 1:
+                    self._run_phase1_fused()
+                    self._phase = 2
+                worker_states = self._run_phase2_fused()
+            else:
+                self._run_phase1_roundloop()
+                worker_states = self._run_phase2_perbatch()
+            with obs.span("wasap.merge", workers=len(worker_states)):
+                self._merge_workers(worker_states)
         acc = evaluate(self.model, self.data.x_test, self.data.y_test)
         wc = self.wc
         self.history["epoch"].append(wc.phase1_epochs + wc.phase2_epochs)
@@ -515,6 +541,16 @@ class WASAPTrainer:
                 torch.as_tensor(lrs.reshape(rounds, h), device=dev),
                 torch.as_tensor(valid.reshape(rounds, h), device=dev))
 
+    def _record_probe(self, step: int, probe_dev, churn_src, extra: Dict) -> None:
+        """A fused epoch's ``"wasap"`` snapshot, host-side after the
+        epoch's sync: the probe's stats and the SET churn of ``churn_src``
+        (``(n_pruned, nnz)`` or None)."""
+        churn = None
+        if churn_src is not None:
+            counts, nnz = churn_src
+            churn = [float(c) / max(1, n) for c, n in zip(counts.tolist(), nnz)]
+        probes.record_snapshot(step, "wasap", probe_dev, churn=churn, extra=extra)
+
     def _run_phase1_fused(self) -> None:
         wc, model, dev = self.wc, self.model, self.device
         k, steps = wc.n_workers, self._phase1_steps()
@@ -527,28 +563,44 @@ class WASAPTrainer:
             topo = model.topo_arrays()
         start = min(self.start_epoch, wc.phase1_epochs)
         gstep = start * steps
+        rounds = -(-steps // self._h)
         for epoch in range(start, wc.phase1_epochs):
-            t0 = time.perf_counter()
-            params, opt_state, loss_sums = self._epoch_fn(
-                params, opt_state, topo, x_all, y_all, *self._phase1_inputs(epoch, gstep),
-                self.key,
-            )
-            gstep += steps
-            # master topology evolution on the averaged model; momentum is
-            # re-aligned (RetainValidUpdates semantics for velocity)
-            topo, params, opt_state = self._evolve_device(topo, params, opt_state, self.key)
-            # wait for the epoch's device work, so that epoch_seconds
-            # measures it, not its enqueueing
-            _sync(dev)
-            dt = time.perf_counter() - t0
-            train_loss = float(loss_sums.sum()) / (k * steps)
-            acc = evaluate(model, self.data.x_test, self.data.y_test, params=params,
-                           topo_arrays=topo)
-            self._log(epoch, 1, train_loss, dt, acc)
-            self._p1_state = (params, opt_state, topo)
-            self.epoch_next = epoch + 1
-            if self.epoch_end_hook is not None:
-                self.epoch_end_hook(self, epoch)
+            with obs.span("wasap.epoch", epoch=epoch, phase=1, rounds=rounds) as ep_sp:
+                t0 = time.perf_counter()
+                # the epoch's rounds; the span waits for their losses at close
+                with obs.span("wasap.sync_rounds", rounds=rounds, h=self._h,
+                              elastic=False) as sr_sp:
+                    out = self._epoch_fn(
+                        params, opt_state, topo, x_all, y_all,
+                        *self._phase1_inputs(epoch, gstep), self.key,
+                    )
+                    params, opt_state, loss_sums = out[:3]
+                    probe_dev = out[3] if wc.probe else None
+                    sr_sp.block_on(loss_sums)
+                gstep += steps
+                # master topology evolution on the averaged model; momentum is
+                # re-aligned (RetainValidUpdates semantics for velocity)
+                topo, params, opt_state = self._evolve_device(topo, params, opt_state,
+                                                              self.key, master=True)
+                obs.point("wasap.evolve", epoch=epoch, device=True)
+                # wait for the epoch's device work, so that epoch_seconds
+                # measures it, not its enqueueing
+                _sync(dev)
+                dt = time.perf_counter() - t0
+                train_loss = float(loss_sums.sum()) / (k * steps)
+                acc = evaluate(model, self.data.x_test, self.data.y_test, params=params,
+                               topo_arrays=topo)
+                if probe_dev is not None:
+                    self._record_probe(gstep, probe_dev, self._last_churn,
+                                       {"epoch": epoch, "phase": 1, "loss": train_loss,
+                                        "acc": float(acc)})
+                    self._last_churn = None
+                ep_sp.set(loss=train_loss, acc=float(acc))
+                self._log(epoch, 1, train_loss, dt, acc)
+                self._p1_state = (params, opt_state, topo)
+                self.epoch_next = epoch + 1
+                if self.epoch_end_hook is not None:
+                    self.epoch_end_hook(self, epoch)
         model.set_params(params)
         self._sync_topos_to_host(topo)
         self.epoch_next = wc.phase1_epochs
@@ -626,28 +678,49 @@ class WASAPTrainer:
                 workers.append({"params": base, "opt": self.opt.init(base),
                                 "topo": model.topo_arrays(), "key": key})
         start = max(self.start_epoch, wc.phase1_epochs)
+        steps_per_epoch = min(ld.steps_per_epoch for ld in self.loaders)
         for epoch in range(start, wc.phase1_epochs + wc.phase2_epochs):
-            t0 = time.perf_counter()
-            losses = []
-            for wk, w in enumerate(workers):
-                ld = self.loaders[wk]
-                steps = ld.steps_per_epoch
-                perm = torch.as_tensor(ld.epoch_order(epoch).reshape(steps, bsz), device=dev)
-                lrs = torch.full((steps,), wc.lr, dtype=torch.float32, device=dev)
-                w["params"], w["opt"], w["key"], ls = self._segment(
-                    w["params"], w["opt"], w["topo"], x_all, y_all, perm, lrs, w["key"],
-                )
-                losses.append(ls.mean())
-                # per-worker evolution (divergent topologies)
-                w["topo"], w["params"], w["opt"] = self._evolve_device(
-                    w["topo"], w["params"], w["opt"], w["key"])
-            _sync(dev)
-            dt = time.perf_counter() - t0
-            self._log(epoch, 2, float(torch.stack(losses).mean()), dt, float("nan"))
-            self._p2_workers = workers
-            self.epoch_next = epoch + 1
-            if self.epoch_end_hook is not None:
-                self.epoch_end_hook(self, epoch)
+            with obs.span("wasap.epoch", epoch=epoch, phase=2, workers=k) as ep_sp:
+                t0 = time.perf_counter()
+                losses = []
+                p2_probe = None  # worker 0's probe stats
+                # one span over all K worker segments and evolutions, waited
+                # for once at its close
+                with obs.span("wasap.worker_segments", workers=k) as ws_sp:
+                    for wk, w in enumerate(workers):
+                        ld = self.loaders[wk]
+                        steps = ld.steps_per_epoch
+                        perm = torch.as_tensor(ld.epoch_order(epoch).reshape(steps, bsz),
+                                               device=dev)
+                        lrs = torch.full((steps,), wc.lr, dtype=torch.float32, device=dev)
+                        # worker 0 carries the probe: one representative
+                        # replica is enough for phase-2 dynamics
+                        probing = self._probe_segment is not None and wk == 0
+                        seg = self._probe_segment if probing else self._segment
+                        out = seg(w["params"], w["opt"], w["topo"], x_all, y_all, perm, lrs,
+                                  w["key"])
+                        w["params"], w["opt"], w["key"], ls = out[:4]
+                        if probing:
+                            p2_probe = out[4]
+                        losses.append(ls.mean())
+                        # per-worker evolution (divergent topologies)
+                        w["topo"], w["params"], w["opt"] = self._evolve_device(
+                            w["topo"], w["params"], w["opt"], w["key"], master=probing)
+                    ws_sp.block_on([w["params"] for w in workers])
+                _sync(dev)
+                dt = time.perf_counter() - t0
+                loss = float(torch.stack(losses).mean())
+                if p2_probe is not None:
+                    self._record_probe((epoch + 1) * steps_per_epoch, p2_probe,
+                                       self._last_churn,
+                                       {"epoch": epoch, "phase": 2, "loss": loss})
+                    self._last_churn = None
+                ep_sp.set(loss=loss)
+                self._log(epoch, 2, loss, dt, float("nan"))
+                self._p2_workers = workers
+                self.epoch_next = epoch + 1
+                if self.epoch_end_hook is not None:
+                    self.epoch_end_hook(self, epoch)
         out = []
         for w in workers:
             topos = [
@@ -843,17 +916,22 @@ class WASAPTrainer:
 
     # -- helpers --------------------------------------------------------------
 
-    def _evolve_device(self, topo, params, opt_state: SGDState, key: torch.Generator):
+    def _evolve_device(self, topo, params, opt_state: SGDState, key: torch.Generator,
+                       master: bool = False):
         """SET on the device for every layer, drawing from ``key``: the
         master's between phase-1 epochs (the reference's
         ``_evolve_master_device``) and each worker's in phase 2. Returns the
         new arrays (with the kernels' plans), params and re-aligned
-        velocity; nothing syncs."""
+        velocity; nothing syncs. With ``probe`` on, the pruned counts of
+        the probed replica (``master``: phase 1's master, phase 2's worker
+        0) are kept for the epoch's snapshot."""
         cfg, wc = self.model.config, self.wc
-        topo, values, vel, _ = evolve_element_layers_device(
+        topo, values, vel, pruned = evolve_element_layers_device(
             topo, list(params["values"]), list(opt_state.velocity["values"]), key,
-            layer_dims=cfg.layer_dims, zeta=wc.zeta, init_scheme=cfg.init,
+            layer_dims=cfg.layer_dims, zeta=wc.zeta, init_scheme=cfg.init, probe=wc.probe,
         )
+        if wc.probe and master:
+            self._last_churn = (pruned, [int(t.rows.shape[0]) for t in topo])
         params = {"values": tuple(values), "biases": params["biases"]}
         return topo, params, replace_values_velocity(opt_state, vel)
 

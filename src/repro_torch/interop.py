@@ -1,5 +1,5 @@
-"""Hand a JAX-package ``SparseMLP`` (and its optimizer state) or ``PatternLM``
-over to the port.
+"""Hand a JAX-package ``SparseMLP`` (and its optimizer state), ``PatternLM``
+or ``WhisperModel`` over to the port.
 
 The port never imports the JAX package, so the state crosses as numpy
 arrays and a plain dict of config fields (``dataclasses.asdict`` of the
@@ -17,10 +17,12 @@ from repro_torch.core.sparsity import BlockMeta, BlockTopology, ElementTopology
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig
 from repro_torch.models.transformer import ModelConfig, PatternLM
+from repro_torch.models.whisper import WhisperConfig, WhisperModel
 from repro_torch.optim.sgd import SGDState
 from repro_torch.tree import tree_map
 
-__all__ = ["lm_from_numpy", "mlp_from_numpy", "sgd_state_from_numpy", "tensor_from_numpy"]
+__all__ = ["lm_from_numpy", "mlp_from_numpy", "sgd_state_from_numpy", "tensor_from_numpy",
+           "whisper_from_numpy"]
 
 
 def mlp_from_numpy(
@@ -112,4 +114,22 @@ def lm_from_numpy(
             (BlockTopology(t_in.meta, *rc_in), BlockTopology(t_out.meta, *rc_out))
             for rc_in, rc_out in reps
         ]
+    return model
+
+
+def whisper_from_numpy(
+    config_fields: Mapping,
+    params_np,
+    device: Optional[Union[str, torch.device]] = None,
+) -> WhisperModel:
+    """Build the port's ``WhisperModel`` from a reference model's state:
+    ``config_fields`` is ``dataclasses.asdict`` of its ``WhisperConfig`` and
+    ``params_np`` its parameter tree as numpy (the stacked ``enc``/``dec``
+    trees, the final layernorms and both embeddings). Both packages then
+    compute the same function."""
+    cfg = WhisperConfig(**dict(config_fields))
+    device = resolve_device(device)
+    model = WhisperModel.__new__(WhisperModel)
+    model.cfg, model._seed, model.device = cfg, 0, device
+    model.params = tree_map(lambda a: tensor_from_numpy(a, device), params_np)
     return model

@@ -68,10 +68,11 @@ from repro_torch.core.sparsity import (
 )
 from repro_torch.kernels import build
 from repro_torch.kernels import block_sparse_matmul as _k
-from repro_torch.kernels.all_relu_fused import all_relu_bwd, bias_all_relu
+from repro_torch.kernels.all_relu_fused import all_relu_bwd, bias_all_relu, bias_all_relu_T
 
 __all__ = [
-    "XLWindow", "bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm", "espmm_custom",
+    "XLWindow", "all_relu_T", "bsmm", "bsmm_infer", "bsmm_kernel", "bsmm_xla", "espmm",
+    "espmm_custom",
     "espmm_infer", "espmm_infer_T", "espmm_train_T", "make_xl_shard_acc", "make_xl_shard_dw",
     "shard_runs", "shard_window", "window_offsets", "xl_shard_acc", "xl_shard_dw",
 ]
@@ -261,6 +262,43 @@ def espmm_train_T(
     gradient beside dW), then kernel A over the row-sorted dual order for
     dX. CPU tensors take the plain versions."""
     return _EspmmT.apply(hT.contiguous(), values, bias, topo, out_dim, slope, chunk)
+
+
+class _AllReluT(torch.autograd.Function):
+    """All-ReLU alone on a (features, batch) pre-activation that already
+    carries its bias: forward, kernel B's standalone pass with a zero bias,
+    which keeps the branch mask; backward, kernel G's standalone pass (F's
+    epilogue alone), whose dz is the gradient."""
+
+    @staticmethod
+    def forward(ctx, zT, slope: float):
+        zero = torch.zeros(zT.shape[0], dtype=zT.dtype, device=zT.device)
+        mask = torch.empty(zT.shape, dtype=torch.uint8, device=zT.device)
+        yT, mask = bias_all_relu_T(zT, zero, slope, mask=mask)
+        ctx.save_for_backward(mask)
+        ctx.slope = slope
+        return yT
+
+    @staticmethod
+    def backward(ctx, dyT):
+        (mask,) = ctx.saved_tensors
+        dz, _ = all_relu_bwd(dyT.contiguous(), mask, ctx.slope)
+        return dz, None
+
+
+def all_relu_T(zT: torch.Tensor, slope: float) -> torch.Tensor:
+    """All-ReLU of ``zT`` (N, B) f32, a pre-activation with its bias in it:
+    the element forward's activation where its pre-activations are kept
+    (``mlp_forward(..., return_preacts=True)``), so kernel A stores z + bias
+    and this pass the activation. Differentiable where autograd records
+    (kernel B forward, kernel G backward); else kernel B alone. CPU tensors
+    take the plain versions. ``where(v > 0, v, slope * v)`` of ``v = z +
+    0``: kernel A's fused store computes the same bits."""
+    zT = zT.contiguous()
+    if torch.is_grad_enabled() and zT.requires_grad:
+        return _AllReluT.apply(zT, slope)
+    zero = torch.zeros(zT.shape[0], dtype=zT.dtype, device=zT.device)
+    return bias_all_relu_T(zT, zero, slope)
 
 
 def espmm_custom(

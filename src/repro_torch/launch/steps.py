@@ -1,6 +1,5 @@
-"""Step functions: the SET-MLP training loop, and the LM's train, prefill
-and decode steps. Twin of ``repro.launch.steps``; the Whisper steps come
-with Whisper (ROADMAP Queue 1, item 7b, the next slice).
+"""Step functions: the SET-MLP training loop, and the LM's and Whisper's
+train, prefill and decode steps. Twin of ``repro.launch.steps``.
 
 A step is loss -> gradients (autograd; on a block model, and on the LM's
 sparse FFN, the backward runs kernels D and E) -> momentum-SGD update.
@@ -17,11 +16,13 @@ import torch
 
 from repro_torch.models.mlp import SparseMLPConfig, cross_entropy_loss, mlp_forward
 from repro_torch.models.transformer import PatternLM, chunked_softmax_xent
+from repro_torch.models.whisper import WhisperModel
 from repro_torch.optim.sgd import MomentumSGD, SGDState
 from repro_torch.tree import tree_flatten, tree_map
 
 __all__ = ["lm_loss_fn", "make_decode_step", "make_mlp_step_core", "make_mlp_train_step",
-           "make_prefill_step", "make_train_step", "scan_masked_segment", "scan_segment"]
+           "make_prefill_step", "make_train_step", "scan_masked_segment", "scan_segment",
+           "whisper_loss_fn"]
 
 
 def make_mlp_step_core(config: SparseMLPConfig, opt: MomentumSGD, topo_arrays,
@@ -108,13 +109,6 @@ def scan_masked_segment(step_core: Callable, params, opt_state, key: Any,
     return params, opt_state, key, torch.stack(metrics)
 
 
-def _require_lm(model) -> None:
-    if not isinstance(model, PatternLM):
-        raise NotImplementedError(
-            f"steps for {type(model).__name__} (the Whisper encoder-decoder) come with "
-            "Whisper (ROADMAP Queue 1, item 7b)")
-
-
 def _microbatched_grad(loss_fn: Callable, params, batch, microbatches: int):
     """``(total, loss, grads)`` of ``loss_fn(params, batch) -> (total,
     loss)``, the batch cut along its leading axis into ``microbatches``
@@ -146,19 +140,35 @@ def _microbatched_grad(loss_fn: Callable, params, batch, microbatches: int):
     return t_acc * inv, l_acc * inv, unflatten([a * inv for a in g_acc])
 
 
-def make_train_step(model: PatternLM, *, lr: float = 1e-2, momentum: float = 0.9,
+def make_train_step(model, *, lr: float = 1e-2, momentum: float = 0.9,
                     microbatches: int = 1):
-    """The LM's train step and its optimizer, ``(train_step, opt)``:
-    ``train_step(params, opt_state, batch, topo) -> (params, opt_state,
-    {"loss", "total"})``, with ``batch["tokens"]`` and ``batch["labels"]``
-    (B, S) (and ``batch["patch_embeds"]``, a VLM prefix whose positions
-    carry no loss). The loss is :func:`chunked_softmax_xent` of the final
-    hidden states, plus the MoE auxiliary loss summed over the layers
-    (:func:`lm_loss_fn`);
-    gradients by :func:`_microbatched_grad`; momentum SGD with weight decay
-    1e-4. Both metrics stay on the device."""
-    _require_lm(model)
+    """The train step and its optimizer, ``(train_step, opt)``; momentum
+    SGD with weight decay 1e-4, gradients by :func:`_microbatched_grad`,
+    every metric kept on the device.
+
+    A ``PatternLM``'s: ``train_step(params, opt_state, batch, topo) ->
+    (params, opt_state, {"loss", "total"})``, with ``batch["tokens"]`` and
+    ``batch["labels"]`` (B, S) (and ``batch["patch_embeds"]``, a VLM prefix
+    whose positions carry no loss). The loss is :func:`chunked_softmax_xent`
+    of the final hidden states, plus the MoE auxiliary loss summed over the
+    layers (:func:`lm_loss_fn`).
+
+    A ``WhisperModel``'s: ``train_step(params, opt_state, batch) ->
+    (params, opt_state, {"loss"})``, with ``batch["frames"]`` (B, frames,
+    d_model), ``batch["tokens"]`` and ``batch["labels"]`` (B, S): the
+    encoder, the teacher-forced decoder, the logits cast to f32, then the
+    mean NLL under ``log_softmax``."""
     opt = MomentumSGD(momentum=momentum, weight_decay=1e-4)
+
+    if isinstance(model, WhisperModel):
+        loss_fn_w = whisper_loss_fn(model)
+
+        def train_step_w(params, opt_state, batch):
+            _, loss, grads = _microbatched_grad(loss_fn_w, params, batch, microbatches)
+            params, opt_state = opt.update(grads, opt_state, params, lr)
+            return params, opt_state, {"loss": loss}
+
+        return train_step_w, opt
 
     def train_step(params, opt_state, batch, topo):
         total, loss, grads = _microbatched_grad(lm_loss_fn(model, topo), params, batch,
@@ -189,11 +199,37 @@ def lm_loss_fn(model: PatternLM, topo, chunk: int = 512) -> Callable:
     return loss_fn
 
 
-def make_prefill_step(model: PatternLM):
-    """``prefill(params, batch, topo) -> logits[:, -1:, :]`` over
-    ``batch["tokens"]`` (and ``batch["patch_embeds"]``, a VLM prefix),
-    without gradients."""
-    _require_lm(model)
+def whisper_loss_fn(model: WhisperModel) -> Callable:
+    """Whisper's train-step loss, ``loss_fn(params, batch) -> (loss,
+    loss)``: the encoder on ``batch["frames"]``, the teacher-forced decoder
+    on ``batch["tokens"]``, the logits cast to f32, and the mean NLL of
+    ``batch["labels"]`` under ``log_softmax``."""
+
+    def loss_fn(p, batch):
+        mem = model.encode(p, batch["frames"])
+        h = model.decode_train(p, batch["tokens"], mem)
+        logp = torch.log_softmax(model.logits(p, h).float(), dim=-1)
+        loss = -logp.gather(-1, batch["labels"].long().unsqueeze(-1)).mean()
+        return loss, loss
+
+    return loss_fn
+
+
+def make_prefill_step(model):
+    """A ``PatternLM``'s ``prefill(params, batch, topo) -> logits[:, -1:,
+    :]`` over ``batch["tokens"]`` (and ``batch["patch_embeds"]``, a VLM
+    prefix); a ``WhisperModel``'s ``prefill(params, batch)``, the logits at
+    the last of ``batch["tokens"]`` after encoding ``batch["frames"]`` (it
+    fills no cache, as the reference's does not). No gradients."""
+    if isinstance(model, WhisperModel):
+
+        @torch.inference_mode()
+        def prefill_w(params, batch):
+            mem = model.encode(params, batch["frames"])
+            h = model.decode_train(params, batch["tokens"], mem)
+            return model.logits(params, h[:, -1:, :])
+
+        return prefill_w
 
     @torch.inference_mode()
     def prefill(params, batch, topo):
@@ -204,10 +240,19 @@ def make_prefill_step(model: PatternLM):
     return prefill
 
 
-def make_decode_step(model: PatternLM):
-    """``decode(params, batch, topo) -> (logits, caches)``: one token at
-    ``batch["position"]`` (a scalar), the caches updated in place."""
-    _require_lm(model)
+def make_decode_step(model):
+    """One token at ``batch["position"]`` (a scalar), the caches updated in
+    place: a ``PatternLM``'s ``decode(params, batch, topo) -> (logits,
+    caches)``; a ``WhisperModel``'s ``decode(params, batch)``, which also
+    reads the encoder's output ``batch["memory"]``."""
+    if isinstance(model, WhisperModel):
+
+        @torch.inference_mode()
+        def decode_w(params, batch):
+            return model.decode_step(params, batch["tokens"], batch["position"],
+                                     batch["caches"], batch["memory"])
+
+        return decode_w
 
     @torch.inference_mode()
     def decode(params, batch, topo):

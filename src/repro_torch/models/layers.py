@@ -6,10 +6,11 @@ As there, the layers are functions: ``init_*`` returns the parameter dict
 (and, for the sparse FFN, its host topologies and block metas) and ``*_fwd``
 computes. The reference's logical-axis specs, which name shardings for the
 pod machinery, come with it (ROADMAP Queue 1, item 9). Dense draws come from
-an explicit CPU ``torch.Generator`` and are then moved to ``device``, so a
-seed gives the same weights on every device (not jax.random's draws: they
-cross over through ``interop.lm_from_numpy``); the sparse FFN draws from
-numpy, the reference's draws bit for bit.
+an explicit ``torch.Generator``, on the generator's device, and are then
+moved to ``device``: a CPU generator gives the same weights on every device
+(not jax.random's draws: they cross over through ``interop.lm_from_numpy``
+and ``interop.whisper_from_numpy``); the sparse FFN draws from numpy, the
+reference's draws bit for bit.
 
 Arithmetic follows the reference's order and precision: norms and attention
 scores in f32, the running (max, denominator, accumulator) triple of the
@@ -21,10 +22,9 @@ XLA pass there. The sparse FFN is the kernels: kernel C (W_in) with kernel
 B's bias-free All-ReLU in its store, kernel C (W_out) on the card, their
 plain versions on the CPU; under autograd, kernel C's autograd Function on
 each weight (backward: kernels D and E) with All-ReLU between them.
-
-Not here yet: ``init_plain_ffn``/``plain_ffn_fwd`` and
-``cross_attention_fwd`` (Whisper), which come with Whisper (ROADMAP
-Queue 1, item 7b).
+Whisper's layers (``cross_attention_fwd``, ``init_plain_ffn``,
+``plain_ffn_fwd``) are dense: ``torch.matmul`` and plain PyTorch, as XLA
+computes them in the reference.
 """
 from __future__ import annotations
 
@@ -41,9 +41,10 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import scalar_in
 
 __all__ = [
-    "AttnConfig", "SparseFFNConfig", "apply_rope", "attention_fwd", "dense_init", "embed",
-    "gated_ffn_fwd", "init_attention", "init_embedding", "init_gated_ffn", "init_layernorm",
-    "init_rmsnorm", "init_sparse_ffn", "layernorm", "rmsnorm", "sparse_ffn_fwd", "unembed",
+    "AttnConfig", "SparseFFNConfig", "apply_rope", "attention_fwd", "cross_attention_fwd",
+    "dense_init", "embed", "gated_ffn_fwd", "init_attention", "init_embedding",
+    "init_gated_ffn", "init_layernorm", "init_plain_ffn", "init_rmsnorm", "init_sparse_ffn",
+    "layernorm", "plain_ffn_fwd", "rmsnorm", "sparse_ffn_fwd", "unembed",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -56,10 +57,10 @@ Params = Dict[str, torch.Tensor]
 
 def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
-    """Normal draws scaled by 1/sqrt(fan-in), drawn in f32 from the CPU
-    generator ``gen``, then cast and moved."""
+    """Normal draws scaled by 1/sqrt(fan-in), drawn in f32 from the
+    generator ``gen`` on its device, then cast and moved."""
     scale = 1.0 / math.sqrt(max(1, in_axis_size))
-    w = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * scale
     return w.to(dtype).to(device)
 
 
@@ -335,6 +336,27 @@ def attention_fwd(
     return out @ params["wo"], new_cache
 
 
+def cross_attention_fwd(params: Params, x: torch.Tensor, memory: torch.Tensor,
+                        cfg: AttnConfig) -> torch.Tensor:
+    """Encoder-decoder cross attention (Whisper): ``x`` (B, Sq, d_model)
+    attends to all of ``memory`` (B, Sm, d_model). As the reference's, it
+    reads ``wq``, ``wk``, ``wv`` and ``wo`` and no biases, applies no RoPE,
+    and masks nothing: the zero keys that pad ``memory``'s last KV chunk
+    take part in the softmax as they do there."""
+    B = x.shape[0]
+    h, kv, d = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, -1, h, d)
+    k = (memory @ params["wk"]).reshape(B, -1, kv, d)
+    v = (memory @ params["wv"]).reshape(B, -1, kv, d)
+
+    def mask_fn(qp, kp):
+        return torch.ones((qp.shape[0], kp.shape[0]), dtype=torch.bool, device=qp.device)
+
+    qpos = torch.arange(x.shape[1], device=x.device)
+    out = _online_softmax_chunked(q, k, v, mask_fn, cfg, qpos)
+    return out.reshape(B, -1, h * d) @ params["wo"]
+
+
 # ---------------------------------------------------------------------------
 # FFN variants
 # ---------------------------------------------------------------------------
@@ -366,6 +388,22 @@ def gated_ffn_fwd(params: Params, x: torch.Tensor, activation: str = "silu") -> 
     g = act(x @ params["wi_gate"], 1)
     u = x @ params["wi_up"]
     return (g * u) @ params["wo"]
+
+
+def init_plain_ffn(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype,
+                   device: torch.device) -> Params:
+    """2-layer MLP with biases (Whisper's)."""
+    return {
+        "fc1": dense_init(gen, (d_model, d_ff), d_model, dtype, device),
+        "b1": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "fc2": dense_init(gen, (d_ff, d_model), d_ff, dtype, device),
+        "b2": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def plain_ffn_fwd(params: Params, x: torch.Tensor, activation: str = "gelu") -> torch.Tensor:
+    act = activation_fn(activation)
+    return act(x @ params["fc1"] + params["b1"], 1) @ params["fc2"] + params["b2"]
 
 
 def init_sparse_ffn(rng: np.random.Generator, d_model: int, d_ff: int, sc: SparseFFNConfig,

@@ -229,38 +229,43 @@ def mlp_forward(
     ``espmm_train_T``.
     """
     _check_impl(config)
-    if return_preacts:
-        raise NotImplementedError(
-            "return_preacts comes with the probes slice (ROADMAP Queue 1, item 4)")
     if x.shape[-1] != config.layer_dims[0]:
         raise ValueError(f"x has {x.shape[-1]} features, the model takes {config.layer_dims[0]}")
     if config.impl != "element":
         return _batch_major_forward(params, topo_arrays, x, config, train=train, rng=rng,
-                                    infer=infer)
+                                    infer=infer, return_preacts=return_preacts)
     act = activation_fn(config.activation, alpha=config.alpha)
     dropout = _dropout_fn(config, train, rng)
     served = infer or not torch.is_grad_enabled()
     lead = x.shape[:-1]
     hT = x.reshape(-1, x.shape[-1]).T.contiguous()  # (features, batch)
     n_layers = config.n_layers
+    preacts = []
     for l in range(n_layers):
         hidden = l < n_layers - 1  # the output layer is linear
         fused = hidden and config.activation == "all_relu"
         slope = slope_for(config.alpha, l + 1) if fused else None  # 1-based parity
         vals, topo, bias = params["values"][l], topo_arrays[l], params["biases"][l]
+        # keeping z + bias: kernel A stores it, the All-ReLU runs after
+        store_slope = None if return_preacts else slope
         if served:
             hT = kops.espmm_infer_T(
-                hT, vals, topo, config.layer_dims[l + 1], bias=bias, slope=slope,
+                hT, vals, topo, config.layer_dims[l + 1], bias=bias, slope=store_slope,
                 chunk=config.spmm_chunk,
             )
         else:
             hT = kops.espmm_train_T(hT, vals, topo, config.layer_dims[l + 1], bias=bias,
-                                    slope=slope, chunk=config.spmm_chunk)
+                                    slope=store_slope, chunk=config.spmm_chunk)
+        if return_preacts:
+            preacts.append(hT.T.reshape(*lead, config.layer_dims[l + 1]))
+            if fused:
+                hT = kops.all_relu_T(hT, slope)
         if hidden and not fused:
             hT = act(hT, l + 1)
         if hidden and dropout is not None:
             hT = dropout(hT)
-    return hT.T.contiguous().reshape(*lead, config.layer_dims[-1])
+    logits = hT.T.contiguous().reshape(*lead, config.layer_dims[-1])
+    return (logits, preacts) if return_preacts else logits
 
 
 def _dropout_fn(config: SparseMLPConfig, train: bool, rng: Optional[torch.Generator]):
@@ -291,32 +296,40 @@ def _layer_product(config: SparseMLPConfig, infer: bool):
     return lambda h, v, _, l: torch.matmul(h, v)
 
 
-def _batch_major_forward(params, topo_arrays, x, config, *, train, rng, infer):
+def _batch_major_forward(params, topo_arrays, x, config, *, train, rng, infer,
+                         return_preacts=False):
     """Block, masked and dense layers as the reference runs them: the
     layer's product, ``+ bias``, then the activation under autograd, and
     dropout in training. Where no gradient is recorded (``infer=True``, or
     autograd off, as in evaluation), a hidden All-ReLU layer's bias and
     All-ReLU are kernel B, reading the product's columns in place; it
-    computes what ``act(h + bias)`` does, bit for bit."""
+    computes what ``act(h + bias)`` does, bit for bit. With
+    ``return_preacts`` each layer's ``h + bias`` is kept (and the
+    activation is ``act``)."""
     act = activation_fn(config.activation, alpha=config.alpha)
     product = _layer_product(config, infer)
-    fused = config.activation == "all_relu" and (infer or not torch.is_grad_enabled())
+    fused = (config.activation == "all_relu" and (infer or not torch.is_grad_enabled())
+             and not return_preacts)
     dropout = _dropout_fn(config, train, rng)
     h = x
+    preacts = []
     n_layers = config.n_layers
     for l in range(n_layers):
         h = product(h, params["values"][l], topo_arrays[l], l)
         bias = params["biases"][l]
         if l == n_layers - 1:  # output layer: linear (paper: exclude output)
             h = h + bias
+            preacts.append(h)
         else:  # paper's 1-based layer parity
             if fused:
                 h = bias_all_relu(h, bias, alpha=config.alpha, layer_index=l + 1)
             else:
-                h = act(h + bias, l + 1)
+                z = h + bias
+                preacts.append(z)
+                h = act(z, l + 1)
             if dropout is not None:
                 h = dropout(h)
-    return h
+    return (h, preacts) if return_preacts else h
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -20,10 +20,10 @@ The traffic generator (``poisson_trace``) samples exponential interarrivals
 (bursty arrivals, ragged lengths, overlapping lifetimes);
 ``serve_sequential`` is the naive one-request-at-a-time loop.
 
-The reference's ``obs`` telemetry (sampled queue-depth and slot-occupancy
-gauges, ``serve.queue``/``serve.request`` spans) comes with the
-observability slice (ROADMAP Queue 1, item 4); ``TELEMETRY_SAMPLE_STRIDE``
-with it.
+Telemetry, as the reference's: the ``serve_queue_depth`` and
+``serve_slot_occupancy`` gauges, written every ``TELEMETRY_SAMPLE_STRIDE``-th
+scheduling tick, and per request a ``serve.queue`` span (arrival to its
+slot) and a ``serve.request`` span (arrival to its last token).
 """
 from __future__ import annotations
 
@@ -34,15 +34,21 @@ from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.serve.engine import SparseInferenceEngine
 
 __all__ = [
     "ContinuousBatcher",
     "Request",
     "ServeStats",
+    "TELEMETRY_SAMPLE_STRIDE",
     "poisson_trace",
     "serve_sequential",
 ]
+
+# telemetry (queue depth / slot occupancy) is written every N-th scheduling
+# tick, not every tick: the loop spins at decode-step rate
+TELEMETRY_SAMPLE_STRIDE = 8
 
 
 @dataclasses.dataclass
@@ -194,9 +200,22 @@ class ContinuousBatcher:
         self.slot_tok = np.zeros((S,), np.int32)
         self.decode_steps = 0
         self.prefill_calls = 0
+        # sampled telemetry gauges (resolved once; a no-op write under
+        # obs.disabled()), written every TELEMETRY_SAMPLE_STRIDE-th tick
+        _reg = obs.default_registry()
+        self._obs_queue_gauge = _reg.gauge("serve_queue_depth")
+        self._obs_slot_gauge = _reg.gauge("serve_slot_occupancy")
+        self._obs_tick = 0
 
-    def _n_active(self) -> int:
-        return sum(r is not None for r in self.slot_req)
+    def _sample_occupancy(self) -> int:
+        """Telemetry sample of queue depth + slot occupancy (strided);
+        returns the active-slot count so the scheduling loop reuses it."""
+        n_active = sum(r is not None for r in self.slot_req)
+        if self._obs_tick % TELEMETRY_SAMPLE_STRIDE == 0:
+            self._obs_queue_gauge.set(len(self.queue))
+            self._obs_slot_gauge.set(n_active / max(1, len(self.slot_req)))
+        self._obs_tick += 1
+        return n_active
 
     # -- admission ----------------------------------------------------------
 
@@ -247,10 +266,15 @@ class ContinuousBatcher:
             self.prefill_calls += 1
             t = self._now()
             for r, s, tok in zip(group, slots, first):
+                # queue span: arrival -> admitted to a slot (absolute
+                # monotonic endpoints: trace times share perf_counter)
+                obs.event_span("serve.queue", self._t0 + r.arrival, self._t0 + t, rid=r.rid)
                 r.tokens.append(int(tok))
                 r.t_first = t
                 if r.done:  # single-token request: done at prefill
                     r.t_done = t
+                    obs.event_span("serve.request", self._t0 + r.arrival, self._t0 + t,
+                                   rid=r.rid, tokens=len(r.tokens))
                     continue
                 self.slot_req[s] = r
                 self.slot_pos[s] = r.prompt.shape[0]
@@ -281,6 +305,8 @@ class ContinuousBatcher:
             self.slot_tok[s] = int(next_tok[s])
             if r.done:
                 r.t_done = t
+                obs.event_span("serve.request", self._t0 + r.arrival, self._t0 + t,
+                               rid=r.rid, tokens=len(r.tokens))
                 self.slot_req[s] = None  # evict: slot joins the free pool
                 self.slot_pos[s] = self.engine.cfg.max_len - 1
                 self.slot_tok[s] = 0
@@ -303,7 +329,7 @@ class ContinuousBatcher:
                 self.submit(trace[i])
                 i += 1
             self._join()
-            active = self._n_active() > 0
+            active = self._sample_occupancy() > 0
             if active:
                 self._decode()
             elif self.queue:

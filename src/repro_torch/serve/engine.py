@@ -44,7 +44,10 @@ reference's checkpoint layout and ``SparseInferenceEngine.from_checkpoint``
 serves it (either package's), with the saved connectivity.
 
 ``from_checkpoint`` restores element SET-MLPs and LMs, as the reference's
-does. The ``obs`` spans come with ROADMAP Queue 1, item 4.
+does. Each call is an ``obs`` span (``serve.classify``, ``serve.prefill``,
+``serve.decode_step``), closed after the result is on the host, so it
+covers the device's work; a bucket's first use is a ``serve.compile``
+point.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.importance import PruningSchedule
 from repro_torch.core.sparsity import BlockTopology, ElementTopology
@@ -269,10 +273,14 @@ class SparseInferenceEngine:
         bucket = next(b for b in self.cfg.batch_buckets if b >= n)
         if n < bucket:
             x = np.concatenate([x, np.zeros((bucket - n,) + x.shape[1:], x.dtype)])
-        fn = self._cache.get(("classify", bucket), self._build_classify)
-        xb = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        # .cpu() waits for the device, so the call covers the computation
-        return fn(xb).cpu().numpy()[:n]
+        with obs.span("serve.classify", n=n, bucket=bucket):
+            m0 = self._cache.misses
+            fn = self._cache.get(("classify", bucket), self._build_classify)
+            if self._cache.misses != m0:
+                obs.point("serve.compile", op="classify", bucket=bucket)
+            xb = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+            # .cpu() waits for the device, so the span covers the computation
+            return fn(xb).cpu().numpy()[:n]
 
     def _build_classify(self) -> Callable[[torch.Tensor], torch.Tensor]:
         config = self.model.config
@@ -328,12 +336,16 @@ class SparseInferenceEngine:
             tokens[i, : lens[i]] = p
         lens_arr = np.ones((B,), np.int64)
         lens_arr[: len(prompts)] = lens
-        fn = self._cache.get(("prefill", bucket), lambda: self._build_prefill(bucket))
-        next_tok = fn(torch.as_tensor(tokens, device=self.device),
-                      torch.as_tensor(lens_arr, device=self.device),
-                      torch.as_tensor(np.asarray(slots, np.int64), device=self.device))
-        # .cpu() waits for the device, so the call covers the computation
-        return next_tok[: len(prompts)].cpu().numpy().astype(np.int32)
+        with obs.span("serve.prefill", n=len(prompts), bucket=bucket):
+            m0 = self._cache.misses
+            fn = self._cache.get(("prefill", bucket), lambda: self._build_prefill(bucket))
+            if self._cache.misses != m0:
+                obs.point("serve.compile", op="prefill", bucket=bucket)
+            next_tok = fn(torch.as_tensor(tokens, device=self.device),
+                          torch.as_tensor(lens_arr, device=self.device),
+                          torch.as_tensor(np.asarray(slots, np.int64), device=self.device))
+            # .cpu() waits for the device, so the span covers the computation
+            return next_tok[: len(prompts)].cpu().numpy().astype(np.int32)
 
     def _build_prefill(self, bucket: int) -> Callable:
         model = self.model
@@ -364,10 +376,15 @@ class SparseInferenceEngine:
         each slot attends its own causal prefix at its own position."""
         self._require_lm()
         self._enter("decode")
-        fn = self._cache.get(("decode",), self._build_decode)
-        next_tok = fn(torch.as_tensor(np.asarray(tokens, np.int64), device=self.device),
-                      torch.as_tensor(np.asarray(pos, np.int64), device=self.device))
-        return next_tok.cpu().numpy().astype(np.int32)
+        with obs.span("serve.decode_step"):
+            m0 = self._cache.misses
+            fn = self._cache.get(("decode",), self._build_decode)
+            if self._cache.misses != m0:
+                obs.point("serve.compile", op="decode")
+            next_tok = fn(torch.as_tensor(np.asarray(tokens, np.int64), device=self.device),
+                          torch.as_tensor(np.asarray(pos, np.int64), device=self.device))
+            # .cpu() waits for the device, so the span covers the computation
+            return next_tok.cpu().numpy().astype(np.int32)
 
     def _build_decode(self) -> Callable:
         model = self.model

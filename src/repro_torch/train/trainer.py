@@ -58,9 +58,19 @@ directions (see ``restore_checkpoint`` for the random streams).
 regime): the same epoch protocol on the shard-streamed substrate
 (``repro_torch.xl``), with streamed checkpoints.
 
-Not in this slice, and refused with an error naming the ROADMAP item:
-training-dynamics probes (Queue 1, item 4), and the fault hook and step
-retries (the runtime, item 5).
+Observability (``repro_torch.obs``, DESIGN.md §11-§12), as the reference
+wires it: the spans ``train.run``, ``train.epoch`` and ``train.segment``
+(which waits for the segment's losses at its close, so it times the
+device's work), the points ``train.prune``, ``train.evolve`` and
+``train.eval``, and with ``TrainerConfig(probe=True)`` one snapshot per
+epoch (``obs.probes.record_snapshot``): the segment adds one forward and
+one backward on half of its last minibatch and the probe's reductions
+(:func:`make_segment_program`), and device SET reports its churn. A probe
+reads the weights and never writes them: a probed run's history,
+topologies and weights are the unprobed run's, bit for bit.
+
+Not in this slice, and refused with an error naming the ROADMAP item: the
+fault hook and step retries (the runtime, Queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -73,6 +83,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.importance import (
     PruningSchedule,
     importance_prune_block,
@@ -93,9 +104,12 @@ from repro_torch.models.mlp import (
     SparseMLP,
     SparseMLPConfig,
     block_meta,
+    cross_entropy_loss,
     mlp_forward,
 )
+from repro_torch.obs import probes
 from repro_torch.optim.sgd import MomentumSGD, SGDState, replace_values_velocity
+from repro_torch.tree import tree_map
 
 __all__ = [
     "SequentialTrainer",
@@ -107,9 +121,6 @@ __all__ = [
     "make_segment_program",
     "make_step_fn",
 ]
-
-_PROBES = "training-dynamics probes come with the probes slice (ROADMAP Queue 1, item 4)"
-
 
 @dataclasses.dataclass
 class TrainerConfig:
@@ -126,7 +137,7 @@ class TrainerConfig:
     lr_schedule: Optional[Callable] = None
     fused_epochs: bool = True  # one device-resident segment per epoch
     device_evolution: bool = True  # SET on the device between fused segments
-    probe: bool = False  # training-dynamics probes: not in this slice
+    probe: bool = False  # training-dynamics probes (obs.probes, DESIGN.md §12)
 
 
 def make_step_fn(config: SparseMLPConfig, opt: MomentumSGD):
@@ -141,13 +152,32 @@ def make_segment_program(config: SparseMLPConfig, opt: MomentumSGD, probe: bool 
     y_all, perm, lrs, key) -> (params, opt_state, key, losses)`` gathers the
     epoch's batches from the device-resident dataset by the (steps, batch)
     index permutation and runs them in order; ``losses`` stay on the
-    device."""
-    if probe:
-        raise NotImplementedError(_PROBES)
+    device.
+
+    ``probe=False`` runs exactly the steps and nothing else. ``probe=True``
+    then runs ONE extra forward (``mlp_forward(..., return_preacts=True)``)
+    and backward on the first half of the segment's last minibatch, at the
+    segment's final weights, and the ``obs.probes.segment_probe``
+    reductions, and returns ``(..., losses, probe_stats)``, the stats as
+    device tensors. The probe draws nothing and writes no weight."""
 
     def segment(params, opt_state, topo_arrays, x_all, y_all, perm, lrs, key):
         step_core = make_mlp_step_core(config, opt, topo_arrays, x_all, y_all)
-        return scan_segment(step_core, params, opt_state, key, (perm, lrs))
+        out = scan_segment(step_core, params, opt_state, key, (perm, lrs))
+        if not probe:
+            return out
+        params2, opt_state2, key2, losses = out
+        # probe batch: half of the last minibatch — the stats want post-
+        # segment weights, and a half batch keeps the extra fwd+bwd cheap
+        idx = perm[-1, : max(1, perm.shape[1] // 2)]
+        xb, yb = x_all.index_select(0, idx), y_all.index_select(0, idx)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params2)
+        logits, preacts = mlp_forward(leaves, topo_arrays, xb, config, train=False,
+                                      return_preacts=True)
+        grads = torch.autograd.grad(cross_entropy_loss(logits, yb), leaves["values"])
+        stats = probes.segment_probe(params2, {"values": grads}, topo_arrays,
+                                     [z.detach() for z in preacts], config.layer_dims)
+        return params2, opt_state2, key2, losses, stats
 
     return segment
 
@@ -158,8 +188,7 @@ def make_segment_fn(config: SparseMLPConfig, opt: MomentumSGD, probe: bool = Fal
     config, optimizer, probe) as the reference's is, so repeated trainers
     share one program. The reference jits the segment and donates the
     parameters' and optimizer state's buffers; there is no ``jit`` in
-    PyTorch: the program runs eagerly, and nothing is donated.
-    ``probe=True`` raises (Queue 1, item 4)."""
+    PyTorch: the program runs eagerly, and nothing is donated."""
     return make_segment_program(config, opt, probe)
 
 
@@ -271,8 +300,6 @@ class SequentialTrainer:
     """Paper §2.2 protocol (1 worker). History mirrors Table 2 columns."""
 
     def __init__(self, model: SparseMLP, data: Dataset, tc: TrainerConfig):
-        if tc.probe:
-            raise NotImplementedError(_PROBES)
         self.model = model
         self.data = data
         self.tc = tc
@@ -284,6 +311,10 @@ class SequentialTrainer:
         self.key.manual_seed(tc.seed)
         self._step = make_mlp_train_step(model.config, self.opt)
         self._segment = make_segment_fn(model.config, self.opt)
+        # the probe variant is made only when asked for
+        self._probe_segment = (make_segment_fn(model.config, self.opt, True) if tc.probe
+                               else None)
+        self._last_churn = None  # (pruned counts, nnz) per layer of the last device SET
         self.history: Dict[str, List] = {
             "epoch": [], "train_loss": [], "test_acc": [], "n_params": [],
             "epoch_seconds": [],
@@ -360,13 +391,15 @@ class SequentialTrainer:
         cfg = model.config
         vel = list(self.opt_state.velocity["values"])
         if cfg.impl == "element":
-            topo, values, vel, _ = evolve_element_layers_device(
+            topo, values, vel, pruned = evolve_element_layers_device(
                 topo, model.values, vel, self.key, layer_dims=cfg.layer_dims, zeta=tc.zeta,
-                init_scheme=cfg.init)
+                init_scheme=cfg.init, probe=tc.probe)
         else:
-            topo, values, vel, _ = evolve_block_layers_device(
+            topo, values, vel, pruned = evolve_block_layers_device(
                 topo, model.values, vel, self.key,
                 metas=[block_meta(cfg, l) for l in range(cfg.n_layers)], zeta=tc.zeta)
+        if tc.probe:  # the churn probe: read on the host by the epoch's snapshot
+            self._last_churn = (pruned, [int(t.rows.shape[0]) for t in topo])
         model.values = list(values)
         self.opt_state = replace_values_velocity(self.opt_state, vel)
         return topo
@@ -414,11 +447,13 @@ class SequentialTrainer:
         if tc.pruning is not None and tc.pruning.should_prune(epoch):
             topo = self._host_topology_op(topo, topo_dirty, lambda: self._importance_prune(epoch))
             topo_dirty = False
+            obs.point("train.prune", epoch=epoch, n_params=self.model.n_params)
         if epoch < tc.epochs - 1 and tc.evolve:
             if device_evo:
                 topo, topo_dirty = self._evolve_device(topo), True
             else:
                 topo, topo_dirty = self._host_topology_op(topo, topo_dirty, self._evolve), False
+            obs.point("train.evolve", epoch=epoch, device=device_evo)
         return topo, topo_dirty
 
     # -- resume (DESIGN.md §8) ----------------------------------------------
@@ -501,9 +536,12 @@ class SequentialTrainer:
                 "fault hooks and step retries come with the runtime slice (ROADMAP Queue 1, "
                 "item 5)"
             )
-        if self.tc.fused_epochs:
-            return self._run_fused(log_every)
-        return self._run_per_batch(log_every)
+        mode = "fused" if self.tc.fused_epochs else "per_batch"
+        with obs.span("train.run", mode=mode, epochs=self.tc.epochs,
+                      start_epoch=self.start_epoch):
+            if self.tc.fused_epochs:
+                return self._run_fused(log_every)
+            return self._run_per_batch(log_every)
 
     def _loader(self) -> ShardedLoader:
         tc = self.tc
@@ -512,24 +550,40 @@ class SequentialTrainer:
             raise ValueError("batch_size larger than the training shard")
         return loader
 
-    def _end_epoch(self, epoch: int, t0: float, train_loss: float, gstep: int,
-                   log_every: int, topo, topo_dirty: bool = False) -> bool:
-        """Wait for the epoch's device work, evaluate, record history and
-        call the epoch-end hook, which reads the host mirror: synced first
-        if it lags ``topo``. Returns whether it still lags."""
+    def _end_epoch(self, epoch: int, t0: float, losses: torch.Tensor, gstep: int,
+                   log_every: int, topo, topo_dirty: bool = False, probe_dev=None,
+                   ep_sp=obs.trace.NOOP_SPAN) -> bool:
+        """Wait for the epoch's device work, evaluate, record the probe's
+        snapshot (with ``probe_dev``, the segment's probe stats) and the
+        history, and call the epoch-end hook, which reads the host mirror:
+        synced first if it lags ``topo``. Returns whether it still lags."""
         tc, model = self.tc, self.model
         _sync(self.device)
         dt = time.perf_counter() - t0
+        train_loss = float(losses.mean())
         if (epoch + 1) % tc.eval_every == 0 or epoch == tc.epochs - 1:
             acc = evaluate(model, self.data.x_test, self.data.y_test, topo_arrays=topo)
+            obs.point("train.eval", epoch=epoch, acc=float(acc))
         else:
             acc = float("nan")
         n_params = model.n_params
+        if probe_dev is not None:
+            # host-side, after the sync above: the probe's stats leave the
+            # device only here
+            churn = None
+            if self._last_churn is not None:
+                counts, nnz = self._last_churn
+                churn = [float(c) / max(1, n) for c, n in zip(counts.tolist(), nnz)]
+                self._last_churn = None
+            probes.record_snapshot(gstep, "train", probe_dev, churn=churn,
+                                   extra={"epoch": epoch, "loss": train_loss,
+                                          "n_params": n_params})
         self.history["epoch"].append(epoch)
         self.history["train_loss"].append(train_loss)
         self.history["test_acc"].append(acc)
         self.history["n_params"].append(n_params)
         self.history["epoch_seconds"].append(dt)
+        ep_sp.set(loss=train_loss, n_params=n_params)
         if log_every and (epoch + 1) % log_every == 0:
             print(f"epoch {epoch:4d} loss {train_loss:.4f} acc {acc:.4f} params {n_params}")
         self.gstep = gstep
@@ -553,22 +607,30 @@ class SequentialTrainer:
         topo = model.topo_arrays()
         device_evo = tc.evolve and tc.device_evolution and self._supports_device_evolution()
         topo_dirty = False  # the device topology has moved on from model.topos
+        segment = self._probe_segment or self._segment
         for epoch in range(self.start_epoch, tc.epochs):
-            t0 = time.perf_counter()
-            perm = torch.as_tensor(
-                loader.epoch_order(epoch).reshape(steps, tc.batch_size), device=dev
-            )
-            lrs = torch.tensor(
-                [float(lr_fn(gstep + i)) for i in range(steps)], dtype=torch.float32, device=dev
-            )
-            params, self.opt_state, self.key, losses = self._segment(
-                model.params(), self.opt_state, topo, x_all, y_all, perm, lrs, self.key,
-            )
-            gstep += steps
-            model.set_params(params)
-            topo, topo_dirty = self._topology_phase(epoch, topo, topo_dirty, device_evo)
-            topo_dirty = self._end_epoch(epoch, t0, float(losses.mean()), gstep, log_every,
-                                         topo, topo_dirty)
+            with obs.span("train.epoch", epoch=epoch) as ep_sp:
+                t0 = time.perf_counter()
+                perm = torch.as_tensor(
+                    loader.epoch_order(epoch).reshape(steps, tc.batch_size), device=dev
+                )
+                lrs = torch.tensor(
+                    [float(lr_fn(gstep + i)) for i in range(steps)], dtype=torch.float32,
+                    device=dev
+                )
+                # the span waits for the segment's losses at its close, so
+                # it times the device's work
+                with obs.span("train.segment", steps=steps) as seg_sp:
+                    out = segment(model.params(), self.opt_state, topo, x_all, y_all, perm,
+                                  lrs, self.key)
+                    params, self.opt_state, self.key, losses = out[:4]
+                    probe_dev = out[4] if tc.probe else None
+                    seg_sp.block_on(losses)
+                gstep += steps
+                model.set_params(params)
+                topo, topo_dirty = self._topology_phase(epoch, topo, topo_dirty, device_evo)
+                topo_dirty = self._end_epoch(epoch, t0, losses, gstep, log_every, topo,
+                                             topo_dirty, probe_dev=probe_dev, ep_sp=ep_sp)
         if topo_dirty:
             self._sync_topology_to_host(topo)
         return self.history
@@ -581,21 +643,26 @@ class SequentialTrainer:
         gstep = self.gstep
         topo = model.topo_arrays()
         for epoch in range(self.start_epoch, tc.epochs):
-            t0 = time.perf_counter()
-            params = model.params()
-            losses = []
-            for xb, yb in loader.epoch(epoch):
-                lr = torch.tensor(float(lr_fn(gstep)), dtype=torch.float32, device=dev)
-                params, self.opt_state, loss = self._step(
-                    params, self.opt_state, topo, torch.as_tensor(xb, device=dev),
-                    torch.as_tensor(yb, device=dev).long(), lr, self.key,
-                )
-                losses.append(loss)
-                gstep += 1
-            model.set_params(params)
-            topo, _ = self._topology_phase(epoch, topo, False, device_evo=False)
-            self._end_epoch(epoch, t0, float(torch.stack(losses).mean()), gstep, log_every,
-                            topo)
+            with obs.span("train.epoch", epoch=epoch) as ep_sp:
+                t0 = time.perf_counter()
+                params = model.params()
+                losses = []
+                # one span per epoch's worth of per-batch steps, not per step
+                with obs.span("train.segment", mode="per_batch") as seg_sp:
+                    for xb, yb in loader.epoch(epoch):
+                        lr = torch.tensor(float(lr_fn(gstep)), dtype=torch.float32, device=dev)
+                        params, self.opt_state, loss = self._step(
+                            params, self.opt_state, topo, torch.as_tensor(xb, device=dev),
+                            torch.as_tensor(yb, device=dev).long(), lr, self.key,
+                        )
+                        losses.append(loss)
+                        gstep += 1
+                    seg_sp.set(steps=len(losses))
+                    seg_sp.block_on(params)
+                model.set_params(params)
+                topo, _ = self._topology_phase(epoch, topo, False, device_evo=False)
+                self._end_epoch(epoch, t0, torch.stack(losses), gstep, log_every, topo,
+                                ep_sp=ep_sp)
         return self.history
 
 
@@ -618,8 +685,9 @@ class XLTrainer:
     Constraints vs the in-core trainer: element impl only, ``dropout == 0``
     (the streamed backward is hand-derived) and no importance-pruning
     schedule (shape changes would re-plan). Refused with the ROADMAP item
-    that brings them: ``TrainerConfig(probe=True)`` (item 4), and the fault
-    hook and step retries (item 5).
+    that brings them: the fault hook and step retries (item 5).
+    ``TrainerConfig(probe=True)`` records one ``"xl"`` snapshot per epoch,
+    ``StreamExecutor.probe_stats`` on the epoch's last batch.
     """
 
     def __init__(self, model_or_state, data: Dataset, tc: TrainerConfig, plan,
@@ -639,8 +707,6 @@ class XLTrainer:
                 device = model_or_state.device
         if tc.pruning is not None:
             raise ValueError("XLTrainer does not support importance pruning")
-        if tc.probe:
-            raise NotImplementedError(_PROBES)
         if tc.batch_size != plan.batch:
             raise ValueError(
                 f"plan solved for batch {plan.batch}, trainer uses "
@@ -753,6 +819,7 @@ class XLTrainer:
 
     def run(self, log_every: int = 0) -> Dict[str, List]:
         from repro_torch.xl import evolve_model_streamed
+        from repro_torch.xl.stream import compile_counts
 
         if self.fault_hook is not None or self.step_retries:
             raise NotImplementedError(
@@ -767,35 +834,59 @@ class XLTrainer:
             raise ValueError("batch_size larger than the training shard")
         lr_fn = tc.lr_schedule or (lambda step: tc.lr)
         gstep = self.gstep
-        for epoch in range(self.start_epoch, tc.epochs):
-            t0 = time.perf_counter()
-            losses = []
-            for xb, yb in loader.epoch(epoch):
-                losses.append(self.executor.train_step(
-                    xb, yb, float(lr_fn(gstep)), momentum=tc.momentum,
-                    weight_decay=tc.weight_decay,
-                ))
-                gstep += 1
-            if epoch < tc.epochs - 1 and tc.evolve:
-                evolve_model_streamed(self.state, tc.zeta, self.rng)
-            dt = time.perf_counter() - t0
-            if (epoch + 1) % tc.eval_every == 0 or epoch == tc.epochs - 1:
-                acc = self.evaluate(self.data.x_test, self.data.y_test)
-            else:
-                acc = float("nan")
-            self.history["epoch"].append(epoch)
-            self.history["train_loss"].append(float(np.mean(losses)))
-            self.history["test_acc"].append(acc)
-            self.history["n_params"].append(self.n_params)
-            self.history["epoch_seconds"].append(dt)
-            if log_every and (epoch + 1) % log_every == 0:
-                print(
-                    f"epoch {epoch:4d} loss {self.history['train_loss'][-1]:.4f} "
-                    f"acc {acc:.4f} params {self.n_params} "
-                    f"peak_dev {self.executor.measured_peak_bytes}"
-                )
-            self.gstep = gstep
-            self.epoch_next = epoch + 1
-            if self.epoch_end_hook is not None:
-                self.epoch_end_hook(self, epoch)
+        with obs.span("train.run", mode="xl", epochs=tc.epochs, start_epoch=self.start_epoch):
+            for epoch in range(self.start_epoch, tc.epochs):
+                with obs.span("train.epoch", epoch=epoch) as ep_sp:
+                    t0 = time.perf_counter()
+                    losses = []
+                    probe_batch = None
+                    # one span over the epoch's streamed steps, not one per
+                    # shard; the executor syncs every step (it reads the loss)
+                    with obs.span("train.segment", mode="xl"):
+                        for xb, yb in loader.epoch(epoch):
+                            probe_batch = (xb, yb)
+                            losses.append(self.executor.train_step(
+                                xb, yb, float(lr_fn(gstep)), momentum=tc.momentum,
+                                weight_decay=tc.weight_decay,
+                            ))
+                            gstep += 1
+                    evo_stats = None
+                    if epoch < tc.epochs - 1 and tc.evolve:
+                        evo_stats = evolve_model_streamed(self.state, tc.zeta, self.rng)
+                        obs.point("train.evolve", epoch=epoch, device=False)
+                    if tc.probe and probe_batch is not None:
+                        layer_stats = self.executor.probe_stats(*probe_batch)
+                        churn = None
+                        if evo_stats is not None:
+                            churn = [e["n_pruned"] / max(1, st.nnz)
+                                     for e, st in zip(evo_stats, self.state.layers)]
+                        probes.record_snapshot(gstep, "xl", layers=layer_stats, churn=churn,
+                                               extra={"epoch": epoch,
+                                                      "loss": float(np.mean(losses))})
+                    dt = time.perf_counter() - t0
+                    if (epoch + 1) % tc.eval_every == 0 or epoch == tc.epochs - 1:
+                        acc = self.evaluate(self.data.x_test, self.data.y_test)
+                        obs.point("train.eval", epoch=epoch, acc=float(acc))
+                    else:
+                        acc = float("nan")
+                    self.history["epoch"].append(epoch)
+                    self.history["train_loss"].append(float(np.mean(losses)))
+                    self.history["test_acc"].append(acc)
+                    self.history["n_params"].append(self.n_params)
+                    self.history["epoch_seconds"].append(dt)
+                    ep_sp.set(loss=self.history["train_loss"][-1],
+                              peak_dev_bytes=int(self.executor.measured_peak_bytes))
+                    if log_every and (epoch + 1) % log_every == 0:
+                        print(
+                            f"epoch {epoch:4d} loss {self.history['train_loss'][-1]:.4f} "
+                            f"acc {acc:.4f} params {self.n_params} "
+                            f"peak_dev {self.executor.measured_peak_bytes}"
+                        )
+                    self.gstep = gstep
+                    self.epoch_next = epoch + 1
+                    if self.epoch_end_hook is not None:
+                        self.epoch_end_hook(self, epoch)
+            # the substrate's static buffers as gauges: a count that grew
+            # with scale shows in the Prometheus snapshot
+            obs.record_compile_counts(compile_counts(), prefix="xl_compile_cache")
         return self.history

@@ -54,9 +54,13 @@ layers, epochs or executors ran. ``StreamExecutor.allocations`` counts the
 allocations themselves. The loss's few (B, n_classes) temporaries come from
 PyTorch's caching allocator, outside this contract.
 
-Not in this slice: ``probe_stats`` (the training-dynamics probes, ROADMAP
-Queue 1, item 4), the contract auditor's ``analysis_programs`` (item 8) and
-the reference's ``obs`` spans (item 4).
+Observability, as the reference's: one ``xl.forward`` span per streamed
+forward and one ``xl.train_step`` span per step (not per shard: the shard
+loop is the hot path), and ``StreamExecutor.probe_stats``, the
+training-dynamics probe of the streamed model (``xl.probe``).
+
+Not in this slice: the contract auditor's ``analysis_programs`` (ROADMAP
+Queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -77,6 +81,7 @@ from repro_torch.core.topology import (
     element_row_order,
     element_shard_bounds,
 )
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.all_relu_fused import all_relu_bwd, bias_all_relu_T
 from repro_torch.kernels.ops import (
@@ -87,6 +92,7 @@ from repro_torch.kernels.ops import (
     xl_shard_dw,
 )
 from repro_torch.models.mlp import cross_entropy_loss
+from repro_torch.obs import probes
 from repro_torch.xl.planner import XLPlan
 
 __all__ = [
@@ -692,32 +698,43 @@ class StreamExecutor:
         self._h2d(self.bias_dev[: host.shape[0]], host,
                   self._bias_events[l] if self.cuda else None)
 
-    def forward(self, xb: np.ndarray, *, train: bool = False) -> torch.Tensor:
+    def forward(self, xb: np.ndarray, *, train: bool = False,
+                preact_stats: Optional[list] = None) -> torch.Tensor:
         """Streamed forward of up to ``plan.batch`` rows. Leaves each hidden
         layer's output (and, with ``train``, its branch mask) in its buffer
         and returns the logits' rows of the accumulator, (n_classes, B), on
-        the device."""
+        the device. With ``preact_stats`` (a list), each layer's
+        ``(saturation, l2)`` of its pre-activation z + bias is appended to it
+        (``probes.padded_buffer_probe`` of a (d_max, B) temporary)."""
         st = self.state
         n = st.n_layers
-        self._put_input(xb)
-        src = self.xT
-        for l in range(n):
-            out_dim = st.layers[l].out_dim
-            acc = self.acc[:out_dim]
-            acc.zero_()
-            self._put_bias(l)
-            for _, window, vals, gather in self._stream(l, "fwd", values=True, runs=False):
-                xl_shard_acc(self.acc, src, vals, gather, n_segments=self.d_max,
-                             window=window)
-            bias = self.bias_dev[:out_dim]
-            if l < n - 1:
-                bias_all_relu_T(acc, bias, self._slopes[l], out=self.h[l][:out_dim],
-                                mask=self.mask[l][:out_dim] if train else None)
-                src = self.h[l]
-            else:
-                bias_all_relu_T(acc, bias, None, out=acc)
-        self._note_bytes(n + 3 if train else 4)
-        return self.acc[: st.layer_dims[-1]]
+        # one span per streamed forward, not per shard; nothing is
+        # registered on it, so it measures enqueue, not device time
+        with obs.span("xl.forward", layers=n):
+            self._put_input(xb)
+            src = self.xT
+            for l in range(n):
+                out_dim = st.layers[l].out_dim
+                acc = self.acc[:out_dim]
+                acc.zero_()
+                self._put_bias(l)
+                for _, window, vals, gather in self._stream(l, "fwd", values=True, runs=False):
+                    xl_shard_acc(self.acc, src, vals, gather, n_segments=self.d_max,
+                                 window=window)
+                bias = self.bias_dev[:out_dim]
+                if preact_stats is not None and l < n - 1:
+                    z = self.acc + self.bias_dev[:, None]
+                    preact_stats.append(probes.padded_buffer_probe(z, out_dim)[:2])
+                if l < n - 1:
+                    bias_all_relu_T(acc, bias, self._slopes[l], out=self.h[l][:out_dim],
+                                    mask=self.mask[l][:out_dim] if train else None)
+                    src = self.h[l]
+                else:
+                    bias_all_relu_T(acc, bias, None, out=acc)
+                    if preact_stats is not None:
+                        preact_stats.append(probes.padded_buffer_probe(self.acc, out_dim)[:2])
+            self._note_bytes(n + 3 if train else 4)
+            return self.acc[: st.layer_dims[-1]]
 
     def logits(self, xb: np.ndarray) -> np.ndarray:
         """Streamed inference logits for up to ``plan.batch`` rows."""
@@ -741,23 +758,36 @@ class StreamExecutor:
                 f"{xb.shape[0]}: the loss and gradient buffers are shaped for "
                 f"the plan's batch (ragged batches are eval-only)"
             )
-        mu, wd = np.float32(momentum), np.float32(weight_decay)
-        lr = np.float32(lr)
-        st = self.state
-        n = st.n_layers
-        n_out = st.layer_dims[-1]
-        self.forward(xb, train=True)
+        # the step ends with float(loss), a full sync: the span needs no
+        # block_on
+        with obs.span("xl.train_step"):
+            return self._train_step_inner(xb, yb, np.float32(lr), np.float32(momentum),
+                                          np.float32(weight_decay))
+
+    def _loss_and_dz(self, xb: np.ndarray, yb: np.ndarray, *, train: bool,
+                     preact_stats: Optional[list] = None) -> torch.Tensor:
+        """The forward, then the loss as the in-core step takes it (the
+        (B, n_classes) logits, F.cross_entropy, its gradient by autograd: the
+        same bits), the logits' gradient left in ``dz``. Returns the loss on
+        the device."""
+        n_out = self.state.layer_dims[-1]
+        self.forward(xb, train=train, preact_stats=preact_stats)
         if self.cuda:
             self._wait(self._events["y"])
         self._y_host.numpy()[...] = np.asarray(yb, np.int64)
         self._h2d(self.y, self._y_host, self._events["y"] if self.cuda else None)
-        # the loss as the in-core step takes it: the (B, n_classes) logits,
-        # F.cross_entropy, and its gradient by autograd (the same bits)
         with torch.enable_grad():
             logits = self.acc[:n_out].T.contiguous().requires_grad_(True)
             loss = cross_entropy_loss(logits, self.y)
             (dlogits,) = torch.autograd.grad(loss, logits)
         self.dz[:n_out].copy_(dlogits.T)
+        return loss
+
+    def _train_step_inner(self, xb: np.ndarray, yb: np.ndarray, lr, mu, wd) -> float:
+        st = self.state
+        n = st.n_layers
+        n_out = st.layer_dims[-1]
+        loss = self._loss_and_dz(xb, yb, train=True)
         # the output layer's dz is the logits' gradient; G gives its bias's
         all_relu_bwd(self.dz[:n_out], None, None, dbias_out=self.dbias[:n_out])
         for l in range(n - 1, -1, -1):
@@ -818,14 +848,67 @@ class StreamExecutor:
         layer.values[lo:hi] = v + layer.velocity[lo:hi]
         self.stats["update_s"] += time.perf_counter() - t0
 
-    # -- not in this slice ----------------------------------------------------
+    # -- training-dynamics probe (obs.probes, DESIGN.md §12) -----------------
 
     def probe_stats(self, xb: np.ndarray, yb: np.ndarray) -> List[dict]:
-        """The reference's training-dynamics probe of the streamed model."""
-        raise NotImplementedError(
-            "training-dynamics probes of the out-of-core stream come with the probes slice "
-            "(ROADMAP Queue 1, item 4)"
-        )
+        """Per-layer training-dynamics stats for one (full) batch, as the
+        reference's.
+
+        The device side reuses the step's passes only: the streamed forward
+        (keeping the branch masks), the loss's dz and the dX walk with kernel
+        G's backward of the activation (kernels A, B and G; no dW, so kernel
+        F does not run), plus ``probes.padded_buffer_probe`` over each
+        layer's (d_max, B) pre-activation and dz. No whole-layer dW is ever
+        materialized, so ``grad_l2`` here is the *pre-activation* gradient
+        norm (the dz buffer), a parameter-gradient proxy. Value magnitude and
+        neuron-importance stats come from streamed host passes over the host
+        leaves (``probes.streamed_*``, one shard-sized working set). Reads
+        the weights, writes none.
+
+        Returns a list of per-layer stat dicts ready for
+        ``probes.record_snapshot(..., layers=...)``.
+        """
+        st = self.state
+        n = st.n_layers
+        if xb.shape[0] != self.B:
+            raise ValueError(
+                f"probe_stats needs a full batch of {self.B} rows, got "
+                f"{xb.shape[0]}: padded batch columns would pollute the "
+                f"saturation/gradient reductions"
+            )
+        with obs.span("xl.probe", layers=n):
+            zstats: list = []
+            self._loss_and_dz(xb, yb, train=True, preact_stats=zstats)
+            gstats: List = [None] * n
+            gstats[n - 1] = probes.padded_buffer_probe(self.dz, st.layers[n - 1].out_dim)[1:]
+            for l in range(n - 1, 0, -1):
+                in_dim = st.layers[l].in_dim
+                self.acc[:in_dim].zero_()
+                for _, window, vals, gather in self._stream(l, "dx", values=True, runs=False):
+                    xl_shard_acc(self.acc, self.dz, vals, gather, n_segments=self.d_max,
+                                 window=window)
+                all_relu_bwd(self.acc[:in_dim], self.mask[l - 1][:in_dim],
+                             self._slopes[l - 1], dz_out=self.dz[:in_dim],
+                             dbias_out=self.dbias[:in_dim])
+                gstats[l - 1] = probes.padded_buffer_probe(self.dz, in_dim)[1:]
+            dev = [torch.stack([*zstats[l], *gstats[l]]) for l in range(n)]
+            host = torch.stack(dev).cpu().numpy()  # the probe's one sync
+            self._note_bytes(2 * n + 3)
+        layers = []
+        for l in range(n):
+            layer = st.layers[l]
+            sat, z_l2, g_l2, g_zero = (float(a) for a in host[l])
+            row = {
+                "saturation": sat,
+                "preact_l2": z_l2,
+                "grad_l2": g_l2,
+                "grad_zero_frac": g_zero,
+            }
+            row.update(probes.streamed_value_stats(layer.values))
+            row.update(probes.streamed_importance_quantiles(layer.values, layer.cols,
+                                                            layer.out_dim))
+            layers.append(row)
+        return layers
 
 
 def analysis_programs():

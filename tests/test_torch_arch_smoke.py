@@ -1,12 +1,15 @@
-"""Every ``PatternLM`` architecture of the registry in the port against the
-JAX reference at its SMOKE config, on the CPU: the twin of
+"""Every architecture of the registry (the ``PatternLM`` archs and the
+encoder-decoder ``whisper-medium``) in the port against the JAX reference
+at its SMOKE config, on the CPU: the twin of
 ``tests/test_arch_smoke.py``, which holds the reference's own outputs to
 their shapes and finiteness; here the port's are held to the reference's.
 Also one ``adamw`` update (``repro_torch.optim.sgd``) on an LM tree and an
 MLP tree.
 
 The reference's parameters cross over through ``interop.lm_from_numpy``
-(the packages draw their dense weights from different generators). At f32:
+(``interop.whisper_from_numpy`` for Whisper; the packages draw their dense
+weights from different generators). Whisper's loss is its train step's
+(``launch.steps.whisper_loss_fn``) on seeded frame embeddings. At f32:
 
 * logits and the loss with the MoE auxiliary loss: rtol = atol = 1e-4, the
   attention LM's tolerance (``tests/test_torch_lm.py``);
@@ -34,17 +37,20 @@ from repro.checkpoint.manager import _flatten_with_names  # noqa: E402
 from repro.models.mlp import SparseMLP as JSparseMLP  # noqa: E402
 from repro.models.mlp import SparseMLPConfig as JSparseMLPConfig  # noqa: E402
 from repro.models.transformer import PatternLM as JPatternLM  # noqa: E402
+from repro.models.whisper import WhisperModel as JWhisper  # noqa: E402
 from repro.models.transformer import chunked_softmax_xent as jxent  # noqa: E402
 from repro.optim import sgd as jsgd  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.interop import lm_from_numpy, tensor_from_numpy  # noqa: E402
+from repro_torch.interop import lm_from_numpy, tensor_from_numpy, whisper_from_numpy  # noqa: E402
+from repro_torch.launch.steps import whisper_loss_fn  # noqa: E402
 from repro_torch.models.transformer import chunked_softmax_xent  # noqa: E402
 from repro_torch.optim import sgd as tsgd  # noqa: E402
 from repro_torch.tree import tree_flatten_with_names, tree_map  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
-ARCHS = [a for a in configs.list_archs() if a != "whisper-medium"]
+ARCHS = configs.list_archs()
+WHISPER = "whisper-medium"
 B, S = 2, 32
 TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
@@ -66,6 +72,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def _pair(arch):
     """The reference's smoke model for ``arch`` (seed 0) and the port's twin
     of it."""
+    if arch == WHISPER:
+        jm = JWhisper(jconfigs.get_spec(arch).smoke, seed=0)
+        tm = whisper_from_numpy(dataclasses.asdict(jm.cfg), jax.tree.map(np.asarray, jm.params),
+                                device="cpu")
+        return jm, tm
     jm = JPatternLM(jconfigs.get_spec(arch).smoke, seed=0)
     topos = {slot: [((a.rows, a.cols), (b.rows, b.cols)) for a, b in reps]
              for slot, reps in jm.topologies.items()}
@@ -84,9 +95,46 @@ def _inputs(arch):
     return toks, prefix
 
 
+def _whisper_forward_and_grad(jm, tm):
+    """Whisper's logits and train-step loss on seeded frames, and the
+    gradients of every leaf, in both packages."""
+    cfg = jm.cfg
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal((B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    labels = np.roll(toks, -1, axis=1)
+
+    def jloss(params):
+        h = jm.decode_train(params, jnp.asarray(toks), jm.encode(params, jnp.asarray(frames)))
+        logits = jm.logits(params, h)
+        logp = jax.nn.log_softmax(logits.astype(jnp.float32))
+        return -jnp.take_along_axis(logp, jnp.asarray(labels)[..., None], -1).mean(), logits
+
+    (want_loss, want_logits), want_grads = jax.jit(
+        jax.value_and_grad(jloss, has_aux=True))(jm.params)
+    names, unflatten = tree_flatten_with_names(tm.params)
+    leaves = [t.detach().clone().requires_grad_(True) for _, t in names]
+    params = unflatten(leaves)
+    batch = {"frames": torch.as_tensor(frames), "tokens": torch.as_tensor(toks),
+             "labels": torch.as_tensor(labels)}
+    loss, _ = whisper_loss_fn(tm)(params, batch)
+    h = tm.decode_train(params, batch["tokens"], tm.encode(params, batch["frames"]))
+    logits = tm.logits(params, h)
+    assert logits.shape == (B, S, cfg.vocab)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    np.testing.assert_allclose(_np(logits), np.asarray(want_logits), **TOL)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), **TOL)
+    return names, grads, want_grads
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_forward_and_grad_match_reference(arch):
     jm, tm = _pair(arch)
+    if arch == WHISPER:
+        names, grads, want_grads = _whisper_forward_and_grad(jm, tm)
+        _check_grads(arch, names, grads, want_grads)
+        return
     cfg = jm.cfg
     toks, prefix = _inputs(arch)
     n_prefix = 0 if prefix is None else cfg.prefix_len
@@ -120,6 +168,10 @@ def test_smoke_forward_and_grad_match_reference(arch):
     np.testing.assert_allclose(float(total.detach()), float(want_total), **TOL)
     np.testing.assert_allclose(float(aux.detach()), float(want_aux), **TOL)
     assert (float(aux.detach()) > 0) == (cfg.ffn == "moe")
+    _check_grads(arch, names, grads, want_grads)
+
+
+def _check_grads(arch, names, grads, want_grads):
     want = dict(_flatten_with_names(want_grads)[0])
     assert [n for n, _ in names] == list(want)
     for (name, _), g in zip(names, grads):
@@ -129,10 +181,31 @@ def test_smoke_forward_and_grad_match_reference(arch):
                                    err_msg=f"{arch}: gradient {name}")
 
 
+def _whisper_decode(jm, tm):
+    """One Whisper decode step at position 7 from zero caches, on a seeded
+    encoder memory, in both packages: ``(got, want, caches, new caches,
+    the reference's new caches)``."""
+    cfg = jm.cfg
+    rng = np.random.default_rng(1)
+    frames = rng.standard_normal((B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (B, 1))
+    jmem = jm.encode(jm.params, jnp.asarray(frames))
+    want, jnew = jax.jit(jm.decode_step)(jm.params, jnp.asarray(toks), jnp.asarray(7),
+                                         jm.init_caches(B, 64, dtype=jnp.float32), jmem)
+    caches = tm.init_caches(B, 64, dtype=torch.float32)
+    tmem = tm.encode(tm.params, torch.as_tensor(frames))
+    got, new = tm.decode_step(tm.params, torch.as_tensor(toks), 7, caches, tmem)
+    return got, want, caches, new, jnew
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_decode_step_matches_reference(arch):
     jm, tm = _pair(arch)
     cfg = jm.cfg
+    if arch == WHISPER:
+        got, want, caches, new, jnew = _whisper_decode(jm, tm)
+        _check_decode(cfg, got, want, caches, new, jnew)
+        return
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (B, 1))
     jcaches = jm.init_caches(B, 64, dtype=jnp.float32)
     want, jnew, _ = jax.jit(lambda p, c: jm.forward(
@@ -141,6 +214,10 @@ def test_smoke_decode_step_matches_reference(arch):
     caches = tm.init_caches(B, 64, dtype=torch.float32)
     got, new, _ = tm.forward(tm.params, torch.as_tensor(toks), topo=tm.topo_arrays(),
                              positions=torch.tensor([7]), mode="decode", caches=caches)
+    _check_decode(cfg, got, want, caches, new, jnew)
+
+
+def _check_decode(cfg, got, want, caches, new, jnew):
     assert got.shape == (B, 1, cfg.vocab) and torch.isfinite(got).all()
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
     # the cache structure: the reference's names, shapes and dtypes, kept

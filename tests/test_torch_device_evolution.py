@@ -437,9 +437,11 @@ def test_element_layers_device_chains_layers_on_one_stream():
         assert tsp.route_hints(new[l], dims[l], dims[l + 1]) == tsp.route_hints(
             arrays[l], dims[l], dims[l + 1])
     assert pruned.shape == (3,) and pruned.dtype == torch.int64
-    with pytest.raises(NotImplementedError, match="probes"):
-        ttopo.evolve_element_layers_device(arrays, vals, mom, gen, layer_dims=dims, zeta=0.3,
-                                           probe=True)
+    # the churn probe is ported: probe=True returns the pruned counts, as
+    # every call does
+    probed = ttopo.evolve_element_layers_device(arrays, vals, mom, gen, layer_dims=dims,
+                                                zeta=0.3, probe=True)
+    assert probed[3].shape == (3,) and probed[3].dtype == torch.int64
 
 
 def test_flat_positions_must_fit_int32():

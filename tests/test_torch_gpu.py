@@ -48,7 +48,16 @@ recurrentgemma-2b's sparse FFN grids (W_in 20 x 60, W_out 60 x 20): C, D
 and E bf16 held the same way, on columns and block-rows longer than their
 rings. The RG-LRU, Mamba-1 and MoE smoke models in f32 on the card within
 1e-4 of the CPU run (logits, loss with the auxiliary loss, gradients, a
-decode step).
+decode step). The observability layer: a span that ``block_on``s kernel A's
+result closes after the kernel ends (its duration at least the kernel's
+CUDA-event time); ``sample_device_memory`` reads the allocator's figures;
+the probed segment's stats on the card within 1e-4 of the CPU's (the
+histograms equal), its weights and losses bit-equal to the unprobed
+segment's, and its launches exactly the steps' plus one forward (A storing
+z + bias, B's All-ReLU) and one backward (F, G standalone, A's dX). Whisper
+cut to 2 + 2 layers at full width in f32: logits within 1e-4 of the CPU's,
+gradients within 1e-4 relative L2 a leaf, the cross attention's bias
+gradients exact zeros.
 """
 import dataclasses
 
@@ -2094,3 +2103,147 @@ def test_recurrent_and_moe_archs_on_card_match_cpu(cuda, arch):
     assert (a0 > 0) == (cfg.ffn == "moe")
     for (name, a), (_, b) in zip(g1, g0):
         assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-7, name
+
+
+# ---------------------------------------------------------------------------
+# the observability layer (repro_torch.obs) and Whisper on the card
+# ---------------------------------------------------------------------------
+
+
+def test_span_block_on_waits_for_kernel_a(cuda, tmp_path):
+    """A span that registers kernel A's result closes after the kernel has
+    run: its duration is at least the launches' CUDA-event time."""
+    from repro_torch import obs
+
+    topo, vals, x = _layer(3, 400, 400, 100, 128)
+    t = topo.device_arrays(cuda)
+    srcT = torch.as_tensor(np.ascontiguousarray(x.T), device=cuda)
+    v = torch.as_tensor(vals, device=cuda)
+    tsp.coo_matmul_T(srcT, v, t.rows, t.cols, 400)  # built and warm
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    path = tmp_path / "t.jsonl"
+    with obs.trace_to(str(path)):
+        with obs.span("kernel_a") as sp:
+            start.record()
+            out = srcT
+            for _ in range(50):  # long enough to outlast the host's enqueueing
+                out = tsp.coo_matmul_T(srcT, v, t.rows, t.cols, 400, acc=out)
+            end.record()
+            sp.block_on({"out": [out]})
+        assert end.query()  # the close waited
+    span = next(e for e in obs.read_events(str(path)) if e.get("name") == "kernel_a")
+    assert span["dur_s"] * 1e3 >= start.elapsed_time(end)
+
+
+def test_sample_device_memory_on_card(cuda):
+    from repro_torch import obs
+
+    x = torch.empty(1 << 24, dtype=torch.uint8, device=cuda)
+    reg = obs.MetricsRegistry(control=True)
+    got = obs.sample_device_memory(reg)
+    dev = torch.cuda.current_device()
+    assert got[f"device_bytes_in_use{{device={dev}}}"] == torch.cuda.memory_allocated(dev)
+    assert got[f"device_peak_bytes_in_use{{device={dev}}}"] == torch.cuda.max_memory_allocated(dev)
+    assert got[f"device_bytes_in_use{{device={dev}}}"] >= x.numel()
+    assert got["device_live_buffers"] >= 1
+    assert not any("largest_alloc_size" in k for k in got)
+    snap = reg.snapshot()
+    assert snap[f'device_bytes_in_use{{device="{dev}"}}'] == got[
+        f"device_bytes_in_use{{device={dev}}}"]
+
+
+def _element_counts() -> dict:
+    """The element path's launch counters (kernels A, B, F, G and their
+    sub-counts)."""
+    a, f = tsp.coo_matmul_T, tsp.coo_dw
+    b, g = all_relu_fused.bias_all_relu, all_relu_fused.all_relu_bwd
+    return {"coo_matmul_T": a.launches, "coo_matmul_T.epilogue": a.epilogue_launches,
+            "coo_matmul_T.mask": a.mask_launches, "bias_all_relu": b.launches,
+            "bias_all_relu.T": b.T_launches, "coo_dw": f.launches,
+            "coo_dw.epilogue": f.epilogue_launches, "coo_dw.mask": f.mask_launches,
+            "all_relu_bwd": g.launches}
+
+
+def test_probed_segment_on_card_matches_cpu(cuda):
+    """The probed element segment (784-300-100-10, 4 steps of 32, dropout
+    0): its stats on the card within 1e-4 of the CPU's, the histograms
+    equal; its weights and losses bit-equal to the unprobed segment's on the
+    card; its launches the steps' plus the probe's exactly."""
+    from repro_torch.train.trainer import make_segment_program
+
+    cfg = SparseMLPConfig(layer_dims=(784, 300, 100, 10), epsilon=20, impl="element",
+                          dropout=0.0)
+    opt = MomentumSGD()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((256, 784)).astype(np.float32)
+    y = rng.integers(0, 10, 256)
+    perm = rng.permutation(256)[:128].reshape(4, 32)
+    res = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda), ("card_off", cuda)):
+        model = SparseMLP(cfg, seed=0, device=dev)
+        args = (model.params(), opt.init(model.params()), model.topo_arrays(),
+                torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev).long(),
+                torch.as_tensor(perm, device=dev), torch.full((4,), 0.01, device=dev),
+                torch.Generator(device=dev))
+        before = _element_counts()
+        out = make_segment_program(cfg, opt, probe=name != "card_off")(*args)
+        torch.cuda.synchronize()
+        res[name] = (out, {k: n - before[k] for k, n in _element_counts().items()})
+    (cpu, _), (card, n_on), (off, n_off) = res["cpu"], res["card"], res["card_off"]
+    L = cfg.n_layers
+    probe = {"coo_matmul_T": 2 * L - 1, "coo_matmul_T.epilogue": L, "bias_all_relu": L - 1,
+             "bias_all_relu.T": L - 1, "coo_dw": L, "coo_dw.epilogue": L,
+             "all_relu_bwd": L - 1}
+    assert {k: n_on[k] - n_off[k] for k in n_on if n_on[k] != n_off[k]} == probe
+    for a, b in zip(card[0]["values"], off[0]["values"]):
+        assert torch.equal(a, b)
+    assert torch.equal(card[3], off[3])
+    for k, w in cpu[4].items():
+        g = card[4][k].cpu()
+        if k.endswith("_hist"):
+            assert torch.equal(g, w), k
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6, msg=k)
+
+
+def test_whisper_two_layer_cut_on_card_matches_cpu(cuda):
+    """Whisper-medium cut to 2 + 2 layers at full width, in f32, on 1 x 64
+    frames and 16 tokens: logits within 1e-4 of the CPU's, gradients
+    within 1e-4 relative L2 a leaf, the cross attention's bias gradients
+    exact zeros."""
+    from repro_torch import configs
+    from repro_torch.interop import whisper_from_numpy
+    from repro_torch.launch import steps
+    from repro_torch.models.whisper import WhisperModel
+    from repro_torch.tree import tree_flatten_with_names, tree_map
+
+    cfg = dataclasses.replace(configs.get_spec("whisper-medium").config, n_layers=2,
+                              dtype="float32")
+    card = WhisperModel(cfg, seed=0, device=cuda)
+    cpu = whisper_from_numpy(dataclasses.asdict(cfg),
+                             tree_map(lambda a: a.cpu().numpy(), card.params), device="cpu")
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.standard_normal((1, 64, cfg.d_model)), dtype=torch.float32)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 17)))
+    res = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = model.device
+        batch = {"frames": frames.to(dev), "tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        _, loss, g = steps._microbatched_grad(steps.whisper_loss_fn(model), model.params,
+                                              batch, 1)
+        with torch.no_grad():
+            h = model.decode_train(model.params, batch["tokens"],
+                                   model.encode(model.params, batch["frames"]))
+            logits = model.logits(model.params, h)
+        res[name] = (logits.cpu(), float(loss), [(n, a.cpu()) for n, a in
+                                                 tree_flatten_with_names(g)[0]])
+    (l0, s0, g0), (l1, s1, g1) = res["cpu"], res["card"]
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
+    assert abs(s1 - s0) <= 1e-4 * abs(s0)
+    for (name, a), (_, b) in zip(g1, g0):
+        if "cross_attn" in name and name.endswith(("bq", "bk", "bv")):
+            assert not a.any() and not b.any(), name
+        else:
+            assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-7, name

@@ -615,8 +615,6 @@ def test_lm_params_round_trip_through_names(pattern):
 def test_registry_matches_reference():
     assert configs.list_archs() == jconfigs.list_archs()
     for arch in configs.list_archs():
-        if arch == "whisper-medium":
-            continue
         spec, jspec = configs.get_spec(arch), jconfigs.get_spec(arch)
         for mine, theirs in ((spec.config, jspec.config), (spec.smoke, jspec.smoke)):
             assert dataclasses.asdict(mine) == dataclasses.asdict(theirs), arch
@@ -646,9 +644,14 @@ def test_unported_blocks_are_refused(arch, what):
 
 
 def test_whisper_and_abstract_are_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7b"):
-        configs.get_spec("whisper-medium")
+    """Whisper is ported (``tests/test_torch_whisper.py``): its spec is the
+    reference's and its step builders take it. The shape-only build is
+    still refused (Queue 1, item 9)."""
+    spec = configs.get_spec("whisper-medium")
+    assert type(spec.config).__name__ == "WhisperConfig" and spec.family == "audio"
+    from repro_torch.models.whisper import WhisperModel
+
+    prefill = make_prefill_step(WhisperModel(spec.smoke, seed=0, device="cpu"))
+    assert prefill.__name__ == "prefill_w"
     with pytest.raises(TypeError, match="abstract"):  # no shape-only build (Queue 1, item 9)
         PatternLM(LM_CFG, seed=0, abstract=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        make_prefill_step(object())

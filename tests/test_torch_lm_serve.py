@@ -292,7 +292,7 @@ def test_lm_engine_refusals():
         eng.classify(np.zeros((1, 4), np.float32))
 
 
-def test_serve_example_refuses_unported_flags_and_runs_on_cpu(capsys):
+def test_serve_example_refuses_unported_flags_and_runs_on_cpu(capsys, tmp_path):
     import importlib.util
     path = Path(__file__).resolve().parents[1] / "examples" / "serve_torch.py"
     spec = importlib.util.spec_from_file_location("serve_torch_example", path)
@@ -301,7 +301,18 @@ def test_serve_example_refuses_unported_flags_and_runs_on_cpu(capsys):
     pruned = example.main(["--prune-pct", "10", "--requests", "4", "--rate", "400",
                            "--device", "cpu"])
     assert pruned.completed == 4 and "neurons pruned" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        example.main(["--trace", "out.jsonl", "--device", "cpu"])
+    # --trace: the measured run's spans, a valid trace, its summary printed
+    from repro_torch import obs
+
+    trace = Path(tmp_path) / "serve.jsonl"
+    traced = example.main(["--requests", "4", "--rate", "400", "--device", "cpu",
+                           "--trace", str(trace)])
+    events = obs.read_events(str(trace))
+    assert obs.validate_events(events) == []
+    names = [e["name"] for e in events if e["ev"] == "span"]
+    assert names.count("serve.request") == traced.completed == 4
+    assert names.count("serve.queue") == 4 and names.count("serve.prefill") == traced.prefill_calls
+    assert names.count("serve.decode_step") == traced.decode_steps
+    assert "trace written to" in capsys.readouterr().out
     stats = example.main(["--requests", "4", "--rate", "400", "--device", "cpu"])
     assert stats.completed == 4 and "continuous batching" in capsys.readouterr().out

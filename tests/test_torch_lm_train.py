@@ -384,8 +384,22 @@ def test_sparse_ffn_grad_path_has_the_no_grad_bits():
 
 
 def test_train_step_refuses_the_whisper_model():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7b"):
-        steps.make_train_step(object())
+    """Whisper is ported: ``make_train_step`` takes a ``WhisperModel`` and
+    gives its three-argument step (``tests/test_torch_whisper.py`` holds
+    it to the reference)."""
+    from repro_torch import configs
+    from repro_torch.models.whisper import WhisperModel
+
+    cfg = configs.get_spec("whisper-medium").smoke
+    model = WhisperModel(cfg, seed=0, device="cpu")
+    step, opt = steps.make_train_step(model)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 8)))
+    batch = {"frames": torch.as_tensor(rng.standard_normal((2, 16, cfg.d_model)),
+                                       dtype=torch.float32),
+             "tokens": toks, "labels": toks}
+    _, state, metrics = step(model.params, opt.init(model.params), batch)
+    assert set(metrics) == {"loss"} and torch.isfinite(metrics["loss"]) and int(state.step) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -475,11 +489,31 @@ def test_example_loop_matches_reference_loop(tmp_path):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
 
 
-def test_example_refuses_the_obs_flags():
+def test_example_refuses_the_obs_flags(tmp_path, capsys):
+    """The obs flags run (they were refused before the obs slice): a valid
+    trace with the example's spans, and with ``--probe`` a valid timeline
+    of one snapshot per evolution and one at the end, no alert."""
+    from repro_torch import obs
+    from repro_torch.obs import timeline
+
     ex = _example("train_lm_torch")
-    for flags in (["--trace", "t.jsonl"], ["--probe"], ["--timeline", "t.jsonl"]):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-            ex.main(flags + ["--device", "cpu"])
+    trace, tl = tmp_path / "t.jsonl", tmp_path / "tl.jsonl"
+    ex.main(["--device", "cpu", "--steps", "4", "--evolve-every", "2", "--batch", "2",
+             "--seq", "16", "--ckpt-dir", str(tmp_path / "ckpt"), "--trace", str(trace),
+             "--probe", "--timeline", str(tl)])
+    events = obs.read_events(str(trace))
+    assert obs.validate_events(events) == []
+    names = [e["name"] for e in events if e["ev"] == "span"]
+    assert names.count("train.step") == 4 and names.count("train.evolve") == 2
+    assert names.count("train.run") == 1
+    tev = timeline.read_timeline(tl)
+    assert timeline.validate_timeline(tev) == [] and timeline.alerts(tev) == []
+    snaps = timeline.snapshots(tev, "lm")
+    assert [s["step"] for s in snaps] == [2, 4, 4]
+    assert all(np.isfinite(layer["value_l2"]) for s in snaps for layer in s["layers"])
+    assert 0 < snaps[0]["layers"][0]["churn_frac"] <= 1
+    out = capsys.readouterr().out
+    assert "training-dynamics health" in out and "alerts: none" in out
 
 
 # ---------------------------------------------------------------------------

@@ -114,9 +114,11 @@ def test_forward_matches_reference(fields, batch):
 def test_unported_paths_raise():
     tm = tmlp.SparseMLP(tmlp.SparseMLPConfig(**SMOKE), seed=0, device="cpu")
     x = torch.zeros((2, 64))
-    with pytest.raises(NotImplementedError):
-        tmlp.mlp_forward(tm.params(), tm.topo_arrays(), x, tm.config, infer=True,
-                         return_preacts=True)
+    # the pre-activations are ported (tests/test_torch_probes.py): the served
+    # forward keeps them too, its logits the last
+    logits, pre = tmlp.mlp_forward(tm.params(), tm.topo_arrays(), x, tm.config, infer=True,
+                                   return_preacts=True)
+    assert len(pre) == tm.config.n_layers and torch.equal(pre[-1], logits)
     # the element training forward and element dropout are ported: they run,
     # and dropout asks for its generator
     for kwargs in (dict(), dict(infer=True, train=True, rng=torch.Generator()),

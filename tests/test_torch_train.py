@@ -241,9 +241,9 @@ def test_trainer_refuses_what_this_slice_lacks():
     # device evolution is ported: the default config is taken
     # (tests/test_torch_device_train.py holds it against the reference)
     ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig())
-    with pytest.raises(NotImplementedError, match="probes"):
-        ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig(device_evolution=False,
-                                                                      probe=True))
+    # the probes are ported (tests/test_torch_probes.py): a probed trainer is made
+    assert ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig(
+        device_evolution=False, probe=True))._probe_segment is not None
     # element training is ported: its trainer runs (test_torch_element_train.py
     # holds it against the reference)
     el = tmlp.SparseMLP(tmlp.SparseMLPConfig(**dict(FIELDS, impl="element")), seed=0,
@@ -258,11 +258,10 @@ def test_trainer_refuses_what_this_slice_lacks():
     with pytest.raises(NotImplementedError, match="fault hooks.*item 5"):
         tr.run()
     # the out-of-core trainer is ported (tests/test_torch_xl.py holds it
-    # against the reference); it refuses the probes and the fault hook too
+    # against the reference); it takes the probes and refuses the fault hook
     plan = plan_memory_budget(el.config.layer_dims, [t.nnz for t in el.topos], 32,
                               budget_bytes=10**8)
-    with pytest.raises(NotImplementedError, match="probes.*item 4"):
-        ttrainer.XLTrainer(el, data, ttrainer.TrainerConfig(batch_size=32, probe=True), plan)
+    ttrainer.XLTrainer(el, data, ttrainer.TrainerConfig(batch_size=32, probe=True), plan)
     xl = ttrainer.XLTrainer(el, data, ttrainer.TrainerConfig(batch_size=32, epochs=1), plan)
     xl.fault_hook = lambda step: None
     with pytest.raises(NotImplementedError, match="fault hooks.*item 5"):
@@ -271,8 +270,8 @@ def test_trainer_refuses_what_this_slice_lacks():
         jtrainer.TrainerConfig())
     # the masked and dense impls train now (tests/test_torch_mlp_training.py
     # holds them against the reference), with no topology phase; the
-    # forward's pre-activations and device evolution's churn probe each
-    # name the ROADMAP item that brings them
+    # forward's pre-activations and device evolution's churn probe are
+    # ported (tests/test_torch_probes.py)
     for impl in ("masked", "dense"):
         m = tmlp.SparseMLP(tmlp.SparseMLPConfig(**dict(FIELDS, impl=impl)), seed=0,
                            device="cpu")
@@ -280,13 +279,13 @@ def test_trainer_refuses_what_this_slice_lacks():
             epochs=1, batch_size=32, pruning=PruningSchedule(tau=0, period=1, percentile=50.0)))
         hist = tr.run()
         assert hist["n_params"] == [m.n_params] and np.isfinite(hist["train_loss"]).all()
-    with pytest.raises(NotImplementedError, match="return_preacts.*item 4"):
-        tmlp.mlp_forward(tm.params(), tm.topo_arrays(), torch.zeros((2, 784)), tm.config,
-                         return_preacts=True)
+    logits, pre = tmlp.mlp_forward(tm.params(), tm.topo_arrays(), torch.zeros((2, 784)),
+                                   tm.config, return_preacts=True)
+    assert len(pre) == tm.config.n_layers and torch.equal(pre[-1], logits)
     vel = [torch.zeros_like(v) for v in el.values]
-    with pytest.raises(NotImplementedError, match="probes.*item 4"):
-        evolve_element_layers_device(el.topo_arrays(), el.values, vel, torch.Generator(),
-                                     layer_dims=el.config.layer_dims, zeta=0.3, probe=True)
+    out = evolve_element_layers_device(el.topo_arrays(), el.values, vel, torch.Generator(),
+                                       layer_dims=el.config.layer_dims, zeta=0.3, probe=True)
+    assert out[3].shape == (el.config.n_layers,)
 
 
 def test_evaluate_matches_reference():

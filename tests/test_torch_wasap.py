@@ -577,9 +577,6 @@ def _trainer(**wc):
     ("shard_map epoch", lambda: tw.make_phase1_epoch_fn(
         _trainer().model.config, tsgd.MomentumSGD(), n_workers=2, worker_axis="shard_map"),
      "item 9"),
-    ("probe trainer", lambda: _trainer(probe=True), "item 4"),
-    ("probe epoch", lambda: tw.make_phase1_epoch_fn(
-        _trainer().model.config, tsgd.MomentumSGD(), n_workers=2, probe=True), "item 4"),
     ("donate", lambda: tw.make_phase1_epoch_fn(
         _trainer().model.config, tsgd.MomentumSGD(), n_workers=2, donate=(0, 1)), "item 5"),
 ])
@@ -614,3 +611,70 @@ def test_int32_overflow_warns_and_takes_the_round_loop():
     with pytest.warns(UserWarning, match="falling back"):
         trainer = tw.WASAPTrainer(model, data, tw.WASAPConfig(n_workers=2))
     assert not trainer._fused and hasattr(trainer, "_round")
+
+
+# ---------------------------------------------------------------------------
+# training-dynamics probes (obs.probes)
+# ---------------------------------------------------------------------------
+
+
+def test_probed_phase1_epoch_matches_the_reference_and_the_unprobed_epoch():
+    """``probe=True``: the epoch's state and losses are the unprobed
+    epoch's, bit for bit, and its probe stats (the averaged master on the
+    epoch's first batch) are the reference's within 1e-4 (histograms
+    equal)."""
+    j, t = _phase1_case(k=2)
+    jep = jw.make_phase1_epoch_fn(j.cfg, j.opt, n_workers=2, probe=True)
+    keys = jax.random.split(jax.random.PRNGKey(42), 4).reshape(2, 2, 2)
+    *_, jstats = jep(j.model.params(), j.opt.init(j.model.params()), j.model.topo_arrays(),
+                     j.x, j.y, j.idx, j.lrs, j.valid, keys)
+    args = (t.model.params(), t.opt.init(t.model.params()), t.model.topo_arrays(), t.x, t.y,
+            t.idx, t.lrs, t.valid)
+    off = tw.make_phase1_epoch_fn(t.cfg, t.opt, n_workers=2)(*args, _generator())
+    on = tw.make_phase1_epoch_fn(t.cfg, t.opt, n_workers=2, probe=True)(*args, _generator())
+    assert len(off) == 3 and len(on) == 4
+    _bits((on[0], on[1]), (off[0], off[1]), "probed phase-1 epoch")
+    assert torch.equal(on[2], off[2])
+    stats = on[3]
+    assert set(stats) == set(jstats)
+    for k, w in jstats.items():
+        if k.endswith("_hist"):
+            np.testing.assert_array_equal(stats[k].numpy(), np.asarray(w), err_msg=k)
+        else:
+            np.testing.assert_allclose(stats[k].numpy(), np.asarray(w), rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_probed_trainer_records_both_phases(tmp_path):
+    """A probed fused WASAP run: one ``wasap`` snapshot per epoch of both
+    phases (phase 1's with the master's churn, phase 2's worker 0's), the
+    spans of both phases, and the unprobed run's history and model."""
+    from repro_torch import obs
+    from repro_torch.obs import timeline
+
+    def run(probe):
+        model, data = make_model_and_data(dropout=0.0)
+        wc = tw.WASAPConfig(n_workers=2, phase1_epochs=2, phase2_epochs=1, batch_size=32,
+                            probe=probe)
+        trainer = tw.WASAPTrainer(model, data, wc)
+        if probe:
+            with obs.trace_to(str(tmp_path / "t.jsonl")), \
+                    timeline.timeline_to(tmp_path / "tl.jsonl", run_id="w"):
+                hist = trainer.run()
+        else:
+            with obs.disabled():
+                hist = trainer.run()
+        return {k: v for k, v in hist.items() if k != "epoch_seconds"}, model
+
+    (h1, m1), (h0, m0) = run(True), run(False)
+    np.testing.assert_equal(h1, h0)
+    for a, b in zip(m1.values, m0.values):
+        assert torch.equal(a, b)
+    events = timeline.read_timeline(tmp_path / "tl.jsonl")
+    assert timeline.validate_timeline(events) == []
+    snaps = timeline.snapshots(events, "wasap")
+    assert [s["extra"]["phase"] for s in snaps] == [1, 1, 2]
+    assert all("churn_frac" in s["layers"][0] for s in snaps)
+    spans = {e["name"] for e in obs.read_events(str(tmp_path / "t.jsonl")) if e["ev"] == "span"}
+    assert spans == {"wasap.run", "wasap.epoch", "wasap.sync_rounds", "wasap.worker_segments",
+                     "wasap.merge"}

@@ -500,8 +500,8 @@ def test_refusals(data):
     _, tst, tm = states()
     ex = txl.StreamExecutor(tst, device="cpu")
     x, y = batch()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ex.probe_stats(x, y)
+    with pytest.raises(ValueError, match="full batch"):
+        ex.probe_stats(x[:5], y[:5])
     with pytest.raises(NotImplementedError, match="item 8"):
         tstream.analysis_programs()
     with pytest.raises(ValueError, match="full batch"):
@@ -651,3 +651,44 @@ def test_shard_windows():
     assert torch.equal(tops._window_segments(w), torch.from_numpy(seg).long())
     with pytest.raises(ValueError, match="non-decreasing"):
         tops.shard_window(torch.tensor([4, 3, 9], dtype=torch.int32), 9)
+
+
+def test_probe_stats_match_the_reference(data, tmp_path):
+    """``StreamExecutor.probe_stats`` against the reference's on the same
+    streamed state and batch: the device stats (saturation, pre-activation
+    and dz norms) at rtol 1e-5, the host passes' value and importance stats
+    equal; the weights are left as they were. Then a probed ``XLTrainer``
+    epoch records one ``xl`` snapshot with the trainer's spans."""
+    from repro_torch import obs
+    from repro_torch.obs import probes, timeline
+
+    jst, tst, tm = states()
+    x, y = batch()
+    want = jxl.StreamExecutor(jst).probe_stats(x, y)
+    before = [np.array(layer.values) for layer in tst.layers]
+    ex = txl.StreamExecutor(tst, device="cpu")
+    n0 = probes.probe_compile_counts()["obs_padded_buffer_probe"]
+    got = ex.probe_stats(x, y)
+    assert probes.probe_compile_counts()["obs_padded_buffer_probe"] <= n0 + 1  # one shape
+    assert len(got) == len(want) == len(DIMS) - 1
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            if k in ("saturation", "preact_l2", "grad_l2", "grad_zero_frac"):
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-7, err_msg=k)
+            else:
+                assert g[k] == w[k], k
+    for b, layer in zip(before, tst.layers):
+        np.testing.assert_array_equal(b, np.asarray(layer.values))
+    plan = tst.plan
+    tc = ttrainer.TrainerConfig(epochs=1, batch_size=plan.batch, probe=True, seed=0)
+    trainer = ttrainer.XLTrainer(tm, data, tc, plan)
+    with obs.trace_to(str(tmp_path / "t.jsonl")), \
+            timeline.timeline_to(tmp_path / "tl.jsonl", run_id="xl"):
+        trainer.run()
+    snaps = timeline.snapshots(timeline.read_timeline(tmp_path / "tl.jsonl"), "xl")
+    assert len(snaps) == 1 and len(snaps[0]["layers"]) == len(DIMS) - 1
+    spans = {e["name"] for e in obs.read_events(str(tmp_path / "t.jsonl")) if e["ev"] == "span"}
+    assert {"train.run", "train.epoch", "train.segment", "xl.train_step", "xl.forward",
+            "xl.probe"} <= spans
+
