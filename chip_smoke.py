@@ -2,8 +2,9 @@
 """Drive the port's SET-MLP serving and training paths (block, element and
 out-of-core, and the paper's masked and dense baselines), its bf16
 language model's serving (also compacted at deployment) and training paths,
-the RG-LRU, Mamba-1 and MoE models of its architecture zoo, Whisper-medium
-and the observability layer on one NVIDIA card and check them.
+the RG-LRU, Mamba-1 and MoE models of its architecture zoo, Whisper-medium,
+the observability layer, and the runtime (supervised recovery, the elastic
+training driver, the serving gateway) on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -288,7 +289,49 @@ Phases, one line each (any failure exits non-zero):
                    and traced + probed, in an ``obs_timing`` line with the
                    card's name and power limit (the reference's budget,
                    < 2 %, is reported, not enforced);
-20. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+20. supervisor    — ``runtime.supervisor.run_supervised`` of the element_train
+                   cell (the full-width element model, its data and config,
+                   device SET; kernels A with its epilogue and mask, F with
+                   G's, B): bare and supervised runs interleaved (the
+                   supervisor's overhead); a run killed by a raising hook at
+                   epoch 1's segment, resumed on a fresh trainer; a
+                   ``TransientFaultInjector`` at that segment, retried (A's
+                   and F's launches exactly the clean run's: the hook fires
+                   before any kernel); a run killed at epoch 2's segment
+                   whose newest checkpoint ``flip_bytes`` tore, quarantined
+                   and skipped: each history and final model bit-equal to
+                   the uninterrupted run's. Then the CLI
+                   (``python -m repro_torch.runtime.supervisor``, its own
+                   reference-sized model, per-batch) on the card in child
+                   processes: a control, one SIGKILLed by ``--kill-at-step
+                   11`` and one by ``wait_and_kill`` from outside, started
+                   together, the killed two resumed together, each resumed
+                   history equal to the control's; a ``supervisor_timing``
+                   line;
+21. launch_train  — ``launch.train.run_training`` on Qwen1.5-0.5B at full width
+                   and depth with the paper's sparse FFN, bf16 (270,918,656
+                   parameters, ``reduced=False``): 8 steps of 8 x 256 tokens
+                   on one device, 2 heartbeat hosts, the reference test's
+                   injected clock, silenced host1 and transient at step 4:
+                   host1 straggling at step 2, dead at 3, evicted at 5, one
+                   replan restoring step 4, one recovery, finite losses, C,
+                   D and E bf16 launched 96, 48 and 48 times a step and no
+                   second pass; then ``resume=True`` after ``flip_bytes`` on
+                   the newest checkpoint resumes from the one before; a
+                   ``launch_train_timing`` line (step times, save and
+                   restore seconds, checkpoint bytes, the peak);
+22. gateway       — ``serve.gateway.ServingGateway`` over phase lm's engine
+                   (kernel C bf16, All-ReLU in its store): the reference's
+                   chaos acceptance run (tests/test_serve.py), its deadline,
+                   backoff and cooldown scaled by the card's decode step over
+                   the reference smoke engine's; the saturation rate from a
+                   burst of 16, then 400 Poisson requests at 2x it, clean and
+                   with ``EngineChaos`` (faults at calls 12, 60-65, 150):
+                   one disposition a request, shedding, retries, breaker
+                   trips and closes, brownout seen and healed, goodput ratio
+                   >= 0.8 (one retry of the pair), C launched 48 times for
+                   every engine call that ran; a ``gateway_timing`` line;
+23. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
                    worker-epoch: 2 rounds, the second with a padded step). The
@@ -305,10 +348,15 @@ Phases, one line each (any failure exits non-zero):
                    threads on the card, 1 epoch: every update applied, the
                    model finite); ``wasap_history`` (every run's history and
                    epoch seconds by phase) and ``wasap_epoch_profile`` (a
-                   phase-1 epoch's device busy time, launches and idle share).
+                   phase-1 epoch's device busy time, launches and idle share);
+                   the elastic round: phase 1 with a ``HeartbeatMonitor``
+                   (evict_after 2) and a ``StragglerInjector`` silencing w3
+                   (dead, then evicted: weight 0), its ``elastic_log`` equal
+                   to the same run's on the CPU fed the card's draws, its
+                   history within the fused run's tolerances.
                    It runs after the timing phases: before them it made
                    their profiler sessions lose device events.
-21. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+24. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
                    full width on the card: the element and the block model
                    trained 3 epochs with device SET, pruning and the paper's
                    dropout 0.3, saved at every epoch; a fresh trainer
@@ -327,7 +375,7 @@ Phases, one line each (any failure exits non-zero):
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
                    profiles nothing;
-22. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+25. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
                    of the paper's first Table-4 row at full width,
                    65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
                    17,655,362 parameters), batch 32, the device budget 0.6 x
@@ -347,7 +395,8 @@ Phases, one line each (any failure exits non-zero):
                    the evolution the invariants hold and the next streamed
                    step is bit-equal to an in-core step on the evolved
                    topology, and the run resumed from its epoch-0 streamed
-                   checkpoint is bit-equal to the one that never stopped;
+                   checkpoint, with a transient at one of its streamed steps
+                   retried, is bit-equal to the one that never stopped;
                    K8 (``xl_shard_acc``, ``xl_shard_dw``) on every shard of
                    layer 1 against its plain versions, chained bit-equal to
                    kernels A and F over the whole layer, writing nothing
@@ -370,7 +419,9 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -383,6 +434,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_spec  # noqa: E402
 from repro_torch.configs.set_mlp import mlp_config  # noqa: E402
@@ -397,12 +449,25 @@ from repro_torch.core.wasap_ps import AsyncParameterServer, AsyncPSConfig  # noq
 from repro_torch.kernels import all_relu_fused, build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
 from repro_torch.launch.steps import make_mlp_train_step  # noqa: E402
+from repro_torch.launch.train import DriverConfig, run_training  # noqa: E402
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward  # noqa: E402
 from repro_torch.models.transformer import ModelConfig, PatternLM  # noqa: E402
 from repro_torch.optim.sgd import MomentumSGD, SGDState  # noqa: E402
+from repro_torch.runtime import faultinject as fi  # noqa: E402
+from repro_torch.runtime.supervisor import (  # noqa: E402
+    HeartbeatMonitor,
+    StragglerPolicy,
+    SupervisorConfig,
+    run_supervised,
+)
 from repro_torch.serve import (  # noqa: E402
+    BROWNED_OUT,
+    HEALTHY,
     ContinuousBatcher,
     EngineConfig,
+    GatewayConfig,
+    HealthThresholds,
+    ServingGateway,
     SparseInferenceEngine,
     importance_prune_mlp,
     poisson_trace,
@@ -1829,15 +1894,41 @@ def wasap_trainer(device, **wc) -> WASAPTrainer:
                         WASAPConfig(**dict(WASAP_CONFIG, **wc)))
 
 
-def wasap_run(device, *, fused: bool, mode: str = "wasap", draws=None) -> dict:
+def attach_elastic(trainer: WASAPTrainer) -> None:
+    """The reference's elastic round (tests/test_resilience.py) at K
+    workers: a ``HeartbeatMonitor`` (hard deadline 100 s, evicted at the
+    second miss) whose clock the first worker's beat moves 150 s an epoch,
+    and a ``StragglerInjector`` silencing the last worker in every phase-1
+    epoch: dead (weight 0) at epoch 0, evicted at epoch 1."""
+    k = trainer.wc.n_workers
+    clock = [0.0]
+    trainer.monitor = HeartbeatMonitor(
+        [f"w{i}" for i in range(k)],
+        StragglerPolicy(soft_deadline_s=50, hard_deadline_s=100, evict_after=2),
+        clock=lambda: clock[0])
+    straggler = fi.StragglerInjector(suppress={f"w{k - 1}": set(range(trainer.wc.phase1_epochs))})
+
+    def beat_filter(wid, epoch):
+        if wid == "w0":
+            clock[0] = (epoch + 1) * 150.0
+        return straggler.beats(wid, epoch)
+
+    trainer.beat_filter = beat_filter
+
+
+def wasap_run(device, *, fused: bool, mode: str = "wasap", draws=None, elastic: bool = False,
+              **wc) -> dict:
     """One WASAP run of the full-width element model on ``device``: its
     history, launches, the topologies its evolutions returned (per layer,
     in order: the master's after each phase-1 epoch, then each worker's
     after each phase-2 epoch), the merged topology, and the draws its device
     evolutions took (``draws`` given: those, in order, on ``device``). On
     the card every device evolution runs under ``set_sync_debug_mode(
-    "error")``."""
-    trainer = wasap_trainer(device, fused=fused, mode=mode)
+    "error")``. ``elastic`` attaches :func:`attach_elastic`'s monitor;
+    ``wc`` overrides WASAP_CONFIG."""
+    trainer = wasap_trainer(device, fused=fused, mode=mode, **wc)
+    if elastic:
+        attach_elastic(trainer)
     evolved, taken = [], []
     real = (wasap.evolve_element, wasap.evolve_element_layers_device, topology.evolution_draws)
 
@@ -1967,6 +2058,22 @@ def phase_wasap(out: dict) -> str:
     fused_err = same_wasap_run(fused_card, fused_cpu, "fused, card vs CPU on its draws")
     n0 = wassp["hist"]["n_params"]
     check(n0[-1] == n0[0], f"wassp: n_params {n0} did not come back to its start")
+    # the elastic round: phase 1 with the last worker silenced and evicted,
+    # card against the CPU fed the card's draws
+    el_card = wasap_run(CARD, fused=True, elastic=True, phase2_epochs=0)
+    el_cpu = wasap_run(torch.device("cpu"), fused=True, elastic=True, phase2_epochs=0,
+                       draws=[tuple(d.cpu() for d in dr) for dr in el_card["draws"]])
+    el_log = el_card["trainer"].elastic_log
+    k = WASAP_CONFIG["n_workers"]
+    check(el_log == el_cpu["trainer"].elastic_log,
+          f"elastic logs differ: card {el_log}, CPU {el_cpu['trainer'].elastic_log}")
+    check([e["weights"] for e in el_log] == [[1.0] * (k - 1) + [0.0]] * 2
+          and [e["status"][f"w{k - 1}"] for e in el_log] == ["dead", "evicted"],
+          f"elastic log {el_log}")
+    want = wasap_launches(el_card["trainer"])
+    check(el_card["launches"] == want, f"WASAP elastic: launches {el_card['launches']}, "
+                                       f"expected {want}")
+    elastic_err = same_wasap_run(el_card, el_cpu, "elastic, card vs CPU on its draws")
 
     # the paper's literal protocol: 3 worker threads on the card, the server on the host
     model = element_model(CARD)
@@ -1990,6 +2097,8 @@ def phase_wasap(out: dict) -> str:
 
     runs = dict(round_loop_card=loop_card, round_loop_cpu=loop_cpu, fused_card=fused_card,
                 fused_cpu_on_card_draws=fused_cpu, wassp_card=wassp)
+    runs.update(elastic_card=el_card, elastic_cpu_on_card_draws=el_cpu)
+    print(json.dumps({"wasap_elastic": {"elastic_log": el_log, "loss_rel_err": elastic_err}}))
     print(json.dumps({"wasap_history": {
         **{k: r["hist"] for k, r in runs.items()},
         "epoch_seconds_by_phase": {k: by_phase(r["hist"]) for k, r in runs.items()},
@@ -2003,7 +2112,9 @@ def phase_wasap(out: dict) -> str:
         f"{fused_card['trainer'].model.config.layer_dims}, 2+1 epochs: round loop card vs CPU "
         f"and fused card vs CPU on the card's {len(fused_card['draws'])} draws: every "
         f"evolution's topology, the merged one and n_params equal, loss rel err "
-        f"{loop_err:.3g} and {fused_err:.3g} (rtol {TRAIN_LOSS_RTOL}); fused loss "
+        f"{loop_err:.3g} and {fused_err:.3g} (rtol {TRAIN_LOSS_RTOL}); elastic phase 1 "
+        f"(w{k - 1} silenced: dead, then evicted, weights {el_log[-1]['weights']}) card vs CPU: "
+        f"elastic_log equal, loss rel err {elastic_err:.3g}; fused loss "
         f"{hist['train_loss']}, acc {hist['test_acc']}, n_params {hist['n_params']}; launches "
         f"{fused_card['launches']}; wassp loss {wassp['hist']['train_loss']}; async PS "
         f"{stats['updates']} updates, stale entries dropped {stats['stale_entries_dropped']}, "
@@ -2592,6 +2703,7 @@ def phase_checkpoint(out: dict) -> str:
 # epsilon 64, All-ReLU alpha 0.6), bf16, random weights from the seed: the
 # reference's serving demo's model (examples/serve.py) at its published size.
 LM_ARCH = "qwen1.5-0.5b"
+LM_PARAMS = 270_918_656  # its parameter count with the sparse FFN
 LM_ENGINE = dict(max_slots=8, max_len=256, prefill_buckets=(16, 32, 64), prefill_batch=4)
 LM_TRACE = dict(rate=20.0, prompt_lens=(4, 64), new_tokens=(8, 32))
 LM_REQUESTS = 16
@@ -3126,6 +3238,7 @@ def phase_lm(out: dict) -> str:
                          "decode against the teacher-forced forward")
 
     engine = SparseInferenceEngine(model, engine=EngineConfig(**LM_ENGINE))
+    out["lm_engine"] = engine  # the gateway phase serves through it
     served = lm_serve_checked(engine)
     stats, seq, launches, c_sub, peak = (served[k] for k in ("stats", "seq", "launches",
                                                               "c_sub", "peak"))
@@ -4696,6 +4809,510 @@ def phase_obs(out: dict) -> str:
     )
 
 
+# -- the runtime: supervised recovery, the elastic driver, the gateway --------
+
+SRC = Path(__file__).resolve().parent / "src"
+# The supervisor CLI's children: its reference-sized model (32-64-64-5, 256
+# training samples), 8 per-batch steps an epoch, 3 epochs; killed at step 11,
+# in epoch 1.
+SUP_CHILD_FLAGS = ("--epochs", "3", "--batch-size", "32", "--n-train", "256", "--n-test", "64",
+                   "--per-batch")
+SUP_KILL_STEP = 11
+SUP_CHILD_TIMEOUT_S = 240
+SUP_TIMED = 3  # interleaved bare and supervised runs
+
+
+class Boom(Exception):
+    """The injected unrecoverable failure: SIGKILL's stand-in in process."""
+
+
+def boom_at(k: int):
+    def hook(gstep):
+        if gstep >= k:
+            raise Boom(f"injected failure at gstep {gstep}")
+
+    return hook
+
+
+def supervised_element(root: Path, name: str, data, hook=None, retries: int = 0) -> tuple:
+    """``run_supervised`` of a fresh trainer of the element_train cell (the
+    full-width element model, ``train_config`` with device SET) on the card,
+    checkpointing into ``root / name``: (result, trainer, launches,
+    seconds). A fault that is not retried propagates."""
+    tr = SequentialTrainer(element_model(CARD), data, train_config(device_evolution=True))
+    tr.fault_hook = hook
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_supervised(tr, SupervisorConfig(checkpoint_dir=str(root / name),
+                                              step_retries=retries))
+    torch.cuda.synchronize()
+    return res, tr, read_counts(), time.perf_counter() - t0
+
+
+def supervisor_children(root: Path) -> dict:
+    """The supervisor CLI on the card in child processes: a control run, a
+    run that SIGKILLs itself at step SUP_KILL_STEP and a run SIGKILLed from
+    outside by ``wait_and_kill`` once its progress file shows that step,
+    started together; then the two killed runs resumed together on their
+    checkpoint directories. Each resumed history equals the control's. Every
+    child is waited for, and killed if it outlives its time."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH", "")) if p))
+
+    def start(name, *extra):
+        cmd = [sys.executable, "-m", "repro_torch.runtime.supervisor", "--ckpt",
+               str(root / name), "--out", str(root / f"{name}.json"), *SUP_CHILD_FLAGS, *extra]
+        err = open(root / f"{name}.stderr", "a")
+        try:
+            return subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL, stderr=err)
+        finally:
+            err.close()
+
+    def stderr(name):
+        return (root / f"{name}.stderr").read_text()[-2000:]
+
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        progress = root / "outside.progress"
+        control, killed = start("control"), start("killed", "--kill-at-step", str(SUP_KILL_STEP))
+        outside = start("outside", "--progress-file", str(progress))
+        procs += [control, killed, outside]
+        seen = fi.wait_and_kill(outside, str(progress), SUP_KILL_STEP,
+                                timeout_s=SUP_CHILD_TIMEOUT_S, poll_s=0.002)
+        rcs = {name: p.wait(timeout=SUP_CHILD_TIMEOUT_S)
+               for name, p in (("control", control), ("killed", killed), ("outside", outside))}
+        first_s = time.perf_counter() - t0
+        check(rcs["control"] == 0, f"the control child exited {rcs['control']}: "
+                                   f"{stderr('control')}")
+        for name in ("killed", "outside"):
+            check(rcs[name] == -signal.SIGKILL, f"the {name} child exited {rcs[name]}, not by "
+                                                f"SIGKILL: {stderr(name)}")
+            check(not (root / f"{name}.json").exists(), f"the {name} child finished")
+        t0 = time.perf_counter()
+        resumed = {name: start(name) for name in ("killed", "outside")}
+        procs += list(resumed.values())
+        for name, p in resumed.items():
+            rc = p.wait(timeout=SUP_CHILD_TIMEOUT_S)
+            check(rc == 0, f"the resumed {name} child exited {rc}: {stderr(name)}")
+        resume_s = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    want = json.loads((root / "control.json").read_text())["history"]
+    res = {}
+    for name, kill_step in (("killed", SUP_KILL_STEP), ("outside", seen)):
+        payload = json.loads((root / f"{name}.json").read_text())
+        boundary = 8 * (kill_step // 8)  # the last epoch boundary before the kill
+        check(payload["resumed_from_step"] == boundary,
+              f"the {name} child resumed from {payload['resumed_from_step']}, not {boundary}")
+        for key in TRAJ:
+            check(payload["history"][key] == want[key],
+                  f"the resumed {name} child's {key} {payload['history'][key]}, the control's "
+                  f"{want[key]}")
+        res[name] = dict(killed_at=kill_step, resumed_from=payload["resumed_from_step"])
+    return dict(res, first_wave_s=first_s, resume_wave_s=resume_s, history=want)
+
+
+def phase_supervisor(out: dict) -> str:
+    """The element_train cell under ``run_supervised`` on the card: bare and
+    supervised runs interleaved (the supervisor's overhead); a run killed at
+    epoch 1's segment and resumed on a fresh trainer; a transient at that
+    segment retried; a torn newest checkpoint quarantined and skipped; every
+    one bit-equal to the uninterrupted run, the retried one launching
+    exactly its kernels. Then the CLI's real SIGKILLs in child processes."""
+    data = load("cifar10", scale=TRAIN_SCALE)
+    steps = len(data.x_train) // 128
+    timing = {"bare_s": [], "supervised_s": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sup_") as tmp:
+        root = Path(tmp)
+        for i in range(SUP_TIMED):
+            bare = SequentialTrainer(element_model(CARD), data, train_config(device_evolution=True))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bare_hist = bare.run()
+            torch.cuda.synchronize()
+            timing["bare_s"].append(time.perf_counter() - t0)
+            bare_launches = read_counts()
+            ref, ref_tr, launches, secs = supervised_element(root, f"ref{i}", data)
+            timing["supervised_s"].append(secs)
+        cfg = ref_tr.model.config
+        want = element_launches(cfg, *run_steps(ref_tr))
+        check(launches == bare_launches == want,
+              f"supervised launches {launches}, bare {bare_launches}, expected {want}")
+        same_history(ref["history"], bare_hist, "the supervised run against the bare run")
+        same_model(ref_tr.model, bare.model, "the supervised run against the bare run")
+        saved = CheckpointManager(str(root / "ref0")).all_steps()
+        check(saved == [steps * (e + 1) for e in range(TRAIN_EPOCHS)], f"checkpoints {saved}")
+
+        # killed at epoch 1's segment (the fused hook fires once a segment,
+        # at its first step), resumed on a fresh trainer
+        try:
+            supervised_element(root, "killed", data, boom_at(steps))
+            check(False, "the killed run finished")
+        except Boom:
+            pass
+        check(CheckpointManager(str(root / "killed")).latest_valid_step() == steps,
+              "the epoch-0 checkpoint did not survive the kill")
+        res_k, tr_k, launches_k, _ = supervised_element(root, "killed", data)
+        check(res_k["resumed_from_step"] == steps, f"resumed from {res_k['resumed_from_step']}")
+        check(launches_k["coo_matmul_T"] > 0 and launches_k["coo_dw"] > 0,
+              f"the resumed run launched no A or F: {launches_k}")
+        same_history(res_k["history"], ref["history"], "the killed and resumed run")
+        same_model(tr_k.model, ref_tr.model, "the killed and resumed run")
+
+        # a transient at epoch 1's segment, raised by the hook and retried
+        injector = fi.TransientFaultInjector([steps])
+        res_t, tr_t, launches_t, _ = supervised_element(root, "transient", data, injector,
+                                                        retries=1)
+        check(injector.raised == 1 and res_t["resumed_from_step"] is None,
+              f"the transient fired {injector.raised} times")
+        check(launches_t == launches, f"the retried run launched {launches_t}, the clean run "
+                                      f"{launches}: the hook fires before any kernel")
+        same_history(res_t["history"], ref["history"], "the retried run")
+        same_model(tr_t.model, ref_tr.model, "the retried run")
+
+        # killed at epoch 2's segment, its newest checkpoint torn: quarantined,
+        # resumed from epoch 0's
+        try:
+            supervised_element(root, "torn", data, boom_at(2 * steps))
+            check(False, "the torn run finished")
+        except Boom:
+            pass
+        hit = fi.flip_bytes(root / "torn", 2 * steps)
+        res_c, tr_c, _, _ = supervised_element(root, "torn", data)
+        check(res_c["resumed_from_step"] == steps and (root / "torn" / "quarantine").is_dir(),
+              f"the torn run resumed from {res_c['resumed_from_step']}, not {steps}")
+        same_history(res_c["history"], ref["history"], "the run resumed past a torn checkpoint")
+        same_model(tr_c.model, ref_tr.model, "the run resumed past a torn checkpoint")
+        ckpt_bytes = dir_bytes(root / "ref0" / f"step_{steps:09d}")
+        (root / "cli").mkdir()
+        children = supervisor_children(root / "cli")
+    overhead = float(np.median(timing["supervised_s"]) / np.median(timing["bare_s"]) - 1)
+    print(json.dumps({"supervisor_timing": dict(
+        timing, overhead=overhead, checkpoints=len(saved), checkpoint_bytes=ckpt_bytes,
+        launches=launches, flipped=hit, children={k: v for k, v in children.items()
+                                                  if k != "history"},
+        card=out["smi"])}), flush=True)
+    return (
+        f"the element_train cell (device SET), {TRAIN_EPOCHS} epochs x {steps} steps under "
+        f"run_supervised, checkpoints {saved}: killed at epoch 1's segment and resumed, a "
+        f"transient there retried (launches as the clean run's: A {launches['coo_matmul_T']}, "
+        f"F {launches['coo_dw']}), the newest "
+        f"checkpoint torn ({hit}) and skipped: all bit-equal to the uninterrupted run, which is "
+        f"bit-equal to the bare run; supervised {timing['supervised_s']} s against bare "
+        f"{timing['bare_s']} s ({100 * overhead:+.1f} %); the CLI on the card: SIGKILLed at "
+        f"step {SUP_KILL_STEP} and from outside at step {children['outside']['killed_at']}, "
+        f"both resumed from step {children['killed']['resumed_from']} and "
+        f"{children['outside']['resumed_from']} to the control's history "
+        f"({children['first_wave_s']:.1f} + {children['resume_wave_s']:.1f} s)"
+    )
+
+
+# The elastic driver (launch/train.py) on the LM cells' model: Qwen1.5-0.5B
+# at full width and depth with the paper's sparse FFN, bf16, 8 steps of 8 x
+# 256 tokens on one device, under the reference test's injected clock,
+# beats and transient (tests/test_launch.py): 2 hosts, host1 silent from
+# step 2, a transient at step 4, a checkpoint every 2 steps.
+LT_DRIVER = dict(steps=8, seq=256, per_replica_batch=8, save_every=2, n_hosts=2,
+                 reduced=False)
+LT_FAULT_STEP = 4
+LT_SILENT_FROM = 2
+LT_BARE_STEPS = 5  # the driver with nothing to watch, retry or save until its end
+
+
+@contextlib.contextmanager
+def sparse_ffn_spec(arch: str):
+    """``configs.get_spec`` giving ``arch``'s FULL config with the paper's
+    sparse FFN (``ffn="sparse"``, the reference's defaults): the model of
+    the LM cells, which the driver builds from the registry."""
+    real = configs.get_spec
+
+    def get_spec(name):
+        spec = real(name)
+        if name != arch:
+            return spec
+        return dataclasses.replace(spec, config=dataclasses.replace(spec.config, ffn="sparse"))
+
+    configs.get_spec = get_spec
+    try:
+        yield
+    finally:
+        configs.get_spec = real
+
+
+@contextlib.contextmanager
+def timed_checkpoints(times: dict):
+    """Time every ``CheckpointManager.save`` call (the host snapshot, after
+    waiting for the previous write) and ``restore`` call."""
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+
+    def timed(fn, key):
+        def call(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            res = fn(self, *args, **kwargs)
+            times[key].append(time.perf_counter() - t0)
+            return res
+
+        return call
+
+    CheckpointManager.save = timed(save, "save_s")
+    CheckpointManager.restore = timed(restore, "restore_s")
+    try:
+        yield
+    finally:
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+
+
+def phase_launch_train(out: dict) -> str:
+    """``launch.train.run_training`` of the LM cells' model at full width
+    and depth on the card, through an eviction, a replan and a transient;
+    then resumed past a bit-flipped newest checkpoint."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = lm_config()
+    n = cfg.n_layers
+    clock = [0.0]
+    injector = fi.TransientFaultInjector([LT_FAULT_STEP])
+    starts = []
+
+    def fault_hook(step):
+        starts.append((step, time.perf_counter()))
+        clock[0] = step * 10.0  # one 10 s heartbeat interval a step
+        injector(step)
+
+    times = {"save_s": [], "restore_s": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp, \
+            sparse_ffn_spec(LM_ARCH), timed_checkpoints(times):
+        dc = DriverConfig(
+            arch=LM_ARCH, ckpt_dir=tmp, verbose=False, device=CARD, **LT_DRIVER,
+            policy=StragglerPolicy(soft_deadline_s=5.0, hard_deadline_s=15.0, evict_after=2),
+            clock=lambda: clock[0],
+            beat_filter=lambda host, step: not (host == "host1" and step >= LT_SILENT_FROM),
+            fault_hook=fault_hook)
+        # first the bare driver (it also warms the step up): one host, no
+        # fault, one save at its end; its step-to-step times against the
+        # main run's, whose checkpoint writer runs beside its steps
+        bare_starts = []
+        run_training(dataclasses.replace(
+            dc, ckpt_dir=str(Path(tmp) / "bare"), steps=LT_BARE_STEPS, save_every=LT_BARE_STEPS,
+            n_hosts=None, beat_filter=None,
+            fault_hook=lambda step: bare_starts.append(time.perf_counter())))
+        bare_step_s = list(np.diff(bare_starts))
+        times["save_s"].clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = run_training(dc)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, c_sub, de_second = read_counts(), c_sub_counts(), de_second_passes()
+        peak = torch.cuda.max_memory_allocated()
+        mgr = CheckpointManager(tmp)
+        saved = mgr.all_steps()
+        manifest = mgr.read_manifest(saved[-1])
+        n_params = sum(int(np.prod(shape)) for shape, _ in manifest["shapes"].values())
+        ckpt_bytes = dir_bytes(Path(tmp) / f"step_{saved[-1]:09d}")
+        steps = dc.steps
+        # C: W_in and W_out a layer forward and again in remat's recompute; D, E: one each
+        want = dict(NO_LAUNCHES, bsmm_fwd=4 * n * steps, bsmm_dx=2 * n * steps,
+                    bsmm_dw=2 * n * steps, **{"bsmm_dx.bf16": 2 * n * steps,
+                                               "bsmm_dw.bf16": 2 * n * steps})
+        check(launches == want, f"the driver's run launched {launches}, expected {want}")
+        check(c_sub["rows"] == 4 * n * steps and c_sub["second_pass"] == 0
+              and not any(de_second.values()), f"C {c_sub}, D/E second passes {de_second}")
+        check(len(hist["loss"]) == steps and bool(np.isfinite(hist["loss"]).all()),
+              f"losses {hist['loss']}")
+        check(injector.raised == 1 and [r["step"] for r in hist["recoveries"]] == [LT_FAULT_STEP],
+              f"recoveries {hist['recoveries']}")
+        status = [s["host1"] for s in hist["status"]]
+        check(status[2] == "straggling" and status[3] == "dead" and status[5] == "evicted"
+              and hist["healthy"][5] == 1, f"host1's statuses {status}")
+        check(len(hist["replans"]) == 1 and hist["replans"][0]["restored_step"] == 4
+              and "host1" in hist["replans"][0]["reason"], f"replans {hist['replans']}")
+        check(saved == [4, 6, 8], f"checkpoints {saved}")
+        check(n_params == LM_PARAMS, f"{n_params} parameters, not {LM_PARAMS}")
+        # resume past a bit-flipped newest checkpoint
+        flipped = fi.flip_bytes(tmp, saved[-1])
+        t0 = time.perf_counter()
+        res = run_training(dataclasses.replace(dc, resume=True, n_hosts=None, beat_filter=None,
+                                               fault_hook=None))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        check(res["resumed_from"] == saved[-2] and len(res["loss"]) == steps - saved[-2]
+              and bool(np.isfinite(res["loss"]).all()),
+              f"resumed from {res['resumed_from']} with losses {res['loss']}")
+        check(mgr.latest_valid_step() == steps and (Path(tmp) / "quarantine").is_dir(),
+              "the torn checkpoint was not quarantined and replaced")
+    # a step's wall time: from its hook to the next step's (its loss read,
+    # the beats, a save's snapshot on even steps)
+    first = {}
+    for step, t in starts:
+        first.setdefault(step, t)
+    step_s = [first[s + 1] - first[s] for s in range(steps - 1)]
+    timing = dict(step_s=step_s, step_s_median=float(np.median(step_s)), run_s=run_s,
+                  bare_step_s=bare_step_s, bare_step_s_median=float(np.median(bare_step_s)),
+                  resume_run_s=resume_s, save_s=times["save_s"], restore_s=times["restore_s"],
+                  checkpoint_bytes=ckpt_bytes, max_memory_allocated=peak, n_params=n_params,
+                  losses=hist["loss"], resumed_losses=res["loss"], launches_per_step={
+                      "bsmm_fwd": 4 * n, "bsmm_dx.bf16": 2 * n, "bsmm_dw.bf16": 2 * n},
+                  flipped=flipped, card=out["smi"])
+    print(json.dumps({"launch_train_timing": timing}), flush=True)
+    torch.cuda.empty_cache()
+    return (
+        f"run_training of {LM_ARCH} at full width and depth, sparse FFN, bf16, {n_params} "
+        f"parameters, {steps} steps of {dc.per_replica_batch} x {dc.seq} tokens on the card: "
+        f"host1 {status}, one replan restoring step 4, one recovery at step {LT_FAULT_STEP}, "
+        f"losses {[round(v, 4) for v in hist['loss']]}; C {4 * n}, D {2 * n}, E {2 * n} bf16 "
+        f"launches a step, no second pass; resumed past the flipped step {saved[-1]} ({flipped}) "
+        f"from step {res['resumed_from']}; step median {timing['step_s_median'] * 1e3:.1f} ms "
+        f"(bare driver {timing['bare_step_s_median'] * 1e3:.1f} ms), "
+        f"saves {[round(s, 3) for s in times['save_s']]} s, restores "
+        f"{[round(s, 3) for s in times['restore_s']]} s, {ckpt_bytes} B a checkpoint"
+    )
+
+
+# The reference's chaos acceptance run (tests/test_serve.py,
+# test_gateway_chaos_2x_saturation_graceful_degradation) on the LM engine
+# of phase lm. Its times (deadline 0.3 s, retry backoff 2 ms, breaker
+# cooldown 10 ms) are set for its CPU smoke engine (tests/test_serve.py's
+# LM_CFG: the SMOKE Qwen1.5 with a 16 x 16 sparse FFN, 4 slots, max_len 48),
+# so all three are scaled by one factor: the card's median full-width decode
+# step (measured here) over that engine's. GW_REF_DECODE_MS is the smoke
+# engine's median decode step on the reference package on a CPU (8-core x86
+# host): the medians of three runs of 200 decode_step calls after 5
+# warm-up calls were 0.959, 0.915 and 1.069 ms. This script cannot import
+# JAX, so it is a constant.
+GW_REF_DECODE_MS = 0.96
+GW_REF_TIMES = dict(deadline_s=0.3, retry_backoff_s=0.002, breaker_cooldown_s=0.01)
+GW_REQUESTS = 400
+GW_FAULTS = frozenset(range(60, 66)) | {12, 150}  # singles retried; the burst trips the breaker
+GW_TRACE = dict(prompt_lens=(3, 14), new_tokens=(3, 7))
+
+
+def gateway_run(engine, rate: float, times: dict, faults=None) -> dict:
+    """One ``ServingGateway`` run of GW_REQUESTS Poisson requests at
+    ``rate``, the reference's knobs with ``times``; ``faults`` schedules
+    ``TransientFault``s on engine call indices relative to the run. Returns
+    the stats, the trace, the launches and the engine calls that ran (a call
+    whose hook raised runs nothing)."""
+    base = engine._engine_calls
+    chaos = None
+    if faults is not None:
+        chaos = fi.EngineChaos(fi.TransientFaultInjector(sorted(faults), persistent=1))
+        engine.fault_hook = lambda op, i: chaos(op, i - base)
+    gc = GatewayConfig(default_deadline_s=times["deadline_s"], retry_limit=1,
+                       retry_backoff_s=times["retry_backoff_s"], breaker_threshold=3,
+                       breaker_cooldown_s=times["breaker_cooldown_s"], degraded_max_new_tokens=5,
+                       brownout_queue_len=4, health=HealthThresholds(recovery_ticks=3))
+    trace = poisson_trace(GW_REQUESTS, rate=rate, vocab=engine.model.cfg.vocab, seed=13,
+                          deadline_s=times["deadline_s"], **GW_TRACE)
+    reset_counts()
+    try:
+        stats = ServingGateway(engine, gateway=gc, queue_capacity=16).run(trace)
+    finally:
+        engine.fault_hook = None
+    torch.cuda.synchronize()
+    launches = read_counts()
+    engine.reset_slots()
+    ran = engine._engine_calls - base - (chaos.raised if chaos is not None else 0)
+    return dict(stats=stats, trace=trace, launches=launches, ran=ran,
+                raised=chaos.raised if chaos is not None else 0)
+
+
+def gateway_summary(run: dict) -> dict:
+    s = run["stats"]
+    return dict(goodput_tok_s=s.serve.goodput_tok_s, throughput_tok_s=s.serve.throughput_tok_s,
+                latency_p50_ms=s.serve.latency_p50_ms, latency_p95_ms=s.serve.latency_p95_ms,
+                ttft_p50_ms=s.serve.ttft_p50_ms, completed=s.serve.completed,
+                rejected=s.serve.rejected, failed=s.serve.failed, shed=s.shed,
+                retries=s.retries, engine_call_failures=s.engine_call_failures,
+                breaker_trips=s.breaker_trips, breaker_closes=s.breaker_closes,
+                health_states_seen=s.health_states_seen, max_queue_depth=s.max_queue_depth,
+                wall_s=s.serve.wall_seconds, engine_calls_ran=run["ran"],
+                faults_raised=run["raised"], bsmm_fwd=run["launches"]["bsmm_fwd"])
+
+
+def phase_gateway(out: dict) -> str:
+    """``ServingGateway`` over the full-width LM engine of phase lm: the
+    saturation rate from a burst, then the reference's chaos acceptance run
+    at 2x it, clean and with ``EngineChaos``, the times scaled to the card."""
+    engine = out["lm_engine"]
+    cfg = engine.model.cfg
+    V = cfg.vocab
+    slots = engine.cfg.max_slots
+    tokens, pos = np.zeros(slots, np.int32), np.full(slots, 100)
+    for _ in range(3):
+        engine.decode_step(tokens, pos)
+    ts = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        engine.decode_step(tokens, pos)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    engine.reset_slots()
+    decode_ms = float(np.median(ts))
+    scale = decode_ms / GW_REF_DECODE_MS
+    times = {k: v * scale for k, v in GW_REF_TIMES.items()}
+    sat = ContinuousBatcher(engine, queue_capacity=64).run(
+        poisson_trace(16, rate=1e6, vocab=V, seed=5, **GW_TRACE))
+    engine.reset_slots()
+    rate = 2.0 * sat.throughput_tok_s / 5.0  # 5: the mean of new_tokens
+    attempts = []
+    for _ in range(2):  # goodput is a wall-clock ratio: one retry of the pair, as the reference
+        clean = gateway_run(engine, rate, times)
+        chaos = gateway_run(engine, rate, times, GW_FAULTS)
+        for run, what in ((clean, "clean"), (chaos, "chaos")):
+            for r in run["trace"]:
+                check(sum([r.done, r.rejected is not None, r.failed is not None]) == 1,
+                      f"{what}: request {r.rid} has no single disposition")
+            want = dict(NO_LAUNCHES, bsmm_fwd=2 * cfg.n_layers * run["ran"])
+            check(run["launches"] == want, f"{what}: launches {run['launches']}, expected "
+                                           f"{want} for {run['ran']} engine calls that ran")
+        st = chaos["stats"]
+        check(st.serve.rejected > 0 and st.max_queue_depth <= 16,
+              f"rejected {st.serve.rejected}, max queue depth {st.max_queue_depth}")
+        check(st.retries >= 2 and st.engine_call_failures >= 3, f"retries {st.retries}, "
+              f"engine call failures {st.engine_call_failures}")
+        check(st.breaker_trips >= 1 and st.breaker_closes >= 1
+              and st.breaker_final_state == "closed",
+              f"breaker trips {st.breaker_trips}, closes {st.breaker_closes}, final "
+              f"{st.breaker_final_state}")
+        check(BROWNED_OUT in st.health_states_seen and st.health_final == HEALTHY,
+              f"health seen {st.health_states_seen}, final {st.health_final}")
+        ratio = st.serve.goodput_tok_s / clean["stats"].serve.goodput_tok_s
+        attempts.append(dict(ratio=ratio, clean=gateway_summary(clean),
+                             chaos=gateway_summary(chaos)))
+        if ratio >= 0.8:
+            break
+    check(ratio >= 0.8, f"goodput ratio {ratio:.3f} under chaos")
+    print(json.dumps({"gateway_timing": dict(
+        decode_step_ms=decode_ms, decode_step_ms_runs=ts, ref_decode_ms=GW_REF_DECODE_MS,
+        scale=scale, times=times, saturation_tok_s=sat.throughput_tok_s, rate_req_s=rate,
+        requests=GW_REQUESTS, attempts=attempts, card=out["smi"])}), flush=True)
+    c, x = attempts[-1]["clean"], attempts[-1]["chaos"]
+    return (
+        f"{LM_ARCH} full width, bf16, {slots} slots: decode step {decode_ms:.2f} ms, times x "
+        f"{scale:.1f} (deadline {times['deadline_s']:.2f} s, backoff "
+        f"{times['retry_backoff_s'] * 1e3:.1f} ms, cooldown "
+        f"{times['breaker_cooldown_s'] * 1e3:.1f} ms); saturation {sat.throughput_tok_s:.1f} "
+        f"tok/s, {GW_REQUESTS} requests at {rate:.1f}/s: clean goodput "
+        f"{c['goodput_tok_s']:.1f} tok/s, p50/p95 {c['latency_p50_ms']:.0f}/"
+        f"{c['latency_p95_ms']:.0f} ms, TTFT {c['ttft_p50_ms']:.0f} ms; chaos goodput "
+        f"{x['goodput_tok_s']:.1f} tok/s (ratio {ratio:.3f}), p50/p95 "
+        f"{x['latency_p50_ms']:.0f}/{x['latency_p95_ms']:.0f} ms, TTFT {x['ttft_p50_ms']:.0f} "
+        f"ms, rejected {x['rejected']}, retries {x['retries']}, failures "
+        f"{x['engine_call_failures']}, breaker {x['breaker_trips']} trips / "
+        f"{x['breaker_closes']} closes, health {x['health_states_seen']} back to healthy; C "
+        f"{2 * cfg.n_layers} launches an engine call that ran, none for the {x['faults_raised']} "
+        f"that raised ({len(attempts)} attempt(s))"
+    )
+
+
+
 # -- out-of-core XL: the paper's Table-4 regime --------------------------------
 
 # The paper's first Table-4 row at full width (benchmarks/table4_extreme.py
@@ -4719,6 +5336,7 @@ XL_PLAN = dict(in_core_bytes=880_370_704, budget_bytes=528_222_422,
                peak_device_bytes=528_161_560, shard_capacity=73_728, chunk=8_192,
                shards=[77, 136, 14])
 XL_TIMED_STEPS = 8
+XL_TRANSIENT_STEP = 3  # the resumed run's streamed step that meets a transient
 KERNEL_XL_ACC = dict(
     name="xl_shard_acc", route="cuda", source="src/repro_torch/csrc/coo_matmul_T.cu",
     replaces="src/repro/kernels/ops.py:347",
@@ -5139,7 +5757,12 @@ def phase_xl(out: dict) -> str:
         res = XLTrainer.from_checkpoint(mgr, data, xl_train_config(True), plan, device=CARD)
         post["restore_s"] = time.perf_counter() - t
         post["checkpoint_bytes"] = dir_bytes(Path(tmp))
+        # a transient at a streamed step of epoch 1, raised by the hook
+        # before the step writes the host state, retried
+        transient = fi.TransientFaultInjector([res.gstep + XL_TRANSIENT_STEP])
+        res.fault_hook, res.step_retries = transient, 1
         res_hist = res.run()
+    check(transient.raised == 1, f"the XL transient fired {transient.raised} times")
     same_history(res_hist, evo_hist, "the resumed XL run")
     xl_same_states(res.state, evo.state, "the resumed XL run's final state")
     print(json.dumps({"xl_history": {"streamed": hist, "in_core": core_hist,
@@ -5182,6 +5805,7 @@ def phase_xl(out: dict) -> str:
         f"bit-equal to in core; 2 epochs loss {hist['train_loss']} vs in core "
         f"{core_hist['train_loss']}, acc {hist['test_acc']} equal; after the evolution the "
         f"invariants hold and the next step is bit-equal to in core; resumed from epoch 0 "
+        f"(a transient at its step {XL_TRANSIENT_STEP} retried) "
         f"bit-equal; K8 on layer 1's {n_checked} shards max_abs_err acc "
         f"{errs['xl_shard_acc']:.3g}, dw {errs['xl_shard_dw']:.3g}, chained bit-equal to A over "
         f"the layer; allocator peak {mem['streamed_peak_bytes']} B (budget {plan.budget_bytes} + "
@@ -5231,6 +5855,10 @@ def main() -> int:
         ("lm_archs", phase_lm_archs),
         # Whisper-medium at full width and depth, and the observability layer
         ("whisper", phase_whisper), ("obs", phase_obs),
+        # the runtime: supervised recovery of the element cell, the elastic
+        # driver on the LM, the serving gateway on phase lm's engine
+        ("supervisor", phase_supervisor), ("launch_train", phase_launch_train),
+        ("gateway", phase_gateway),
         # after the timing phases: run before them, it made their
         # torch.profiler sessions lose device events (PERF.md §7)
         ("wasap", phase_wasap), ("checkpoint", phase_checkpoint), ("xl", phase_xl),

@@ -67,11 +67,27 @@ phase 1 the epoch function's probe of the averaged master on the epoch's
 first batch, in phase 2 worker 0's segment probe, each with its SET churn.
 A probe reads the weights and never writes them.
 
-Not in this slice, and refused with an error naming the ROADMAP item: the
-``shard_map`` worker axis (item 9); a heartbeat ``monitor`` (elastic
-rounds), a ``fault_hook`` and ``step_retries`` (runtime, item 5); and
-buffer donation (item 5). Its contract-auditor registration
-(``analysis_programs``) comes with item 8.
+Elasticity and fault tolerance (``runtime``, DESIGN.md §8), as the
+reference's, on the fused path: attach a ``runtime.supervisor.
+HeartbeatMonitor`` over the worker ids ``"w0".."w{K-1}"`` as ``monitor``
+(and optionally ``beat_filter(worker_id, epoch) -> bool``, e.g.
+``faultinject.StragglerInjector.beats``), and every phase-1 epoch is one
+heartbeat interval: the beats that arrive are delivered, the monitor ticks,
+and the epoch's rounds run the weighted program (``weighted=True``) with
+the workers' liveness as 1/0 weights, renormalised inside the average, so a
+dead or evicted worker contributes nothing while the rounds complete with
+the survivors; ``elastic_log`` records each epoch's statuses and weights.
+``fault_hook(gstep)`` fires before each phase-1 epoch call and before each
+phase-2 epoch, and ``step_retries > 0`` retries either (``retry_backoff_s``
+apart) with the inputs of its first attempt: the generators' states are put
+back and the epoch's inputs are untouched until its last operation. The
+phase-1 epoch takes ``donate=`` (``runtime.donation``): donated (the policy
+on the card), it writes the averaged params and optimizer state into the
+caller's tensors at its end and returns them.
+
+Refused with an error naming the ROADMAP item: the ``shard_map`` worker
+axis (item 9). Its contract-auditor registration (``analysis_programs``)
+comes with item 8.
 """
 from __future__ import annotations
 
@@ -101,6 +117,8 @@ from repro_torch.launch.steps import (
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, cross_entropy_loss, mlp_forward
 from repro_torch.obs import probes
 from repro_torch.optim.sgd import MomentumSGD, SGDState, replace_values_velocity
+from repro_torch.runtime import donation
+from repro_torch.runtime.supervisor import retry_step
 from repro_torch.train.trainer import (
     _params_like,
     evaluate,
@@ -191,6 +209,13 @@ def _take_worker0(tree):
     return tree_map(lambda a: a[0], tree)
 
 
+def _write_into(dst_tree, src_tree):
+    """Copy every leaf of ``src_tree`` into the same leaf of ``dst_tree`` in
+    place and return ``dst_tree`` (a donated call's result)."""
+    tree_map(lambda d, s: d.copy_(s), dst_tree, src_tree)
+    return dst_tree
+
+
 def _stack(trees: List):
     """K worker trees as one tree of (K, ...) leaves, in worker order."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
@@ -233,7 +258,14 @@ def make_phase1_epoch_fn(
     validity weights over the worker axis, renormalised inside the average
     — so a dead worker contributes zero while the round completes with the
     survivors. ``mesh`` goes with ``worker_axis="shard_map"``, which is
-    refused here (ROADMAP Queue 1, item 9), as is ``donate`` (item 5).
+    refused here (ROADMAP Queue 1, item 9).
+
+    ``donate`` overrides the donation policy (``runtime.donation``; None:
+    donate on the card). With position 0 (1) donated, the epoch writes its
+    final params (optimizer state) into the caller's ``params``
+    (``opt_state``) tensors, after everything else has run, and returns
+    those tensors; not donated, it leaves them untouched and returns new
+    ones.
 
     ``probe=True`` appends a fourth output: the per-layer training-dynamics
     stats of ``obs.probes.segment_probe`` (device tensors), from one
@@ -245,9 +277,6 @@ def make_phase1_epoch_fn(
         raise ValueError(f"worker_axis must be vmap|shard_map, got {worker_axis!r}")
     if worker_axis == "shard_map":
         raise NotImplementedError(_SHARD_MAP)
-    if donate is not None:
-        raise NotImplementedError(
-            "buffer donation comes with the runtime slice (ROADMAP Queue 1, item 5)")
 
     def local_steps(params, opt_state, topo, x_all, y_all, idx_h, lrs_h, valid_h, key):
         step_core = make_mlp_step_core(config, opt, topo, x_all, y_all)
@@ -260,6 +289,8 @@ def make_phase1_epoch_fn(
                       worker_w=None):
         if idx.shape[1] != n_workers:
             raise ValueError(f"idx has {idx.shape[1]} workers, the epoch runs {n_workers}")
+        donated = donation.donate_argnums(0, 1, override=donate, device=x_all.device)
+        caller = (params, opt_state)
         loss_sums = []
         for r in range(idx.shape[0]):
             outs = [local_steps(params, opt_state, topo, x_all, y_all, idx[r, wk], lrs[r],
@@ -270,8 +301,15 @@ def make_phase1_epoch_fn(
                          if average_momentum else _take_worker0(so))
             params = new_params
             loss_sums.append(torch.stack([o[2] for o in outs]).sum())
+        loss_sums = torch.stack(loss_sums)
+        # donation: the results go into the caller's tensors, last, so that a
+        # fault raised above leaves them as they were
+        if 0 in donated:
+            params = _write_into(caller[0], params)
+        if 1 in donated:
+            opt_state = _write_into(caller[1], opt_state)
         if not probe:
-            return params, opt_state, torch.stack(loss_sums)
+            return params, opt_state, loss_sums
         # probe on the epoch's first batch (round 0, worker 0: always valid;
         # padding only reaches tail rounds)
         xb, yb = x_all.index_select(0, idx[0, 0, 0]), y_all.index_select(0, idx[0, 0, 0])
@@ -281,7 +319,7 @@ def make_phase1_epoch_fn(
         grads = torch.autograd.grad(cross_entropy_loss(logits, yb), leaves["values"])
         stats = probes.segment_probe(params, {"values": grads}, topo,
                                      [z.detach() for z in preacts], config.layer_dims)
-        return params, opt_state, torch.stack(loss_sums), stats
+        return params, opt_state, loss_sums, stats
 
     if weighted:
         return epoch_program
@@ -455,10 +493,17 @@ class WASAPTrainer:
         self._p1_state = None           # (params, opt_state, topo) at a boundary
         self._p2_workers = None         # phase-2 replicas at a boundary
         self._last_churn = None         # (n_pruned, nnz) of the last probed SET
-        # the reference's elasticity and fault-tolerance seams; refused by run()
+        self.fault_hook = None          # hook(gstep) before each epoch call
+        self.step_retries = 0           # retry_step wrap when > 0
+        self.retry_backoff_s = 0.0
+        # heartbeat-driven elasticity: a supervisor.HeartbeatMonitor over
+        # worker ids "w0".."w{K-1}" (plus an optional beat_filter(worker_id,
+        # epoch) -> bool, e.g. faultinject.StragglerInjector.beats): phase-1
+        # rounds then run with the liveness weights, renormalised
         self.monitor = None
-        self.fault_hook = None
-        self.step_retries = 0
+        self.beat_filter = None
+        self.elastic_log: List[Dict] = []
+        self._epoch_fn_weighted = None  # made when a monitor is attached
 
     def _data_on_device(self):
         if self._device_data is None:
@@ -483,11 +528,6 @@ class WASAPTrainer:
     # -- phases --------------------------------------------------------------
 
     def run(self) -> Dict[str, list]:
-        if self.monitor is not None or self.fault_hook is not None or self.step_retries:
-            raise NotImplementedError(
-                "heartbeat monitors, fault hooks and step retries come with the runtime "
-                "slice (ROADMAP Queue 1, item 5)"
-            )
         with obs.span("wasap.run", mode=self.wc.mode, workers=self.wc.n_workers,
                       fused=self._fused, worker_axis=self.wc.worker_axis):
             if self._fused:
@@ -567,15 +607,29 @@ class WASAPTrainer:
         for epoch in range(start, wc.phase1_epochs):
             with obs.span("wasap.epoch", epoch=epoch, phase=1, rounds=rounds) as ep_sp:
                 t0 = time.perf_counter()
+                weights = self._worker_weights(epoch) if self.monitor is not None else None
+                inputs = self._phase1_inputs(epoch, gstep)
+
+                def run_epoch(params=params, opt_state=opt_state, topo=topo, gstep=gstep,
+                              inputs=inputs, weights=weights):
+                    # the hook first: a kill or a transient fires before the
+                    # epoch draws or writes anything
+                    if self.fault_hook is not None:
+                        self.fault_hook(gstep)
+                    args = (params, opt_state, topo, x_all, y_all, *inputs, self.key)
+                    if weights is None:
+                        return self._epoch_fn(*args)
+                    return self._weighted_epoch_fn()(
+                        *args, torch.as_tensor(weights, device=dev))
+
                 # the epoch's rounds; the span waits for their losses at close
                 with obs.span("wasap.sync_rounds", rounds=rounds, h=self._h,
-                              elastic=False) as sr_sp:
-                    out = self._epoch_fn(
-                        params, opt_state, topo, x_all, y_all,
-                        *self._phase1_inputs(epoch, gstep), self.key,
-                    )
+                              elastic=weights is not None) as sr_sp:
+                    out = self._retried(run_epoch, [self.key])
                     params, opt_state, loss_sums = out[:3]
-                    probe_dev = out[3] if wc.probe else None
+                    # the elastic (weighted) program runs without the probe:
+                    # its epochs record no snapshot
+                    probe_dev = out[3] if wc.probe and weights is None else None
                     sr_sp.block_on(loss_sums)
                 gstep += steps
                 # master topology evolution on the averaged model; momentum is
@@ -682,11 +736,15 @@ class WASAPTrainer:
         for epoch in range(start, wc.phase1_epochs + wc.phase2_epochs):
             with obs.span("wasap.epoch", epoch=epoch, phase=2, workers=k) as ep_sp:
                 t0 = time.perf_counter()
-                losses = []
-                p2_probe = None  # worker 0's probe stats
-                # one span over all K worker segments and evolutions, waited
-                # for once at its close
-                with obs.span("wasap.worker_segments", workers=k) as ws_sp:
+
+                def run_workers(epoch=epoch, workers=workers):
+                    """The epoch's K worker segments and evolutions, on copies
+                    of the workers' entries (a retry starts from the
+                    originals); the hook fires first."""
+                    if self.fault_hook is not None:
+                        self.fault_hook(epoch * steps_per_epoch)
+                    workers = [dict(w) for w in workers]
+                    losses, p2_probe = [], None  # p2_probe: worker 0's probe stats
                     for wk, w in enumerate(workers):
                         ld = self.loaders[wk]
                         steps = ld.steps_per_epoch
@@ -706,6 +764,13 @@ class WASAPTrainer:
                         # per-worker evolution (divergent topologies)
                         w["topo"], w["params"], w["opt"] = self._evolve_device(
                             w["topo"], w["params"], w["opt"], w["key"], master=probing)
+                    return workers, losses, p2_probe
+
+                # one span over all K worker segments and evolutions, waited
+                # for once at its close
+                with obs.span("wasap.worker_segments", workers=k) as ws_sp:
+                    workers, losses, p2_probe = self._retried(
+                        run_workers, [w["key"] for w in workers])
                     ws_sp.block_on([w["params"] for w in workers])
                 _sync(dev)
                 dt = time.perf_counter() - t0
@@ -915,6 +980,68 @@ class WASAPTrainer:
         return step
 
     # -- helpers --------------------------------------------------------------
+
+    # -- elasticity and retries (DESIGN.md §8) -----------------------------
+
+    def _retried(self, fn, generators: List[torch.Generator]):
+        """``fn()`` under ``retry_step`` when ``step_retries > 0``, with
+        ``generators`` put back to their states from before the first attempt
+        before every attempt, so that a retry draws what the first drew."""
+        if not self.step_retries:
+            return fn()
+        states = [g.get_state() for g in generators]
+
+        def attempt():
+            for g, st in zip(generators, states):
+                g.set_state(st)
+            return fn()
+
+        return retry_step(attempt, retries=self.step_retries, backoff_s=self.retry_backoff_s)
+
+    def _weighted_epoch_fn(self):
+        """The phase-1 epoch with worker weights (``weighted=True``), made
+        only when a heartbeat monitor is attached: the unweighted program
+        keeps its exact reduction order otherwise. It runs without the
+        probe."""
+        if self._epoch_fn_weighted is None:
+            wc = self.wc
+            self._epoch_fn_weighted = make_phase1_epoch_fn(
+                self.model.config, self.opt, n_workers=wc.n_workers,
+                average_momentum=wc.average_momentum, worker_axis=wc.worker_axis,
+                weighted=True,
+            )
+        return self._epoch_fn_weighted
+
+    def _worker_weights(self, epoch: int) -> np.ndarray:
+        """One heartbeat interval per epoch: deliver the beats that arrived
+        (``beat_filter`` suppresses an injected straggler's), tick the
+        monitor, and weight the epoch's averages 1/0 by liveness (healthy or
+        straggling: 1; dead or evicted: 0), renormalised inside
+        ``_average_pytree``. An evicted worker's shard still trains, but
+        contributes nothing. Appends to ``elastic_log``."""
+        k = self.wc.n_workers
+        mon = self.monitor
+        for wk in range(k):
+            wid = f"w{wk}"
+            if wid in mon.evicted:
+                continue
+            if self.beat_filter is None or self.beat_filter(wid, epoch):
+                mon.beat(wid)
+        status = mon.tick()
+        weights = np.asarray(
+            [1.0 if status.get(f"w{wk}", "healthy") in ("healthy", "straggling") else 0.0
+             for wk in range(k)],
+            np.float32,
+        )
+        if weights.sum() == 0:
+            raise RuntimeError(
+                "every WASAP worker is dead or evicted: the round cannot complete elastically")
+        self.elastic_log.append({
+            "epoch": epoch,
+            "status": {f"w{wk}": status.get(f"w{wk}") for wk in range(k)},
+            "weights": weights.tolist(),
+        })
+        return weights
 
     def _evolve_device(self, topo, params, opt_state: SGDState, key: torch.Generator,
                        master: bool = False):

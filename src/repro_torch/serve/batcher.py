@@ -281,9 +281,8 @@ class ContinuousBatcher:
                 self.slot_tok[s] = int(tok)
 
     # engine-call seams: the base batcher calls the engine directly (failures
-    # propagate). The reference's ``ServingGateway`` overrides these with its
-    # retry/breaker layer and returns None when the engine is unavailable
-    # (the gateway comes with ROADMAP Queue 1, item 6).
+    # propagate). ``serve.gateway.ServingGateway`` overrides these with its
+    # retry/breaker layer and returns None when the engine is unavailable.
 
     def _call_prefill(self, group: List[Request], slots: List[int]):
         return self.engine.prefill([r.prompt for r in group], slots)

@@ -69,8 +69,17 @@ one backward on half of its last minibatch and the probe's reductions
 reads the weights and never writes them: a probed run's history,
 topologies and weights are the unprobed run's, bit for bit.
 
-Not in this slice, and refused with an error naming the ROADMAP item: the
-fault hook and step retries (the runtime, Queue 1, item 5).
+Fault tolerance (``runtime.supervisor``, DESIGN.md §8), as the reference
+wires it: ``fault_hook(gstep)`` fires once a fused segment (at its first
+step) or once a per-batch step, before anything is drawn or written, and
+with ``step_retries > 0`` the call runs under ``retry_step``
+(``retry_backoff_s`` apart). The in-core step and segment are not donated
+(``runtime.donation``): they return new params and velocity and leave their
+inputs untouched. What they draw (dropout) comes from ``self.key``, a
+``torch.Generator`` that advances inside the call, so its state is taken
+before the first attempt and put back before every retry: a retry re-enters
+with the first attempt's inputs, also after a fault raised inside the call,
+and the run stays bit-equal to the one that never failed.
 """
 from __future__ import annotations
 
@@ -109,6 +118,7 @@ from repro_torch.models.mlp import (
 )
 from repro_torch.obs import probes
 from repro_torch.optim.sgd import MomentumSGD, SGDState, replace_values_velocity
+from repro_torch.runtime.supervisor import retry_step
 from repro_torch.tree import tree_map
 
 __all__ = [
@@ -323,9 +333,11 @@ class SequentialTrainer:
         self.epoch_next = 0           # next epoch at the last boundary
         self.gstep = 0                # global minibatch counter
         self.epoch_end_hook: Optional[Callable] = None  # hook(trainer, epoch)
-        # the reference's fault-tolerance seams; refused by run() if set
+        # fault tolerance (DESIGN.md §8): hook(gstep) before each segment or
+        # step; retry_step around it when step_retries > 0
         self.fault_hook: Optional[Callable[[int], None]] = None
         self.step_retries = 0
+        self.retry_backoff_s = 0.0
 
     # -- host-side topology mutations --------------------------------------
 
@@ -530,12 +542,30 @@ class SequentialTrainer:
 
     # -- main loop -----------------------------------------------------------
 
+    def _guarded(self, gstep: int, call: Callable):
+        """``call()`` (a segment or a step) after the fault hook, under
+        ``retry_step`` when ``step_retries > 0``. The generator's state is
+        taken before the first attempt and put back before each one, so a
+        retry draws what the first attempt drew; the call leaves its inputs
+        untouched (not donated), so a retry re-enters with them."""
+        def attempt():
+            # the hook first: a kill or a transient fires before anything is
+            # drawn or written
+            if self.fault_hook is not None:
+                self.fault_hook(gstep)
+            return call()
+
+        if not self.step_retries:
+            return attempt()
+        state = self.key.get_state()
+
+        def retried():
+            self.key.set_state(state)
+            return attempt()
+
+        return retry_step(retried, retries=self.step_retries, backoff_s=self.retry_backoff_s)
+
     def run(self, log_every: int = 0) -> Dict[str, List]:
-        if self.fault_hook is not None or self.step_retries:
-            raise NotImplementedError(
-                "fault hooks and step retries come with the runtime slice (ROADMAP Queue 1, "
-                "item 5)"
-            )
         mode = "fused" if self.tc.fused_epochs else "per_batch"
         with obs.span("train.run", mode=mode, epochs=self.tc.epochs,
                       start_epoch=self.start_epoch):
@@ -621,8 +651,8 @@ class SequentialTrainer:
                 # the span waits for the segment's losses at its close, so
                 # it times the device's work
                 with obs.span("train.segment", steps=steps) as seg_sp:
-                    out = segment(model.params(), self.opt_state, topo, x_all, y_all, perm,
-                                  lrs, self.key)
+                    out = self._guarded(gstep, lambda: segment(
+                        model.params(), self.opt_state, topo, x_all, y_all, perm, lrs, self.key))
                     params, self.opt_state, self.key, losses = out[:4]
                     probe_dev = out[4] if tc.probe else None
                     seg_sp.block_on(losses)
@@ -651,10 +681,11 @@ class SequentialTrainer:
                 with obs.span("train.segment", mode="per_batch") as seg_sp:
                     for xb, yb in loader.epoch(epoch):
                         lr = torch.tensor(float(lr_fn(gstep)), dtype=torch.float32, device=dev)
-                        params, self.opt_state, loss = self._step(
-                            params, self.opt_state, topo, torch.as_tensor(xb, device=dev),
-                            torch.as_tensor(yb, device=dev).long(), lr, self.key,
-                        )
+                        xb = torch.as_tensor(xb, device=dev)
+                        yb = torch.as_tensor(yb, device=dev).long()
+                        params, self.opt_state, loss = self._guarded(
+                            gstep, lambda p=params: self._step(p, self.opt_state, topo, xb, yb,
+                                                               lr, self.key))
                         losses.append(loss)
                         gstep += 1
                     seg_sp.set(steps=len(losses))
@@ -684,8 +715,15 @@ class XLTrainer:
 
     Constraints vs the in-core trainer: element impl only, ``dropout == 0``
     (the streamed backward is hand-derived) and no importance-pruning
-    schedule (shape changes would re-plan). Refused with the ROADMAP item
-    that brings them: the fault hook and step retries (item 5).
+    schedule (shape changes would re-plan). ``fault_hook(gstep)`` fires
+    before every streamed step, and ``step_retries > 0`` runs it under
+    ``retry_step``, as the reference's. The streamed step is donated
+    (``runtime.donation``): it writes the host values, momentum and biases
+    in place, shard by shard, and fills the pinned ring as it goes. The hook
+    fires before any of that, so a fault raised there leaves the state and
+    the ring untouched and its retry is exact; a fault raised inside the
+    step, after some shards were updated, is not retried into the same
+    trajectory (the supervisor's checkpoint restore is the recovery for it).
     ``TrainerConfig(probe=True)`` records one ``"xl"`` snapshot per epoch,
     ``StreamExecutor.probe_stats`` on the epoch's last batch.
     """
@@ -728,9 +766,9 @@ class XLTrainer:
         self.epoch_next = 0
         self.gstep = 0
         self.epoch_end_hook: Optional[Callable] = None
-        # the reference's fault-tolerance seams; refused by run() if set
-        self.fault_hook: Optional[Callable[[int], None]] = None
-        self.step_retries = 0
+        self.fault_hook: Optional[Callable[[int], None]] = None  # hook(gstep)
+        self.step_retries = 0  # retry_step wrap when > 0
+        self.retry_backoff_s = 0.0
 
     @property
     def n_params(self) -> int:
@@ -821,11 +859,6 @@ class XLTrainer:
         from repro_torch.xl import evolve_model_streamed
         from repro_torch.xl.stream import compile_counts
 
-        if self.fault_hook is not None or self.step_retries:
-            raise NotImplementedError(
-                "fault hooks and step retries come with the runtime slice (ROADMAP Queue 1, "
-                "item 5)"
-            )
         tc = self.tc
         loader = ShardedLoader(
             self.data.x_train, self.data.y_train, tc.batch_size, seed=tc.seed
@@ -845,10 +878,21 @@ class XLTrainer:
                     with obs.span("train.segment", mode="xl"):
                         for xb, yb in loader.epoch(epoch):
                             probe_batch = (xb, yb)
-                            losses.append(self.executor.train_step(
-                                xb, yb, float(lr_fn(gstep)), momentum=tc.momentum,
-                                weight_decay=tc.weight_decay,
-                            ))
+
+                            def do_step(xb=xb, yb=yb, gstep=gstep):
+                                # the hook fires before the streamed step
+                                # writes the host state, so a transient
+                                # raised here retries cleanly
+                                if self.fault_hook is not None:
+                                    self.fault_hook(gstep)
+                                return self.executor.train_step(
+                                    xb, yb, float(lr_fn(gstep)), momentum=tc.momentum,
+                                    weight_decay=tc.weight_decay)
+
+                            losses.append(
+                                retry_step(do_step, retries=self.step_retries,
+                                           backoff_s=self.retry_backoff_s)
+                                if self.step_retries else do_step())
                             gstep += 1
                     evo_stats = None
                     if epoch < tc.epochs - 1 and tc.evolve:

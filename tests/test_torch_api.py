@@ -32,13 +32,9 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 # names of a reference module's __all__ that the port does not export yet,
-# by module, with the ROADMAP Queue 1 item that brings them
-NOT_YET = {
-    "serve": {name: "6" for name in (
-        "BROWNED_OUT", "CircuitBreaker", "DEGRADED", "GatewayConfig", "GatewayStats",
-        "HEALTHY", "HealthMonitor", "HealthThresholds", "RollingWindow", "ServeMetrics",
-        "ServingGateway")},
-}
+# by module, with the ROADMAP Queue 1 item that brings them (none since the
+# serving gateway landed)
+NOT_YET = {}
 
 
 def _twins():
@@ -73,9 +69,13 @@ def test_module_exports_cover_the_reference(name):
         assert hasattr(port, n), f"repro_torch.{name}.__all__ names {n}, which it lacks"
 
 
-@pytest.mark.parametrize("name", sorted(NOT_YET))
-def test_names_not_yet_ported_are_still_missing(name):
+def test_names_not_yet_ported_are_still_missing():
     """When an item lands, its names leave NOT_YET."""
+    for name in sorted(NOT_YET):
+        _still_missing(name)
+
+
+def _still_missing(name):
     ref, port = _pair(name)
     for n, item in NOT_YET[name].items():
         assert n in ref.__all__, f"the reference's {name} no longer exports {n}"
@@ -188,3 +188,23 @@ def test_no_refusal_names_the_obs_or_whisper_items():
             for path in files for i, line in enumerate(path.read_text().splitlines(), 1)
             if pattern.search(line)]
     assert not hits, "\n".join(hits)
+
+
+def test_no_refusal_names_the_runtime_or_gateway_items():
+    """The runtime and the elastic driver (ROADMAP Queue 1, item 5) and the
+    serving gateway (item 6) are ported whole: no string of the port's
+    package or its examples names either item, and their modules are
+    twins (held by ``test_module_exports_cover_the_reference``)."""
+    import re
+
+    pattern = re.compile(r"item [56](?![0-9])")
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + sorted(
+        (SRC.parent / "examples").glob("*_torch.py"))
+    hits = [f"{path.relative_to(SRC.parent)}:{i}: {line.strip()}"
+            for path in files for i, line in enumerate(path.read_text().splitlines(), 1)
+            if pattern.search(line)]
+    assert not hits, "\n".join(hits)
+    twins = set(_twins())
+    assert {"runtime.donation", "runtime.faultinject", "runtime.supervisor", "launch.train",
+            "serve.metrics", "serve.gateway"} <= twins
+    assert not NOT_YET

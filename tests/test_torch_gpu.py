@@ -2247,3 +2247,112 @@ def test_whisper_two_layer_cut_on_card_matches_cpu(cuda):
             assert not a.any() and not b.any(), name
         else:
             assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-7, name
+
+
+# -- the runtime and the serving gateway on the card ---------------------------
+
+
+def test_retried_element_segment_on_card_is_bit_equal(cuda, tmp_path):
+    """The element trainer on the card (device SET, dropout 0.3, kernels A
+    and F): a transient raised INSIDE the epoch-1 segment, after it ran and
+    drew its dropout masks, is retried by ``run_supervised``; the run is the
+    clean run's, bit for bit, and its launches are the clean run's plus one
+    segment's."""
+    from repro_torch.runtime.faultinject import TransientFault
+    from repro_torch.runtime.supervisor import SupervisorConfig, run_supervised
+
+    data = load("fashionmnist", scale=0.01)
+    cfg = SparseMLPConfig(layer_dims=(data.n_features, 128, 64, data.n_classes), epsilon=8,
+                          dropout=0.3)
+    tc = TrainerConfig(epochs=3, batch_size=32, seed=1)
+    runs = []
+    for fail in (False, True):
+        tr = SequentialTrainer(SparseMLP(cfg, seed=1, device=cuda), data, tc)
+        if fail:
+            segment, calls = tr._segment, []
+
+            def failing(*args):
+                out = segment(*args)
+                calls.append(1)
+                if len(calls) == 2:
+                    raise TransientFault("inside the segment, after it ran")
+                return out
+
+            tr._segment = failing
+        a0, f0 = tsp.coo_matmul_T.launches, tsp.coo_dw.launches
+        res = run_supervised(tr, SupervisorConfig(checkpoint_dir=str(tmp_path / str(fail)),
+                                                  step_retries=1))
+        torch.cuda.synchronize()
+        runs.append((tr, res["history"], tsp.coo_matmul_T.launches - a0,
+                     tsp.coo_dw.launches - f0))
+    (clean, hc, ac, fc), (retried, hr, ar, fr) = runs
+    steps = len(data.x_train) // 32
+    n = cfg.n_layers
+    assert hr["train_loss"] == hc["train_loss"] and hr["n_params"] == hc["n_params"]
+    for a, b in zip(clean.model.values + clean.model.biases,
+                    retried.model.values + retried.model.biases):
+        assert torch.equal(a, b)
+    assert (ar - ac, fr - fc) == (steps * (2 * n - 1), steps * n)
+
+
+def test_gateway_on_card_narrow_lm(cuda):
+    """``ServingGateway`` over the card's engine serving a narrow bf16 LM
+    with the sparse FFN (kernel C, All-ReLU in W_in's store): a clean trace
+    and one with ``EngineChaos`` (two singles and a burst that trips the
+    breaker): every request has one disposition (the clean run's completed
+    or shed, with no failed call), the chaos run's breaker trips and
+    re-closes, the health state comes back, and kernel C launches 2 x
+    n_layers for every engine call that ran (a call whose hook raised runs
+    none)."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import PatternLM
+    from repro_torch.runtime.faultinject import EngineChaos, TransientFaultInjector
+    from repro_torch.serve import (
+        BROWNED_OUT,
+        HEALTHY,
+        GatewayConfig,
+        HealthThresholds,
+        ServingGateway,
+        poisson_trace,
+    )
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(configs.get_spec("qwen1.5-0.5b").smoke, ffn="sparse",
+                              sparse_block=16, sparse_density=0.5, d_ff=64, dtype="bfloat16")
+    engine = SparseInferenceEngine(PatternLM(cfg, seed=0, device=cuda), engine=EngineConfig(
+        max_slots=4, max_len=48, prefill_buckets=(8, 16), prefill_batch=2))
+    gc = GatewayConfig(default_deadline_s=5.0, retry_limit=1, retry_backoff_s=0.002,
+                       breaker_threshold=3, breaker_cooldown_s=0.02,
+                       health=HealthThresholds(recovery_ticks=3))
+
+    def run(faults):
+        base = engine._engine_calls
+        chaos = None
+        if faults:
+            chaos = EngineChaos(TransientFaultInjector(sorted(faults)))
+            engine.fault_hook = lambda op, i: chaos(op, i - base)
+        c0 = bsm.bsmm_fwd.launches
+        trace = poisson_trace(24, rate=200.0, vocab=cfg.vocab, prompt_lens=(3, 14),
+                              new_tokens=(2, 6), seed=3)
+        try:
+            st = ServingGateway(engine, gateway=gc, queue_capacity=16).run(trace)
+        finally:
+            engine.fault_hook = None
+        torch.cuda.synchronize()
+        ran = engine._engine_calls - base - (chaos.raised if chaos else 0)
+        return st, trace, bsm.bsmm_fwd.launches - c0, ran
+
+    run(set())  # warm-up: every bucket built
+    for faults in (set(), {3, 20} | set(range(8, 14))):
+        st, trace, c_launches, ran = run(faults)
+        for r in trace:
+            assert sum([r.done, r.rejected is not None, r.failed is not None]) == 1
+        assert c_launches == 2 * cfg.n_layers * ran
+        assert st.health_final == HEALTHY and st.breaker_final_state == "closed"
+        if faults:
+            assert st.retries >= 2 and st.engine_call_failures >= 3
+            assert st.breaker_trips >= 1 and st.breaker_closes >= 1
+            assert BROWNED_OUT in st.health_states_seen
+        else:  # under load the clean run may shed, but never fails a call
+            assert st.serve.completed + st.serve.rejected == len(trace)
+            assert st.retries == st.engine_call_failures == st.breaker_trips == 0

@@ -1,9 +1,9 @@
 """The port's obs substrate (``repro_torch.obs``, DESIGN.md §11): the twins
 of ``tests/test_obs.py`` — metric math against a numpy oracle, the JSONL
 span-tree round-trip, disabled-mode zero-allocation, the Prometheus golden
-rendering, the trainer's span taxonomy and the CLI — less its two tests of
-the serving gateway and ``serve/metrics.py``, which come with ROADMAP
-Queue 1, item 6. Also: the port's summary of a trace equals the
+rendering (also of ``serve.metrics.ServeMetrics``' two registries, equal to
+the reference's text), the trainer's and the serving gateway's span
+taxonomies and the CLI. Also: the port's summary of a trace equals the
 reference's, and a span's ``block_on`` of a CPU tensor returns at once.
 """
 import json
@@ -301,6 +301,25 @@ def test_prometheus_text_golden():
     )
 
 
+def test_serve_metrics_prometheus_includes_both_registries():
+    from repro.serve.metrics import ServeMetrics as JServeMetrics
+    from repro_torch.serve.metrics import ServeMetrics
+
+    texts = []
+    for cls in (ServeMetrics, JServeMetrics):
+        m = cls(clock=FakeClock())
+        m.observe_completion(12.0, 3.0)
+        m.queue_depth = 4
+        m.count_shed("deadline_infeasible")
+        texts.append(m.prometheus_text())
+    text = texts[0]
+    assert "# TYPE serve_latency_ms summary" in text  # the control registry
+    assert "serve_queue_depth 4" in text  # the telemetry registry
+    assert 'serve_events_total{event="completed"} 1' in text
+    assert 'serve_shed_total{reason="deadline_infeasible"} 1' in text
+    assert text == texts[1]  # the reference's exposition, line for line
+
+
 # ---------------------------------------------------------------------------
 # integration smokes: the documented span taxonomy actually shows up
 # ---------------------------------------------------------------------------
@@ -331,6 +350,52 @@ def test_trainer_emits_span_taxonomy(tmp_path):
     assert all(e["parent"] == run_span["id"] for e in epochs)
     segments = [e for e in events if e.get("name") == "train.segment"]
     assert sorted(e["parent"] for e in segments) == sorted(e["id"] for e in epochs)
+
+
+def test_gateway_emits_request_and_queue_spans(tmp_path):
+    import time
+
+    from repro_torch.serve import GatewayConfig, ServingGateway, poisson_trace
+    from repro_torch.serve.engine import EngineConfig
+
+    class FakeEngine:
+        kind = "lm"
+        fault_hook = None
+        stats = {}
+
+        def __init__(self, cfg):
+            self.cfg = cfg
+
+        def bucket_for(self, L):
+            return next((b for b in self.cfg.prefill_buckets if b >= L), None)
+
+        def prefill(self, prompts, slots):
+            time.sleep(0.0005)
+            return np.ones(len(prompts), np.int32)
+
+        def decode_step(self, tok, pos):
+            time.sleep(0.0005)
+            return np.ones(self.cfg.max_slots, np.int32)
+
+    eng = FakeEngine(EngineConfig(max_slots=4, max_len=64, prefill_buckets=(8, 16),
+                                  prefill_batch=2))
+    gw = ServingGateway(eng, gateway=GatewayConfig(default_deadline_s=5.0), queue_capacity=16)
+    trace = poisson_trace(12, rate=2000.0, vocab=100, prompt_lens=(3, 8), new_tokens=(3, 6),
+                          seed=0)
+    path = str(tmp_path / "serve.jsonl")
+    with obs.trace_to(path):
+        st = gw.run(trace)
+    assert st.serve.completed > 0
+    events = obs.read_events(path)
+    assert obs.validate_events(events) == []
+    by_name = {}
+    for e in (e for e in events if e["ev"] == "span"):
+        by_name.setdefault(e["name"], []).append(e)
+    # every completed request has a request span and a queue-wait span
+    assert len(by_name["serve.request"]) == st.serve.completed
+    assert len(by_name["serve.queue"]) >= st.serve.completed
+    for e in by_name["serve.queue"]:
+        assert e["dur_s"] >= 0.0
 
 
 def test_cli_validate_and_summarize(tmp_path):

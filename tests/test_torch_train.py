@@ -252,20 +252,24 @@ def test_trainer_refuses_what_this_slice_lacks():
         el, data, ttrainer.TrainerConfig(device_evolution=False, epochs=1)).run()
     assert np.isfinite(hist["train_loss"]).all() and hist["n_params"] == [el.n_params]
     ttrainer.SequentialTrainer(el, data, ttrainer.TrainerConfig())
-    # no evolution needs no device evolution
-    tr = ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig(evolve=False, epochs=1))
-    tr.fault_hook = lambda step: None
-    with pytest.raises(NotImplementedError, match="fault hooks.*item 5"):
-        tr.run()
+    # no evolution needs no device evolution; the fault hook is ported
+    # (tests/test_torch_resilience.py): it fires once a fused segment
+    tr = ttrainer.SequentialTrainer(tm, data, ttrainer.TrainerConfig(evolve=False, epochs=2))
+    seen = []
+    tr.fault_hook = seen.append
+    tr.run()
+    assert seen == [0, tr.gstep // 2]
     # the out-of-core trainer is ported (tests/test_torch_xl.py holds it
-    # against the reference); it takes the probes and refuses the fault hook
+    # against the reference); it takes the probes and the fault hook, which
+    # fires before every streamed step
     plan = plan_memory_budget(el.config.layer_dims, [t.nnz for t in el.topos], 32,
                               budget_bytes=10**8)
     ttrainer.XLTrainer(el, data, ttrainer.TrainerConfig(batch_size=32, probe=True), plan)
     xl = ttrainer.XLTrainer(el, data, ttrainer.TrainerConfig(batch_size=32, epochs=1), plan)
-    xl.fault_hook = lambda step: None
-    with pytest.raises(NotImplementedError, match="fault hooks.*item 5"):
-        xl.run()
+    seen = []
+    xl.fault_hook = seen.append
+    xl.run()
+    assert seen == list(range(xl.gstep))
     assert dataclasses.asdict(ttrainer.TrainerConfig()) == dataclasses.asdict(
         jtrainer.TrainerConfig())
     # the masked and dense impls train now (tests/test_torch_mlp_training.py

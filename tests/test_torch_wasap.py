@@ -46,7 +46,7 @@ from repro_torch.interop import mlp_from_numpy, sgd_state_from_numpy  # noqa: E4
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.optim import sgd as tsgd  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -577,21 +577,88 @@ def _trainer(**wc):
     ("shard_map epoch", lambda: tw.make_phase1_epoch_fn(
         _trainer().model.config, tsgd.MomentumSGD(), n_workers=2, worker_axis="shard_map"),
      "item 9"),
-    ("donate", lambda: tw.make_phase1_epoch_fn(
-        _trainer().model.config, tsgd.MomentumSGD(), n_workers=2, donate=(0, 1)), "item 5"),
 ])
 def test_refusals_name_their_roadmap_item(what, make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()
 
 
-@pytest.mark.parametrize("seam,value", [("monitor", object()), ("fault_hook", lambda s: None),
-                                        ("step_retries", 2)])
-def test_run_refuses_the_runtime_seams(seam, value):
+@pytest.mark.parametrize("donate", [(0, 1), (0,), (1,), ()])
+def test_donated_phase1_epoch_writes_the_callers_tensors(donate):
+    """``donate=`` (``runtime.donation``): a donated position's results are
+    written into the caller's tensors, which the epoch returns; the results
+    are the undonated epoch's, bit for bit, and an undonated input is left
+    untouched."""
     trainer = _trainer()
+    cfg, opt = trainer.model.config, trainer.opt
+    x_all, y_all = trainer._data_on_device()
+    topo = trainer.model.topo_arrays()
+    inputs = trainer._phase1_inputs(0, 0)
+
+    def fresh():
+        params = tree_map(torch.clone, trainer.model.params())
+        return params, opt.init(params)
+
+    kw = dict(n_workers=2)
+    p0, s0 = fresh()
+    want = tw.make_phase1_epoch_fn(cfg, opt, donate=(), **kw)(
+        p0, s0, topo, x_all, y_all, *inputs, torch.Generator().manual_seed(0))
+    p1, s1 = fresh()
+    before = (tree_map(torch.clone, p1), tree_map(torch.clone, s1))
+    got = tw.make_phase1_epoch_fn(cfg, opt, donate=donate, **kw)(
+        p1, s1, topo, x_all, y_all, *inputs, torch.Generator().manual_seed(0))
+    _bits(got[0], want[0], "params")
+    _bits(got[1], want[1], "opt_state")
+    assert torch.equal(got[2], want[2])
+    for pos, (caller, kept) in enumerate(zip((p1, s1), before)):
+        pairs = list(zip(tree_leaves(got[pos]), tree_leaves(caller)))
+        if pos in donate:  # the caller's tensors hold the results
+            assert all(a is b for a, b in pairs)
+        else:  # new tensors; the caller's untouched
+            assert not any(a is b for a, b in pairs)
+            _bits(caller, kept, f"undonated input {pos}")
+
+
+def test_donation_policy():
+    from repro.runtime import donation as jdonation
+    from repro_torch.runtime import donation
+
+    assert not donation.backend_donates("cpu") and donation.backend_donates("cuda")
+    assert donation.backend_donates() == torch.cuda.is_available()
+    assert donation.donate_argnums(0, 1, device="cpu") == () == jdonation.donate_argnums(0, 1)
+    assert donation.donate_argnums(0, 1, device="cuda") == (0, 1)
+    assert donation.donate_argnums(0, 1, override=(1,), device="cpu") == (1,)
+    assert donation.donate_argnums(0, 1, override=(), device="cuda") == ()
+
+
+@pytest.mark.parametrize("seam", ["monitor", "fault_hook", "step_retries"])
+def test_run_takes_the_runtime_seams(seam):
+    """Each of the runtime's seams on a run that meets no fault: a monitor
+    whose workers all beat (weights 1, 1: the weighted average of two is the
+    mean, bit for bit), a hook that raises nothing, retries that never fire.
+    The run is the plain run's, bit for bit; tests/test_torch_resilience.py
+    holds the faults."""
+    from repro_torch.runtime.supervisor import HeartbeatMonitor, StragglerPolicy
+
+    plain = _trainer()
+    want = plain.run()
+    trainer = _trainer()
+    seen = []
+    value = {"monitor": HeartbeatMonitor(["w0", "w1"], StragglerPolicy(), clock=lambda: 0.0),
+             "fault_hook": seen.append, "step_retries": 2}[seam]
     setattr(trainer, seam, value)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trainer.run()
+    got = trainer.run()
+    # the final row's train_loss is NaN by design
+    np.testing.assert_array_equal(got["train_loss"], want["train_loss"])
+    assert got["n_params"] == want["n_params"]
+    for a, b in zip(trainer.model.values + trainer.model.biases,
+                    plain.model.values + plain.model.biases):
+        assert torch.equal(a, b)
+    if seam == "monitor":
+        assert trainer.elastic_log == [{"epoch": 0, "status": {"w0": "healthy", "w1": "healthy"},
+                                        "weights": [1.0, 1.0]}]
+    if seam == "fault_hook":
+        assert seen == [0]
 
 
 def test_block_models_are_refused():

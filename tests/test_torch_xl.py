@@ -515,10 +515,14 @@ def test_refusals(data):
                            tc, plan)
     with pytest.raises(ValueError, match="re-plan"):
         ttrainer.XLTrainer(tm, data, ttrainer.TrainerConfig(batch_size=8), plan)
+    # step retries are ported: a transient at a streamed step is retried
+    # (tests/test_torch_resilience.py holds the run bit-equal)
+    from repro_torch.runtime.faultinject import TransientFaultInjector
+
     tr = ttrainer.XLTrainer(tst, data, tc, plan, device="cpu")
-    tr.step_retries = 2
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tr.run()
+    tr.step_retries, tr.fault_hook = 2, TransientFaultInjector([1], persistent=2)
+    hist = tr.run()
+    assert tr.fault_hook.raised == 2 and np.isfinite(hist["train_loss"]).all()
 
 
 # ---------------------------------------------------------------------------
