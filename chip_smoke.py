@@ -4,7 +4,8 @@ out-of-core, and the paper's masked and dense baselines), its bf16
 language model's serving (also compacted at deployment) and training paths,
 the RG-LRU, Mamba-1 and MoE models of its architecture zoo, Whisper-medium,
 the observability layer, and the runtime (supervised recovery, the elastic
-training driver, the serving gateway) on one NVIDIA card and check them.
+training driver, the serving gateway) on one NVIDIA card and check them,
+and audit every registered hot-path program's contract there.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -331,7 +332,29 @@ Phases, one line each (any failure exits non-zero):
                    trips and closes, brownout seen and healed, goodput ratio
                    >= 0.8 (one retry of the pair), C launched 48 times for
                    every engine call that ran; a ``gateway_timing`` line;
-23. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+23. audit         — the contract auditor (``repro_torch.analysis``) on the
+                   card: ``python -m repro_torch.analysis``'s audit run in
+                   process over the eight registered programs (record, run
+                   under the sync watch, profiler census, donated build) and
+                   the lint, passing with no unwaived violation and no stale
+                   waiver; an ``audit_program`` line each (violations,
+                   waivers, the hand kernels' launches, each nonzero for the
+                   program's kernels: A and F in the three MLP training
+                   programs, A with its epilogue in ``serve.classify``, C
+                   f32 in ``serve.prefill``/``serve.decode``, K8 in
+                   ``xl.*``; the scatter census, whole: as many hand-kernel
+                   events as launches, retaken up to 3 times; the peak temp
+                   bytes beside the ceiling; the card's name and power
+                   limit); then the host syncs (each printed with its
+                   Python stack) and the census of two full-width paths:
+                   one epoch segment of the element model (as
+                   ``SequentialTrainer`` runs it) and one decode step of
+                   phase lm's Qwen1.5-0.5B engine (``audit_full_width``
+                   lines), failing on a census that lost events or on a
+                   host sync or device-to-host copy in either's steady
+                   call. Before wasap: late
+                   profiler sessions lose device events;
+24. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
                    worker-epoch: 2 rounds, the second with a padded step). The
@@ -356,7 +379,7 @@ Phases, one line each (any failure exits non-zero):
                    history within the fused run's tolerances.
                    It runs after the timing phases: before them it made
                    their profiler sessions lose device events.
-24. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+25. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
                    full width on the card: the element and the block model
                    trained 3 epochs with device SET, pruning and the paper's
                    dropout 0.3, saved at every epoch; a fresh trainer
@@ -375,7 +398,7 @@ Phases, one line each (any failure exits non-zero):
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
                    profiles nothing;
-25. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+26. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
                    of the paper's first Table-4 row at full width,
                    65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
                    17,655,362 parameters), batch 32, the device budget 0.6 x
@@ -435,6 +458,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.analysis import hlo_audit, hlo_parser, registry  # noqa: E402
+from repro_torch.analysis.__main__ import main as analysis_main  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_spec  # noqa: E402
 from repro_torch.configs.set_mlp import mlp_config  # noqa: E402
@@ -479,6 +504,7 @@ from repro_torch.train.trainer import (  # noqa: E402
     TrainerConfig,
     XLTrainer,
     evaluate,
+    make_segment_fn,
 )
 from repro_torch import xl  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -5312,6 +5338,136 @@ def phase_gateway(out: dict) -> str:
     )
 
 
+# -- the contract auditor: every registered program on the card --------------
+
+AUDIT_SYNC_STACK_LINES = 16  # of each host sync's Python stack, printed
+
+
+def unique_syncs(stacks: list) -> list:
+    """The distinct host-sync stacks with their counts, most frequent
+    first, each cut to its innermost ``AUDIT_SYNC_STACK_LINES`` lines."""
+    counts: dict = {}
+    for s in stacks:
+        key = "\n".join(s.rstrip().splitlines()[-AUDIT_SYNC_STACK_LINES:])
+        counts[key] = counts.get(key, 0) + 1
+    return sorted(({"count": n, "stack": k} for k, n in counts.items()),
+                  key=lambda d: -d["count"])
+
+
+def short_names(counts: dict) -> dict:
+    """Kernel counts keyed by the kernel's name cut before its arguments."""
+    out: dict = {}
+    for k, n in counts.items():
+        key = k.split("(", 1)[0][:100]
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def full_width_syncs(name: str, fn, args: tuple, smi: str) -> dict:
+    """The host syncs of ``fn``'s first call (which makes the one-time
+    checks of a new topology, outside what a graph capture would record)
+    and of its next call, each printed with its stack, then the kernel
+    census of one more call under the profiler, held against the launch
+    counters and retaken while it lost events (``checked_census``). Fails
+    on a census that stayed incomplete, and on a host sync or a
+    device-to-host copy in the steady call: each would block a CUDA graph
+    of the path (ROADMAP Queue 2, items 3 and 10), and none is waived."""
+    first = unique_syncs(hlo_audit.host_syncs(fn, args))
+    reset_counts()
+    stacks = hlo_audit.host_syncs(fn, args)
+    launches = {k: v for k, v in read_counts().items() if v}
+    taken = hlo_audit.checked_census(fn, args)
+    cen = taken["census"]
+    syncs = unique_syncs(stacks)
+    for when, found in (("first call", first), ("steady call", syncs)):
+        for s in found:
+            print(f"[audit] host sync in {name}'s {when} (x{s['count']}):\n{s['stack']}",
+                  flush=True)
+    line = {"path": name, "host_syncs": len(stacks), "distinct_host_syncs": len(syncs),
+            "first_call_host_syncs": sum(s["count"] for s in first),
+            "launches": launches, "device_events": sum(cen.values()),
+            "census_hand_kernels": taken["hand_kernels"],
+            "census_attempts": taken["attempts"],
+            "scatter_kernels": short_names(hlo_parser.scatter_kernels(cen)),
+            "dtoh_copies": short_names(hlo_parser.dtoh_copies(cen)), "smi": smi}
+    print(json.dumps({"audit_full_width": line}))
+    check(taken["complete"], f"{name}: the census lost device events in each of "
+                             f"{taken['attempts']} takes: {taken['hand_kernels']}")
+    check(not stacks and not line["dtoh_copies"],
+          f"{name}: {len(stacks)} host sync(s) and device-to-host copies "
+          f"{line['dtoh_copies']} in a steady call: remove each, or waive it with its reason")
+    return line
+
+
+def element_segment_args(model: SparseMLP, opt: MomentumSGD) -> tuple:
+    """The full-width element model's first epoch segment, as
+    ``SequentialTrainer._run_fused`` calls it (batch 128, the cifar10 data
+    of the train phases on the card, lr 0.01)."""
+    data = load("cifar10", scale=TRAIN_SCALE)
+    steps = len(data.x_train) // 128
+    key = torch.Generator(device=CARD)
+    key.manual_seed(SEED)
+    return (model.params(), opt.init(model.params()), model.topo_arrays(),
+            torch.as_tensor(data.x_train, device=CARD),
+            torch.as_tensor(data.y_train, device=CARD).long(),
+            torch.arange(steps * 128, device=CARD).reshape(steps, 128),
+            torch.full((steps,), 0.01, dtype=torch.float32, device=CARD), key)
+
+
+def phase_audit(out: dict) -> str:
+    reports: dict = {}
+    summary: dict = {}
+    rc = analysis_main(["--root", str(Path(__file__).resolve().parent)], reports=reports,
+                       summary=summary)
+    check(rc == 0, f"the contract audit failed on the card (exit {rc})")
+    lines = []
+    for spec in registry.collect():
+        r = reports[spec.name]
+        launched = {k: r["launches"].get(k, 0) for k in spec.kernels}
+        check(all(launched.values()),
+              f"{spec.name} launched {launched} on the card: a plain version ran there")
+        line = {"program": spec.name, "violations": [str(v) for v in r["violations"]],
+                "waived": r.get("waived", []), "launches": r["launches"],
+                "scatter_kernels": short_names(r["scatter_kernels"]), "device_events": sum(
+                    r["census"].values()), "census_hand_kernels": r["census_hand_kernels"],
+                "census_attempts": r["census_attempts"], "host_syncs": len(r["host_syncs"]),
+                "temp_bytes": r["temp_bytes"], "temp_bytes_record": r["temp_bytes_record"],
+                "max_temp_bytes": spec.contract.max_temp_bytes,
+                "alias_pairs": len(r.get("alias_pairs", [])), "smi": out["smi"]}
+        print(json.dumps({"audit_program": line}))
+        lines.append(line)
+    # the two full-width paths: host syncs (CUDA-graph blockers) and census
+    model = element_model(CARD)
+    opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+    seg = full_width_syncs("element_segment", make_segment_fn(model.config, opt),
+                           element_segment_args(model, opt), out["smi"])
+    check(seg["launches"].get("coo_matmul_T", 0) and seg["launches"].get("coo_dw", 0),
+          f"the element segment launched {seg['launches']}")
+    engine = out["lm_engine"]
+    S = engine.cfg.max_slots
+    dec = full_width_syncs(
+        "lm_decode_step", engine._build_decode(),
+        (engine._params, engine._topo, engine._caches,
+         torch.zeros((S,), dtype=torch.int64, device=CARD),
+         torch.zeros((S,), dtype=torch.int64, device=CARD)), out["smi"])
+    check(dec["launches"].get("bsmm_fwd", 0) == 2 * engine.model.cfg.n_layers,
+          f"the decode step launched {dec['launches']}")
+    return (
+        f"{summary['programs']} programs audited on the card, {summary['unwaived']} "
+        f"unwaived violations, {summary['waived']} waived (program waivers "
+        f"{sum(len(l['waived']) for l in lines)}), {summary['stale']} stale; launches "
+        f"{ {l['program']: l['launches'] for l in lines} }; peak temp bytes "
+        f"{ {l['program']: (l['temp_bytes'], l['max_temp_bytes']) for l in lines} }; "
+        f"host syncs a steady call (first call): element segment {seg['host_syncs']} "
+        f"({seg['first_call_host_syncs']}), Qwen1.5-0.5B decode step {dec['host_syncs']} "
+        f"({dec['first_call_host_syncs']}); scatter kernels a call: element segment "
+        f"{sum(seg['scatter_kernels'].values())}, decode step "
+        f"{sum(dec['scatter_kernels'].values())}; census takes "
+        f"{ {l['program']: l['census_attempts'] for l in lines} }, element segment "
+        f"{seg['census_attempts']}, decode step {dec['census_attempts']}; {out['smi']}"
+    )
+
+
 
 # -- out-of-core XL: the paper's Table-4 regime --------------------------------
 
@@ -5859,6 +6015,9 @@ def main() -> int:
         # driver on the LM, the serving gateway on phase lm's engine
         ("supervisor", phase_supervisor), ("launch_train", phase_launch_train),
         ("gateway", phase_gateway),
+        # every registered program audited on the card, and the host syncs
+        # of two full-width paths (before wasap: late profiles lose events)
+        ("audit", phase_audit),
         # after the timing phases: run before them, it made their
         # torch.profiler sessions lose device events (PERF.md §7)
         ("wasap", phase_wasap), ("checkpoint", phase_checkpoint), ("xl", phase_xl),

@@ -1116,9 +1116,11 @@ def coo_dw_plain(
     slope: Optional[float] = None,
 ):
     """Plain PyTorch version of kernel F, the reference's chunked form: the
-    two gathered (chunk, B) slabs are the peak intermediate, reduced over the
-    batch at once; with ``with_dbias``, :func:`coo_dw_epilogue` first, as
-    :func:`coo_dw`. Runs on any device."""
+    two gathered (chunk, B) slabs are the peak intermediate (their product
+    is taken in place in the first, where autograd does not record it),
+    reduced over the batch at once; with ``with_dbias``,
+    :func:`coo_dw_epilogue` first, as :func:`coo_dw`. Runs on any
+    device."""
     _check_dw_epilogue_args(with_dbias, mask, slope)
     dz, dbias = coo_dw_epilogue(dyT, mask, slope) if with_dbias else (dyT, None)
     nnz = int(rows.shape[0])
@@ -1127,7 +1129,9 @@ def coo_dw_plain(
     chunk = spmm_chunk_for(xT.shape[-1], nnz, chunk)
     for lo in range(0, nnz, chunk):
         r, c = rows[lo:lo + chunk].long(), cols[lo:lo + chunk].long()
-        out[lo:lo + chunk] = (xT[r].to(dtype) * dz[c].to(dtype)).sum(-1)
+        slab, other = xT[r].to(dtype), dz[c].to(dtype)
+        prod = slab * other if slab.requires_grad or other.requires_grad else slab.mul_(other)
+        out[lo:lo + chunk] = prod.sum(-1)
     return (out, dz, dbias) if with_dbias else out
 
 

@@ -86,8 +86,8 @@ on the card), it writes the averaged params and optimizer state into the
 caller's tensors at its end and returns them.
 
 Refused with an error naming the ROADMAP item: the ``shard_map`` worker
-axis (item 9). Its contract-auditor registration (``analysis_programs``)
-comes with item 8.
+axis (item 9). The contract auditor (``repro_torch.analysis``) audits the
+phase-1 epoch (:func:`analysis_programs`).
 """
 from __future__ import annotations
 
@@ -1093,3 +1093,64 @@ class WASAPTrainer:
         self.history["test_acc"].append(acc)
         self.history["n_params"].append(self.model.n_params)
         self.history["epoch_seconds"].append(dt)
+
+
+# ---------------------------------------------------------------------------
+# contract auditor registration (repro_torch.analysis, DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+
+def analysis_programs():
+    """Registry hook: the phase-1 fused epoch (K workers, the sync rounds
+    in order) at the reference's audit scale and contract. Its donated
+    build writes the averaged params and velocity into the caller's
+    tensors (``_write_into``) and returns them."""
+    from repro_torch.analysis.registry import AuditProgram, Contract, ProgramSpec
+
+    dims = (20, 16, 10)
+    K, R, H, B = 2, 2, 2, 8
+
+    def build(device=None) -> AuditProgram:
+        cfg = SparseMLPConfig(layer_dims=dims, epsilon=6, dropout=0.0, element_impl="custom")
+        model = SparseMLP(cfg, seed=0, device=device)
+        dev = model.device
+        opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+        n_train = R * H * B
+        keys = torch.Generator(device=dev)
+        keys.manual_seed(0)
+        args = (
+            model.params(),
+            opt.init(model.params()),
+            model.topo_arrays(),
+            torch.zeros((n_train, dims[0]), dtype=torch.float32, device=dev),
+            torch.zeros((n_train,), dtype=torch.int64, device=dev),
+            torch.arange(R * K * H * B, device=dev).reshape(R, K, H, B) % n_train,
+            torch.full((R, H), 0.01, dtype=torch.float32, device=dev),
+            torch.ones((R, H), dtype=torch.float32, device=dev),
+            keys,
+        )
+        nnz = [t.nnz for t in model.topos]
+        return AuditProgram(
+            make=lambda donate: make_phase1_epoch_fn(cfg, opt, n_workers=K, donate=donate),
+            args=args,
+            meta={"dims": dims, "workers": K, "rounds": R, "nnz": nnz},
+        )
+
+    return [
+        ProgramSpec(
+            name="wasap.phase1_epoch",
+            subsystem=__name__,
+            contract=Contract(
+                # the reference's one CE-loss label scatter over the K workers
+                max_unsorted_scatter=1,
+                max_unsorted_scatter_elems=K * B * dims[-1],
+                max_intermediate_elems=256 * 1024,
+                donate_argnums=(0, 1),
+                max_temp_bytes=4 * 1024 * 1024,
+                expected_compiles=1,
+            ),
+            build=build,
+            notes="K-worker local SGD + on-device average per round",
+            kernels=("coo_matmul_T", "coo_dw"),
+        )
+    ]

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 import torch
 
 __all__ = [
-    "KERNEL_SOURCES", "build", "check_launch", "check_tensor", "kernel",
+    "KERNEL_SOURCES", "build", "check_launch", "check_tensor", "compile_counts", "kernel",
     "library_path", "stream_args",
 ]
 
@@ -119,6 +119,16 @@ def kernel(source: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
                 fn.restype = ctypes.c_int
                 _FUNCS[(source, symbol)] = fn
     return fn
+
+
+def compile_counts() -> Dict[str, int]:
+    """The C entry points loaded in this process, per source (each loaded
+    once, at first use, after ``nvcc`` built its library if it had to):
+    the builds ``analysis.compilecheck`` counts."""
+    counts: Dict[str, int] = {}
+    for source, _ in _FUNCS:
+        counts[source] = counts.get(source, 0) + 1
+    return counts
 
 
 def stream_args(device: torch.device) -> Tuple[int, int]:

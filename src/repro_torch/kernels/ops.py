@@ -588,13 +588,14 @@ def _xl_shard_acc_plain(acc, srcT, values, gather_idx, window: XLWindow,
     return acc
 
 
-def make_xl_shard_acc(donate: Optional[bool] = None):
-    """The reference's factory of its jitted shard product, whose ``donate``
+def make_xl_shard_acc(donate=None):
+    """The reference's factory of its jitted shard product, whose donation
     hands the accumulator's buffer to the result. In torch that is the
-    in-place update: by default, or with ``donate=True``, the result is
-    :func:`xl_shard_acc`, which accumulates into ``acc``; ``donate=False``
-    gives one that leaves ``acc`` as it was and returns a new buffer."""
-    if donate is None or donate:
+    in-place update: by default, with ``donate=True`` or with argnums that
+    hold 0, the result is :func:`xl_shard_acc`, which accumulates into
+    ``acc``; ``donate=False`` or ``()`` gives one that leaves ``acc`` as it
+    was and returns a new buffer."""
+    if donate is None or donate is True or (donate and 0 in donate):
         return xl_shard_acc
 
     def shard_acc(acc, *args, **kwargs):

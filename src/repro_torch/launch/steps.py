@@ -264,3 +264,62 @@ def make_decode_step(model):
         return logits, new_caches
 
     return decode
+
+
+# ---------------------------------------------------------------------------
+# contract auditor registration (repro_torch.analysis, DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+
+def analysis_programs():
+    """Registry hook: the per-batch SET-MLP train step (the building block
+    of every fused segment), at the reference's audit scale and contract.
+    Deliberately NOT donated: ``runtime.supervisor.retry_step`` re-enters
+    it with the same tensors after a transient fault."""
+    from repro_torch.analysis.registry import AuditProgram, Contract, ProgramSpec
+    from repro_torch.core import sparsity
+
+    dims = (256, 128, 64)
+    batch = 32
+
+    def build(device=None) -> AuditProgram:
+        from repro_torch.models.mlp import SparseMLP
+
+        config = SparseMLPConfig(layer_dims=dims, epsilon=16, dropout=0.0)
+        model = SparseMLP(config, seed=0, device=device)
+        dev = model.device
+        opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+        rng = torch.Generator(device=dev)
+        rng.manual_seed(0)
+        args = (
+            model.params(),
+            opt.init(model.params()),
+            model.topo_arrays(),
+            torch.zeros((batch, dims[0]), dtype=torch.float32, device=dev),
+            torch.zeros((batch,), dtype=torch.int64, device=dev),
+            torch.tensor(0.01, dtype=torch.float32, device=dev),
+            rng,
+        )
+        nnz = [t.nnz for t in model.topos]
+        return AuditProgram(
+            make=lambda donate: make_mlp_train_step(config, opt),
+            args=args,
+            meta={"dims": dims, "batch": batch, "nnz": nnz},
+        )
+
+    return [
+        ProgramSpec(
+            name="launch.mlp_train_step",
+            subsystem=__name__,
+            contract=Contract(
+                max_unsorted_scatter=1,
+                max_unsorted_scatter_elems=batch * dims[-1],
+                max_intermediate_elems=sparsity.SPMM_TEMP_BUDGET_ELEMS,
+                max_temp_bytes=8 * 1024 * 1024,
+                expected_compiles=1,
+            ),
+            build=build,
+            notes="per-batch step; undonated by design (retry_step re-entry)",
+            kernels=("coo_matmul_T", "coo_dw"),
+        )
+    ]

@@ -43,6 +43,11 @@ CUDA-graph cache.
 reference's checkpoint layout and ``SparseInferenceEngine.from_checkpoint``
 serves it (either package's), with the saved connectivity.
 
+The three served programs (``_build_classify``, ``_build_prefill``,
+``_build_decode``) take the params, topology and caches as arguments, as
+the reference's jitted ones do, and the contract auditor
+(``repro_torch.analysis``) audits them (:func:`analysis_programs`).
+
 ``from_checkpoint`` restores element SET-MLPs and LMs, as the reference's
 does. Each call is an ``obs`` span (``serve.classify``, ``serve.prefill``,
 ``serve.decode_step``), closed after the result is on the host, so it
@@ -114,6 +119,12 @@ class _BucketCache:
 
     def __len__(self) -> int:
         return len(self._d)
+
+    def _cache_size(self) -> int:
+        """Entries built so far (rebuilds after an eviction included): the
+        counter ``analysis.compilecheck`` reads, as it reads a jitted
+        function's executables in the reference."""
+        return self.misses
 
     def entry_sizes(self) -> Dict[Tuple, int]:
         # an entry is one forward built for its bucket's one input shape
@@ -280,14 +291,17 @@ class SparseInferenceEngine:
                 obs.point("serve.compile", op="classify", bucket=bucket)
             xb = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
             # .cpu() waits for the device, so the span covers the computation
-            return fn(xb).cpu().numpy()[:n]
+            return fn(self._params, self._topo, xb).cpu().numpy()[:n]
 
-    def _build_classify(self) -> Callable[[torch.Tensor], torch.Tensor]:
+    def _build_classify(self) -> Callable:
+        """The bucket's program ``fn(params, topo, xb) -> logits``: params
+        and topology are served again by the next call, nothing is
+        donated."""
         config = self.model.config
 
         @torch.inference_mode()
-        def fn(xb: torch.Tensor) -> torch.Tensor:
-            return mlp_forward(self._params, self._topo, xb, config, infer=True)
+        def fn(params, topo, xb: torch.Tensor) -> torch.Tensor:
+            return mlp_forward(params, topo, xb, config, infer=True)
 
         return fn
 
@@ -341,32 +355,39 @@ class SparseInferenceEngine:
             fn = self._cache.get(("prefill", bucket), lambda: self._build_prefill(bucket))
             if self._cache.misses != m0:
                 obs.point("serve.compile", op="prefill", bucket=bucket)
-            next_tok = fn(torch.as_tensor(tokens, device=self.device),
-                          torch.as_tensor(lens_arr, device=self.device),
-                          torch.as_tensor(np.asarray(slots, np.int64), device=self.device))
+            next_tok, self._caches = fn(
+                self._params, self._topo, self._caches,
+                torch.as_tensor(tokens, device=self.device),
+                torch.as_tensor(lens_arr, device=self.device),
+                torch.as_tensor(np.asarray(slots, np.int64), device=self.device))
             # .cpu() waits for the device, so the span covers the computation
             return next_tok[: len(prompts)].cpu().numpy().astype(np.int32)
 
     def _build_prefill(self, bucket: int) -> Callable:
+        """The bucket's program ``fn(params, topo, caches, tokens, lens,
+        slots) -> (next_tok, caches)``: the slots' rows are written into the
+        caller's caches (position 2) in place on every device, and the same
+        caches come back."""
         model = self.model
 
         @torch.inference_mode()
-        def fn(tokens: torch.Tensor, lens: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-            h, pre, _ = model.forward(self._params, tokens, topo=self._topo, mode="prefill",
+        def fn(params, topo, caches, tokens: torch.Tensor, lens: torch.Tensor,
+               slots: torch.Tensor):
+            h, pre, _ = model.forward(params, tokens, topo=topo, mode="prefill",
                                       return_hidden=True)
             # the logits of each row's last prompt position only
             last = h[torch.arange(h.shape[0], device=h.device), lens - 1]
-            next_tok = torch.argmax(model.logits(self._params, last), dim=-1)
+            next_tok = torch.argmax(model.logits(params, last), dim=-1)
             # seed the real rows' slots (the padded rows have none: the
             # reference sends them to slot max_slots and drops them)
             n = slots.shape[0]
             for slot, c in pre["stack"].items():
                 for name, p in c.items():          # p: (n_rep, B, bucket, KV, D)
-                    self._caches["stack"][slot][name][:, slots, :bucket] = p[:, :n]
-            for big, c in zip(self._caches["rest"], pre["rest"]):
+                    caches["stack"][slot][name][:, slots, :bucket] = p[:, :n]
+            for big, c in zip(caches["rest"], pre["rest"]):
                 for name, p in c.items():          # p: (B, bucket, KV, D)
                     big[name][slots, :bucket] = p[:n]
-            return next_tok
+            return next_tok, caches
 
         return fn
 
@@ -381,20 +402,25 @@ class SparseInferenceEngine:
             fn = self._cache.get(("decode",), self._build_decode)
             if self._cache.misses != m0:
                 obs.point("serve.compile", op="decode")
-            next_tok = fn(torch.as_tensor(np.asarray(tokens, np.int64), device=self.device),
-                          torch.as_tensor(np.asarray(pos, np.int64), device=self.device))
+            next_tok, self._caches = fn(
+                self._params, self._topo, self._caches,
+                torch.as_tensor(np.asarray(tokens, np.int64), device=self.device),
+                torch.as_tensor(np.asarray(pos, np.int64), device=self.device))
             # .cpu() waits for the device, so the span covers the computation
             return next_tok.cpu().numpy().astype(np.int32)
 
     def _build_decode(self) -> Callable:
+        """The all-slots step ``fn(params, topo, caches, tokens, pos) ->
+        (next_tok, caches)``, the caches updated in place as in
+        :meth:`_build_prefill`."""
         model = self.model
 
         @torch.inference_mode()
-        def fn(tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-            logits, _, _ = model.forward(self._params, tokens[:, None], topo=self._topo,
+        def fn(params, topo, caches, tokens: torch.Tensor, pos: torch.Tensor):
+            logits, _, _ = model.forward(params, tokens[:, None], topo=topo,
                                          positions=pos[:, None], mode="decode",
-                                         caches=self._caches)
-            return torch.argmax(logits[:, -1], dim=-1)
+                                         caches=caches)
+            return torch.argmax(logits[:, -1], dim=-1), caches
 
         return fn
 
@@ -475,3 +501,131 @@ def _restore_lm(mgr: CheckpointManager, step, meta, device: DeviceLike) -> Patte
                              BlockTopology(t_out.meta, t["rows_out"], t["cols_out"])))
         model.topologies[slot] = new_list
     return model
+
+
+# ---------------------------------------------------------------------------
+# contract auditor registration (repro_torch.analysis, DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+
+def analysis_programs():
+    """Registry hook: the three served entry points, built at the
+    reference's smoke scale with its contracts, field for field. The
+    reference's classify contract bounds the scatter formulation its CPU
+    dispatch picks at this scale; the port serves every size through
+    kernel A's sorted segment sum (its plain version on the CPU), and the
+    KV-cache slot inserts are plain index writes, so the port's record holds
+    fewer scatters than the bounds allow."""
+    from repro_torch import configs
+    from repro_torch.analysis.registry import AuditProgram, Contract, ProgramSpec
+
+    mlp_dims = (32, 24, 20, 6)
+    bucket = 8
+
+    def build_classify(device=None) -> AuditProgram:
+        cfg = SparseMLPConfig(layer_dims=mlp_dims, epsilon=6, impl="element", dropout=0.0)
+        eng = SparseInferenceEngine(SparseMLP(cfg, seed=0, device=device), device=device)
+        args = (
+            eng._params, eng._topo,
+            torch.zeros((bucket, mlp_dims[0]), dtype=torch.float32, device=eng.device),
+        )
+        return AuditProgram(
+            make=lambda donate: eng._build_classify(),
+            args=args,
+            meta={"dims": mlp_dims, "bucket": bucket},
+        )
+
+    def _lm_engine(device):
+        lm_cfg = dataclasses.replace(
+            configs.get_spec("qwen1.5-0.5b").smoke,
+            ffn="sparse", sparse_block=16, sparse_density=0.5, d_ff=64,
+        )
+        return SparseInferenceEngine(
+            PatternLM(lm_cfg, seed=0, device=device),
+            engine=EngineConfig(
+                max_slots=2, max_len=16, prefill_buckets=(8,),
+                prefill_batch=2, batch_buckets=(1, 8),
+            ),
+            device=device,
+        )
+
+    def build_prefill(device=None) -> AuditProgram:
+        eng = _lm_engine(device)
+        B, bkt = eng.cfg.prefill_batch, eng.cfg.prefill_buckets[0]
+        dev = eng.device
+        args = (
+            eng._params, eng._topo, eng._caches,
+            torch.zeros((B, bkt), dtype=torch.int64, device=dev),
+            torch.ones((B,), dtype=torch.int64, device=dev),
+            torch.zeros((B,), dtype=torch.int64, device=dev),
+        )
+        return AuditProgram(
+            make=lambda donate: eng._build_prefill(bkt),
+            args=args,
+            meta={"prefill_batch": B, "bucket": bkt, "slots": eng.cfg.max_slots},
+        )
+
+    def build_decode(device=None) -> AuditProgram:
+        eng = _lm_engine(device)
+        S = eng.cfg.max_slots
+        dev = eng.device
+        args = (
+            eng._params, eng._topo, eng._caches,
+            torch.zeros((S,), dtype=torch.int64, device=dev),
+            torch.zeros((S,), dtype=torch.int64, device=dev),
+        )
+        return AuditProgram(
+            make=lambda donate: eng._build_decode(),
+            args=args,
+            meta={"slots": S, "max_len": eng.cfg.max_len},
+        )
+
+    return [
+        ProgramSpec(
+            name="serve.classify",
+            subsystem=__name__,
+            contract=Contract(
+                # the reference's bound: one output-sized scatter-add per
+                # layer at sub-threshold serving scale
+                max_unsorted_scatter=len(mlp_dims) - 1,
+                max_unsorted_scatter_elems=bucket * max(mlp_dims),
+                max_intermediate_elems=64 * 1024,
+                max_temp_bytes=1024 * 1024,
+                expected_compiles=1,
+            ),
+            build=build_classify,
+            notes="forward-only MLP classify; params reused, no donation",
+            kernels=("coo_matmul_T.epilogue",),
+        ),
+        ProgramSpec(
+            name="serve.prefill",
+            subsystem=__name__,
+            contract=Contract(
+                # KV slot inserts: one scatter per cache leaf, cache-sized
+                max_unsorted_scatter=16,
+                max_unsorted_scatter_elems=512 * 1024,
+                max_intermediate_elems=1024 * 1024,
+                donate_argnums=(2,),
+                max_temp_bytes=16 * 1024 * 1024,
+                expected_compiles=1,
+            ),
+            build=build_prefill,
+            notes="batched causal prefill seeding slot caches (donated)",
+            kernels=("bsmm_fwd",),
+        ),
+        ProgramSpec(
+            name="serve.decode",
+            subsystem=__name__,
+            contract=Contract(
+                max_unsorted_scatter=16,
+                max_unsorted_scatter_elems=512 * 1024,
+                max_intermediate_elems=1024 * 1024,
+                donate_argnums=(2,),
+                max_temp_bytes=16 * 1024 * 1024,
+                expected_compiles=1,
+            ),
+            build=build_decode,
+            notes="all-slots decode step, caches donated",
+            kernels=("bsmm_fwd",),
+        ),
+    ]

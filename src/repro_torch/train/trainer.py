@@ -934,3 +934,69 @@ class XLTrainer:
             # with scale shows in the Prometheus snapshot
             obs.record_compile_counts(compile_counts(), prefix="xl_compile_cache")
         return self.history
+
+
+# ---------------------------------------------------------------------------
+# contract auditor registration (repro_torch.analysis, DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+
+def analysis_programs():
+    """Registry hook: the fused epoch segment — the headline training hot
+    path — at the reference's audit scale (nnz above its espmm dispatch
+    thresholds), contract field for field. On the card the element
+    products run kernels A and F; on the CPU their plain versions, whose
+    ``index_add_`` walks the sorted segment ids. The port's segment is not
+    donated (``retry_step`` re-enters it), which the waiver file records
+    (``train.segment:donation-aliasing``)."""
+    from repro_torch.analysis.registry import AuditProgram, Contract, ProgramSpec
+    from repro_torch.core import sparsity
+
+    audit_dims = (784, 256, 100)
+    audit_eps = 20.0
+    batch, steps = 32, 2
+
+    def build(device=None) -> AuditProgram:
+        cfg = SparseMLPConfig(layer_dims=audit_dims, epsilon=audit_eps, dropout=0.0)
+        model = SparseMLP(cfg, seed=0, device=device)
+        dev = model.device
+        opt = MomentumSGD(momentum=0.9, weight_decay=2e-4)
+        n_train = steps * batch
+        key = torch.Generator(device=dev)
+        key.manual_seed(0)
+        args = (
+            model.params(),
+            opt.init(model.params()),
+            model.topo_arrays(),
+            torch.zeros((n_train, audit_dims[0]), dtype=torch.float32, device=dev),
+            torch.zeros((n_train,), dtype=torch.int64, device=dev),
+            torch.arange(n_train, device=dev).reshape(steps, batch),
+            torch.full((steps,), 0.01, dtype=torch.float32, device=dev),
+            key,
+        )
+        nnz = [t.nnz for t in model.topos]
+        return AuditProgram(
+            make=lambda donate: make_segment_program(cfg, opt),
+            args=args,
+            meta={"dims": audit_dims, "batch": batch, "nnz": nnz},
+        )
+
+    return [
+        ProgramSpec(
+            name="train.segment",
+            subsystem=__name__,
+            contract=Contract(
+                # the reference's one legal unsorted scatter, the CE-loss
+                # label gather's backward, sized (batch, n_classes)
+                max_unsorted_scatter=1,
+                max_unsorted_scatter_elems=batch * audit_dims[-1],
+                max_intermediate_elems=sparsity.SPMM_TEMP_BUDGET_ELEMS,
+                donate_argnums=(0, 1),
+                max_temp_bytes=8 * 1024 * 1024,
+                expected_compiles=1,
+            ),
+            build=build,
+            notes="fused epoch: steps in order over the device-resident data",
+            kernels=("coo_matmul_T", "coo_dw"),
+        )
+    ]

@@ -59,8 +59,8 @@ forward and one ``xl.train_step`` span per step (not per shard: the shard
 loop is the hot path), and ``StreamExecutor.probe_stats``, the
 training-dynamics probe of the streamed model (``xl.probe``).
 
-Not in this slice: the contract auditor's ``analysis_programs`` (ROADMAP
-Queue 1, item 8).
+The contract auditor (``repro_torch.analysis``) audits the two shard
+programs (:func:`analysis_programs`).
 """
 from __future__ import annotations
 
@@ -912,9 +912,82 @@ class StreamExecutor:
 
 
 def analysis_programs():
-    """The reference's contract-auditor registration of the two shard
-    programs."""
-    raise NotImplementedError(
-        "the contract auditor's out-of-core programs come with the auditor's twin "
-        "(ROADMAP Queue 1, item 8)"
+    """Registry hook: the two streamed shard programs — the ONLY device
+    products the out-of-core substrate runs — at the reference's audit
+    scale (d_max=32, B=8, one 128-slot shard of 64-wide chunks) and
+    contracts. They take the reference's operands; the shard's window
+    (``kernels.ops.shard_window``: its segment offsets, kernel A's route
+    and kernel F's runs) is made on the host when the program is built, as
+    the stream makes it with each shard, and passed in, so the program
+    reads no segment id back from the device. Without a window the shard
+    product makes it from ``segment_idx`` itself: one device sync, by
+    design, outside the stream's hot path."""
+    from repro_torch.analysis.registry import AuditProgram, Contract, ProgramSpec
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.ops import make_xl_shard_acc, make_xl_shard_dw, shard_window
+
+    d_max, B, cap, chunk = 32, 8, 128, 64
+
+    def operands(device):
+        dev = resolve_device(device)
+        idx = torch.arange(cap, dtype=torch.int32, device=dev)
+        return dev, idx % d_max, torch.sort(idx % d_max).values
+
+    def build_acc(device=None) -> AuditProgram:
+        dev, gather_idx, segment_idx = operands(device)
+        args = (
+            torch.zeros((d_max, B), dtype=torch.float32, device=dev),  # acc (donated)
+            torch.zeros((d_max, B), dtype=torch.float32, device=dev),  # srcT
+            torch.zeros((cap,), dtype=torch.float32, device=dev),      # values
+            gather_idx,
+            segment_idx,                                               # sorted
+        )
+        return AuditProgram(
+            make=lambda donate: make_xl_shard_acc(donate=donate),
+            args=args,
+            kwargs={"n_segments": d_max, "chunk": chunk,
+                    "window": shard_window(segment_idx, d_max)},
+            meta={"d_max": d_max, "batch": B, "capacity": cap},
+        )
+
+    def build_dw(device=None) -> AuditProgram:
+        dev, rows, cols = operands(device)
+        args = (
+            torch.zeros((d_max, B), dtype=torch.float32, device=dev),  # xT
+            torch.zeros((d_max, B), dtype=torch.float32, device=dev),  # dyT
+            rows,
+            cols,                                                      # sorted
+        )
+        return AuditProgram(
+            make=lambda donate: make_xl_shard_dw(donate=donate),
+            args=args,
+            kwargs={"chunk": chunk, "window": shard_window(cols, d_max, rows=rows)},
+            meta={"d_max": d_max, "batch": B, "capacity": cap},
+        )
+
+    shard_contract = dict(
+        # sorted segment sums only: ZERO unsorted scatters anywhere in the
+        # streamed substrate, forward or backward
+        max_unsorted_scatter=0,
+        max_intermediate_elems=4 * chunk * B,
+        max_temp_bytes=1024 * 1024,
+        expected_compiles=1,
     )
+    return [
+        ProgramSpec(
+            name="xl.shard_acc",
+            subsystem=__name__,
+            contract=Contract(donate_argnums=(0,), **shard_contract),
+            build=build_acc,
+            notes="one program for streamed fwd AND dX; acc donated",
+            kernels=("xl_shard_acc",),
+        ),
+        ProgramSpec(
+            name="xl.shard_dw",
+            subsystem=__name__,
+            contract=Contract(**shard_contract),
+            build=build_dw,
+            notes="per-shard dW batch contraction; all inputs reused",
+            kernels=("xl_shard_dw",),
+        ),
+    ]

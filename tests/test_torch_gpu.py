@@ -58,6 +58,10 @@ z + bias, B's All-ReLU) and one backward (F, G standalone, A's dX). Whisper
 cut to 2 + 2 layers at full width in f32: logits within 1e-4 of the CPU's,
 gradients within 1e-4 relative L2 a leaf, the cross attention's bias
 gradients exact zeros.
+The contract auditor (``repro_torch.analysis``) on the card: a dropped
+donation, an allocation over its ceiling and a host sync each fail their
+check by name (the sync with its stack), the designed programs pass, and
+the eight registered programs audit clean, each launching its kernels.
 """
 import dataclasses
 
@@ -2356,3 +2360,109 @@ def test_gateway_on_card_narrow_lm(cuda):
         else:  # under load the clean run may shed, but never fails a call
             assert st.serve.completed + st.serve.rejected == len(trace)
             assert st.retries == st.engine_call_failures == st.breaker_trips == 0
+
+
+
+# -- the contract auditor on the card ------------------------------------------
+
+
+def _audit_checks(violations):
+    return {v.check for v in violations}
+
+
+def test_audit_dropped_donation_fails_on_card(cuda):
+    from repro_torch.analysis import hlo_audit, registry
+    from repro_torch.analysis.registry import AuditProgram
+
+    spec = registry.get("xl.shard_acc")
+    prog = spec.build(cuda)
+    dropped = AuditProgram(make=lambda donate: prog.make(()), args=prog.args,
+                           kwargs=prog.kwargs)
+    vs = hlo_audit.audit_compiled(dropped, spec.contract, spec.name)
+    assert "donation-aliasing" in _audit_checks(vs)
+    assert vs[0].waiver_id == "xl.shard_acc:donation-aliasing"
+    report = {}
+    assert hlo_audit.audit_compiled(prog, spec.contract, spec.name, report) == []
+    assert report["alias_pairs"] == [(0, 0)] and report["launches"]["xl_shard_acc"] >= 1
+
+
+def test_audit_temp_bytes_ceiling_on_card(cuda):
+    from repro_torch.analysis import hlo_audit
+    from repro_torch.analysis.registry import AuditProgram, Contract
+
+    def hungry(x):
+        return torch.tanh(torch.outer(x, x)).sum()  # two 4 MB temps
+
+    prog = AuditProgram(make=lambda donate: hungry, args=(torch.ones(1024, device=cuda),))
+    report = {}
+    vs = hlo_audit.audit_compiled(prog, Contract(max_temp_bytes=64 * 1024), "p", report)
+    assert _audit_checks(vs) == {"temp-bytes"}
+    assert report["temp_bytes"] >= 4 * 1024 * 1024  # the allocator's peak
+    assert report["temp_bytes_record"] >= 8 * 1024 * 1024  # both alive in the record
+    assert hlo_audit.audit_compiled(prog, Contract(max_temp_bytes=64 << 20), "p") == []
+
+
+def test_audit_host_sync_fails_on_card(cuda):
+    from repro_torch.analysis import hlo_audit, jaxpr_audit
+    from repro_torch.analysis.registry import AuditProgram, Contract
+
+    def leaky(x):
+        y = torch.sin(x)
+        return torch.full_like(y, y.sum().item())  # the host waits for the device
+
+    def clean(x):
+        y = torch.sin(x)
+        return y * y.sum()
+
+    x = torch.ones(4, device=cuda)
+    report = {}
+    vs = hlo_audit.audit_compiled(AuditProgram(make=lambda d: leaky, args=(x,)), Contract(),
+                                  "train.segment", report)
+    assert _audit_checks(vs) == {"host-sync"}
+    assert vs[0].waiver_id == "train.segment:host-sync"
+    assert "leaky" in report["host_syncs"][0]  # its Python stack
+    recorded = jaxpr_audit.trace_and_audit(leaky, (x,), Contract(), "train.segment")
+    assert _audit_checks(recorded) == {"forbidden-primitive"}
+    assert hlo_audit.audit_compiled(AuditProgram(make=lambda d: clean, args=(x,)), Contract(),
+                                    "p") == []
+    assert jaxpr_audit.trace_and_audit(clean, (x,), Contract(), "p") == []
+
+
+def test_census_leaves_out_its_leading_spins_on_card(cuda):
+    from repro_torch.analysis import hlo_audit
+
+    x = torch.ones(1024, device=cuda)
+    cen = hlo_audit.census(lambda: torch.sin(x), (), lead=64)
+    assert cen and sum(cen.values()) == 1, cen  # the call's one kernel, no spin
+    taken = hlo_audit.checked_census(lambda: torch.sin(x), ())
+    assert taken["complete"] and taken["attempts"] == 1 and taken["hand_kernels"] == {}
+
+
+def test_registered_programs_audit_clean_on_card(cuda, capsys):
+    from pathlib import Path
+
+    from repro_torch.analysis import registry
+    from repro_torch.analysis.__main__ import main
+
+    reports = {}
+    rc = main(["--root", str(Path(__file__).resolve().parents[1])], reports=reports)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "8 program(s) audited on cuda" in out and "-> PASS" in out
+    for spec in registry.collect():
+        launches = reports[spec.name]["launches"]
+        assert spec.kernels and all(launches.get(k, 0) > 0 for k in spec.kernels), (
+            spec.name, launches)
+        # a whole census: as many hand-kernel events as counted launches
+        hand = reports[spec.name]["census_hand_kernels"]
+        assert hand and all(seen == n for seen, n in hand.values()), (spec.name, hand)
+    # a warm program loads no further kernel entry point
+    from repro_torch.analysis.compilecheck import expect_compiles
+    from repro_torch.kernels import build as kbuild
+
+    prog = registry.get("train.segment").build(cuda)
+    fn = prog.make(())
+    fn(*prog.args)
+    with expect_compiles(kbuild.compile_counts, 0):
+        fn(*prog.args)
+    assert kbuild.compile_counts()["coo_matmul_T"] >= 1

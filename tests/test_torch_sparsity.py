@@ -215,3 +215,35 @@ def test_coo_matmul_T_rejects_other_devices():
     empty = torch.empty((0,), dtype=torch.int32)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tsp.coo_matmul_T(meta, torch.empty((0,)), empty, empty, 3)
+
+
+@pytest.mark.parametrize("with_dbias", [False, True])
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_coo_dw_plain_untracked_and_tracked_products_bit_equal(with_dbias, chunk):
+    """``coo_dw_plain`` takes a chunk's slab product in place when autograd
+    records nothing and out of place when it does: both give the same bits,
+    at the reference's ``coo_dw`` within the stated tolerance, and the
+    tracked one still differentiates."""
+    j_topo, t_topo, _, x = _case(5, 40, 24, 6, 9)
+    rng = np.random.default_rng(6)
+    dy = rng.standard_normal((9, 24)).astype(np.float32)
+    mask = (rng.standard_normal((24, 9)) > 0) if with_dbias else None
+    kw = dict(chunk=chunk, with_dbias=with_dbias,
+              mask=None if mask is None else torch.as_tensor(mask),
+              slope=0.3 if with_dbias else None)
+    xT, dyT = torch.as_tensor(x.T.copy()), torch.as_tensor(dy.T.copy())
+    rows, cols = torch.as_tensor(t_topo.rows), torch.as_tensor(t_topo.cols)
+    untracked = tsp.coo_dw_plain(xT, dyT, rows, cols, **kw)
+    xT_g, dyT_g = xT.clone().requires_grad_(), dyT.clone().requires_grad_()
+    tracked = tsp.coo_dw_plain(xT_g, dyT_g, rows, cols, **kw)
+    for a, b in zip(untracked if with_dbias else (untracked,),
+                    tracked if with_dbias else (tracked,)):
+        assert not a.requires_grad and b.requires_grad
+        assert torch.equal(a, b.detach())
+    dv = tracked[0] if with_dbias else tracked
+    dv.sum().backward()
+    assert xT_g.grad is not None and dyT_g.grad is not None
+    if not with_dbias:
+        ref = jsp.coo_dw(jnp.asarray(x.T), jnp.asarray(dy.T),
+                         jnp.asarray(j_topo.rows), jnp.asarray(j_topo.cols))
+        np.testing.assert_allclose(untracked.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)

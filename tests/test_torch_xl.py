@@ -502,8 +502,8 @@ def test_refusals(data):
     x, y = batch()
     with pytest.raises(ValueError, match="full batch"):
         ex.probe_stats(x[:5], y[:5])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tstream.analysis_programs()
+    # the auditor's registration is no longer refused: the two shard programs
+    assert [s.name for s in tstream.analysis_programs()] == ["xl.shard_acc", "xl.shard_dw"]
     with pytest.raises(ValueError, match="full batch"):
         ex.train_step(x[:5], y[:5], 0.01, momentum=0.9, weight_decay=0.0)
     with pytest.raises(ValueError, match="exceeds the plan's batch"):
