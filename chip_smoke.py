@@ -212,8 +212,9 @@ Phases, one line each (any failure exits non-zero):
                    operators with the most time, the allocator's peak, the
                    card's name and power limit;
 17. lm_archs      — the rest of the zoo at full width, bf16, random weights
-                   from the seed (each model's parameter count and the host
-                   seconds of drawing it printed): (a) recurrentgemma-2b at
+                   from the seed, the dense ones drawn on the card (each
+                   model's parameter count and the seconds of drawing it
+                   printed): (a) recurrentgemma-2b at
                    full depth (26 layers, rglru/rglru/local) with the sparse
                    FFN (W_in 60 tiles on 20 x 60, W_out 40 on 60 x 20): E
                    bf16's runs legal on both grids (``lm_archs_splits``);
@@ -312,7 +313,8 @@ Phases, one line each (any failure exits non-zero):
 21. launch_train  — ``launch.train.run_training`` on Qwen1.5-0.5B at full width
                    and depth with the paper's sparse FFN, bf16 (270,918,656
                    parameters, ``reduced=False``): 8 steps of 8 x 256 tokens
-                   on one device, 2 heartbeat hosts, the reference test's
+                   on a 1 x 1 mesh of the card (the parameters DTensors), 2
+                   heartbeat hosts, the reference test's
                    injected clock, silenced host1 and transient at step 4:
                    host1 straggling at step 2, dead at 3, evicted at 5, one
                    replan restoring step 4, one recovery, finite losses, C,
@@ -332,7 +334,29 @@ Phases, one line each (any failure exits non-zero):
                    trips and closes, brownout seen and healed, goodput ratio
                    >= 0.8 (one retry of the pair), C launched 48 times for
                    every engine call that ran; a ``gateway_timing`` line;
-23. audit         — the contract auditor (``repro_torch.analysis``) on the
+23. pod           — the pod machinery (``launch.mesh``, ``sharding``, ``dryrun``)
+                   on a one-rank ``nccl`` group started in the process and a
+                   1 x 1 mesh on the card: WASAP phase 1 of the wasap
+                   phase's cell (3072-4000-1000-4000-10, 4 workers, H = 4,
+                   batch 32) with ``worker_axis="shard_map"`` on the worker
+                   mesh and with ``"vmap"``: params, velocity and losses
+                   bit-equal, A (with B's epilogue in its store) and F
+                   launched the same in both; one ``run_training`` step of
+                   Qwen1.5-0.5B at full width and depth (bf16, the sparse
+                   FFN) through the mesh path, every parameter a DTensor
+                   holding all its bytes, its loss equal to a plain 1 x 1
+                   step's, C, D and E bf16 launched, then the two steps
+                   timed on the same inputs (POD_TIMED pairs, alternating
+                   which runs first; a 1 x 1 shard aliases its tensor); the
+                   dry run
+                   (``python -m repro_torch.launch.dryrun --arch
+                   qwen1.5-0.5b --shape all --both-meshes``, a subprocess on
+                   a fake group of 256 and 512 ranks, started first and run
+                   beside the rest) exiting 0, a ``pod_dryrun`` line a cell
+                   (a rank's bytes, its flops beside ``analytic``'s, the
+                   collectives); a ``pod`` line with the card's name and
+                   power limit;
+24. audit         — the contract auditor (``repro_torch.analysis``) on the
                    card: ``python -m repro_torch.analysis``'s audit run in
                    process over the eight registered programs (record, run
                    under the sync watch, profiler census, donated build) and
@@ -354,7 +378,7 @@ Phases, one line each (any failure exits non-zero):
                    host sync or device-to-host copy in either's steady
                    call. Before wasap: late
                    profiler sessions lose device events;
-24. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+25. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
                    worker-epoch: 2 rounds, the second with a padded step). The
@@ -379,7 +403,7 @@ Phases, one line each (any failure exits non-zero):
                    history within the fused run's tolerances.
                    It runs after the timing phases: before them it made
                    their profiler sessions lose device events.
-25. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+26. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
                    full width on the card: the element and the block model
                    trained 3 epochs with device SET, pruning and the paper's
                    dropout 0.3, saved at every epoch; a fresh trainer
@@ -398,7 +422,7 @@ Phases, one line each (any failure exits non-zero):
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
                    profiles nothing;
-26. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+27. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
                    of the paper's first Table-4 row at full width,
                    65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
                    17,655,362 parameters), batch 32, the device budget 0.6 x
@@ -927,8 +951,15 @@ def phase_main(out: dict) -> str:
     )
 
 
-def profile_classify(engine, x: np.ndarray, latency_ms: float, calls: int = 20,
-                     attempts: int = 3) -> dict:
+# Spin kernels that open a late profile capture (the contract auditor's
+# lead, analysis/hlo_audit.py): the profiler drops the first few dozen
+# device events of a capture late in a long process, and the spins take
+# that loss instead of the profiled calls' kernels. The audit's first
+# take's lead, which made all of its censuses whole in one take.
+PROFILE_LEAD = hlo_audit.CENSUS_LEADS[0]
+
+
+def profile_classify(engine, x: np.ndarray, latency_ms: float, calls: int = 20) -> dict:
     """Where one classify call's time goes: device time per kernel or copy
     (torch.profiler, device-side events only), the device's busy time, and
     its idle share of the unprofiled median latency. Per call, it also
@@ -936,41 +967,43 @@ def profile_classify(engine, x: np.ndarray, latency_ms: float, calls: int = 20,
     and the other kernels (the copy and transpose kernels around A), each
     with its time and its launches.
 
-    torch.profiler can drop the device events of whole calls (PERF.md §7):
-    a profile that saw fewer kernel-A launches than A's wrapper counted over
-    the same calls is taken again, up to ``attempts`` times, and the last
-    one is returned as it is (``profile_attempts``)."""
+    torch.profiler can drop the device events of a late capture (PERF.md
+    §7): the capture opens with :data:`PROFILE_LEAD` spin kernels, left out
+    of every figure, and is taken once; ``kernel_a_events_per_call`` beside
+    ``kernel_a_counted_per_call`` shows whether it held every launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     engine.classify(x)
-    for attempt in range(1, attempts + 1):
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
-        reset_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                engine.classify(x)
-            torch.cuda.synchronize()
-            profiled_wall_us = (time.perf_counter() - t0) * 1e6 / calls
-        counted = read_counts()["coo_matmul_T"]
-        by_name: dict = {}
-        kinds = {k: dict(us=0.0, launches=0.0) for k in ("kernel_a", "memcpy", "other_kernels")}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-                by_name[e.key[:200]] = (by_name.get(e.key[:200], 0.0)
-                                        + e.self_device_time_total / calls)
-                kind = ("memcpy" if e.key.startswith(("Memcpy", "Memset")) else
-                        "kernel_a" if "coo_matmul_T" in e.key else "other_kernels")
-                kinds[kind]["us"] += e.self_device_time_total / calls
-                kinds[kind]["launches"] += e.count / calls
-        if round(kinds["kernel_a"]["launches"] * calls) >= counted:
-            break
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            engine.classify(x)
+        torch.cuda.synchronize()
+        profiled_wall_us = (time.perf_counter() - t0) * 1e6 / calls
+    counted = read_counts()["coo_matmul_T"]
+    by_name: dict = {}
+    kinds = {k: dict(us=0.0, launches=0.0) for k in ("kernel_a", "memcpy", "other_kernels")}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not hlo_parser.SPIN_KERNEL_RE.search(e.key)):
+            by_name[e.key[:200]] = (by_name.get(e.key[:200], 0.0)
+                                    + e.self_device_time_total / calls)
+            kind = ("memcpy" if e.key.startswith(("Memcpy", "Memset")) else
+                    "kernel_a" if "coo_matmul_T" in e.key else "other_kernels")
+            kinds[kind]["us"] += e.self_device_time_total / calls
+            kinds[kind]["launches"] += e.count / calls
     busy_us = sum(by_name.values())
     return dict(batch=len(x), latency_us=latency_ms * 1e3, profiled_wall_us=profiled_wall_us,
                 device_busy_us=busy_us, device_idle_share=1.0 - busy_us / (latency_ms * 1e3),
                 kernel_launches=kinds["kernel_a"]["launches"] + kinds["other_kernels"]["launches"],
-                device_by_kind=kinds, device_us_by_name=by_name, profile_attempts=attempt,
+                device_by_kind=kinds, device_us_by_name=by_name, profile_lead=PROFILE_LEAD,
+                kernel_a_events_per_call=kinds["kernel_a"]["launches"],
                 kernel_a_counted_per_call=counted / calls)
 
 
@@ -3867,10 +3900,13 @@ def arch_prompts(vocab: int, batch: int = ARCH_BATCH, seq: int = ARCH_PROMPT) ->
 
 def drawn_model(cfg: ModelConfig, device=None) -> tuple:
     """``PatternLM(cfg)`` from the seed on ``device`` (None: the card), its
-    parameter count and the host seconds of drawing its weights (the dense
-    draws come from the CPU generator, then move)."""
+    parameter count and the seconds of drawing its weights. On the card the
+    dense weights draw from the card's generator (``draw_on_device``: the
+    CPU's draws of falcon-mamba-7b's 7.27 B weights took 65-84 s of the
+    script's time limit); the sparse FFN's draw on the host, as always."""
     t0 = time.perf_counter()
-    model = PatternLM(cfg, seed=SEED, device=CARD if device is None else device)
+    model = PatternLM(cfg, seed=SEED, device=CARD if device is None else device,
+                      draw_on_device=device is None)
     torch.cuda.synchronize()
     return model, sum(a.numel() for a in tree_leaves(model.params)), time.perf_counter() - t0
 
@@ -4727,14 +4763,13 @@ def obs_lm_run(work: Path) -> dict:
                 snapshots=[s["layers"] for s in snaps], alerts=timeline.alerts(tev))
 
 
-def obs_profiling(work: Path, attempts: int = 3) -> dict:
+def obs_profiling(work: Path) -> dict:
     """(d): ``sample_device_memory`` against the allocator, and
     ``profile_trace`` around kernel A's launches writing a Chrome trace that
-    holds them. torch.profiler can drop the device events of whole calls
-    late in a run (PERF.md §7): every capture must hold kernel A launches,
-    and one that holds fewer than A's wrapper counted is taken again, up to
-    ``attempts`` times, as ``profile_classify`` does; each capture's count
-    is reported."""
+    holds them. torch.profiler can drop the device events of a late capture
+    (PERF.md §7): the capture opens with :data:`PROFILE_LEAD` spin kernels,
+    as ``profile_classify``'s does, and is taken once; it must hold kernel
+    A's launches, and the count it holds is reported."""
     from repro_torch import obs
 
     x = torch.empty(1 << 26, dtype=torch.uint8, device=CARD)
@@ -4746,24 +4781,21 @@ def obs_profiling(work: Path, attempts: int = 3) -> dict:
     del x
     model = element_model(CARD)
     xb = torch.as_tensor(load("cifar10", scale=TRAIN_SCALE).x_test[:128], device=CARD)
-    held = []
-    for attempt in range(attempts):
-        reset_counts()
-        with obs.profile_trace(str(work / "prof"), name="kernel_a"):
-            with torch.no_grad():
-                for _ in range(3):
-                    mlp_forward(model.params(), model.topo_arrays(), xb, model.config)
-        launched = read_counts()["coo_matmul_T"]
-        trace = json.loads((work / "prof" / "kernel_a.pt.trace.json").read_text())
-        held.append(sum(1 for e in trace.get("traceEvents", [])
-                        if e.get("cat") == "kernel" and "coo_matmul_T" in e.get("name", "")))
-        check(launched == 3 * model.config.n_layers, f"kernel A launched {launched}")
-        check(0 < held[-1] <= launched, f"the profile holds {held[-1]} of kernel A's "
-                                        f"{launched} launches")
-        if held[-1] == launched:
-            break
-    return dict(memory=mem, kernel_a_launches=launched, kernel_a_events=held[-1],
-                kernel_a_events_per_capture=held)
+    reset_counts()
+    with obs.profile_trace(str(work / "prof"), name="kernel_a"):
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(1)
+        with torch.no_grad():
+            for _ in range(3):
+                mlp_forward(model.params(), model.topo_arrays(), xb, model.config)
+    launched = read_counts()["coo_matmul_T"]
+    trace = json.loads((work / "prof" / "kernel_a.pt.trace.json").read_text())
+    held = sum(1 for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel" and "coo_matmul_T" in e.get("name", ""))
+    check(launched == 3 * model.config.n_layers, f"kernel A launched {launched}")
+    check(0 < held <= launched, f"the profile holds {held} of kernel A's {launched} launches")
+    return dict(memory=mem, kernel_a_launches=launched, kernel_a_events=held,
+                profile_lead=PROFILE_LEAD)
 
 
 def obs_overhead() -> dict:
@@ -4828,8 +4860,9 @@ def phase_obs(out: dict) -> str:
         f"(c) Qwen1.5-0.5B {OBS_LM_STEPS} steps probed + traced, losses "
         f"{[round(v, 4) for v in lm['losses']]}, C/D/E bf16 a step as lm_train; (d) memory "
         f"gauges = allocator, profile holds kernel A's {res['profiling']['kernel_a_events']} of "
-        f"{res['profiling']['kernel_a_launches']} launches (captures "
-        f"{res['profiling']['kernel_a_events_per_capture']}); overhead traced {100 * ov['overhead_traced']:.2f} %, traced + probed "
+        f"{res['profiling']['kernel_a_launches']} launches (one capture, "
+        f"{PROFILE_LEAD} spins first); overhead traced {100 * ov['overhead_traced']:.2f} %, "
+        f"traced + probed "
         f"{100 * ov['overhead_traced_probed']:.2f} % (run medians {ov['run_s_median']}), "
         f"budget 2 % {'held' if res['holds_budget'] else 'not held'}"
     )
@@ -5045,7 +5078,7 @@ def phase_supervisor(out: dict) -> str:
 # beats and transient (tests/test_launch.py): 2 hosts, host1 silent from
 # step 2, a transient at step 4, a checkpoint every 2 steps.
 LT_DRIVER = dict(steps=8, seq=256, per_replica_batch=8, save_every=2, n_hosts=2,
-                 reduced=False)
+                 reduced=False, mesh_data=1, mesh_model=1)
 LT_FAULT_STEP = 4
 LT_SILENT_FROM = 2
 LT_BARE_STEPS = 5  # the driver with nothing to watch, retry or save until its end
@@ -5412,6 +5445,204 @@ def element_segment_args(model: SparseMLP, opt: MomentumSGD) -> tuple:
             torch.as_tensor(data.y_train, device=CARD).long(),
             torch.arange(steps * 128, device=CARD).reshape(steps, 128),
             torch.full((steps,), 0.01, dtype=torch.float32, device=CARD), key)
+
+
+# The pod phase: the dry run of the LM cells' arch on both production
+# meshes, and the driver's mesh path for one step of the launch_train cell.
+POD_DRYRUN = ("--arch", LM_ARCH, "--shape", "all", "--both-meshes")
+POD_DRYRUN_TIMEOUT_S = 300
+POD_DRIVER = dict(steps=1, seq=256, per_replica_batch=8, save_every=1, mesh_data=1,
+                  mesh_model=1, reduced=False)
+POD_TIMED = 10  # timed calls of the mesh step and the plain step, in alternating order
+
+
+def pod_wasap() -> dict:
+    """WASAP phase 1 of the wasap phase's cell, one epoch, with the worker
+    axis ``shard_map``'d over the card's worker mesh and with ``vmap``:
+    both from the same seed, every leaf and loss bit-equal, the same
+    launches."""
+    runs = {}
+    for axis in ("vmap", "shard_map"):
+        trainer = wasap_trainer(CARD, worker_axis=axis)
+        params = trainer.model.params()
+        opt_state = trainer.opt.init(params)
+        x_all, y_all = trainer._data_on_device()
+        inputs = trainer._phase1_inputs(0, 0)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        p, s, losses = trainer._epoch_fn(params, opt_state, trainer.model.topo_arrays(), x_all,
+                                         y_all, *inputs, trainer.key)
+        torch.cuda.synchronize()
+        runs[axis] = dict(leaves=tree_leaves((p, s, losses)), launches=read_counts(),
+                          seconds=time.perf_counter() - t0,
+                          mesh=None if trainer._mesh is None else dict(zip(
+                              trainer._mesh.mesh_dim_names, trainer._mesh.mesh.shape)))
+    v, sm = runs["vmap"], runs["shard_map"]
+    check(sm["mesh"] == {"data": 1, "model": 1}, f"the worker mesh is {sm['mesh']}")
+    check(len(v["leaves"]) == len(sm["leaves"])
+          and all(torch.equal(a, b) for a, b in zip(v["leaves"], sm["leaves"])),
+          "the shard_map epoch is not bit-equal to vmap")
+    la = sm["launches"]
+    check(la == v["launches"] and la["coo_matmul_T"] > 0 and la["coo_dw"] > 0
+          and la["coo_matmul_T.epilogue"] > 0, f"shard_map launched {la}, vmap {v['launches']}")
+    return dict(launches={k: n for k, n in la.items() if n}, epoch_s={
+        k: r["seconds"] for k, r in runs.items()}, losses=[float(t) for t in sm["leaves"][-1]])
+
+
+def pod_driver() -> dict:
+    """One ``run_training`` step of the LM cells' model through the mesh
+    path, its parameters seen by a spy on the sharded step, against a plain
+    ``make_train_step`` step of the same model on the same batch. Then the
+    mesh step's cost at 1 x 1: the sharded step and the plain step on the
+    same inputs, POD_TIMED calls each, interleaved, the first of a pair
+    alternating (host clock, each call ending in a synchronise); the shards alias the full tensors (a 1 x 1
+    layout moves nothing) and the two losses are the same bits."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import default_rules, shape_aware_shardings
+
+    seen = []
+    real = train_mod.make_sharded_train_step
+
+    def spy(model, mesh, layouts, **kw):
+        step, opt = real(model, mesh, layouts, **kw)
+
+        def watched(params, *args):
+            seen.extend((isinstance(t, DTensor),
+                         t.to_local().numel() * t.element_size() if isinstance(t, DTensor)
+                         else 0, t.numel() * t.element_size()) for t in tree_leaves(params))
+            return step(params, *args)
+
+        return watched, opt
+
+    dc = DriverConfig(arch=LM_ARCH, verbose=False, device=CARD, **POD_DRIVER)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp, sparse_ffn_spec(LM_ARCH):
+        train_mod.make_sharded_train_step = spy
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            hist = run_training(dataclasses.replace(dc, ckpt_dir=tmp))
+            torch.cuda.synchronize()
+            launches = read_counts()
+        finally:
+            train_mod.make_sharded_train_step = real
+    model = PatternLM(lm_config(), seed=0, device=CARD)
+    step_fn, opt = steps_mod.make_train_step(model, lr=dc.lr)
+    batch = train_mod.synthetic_batch(np.random.default_rng(1234), dc.per_replica_batch, dc.seq,
+                                      model.cfg.vocab, device=CARD)
+    topo, state = model.topo_arrays(), opt.init(model.params)
+    _, _, metrics = step_fn(model.params, state, batch, topo)
+    plain = float(metrics["loss"])
+    n = model.cfg.n_layers
+    mesh = make_debug_mesh(1, 1)
+    layouts = shape_aware_shardings(default_rules(mesh, batch_size=dc.per_replica_batch),
+                                    model.specs, model.params)
+    mesh_step, _ = train_mod.make_sharded_train_step(model, mesh, layouts, lr=dc.lr)
+    s_params = train_mod.shard_tree(model.params, layouts)
+    s_state = SGDState(train_mod.shard_tree(state.velocity, layouts), state.step)
+    check(all(d.to_local().data_ptr() == t.data_ptr() for d, t in zip(
+        tree_leaves(s_params), tree_leaves(model.params))), "a 1 x 1 shard copied its tensor")
+    calls = {"mesh": lambda: mesh_step(s_params, s_state, batch, topo)[2]["loss"],
+             "plain": lambda: step_fn(model.params, state, batch, topo)[2]["loss"]}
+    ms, losses = {k: [] for k in calls}, {}
+    for rep in range(POD_TIMED + 1):  # the first round warms up
+        for k, fn in sorted(calls.items(), reverse=rep % 2 == 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[k] = fn()
+            torch.cuda.synchronize()
+            if rep:
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+    check(_bits_equal(losses["mesh"], losses["plain"]),
+          f"the mesh step's loss {float(losses['mesh'])}, the plain step's "
+          f"{float(losses['plain'])}")
+    step_ms = {k: dict(zip(("min", "q25", "median", "q75", "max"), map(float, np.percentile(
+        v, [0, 25, 50, 75, 100])))) for k, v in ms.items()}
+    del model, step_fn, metrics, calls, s_params, s_state, state
+    torch.cuda.empty_cache()
+    check(seen and all(d and local == full for d, local, full in seen),
+          "a parameter of the mesh step is not a DTensor holding all its bytes")
+    check(hist["loss"] == [plain], f"the mesh step's loss {hist['loss']}, the plain step's {plain}")
+    want = dict(bsmm_fwd=4 * n, **{"bsmm_dx.bf16": 2 * n, "bsmm_dw.bf16": 2 * n})
+    check(all(launches[k] == v for k, v in want.items()), f"the mesh step launched {launches}")
+    return dict(loss=hist["loss"][0], plain_loss=plain, n_leaves=len(seen),
+                param_bytes=sum(full for _, _, full in seen),
+                launches={k: v for k, v in launches.items() if v}, step_ms=step_ms)
+
+
+def pod_dryrun_records(names) -> list:
+    """The dry run's records of the cells it printed, from its files."""
+    from repro_torch.launch.dryrun import ART_DIR
+
+    recs = []
+    for label in names:
+        arch, shape, mesh = label.split(" x ")
+        path = ART_DIR / f"{arch}__{shape}__{mesh.replace('x', '_')}.json"
+        rec = json.loads(path.read_text())
+        if "skipped" in rec:
+            continue
+        dp = 32 if mesh == "2x16x16" else 16
+        recs.append(dict(
+            cell=label, argument_bytes=rec["argument_size_in_bytes"],
+            output_bytes=rec["output_size_in_bytes"], temp_bytes=rec["temp_size_in_bytes"],
+            flops=rec["flops"], analytic_flops=rec["analytic"]["model_flops"],
+            analytic_over_dp=rec["analytic"]["model_flops"] / dp,
+            collectives=rec["collectives"], lower_seconds=rec["lower_seconds"]))
+    return recs
+
+
+def phase_pod(out: dict) -> str:
+    """The pod machinery on the card: a one-rank nccl group, the shard_map
+    WASAP epoch, the driver's mesh step and the dry run (a subprocess)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH", "")) if p))
+    t0 = time.perf_counter()
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *POD_DRYRUN],
+                           env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                           cwd=str(Path(__file__).resolve().parent))
+    try:
+        world = ensure_process_group(CARD)
+        mesh = make_debug_mesh(1, 1)
+        check(world == 1 and dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+              f"the process group: world {world}, backend {dist.get_backend()}")
+        wasap_res = pod_wasap()
+        driver_res = pod_driver()
+        dry_out, _ = dry.communicate(timeout=POD_DRYRUN_TIMEOUT_S)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    dry_s = time.perf_counter() - t0
+    check(dry.returncode == 0, f"the dry run exited {dry.returncode}: {dry_out[-2000:]}")
+    labels = [ln.split("[dryrun] ", 1)[1].strip() for ln in dry_out.splitlines()
+              if ln.startswith("[dryrun] ")]
+    recs = pod_dryrun_records(labels)
+    for rec in recs:
+        print(json.dumps({"pod_dryrun": rec}), flush=True)
+    check(len(recs) == 6, f"the dry run recorded {len(recs)} cells: {labels}")
+    print(json.dumps({"pod": dict(wasap=wasap_res, driver=driver_res, dryrun_wall_s=dry_s,
+                                  card=out["smi"])}), flush=True)
+    return (
+        f"one-rank nccl group, 1 x 1 mesh; WASAP phase 1 (4 workers) shard_map bit-equal to "
+        f"vmap, launches {wasap_res['launches']}; the driver's mesh step of {LM_ARCH} "
+        f"({driver_res['n_leaves']} DTensor leaves, {driver_res['param_bytes']} B) loss "
+        f"{driver_res['loss']:.6f} = the plain step's, launches {driver_res['launches']}, "
+        f"a step {driver_res['step_ms']['mesh']['median']:.1f} ms on the mesh against "
+        f"{driver_res['step_ms']['plain']['median']:.1f} plain (medians of {POD_TIMED}); "
+        f"dry run {len(recs)} cells in {dry_s:.1f} s: "
+        + "; ".join(f"{r['cell']} {r['argument_bytes']:.3g} B/rank, {r['flops']:.3g} flops "
+                    f"(analytic/dp {r['analytic_over_dp']:.3g})" for r in recs)
+        + f"; {out['smi']}"
+    )
 
 
 def phase_audit(out: dict) -> str:
@@ -6015,6 +6246,9 @@ def main() -> int:
         # driver on the LM, the serving gateway on phase lm's engine
         ("supervisor", phase_supervisor), ("launch_train", phase_launch_train),
         ("gateway", phase_gateway),
+        # the pod machinery: a one-rank nccl group, the shard_map WASAP
+        # epoch, the driver's mesh step and the dry run
+        ("pod", phase_pod),
         # every registered program audited on the card, and the host syncs
         # of two full-width paths (before wasap: late profiles lose events)
         ("audit", phase_audit),

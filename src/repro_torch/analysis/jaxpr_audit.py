@@ -44,6 +44,7 @@ import weakref
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.analysis import hlo_parser
@@ -95,6 +96,8 @@ class OpRecord:
     out_elems: Tuple[int, ...]
     scatter: Optional[Tuple] = None
     site: str = ""
+    view: bool = False  # its results alias its inputs (no bytes move)
+    attrs: Tuple[str, ...] = ()  # its string arguments (an einsum's equation)
 
     @property
     def to_host(self) -> bool:
@@ -133,6 +136,8 @@ def _tensors(tree) -> List[torch.Tensor]:
 
 
 def _storage_key(t: torch.Tensor) -> int:
+    if is_fake(t):  # a fake tensor has no storage to tell apart
+        return 0
     try:
         return t.untyped_storage().data_ptr()
     except (RuntimeError, NotImplementedError):
@@ -253,6 +258,8 @@ class _Recorder(TorchDispatchMode):
             fresh=fresh,
             out_elems=tuple(t.numel() for t in outs),
             scatter=scatter,
+            view=bool(getattr(func, "is_view", False)),
+            attrs=tuple(a for a in args if isinstance(a, str)),
         )
         if name in self.forbid or (DEVICE_TO_HOST in self.forbid and rec.to_host):
             rec.site = _site()

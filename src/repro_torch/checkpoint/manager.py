@@ -32,8 +32,8 @@ no bfloat16.
   leaf.
 * ``restore`` returns numpy leaves, as the reference does without
   ``shardings`` (a bfloat16 leaf as a CPU ``torch.bfloat16`` tensor), or
-  tensors on ``device=``. Re-sharding onto a mesh (``shardings``) comes with
-  the pod machinery (ROADMAP Queue 1, item 9).
+  tensors on ``device=``, or with ``shardings`` (``launch.sharding``
+  layouts) each rank's shard of every leaf, a DTensor on the mesh.
 * ``save_streamed``/``restore_stream`` write and read leaves chunk by chunk
   through ``.npy`` memmaps, for state larger than host memory (DESIGN.md §7).
 """
@@ -51,7 +51,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_flatten_with_names
+from repro_torch.tree import tree_flatten, tree_flatten_with_names, tree_map
 
 __all__ = ["CheckpointManager", "CheckpointCorruptError"]
 
@@ -430,13 +430,13 @@ class CheckpointManager:
         ``verify`` (default) runs :meth:`verify_step` first, so that a torn
         or bit-flipped checkpoint fails as :class:`CheckpointCorruptError`
         naming the step dir, not as a numpy error deep in a leaf load.
-        ``shardings`` (re-sharding onto a mesh) is refused until the pod
-        machinery."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings comes with the pod machinery "
-                "(ROADMAP Queue 1, item 9); pass device= to place the leaves"
-            )
+        ``shardings`` (a tree like ``like`` of ``launch.sharding.Layout``)
+        re-shards each params leaf onto the current mesh: the full leaf is
+        read, placed on ``device`` (default: the mesh's device type) and
+        this rank's shard kept, a DTensor of that layout (an elastic resume
+        onto another mesh)."""
+        if shardings is not None and device is None:
+            device = tree_flatten(shardings)[0][0].mesh.device_type
         root = self._step_dir(step)
         if verify:
             reason = self.verify_step(int(root.name.split("_")[1]))
@@ -471,6 +471,8 @@ class CheckpointManager:
             return unflatten([load_leaf(sub, name, leaf) for name, leaf in leaves])
 
         params = load_tree(root / "arrays", like) if like is not None else None
+        if params is not None and shardings is not None:
+            params = tree_map(lambda lay, a: lay.distribute(a), shardings, params)
         extra = {group: load_tree(root / group, group_like)
                  for group, group_like in (like_extra or {}).items()}
         topologies = {}

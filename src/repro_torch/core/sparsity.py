@@ -33,6 +33,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import takes_plain
 from repro_torch.kernels import build
 
 __all__ = [
@@ -627,7 +628,7 @@ def coo_matmul_T(
     else computes them from ``segment_idx`` after checking that it is
     sorted (one device sync). Its route (:func:`coo_route`) follows the
     longest segment where the offsets came from :func:`offsets_to_device`,
-    else the mean. A CPU tensor takes the plain version.
+    else the mean. A CPU, meta or fake tensor takes the plain version.
 
     ``with_mask`` (training; needs ``bias`` and ``slope``) also returns the
     uint8 (n_segments, B) mask of ``v > 0``, ``v`` the pre-activation: the
@@ -635,7 +636,7 @@ def coo_matmul_T(
     all_relu_fused.all_relu_bwd`) needs and the output alone does not give
     (a slope of -alpha turns a negative ``v`` into a positive output).
     """
-    if srcT.device.type == "cpu":
+    if takes_plain(srcT):
         return coo_matmul_T_plain(
             srcT, values, gather_idx, segment_idx, n_segments, chunk=chunk, acc=acc,
             bias=bias, slope=slope, with_mask=with_mask,
@@ -999,9 +1000,9 @@ def coo_dw(
     epilogue in the same launch, over the run plan of ``cols``
     (:func:`dw_plan`: ``cols`` must be in the canonical, column-sorted
     order); each sum is taken in one fixed order (``chunk`` does not apply).
-    A CPU tensor takes the plain version.
+    A CPU, meta or fake tensor takes the plain version.
     """
-    if xT.device.type == "cpu":
+    if takes_plain(xT):
         return coo_dw_plain(xT, dyT, rows, cols, chunk=chunk, with_dbias=with_dbias,
                             mask=mask, slope=slope)
     if xT.device.type != "cuda":

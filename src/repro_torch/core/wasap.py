@@ -20,8 +20,15 @@ are stacked and averaged in worker order (a sum over workers 0..K-1, then
 ``/ K``, as ``jnp.mean`` reduces). ``torch.func.vmap`` cannot batch these
 steps: they launch ctypes-bound kernels through a ``torch.autograd.
 Function``, which has no batching rule. ``worker_axis="vmap"`` is that
-loop; ``"shard_map"`` (the pod program) raises until the pod machinery
-(ROADMAP Queue 1, item 9: ``torch.distributed``).
+loop. ``"shard_map"`` is the pod program: the worker axis split over the
+``data`` axis of a ``launch.mesh.make_worker_mesh`` mesh (one rank a
+device, ``torch.distributed``), each rank running its K / data workers as
+the ``vmap`` loop does, then all-gathering the params, optimizer states
+and losses over ``data`` in rank order and averaging in worker order: the
+reference's deterministic-order ``pmean``, bit-equal to ``vmap``. Every
+rank draws the dropout masks of the workers it does not run too (the same
+shapes from the same generator, the results dropped), so the generator
+stays in step with the ``vmap`` loop's on every rank.
 
 The master's SET evolution between phase-1 epochs runs on the device on
 fixed-capacity arrays (``core.topology.evolve_element_layers_device``),
@@ -85,8 +92,7 @@ phase-1 epoch takes ``donate=`` (``runtime.donation``): donated (the policy
 on the card), it writes the averaged params and optimizer state into the
 caller's tensors at its end and returns them.
 
-Refused with an error naming the ROADMAP item: the ``shard_map`` worker
-axis (item 9). The contract auditor (``repro_torch.analysis``) audits the
+The contract auditor (``repro_torch.analysis``) audits the
 phase-1 epoch (:func:`analysis_programs`).
 """
 from __future__ import annotations
@@ -114,7 +120,13 @@ from repro_torch.launch.steps import (
     make_mlp_train_step,
     scan_masked_segment,
 )
-from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, cross_entropy_loss, mlp_forward
+from repro_torch.models.mlp import (
+    SparseMLP,
+    SparseMLPConfig,
+    cross_entropy_loss,
+    mlp_forward,
+    skip_dropout_draws,
+)
 from repro_torch.obs import probes
 from repro_torch.optim.sgd import MomentumSGD, SGDState, replace_values_velocity
 from repro_torch.runtime import donation
@@ -136,9 +148,6 @@ __all__ = [
     "sparse_average_and_resparsify",
 ]
 
-_SHARD_MAP = ("worker_axis='shard_map' comes with the pod machinery (ROADMAP Queue 1, item 9: "
-              "torch.distributed); one card runs worker_axis='vmap'")
-
 
 @dataclasses.dataclass
 class WASAPConfig:
@@ -158,7 +167,7 @@ class WASAPConfig:
     batch_size: int = 32
     average_momentum: bool = True
     fused: bool = True           # device-resident epochs and SET (False: seed loop)
-    worker_axis: str = "vmap"    # vmap | shard_map (refused: ROADMAP Queue 1, item 9)
+    worker_axis: str = "vmap"    # vmap | shard_map
     probe: bool = False          # training-dynamics probes (obs.probes, DESIGN.md §12)
 
 
@@ -257,8 +266,10 @@ def make_phase1_epoch_fn(
     ``weighted=True`` appends a tenth argument ``worker_w`` — (K,)
     validity weights over the worker axis, renormalised inside the average
     — so a dead worker contributes zero while the round completes with the
-    survivors. ``mesh`` goes with ``worker_axis="shard_map"``, which is
-    refused here (ROADMAP Queue 1, item 9).
+    survivors. ``mesh`` goes with ``worker_axis="shard_map"``: a
+    (data, model) ``DeviceMesh`` whose ``data`` size divides ``n_workers``;
+    every rank takes the whole ``idx`` and runs its own workers' slice of
+    axis 1.
 
     ``donate`` overrides the donation policy (``runtime.donation``; None:
     donate on the card). With position 0 (1) donated, the epoch writes its
@@ -275,8 +286,17 @@ def make_phase1_epoch_fn(
     """
     if worker_axis not in ("vmap", "shard_map"):
         raise ValueError(f"worker_axis must be vmap|shard_map, got {worker_axis!r}")
+    lo, k_local, gather = 0, n_workers, None
     if worker_axis == "shard_map":
-        raise NotImplementedError(_SHARD_MAP)
+        if mesh is None:
+            raise ValueError("worker_axis='shard_map' needs a mesh")
+        data_size = mesh.size(list(mesh.mesh_dim_names).index("data"))
+        if n_workers % data_size != 0:
+            raise ValueError(f"n_workers={n_workers} must be divisible by the mesh's "
+                             f"data axis ({data_size})")
+        k_local = n_workers // data_size
+        lo = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["data"] * k_local
+        gather = _gather_over(mesh.get_group("data"), data_size)
 
     def local_steps(params, opt_state, topo, x_all, y_all, idx_h, lrs_h, valid_h, key):
         step_core = make_mlp_step_core(config, opt, topo, x_all, y_all)
@@ -293,14 +313,25 @@ def make_phase1_epoch_fn(
         caller = (params, opt_state)
         loss_sums = []
         for r in range(idx.shape[0]):
-            outs = [local_steps(params, opt_state, topo, x_all, y_all, idx[r, wk], lrs[r],
-                                valid[r], keys) for wk in range(n_workers)]
+            outs = []
+            for wk in range(n_workers):
+                if lo <= wk < lo + k_local:
+                    outs.append(local_steps(params, opt_state, topo, x_all, y_all, idx[r, wk],
+                                            lrs[r], valid[r], keys))
+                else:  # another rank's worker: its H steps' draws only
+                    for _ in range(idx.shape[2]):
+                        skip_dropout_draws(config, keys, idx.shape[3], x_all.device)
             sp, so = _stack([o[0] for o in outs]), _stack([o[1] for o in outs])
+            lsum = torch.stack([o[2] for o in outs])
+            if gather is not None:
+                # the full worker axis on every rank, in worker order: the
+                # deterministic-order equivalent of a pmean
+                sp, so, lsum = tree_map(gather, (sp, so, lsum))
             new_params = _cast_like(_average_pytree(sp, worker_w), params)
             opt_state = (_cast_like(_average_pytree(so, worker_w), opt_state)
                          if average_momentum else _take_worker0(so))
             params = new_params
-            loss_sums.append(torch.stack([o[2] for o in outs]).sum())
+            loss_sums.append(lsum.sum())
         loss_sums = torch.stack(loss_sums)
         # donation: the results go into the caller's tensors, last, so that a
         # fault raised above leaves them as they were
@@ -324,6 +355,23 @@ def make_phase1_epoch_fn(
     if weighted:
         return epoch_program
     return functools.partial(epoch_program, worker_w=None)
+
+
+def _gather_over(group, size: int):
+    """``gather(a)``: the (size * k, ...) concatenation of every rank's
+    (k, ...) ``a`` over ``group``, in rank order (a tiled all-gather on
+    axis 0), bits as they were."""
+    import torch.distributed as dist
+
+    # the single-tensor all-gather's newer name, where it has one
+    all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+    def gather(a):
+        out = a.new_empty((size * a.shape[0],) + tuple(a.shape[1:]))
+        all_gather(out, a.contiguous(), group=group)
+        return out
+
+    return gather
 
 
 def _make_worker_round(config: SparseMLPConfig, opt: MomentumSGD):
@@ -439,8 +487,6 @@ class WASAPTrainer:
             raise ValueError(f"the WASAP path trains element sparsity, not {model.config.impl!r}")
         if wc.worker_axis not in ("vmap", "shard_map"):
             raise ValueError(f"worker_axis must be vmap|shard_map, got {wc.worker_axis!r}")
-        if wc.worker_axis == "shard_map":
-            raise NotImplementedError(_SHARD_MAP)
         self.model = model
         self.data = data
         self.wc = wc
@@ -461,12 +507,20 @@ class WASAPTrainer:
                 "falling back to the seed round loop",
                 stacklevel=2,
             )
+        if not self._device_ok and wc.worker_axis == "shard_map":
+            raise ValueError("worker_axis='shard_map' needs the device-resident path, "
+                             "but a layer's in_dim*out_dim exceeds int32")
         self._fused = wc.fused and self._device_ok
         self._h = 1 if wc.mode == "wassp" else wc.sync_every
+        self._mesh = None
         if self._fused:
+            if wc.worker_axis == "shard_map":
+                from repro_torch.launch.mesh import make_worker_mesh
+
+                self._mesh = make_worker_mesh(wc.n_workers, device=self.device)
             self._epoch_fn = make_phase1_epoch_fn(
                 cfg, self.opt, n_workers=wc.n_workers, average_momentum=wc.average_momentum,
-                worker_axis=wc.worker_axis, probe=wc.probe,
+                worker_axis=wc.worker_axis, mesh=self._mesh, probe=wc.probe,
             )
             self._segment = make_segment_program(cfg, self.opt)
             # phase 2's probe segment, for worker 0 only
@@ -1008,7 +1062,7 @@ class WASAPTrainer:
             self._epoch_fn_weighted = make_phase1_epoch_fn(
                 self.model.config, self.opt, n_workers=wc.n_workers,
                 average_momentum=wc.average_momentum, worker_axis=wc.worker_axis,
-                weighted=True,
+                mesh=self._mesh, weighted=True,
             )
         return self._epoch_fn_weighted
 

@@ -4,8 +4,9 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "takes_plain"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -23,3 +24,11 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"the port runs on 'cuda' or 'cpu', not {device}")
     return device
+
+
+def takes_plain(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper takes its plain PyTorch version for ``t``:
+    a tensor on the CPU, a ``meta`` tensor, or a fake one (shape and dtype,
+    no storage: the dry run's), whatever device a fake one names. Any
+    other tensor launches the wrapper's kernel, or raises."""
+    return t.device.type in ("cpu", "meta") or isinstance(t, FakeTensor)

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import sparsity
+from repro_torch.device import takes_plain
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import all_relu_ref, scalar_in, slope_for
 
@@ -70,7 +71,7 @@ def bias_all_relu(
     bfloat16; x's rows contiguous, at one row pitch, as a column slice of a
     wider contiguous tensor is) and raises for another dtype; a CPU tensor
     takes the plain version."""
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return bias_all_relu_plain(x, bias, alpha=alpha, layer_index=layer_index)
     if x.device.type != "cuda":
         raise ValueError(f"bias_all_relu runs on cuda or cpu tensors, not {x.device}")
@@ -130,11 +131,11 @@ def bias_all_relu_T(
     ``xT`` itself, in place) receives the result, else a new tensor does.
     Returns ``out``, or ``(out, mask)`` with a mask. A CUDA tensor launches
     kernel B (``bias_act_T_f32``), the same arithmetic as kernel A's
-    epilogue; a CPU tensor takes the plain version (written into ``out``
+    epilogue; a CPU, meta or fake tensor takes the plain version (written into ``out``
     and ``mask`` where they are given)."""
     if mask is not None and slope is None:
         raise ValueError("the mask is All-ReLU's branch: a mask needs the slope")
-    if xT.device.type == "cpu":
+    if takes_plain(xT):
         res = bias_all_relu_T_plain(xT, bias, slope, with_mask=mask is not None)
         y, m = res if mask is not None else (res, None)
         if out is not None:
@@ -206,9 +207,9 @@ def all_relu_bwd(
     a mask; not ``dy``) and ``dbias_out`` where they are given (the
     out-of-core stream's buffers). A CUDA tensor launches kernel F's
     epilogue alone (kernel G's work; the training step runs it inside
-    :func:`repro_torch.core.sparsity.coo_dw`); a CPU tensor takes the plain
+    :func:`repro_torch.core.sparsity.coo_dw`); a CPU, meta or fake tensor takes the plain
     version."""
-    if dy.device.type == "cpu":
+    if takes_plain(dy):
         dz, dbias = all_relu_bwd_plain(dy, mask, slope)
         if dz_out is not None and mask is not None:
             dz = dz_out.copy_(dz)

@@ -57,6 +57,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.sparsity import forget_on_death, segment_offsets
+from repro_torch.device import takes_plain
 from repro_torch.kernels import build
 from repro_torch.kernels.all_relu_fused import bias_all_relu_plain
 from repro_torch.kernels.ref import scalar_in, slope_for
@@ -407,8 +408,8 @@ def bsmm_fwd(
     applies All-ReLU with that layer's slope in the bf16 instance's store
     (the f32 instance has no epilogue and raises). A CUDA tensor launches
     kernel C's instance for its dtype, on the route ``fwd_plan`` gives, and
-    raises for another dtype; a CPU tensor takes the plain version."""
-    if x.device.type == "cpu":
+    raises for another dtype; a CPU, meta or fake tensor takes the plain version."""
+    if takes_plain(x):
         return bsmm_fwd_plain(x, values, rows, cols, first_col, grid_n=grid_n, all_relu=all_relu)
     _require_cuda(x, "bsmm_fwd")
     nb, bm, bn = values.shape
@@ -480,8 +481,8 @@ def bsmm_dx(
     (``rows_r`` non-decreasing). Input block-rows that no slot covers come
     out as exact zeros. A CUDA tensor launches kernel D's instance for its
     dtype (bfloat16: tile sides multiples of 16) and raises for another
-    dtype; a CPU tensor takes the plain version."""
-    if dy.device.type == "cpu":
+    dtype; a CPU, meta or fake tensor takes the plain version."""
+    if takes_plain(dy):
         return bsmm_dx_plain(dy, values, rows_r, cols_r, first_row, perm_r, grid_m=grid_m)
     _require_cuda(dy, "bsmm_dx")
     nb, bm, bn = values.shape
@@ -559,8 +560,8 @@ def bsmm_dw(
     (nb, bm, bn) in x's dtype (f32 or bfloat16, dy of the same dtype),
     summed over the whole batch. A CUDA tensor launches kernel E's instance
     for its dtype (bfloat16: tile sides multiples of 16) and raises for
-    another dtype; a CPU tensor takes the plain version."""
-    if x.device.type == "cpu":
+    another dtype; a CPU, meta or fake tensor takes the plain version."""
+    if takes_plain(x):
         return bsmm_dw_plain(x, dy, rows, cols, block_m=block_m, block_n=block_n)
     _require_cuda(x, "bsmm_dw")
     bm, bn = block_m, block_n

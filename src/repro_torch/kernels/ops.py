@@ -66,6 +66,7 @@ from repro_torch.core.sparsity import (
     launch_coo_matmul_T,
     spmm_chunk_for,
 )
+from repro_torch.device import takes_plain
 from repro_torch.kernels import build
 from repro_torch.kernels import block_sparse_matmul as _k
 from repro_torch.kernels.all_relu_fused import all_relu_bwd, bias_all_relu, bias_all_relu_T
@@ -339,7 +340,7 @@ def espmm(
     """
     if impl not in ("auto", "custom", "segment", "scatter"):
         raise ValueError(f"unknown element impl {impl!r}")
-    if x.device.type != "cpu":
+    if not takes_plain(x):
         return espmm_custom(x, values, topo, out_dim, chunk=chunk)
     if impl == "auto":
         nnz = int(values.shape[0])
@@ -374,7 +375,7 @@ def espmm_infer(
     forward-only thresholds (``SPMM_INFER_*``): scatter-add for small
     problems, the chunked segment sum beyond.
     """
-    if x.device.type == "cpu":
+    if takes_plain(x):
         nnz = int(values.shape[0])
         batch = int(np.prod(x.shape[:-1])) if x.dim() > 1 else 1
         if nnz < SPMM_INFER_NNZ and batch * nnz < SPMM_INFER_ELEMS:
@@ -544,14 +545,14 @@ def xl_shard_acc(
     gives its segments; without it they come from ``segment_idx``, the
     reference's operand (non-decreasing, padded tail slots ``n_segments``),
     at the cost of a device sync for a CUDA tensor. A CUDA tensor launches
-    kernel A over the window, in place; a CPU tensor takes the plain
+    kernel A over the window, in place; a CPU, meta or fake tensor takes the plain
     version (``index_add_`` in slot order, chunks of ``chunk``)."""
     if window is None:
         window = shard_window(segment_idx, n_segments)
         real = gather_idx[: window.n_real]
         if real.numel() and not bool((real.min() >= 0) & (real.max() < srcT.shape[0])):
             raise ValueError(f"gather_idx has indices outside [0, {srcT.shape[0]})")
-    if acc.device.type == "cpu":
+    if takes_plain(acc):
         return _xl_shard_acc_plain(acc, srcT, values, gather_idx, window, chunk)
     if acc.device.type != "cuda":
         raise ValueError(f"xl_shard_acc runs on cuda or cpu tensors, not {acc.device}")
@@ -632,7 +633,7 @@ def xl_shard_dw(
             raise ValueError(f"rows has indices outside [0, {xT.shape[0]})")
     if out is None:
         out = torch.zeros((cap,), dtype=torch.float32, device=xT.device)
-    if xT.device.type == "cpu":
+    if takes_plain(xT):
         return _xl_shard_dw_plain(xT, dyT, rows, window, chunk, out)
     if xT.device.type != "cuda":
         raise ValueError(f"xl_shard_dw runs on cuda or cpu tensors, not {xT.device}")

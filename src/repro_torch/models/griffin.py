@@ -32,6 +32,7 @@ __all__ = [
     "init_rglru_block",
     "rglru_fwd",
     "init_rglru_state",
+    "rglru_specs",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -58,6 +59,15 @@ def init_rglru_block(gen: torch.Generator, cfg: RGLRUConfig, dtype: torch.dtype,
         "w_x": dense_init(gen, (dr, dr), dr, dtype, device),
         "lambda_p": torch.full((dr,), 2.2, dtype=torch.float32, device=device),  # sigmoid ~ 0.9
         "linear_out": dense_init(gen, (dr, d), dr, dtype, device),
+    }
+
+
+def rglru_specs() -> Dict:
+    """The logical-axis spec of :func:`init_rglru_block`'s parameters."""
+    return {
+        "linear_x": ("embed", "inner"), "linear_y": ("embed", "inner"),
+        "conv_w": (None, "inner"), "conv_b": ("inner",), "w_a": ("inner", "inner_b"),
+        "w_x": ("inner", "inner_b"), "lambda_p": ("inner",), "linear_out": ("inner", "embed"),
     }
 
 

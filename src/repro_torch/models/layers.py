@@ -4,8 +4,11 @@ the gated FFN and the paper's sparse SET-FFN, embeddings. Twin of
 
 As there, the layers are functions: ``init_*`` returns the parameter dict
 (and, for the sparse FFN, its host topologies and block metas) and ``*_fwd``
-computes. The reference's logical-axis specs, which name shardings for the
-pod machinery, come with it (ROADMAP Queue 1, item 9). Dense draws come from
+computes. The reference's ``init_*`` also returns each parameter's
+logical-axis spec (the names ``launch.sharding`` maps onto a mesh); here a
+pure ``*_specs`` builder beside each ``init_*`` returns the same tuples, so
+the ``init_*`` signatures stay as they were. On the ``meta`` device
+(``PatternLM(abstract=True)``) ``dense_init`` draws nothing. Dense draws come from
 an explicit ``torch.Generator``, on the generator's device, and are then
 moved to ``device``: a CPU generator gives the same weights on every device
 (not jax.random's draws: they cross over through ``interop.lm_from_numpy``
@@ -41,10 +44,12 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import scalar_in
 
 __all__ = [
-    "AttnConfig", "SparseFFNConfig", "apply_rope", "attention_fwd", "cross_attention_fwd",
-    "dense_init", "embed", "gated_ffn_fwd", "init_attention", "init_embedding",
-    "init_gated_ffn", "init_layernorm", "init_plain_ffn", "init_rmsnorm", "init_sparse_ffn",
-    "layernorm", "plain_ffn_fwd", "rmsnorm", "sparse_ffn_fwd", "unembed",
+    "AttnConfig", "SparseFFNConfig", "apply_rope", "attention_fwd", "attention_specs",
+    "cross_attention_fwd", "dense_init", "embed", "embedding_specs", "gated_ffn_fwd",
+    "gated_ffn_specs", "init_attention", "init_embedding", "init_gated_ffn", "init_layernorm",
+    "init_plain_ffn", "init_rmsnorm", "init_sparse_ffn", "layernorm", "layernorm_specs",
+    "plain_ffn_fwd", "plain_ffn_specs", "rmsnorm", "rmsnorm_specs", "sparse_ffn_fwd",
+    "sparse_ffn_specs", "unembed",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -58,7 +63,10 @@ Params = Dict[str, torch.Tensor]
 def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     """Normal draws scaled by 1/sqrt(fan-in), drawn in f32 from the
-    generator ``gen`` on its device, then cast and moved."""
+    generator ``gen`` on its device, then cast and moved. On the ``meta``
+    device it draws nothing (the shape-only build)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     scale = 1.0 / math.sqrt(max(1, in_axis_size))
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * scale
     return w.to(dtype).to(device)
@@ -71,6 +79,10 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype: torch.dtyp
 
 def init_rmsnorm(d: int, dtype: torch.dtype, device: torch.device) -> Params:
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_specs() -> Dict:
+    return {"scale": ("embed",)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, *, eps: float = 1e-6,
@@ -86,6 +98,10 @@ def rmsnorm(params: Params, x: torch.Tensor, *, eps: float = 1e-6,
 def init_layernorm(d: int, dtype: torch.dtype, device: torch.device) -> Params:
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_specs() -> Dict:
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 def layernorm(params: Params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -150,6 +166,14 @@ def init_attention(gen: torch.Generator, cfg: AttnConfig, dtype: torch.dtype,
             bv=torch.zeros((kv * d,), dtype=dtype, device=device),
         )
     return params
+
+
+def attention_specs(cfg: AttnConfig) -> Dict:
+    specs = {"wq": ("embed", "heads"), "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+             "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        specs.update(bq=("heads",), bk=("kv",), bv=("kv",))
+    return specs
 
 
 MaskFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -383,6 +407,10 @@ def init_gated_ffn(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.d
     }
 
 
+def gated_ffn_specs() -> Dict:
+    return {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
+
+
 def gated_ffn_fwd(params: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     act = activation_fn(activation)
     g = act(x @ params["wi_gate"], 1)
@@ -399,6 +427,10 @@ def init_plain_ffn(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.d
         "fc2": dense_init(gen, (d_ff, d_model), d_ff, dtype, device),
         "b2": torch.zeros((d_model,), dtype=dtype, device=device),
     }
+
+
+def plain_ffn_specs() -> Dict:
+    return {"fc1": ("embed", "mlp"), "b1": ("mlp",), "fc2": ("mlp", "embed"), "b2": ("embed",)}
 
 
 def plain_ffn_fwd(params: Params, x: torch.Tensor, activation: str = "gelu") -> torch.Tensor:
@@ -424,6 +456,10 @@ def init_sparse_ffn(rng: np.random.Generator, d_model: int, d_ff: int, sc: Spars
         "wout": t_out.init_values(rng, dtype=dtype, device=device),
     }
     return params, (t_in, t_out), (meta_in, meta_out)
+
+
+def sparse_ffn_specs() -> Dict:
+    return {"win": ("blocks", None, None), "wout": ("blocks", None, None)}
 
 
 def sparse_ffn_fwd(params: Params, topo_in: BlockTopoArrays, topo_out: BlockTopoArrays,
@@ -473,6 +509,10 @@ def sparse_ffn_fwd(params: Params, topo_in: BlockTopoArrays, topo_out: BlockTopo
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype: torch.dtype,
                    device: torch.device) -> Params:
     return {"table": dense_init(gen, (vocab, d_model), d_model, dtype, device)}
+
+
+def embedding_specs() -> Dict:
+    return {"table": ("vocab", "embed")}
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:

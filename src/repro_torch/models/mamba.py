@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.layers import dense_init
 
 __all__ = ["MambaConfig", "init_mamba_block", "mamba_fwd", "mamba_decode_step",
-           "init_mamba_state"]
+           "init_mamba_state", "mamba_specs"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -64,6 +64,15 @@ def init_mamba_block(gen: torch.Generator, cfg: MambaConfig, dtype: torch.dtype,
         "a_log": torch.log(a).to(device),
         "d_skip": torch.ones((di,), dtype=torch.float32, device=device),
         "out_proj": dense_init(gen, (di, d), di, dtype, device),
+    }
+
+
+def mamba_specs() -> Dict:
+    """The logical-axis spec of :func:`init_mamba_block`'s parameters."""
+    return {
+        "in_proj": ("embed", "inner2"), "conv_w": (None, "inner"), "conv_b": ("inner",),
+        "x_proj": ("inner", None), "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+        "a_log": ("inner", None), "d_skip": ("inner",), "out_proj": ("inner", "embed"),
     }
 
 

@@ -47,7 +47,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.all_relu_fused import bias_all_relu
 from repro_torch.kernels.ref import slope_for
 
-__all__ = ["SparseMLPConfig", "SparseMLP", "mlp_forward", "cross_entropy_loss"]
+__all__ = ["SparseMLPConfig", "SparseMLP", "mlp_forward", "cross_entropy_loss", "skip_dropout_draws"]
 
 DeviceLike = Optional[Union[str, torch.device]]
 
@@ -282,6 +282,20 @@ def _dropout_fn(config: SparseMLPConfig, train: bool, rng: Optional[torch.Genera
         return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
 
     return dropout
+
+
+def skip_dropout_draws(config: SparseMLPConfig, rng: Optional[torch.Generator], batch: int,
+                       device) -> None:
+    """Advance ``rng`` as one training forward of ``batch`` rows does: the
+    dropout masks of every hidden layer, the same shapes in the same order
+    ((features, batch) on the element path, (batch, features) else),
+    drawn and dropped."""
+    if not config.dropout > 0:
+        return
+    for l in range(config.n_layers - 1):
+        n = config.layer_dims[l + 1]
+        shape = (n, batch) if config.impl == "element" else (batch, n)
+        torch.rand(shape, generator=rng, device=device)
 
 
 def _layer_product(config: SparseMLPConfig, infer: bool):

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core.all_relu import activation_fn
 from repro_torch.models.layers import dense_init
 
-__all__ = ["MoEConfig", "init_moe", "moe_fwd"]
+__all__ = ["MoEConfig", "init_moe", "moe_fwd", "moe_specs"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,6 +54,16 @@ def init_moe(gen: torch.Generator, cfg: MoEConfig, dtype: torch.dtype,
         "wi_gate": dense_init(gen, (e, d, f), d, dtype, device),
         "wi_up": dense_init(gen, (e, d, f), d, dtype, device),
         "wo": dense_init(gen, (e, f, d), f, dtype, device),
+    }
+
+
+def moe_specs() -> Dict:
+    """The logical-axis spec of :func:`init_moe`'s parameters."""
+    return {
+        "router": ("embed", None),
+        "wi_gate": ("experts", "embed", "expert_mlp"),
+        "wi_up": ("experts", "embed", "expert_mlp"),
+        "wo": ("experts", "expert_mlp", "embed"),
     }
 
 

@@ -43,8 +43,12 @@ positions, and a recurrent block's state (``models.mamba``,
 block keeps no state in ``train`` or ``prefill`` mode: ``prefill`` returns
 none for it.
 
-The reference's ``abstract=True`` (the dry run's shape-only build) is not
-offered: it comes with the pod machinery, ROADMAP Queue 1 item 9.
+``model.specs`` holds every parameter's logical-axis names, the
+reference's tree and tuples (``launch.sharding`` maps them onto a mesh),
+and ``cache_specs()`` the decode caches'. ``abstract=True`` is the dry
+run's shape-only build: the parameters on the ``meta`` device, no dense
+draws; the sparse FFN's host topologies (and the numpy value draws that
+the topologies' stream runs through) are drawn as in the reference.
 """
 from __future__ import annotations
 
@@ -61,9 +65,11 @@ from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import scalar_in
 from repro_torch.models import layers as L
-from repro_torch.models.griffin import RGLRUConfig, init_rglru_block, init_rglru_state, rglru_fwd
-from repro_torch.models.mamba import MambaConfig, init_mamba_block, init_mamba_state, mamba_fwd
-from repro_torch.models.moe import MoEConfig, init_moe, moe_fwd
+from repro_torch.models.griffin import (RGLRUConfig, init_rglru_block, init_rglru_state,
+                                        rglru_fwd, rglru_specs)
+from repro_torch.models.mamba import (MambaConfig, init_mamba_block, init_mamba_state,
+                                      mamba_fwd, mamba_specs)
+from repro_torch.models.moe import MoEConfig, init_moe, moe_fwd, moe_specs
 from repro_torch.tree import tree_flatten, tree_map
 
 __all__ = ["ModelConfig", "PatternLM", "chunked_softmax_xent"]
@@ -183,6 +189,50 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+
+
+def _block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
+    """The logical-axis specs of :func:`_init_block`'s parameters."""
+    norm = L.rmsnorm_specs if cfg.norm == "rms" else L.layernorm_specs
+    specs: Dict[str, Tree] = {"ln1": norm()}
+    if kind in ("global", "local"):
+        specs["attn"] = L.attention_specs(cfg.attn_cfg(kind))
+        if cfg.post_norms:
+            specs["post_attn"] = norm()
+        specs["ln2"] = norm()
+        if cfg.post_norms:
+            specs["post_ffn"] = norm()
+    elif kind == "mamba":
+        specs["mamba"] = mamba_specs()
+        return specs
+    elif kind == "rglru":
+        specs["rglru"] = rglru_specs()
+        specs["ln2"] = norm()
+    else:
+        raise ValueError(kind)
+    specs["ffn"] = {"gated": L.gated_ffn_specs, "moe": moe_specs,
+                    "sparse": L.sparse_ffn_specs}[cfg.ffn]()
+    return specs
+
+
+def model_specs(cfg: ModelConfig) -> Dict[str, Tree]:
+    """``PatternLM.specs`` of ``cfg``: the reference's tree of logical-axis
+    tuples, a stacked slot's with ``"stack"`` leading."""
+    norm = L.rmsnorm_specs if cfg.norm == "rms" else L.layernorm_specs
+    specs: Dict[str, Tree] = {"embed": L.embedding_specs(), "final_norm": norm()}
+    if not cfg.tied_embeddings:
+        specs["unembed"] = ("embed", "vocab")
+    specs["stack"] = {
+        f"s{s_idx}_{kind}": tree_map(lambda s: ("stack",) + s, _block_specs(cfg, kind),
+                                     is_leaf=_is_spec)
+        for s_idx, kind in enumerate(cfg.pattern) if cfg.n_rep}
+    specs["rest"] = [_block_specs(cfg, cfg.pattern[i % len(cfg.pattern)])
+                     for i in range(cfg.remainder)]
+    return specs
+
+
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 np_rng: np.random.Generator, device: torch.device):
     """Returns (params, topos | None, metas | None)."""
@@ -282,14 +332,23 @@ class PatternLM:
     the forward. ``device=None`` means the card; without one it raises
     (pass ``device="cpu"`` for the plain versions). ``sparse_impl`` is the
     sparse FFN's products: ``"kernel"`` (kernels C, D and E) or ``"xla"``
-    (the reference's plain autograd ``bsmm_xla``, an oracle)."""
+    (the reference's plain autograd ``bsmm_xla``, an oracle).
+
+    The dense weights draw from a CPU generator, the same weights on every
+    device; ``draw_on_device=True`` draws them from a generator on
+    ``device`` instead (other weights than the CPU's, for a seed: a 7 B
+    model's draws on the card take milliseconds, where the CPU's take a
+    minute)."""
 
     sparse_impl = "kernel"
 
-    def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None):
+    def __init__(self, cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                 abstract: bool = False, draw_on_device: bool = False):
         self.cfg = cfg
         self._seed = seed
-        self.device = resolve_device(device)
+        self._draw_on_device = draw_on_device
+        self.device = torch.device("meta") if abstract else resolve_device(device)
+        self.specs = model_specs(cfg)
         self.topologies: Dict[str, List] = {}
         self.block_metas: Optional[Tuple[BlockMeta, BlockMeta]] = None
         self._views = None
@@ -303,9 +362,11 @@ class PatternLM:
         ``np.random.default_rng(seed)`` per layer in that order (t_in,
         t_out, then their values), so a seed gives the reference's
         topologies and values; the dense weights draw from a CPU
-        ``torch.Generator`` seeded alike (not jax.random's draws)."""
+        ``torch.Generator`` seeded alike (not jax.random's draws), or one
+        on the model's device with ``draw_on_device``."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator().manual_seed(self._seed)
+        on_device = self._draw_on_device and dev.type != "meta"
+        gen = torch.Generator(device=dev if on_device else "cpu").manual_seed(self._seed)
         np_rng = np.random.default_rng(self._seed)
         dtype = getattr(torch, cfg.dtype)
         self.topologies = {}
@@ -526,6 +587,29 @@ class PatternLM:
             return c
 
         stack = {f"s{s_idx}_{kind}": one(kind, (cfg.n_rep,))
+                 for s_idx, kind in enumerate(cfg.pattern) if cfg.n_rep}
+        rest = [one(cfg.pattern[i % len(cfg.pattern)]) for i in range(cfg.remainder)]
+        return {"stack": stack, "rest": rest}
+
+    def cache_specs(self) -> Dict[str, Tree]:
+        """Logical axes of :meth:`init_caches`'s arrays (the dry run's
+        shardings), the reference's."""
+        cfg = self.cfg
+
+        def one(kind):
+            if kind in ("global", "local"):
+                c = {"k": ("batch", "cache_seq", "kv_heads", None),
+                     "v": ("batch", "cache_seq", "kv_heads", None)}
+                if kind == "local" and cfg.decode_window_cache:
+                    c["pos"] = (None,)
+                return c
+            if kind == "mamba":
+                return {"ssm": ("batch", "inner", None), "conv": ("batch", None, "inner")}
+            if kind == "rglru":
+                return {"rnn": ("batch", "inner"), "conv": ("batch", None, "inner")}
+            raise ValueError(kind)
+
+        stack = {f"s{s_idx}_{kind}": tree_map(lambda s: (None,) + s, one(kind), is_leaf=_is_spec)
                  for s_idx, kind in enumerate(cfg.pattern) if cfg.n_rep}
         rest = [one(cfg.pattern[i % len(cfg.pattern)]) for i in range(cfg.remainder)]
         return {"stack": stack, "rest": rest}

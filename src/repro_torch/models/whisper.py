@@ -79,15 +79,39 @@ def _unstack(stacked, n: int):
 class WhisperModel:
     """Builds the parameters and exposes the encoder, the teacher-forced
     decoder and the decode step. ``device=None`` means the card; without
-    one it raises (pass ``device="cpu"`` for the CPU)."""
+    one it raises (pass ``device="cpu"`` for the CPU). ``specs`` holds every
+    parameter's logical-axis names (the reference's); ``abstract=True``
+    builds on the ``meta`` device, drawing nothing (the dry run)."""
 
-    def __init__(self, cfg: WhisperConfig, seed: int = 0, device=None):
+    def __init__(self, cfg: WhisperConfig, seed: int = 0, device=None, abstract: bool = False):
         if cfg.remat not in ("block", "none"):
             raise ValueError(f"remat must be 'block' or 'none', not {cfg.remat!r}")
         self.cfg = cfg
         self._seed = seed
-        self.device = resolve_device(device)
+        self.device = torch.device("meta") if abstract else resolve_device(device)
+        self.specs = self._specs()
         self.params = self._build()
+
+    def _specs(self) -> Dict:
+        """Every parameter's logical-axis names, the reference's tree."""
+        acfg = self.cfg.attn_cfg()
+        ln = L.layernorm_specs
+
+        def stack(tree):
+            return tree_map(lambda s: ("stack",) + s, tree,
+                            is_leaf=lambda x: isinstance(x, tuple))
+
+        return {
+            "enc": stack({"ln1": ln(), "attn": L.attention_specs(acfg), "ln2": ln(),
+                          "ffn": L.plain_ffn_specs()}),
+            "dec": stack({"ln1": ln(), "self_attn": L.attention_specs(acfg), "ln2": ln(),
+                          "cross_attn": L.attention_specs(acfg), "ln3": ln(),
+                          "ffn": L.plain_ffn_specs()}),
+            "enc_final_ln": ln(),
+            "dec_final_ln": ln(),
+            "tok_embed": ("vocab", "embed"),
+            "pos_embed": (None, "embed"),
+        }
 
     def _build(self) -> Dict:
         """The reference's tree and build order (per encoder layer its
@@ -96,7 +120,8 @@ class WhisperModel:
         from one generator on the model's device."""
         cfg, dev = self.cfg, self.device
         dtype = getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=dev).manual_seed(self._seed)
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+        gen.manual_seed(self._seed)
         acfg = cfg.attn_cfg()
 
         def ln():

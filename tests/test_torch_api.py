@@ -10,6 +10,7 @@ reference's do, at rtol = atol = 1e-5 (f32, the same draws).
 """
 import dataclasses
 import importlib
+import os
 from pathlib import Path
 
 import numpy as np
@@ -52,8 +53,16 @@ def _twins():
 
 def _pair(name):
     suffix = f".{name}" if name else ""
-    return (importlib.import_module(f"repro{suffix}"),
-            importlib.import_module(f"repro_torch{suffix}"))
+    # repro.launch.dryrun sets XLA_FLAGS (512 host devices) at its import,
+    # for its own process: start the backend first, and keep the flags
+    flags = os.environ.get("XLA_FLAGS")
+    jax.devices()
+    ref = importlib.import_module(f"repro{suffix}")
+    if flags is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = flags
+    return ref, importlib.import_module(f"repro_torch{suffix}")
 
 
 @pytest.mark.parametrize("name", _twins())

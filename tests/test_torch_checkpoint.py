@@ -406,11 +406,15 @@ def test_restore_onto_a_device_gives_tensors(tmp_path):
     _assert_tree_equal(params, t)
 
 
-def test_shardings_are_refused(tmp_path):
-    mgr = CheckpointManager(str(tmp_path), async_write=False)
-    mgr.save(1, {"w": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mgr.restore(like={"w": torch.zeros(1)}, shardings={"w": None})
+def test_restore_onto_shardings_of_a_two_rank_mesh(tmp_path):
+    """``restore(shardings=)`` on a 2 x 1 gloo mesh (spawned ranks): every
+    leaf of the SMOKE Qwen1.5 comes back a DTensor whose local shard is the
+    rank's slice of the saved leaf, on both ranks."""
+    import torch_dist_workers as workers
+
+    res = workers.spawn(workers.restore_onto_mesh, 2, str(tmp_path))
+    assert res["ok"] == [1, 1] and res["step"] == 3
+    assert 0 < res["sharded_leaves"] < res["n_leaves"]
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,10 @@ The contract auditor (``repro_torch.analysis``) on the card: a dropped
 donation, an allocation over its ceiling and a host sync each fail their
 check by name (the sync with its stack), the designed programs pass, and
 the eight registered programs audit clean, each launching its kernels.
+The pod machinery on a one-rank ``nccl`` group started in the process: a
+1 x 1 mesh on the card and an all-gather over its ``data`` axis, WASAP's
+``shard_map`` phase-1 epoch bit-equal to ``vmap`` with the same launches,
+and ``restore(shardings=)`` onto DTensors on the card.
 """
 import dataclasses
 
@@ -2466,3 +2470,112 @@ def test_registered_programs_audit_clean_on_card(cuda, capsys):
     with expect_compiles(kbuild.compile_counts, 0):
         fn(*prog.args)
     assert kbuild.compile_counts()["coo_matmul_T"] >= 1
+
+
+# -- the pod machinery on the card: a one-rank nccl group ---------------------
+
+
+def _nccl_group(cuda):
+    """This process's one-rank ``nccl`` group (a group of another backend,
+    left by an earlier test, is torn down first)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ensure_process_group
+
+    if dist.is_initialized() and dist.get_backend() != "nccl":
+        dist.destroy_process_group()
+    assert ensure_process_group(cuda) == 1
+    assert dist.get_backend() == "nccl"
+
+
+def test_one_rank_nccl_mesh_on_card(cuda):
+    """``ensure_process_group`` starts a one-rank ``nccl`` group in the
+    process (no launcher, no port); the 1 x 1 debug mesh lies on the card,
+    and an all-gather over its ``data`` axis returns the rank's rows."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    _nccl_group(cuda)
+    mesh = make_debug_mesh(1, 1)
+    assert mesh.device_type == "cuda" and mesh.mesh_dim_names == ("data", "model")
+    x = torch.arange(6.0, device=cuda).view(2, 3)
+    out = torch.empty_like(x)
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, x, group=mesh.get_group("data"))
+    assert torch.equal(out, x)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        make_debug_mesh(2, 1)
+
+
+def test_shard_map_phase1_epoch_on_card_is_bit_equal_to_vmap(cuda):
+    """The phase-1 epoch of the full-width element model with
+    ``worker_axis="shard_map"`` on the card's worker mesh (data = 1) against
+    ``vmap``: params, velocity and losses bit-equal, and the same launches
+    (A with its epilogue, F)."""
+    from repro_torch.core.wasap import make_phase1_epoch_fn
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    _nccl_group(cuda)
+    mesh = make_worker_mesh(3, device=cuda)
+    runs = []
+    for axis in ("vmap", "shard_map"):
+        cfg, opt, model, (x, y, idx, lrs, valid) = _phase1_inputs(cuda)
+        epoch = make_phase1_epoch_fn(cfg, opt, n_workers=3, worker_axis=axis,
+                                     mesh=mesh if axis == "shard_map" else None)
+        before = _launches()
+        p, s, losses = epoch(model.params(), opt.init(model.params()), model.topo_arrays(), x, y,
+                             idx, lrs, valid, torch.Generator(device=cuda).manual_seed(0))
+        torch.cuda.synchronize()
+        runs.append(([*p["values"], *p["biases"], *s.velocity["values"], *s.velocity["biases"],
+                      losses], tuple(a - b for a, b in zip(_launches(), before))))
+    (leaves_v, launches_v), (leaves_s, launches_s) = runs
+    assert launches_s == launches_v and min(launches_s[0], launches_s[1], launches_s[3]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(leaves_v, leaves_s))
+
+
+def test_restore_onto_cuda_dtensors(cuda, tmp_path):
+    """``restore(shardings=)`` onto the card's 1 x 1 mesh: every leaf a
+    DTensor on the card holding the saved leaf whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import default_rules, shape_aware_shardings
+    from repro_torch.models.transformer import PatternLM
+    from repro_torch.tree import tree_leaves
+
+    _nccl_group(cuda)
+    mesh = make_debug_mesh(1, 1)
+    model = PatternLM(configs.get_spec("qwen1.5-0.5b").smoke, seed=0, device="cpu")
+    layouts = shape_aware_shardings(default_rules(mesh, batch_size=2), model.specs, model.params)
+    mgr = CheckpointManager(str(tmp_path), async_write=False)
+    mgr.save(1, model.params)
+    params, _, _, _ = mgr.restore(step=1, like=model.params, shardings=layouts)
+    for got, want in zip(tree_leaves(params), tree_leaves(model.params)):
+        assert isinstance(got, DTensor) and got.to_local().is_cuda
+        assert torch.equal(got.to_local().cpu(), want)
+
+
+def test_draw_on_device_draws_the_dense_weights_on_the_card(cuda):
+    """``PatternLM(draw_on_device=True)`` on the card: its dense weights come
+    from the card's generator (other bits than the CPU's, of the same
+    shapes, dtypes and scale), the sparse FFN's numpy draws the CPU's bits."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import PatternLM
+    from repro_torch.tree import tree_flatten_with_names
+
+    cfg = dataclasses.replace(configs.get_spec("qwen1.5-0.5b").smoke, ffn="sparse",
+                              sparse_block=16, sparse_density=0.5, d_ff=64)
+    host = tree_flatten_with_names(PatternLM(cfg, seed=0, device="cpu").params)[0]
+    card = tree_flatten_with_names(PatternLM(cfg, seed=0, device=cuda,
+                                             draw_on_device=True).params)[0]
+    assert [(n, a.shape, a.dtype) for n, a in card] == [(n, a.shape, a.dtype) for n, a in host]
+    for (name, got), (_, want) in zip(card, host):
+        got = got.cpu()
+        assert got.device.type == "cpu" and bool(torch.isfinite(got).all()), name
+        if "ffn" in name or want.std() == 0:  # the numpy draws, and the norms' ones
+            assert torch.equal(got, want), name
+        else:
+            assert not torch.equal(got, want), name
+            assert abs(float(got.float().std() / want.float().std()) - 1) < 0.1, name

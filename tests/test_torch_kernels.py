@@ -81,12 +81,31 @@ def test_srelu_matches_reference():
 # ---------------------------------------------------------------------------
 
 
+def _lazy(shape):
+    """A tensor on a device that is neither the card, the CPU, ``meta`` nor
+    fake: the TorchScript lazy backend, which needs no hardware."""
+    import torch._lazy.ts_backend
+
+    try:
+        torch._lazy.ts_backend.init()
+    except RuntimeError as e:  # it registers once a process
+        if "multiple backend fallbacks" not in str(e):
+            raise
+    return torch.empty(shape, device="lazy")
+
+
 def test_bias_all_relu_rejects_other_devices():
+    """A wrapper raises for a device it does not take. A ``meta`` tensor
+    takes the plain version (the dry run's route) and launches nothing."""
     with pytest.raises(ValueError, match="cuda or cpu"):
-        all_relu_fused.bias_all_relu(
-            torch.empty((2, 4), device="meta"), torch.empty((4,), device="meta"),
-            alpha=0.5, layer_index=1,
-        )
+        all_relu_fused.bias_all_relu(_lazy((2, 4)), _lazy((4,)), alpha=0.5, layer_index=1)
+    before = all_relu_fused.bias_all_relu.launches
+    y = all_relu_fused.bias_all_relu(
+        torch.empty((2, 4), device="meta"), torch.empty((4,), device="meta"),
+        alpha=0.5, layer_index=1,
+    )
+    assert y.device.type == "meta" and y.shape == (2, 4)
+    assert all_relu_fused.bias_all_relu.launches == before
 
 
 def test_check_tensor_rejects_what_kernels_do_not_take():

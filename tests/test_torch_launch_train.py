@@ -11,8 +11,11 @@ CPU, on the SMOKE Qwen1.5 config.
 * **The numbers.** A fault-free run's per-step losses against the
   reference's ``make_train_step``, jitted without a mesh, from the same
   weights on the same ``synthetic_batch`` draws, at rtol = atol = 1e-5.
-* **The refusals.** A mesh larger than 1 x 1 (the pod machinery, ROADMAP
-  Queue 1 item 9) and the encoder-decoder.
+* **The meshes.** ``run_training`` on (2, 1), (1, 2) and (2, 2) ``gloo``
+  meshes of spawned ranks (``tests/torch_dist_workers.py``) gives the
+  1 x 1 run's losses on the same global batch at 1e-5, each parameter
+  stored as its rank's shard of the reference's layout.
+* **The refusal.** The encoder-decoder.
 """
 import dataclasses
 import os
@@ -35,6 +38,8 @@ from repro_torch.interop import lm_from_numpy  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.runtime.faultinject import TransientFaultInjector, flip_bytes  # noqa: E402
 from repro_torch.runtime.supervisor import StragglerPolicy  # noqa: E402
+
+import torch_dist_workers as workers  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -62,11 +67,10 @@ def test_driver_config_is_the_reference_s_plus_the_device():
     want = {f.name: f.default for f in dataclasses.fields(jtrain.DriverConfig)}
     assert set(ours) - set(want) == {"device"}
     assert set(want) <= set(ours)
-    # one device: the port's default mesh is 1 x 1 (the reference's 2 x 1)
-    assert ours["mesh_data"] == 1 and want["mesh_data"] == 2
-    assert {k: v for k, v in ours.items() if k not in ("device", "mesh_data", "policy",
-                                                       "clock")} == {
-        k: v for k, v in want.items() if k not in ("mesh_data", "policy", "clock")}
+    # the reference's 2 x 1 default mesh (one card passes mesh_data=1)
+    assert ours["mesh_data"] == 2 and want["mesh_data"] == 2
+    assert {k: v for k, v in ours.items() if k not in ("device", "policy", "clock")} == {
+        k: v for k, v in want.items() if k not in ("policy", "clock")}
 
 
 def test_synthetic_batch_draws_the_reference_s_numbers():
@@ -161,10 +165,25 @@ def test_losses_match_the_reference_train_step(tmp_path, monkeypatch):
     assert want[-1] < want[0]
 
 
+@pytest.fixture(scope="module")
+def one_by_one(tmp_path_factory):
+    """The 1 x 1 run on one gloo rank, global batch 4."""
+    return workers.spawn(workers.drive, 1, (1, 1), 4, str(tmp_path_factory.mktemp("m11")))
+
+
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)])
-def test_a_mesh_beyond_one_device_is_refused(tmp_path, mesh):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.run_training(_driver_config(tmp_path, mesh_data=mesh[0], mesh_model=mesh[1]))
+def test_run_training_on_a_gloo_mesh(tmp_path, mesh, one_by_one):
+    """The same global batch of 4 (per replica 4 / data) on a mesh of data x
+    model gloo ranks: the 1 x 1 run's losses at 1e-5, and every parameter a
+    DTensor holding its rank's shard of the reference's shape-aware layout
+    (the embedding table's vocab on ``model``, its embed on ``data``)."""
+    res = workers.spawn(workers.drive, mesh[0] * mesh[1], mesh, 4 // mesh[0], str(tmp_path))
+    np.testing.assert_allclose(res["loss"], one_by_one["loss"], **TOL)
+    local, full, placements = res["leaves"]["embed__table"]
+    assert full == one_by_one["leaves"]["embed__table"][1] == [512, 64]
+    assert local == [512 // mesh[1], 64 // mesh[0]]
+    for name, (local, full, _) in res["leaves"].items():
+        assert int(np.prod(local)) * mesh[0] * mesh[1] >= int(np.prod(full)), name
 
 
 def test_the_encoder_decoder_is_refused(tmp_path):
@@ -178,7 +197,7 @@ def test_cli_runs_on_the_cpu(tmp_path):
     env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--steps", "3",
-         "--seq", "8", "--save-every", "2", "--ckpt-dir", str(tmp_path)],
+         "--seq", "8", "--save-every", "2", "--ckpt-dir", str(tmp_path), "--mesh-data", "1"],
         env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "[train] done: 3 steps" in res.stdout

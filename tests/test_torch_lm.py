@@ -643,15 +643,42 @@ def test_unported_blocks_are_refused(arch, what):
             SparseInferenceEngine(model, device="cpu")
 
 
-def test_whisper_and_abstract_are_refused():
+def test_draw_on_device_draws_from_the_models_device():
+    """``draw_on_device`` draws the dense weights from a generator on the
+    model's device: on the CPU that is the default's own generator, so
+    every leaf is the same bits, the sparse FFN's numpy draws included."""
+    a = PatternLM(LM_CFG, seed=0, device="cpu")
+    b = PatternLM(LM_CFG, seed=0, device="cpu", draw_on_device=True)
+    got, want = tree_flatten_with_names(b.params)[0], tree_flatten_with_names(a.params)[0]
+    assert [n for n, _ in got] == [n for n, _ in want]
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(got, want))
+
+
+def test_whisper_and_the_abstract_build():
     """Whisper is ported (``tests/test_torch_whisper.py``): its spec is the
-    reference's and its step builders take it. The shape-only build is
-    still refused (Queue 1, item 9)."""
+    reference's and its step builders take it. The shape-only build
+    (``abstract=True``) puts every parameter on the ``meta`` device with the
+    concrete build's shapes and dtypes, draws the sparse FFN's topologies as
+    the reference does, and carries the reference's logical-axis specs."""
     spec = configs.get_spec("whisper-medium")
     assert type(spec.config).__name__ == "WhisperConfig" and spec.family == "audio"
     from repro_torch.models.whisper import WhisperModel
 
     prefill = make_prefill_step(WhisperModel(spec.smoke, seed=0, device="cpu"))
     assert prefill.__name__ == "prefill_w"
-    with pytest.raises(TypeError, match="abstract"):  # no shape-only build (Queue 1, item 9)
-        PatternLM(LM_CFG, seed=0, abstract=True, device="cpu")
+    shaped = PatternLM(LM_CFG, seed=0, abstract=True)
+    concrete = PatternLM(LM_CFG, seed=0, device="cpu")
+    leaves, built = tree_flatten_with_names(shaped.params)[0], tree_flatten_with_names(
+        concrete.params)[0]
+    assert [(n, a.shape, a.dtype) for n, a in leaves] == [(n, a.shape, a.dtype) for n, a in built]
+    assert all(a.device.type == "meta" for _, a in leaves)
+    for slot, topos in concrete.topologies.items():
+        for (a_in, a_out), (b_in, b_out) in zip(shaped.topologies[slot], topos):
+            np.testing.assert_array_equal(a_in.rows, b_in.rows)
+            np.testing.assert_array_equal(a_out.cols, b_out.cols)
+    ref = JPatternLM(JLM_CFG, seed=0, abstract=True)
+    is_spec = lambda x: isinstance(x, tuple) or x is None  # noqa: E731
+    assert jax.tree.leaves(ref.specs, is_leaf=is_spec) == jax.tree.leaves(
+        shaped.specs, is_leaf=is_spec)
+    assert jax.tree.leaves(ref.cache_specs(), is_leaf=is_spec) == jax.tree.leaves(
+        shaped.cache_specs(), is_leaf=is_spec)

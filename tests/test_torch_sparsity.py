@@ -211,10 +211,27 @@ def test_checked_offsets_are_the_column_offsets(seed):
 
 
 def test_coo_matmul_T_rejects_other_devices():
-    meta = torch.empty((4, 2), device="meta")
+    """Kernel A's wrapper raises for a device it does not take (the
+    TorchScript lazy backend, which needs no hardware). A ``meta`` tensor
+    takes the plain version (the dry run's route) and launches nothing."""
+    import torch._lazy.ts_backend
+
+    try:
+        torch._lazy.ts_backend.init()
+    except RuntimeError as e:  # it registers once a process
+        if "multiple backend fallbacks" not in str(e):
+            raise
+    lazy = torch.empty((4, 2), device="lazy")
     empty = torch.empty((0,), dtype=torch.int32)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tsp.coo_matmul_T(meta, torch.empty((0,)), empty, empty, 3)
+        tsp.coo_matmul_T(lazy, torch.empty((0,), device="lazy"), empty.to("lazy"),
+                         empty.to("lazy"), 3)
+    meta = torch.empty((4, 2), device="meta")
+    before = tsp.coo_matmul_T.launches
+    y = tsp.coo_matmul_T(meta, torch.empty((0,), device="meta"), empty.to("meta"),
+                         empty.to("meta"), 3)
+    assert y.device.type == "meta" and y.shape == (3, 2)
+    assert tsp.coo_matmul_T.launches == before
 
 
 @pytest.mark.parametrize("with_dbias", [False, True])

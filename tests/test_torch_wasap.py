@@ -572,15 +572,36 @@ def _trainer(**wc):
                                                        phase2_epochs=0, **wc))
 
 
-@pytest.mark.parametrize("what,make,item", [
-    ("shard_map trainer", lambda: _trainer(worker_axis="shard_map"), "item 9"),
-    ("shard_map epoch", lambda: tw.make_phase1_epoch_fn(
-        _trainer().model.config, tsgd.MomentumSGD(), n_workers=2, worker_axis="shard_map"),
-     "item 9"),
-])
-def test_refusals_name_their_roadmap_item(what, make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+def _phase1_run(trainer):
+    trainer.run()
+    return trainer.history, tree_leaves(trainer.model.params())
+
+
+def test_shard_map_trainer_is_bit_equal_to_vmap():
+    """``WASAPTrainer(worker_axis="shard_map")`` on this process's worker
+    mesh (one gloo rank: data = gcd(2, 1) = 1) runs the phase-1 epochs
+    bit-equal to ``vmap``: the same losses, accuracies and weights."""
+    hist_v, leaves_v = _phase1_run(_trainer())
+    t = _trainer(worker_axis="shard_map")
+    assert t._mesh is not None and t._mesh.size(0) == 1
+    hist_s, leaves_s = _phase1_run(t)
+    np.testing.assert_array_equal(hist_s["train_loss"], hist_v["train_loss"])
+    np.testing.assert_array_equal(hist_s["test_acc"], hist_v["test_acc"])
+    assert all(torch.equal(a, b) for a, b in zip(leaves_v, leaves_s))
+
+
+def test_shard_map_epoch_is_bit_equal_to_vmap():
+    """The phase-1 epoch itself on the 2 x 1 worker mesh of two spawned
+    gloo ranks, 2 workers (one a rank), dropout 0.1: every param, velocity,
+    loss and the generator's state bit-equal to ``vmap`` on both ranks. A
+    mesh is required, and its data axis must divide the workers."""
+    import torch_dist_workers as workers
+
+    assert workers.spawn(workers.wasap_shard_map, 2, 2, 0.1) == {
+        "equal_on_every_rank": [1, 1], "mesh_data": 2}
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tw.make_phase1_epoch_fn(_trainer().model.config, tsgd.MomentumSGD(), n_workers=2,
+                                worker_axis="shard_map")
 
 
 @pytest.mark.parametrize("donate", [(0, 1), (0,), (1,), ()])
