@@ -2,7 +2,8 @@
 """Drive the port's SET-MLP serving and training paths (block, element and
 out-of-core, and the paper's masked and dense baselines), its bf16
 language model's serving (also compacted at deployment) and training paths,
-the RG-LRU, Mamba-1 and MoE models of its architecture zoo, Whisper-medium,
+the RG-LRU, Mamba-1 and MoE models of its architecture zoo, qwen3-moe-30b-a3b
+served at full width and depth, Whisper-medium,
 the observability layer, and the runtime (supervised recovery, the elastic
 training driver, the serving gateway) on one NVIDIA card and check them,
 and audit every registered hot-path program's contract there.
@@ -131,7 +132,9 @@ Phases, one line each (any failure exits non-zero):
                    Qwen1.5-0.5B at full width and depth (24 layers, d_model
                    1024, vocab 151,936) with the SET sparse FFN (128 x 128
                    tiles, epsilon 64, All-ReLU alpha 0.6) in bf16, random
-                   weights from the seed. Kernel C's bf16 instance against its
+                   weights from the seed, the dense ones drawn on the card
+                   (here and in lm_compact, lm_train and obs; the 2-layer
+                   twin below on the host). Kernel C's bf16 instance against its
                    plain version (1e-2) and ``ref.bsmm_ref`` (5e-2) on the
                    reference's kernel sweep and the full-width W_in (22 tiles)
                    and W_out (15 tiles) at 1 row and the main path's 8, 64,
@@ -244,7 +247,38 @@ Phases, one line each (any failure exits non-zero):
                    step's median, busy, idle share and launches, the train
                    step's median, the allocator's peak, the draw's seconds,
                    the card's name and power limit;
-18. whisper       — Whisper-medium (``models/whisper.py``) at full width and
+18. lm_moe        — qwen3-moe-30b-a3b's published config unchanged (48
+                   layers, 128 experts, top-8, expert d_ff 768, vocab
+                   151,936, untied, bf16) drawn on the card from the seed on
+                   an emptied allocator: 30,532,110,336 parameters in
+                   61,089,386,496 B, the draw's allocator peak within 2 GB
+                   of that (``layers.draw_stacked``); served by the engine
+                   at phase lm's config (8 slots, max_len 256, buckets 16,
+                   32, 64, prefill_batch 4): 8 seeded prompts prefilled in
+                   two calls, then 8 steps of all slots, each step's logits
+                   against every slot decoded alone (a batch-1 decode on a
+                   copy of its cache rows, the reference's vmapped step):
+                   the argmax kept where the top-2 margin exceeds 0.1, the
+                   elementwise gap measured (bf16 rounding at 1 row against
+                   8 rows flips the router's ties at 48 layers); at step i
+                   slot i's logits bit-equal to the slot decoded from its
+                   own rows in a batch of 8 copies (a group each); the
+                   first layer's MoE rows of a step dispatched one group a
+                   slot (all 8 x 8 entries kept) and in one group (some
+                   dropped); the full-depth decode
+                   program's host syncs (none, as audit counts them), the
+                   program under ``set_sync_debug_mode("error")``, and its
+                   device events (a device-only capture: no device-to-host
+                   copy; a ``decode_syncs`` line); a warm-up trace and 16
+                   Poisson requests through ``ContinuousBatcher``, all
+                   completed, no build after warm-up, no hand kernel
+                   launched. An ``lm_moe_timing`` line: tokens/s, latency
+                   p50/p95, TTFT p50, the decode step's median of 30 and
+                   quartiles, busy, idle share and launches (a device-only
+                   profile of 3 steps opened with 1,024 spins), a prefill
+                   per bucket (median of 5), the allocator's peaks, each
+                   part's seconds, the card's name and power limit;
+19. whisper       — Whisper-medium (``models/whisper.py``) at full width and
                    depth, bf16, 792,024,064 parameters drawn on the card from
                    the seed: 3 steps of ``launch.steps.make_train_step`` at
                    batch 4 (1,500 seeded frame embeddings, 448 tokens of the
@@ -263,7 +297,7 @@ Phases, one line each (any failure exits non-zero):
                    encode's, a decode step's median with device busy, idle
                    share and launches (``torch.profiler``), the allocator's
                    peak, the draw's seconds, the card's name and power limit;
-19. obs           — the observability layer (``repro_torch.obs``): (a) the
+20. obs           — the observability layer (``repro_torch.obs``): (a) the
                    full-width element model, the element_train phase's data
                    and settings with device SET, 3 epochs with
                    ``TrainerConfig(probe=True)`` under ``obs.trace_to`` and
@@ -291,7 +325,7 @@ Phases, one line each (any failure exits non-zero):
                    and traced + probed, in an ``obs_timing`` line with the
                    card's name and power limit (the reference's budget,
                    < 2 %, is reported, not enforced);
-20. supervisor    — ``runtime.supervisor.run_supervised`` of the element_train
+21. supervisor    — ``runtime.supervisor.run_supervised`` of the element_train
                    cell (the full-width element model, its data and config,
                    device SET; kernels A with its epilogue and mask, F with
                    G's, B): bare and supervised runs interleaved (the
@@ -310,7 +344,7 @@ Phases, one line each (any failure exits non-zero):
                    together, the killed two resumed together, each resumed
                    history equal to the control's; a ``supervisor_timing``
                    line;
-21. launch_train  — ``launch.train.run_training`` on Qwen1.5-0.5B at full width
+22. launch_train  — ``launch.train.run_training`` on Qwen1.5-0.5B at full width
                    and depth with the paper's sparse FFN, bf16 (270,918,656
                    parameters, ``reduced=False``): 8 steps of 8 x 256 tokens
                    on a 1 x 1 mesh of the card (the parameters DTensors), 2
@@ -323,7 +357,7 @@ Phases, one line each (any failure exits non-zero):
                    the newest checkpoint resumes from the one before; a
                    ``launch_train_timing`` line (step times, save and
                    restore seconds, checkpoint bytes, the peak);
-22. gateway       — ``serve.gateway.ServingGateway`` over phase lm's engine
+23. gateway       — ``serve.gateway.ServingGateway`` over phase lm's engine
                    (kernel C bf16, All-ReLU in its store): the reference's
                    chaos acceptance run (tests/test_serve.py), its deadline,
                    backoff and cooldown scaled by the card's decode step over
@@ -334,7 +368,7 @@ Phases, one line each (any failure exits non-zero):
                    trips and closes, brownout seen and healed, goodput ratio
                    >= 0.8 (one retry of the pair), C launched 48 times for
                    every engine call that ran; a ``gateway_timing`` line;
-23. pod           — the pod machinery (``launch.mesh``, ``sharding``, ``dryrun``)
+24. pod           — the pod machinery (``launch.mesh``, ``sharding``, ``dryrun``)
                    on a one-rank ``nccl`` group started in the process and a
                    1 x 1 mesh on the card: WASAP phase 1 of the wasap
                    phase's cell (3072-4000-1000-4000-10, 4 workers, H = 4,
@@ -356,7 +390,7 @@ Phases, one line each (any failure exits non-zero):
                    (a rank's bytes, its flops beside ``analytic``'s, the
                    collectives); a ``pod`` line with the card's name and
                    power limit;
-24. audit         — the contract auditor (``repro_torch.analysis``) on the
+25. audit         — the contract auditor (``repro_torch.analysis``) on the
                    card: ``python -m repro_torch.analysis``'s audit run in
                    process over the eight registered programs (record, run
                    under the sync watch, profiler census, donated build) and
@@ -378,7 +412,7 @@ Phases, one line each (any failure exits non-zero):
                    host sync or device-to-host copy in either's steady
                    call. Before wasap: late
                    profiler sessions lose device events;
-25. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
+26. wasap         — WASAP-SGD (paper Algorithm 1) of the full-width element
                    model at dropout 0: 4 workers, batch 32, H = 4, 2 phase-1
                    and 1 phase-2 epochs on 1,000 samples (7 steps a
                    worker-epoch: 2 rounds, the second with a padded step). The
@@ -403,7 +437,7 @@ Phases, one line each (any failure exits non-zero):
                    history within the fused run's tolerances.
                    It runs after the timing phases: before them it made
                    their profiler sessions lose device events.
-26. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
+27. checkpoint    — checkpoints and resume (``repro_torch.checkpoint``) at
                    full width on the card: the element and the block model
                    trained 3 epochs with device SET, pruning and the paper's
                    dropout 0.3, saved at every epoch; a fresh trainer
@@ -422,7 +456,7 @@ Phases, one line each (any failure exits non-zero):
                    write) and restore seconds of the element and block
                    checkpoints, with the card's name and power limit. It
                    profiles nothing;
-27. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
+28. xl            — out-of-core training (``repro_torch.xl``, ``XLTrainer``)
                    of the paper's first Table-4 row at full width,
                    65536-500000-500000-2 (epsilon 10, All-ReLU alpha 0.5,
                    17,655,362 parameters), batch 32, the device budget 0.6 x
@@ -500,6 +534,8 @@ from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
 from repro_torch.launch.steps import make_mlp_train_step  # noqa: E402
 from repro_torch.launch.train import DriverConfig, run_training  # noqa: E402
 from repro_torch.models.mlp import SparseMLP, SparseMLPConfig, block_meta, mlp_forward  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.transformer import ModelConfig, PatternLM  # noqa: E402
 from repro_torch.optim.sgd import MomentumSGD, SGDState  # noqa: E402
 from repro_torch.runtime import faultinject as fi  # noqa: E402
@@ -2204,18 +2240,27 @@ def block_bound(kind: str, meta, host, batch: int) -> dict:
     return out
 
 
-def profile_train_step(one_step, step_ms: float, steps: int = 10) -> dict:
+def profile_train_step(one_step, step_ms: float, steps: int = 10, lead: int = 0,
+                       host_ops: bool = True) -> dict:
     """Where a training step's time goes (torch.profiler over ``steps``
     steps): device busy time by kernel, device launches (kernels and
     copies) per step, the device's idle share of the unprofiled median step
-    time, and the host's own time by operator (the twelve largest, with
-    their calls per step)."""
+    time, and, with ``host_ops``, the host's own time by operator (the
+    twelve largest, with their calls per step; without, the capture records
+    the device alone, which a step of thousands of launches makes far
+    quicker to read). With ``lead``, the capture opens with that many spin
+    kernels, left out of every figure (PERF.md §7: a late capture loses its
+    first device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     one_step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        for _ in range(lead):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             one_step()
@@ -2225,6 +2270,8 @@ def profile_train_step(one_step, step_ms: float, steps: int = 10) -> dict:
     host: list = []
     launches = 0.0
     for e in prof.key_averages():
+        if hlo_parser.SPIN_KERNEL_RE.search(e.key):
+            continue
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             by_name[e.key[:200]] = by_name.get(e.key[:200], 0.0) + e.self_device_time_total / steps
             launches += e.count / steps
@@ -3039,29 +3086,38 @@ def lm_served_logits(model, prompts: np.ndarray, steps: np.ndarray) -> torch.Ten
     return torch.cat(outs, 1).float().cpu()
 
 
-def logits_close(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
-    """``got`` within LM_LOGIT_ATOL + LM_LOGIT_RTOL x |want| of ``want``
-    elementwise, finite, and with ``want``'s argmax on every row whose top-2
-    margin exceeds LM_LOGIT_ATOL. Returns the error, the logits' scale, the
-    argmax agreement over all rows and over the rows held, and the smallest
-    margin of a row that parts."""
-    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-          f"{what}: {tuple(got.shape)} logits, not finite or not {tuple(want.shape)}")
+def logits_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How far ``got`` is from ``want`` under ``logits_close``'s rule, not
+    held: the error, the logits' scale, the elements past LM_LOGIT_ATOL +
+    LM_LOGIT_RTOL x |want|, the argmax agreement over all rows, the rows
+    held (top-2 margin above LM_LOGIT_ATOL) and those of them that change
+    argmax, and the smallest margin of a row that parts."""
     diff = (got - want).abs()
-    err = float(diff.max())
-    check(bool((diff <= LM_LOGIT_ATOL + LM_LOGIT_RTOL * want.abs()).all()),
-          f"{what}: max |diff| {err:.4g} beyond {LM_LOGIT_ATOL} + {LM_LOGIT_RTOL} x |want|")
     top2 = want.topk(2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).flatten()
     same = (got.argmax(-1) == want.argmax(-1)).flatten()
     held = margin > LM_LOGIT_ATOL
-    check(bool(same[held].all()), f"{what}: {int((~same[held]).sum())} of {int(held.sum())} "
-                                  f"rows with a top-2 margin above {LM_LOGIT_ATOL} change argmax")
     parted = margin[~same]
-    return dict(max_abs_err=err, logit_scale=float(want.abs().max()),
+    return dict(max_abs_err=float(diff.max()), logit_scale=float(want.abs().max()),
+                past_bound=int((~(diff <= LM_LOGIT_ATOL + LM_LOGIT_RTOL * want.abs())).sum()),
                 argmax_agreement=float(same.float().mean()), rows_held=int(held.sum()),
-                rows=int(same.numel()),
+                held_rows_parted=int((~same[held]).sum()), rows=int(same.numel()),
                 parted_min_margin=float(parted.min()) if parted.numel() else None)
+
+
+def logits_close(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """``got`` within LM_LOGIT_ATOL + LM_LOGIT_RTOL x |want| of ``want``
+    elementwise, finite, and with ``want``'s argmax on every row whose top-2
+    margin exceeds LM_LOGIT_ATOL. Returns ``logits_gap``."""
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: {tuple(got.shape)} logits, not finite or not {tuple(want.shape)}")
+    gap = logits_gap(got, want)
+    check(gap["past_bound"] == 0, f"{what}: max |diff| {gap['max_abs_err']:.4g} beyond "
+                                  f"{LM_LOGIT_ATOL} + {LM_LOGIT_RTOL} x |want|")
+    check(gap["held_rows_parted"] == 0,
+          f"{what}: {gap['held_rows_parted']} of {gap['rows_held']} rows with a top-2 margin "
+          f"above {LM_LOGIT_ATOL} change argmax")
+    return gap
 
 
 def lm_timing_rows(model) -> list:
@@ -3158,18 +3214,19 @@ def lm_warm(engine) -> None:
     engine.reset_slots()
 
 
-def lm_timings(engine) -> dict:
-    """Prefill per bucket (median of 10, ``prefill_batch`` prompts), the
-    decode step (median of 30 with quartiles, every slot at position 100),
-    and the decode step's profile (device busy time, launches, idle share,
-    the twelve kernels with the most device time, the six host operators
-    with the most host time)."""
+def lm_timings(engine, prefill_reps: int = 10, lead: int = 0, host_ops: bool = True) -> dict:
+    """Prefill per bucket (median of ``prefill_reps``, ``prefill_batch``
+    prompts), the decode step (median of 30 with quartiles, every slot at
+    position 100), and the decode step's profile over 3 steps (device busy
+    time, launches, idle share, the twelve kernels with the most device
+    time, with ``host_ops`` the six host operators with the most host time;
+    ``lead`` spins ahead of its capture)."""
     cfg = engine.cfg
     prefill = {}
     for b in cfg.prefill_buckets:
         prompts = [np.arange(b, dtype=np.int32) + i for i in range(cfg.prefill_batch)]
         ts = []
-        for _ in range(10):
+        for _ in range(prefill_reps):
             t0 = time.perf_counter()
             engine.prefill(prompts, list(range(cfg.prefill_batch)))
             ts.append((time.perf_counter() - t0) * 1e3)
@@ -3188,7 +3245,7 @@ def lm_timings(engine) -> dict:
         step()
         ts.append((time.perf_counter() - t0) * 1e3)
     q25, q50, q75 = np.percentile(ts, [25, 50, 75])
-    prof = profile_train_step(step, float(q50), steps=10)
+    prof = profile_train_step(step, float(q50), steps=3, lead=lead, host_ops=host_ops)
     engine.reset_slots()
     return dict(prefill_ms_by_bucket=prefill,
                 decode_step_ms=dict(median=float(q50), q25=float(q25), q75=float(q75)),
@@ -3279,12 +3336,13 @@ def phase_lm(out: dict) -> str:
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, V, (LM_ENGINE["prefill_batch"], 16))
     steps = rng.integers(0, V, (LM_ENGINE["prefill_batch"], 4))
-    short = lm_config(LM_CPU_LAYERS)
-    vs_cpu = logits_close(lm_served_logits(PatternLM(short, seed=SEED, device=CARD), prompts, steps),
-                          lm_served_logits(PatternLM(short, seed=SEED, device="cpu"), prompts, steps),
+    cpu = PatternLM(lm_config(LM_CPU_LAYERS), seed=SEED, device="cpu")
+    vs_cpu = logits_close(lm_served_logits(copy.copy(cpu).to(CARD), prompts, steps),
+                          lm_served_logits(cpu, prompts, steps),
                           f"the {LM_CPU_LAYERS}-layer model on the card against the CPU")
+    del cpu
 
-    model = PatternLM(cfg, seed=SEED, device=CARD)
+    model = PatternLM(cfg, seed=SEED, device=CARD, draw_on_device=True)
     n_params = sum(t.numel() for t in tree_leaves(model.params))
     per_layer = lm_layer_checks(model)
     # decode against the teacher-forced forward, full depth: 2 prompts, 8 steps
@@ -3407,7 +3465,7 @@ def phase_lm_compact(out: dict) -> str:
     steps = rng.integers(0, cfg.vocab, (LM_ENGINE["prefill_batch"], 4))
 
     # (a) zero blocks freed at threshold 0: nothing pruned, the forward's bits kept
-    model = PatternLM(cfg, seed=SEED, device=CARD)
+    model = PatternLM(cfg, seed=SEED, device=CARD, draw_on_device=True)
     zeroed = zero_wout_blocks(model)
     before = block_counts(model)
     check(before[LM_SLOT]["win"]["stacked"] == 22 and before[LM_SLOT]["wout"]["stacked"] == 15,
@@ -3433,7 +3491,7 @@ def phase_lm_compact(out: dict) -> str:
     torch.cuda.empty_cache()
 
     # (b) compacted at the 30th percentile, the element serving cell's
-    model = PatternLM(cfg, seed=SEED, device=CARD)
+    model = PatternLM(cfg, seed=SEED, device=CARD, draw_on_device=True)
     counts_before = block_counts(model)
     engine = SparseInferenceEngine(model, engine=EngineConfig(**LM_ENGINE),
                                    compaction=PruningSchedule(tau=0, period=1,
@@ -3725,7 +3783,7 @@ def time_lm_train_step(model, example) -> dict:
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     q25, q50, q75 = np.percentile(ts, [25, 50, 75])
-    prof = profile_train_step(one_step, float(q50), steps=3)
+    prof = profile_train_step(one_step, float(q50), steps=2)
     return dict(step_ms=dict(median=float(q50), q25=float(q25), q75=float(q75)),
                 device_busy_us=prof["device_busy_us"],
                 device_idle_share=prof["device_idle_share"],
@@ -3740,7 +3798,7 @@ def phase_lm_train(out: dict) -> str:
     example = train_lm_example()
     cfg = lm_config()
     check(cfg.dtype == "bfloat16" and cfg.remat == "block", f"{cfg.dtype}, remat {cfg.remat}")
-    model = PatternLM(cfg, seed=SEED, device=CARD)
+    model = PatternLM(cfg, seed=SEED, device=CARD, draw_on_device=True)
     rng = np.random.default_rng(SEED)
     splits = {}
     for name, host in zip(("W_in", "W_out"), model.topologies["s0_global"][0]):
@@ -3862,7 +3920,7 @@ RG_KERNEL_ROWS = (8, LM_TRAIN_ROWS)  # a decode step's 8 rows, a train step's 2,
 # 64 tokens each (a decode step: 8 rows, kernel C's decode route)
 ARCH_BATCH = 8
 ARCH_PROMPT = 64
-ARCH_TIMED = 10  # timed calls of a forward, a decode step, a train step
+ARCH_TIMED = 5  # timed calls of a forward, a decode step, a train step
 # falcon-mamba-7b at full width and depth (64 layers, d_model 4,096, d_inner
 # 8,192, d_state 16, vocab 65,024, untied), bf16: no hand kernel on its path.
 # Its train step runs at full width on a cut of MAMBA_CUT_LAYERS layers in f32,
@@ -4013,7 +4071,7 @@ def decoded_vs_forward(model, tokens: torch.Tensor, what: str, compare: str = "b
                           mode="decode", caches=caches)
 
         dec = median_ms(step)
-        prof = profile_train_step(step, dec["median"], steps=5)
+        prof = profile_train_step(step, dec["median"], steps=2)
     return dict(vs_forward=close, decode_launches=launches,
                 forward_ms=fwd, forward_tokens_per_s=B * P / (fwd["median"] * 1e-3),
                 decode_step_ms=dec, decode_device_busy_us=prof["device_busy_us"],
@@ -4348,6 +4406,316 @@ def phase_lm_archs(out: dict) -> str:
     )
 
 
+# -- qwen3-moe-30b-a3b served at full width and depth --------------------------
+
+# configs/qwen3_moe_30b_a3b.py's FULL config unchanged (48 layers, d_model
+# 2,048, 32 heads over 4 KV heads, 128 experts, top-8, expert d_ff 768, vocab
+# 151,936, untied, bf16: the weights of a one-card bf16 deployment), drawn on
+# the card from the seed, served by the engine at phase lm's EngineConfig.
+# Its FFN is the MoE (plain PyTorch, as the reference leaves it to XLA): no
+# hand kernel runs on this path.
+MOE_SERVE_PARAMS = 30_532_110_336
+MOE_SERVE_BYTES = 61_089_386_496
+# The draw's allocator peak over what was allocated before it: the leaves,
+# then one layer's draw while the stacked leaves are first allocated
+# (1,246,396,416 B) or one leaf's f32 draw (805,306,368 B) later
+# (layers.draw_stacked); stacking the layers after drawing them all held
+# the parameters twice, 122 GB.
+MOE_DRAW_SLACK = 2e9
+MOE_PARITY_STEPS = 8
+MOE_TIMED_PREFILLS = 5  # a bucket's prefill, median of these
+
+
+@contextlib.contextmanager
+def first_moe_input(store: list):
+    """Record the first MoE FFN call's (params, x, cfg) of what runs inside
+    (``transformer.moe_fwd``, the first layer's)."""
+    real = transformer_mod.moe_fwd
+
+    def recording(params, x, cfg):
+        if not store:
+            store.append((params, x.clone(), cfg))
+        return real(params, x, cfg)
+
+    transformer_mod.moe_fwd = recording
+    try:
+        yield store
+    finally:
+        transformer_mod.moe_fwd = real
+
+
+def slot_rows_logits(engine, slot: int, token: int, pos: int, n: int) -> torch.Tensor:
+    """The slot decoded alone, from a copy of its cache rows: a batch-1
+    decode step (``n`` = 1, the reference's vmapped step as written), or a
+    batch of ``n`` copies of the slot's row, one MoE dispatch group a row
+    (the all-slots step's product shapes, the slot's data alone); (vocab,)."""
+    c = engine._caches
+    rows = {"stack": tree_map(lambda a: a[:, slot:slot + 1].repeat_interleave(n, 1), c["stack"]),
+            "rest": tree_map(lambda a: a[slot:slot + 1].repeat_interleave(n, 0), c["rest"])}
+    logits, _, _ = engine.model.forward(
+        engine._params, torch.full((n, 1), token, device=CARD), topo=engine._topo,
+        positions=torch.full((n, 1), pos, device=CARD), mode="decode", caches=rows,
+        moe_groups=n)
+    return logits[0, -1]
+
+
+def moe_dispatch_drops(params, x: torch.Tensor, mcfg) -> dict:
+    """The first layer's MoE rows of an all-slots step, dispatched with one
+    group a slot (the engine's decode) and with one group over the slots:
+    the entries each keeps and drops."""
+    S, d = x.shape[0], x.shape[-1]
+    res = {}
+    for name, groups in (("per_slot", S), ("one_group", 1)):
+        cfg = dataclasses.replace(mcfg, groups=groups)
+        G, Tg, C = moe_mod.dispatch_shape(cfg, S)
+        _, _, _, _, keep, _ = moe_mod._dispatch(params, x.reshape(G, Tg, d), cfg, C)
+        res[name] = dict(groups=G, capacity=C, kept=int(keep.sum()), dropped=int((~keep).sum()))
+    return res
+
+
+def moe_slot_parity(engine) -> dict:
+    """(c) and (d): 8 seeded prompts prefilled into the 8 slots in two
+    calls, then MOE_PARITY_STEPS steps of every slot, the step's argmax fed
+    back. Each step's logits (``_step_logits``, the engine's decode
+    program's) against each slot's batch-1 decode on a copy of its cache
+    rows (the reference's vmapped step): the argmax kept on every row whose
+    top-2 margin exceeds LM_LOGIT_ATOL, and the elementwise gap measured
+    (``logits_gap``): in bf16 at 48 layers it exceeds ``logits_close``'s
+    bound, since the products round differently at 1 row than at 8 and the
+    bf16 router's ties then pick other experts (``tools/moe_decode_probe.py``;
+    PERF.md §6); the 4-layer model holds the whole rule
+    (``tests/test_torch_gpu.py``), the CPU tests hold the logits in f32 at
+    1e-5 and the tokens to the reference's. And at step i, slot i's logits
+    bit-equal to the slot decoded from its own rows in a batch of
+    max_slots copies of its row, one dispatch group a row (the step's
+    product shapes; ``slot_rows_logits``): no other slot's data reaches a
+    slot, its capacity included. The first step's first-layer MoE rows
+    dispatched per slot (every entry kept) and in one group (some
+    dropped)."""
+    cfg, V = engine.cfg, engine.model.cfg.vocab
+    S = cfg.max_slots
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(LM_TRACE["prompt_lens"][0], LM_TRACE["prompt_lens"][1] + 1, S)
+    prompts = [rng.integers(0, V, n).astype(np.int32) for n in lens]
+    half = S // 2
+    tokens = np.concatenate([engine.prefill(prompts[:half], list(range(half))),
+                             engine.prefill(prompts[half:], list(range(half, S)))
+                             ]).astype(np.int64)
+    pos = lens.astype(np.int64)
+    alone, store = [], []
+    with torch.inference_mode():
+        for i in range(MOE_PARITY_STEPS):
+            own = i % S
+            copies = slot_rows_logits(engine, own, int(tokens[own]), int(pos[own]), S)
+            batch1 = torch.stack([slot_rows_logits(engine, s, int(tokens[s]), int(pos[s]), 1)
+                                  for s in range(S)]).float()
+            with first_moe_input(store) if i == 0 else contextlib.nullcontext():
+                got = engine._step_logits(engine._params, engine._topo, engine._caches,
+                                          torch.as_tensor(tokens, device=CARD),
+                                          torch.as_tensor(pos, device=CARD))
+            check(bool(torch.isfinite(got).all()) and got.shape == (S, V),
+                  f"decode step {i}: logits {tuple(got.shape)}, not finite or not ({S}, {V})")
+            check(torch.equal(got[own], copies),
+                  f"decode step {i}: slot {own} parts from the slot decoded from its own rows "
+                  f"by {float((got[own].float() - copies.float()).abs().max()):.4g}")
+            alone.append(logits_gap(got.float(), batch1))
+            check(alone[-1]["held_rows_parted"] == 0,
+                  f"decode step {i}: {alone[-1]['held_rows_parted']} of "
+                  f"{alone[-1]['rows_held']} slots with a top-2 margin above {LM_LOGIT_ATOL} "
+                  "change argmax against the slot's batch-1 decode")
+            tokens, pos = got.argmax(-1).cpu().numpy(), pos + 1
+        params, x, mcfg = store[0]
+        check(x.shape == (S, 1, engine.model.cfg.d_model) and mcfg.groups == S,
+              f"the decode's MoE took rows {tuple(x.shape)} in {mcfg.groups} groups")
+        drops = moe_dispatch_drops(params, x, mcfg)
+    K = mcfg.top_k
+    check(drops["per_slot"] == dict(groups=S, capacity=1, kept=S * K, dropped=0),
+          f"one group a slot: {drops['per_slot']}, expected all {S} x {K} kept")
+    check(drops["one_group"]["dropped"] > 0,
+          f"one group over the slots dropped nothing: {drops['one_group']}")
+    engine.reset_slots()
+    return dict(prompt_lens=lens.tolist(), steps=MOE_PARITY_STEPS,
+                bit_equal_to_own_rows=[i % S for i in range(MOE_PARITY_STEPS)],
+                batch1=dict(max_abs_err=max(r["max_abs_err"] for r in alone),
+                            logit_scale=max(r["logit_scale"] for r in alone),
+                            past_bound=sum(r["past_bound"] for r in alone),
+                            elements=MOE_PARITY_STEPS * S * V,
+                            argmax_agreement=float(np.mean([r["argmax_agreement"]
+                                                            for r in alone])),
+                            rows_held=sum(r["rows_held"] for r in alone),
+                            held_rows_parted=sum(r["held_rows_parted"] for r in alone),
+                            rows=sum(r["rows"] for r in alone), per_step=alone),
+                dispatch=drops)
+
+
+def decode_syncs(name: str, fn, args: tuple, smi: str) -> dict:
+    """(e): ``full_width_syncs``'s checks of a step too long to census with
+    the host's events (a census of one full-depth MoE step with them took
+    ~15 s to read): the host syncs of a first and a steady call, each
+    printed with its stack, a call under ``set_sync_debug_mode("error")``,
+    and the device events of one call, from a device-only capture opened
+    with PROFILE_LEAD spins: no device-to-host copy. Fails on a host sync
+    or a device-to-host copy in the steady call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    first = unique_syncs(hlo_audit.host_syncs(fn, args))
+    stacks = hlo_audit.host_syncs(fn, args)
+    syncs = unique_syncs(stacks)
+    for when, found in (("first call", first), ("steady call", syncs)):
+        for s in found:
+            print(f"[lm_moe] host sync in {name}'s {when} (x{s['count']}):\n{s['stack']}",
+                  flush=True)
+    without_host_sync(lambda: fn(*args))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(1)
+        fn(*args)
+        torch.cuda.synchronize()
+    cen = {k: n for k, n in hlo_parser.kernel_census(prof.events()).items()
+           if not hlo_parser.SPIN_KERNEL_RE.search(k)}
+    line = {"path": name, "host_syncs": len(stacks), "distinct_host_syncs": len(syncs),
+            "first_call_host_syncs": sum(s["count"] for s in first),
+            "device_events": sum(cen.values()),
+            "scatter_kernels": short_names(hlo_parser.scatter_kernels(cen)),
+            "dtoh_copies": short_names(hlo_parser.dtoh_copies(cen)), "smi": smi}
+    print(json.dumps({"decode_syncs": line}))
+    check(line["device_events"] > 0, f"{name}: the capture saw no device event")
+    check(not stacks and not line["dtoh_copies"],
+          f"{name}: {len(stacks)} host sync(s) and device-to-host copies "
+          f"{line['dtoh_copies']} in a steady call")
+    return line
+
+
+def moe_serve_checked(engine) -> dict:
+    """(f): a warm-up trace, then LM_REQUESTS Poisson requests (phase lm's
+    trace) through ``ContinuousBatcher``: every request completed with its
+    budget of vocabulary ids, no build after warm-up, no hand kernel
+    launched. The batched tokens are not held to one request at a time: a
+    prefill call's prompts share its MoE capacity, as in the reference."""
+    V = engine.model.cfg.vocab
+    ContinuousBatcher(engine).run(poisson_trace(8, 50.0, vocab=V, prompt_lens=(4, 64),
+                                                new_tokens=(2, 4), seed=0))
+    engine.reset_slots()
+    builds = engine.stats["compiles"]
+    trace = poisson_trace(LM_REQUESTS, vocab=V, seed=1, **LM_TRACE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats = ContinuousBatcher(engine, queue_capacity=64).run(trace)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(stats.completed == LM_REQUESTS and stats.rejected == 0,
+          f"{stats.completed} of {LM_REQUESTS} requests completed, {stats.rejected} rejected")
+    check(all(len(r.tokens) == r.max_new_tokens and all(0 <= t < V for t in r.tokens)
+              for r in trace), "a request's tokens are not its budget of vocabulary ids")
+    check(engine.stats["compiles"] == builds, f"{engine.stats['compiles'] - builds} builds after "
+                                              "warm-up")
+    check(set(engine.jit_entry_sizes().values()) == {1}, f"{engine.jit_entry_sizes()}")
+    check(launches == NO_LAUNCHES, f"the MoE trace launched {launches}")
+    engine.reset_slots()
+    return dict(stats=stats, launches=launches, peak=peak)
+
+
+def phase_lm_moe(out: dict) -> str:
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_spec(MOE_ARCH).config
+    check((cfg.n_layers, cfg.n_experts, cfg.top_k, cfg.expert_d_ff, cfg.vocab, cfg.dtype,
+           cfg.ffn, cfg.tied_embeddings) == (48, 128, 8, 768, 151_936, "bfloat16", "moe", False),
+          f"{MOE_ARCH}'s config is not the published one: {cfg}")
+    # (a) the draw, on an emptied allocator
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    base = torch.cuda.memory_allocated()
+    print(json.dumps({"lm_moe_memory": dict(free=free, total=total, allocated=base)}), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model, n_params, draw_s = drawn_model(cfg)
+    draw_peak = torch.cuda.max_memory_allocated() - base
+    leaf_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(model.params))
+    check(n_params == MOE_SERVE_PARAMS and leaf_bytes == MOE_SERVE_BYTES,
+          f"{n_params} parameters in {leaf_bytes} B, expected {MOE_SERVE_PARAMS} in "
+          f"{MOE_SERVE_BYTES}")
+    check(draw_peak <= MOE_SERVE_BYTES + MOE_DRAW_SLACK,
+          f"the draw's peak {draw_peak} B is over {MOE_SERVE_BYTES} + {MOE_DRAW_SLACK:.0f}")
+    print(json.dumps({"lm_moe_draw": dict(n_params=n_params, bytes=leaf_bytes, seconds=draw_s,
+                                          peak_over_before=draw_peak, free_before=free)}),
+          flush=True)
+
+    secs, t0 = {"draw": draw_s}, time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # (b) the engine, every bucket and the decode step built once
+    engine = SparseInferenceEngine(model, engine=EngineConfig(**LM_ENGINE))
+    reset_counts()
+    lm_warm(engine)
+    check(read_counts() == NO_LAUNCHES, f"the warm-up launched {read_counts()}")
+    lap("engine_warm")
+    # (c), (d): per-slot parity, the dispatch
+    parity = moe_slot_parity(engine)
+    lap("parity")
+    # (e): the full-depth step's host syncs and copies, and the step under
+    # set_sync_debug_mode("error")
+    S = engine.cfg.max_slots
+    dec_args = (engine._params, engine._topo, engine._caches,
+                torch.zeros((S,), dtype=torch.int64, device=CARD),
+                torch.full((S,), 1, dtype=torch.int64, device=CARD))
+    decode = engine._build_decode()
+    syncs = decode_syncs("lm_moe_decode_step", decode, dec_args, out["smi"])
+    engine.reset_slots()
+    lap("host_syncs")
+    # (f) the served run
+    served = moe_serve_checked(engine)
+    stats = served["stats"]
+    lap("served")
+    # (g) the numbers
+    timing = lm_timings(engine, prefill_reps=MOE_TIMED_PREFILLS, lead=PROFILE_LEAD,
+                        host_ops=False)
+    lap("timings")
+    timing.update(
+        arch=MOE_ARCH, n_params=n_params, bytes=leaf_bytes, draw_s=draw_s, draw_peak=draw_peak,
+        requests=LM_REQUESTS, generated_tokens=stats.generated_tokens,
+        decode_steps=stats.decode_steps, prefill_calls=stats.prefill_calls,
+        tokens_per_s=stats.throughput_tok_s, latency_p50_ms=stats.latency_p50_ms,
+        latency_p95_ms=stats.latency_p95_ms, ttft_p50_ms=stats.ttft_p50_ms,
+        wall_s=stats.wall_seconds, trace_launches=served["launches"],
+        max_memory_allocated=served["peak"], parity=parity,
+        host_syncs=syncs["host_syncs"], dtoh_copies=syncs["dtoh_copies"],
+        profile_lead=PROFILE_LEAD, seconds=secs,
+        card=out["smi"])
+    print(json.dumps({"lm_moe_timing": timing}))
+    del engine, model, decode, dec_args
+    torch.cuda.empty_cache()
+    dispatch, b1 = parity["dispatch"], parity["batch1"]
+    return (
+        f"{MOE_ARCH} full width and depth ({cfg.n_layers} layers, {cfg.n_experts} experts, "
+        f"top-{cfg.top_k}), bf16, {n_params} parameters ({leaf_bytes} B) drawn on the card in "
+        f"{draw_s:.1f} s, the draw's peak {draw_peak} B over its start (at most "
+        f"{MOE_SERVE_BYTES} + {MOE_DRAW_SLACK:.0f}); {S} slots over {parity['steps']} steps: "
+        f"slot i's logits at step i bit-equal to the slot decoded from its own rows ({S} "
+        f"copies, a group each); against each slot's batch-1 decode max |diff| "
+        f"{b1['max_abs_err']:.3g} (scale {b1['logit_scale']:.3g}), {b1['past_bound']} of "
+        f"{b1['elements']} logits past {LM_LOGIT_ATOL} + {LM_LOGIT_RTOL} x |want|, argmax "
+        f"agreement {b1['argmax_agreement']:.3f}, {b1['held_rows_parted']} of "
+        f"{b1['rows_held']} held rows parted; the first layer's dispatch one group a slot kept "
+        f"{dispatch['per_slot']['kept']} and dropped {dispatch['per_slot']['dropped']}, one "
+        f"group over the slots dropped {dispatch['one_group']['dropped']} of "
+        f"{dispatch['one_group']['kept'] + dispatch['one_group']['dropped']}; decode step "
+        f"host syncs {syncs['host_syncs']}, device-to-host copies "
+        f"{sum(syncs['dtoh_copies'].values())}; {LM_REQUESTS} requests served, "
+        f"{stats.generated_tokens} tokens in {stats.decode_steps} decode steps and "
+        f"{stats.prefill_calls} prefill calls, {stats.throughput_tok_s:.1f} tok/s, no hand "
+        f"kernel launched; decode step median {timing['decode_step_ms']['median']:.2f} ms, "
+        f"busy {timing['decode_device_busy_us'] / 1e3:.2f} ms, idle share "
+        f"{timing['decode_device_idle_share']:.3f}; seconds "
+        f"{ {k: round(v, 1) for k, v in secs.items()} }"
+    )
+
+
 # -- Whisper-medium: the encoder-decoder at full width and depth ---------------
 
 # configs/whisper_medium.py's FULL config: 24 + 24 layers, d_model 1,024, 16
@@ -4496,7 +4864,7 @@ def phase_whisper(out: dict) -> str:
             "memory": memory}
     with torch.inference_mode():
         dec_ms = median_ms(lambda: decode(params, last))
-        prof = profile_train_step(lambda: decode(params, last), dec_ms["median"], steps=5)
+        prof = profile_train_step(lambda: decode(params, last), dec_ms["median"], steps=2)
     peak = max(train_peak, torch.cuda.max_memory_allocated())
     # a decode step's cross attention recomputes the memory's K and V in
     # every layer: 2 products of (B x frames, d) x (d, d) a layer
@@ -4725,7 +5093,7 @@ def obs_lm_run(work: Path) -> dict:
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     example = train_lm_example()
-    model = PatternLM(lm_config(), seed=SEED, device=CARD)
+    model = PatternLM(lm_config(), seed=SEED, device=CARD, draw_on_device=True)
     L = model.cfg.n_layers
     want_step = {"bsmm_fwd": 4 * L, "rows": 4 * L, "bsmm_dx": 2 * L, "bsmm_dx.bf16": 2 * L,
                  "bsmm_dw": 2 * L, "bsmm_dw.bf16": 2 * L}
@@ -6240,6 +6608,8 @@ def main() -> int:
         ("lm_train", phase_lm_train),
         # the rest of the zoo: RG-LRU (on C, D and E bf16), Mamba-1 and MoE
         ("lm_archs", phase_lm_archs),
+        # qwen3-moe-30b-a3b served at full width and depth, a group a slot
+        ("lm_moe", phase_lm_moe),
         # Whisper-medium at full width and depth, and the observability layer
         ("whisper", phase_whisper), ("obs", phase_obs),
         # the runtime: supervised recovery of the element cell, the elastic

@@ -109,11 +109,13 @@ class DriverConfig:
     device: Optional[Union[str, torch.device]] = None
 
 
-def synthetic_batch(rng, batch, seq, vocab, prefix=None, d_model=0, device="cpu"):
+def synthetic_batch(rng, batch, seq, vocab, prefix=None, d_model=0, device=None):
     """The reference's batch, drawn from ``rng`` in the same order, as
-    tensors on ``device``: ``tokens`` and ``labels`` (batch, seq) int64 (the
-    reference's int32 values), and with ``prefix`` the VLM's
-    ``patch_embeds`` (batch, prefix, d_model) f32."""
+    tensors on ``device`` (None: the card; it raises without one):
+    ``tokens`` and ``labels`` (batch, seq) int64 (the reference's int32
+    values), and with ``prefix`` the VLM's ``patch_embeds`` (batch, prefix,
+    d_model) f32."""
+    device = resolve_device(device)
     out = {
         "tokens": torch.as_tensor(rng.integers(0, vocab, (batch, seq)).astype(np.int32),
                                   device=device).long(),

@@ -48,17 +48,18 @@ class RGLRUConfig:
 
 
 def init_rglru_block(gen: torch.Generator, cfg: RGLRUConfig, dtype: torch.dtype,
-                     device: torch.device) -> Params:
+                     device: torch.device, into: Optional[Params] = None) -> Params:
     d, dr = cfg.d_model, cfg.d_rnn
+    out = (into or {}).get
     return {
-        "linear_x": dense_init(gen, (d, dr), d, dtype, device),
-        "linear_y": dense_init(gen, (d, dr), d, dtype, device),
-        "conv_w": dense_init(gen, (cfg.d_conv, dr), cfg.d_conv, dtype, device),
+        "linear_x": dense_init(gen, (d, dr), d, dtype, device, out("linear_x")),
+        "linear_y": dense_init(gen, (d, dr), d, dtype, device, out("linear_y")),
+        "conv_w": dense_init(gen, (cfg.d_conv, dr), cfg.d_conv, dtype, device, out("conv_w")),
         "conv_b": torch.zeros((dr,), dtype=dtype, device=device),
-        "w_a": dense_init(gen, (dr, dr), dr, dtype, device),
-        "w_x": dense_init(gen, (dr, dr), dr, dtype, device),
+        "w_a": dense_init(gen, (dr, dr), dr, dtype, device, out("w_a")),
+        "w_x": dense_init(gen, (dr, dr), dr, dtype, device, out("w_x")),
         "lambda_p": torch.full((dr,), 2.2, dtype=torch.float32, device=device),  # sigmoid ~ 0.9
-        "linear_out": dense_init(gen, (dr, d), dr, dtype, device),
+        "linear_out": dense_init(gen, (dr, d), dr, dtype, device, out("linear_out")),
     }
 
 

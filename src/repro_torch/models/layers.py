@@ -7,7 +7,9 @@ As there, the layers are functions: ``init_*`` returns the parameter dict
 computes. The reference's ``init_*`` also returns each parameter's
 logical-axis spec (the names ``launch.sharding`` maps onto a mesh); here a
 pure ``*_specs`` builder beside each ``init_*`` returns the same tuples, so
-the ``init_*`` signatures stay as they were. On the ``meta`` device
+the ``init_*`` signatures stay as they were, but for ``into``: the
+views, one layer's row of each stacked leaf, that ``draw_stacked`` has the
+dense draws written into. On the ``meta`` device
 (``PatternLM(abstract=True)``) ``dense_init`` draws nothing. Dense draws come from
 an explicit ``torch.Generator``, on the generator's device, and are then
 moved to ``device``: a CPU generator gives the same weights on every device
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,14 +44,15 @@ from repro_torch.core.all_relu import activation_fn, all_relu
 from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays, BlockTopology
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import scalar_in
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
     "AttnConfig", "SparseFFNConfig", "apply_rope", "attention_fwd", "attention_specs",
-    "cross_attention_fwd", "dense_init", "embed", "embedding_specs", "gated_ffn_fwd",
-    "gated_ffn_specs", "init_attention", "init_embedding", "init_gated_ffn", "init_layernorm",
-    "init_plain_ffn", "init_rmsnorm", "init_sparse_ffn", "layernorm", "layernorm_specs",
-    "plain_ffn_fwd", "plain_ffn_specs", "rmsnorm", "rmsnorm_specs", "sparse_ffn_fwd",
-    "sparse_ffn_specs", "unembed",
+    "cross_attention_fwd", "dense_init", "draw_stacked", "embed", "embedding_specs",
+    "gated_ffn_fwd", "gated_ffn_specs", "init_attention", "init_embedding", "init_gated_ffn",
+    "init_layernorm", "init_plain_ffn", "init_rmsnorm", "init_sparse_ffn", "layernorm",
+    "layernorm_specs", "plain_ffn_fwd", "plain_ffn_specs", "rmsnorm", "rmsnorm_specs",
+    "sparse_ffn_fwd", "sparse_ffn_specs", "unembed",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -61,15 +64,40 @@ Params = Dict[str, torch.Tensor]
 
 
 def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Normal draws scaled by 1/sqrt(fan-in), drawn in f32 from the
-    generator ``gen`` on its device, then cast and moved. On the ``meta``
-    device it draws nothing (the shape-only build)."""
+    generator ``gen`` on its device, then cast and moved; with ``out`` (of
+    ``shape``, ``dtype`` and ``device``), cast into it, the same bits,
+    without a second copy of the draw. On the ``meta`` device it draws
+    nothing (the shape-only build)."""
     if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
+        return torch.empty(shape, dtype=dtype, device=device) if out is None else out
     scale = 1.0 / math.sqrt(max(1, in_axis_size))
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * scale
-    return w.to(dtype).to(device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device).mul_(scale)
+    return w.to(dtype).to(device) if out is None else out.copy_(w)
+
+
+def draw_stacked(n: int, draw: Callable[[Optional[Dict[str, Any]]], Dict[str, Any]]
+                 ) -> Dict[str, Any]:
+    """``n`` layers drawn in order by ``draw(into)``, stacked on a leading
+    axis. Each stacked leaf is allocated once, from the first layer's
+    shapes; every later layer's dense draws are cast straight into its row
+    (``into``: the row's views, handed on to ``dense_init`` as ``out``), and
+    the leaves ``draw`` makes otherwise are copied in. So the build holds
+    the stacked leaves and one layer's draw, not every layer twice, and the
+    generators run in the same order: the same bits as stacking."""
+    stacked = None
+    for r in range(n):
+        into = None if stacked is None else tree_map(lambda a: a[r], stacked)
+        layer = draw(into)
+        if stacked is None:
+            stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), layer)
+            into = tree_map(lambda a: a[0], stacked)
+        for row, a in zip(tree_leaves(into), tree_leaves(layer)):
+            if a is not row:
+                row.copy_(a)
+        del layer  # before the next layer's draw
+    return stacked
 
 
 # ---------------------------------------------------------------------------
@@ -151,13 +179,14 @@ class AttnConfig:
 
 
 def init_attention(gen: torch.Generator, cfg: AttnConfig, dtype: torch.dtype,
-                   device: torch.device) -> Params:
+                   device: torch.device, into: Optional[Params] = None) -> Params:
     h, kv, d, dm = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.d_model
+    out = (into or {}).get
     params = {
-        "wq": dense_init(gen, (dm, h * d), dm, dtype, device),
-        "wk": dense_init(gen, (dm, kv * d), dm, dtype, device),
-        "wv": dense_init(gen, (dm, kv * d), dm, dtype, device),
-        "wo": dense_init(gen, (h * d, dm), h * d, dtype, device),
+        "wq": dense_init(gen, (dm, h * d), dm, dtype, device, out("wq")),
+        "wk": dense_init(gen, (dm, kv * d), dm, dtype, device, out("wk")),
+        "wv": dense_init(gen, (dm, kv * d), dm, dtype, device, out("wv")),
+        "wo": dense_init(gen, (h * d, dm), h * d, dtype, device, out("wo")),
     }
     if cfg.qkv_bias:
         params.update(
@@ -399,11 +428,12 @@ class SparseFFNConfig:
 
 
 def init_gated_ffn(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype,
-                   device: torch.device) -> Params:
+                   device: torch.device, into: Optional[Params] = None) -> Params:
+    out = (into or {}).get
     return {
-        "wi_gate": dense_init(gen, (d_model, d_ff), d_model, dtype, device),
-        "wi_up": dense_init(gen, (d_model, d_ff), d_model, dtype, device),
-        "wo": dense_init(gen, (d_ff, d_model), d_ff, dtype, device),
+        "wi_gate": dense_init(gen, (d_model, d_ff), d_model, dtype, device, out("wi_gate")),
+        "wi_up": dense_init(gen, (d_model, d_ff), d_model, dtype, device, out("wi_up")),
+        "wo": dense_init(gen, (d_ff, d_model), d_ff, dtype, device, out("wo")),
     }
 
 
@@ -419,12 +449,13 @@ def gated_ffn_fwd(params: Params, x: torch.Tensor, activation: str = "silu") -> 
 
 
 def init_plain_ffn(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype,
-                   device: torch.device) -> Params:
+                   device: torch.device, into: Optional[Params] = None) -> Params:
     """2-layer MLP with biases (Whisper's)."""
+    out = (into or {}).get
     return {
-        "fc1": dense_init(gen, (d_model, d_ff), d_model, dtype, device),
+        "fc1": dense_init(gen, (d_model, d_ff), d_model, dtype, device, out("fc1")),
         "b1": torch.zeros((d_ff,), dtype=dtype, device=device),
-        "fc2": dense_init(gen, (d_ff, d_model), d_ff, dtype, device),
+        "fc2": dense_init(gen, (d_ff, d_model), d_ff, dtype, device, out("fc2")),
         "b2": torch.zeros((d_model,), dtype=dtype, device=device),
     }
 

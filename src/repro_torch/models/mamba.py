@@ -51,19 +51,20 @@ class MambaConfig:
 
 
 def init_mamba_block(gen: torch.Generator, cfg: MambaConfig, dtype: torch.dtype,
-                     device: torch.device) -> Params:
+                     device: torch.device, into: Optional[Params] = None) -> Params:
     d, di, ds, r = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.rank
     a = torch.arange(1, ds + 1, dtype=torch.float32).expand(di, ds)
+    out = (into or {}).get
     return {
-        "in_proj": dense_init(gen, (d, 2 * di), d, dtype, device),
-        "conv_w": dense_init(gen, (cfg.d_conv, di), cfg.d_conv, dtype, device),
+        "in_proj": dense_init(gen, (d, 2 * di), d, dtype, device, out("in_proj")),
+        "conv_w": dense_init(gen, (cfg.d_conv, di), cfg.d_conv, dtype, device, out("conv_w")),
         "conv_b": torch.zeros((di,), dtype=dtype, device=device),
-        "x_proj": dense_init(gen, (di, r + 2 * ds), di, dtype, device),
-        "dt_proj": dense_init(gen, (r, di), r, dtype, device),
+        "x_proj": dense_init(gen, (di, r + 2 * ds), di, dtype, device, out("x_proj")),
+        "dt_proj": dense_init(gen, (r, di), r, dtype, device, out("dt_proj")),
         "dt_bias": torch.full((di,), -4.6, dtype=dtype, device=device),  # softplus^-1(~0.01)
         "a_log": torch.log(a).to(device),
         "d_skip": torch.ones((di,), dtype=torch.float32, device=device),
-        "out_proj": dense_init(gen, (di, d), di, dtype, device),
+        "out_proj": dense_init(gen, (di, d), di, dtype, device, out("out_proj")),
     }
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core.all_relu import activation_fn
 from repro_torch.models.layers import dense_init
 
-__all__ = ["MoEConfig", "init_moe", "moe_fwd", "moe_specs"]
+__all__ = ["MoEConfig", "dispatch_shape", "init_moe", "moe_fwd", "moe_specs"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -47,13 +47,14 @@ class MoEConfig:
 
 
 def init_moe(gen: torch.Generator, cfg: MoEConfig, dtype: torch.dtype,
-             device: torch.device) -> Params:
+             device: torch.device, into: Optional[Params] = None) -> Params:
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    out = (into or {}).get
     return {
-        "router": dense_init(gen, (d, e), d, torch.float32, device),
-        "wi_gate": dense_init(gen, (e, d, f), d, dtype, device),
-        "wi_up": dense_init(gen, (e, d, f), d, dtype, device),
-        "wo": dense_init(gen, (e, f, d), f, dtype, device),
+        "router": dense_init(gen, (d, e), d, torch.float32, device, out("router")),
+        "wi_gate": dense_init(gen, (e, d, f), d, dtype, device, out("wi_gate")),
+        "wi_up": dense_init(gen, (e, d, f), d, dtype, device, out("wi_up")),
+        "wo": dense_init(gen, (e, f, d), f, dtype, device, out("wo")),
     }
 
 
@@ -100,16 +101,21 @@ def _dispatch(params: Params, xg: torch.Tensor, cfg: MoEConfig, C: int):
     return aux, slot, st, sg, keep, order
 
 
+def dispatch_shape(cfg: MoEConfig, T: int) -> Tuple[int, int, int]:
+    """(G, Tg, C) of a dispatch of ``T`` tokens: ``gcd(groups, T)`` groups
+    of ``Tg`` tokens, each expert ``C`` slots a group."""
+    G = max(1, math.gcd(cfg.groups, T))
+    Tg = T // G
+    return G, Tg, max(1, int(math.ceil(Tg * cfg.top_k * cfg.capacity_factor / cfg.n_experts)))
+
+
 def moe_fwd(params: Params, x: torch.Tensor, cfg: MoEConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (..., d). Returns (y, aux_loss)."""
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
-    T = xt.shape[0]
     E, K = cfg.n_experts, cfg.top_k
-    G = max(1, math.gcd(cfg.groups, T))
-    Tg = T // G
-    C = max(1, int(math.ceil(Tg * K * cfg.capacity_factor / E)))
+    G, Tg, C = dispatch_shape(cfg, xt.shape[0])
     xg = xt.reshape(G, Tg, d)
     aux, slot, st, sg, keep, order = _dispatch(params, xg, cfg, C)
 

@@ -234,9 +234,11 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Tree]:
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                np_rng: np.random.Generator, device: torch.device):
-    """Returns (params, topos | None, metas | None)."""
+                np_rng: np.random.Generator, device: torch.device, into=None):
+    """Returns (params, topos | None, metas | None). ``into``: the views the
+    dense draws are cast into (``layers.draw_stacked``), or None."""
     dtype = getattr(torch, cfg.dtype)
+    sub = (into or {}).get
 
     def norm():
         return (L.init_rmsnorm(cfg.d_model, dtype, device) if cfg.norm == "rms"
@@ -244,25 +246,25 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
     params: Dict[str, Tree] = {"ln1": norm()}
     if kind in ("global", "local"):
-        params["attn"] = L.init_attention(gen, cfg.attn_cfg(kind), dtype, device)
+        params["attn"] = L.init_attention(gen, cfg.attn_cfg(kind), dtype, device, sub("attn"))
         if cfg.post_norms:
             params["post_attn"] = norm()
         params["ln2"] = norm()
         if cfg.post_norms:
             params["post_ffn"] = norm()
     elif kind == "mamba":
-        params["mamba"] = init_mamba_block(gen, cfg.mamba_cfg(), dtype, device)
+        params["mamba"] = init_mamba_block(gen, cfg.mamba_cfg(), dtype, device, sub("mamba"))
         return params, None, None
     elif kind == "rglru":
-        params["rglru"] = init_rglru_block(gen, cfg.rglru_cfg(), dtype, device)
+        params["rglru"] = init_rglru_block(gen, cfg.rglru_cfg(), dtype, device, sub("rglru"))
         params["ln2"] = norm()
     else:
         raise ValueError(kind)
     topos = metas = None
     if cfg.ffn == "gated":
-        params["ffn"] = L.init_gated_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        params["ffn"] = L.init_gated_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device, sub("ffn"))
     elif cfg.ffn == "moe":
-        params["ffn"] = init_moe(gen, cfg.moe_cfg(), dtype, device)
+        params["ffn"] = init_moe(gen, cfg.moe_cfg(), dtype, device, sub("ffn"))
     elif cfg.ffn == "sparse":
         params["ffn"], topos, metas = L.init_sparse_ffn(
             np_rng, cfg.d_model, cfg.d_ff, cfg.sparse_cfg(), dtype, device)
@@ -278,11 +280,14 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 def _block_fwd(params, h: torch.Tensor, *, cfg: ModelConfig, kind: str,
                positions: torch.Tensor, layer_index: int, mode: str, cache,
                topo: Optional[Tuple[BlockTopoArrays, BlockTopoArrays]],
-               metas, prefix_len: Optional[int], sparse_impl: str = "kernel"):
+               metas, prefix_len: Optional[int], sparse_impl: str = "kernel",
+               moe_groups: Optional[int] = None):
     """One residual block. Returns (h, new_cache, aux): ``aux`` is the MoE
     FFN's auxiliary loss (None without one: nothing to add). A recurrent
-    block's state is written into ``cache`` in place. The configuration is
-    keyword-only: static, as the repository's convention has it."""
+    block's state is written into ``cache`` in place. ``moe_groups``: the
+    MoE FFN's dispatch groups for this call (None: the config's). The
+    configuration is keyword-only: static, as the repository's convention
+    has it."""
     aux = None
     if kind in ("mamba", "rglru"):
         fwd, cfg_of = (mamba_fwd, cfg.mamba_cfg) if kind == "mamba" else (rglru_fwd,
@@ -309,7 +314,10 @@ def _block_fwd(params, h: torch.Tensor, *, cfg: ModelConfig, kind: str,
     if cfg.ffn == "gated":
         f = L.gated_ffn_fwd(params["ffn"], f_in, cfg.activation)
     elif cfg.ffn == "moe":
-        f, aux = moe_fwd(params["ffn"], f_in, cfg.moe_cfg())
+        mcfg = cfg.moe_cfg()
+        if moe_groups is not None:
+            mcfg = dataclasses.replace(mcfg, groups=moe_groups)
+        f, aux = moe_fwd(params["ffn"], f_in, mcfg)
     else:
         f = L.sparse_ffn_fwd(params["ffn"], topo[0], topo[1], metas, f_in,
                              cfg.sparse_cfg(), layer_index, impl=sparse_impl)
@@ -363,7 +371,10 @@ class PatternLM:
         t_out, then their values), so a seed gives the reference's
         topologies and values; the dense weights draw from a CPU
         ``torch.Generator`` seeded alike (not jax.random's draws), or one
-        on the model's device with ``draw_on_device``."""
+        on the model's device with ``draw_on_device``. A pattern slot's
+        repeats draw straight into its stacked leaves
+        (``layers.draw_stacked``): the build's peak is the parameters and
+        one layer's draw."""
         cfg, dev = self.cfg, self.device
         on_device = self._draw_on_device and dev.type != "meta"
         gen = torch.Generator(device=dev if on_device else "cpu").manual_seed(self._seed)
@@ -382,15 +393,17 @@ class PatternLM:
         stack: Dict[str, Tree] = {}
         for s_idx, kind in enumerate(cfg.pattern):
             slot = f"s{s_idx}_{kind}"
-            per_layer, slot_topos = [], []
-            for _ in range(cfg.n_rep):
-                pr, topos, metas = _init_block(gen, cfg, kind, np_rng, dev)
-                per_layer.append(pr)
+            slot_topos = []
+
+            def draw(into, kind=kind, slot_topos=slot_topos):
+                pr, topos, metas = _init_block(gen, cfg, kind, np_rng, dev, into)
                 if topos is not None:
                     slot_topos.append(topos)
                     self.block_metas = metas
-            if per_layer:
-                stack[slot] = tree_map(lambda *xs: torch.stack(xs), *per_layer)
+                return pr
+
+            if cfg.n_rep:
+                stack[slot] = L.draw_stacked(cfg.n_rep, draw)
             if slot_topos:
                 self.topologies[slot] = slot_topos
         params["stack"] = stack
@@ -489,6 +502,7 @@ class PatternLM:
         caches=None,
         prefix_embeds: Optional[torch.Tensor] = None,
         return_hidden: bool = False,
+        moe_groups: Optional[int] = None,
     ):
         """tokens: (B, S). Returns (hidden_or_logits, new_caches, aux).
 
@@ -499,7 +513,11 @@ class PatternLM:
         K/V of prompt length, stacked as the reference's scan stacks them,
         for the engine to insert into its decode caches; a recurrent block
         returns no state, as in the reference). ``aux`` is the MoE auxiliary
-        loss summed over the layers in order (0 without an MoE FFN)."""
+        loss summed over the layers in order (0 without an MoE FFN).
+        ``moe_groups`` sets the MoE FFN's dispatch groups for this call
+        (None: the config's ``moe_groups``): the serving engine's decode
+        gives each slot its own, as the reference's vmap over the slots
+        does, without touching ``self.cfg``."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -529,7 +547,8 @@ class PatternLM:
                          if where[0] == "stack" else caches["rest"][where[1]])
             block = dict(cfg=cfg, kind=kind, positions=positions, layer_index=layer_index,
                          mode=mode, cache=cache, topo=lt, metas=self.block_metas,
-                         prefix_len=prefix_len, sparse_impl=self.sparse_impl)
+                         prefix_len=prefix_len, sparse_impl=self.sparse_impl,
+                         moe_groups=moe_groups)
             if remat and where[0] == "stack":
                 h, nc, aux_b = checkpoint(_block_fwd, lp, h, use_reentrant=False,
                                           preserve_rng_state=False, **block)

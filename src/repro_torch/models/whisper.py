@@ -117,7 +117,8 @@ class WhisperModel:
         """The reference's tree and build order (per encoder layer its
         attention then its FFN, per decoder layer self-attention,
         cross-attention, FFN; then ``tok_embed`` and ``pos_embed``), drawn
-        from one generator on the model's device."""
+        from one generator on the model's device, each stack straight into
+        its stacked leaves (``layers.draw_stacked``)."""
         cfg, dev = self.cfg, self.device
         dtype = getattr(torch, cfg.dtype)
         gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
@@ -127,20 +128,23 @@ class WhisperModel:
         def ln():
             return L.init_layernorm(cfg.d_model, dtype, dev)
 
-        enc, dec = [], []
-        for _ in range(cfg.n_layers):
-            attn = L.init_attention(gen, acfg, dtype, dev)
-            ffn = L.init_plain_ffn(gen, cfg.d_model, cfg.d_ff, dtype, dev)
-            enc.append({"ln1": ln(), "attn": attn, "ln2": ln(), "ffn": ffn})
-        for _ in range(cfg.n_layers):
-            sa = L.init_attention(gen, acfg, dtype, dev)
-            ca = L.init_attention(gen, acfg, dtype, dev)
-            ffn = L.init_plain_ffn(gen, cfg.d_model, cfg.d_ff, dtype, dev)
-            dec.append({"ln1": ln(), "self_attn": sa, "ln2": ln(), "cross_attn": ca,
-                        "ln3": ln(), "ffn": ffn})
+        def enc_layer(into):
+            sub = (into or {}).get
+            attn = L.init_attention(gen, acfg, dtype, dev, sub("attn"))
+            ffn = L.init_plain_ffn(gen, cfg.d_model, cfg.d_ff, dtype, dev, sub("ffn"))
+            return {"ln1": ln(), "attn": attn, "ln2": ln(), "ffn": ffn}
+
+        def dec_layer(into):
+            sub = (into or {}).get
+            sa = L.init_attention(gen, acfg, dtype, dev, sub("self_attn"))
+            ca = L.init_attention(gen, acfg, dtype, dev, sub("cross_attn"))
+            ffn = L.init_plain_ffn(gen, cfg.d_model, cfg.d_ff, dtype, dev, sub("ffn"))
+            return {"ln1": ln(), "self_attn": sa, "ln2": ln(), "cross_attn": ca,
+                    "ln3": ln(), "ffn": ffn}
+
         return {
-            "enc": tree_map(lambda *xs: torch.stack(xs), *enc),
-            "dec": tree_map(lambda *xs: torch.stack(xs), *dec),
+            "enc": L.draw_stacked(cfg.n_layers, enc_layer),
+            "dec": L.draw_stacked(cfg.n_layers, dec_layer),
             "enc_final_ln": ln(),
             "dec_final_ln": ln(),
             "tok_embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), cfg.d_model, dtype, dev),

@@ -16,10 +16,16 @@ behind a bounded LRU keyed by padding bucket. Two model kinds:
   slots' KV caches (no token-by-token replay), and decode runs all slots
   as one batch of rows with **per-slot positions**: each slot writes its
   own cache row at its own position and masks by it (the reference vmaps a
-  batch-1 decode over the slots instead). Padded prompt tails land in the
-  cache past the true length and stay masked by causality until the slot's
-  own decode steps overwrite them. The caches are updated in place. With a
-  ``compaction`` schedule the LM's sparse FFN is compacted first
+  batch-1 decode over the slots instead). An MoE FFN's decode dispatches
+  each slot as a group of its own (``moe_groups = max_slots``), so each
+  slot, idle ones included, has the capacity of the reference's batch-1
+  decode and no slot takes another's; the prefill keeps the model's own
+  groups, as the reference's one batched prefill forward does, so there
+  the prompts of a call (and their padding) share capacity. Padded prompt
+  tails land in the cache past the true length and stay masked by
+  causality until the slot's own decode steps overwrite them. The caches
+  are updated in place. With a ``compaction`` schedule the LM's sparse FFN
+  is compacted first
   (``serve.compact.compact_block_lm``), then moved to the device, and its
   topology arrays are made from the compacted topologies. The
   sparse FFN runs kernel C in bfloat16 on the card, W_in with All-ReLU in
@@ -29,8 +35,8 @@ behind a bounded LRU keyed by padding bucket. Two model kinds:
   checks them and makes their offsets once.
 
 LM scope, the reference's: attention patterns only (``global``/``local``),
-with ``decode_window_cache`` forced off (full-length caches and windowed
-masking), no prefix-LM configs.
+with any FFN (gated, sparse, MoE), ``decode_window_cache`` forced off
+(full-length caches and windowed masking), no prefix-LM configs.
 
 PyTorch runs eagerly, so a bucket's entry is the forward bound to that
 bucket's shape, and a bucket's first use counts as its "compile" in
@@ -177,13 +183,6 @@ class SparseInferenceEngine:
                 # as the reference's: a prefill returns no recurrent state to
                 # seed a slot's decode from
                 raise ValueError(f"LM engine serves attention patterns only, got {bad}")
-            if model.cfg.ffn == "moe":
-                # the engine decodes its slots as the rows of one forward, so
-                # one dispatch would share capacity across slots; the
-                # reference's per-slot decode gives each slot its own
-                raise NotImplementedError(
-                    "ffn='moe' in the LM engine comes with MoE in the serving engine "
-                    "(dispatch groups = slots; ROADMAP Queue 1, item 17)")
             if model.cfg.prefix_len:
                 # prefix-LM masks attend bidirectionally inside the prefix:
                 # bucket padding would put pad tokens INSIDE that window, and
@@ -409,18 +408,26 @@ class SparseInferenceEngine:
             # .cpu() waits for the device, so the span covers the computation
             return next_tok.cpu().numpy().astype(np.int32)
 
+    def _step_logits(self, params, topo, caches, tokens: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+        """The all-slots step's logits (max_slots, vocab), the caches written
+        in place: each slot's token at its own position, and an MoE FFN
+        dispatched in one group a slot (the reference's vmapped batch-1
+        decode)."""
+        logits, _, _ = self.model.forward(params, tokens[:, None], topo=topo,
+                                          positions=pos[:, None], mode="decode",
+                                          caches=caches, moe_groups=self.cfg.max_slots)
+        return logits[:, -1]
+
     def _build_decode(self) -> Callable:
         """The all-slots step ``fn(params, topo, caches, tokens, pos) ->
         (next_tok, caches)``, the caches updated in place as in
         :meth:`_build_prefill`."""
-        model = self.model
+        step_logits = self._step_logits
 
         @torch.inference_mode()
         def fn(params, topo, caches, tokens: torch.Tensor, pos: torch.Tensor):
-            logits, _, _ = model.forward(params, tokens[:, None], topo=topo,
-                                         positions=pos[:, None], mode="decode",
-                                         caches=caches)
-            return torch.argmax(logits[:, -1], dim=-1), caches
+            return torch.argmax(step_logits(params, topo, caches, tokens, pos), dim=-1), caches
 
         return fn
 

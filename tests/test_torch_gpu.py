@@ -2579,3 +2579,77 @@ def test_draw_on_device_draws_the_dense_weights_on_the_card(cuda):
         else:
             assert not torch.equal(got, want), name
             assert abs(float(got.float().std() / want.float().std()) - 1) < 0.1, name
+
+
+# qwen3-moe-30b-a3b at full width, depth cut to 4 layers, bf16, drawn on the
+# card; logits of two bf16 computations held as chip_smoke.py's
+# logits_close holds them: elementwise within 0.1 + 5e-2 x |want|, and the
+# argmax kept on every row whose top-2 margin exceeds 0.1
+MOE_ATOL, MOE_RTOL = 0.1, 5e-2
+
+
+def _moe_full_width(cuda, layers=4):
+    from repro_torch import configs
+    from repro_torch.models.transformer import PatternLM
+
+    cfg = dataclasses.replace(configs.get_spec("qwen3-moe-30b-a3b").config, n_layers=layers)
+    return PatternLM(cfg, seed=0, device=cuda, draw_on_device=True)
+
+
+def test_moe_engine_decode_matches_each_slot_decoded_alone_on_card(cuda):
+    """The engine's all-slots decode step (one MoE dispatch group a slot)
+    against each slot's batch-1 decode on a copy of its cache rows (the
+    reference's vmapped step), over 4 steps of 8 busy slots."""
+    from repro_torch.serve import EngineConfig, SparseInferenceEngine
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    model = _moe_full_width(cuda)
+    eng = SparseInferenceEngine(model, device=cuda, engine=EngineConfig(
+        max_slots=8, max_len=64, prefill_buckets=(16,), prefill_batch=4))
+    rng = np.random.default_rng(0)
+    lens = rng.integers(4, 17, 8)
+    prompts = [rng.integers(0, model.cfg.vocab, n).astype(np.int32) for n in lens]
+    tokens = np.concatenate([eng.prefill(prompts[:4], [0, 1, 2, 3]),
+                             eng.prefill(prompts[4:], [4, 5, 6, 7])]).astype(np.int64)
+    pos = lens.astype(np.int64)
+    c = eng._caches
+    for _ in range(4):
+        want = []
+        with torch.inference_mode():
+            for s in range(8):
+                one = {"stack": tree_map(lambda a: a[:, s:s + 1].clone(), c["stack"]),
+                       "rest": tree_map(lambda a: a[s:s + 1].clone(), c["rest"])}
+                lg, _, _ = model.forward(eng._params, torch.tensor([[tokens[s]]], device=cuda),
+                                         positions=torch.tensor([[pos[s]]], device=cuda),
+                                         mode="decode", caches=one)
+                want.append(lg[0, -1].float())
+            got = eng._step_logits(eng._params, eng._topo, c, torch.as_tensor(tokens, device=cuda),
+                                   torch.as_tensor(pos, device=cuda)).float()
+        want = torch.stack(want)
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - want).abs() <= MOE_ATOL + MOE_RTOL * want.abs()).all())
+        top2 = want.topk(2, dim=-1).values
+        held = (top2[:, 0] - top2[:, 1]) > MOE_ATOL
+        assert bool((got.argmax(-1) == want.argmax(-1))[held].all())
+        tokens, pos = got.argmax(-1).cpu().numpy(), pos + 1
+
+
+def test_moe_draw_peak_is_the_leaves_and_one_layers_draw(cuda):
+    """Drawing the model on the card writes each layer into its row of the
+    stacked leaves: the allocator's peak over the build stays within the
+    leaves' bytes and one layer's f32 draw (stacking the layers at the end
+    held every layer twice)."""
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = _moe_full_width(cuda)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    leaves = sum(a.numel() * a.element_size() for a in tree_leaves(model.params))
+    stack = tree_leaves(model.params["stack"])
+    layer_f32 = sum(4 * a[0].numel() for a in stack)
+    assert leaves < peak <= leaves + layer_f32, (peak, leaves, layer_f32)

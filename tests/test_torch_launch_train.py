@@ -76,7 +76,7 @@ def test_driver_config_is_the_reference_s_plus_the_device():
 def test_synthetic_batch_draws_the_reference_s_numbers():
     for prefix in (0, 3):
         got = ttrain.synthetic_batch(np.random.default_rng(1234), 2, 16, 512, prefix=prefix,
-                                     d_model=8)
+                                     d_model=8, device="cpu")
         want = jtrain.synthetic_batch(np.random.default_rng(1234), 2, 16, 512, prefix=prefix,
                                       d_model=8)
         assert sorted(got) == sorted(want)

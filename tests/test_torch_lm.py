@@ -47,7 +47,7 @@ from repro_torch.kernels import block_sparse_matmul as bsm  # noqa: E402
 from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.transformer import ModelConfig, PatternLM  # noqa: E402
-from repro_torch.serve.engine import SparseInferenceEngine  # noqa: E402
+from repro_torch.serve.engine import EngineConfig, SparseInferenceEngine  # noqa: E402
 from repro_torch.tree import tree_flatten_with_names, tree_map  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -626,21 +626,32 @@ def test_registry_matches_reference():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("qwen3-moe-30b-a3b", "'moe'"),
     ("falcon-mamba-7b", "'mamba'"),
     ("recurrentgemma-2b", "'rglru'"),
 ])
 def test_unported_blocks_are_refused(arch, what):
     """The model builds (``tests/test_torch_arch_smoke.py``); the serving
-    engine refuses it: a recurrent pattern as the reference's engine does
-    (a prefill returns no state), the MoE FFN naming its ROADMAP item."""
+    engine refuses a recurrent pattern as the reference's engine does (a
+    prefill returns no state)."""
     model = PatternLM(configs.get_spec(arch).smoke, seed=0, device="cpu")
-    if what == "'moe'":
-        with pytest.raises(NotImplementedError, match="MoE in the serving engine.*item 17"):
-            SparseInferenceEngine(model, device="cpu")
-    else:
-        with pytest.raises(ValueError, match=f"attention patterns only.*{what}"):
-            SparseInferenceEngine(model, device="cpu")
+    with pytest.raises(ValueError, match=f"attention patterns only.*{what}"):
+        SparseInferenceEngine(model, device="cpu")
+
+
+def test_engine_builds_on_the_moe_smoke_model():
+    """The engine serves the MoE FFN (``tests/test_torch_moe_serve.py``
+    holds its tokens to the reference's): it builds on qwen3-moe's smoke
+    model with one cache row a slot, and a prefill and a decode step give
+    vocabulary ids."""
+    cfg = configs.get_spec("qwen3-moe-30b-a3b").smoke
+    eng = SparseInferenceEngine(PatternLM(cfg, seed=0, device="cpu"), device="cpu",
+                                engine=EngineConfig(max_slots=3, max_len=16,
+                                                    prefill_buckets=(8,), prefill_batch=2))
+    assert eng.kind == "lm" and eng.model.cfg.ffn == "moe" and eng._topo is None
+    assert eng._caches["stack"]["s0_global"]["k"].shape[:3] == (cfg.n_rep, 3, 16)
+    tok = eng.prefill([np.arange(5, dtype=np.int32)], [1])
+    nxt = eng.decode_step(np.array([0, tok[0], 0]), np.array([15, 5, 15]))
+    assert nxt.shape == (3,) and ((0 <= nxt) & (nxt < cfg.vocab)).all()
 
 
 def test_draw_on_device_draws_from_the_models_device():
