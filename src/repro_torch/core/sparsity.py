@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -322,22 +323,31 @@ class ElementTopology:
     """
 
     def __init__(self, in_dim: int, out_dim: int, rows: np.ndarray, cols: np.ndarray):
+        # imported here: obs imports the modules that import this one
+        from repro_torch import obs
+
         self.in_dim = int(in_dim)
         self.out_dim = int(out_dim)
-        order = np.lexsort((rows, cols))
-        self.rows = np.asarray(rows, np.int32)[order]
-        self.cols = np.asarray(cols, np.int32)[order]
-        # kernel A gathers and writes through these indices unchecked
-        if self.rows.size and not (
-            0 <= self.rows.min() and self.rows.max() < self.in_dim
-            and 0 <= self.cols.min() and self.cols.max() < self.out_dim
-        ):
-            raise ValueError(
-                f"connections out of range for a {self.in_dim}x{self.out_dim} layer"
-            )
-        flat = self.rows.astype(np.int64) * out_dim + self.cols
-        if np.unique(flat).size != flat.size:
-            raise ValueError("duplicate connections")
+        # host work that set-up pays for at full width: traced as one span
+        # with the sort's and the uniqueness check's seconds
+        with obs.span("topology.build", nnz=int(np.shape(rows)[0])) as sp:
+            t0 = time.perf_counter()
+            order = np.lexsort((rows, cols))
+            self.rows = np.asarray(rows, np.int32)[order]
+            self.cols = np.asarray(cols, np.int32)[order]
+            t1 = time.perf_counter()
+            # kernel A gathers and writes through these indices unchecked
+            if self.rows.size and not (
+                0 <= self.rows.min() and self.rows.max() < self.in_dim
+                and 0 <= self.cols.min() and self.cols.max() < self.out_dim
+            ):
+                raise ValueError(
+                    f"connections out of range for a {self.in_dim}x{self.out_dim} layer"
+                )
+            flat = self.rows.astype(np.int64) * out_dim + self.cols
+            if np.unique(flat).size != flat.size:
+                raise ValueError("duplicate connections")
+            sp.set(sort_s=t1 - t0, unique_s=time.perf_counter() - t1)
 
     @classmethod
     def erdos_renyi(

@@ -9,7 +9,7 @@ The one import every instrumented subsystem makes::
 
     with obs.span("train.epoch", epoch=epoch) as sp:
         params, losses = segment(...)
-        sp.block_on((params, losses))   # close waits for device results
+        sp.block_on((params, losses))   # on a card, ends where they are made
 
 Instrumentation lives host-side *between* device calls: a span or point
 never reads a device value (that would add a host synchronisation), and

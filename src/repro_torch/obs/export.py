@@ -117,8 +117,8 @@ def read_events(path: str) -> List[Dict[str, Any]]:
 
 def validate_events(events: Iterable[Dict[str, Any]]) -> List[str]:
     """Schema-check a trace: required keys per event type, numeric
-    monotonic-clock fields, span durations consistent, parent ids known,
-    meta first. Returns a list of human-readable errors (empty = valid)."""
+    monotonic-clock fields, span durations consistent, device times (where
+    a span has them) in order, parent ids known, meta first. Returns a list of human-readable errors (empty = valid)."""
     errors: List[str] = []
     seen_ids: set = set()
     for i, ev in enumerate(events):
@@ -153,6 +153,14 @@ def validate_events(events: Iterable[Dict[str, Any]]) -> List[str]:
                     errors.append(
                         f"event {i}: span {ev['name']!r} dur_s inconsistent"
                     )
+            if "dev_t0" in ev and "dev_t1" in ev:
+                if not all(isinstance(ev[k], (int, float))
+                           for k in ("dev_t0", "dev_t1")):
+                    errors.append(f"event {i}: span dev_t0/dev_t1 must be numeric")
+                elif ev["dev_t1"] < ev["dev_t0"]:
+                    errors.append(
+                        f"event {i}: span {ev['name']!r} dev_t1 < dev_t0"
+                    )
             if ev["id"] in seen_ids:
                 errors.append(f"event {i}: duplicate span id {ev['id']}")
             seen_ids.add(ev["id"])
@@ -181,25 +189,37 @@ def _percentile(sorted_vals: List[float], p: float) -> float:
     return sorted_vals[lo] * (1 - frac) + sorted_vals[hi] * frac
 
 
+def _covered(span: Dict[str, Any], children: List[Dict[str, Any]]) -> float:
+    """Seconds of ``span``'s interval that its children's intervals cover:
+    the length of their union, clipped to the span."""
+    t0, t1 = float(span["t0"]), float(span["t1"])
+    covered, end = 0.0, t0
+    for s, e in sorted((float(c["t0"]), float(c["t1"])) for c in children):
+        s, e = max(s, end), min(e, t1)
+        if e > s:
+            covered += e - s
+            end = e
+    return covered
+
+
 def summarize_events(events: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
     """Aggregate spans by name: count, total/mean/p50/p95/p99 duration, and
-    self-time (duration minus closed child spans). Points aggregate by
-    name with counts."""
+    self-time (duration minus the union of its closed child spans'
+    intervals, clipped to the span: a ``block_on`` child that runs on past
+    its host close may overlap its sibling). Points aggregate by name with
+    counts."""
     spans = [e for e in events if e.get("ev") == "span"]
     points = [e for e in events if e.get("ev") == "point"]
     by_name: Dict[str, List[float]] = collections.defaultdict(list)
-    child_time: Dict[int, float] = collections.defaultdict(float)
-    name_of: Dict[int, str] = {}
+    children: Dict[int, List[Dict[str, Any]]] = collections.defaultdict(list)
     for s in spans:
         by_name[s["name"]].append(float(s["dur_s"]))
-        name_of[s["id"]] = s["name"]
         if s.get("parent") is not None:
-            child_time[s["parent"]] += float(s["dur_s"])
+            children[s["parent"]].append(s)
     self_by_name: Dict[str, float] = collections.defaultdict(float)
     for s in spans:
-        self_by_name[s["name"]] += float(s["dur_s"]) - child_time.get(
-            s["id"], 0.0
-        )
+        self_by_name[s["name"]] += float(s["dur_s"]) - _covered(
+            s, children.get(s["id"], []))
     out_spans = {}
     for name, durs in sorted(by_name.items()):
         sv = sorted(durs)

@@ -2,20 +2,27 @@
 events with monotonic timestamps (DESIGN.md §11).
 
 The span taxonomy mirrors the repo's execution structure — training:
-``run → epoch → segment/shard-stream/sync-round → device-call boundary``;
+``run → epoch → prepare/feed/segment/topology/wait/evaluate/hook``;
 serving: ``request → queue → prefill → decode steps``. Every event carries
 ``time.perf_counter()`` timestamps (monotonic, high resolution, process
 local) — never wall clock, so spans order correctly across clock steps.
 
 **The timing lesson**: CUDA launches are asynchronous, so a span that
-closes right after a launch has measured *dispatch*, not *work*.
-Spans therefore carry an explicit ``block_on(x)`` hook: the devices of
-the CUDA tensors registered with it are synchronised at span close,
-*before* the close timestamp is read. Instrumentation sites register exactly the device
-values whose completion the span claims to time — and nothing else, so
-tracing never introduces synchronization a disabled run wouldn't have at
-that point (sites only register values the surrounding code blocks on
-anyway).
+closes right after a launch has measured *dispatch*, not *work*. Where the
+process has initialised CUDA, a span therefore records a timing
+``torch.cuda.Event`` on the current stream when it opens and when it
+closes, and ``block_on(x)`` adds one on the stream of each device the CUDA
+tensors in ``x`` lie on. The close never synchronises: a traced run
+queues the same work as an untraced one. The events are put on the spans'
+clock by one anchor a device, taken the first time the tracer records
+there (synchronise, record an event, wait for it, read the clock): the
+only synchronise the tracer makes. Each span event then gets ``dev_t0``
+and ``dev_t1``, the times its open and close events ran on the device; a
+span that ``block_on``-ed a value ends at the later of its host close and
+``dev_t1``, so it times the device's work it claims. The fields are filled
+in on the event dicts themselves, at a later span's close where the
+events have run, at the latest in ``flush()``. Without a card (or before
+CUDA is initialised) nothing is recorded and no CUDA call is made.
 
 When no tracer is installed — or inside ``obs.disabled()`` — ``span()``
 and ``point()`` return/are singleton no-ops: no ``Span`` object, no event
@@ -25,10 +32,13 @@ hot loops.
 
 Event schema (one JSON object per line; ``ev`` discriminates):
 
-* ``{"ev":"meta","schema":1,"pid":...,"t":...,"attrs":{...}}`` — first line.
+* ``{"ev":"meta","schema":1,"clock":"perf_counter","pid":...,"t":...,
+  "attrs":{...}}`` — first line; ``clock`` names the clock of every time.
 * ``{"ev":"span","name":...,"id":n,"parent":m|null,"t0":...,"t1":...,
   "dur_s":...,"attrs":{...}}`` — emitted at span *close*, so children
   precede parents in the file; readers rebuild the tree from id/parent.
+  On a card, also ``"dev_t0"`` and ``"dev_t1"`` (optional fields: the
+  schema stays 1).
 * ``{"ev":"point","name":...,"t":...,"attrs":{...}}`` — instant events
   (restore/retry/compile/heartbeat).
 """
@@ -91,25 +101,11 @@ def _cuda_devices(obj: Any, found: set) -> None:
             _cuda_devices(getattr(obj, f.name), found)
 
 
-def _block_until_ready(objs: List[Any]) -> None:
-    """Wait for the work that makes the CUDA tensors in ``objs``: a
-    ``torch.cuda.synchronize`` of each device they lie on. CPU tensors (and
-    anything else) are ready already: nothing waits for them."""
-    found: set = set()
-    for o in objs:
-        _cuda_devices(o, found)
-    if found:
-        import torch
-
-        for dev in found:
-            torch.cuda.synchronize(dev)
-
-
 class Span:
     """One open span; use via ``with obs.span(name, **attrs) as sp:``."""
 
     __slots__ = ("_tracer", "name", "id", "parent", "t0", "attrs",
-                 "_block", "_token")
+                 "_block", "_token", "_opened")
 
     def __init__(self, tracer: "Tracer", name: str, parent: Optional[int],
                  span_id: int, attrs: Optional[Dict[str, Any]]):
@@ -121,6 +117,7 @@ class Span:
         self.t0 = 0.0
         self._block: List[Any] = []
         self._token = None
+        self._opened: Optional[Dict[int, Any]] = None
 
     def set(self, **attrs: Any) -> "Span":
         """Attach attributes discovered mid-span (loss, token counts...)."""
@@ -128,12 +125,16 @@ class Span:
         return self
 
     def block_on(self, obj: Any) -> Any:
-        """Register a device value the span's close must wait for. Returns
-        the object unchanged so call sites can wrap expressions."""
+        """Register a device value whose making the span times: its close
+        records an event on the stream of each device the value's CUDA
+        tensors lie on, and the span ends no earlier than those events run
+        (it does not wait for them). Returns the object unchanged so call
+        sites can wrap expressions."""
         self._block.append(obj)
         return obj
 
     def __enter__(self) -> "Span":
+        self._opened = self._tracer._device_marks()
         self.t0 = self._tracer.clock()
         self._token = _span_stack.set(
             _span_stack.get() + ((self.id, self.name),)
@@ -141,18 +142,23 @@ class Span:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        if self._block:
-            _block_until_ready(self._block)
         t1 = self._tracer.clock()
         if self._token is not None:
             _span_stack.reset(self._token)
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
-        self._tracer._emit({
+        event = {
             "ev": "span", "name": self.name, "id": self.id,
             "parent": self.parent, "t0": self.t0, "t1": t1,
             "dur_s": t1 - self.t0, "attrs": self.attrs,
-        })
+        }
+        self._tracer._emit(event)
+        if self._opened is not None:
+            found: set = set()
+            for o in self._block:
+                _cuda_devices(o, found)
+            closed = self._tracer._device_marks(found)
+            self._tracer._time_on_device(event, self._opened, closed, bool(self._block))
 
 
 class _NoopSpan:
@@ -207,14 +213,80 @@ class Tracer:
         )
         self._buf: collections.deque = collections.deque()
         self._flushed = 0
+        # device index -> (anchor event, its time on self.clock)
+        self._anchors: Dict[int, Tuple[Any, float]] = {}
+        # span events whose device times are not filled in yet, in close order
+        self._unresolved: collections.deque = collections.deque()
+        self._device_lock = threading.Lock()
         self._emit({
-            "ev": "meta", "schema": SCHEMA_VERSION, "pid": os.getpid(),
-            "t": self.clock(), "attrs": dict(meta or {}),
+            "ev": "meta", "schema": SCHEMA_VERSION,
+            "clock": getattr(clock, "__name__", type(clock).__name__),
+            "pid": os.getpid(), "t": self.clock(), "attrs": dict(meta or {}),
         })
 
     def _emit(self, event: Dict[str, Any]) -> None:
         _state.note_alloc()
         self._buf.append(event)
+
+    # -- device times (see the module docstring) ------------------------------
+
+    def _device_marks(self, devices=()) -> Optional[Dict[int, Any]]:
+        """A timing event recorded now on the current stream of the current
+        device and of each of ``devices``, by device index; None, with no
+        CUDA call made, where the process has not initialised CUDA."""
+        import torch
+
+        if not torch.cuda.is_initialized():
+            return None
+        marks = {}
+        for d in {torch.cuda.current_device(), *(dev.index for dev in devices)}:
+            if d not in self._anchors:
+                with self._device_lock:
+                    if d not in self._anchors:
+                        self._anchors[d] = self._anchor(torch, d)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(d))
+            marks[d] = ev
+        return marks
+
+    def _anchor(self, torch, d: int) -> Tuple[Any, float]:
+        """The one synchronise: an event that has run on device ``d``, and
+        the clock's reading just after, to put its other events on the
+        clock."""
+        torch.cuda.synchronize(d)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(d))
+        ev.synchronize()
+        return ev, self.clock()
+
+    def _on_clock(self, d: int, ev: Any) -> float:
+        anchor, t = self._anchors[d]
+        return t + 1e-3 * anchor.elapsed_time(ev)
+
+    def _time_on_device(self, event: Dict[str, Any], opened: Dict[int, Any],
+                        closed: Dict[int, Any], blocked: bool) -> None:
+        self._unresolved.append((event, opened, closed, blocked))
+        self._resolve(wait=False)
+
+    def _resolve(self, wait: bool) -> None:
+        """Fill in ``dev_t0``/``dev_t1`` (and a ``block_on`` span's ``t1``
+        and ``dur_s``) on the span events whose device events have run, in
+        close order; with ``wait``, on all of them, waiting for their events."""
+        with self._device_lock:
+            while self._unresolved:
+                event, opened, closed, blocked = self._unresolved[0]
+                marks = [*opened.values(), *closed.values()]
+                if wait:
+                    for ev in marks:
+                        ev.synchronize()
+                elif not all(ev.query() for ev in marks):
+                    return
+                self._unresolved.popleft()
+                event["dev_t0"] = min(self._on_clock(d, ev) for d, ev in opened.items())
+                event["dev_t1"] = max(self._on_clock(d, ev) for d, ev in closed.items())
+                if blocked and event["dev_t1"] > event["t1"]:
+                    event["t1"] = event["dev_t1"]
+                    event["dur_s"] = event["t1"] - event["t0"]
 
     @property
     def events_written(self) -> int:
@@ -251,8 +323,10 @@ class Tracer:
 
     def flush(self) -> None:
         """Serialize and write everything buffered so far (see class
-        docstring — this is where the JSON encoding cost lives)."""
+        docstring — this is where the JSON encoding cost lives), after
+        filling in the device times still missing."""
         with self._lock:
+            self._resolve(wait=True)
             events = []
             while True:  # popleft is atomic; emitters may append meanwhile
                 try:

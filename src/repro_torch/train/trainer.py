@@ -58,13 +58,22 @@ directions (see ``restore_checkpoint`` for the random streams).
 regime): the same epoch protocol on the shard-streamed substrate
 (``repro_torch.xl``), with streamed checkpoints.
 
-Observability (``repro_torch.obs``, DESIGN.md §11-§12), as the reference
-wires it: the spans ``train.run``, ``train.epoch`` and ``train.segment``
-(which waits for the segment's losses at its close, so it times the
-device's work), the points ``train.prune``, ``train.evolve`` and
-``train.eval``, and with ``TrainerConfig(probe=True)`` one snapshot per
-epoch (``obs.probes.record_snapshot``): the segment adds one forward and
-one backward on half of its last minibatch and the probe's reductions
+Observability (``repro_torch.obs``, DESIGN.md §11-§12): a span for each
+phase of a run, opened where the work is done, never once a step.
+``train.run`` holds ``train.prepare`` (the run's upload of the training
+set, fused mode only, and the topology's device arrays; ``h2d_bytes``) and
+one ``train.epoch`` an epoch, which holds ``train.feed`` (the epoch's
+permutation and learning rates, fused mode; ``h2d_bytes``),
+``train.segment`` (``block_on`` its losses or parameters, so on a card it
+ends where the device's work ends), ``train.topology`` (``pruned``,
+``evolved``, ``device``, and ``n_params`` after a pruning),
+``train.wait`` (the epoch's synchronise and the mean loss's read),
+``train.evaluate`` (opened by :func:`evaluate` itself: ``rows``,
+``batches``, ``acc``, ``h2d_bytes``) and ``train.hook`` (the epoch-end
+hook). No span synchronises (``obs.trace``). With
+``TrainerConfig(probe=True)``, one snapshot per epoch
+(``obs.probes.record_snapshot``): the segment adds one forward and one
+backward on half of its last minibatch and the probe's reductions
 (:func:`make_segment_program`), and device SET reports its churn. A probe
 reads the weights and never writes them: a probed run's history,
 topologies and weights are the unprobed run's, bit for bit.
@@ -221,18 +230,40 @@ def evaluate(model: SparseMLP, x: np.ndarray, y: np.ndarray, batch: int = 512, *
     ``params``/``topo_arrays`` override the model's own views: the caller's
     device state (WASAP's averaged phase-1 master, whose host mirror lags),
     or device arrays it already has; without them they are made from the
-    model."""
-    params = model.params() if params is None else params
-    topo = model.topo_arrays() if topo_arrays is None else topo_arrays
-    dev = model.device
-    correct = torch.zeros((), dtype=torch.int64, device=dev)
-    with torch.no_grad():
-        for s in range(0, x.shape[0], batch):
-            xb = torch.as_tensor(x[s : s + batch], device=dev)
-            yb = torch.as_tensor(y[s : s + batch], device=dev).long()
-            logits = mlp_forward(params, topo, xb, model.config, train=False)
-            correct += (logits.argmax(-1) == yb).sum()
-    return int(correct) / x.shape[0]
+    model. Traced as one ``train.evaluate`` span; its ``h2d_bytes`` are the
+    bytes of the slices copied from the host to a card (:func:`_h2d_nbytes`):
+    0 where ``x`` and ``y`` already lie on the model's device."""
+    n = x.shape[0]
+    with obs.span("train.evaluate", rows=int(n), batches=-(-n // batch)) as sp:
+        params = model.params() if params is None else params
+        topo = model.topo_arrays() if topo_arrays is None else topo_arrays
+        dev = model.device
+        correct = torch.zeros((), dtype=torch.int64, device=dev)
+        h2d_bytes = 0
+        with torch.no_grad():
+            for s in range(0, n, batch):
+                xs, ys = x[s : s + batch], y[s : s + batch]
+                h2d_bytes += _h2d_nbytes(xs, dev) + _h2d_nbytes(ys, dev)
+                xb = torch.as_tensor(xs, device=dev)
+                yb = torch.as_tensor(ys, device=dev).long()
+                logits = mlp_forward(params, topo, xb, model.config, train=False)
+                correct += (logits.argmax(-1) == yb).sum()
+        acc = int(correct) / n
+        sp.set(acc=acc, h2d_bytes=int(h2d_bytes))
+    return acc
+
+
+def _h2d_nbytes(a, dev) -> int:
+    """Bytes that ``torch.as_tensor(a, device=dev)`` copies from the host to
+    a card: the size of a numpy array or a CPU tensor where ``dev`` is a CUDA
+    device, else 0 (no copy, or none that crosses to a card)."""
+    if torch.device(dev).type != "cuda":
+        return 0
+    if isinstance(a, np.ndarray):
+        return int(a.nbytes)
+    if isinstance(a, torch.Tensor) and a.device.type == "cpu":
+        return a.numel() * a.element_size()
+    return 0
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -456,16 +487,21 @@ class SequentialTrainer:
         tc = self.tc
         if self.model.config.impl not in SPARSE_IMPLS:
             return topo, topo_dirty
-        if tc.pruning is not None and tc.pruning.should_prune(epoch):
-            topo = self._host_topology_op(topo, topo_dirty, lambda: self._importance_prune(epoch))
-            topo_dirty = False
-            obs.point("train.prune", epoch=epoch, n_params=self.model.n_params)
-        if epoch < tc.epochs - 1 and tc.evolve:
-            if device_evo:
-                topo, topo_dirty = self._evolve_device(topo), True
-            else:
-                topo, topo_dirty = self._host_topology_op(topo, topo_dirty, self._evolve), False
-            obs.point("train.evolve", epoch=epoch, device=device_evo)
+        prune = tc.pruning is not None and tc.pruning.should_prune(epoch)
+        evolve = epoch < tc.epochs - 1 and tc.evolve
+        with obs.span("train.topology", pruned=prune, evolved=evolve,
+                      device=evolve and device_evo) as sp:
+            if prune:
+                topo = self._host_topology_op(topo, topo_dirty,
+                                              lambda: self._importance_prune(epoch))
+                topo_dirty = False
+                sp.set(n_params=self.model.n_params)
+            if evolve:
+                if device_evo:
+                    topo, topo_dirty = self._evolve_device(topo), True
+                else:
+                    topo, topo_dirty = self._host_topology_op(topo, topo_dirty,
+                                                              self._evolve), False
         return topo, topo_dirty
 
     # -- resume (DESIGN.md §8) ----------------------------------------------
@@ -573,6 +609,23 @@ class SequentialTrainer:
                 return self._run_fused(log_every)
             return self._run_per_batch(log_every)
 
+    def _prepare(self, fused: bool):
+        """The run's upload: in fused mode the training set (``x_all``,
+        ``y_all``; None in per-batch mode, whose batches go up step by
+        step), and the topology's device arrays."""
+        with obs.span("train.prepare") as sp:
+            x_all = y_all = None
+            h2d_bytes = 0
+            if fused:
+                x_all = torch.as_tensor(self.data.x_train, device=self.device)
+                y_all = torch.as_tensor(self.data.y_train, device=self.device).long()
+                h2d_bytes = (_h2d_nbytes(self.data.x_train, self.device)
+                             + _h2d_nbytes(self.data.y_train, self.device))
+            topo = self.model.topo_arrays()
+            sp.set(h2d_bytes=int(h2d_bytes))
+            sp.block_on((x_all, y_all, topo))
+        return x_all, y_all, topo
+
     def _loader(self) -> ShardedLoader:
         tc = self.tc
         loader = ShardedLoader(self.data.x_train, self.data.y_train, tc.batch_size, seed=tc.seed)
@@ -588,12 +641,12 @@ class SequentialTrainer:
         history, and call the epoch-end hook, which reads the host mirror:
         synced first if it lags ``topo``. Returns whether it still lags."""
         tc, model = self.tc, self.model
-        _sync(self.device)
-        dt = time.perf_counter() - t0
-        train_loss = float(losses.mean())
+        with obs.span("train.wait"):
+            _sync(self.device)
+            dt = time.perf_counter() - t0
+            train_loss = float(losses.mean())
         if (epoch + 1) % tc.eval_every == 0 or epoch == tc.epochs - 1:
             acc = evaluate(model, self.data.x_test, self.data.y_test, topo_arrays=topo)
-            obs.point("train.eval", epoch=epoch, acc=float(acc))
         else:
             acc = float("nan")
         n_params = model.n_params
@@ -619,10 +672,11 @@ class SequentialTrainer:
         self.gstep = gstep
         self.epoch_next = epoch + 1
         if self.epoch_end_hook is not None:
-            if topo_dirty:
-                self._sync_topology_to_host(topo)
-                topo_dirty = False
-            self.epoch_end_hook(self, epoch)
+            with obs.span("train.hook"):
+                if topo_dirty:
+                    self._sync_topology_to_host(topo)
+                    topo_dirty = False
+                self.epoch_end_hook(self, epoch)
         return topo_dirty
 
     def _run_fused(self, log_every: int) -> Dict[str, List]:
@@ -631,25 +685,23 @@ class SequentialTrainer:
         loader = self._loader()
         steps = loader.steps_per_epoch
         lr_fn = tc.lr_schedule or (lambda step: tc.lr)
-        x_all = torch.as_tensor(self.data.x_train, device=dev)
-        y_all = torch.as_tensor(self.data.y_train, device=dev).long()
+        x_all, y_all, topo = self._prepare(fused=True)
         gstep = self.gstep
-        topo = model.topo_arrays()
         device_evo = tc.evolve and tc.device_evolution and self._supports_device_evolution()
         topo_dirty = False  # the device topology has moved on from model.topos
         segment = self._probe_segment or self._segment
         for epoch in range(self.start_epoch, tc.epochs):
             with obs.span("train.epoch", epoch=epoch) as ep_sp:
                 t0 = time.perf_counter()
-                perm = torch.as_tensor(
-                    loader.epoch_order(epoch).reshape(steps, tc.batch_size), device=dev
-                )
-                lrs = torch.tensor(
-                    [float(lr_fn(gstep + i)) for i in range(steps)], dtype=torch.float32,
-                    device=dev
-                )
-                # the span waits for the segment's losses at its close, so
-                # it times the device's work
+                with obs.span("train.feed") as feed_sp:
+                    order = loader.epoch_order(epoch).reshape(steps, tc.batch_size)
+                    rates = np.array([float(lr_fn(gstep + i)) for i in range(steps)],
+                                     dtype=np.float32)
+                    perm = torch.as_tensor(order, device=dev)
+                    lrs = torch.as_tensor(rates, device=dev)
+                    feed_sp.set(h2d_bytes=_h2d_nbytes(order, dev) + _h2d_nbytes(rates, dev))
+                # on a card the span ends where the segment's losses are
+                # made, so it times the device's work
                 with obs.span("train.segment", steps=steps) as seg_sp:
                     out = self._guarded(gstep, lambda: segment(
                         model.params(), self.opt_state, topo, x_all, y_all, perm, lrs, self.key))
@@ -671,7 +723,7 @@ class SequentialTrainer:
         loader = self._loader()
         lr_fn = tc.lr_schedule or (lambda step: tc.lr)
         gstep = self.gstep
-        topo = model.topo_arrays()
+        _, _, topo = self._prepare(fused=False)
         for epoch in range(self.start_epoch, tc.epochs):
             with obs.span("train.epoch", epoch=epoch) as ep_sp:
                 t0 = time.perf_counter()
@@ -775,12 +827,17 @@ class XLTrainer:
         return sum(st.nnz + st.out_dim for st in self.state.layers)
 
     def evaluate(self, x: np.ndarray, y: np.ndarray) -> float:
-        correct = 0
-        b = self.plan.batch
-        for s in range(0, x.shape[0], b):
-            logits = self.executor.logits(x[s : s + b])
-            correct += int((np.argmax(logits, -1) == y[s : s + b]).sum())
-        return correct / x.shape[0]
+        """Accuracy on (x, y) over the streamed forward, traced as one
+        ``train.evaluate`` span (``rows``, ``batches``, ``acc``)."""
+        n, b = x.shape[0], self.plan.batch
+        with obs.span("train.evaluate", rows=int(n), batches=-(-n // b)) as sp:
+            correct = 0
+            for s in range(0, n, b):
+                logits = self.executor.logits(x[s : s + b])
+                correct += int((np.argmax(logits, -1) == y[s : s + b]).sum())
+            acc = correct / n
+            sp.set(acc=acc)
+        return acc
 
     def save_checkpoint(self, manager, step: Optional[int] = None) -> None:
         """Streamed shard-group save (``CheckpointManager.save_streamed``),
@@ -896,8 +953,9 @@ class XLTrainer:
                             gstep += 1
                     evo_stats = None
                     if epoch < tc.epochs - 1 and tc.evolve:
-                        evo_stats = evolve_model_streamed(self.state, tc.zeta, self.rng)
-                        obs.point("train.evolve", epoch=epoch, device=False)
+                        with obs.span("train.topology", pruned=False, evolved=True,
+                                      device=False):
+                            evo_stats = evolve_model_streamed(self.state, tc.zeta, self.rng)
                     if tc.probe and probe_batch is not None:
                         layer_stats = self.executor.probe_stats(*probe_batch)
                         churn = None
@@ -910,7 +968,6 @@ class XLTrainer:
                     dt = time.perf_counter() - t0
                     if (epoch + 1) % tc.eval_every == 0 or epoch == tc.epochs - 1:
                         acc = self.evaluate(self.data.x_test, self.data.y_test)
-                        obs.point("train.eval", epoch=epoch, acc=float(acc))
                     else:
                         acc = float("nan")
                     self.history["epoch"].append(epoch)

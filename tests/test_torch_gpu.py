@@ -49,8 +49,8 @@ and E bf16 held the same way, on columns and block-rows longer than their
 rings. The RG-LRU, Mamba-1 and MoE smoke models in f32 on the card within
 1e-4 of the CPU run (logits, loss with the auxiliary loss, gradients, a
 decode step). The observability layer: a span that ``block_on``s kernel A's
-result closes after the kernel ends (its duration at least the kernel's
-CUDA-event time); ``sample_device_memory`` reads the allocator's figures;
+result closes without waiting, and its device times bracket the
+kernel's own CUDA events within 0.1 ms; ``sample_device_memory`` reads the allocator's figures;
 the probed segment's stats on the card within 1e-4 of the CPU's (the
 histograms equal), its weights and losses bit-equal to the unprobed
 segment's, and its launches exactly the steps' plus one forward (A storing
@@ -2118,9 +2118,11 @@ def test_recurrent_and_moe_archs_on_card_match_cpu(cuda, arch):
 # ---------------------------------------------------------------------------
 
 
-def test_span_block_on_waits_for_kernel_a(cuda, tmp_path):
-    """A span that registers kernel A's result closes after the kernel has
-    run: its duration is at least the launches' CUDA-event time."""
+def test_span_device_times_bracket_kernel_a(cuda, tmp_path):
+    """A span that registers kernel A's result does not wait at its close,
+    and its ``dev_t0``/``dev_t1`` (on the spans' clock) lie within 0.1 ms
+    of the CUDA events recorded just inside it around the launches; its
+    duration still covers their device time."""
     from repro_torch import obs
 
     topo, vals, x = _layer(3, 400, 400, 100, 128)
@@ -2131,17 +2133,46 @@ def test_span_block_on_waits_for_kernel_a(cuda, tmp_path):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     path = tmp_path / "t.jsonl"
-    with obs.trace_to(str(path)):
+    with obs.trace_to(str(path)) as tracer:
+        with obs.span("anchor"):  # the tracer's one synchronise, before the card is busy
+            pass
+        torch.cuda._sleep(100_000_000)  # ~50 ms: the device falls behind the host
         with obs.span("kernel_a") as sp:
             start.record()
             out = srcT
-            for _ in range(50):  # long enough to outlast the host's enqueueing
+            for _ in range(50):
                 out = tsp.coo_matmul_T(srcT, v, t.rows, t.cols, 400, acc=out)
             end.record()
             sp.block_on({"out": [out]})
-        assert end.query()  # the close waited
+        assert not end.query()  # the close did not wait
+        anchor, anchor_t = tracer._anchors[torch.cuda.current_device()]
     span = next(e for e in obs.read_events(str(path)) if e.get("name") == "kernel_a")
+    start_t = anchor_t + 1e-3 * anchor.elapsed_time(start)
+    end_t = anchor_t + 1e-3 * anchor.elapsed_time(end)
+    assert 0.0 <= start_t - span["dev_t0"] < 1e-4
+    assert 0.0 <= span["dev_t1"] - end_t < 1e-4
+    assert span["t1"] == span["dev_t1"]
     assert span["dur_s"] * 1e3 >= start.elapsed_time(end)
+
+
+def test_evaluate_counts_only_host_to_card_bytes(cuda, tmp_path):
+    """On the card ``train.evaluate``'s ``h2d_bytes`` is the test set's host
+    bytes when it is handed over from numpy, and 0 when it already lies on
+    the card; both evaluations agree."""
+    from repro_torch import obs
+    from repro_torch.train.trainer import evaluate
+
+    model = _model(cuda)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((700, 32)).astype(np.float32)
+    y = rng.integers(0, 6, 700).astype(np.int32)
+    path = str(tmp_path / "eval.jsonl")
+    with obs.trace_to(path):
+        acc_host = evaluate(model, x, y)
+        acc_card = evaluate(model, torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda))
+    evals = [e for e in obs.read_events(path) if e.get("name") == "train.evaluate"]
+    assert [e["attrs"]["h2d_bytes"] for e in evals] == [x.nbytes + y.nbytes, 0]
+    assert acc_host == acc_card == evals[0]["attrs"]["acc"]
 
 
 def test_sample_device_memory_on_card(cuda):

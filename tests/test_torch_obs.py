@@ -214,6 +214,107 @@ def test_validate_events_catches_corruption():
     )
     dup = [good[0], good[1], dict(good[1])]
     assert any("duplicate span id" in e for e in obs.validate_events(dup))
+    on_card = [good[0], dict(good[1], dev_t0=0.25, dev_t1=0.75)]
+    assert obs.validate_events(on_card) == []
+    backwards = [good[0], dict(good[1], dev_t0=0.75, dev_t1=0.25)]
+    assert any("dev_t1 < dev_t0" in e for e in obs.validate_events(backwards))
+
+
+def test_summary_self_time_is_the_children_union():
+    """A parent's self time is its duration minus the union of its
+    children's intervals, clipped to it: a ``block_on`` child that ran on
+    past its host close overlaps its sibling and is counted once."""
+    def sp(sid, name, parent, t0, t1):
+        return {"ev": "span", "name": name, "id": sid, "parent": parent, "t0": t0,
+                "t1": t1, "dur_s": t1 - t0, "attrs": {}}
+
+    events = [{"ev": "meta", "schema": obs.SCHEMA_VERSION, "pid": 1, "t": 0.0, "attrs": {}},
+              sp(2, "segment", 1, 1.0, 6.0), sp(3, "wait", 1, 2.0, 6.5),
+              sp(4, "late", 1, 9.0, 12.0), sp(1, "epoch", None, 0.0, 10.0)]
+    assert obs.validate_events(events) == []
+    summary = obs.summarize_events(events)
+    # covered: [1, 6.5] and [9, 10] of [0, 10]
+    assert summary["spans"]["epoch"]["self_s"] == pytest.approx(10.0 - 5.5 - 1.0)
+    assert summary["spans"]["segment"]["self_s"] == 5.0
+    # children inside the span that do not overlap: the plain sum, as the
+    # reference's
+    disjoint = events[:2] + [sp(3, "wait", 1, 6.0, 6.5), sp(1, "epoch", None, 0.0, 10.0)]
+    assert obs.summarize_events(disjoint) == jobs.summarize_events(disjoint)
+
+
+class StandInEvent:
+    """A timing event on a pretend card: it takes the device's time when
+    recorded and has run once ``done`` (or once waited for)."""
+
+    device_now = 0.0
+    done = False
+    waits = 0
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+        self.ran = False
+
+    def record(self, stream=None):
+        self.t = StandInEvent.device_now
+
+    def query(self):
+        return self.ran or StandInEvent.done
+
+    def synchronize(self):
+        StandInEvent.waits += 1
+        self.ran = True
+
+    def elapsed_time(self, other):
+        return 1e3 * (other.t - self.t)
+
+
+def test_device_times_resolve_in_place(monkeypatch, tmp_path):
+    """On a card a span records events at open and close, never waits at
+    its close, and its event dict gets ``dev_t0``/``dev_t1`` on the spans'
+    clock (anchor + elapsed), in place: where the events have run at a
+    later span's close, else at the flush; a ``block_on`` span ends at its
+    device close."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: None)
+    monkeypatch.setattr(torch.cuda, "Event", StandInEvent)
+    monkeypatch.setattr(StandInEvent, "device_now", 0.0)
+    monkeypatch.setattr(StandInEvent, "done", False)
+    monkeypatch.setattr(StandInEvent, "waits", 0)
+    clock = FakeClock(100.0)
+    tracer = obs.Tracer(str(tmp_path / "t.jsonl"), clock=clock)
+    with tracer.span("segment") as seg:
+        # the anchor was taken at the open: device 0.0 is host 100.0
+        StandInEvent.device_now = 0.001
+        seg.block_on(torch.ones(2))
+        clock.t = 100.002
+        StandInEvent.device_now = 0.005  # the device is behind the host
+    assert StandInEvent.waits == 1  # the anchor's, and no other
+    (event,) = [e for e in tracer._buf if e["ev"] == "span"]
+    assert event["t1"] == 100.002 and "dev_t0" not in event
+    with tracer.span("plain"):
+        pass
+    assert "dev_t0" not in event  # its events have not run yet
+    StandInEvent.done = True
+    with tracer.span("later"):
+        pass
+    assert event["dev_t0"] == pytest.approx(100.0)
+    assert event["dev_t1"] == pytest.approx(100.005)
+    assert event["t1"] == event["dev_t1"] and event["dur_s"] == pytest.approx(0.005)
+    StandInEvent.done = False
+    clock.t = 100.010
+    with tracer.span("unblocked"):
+        StandInEvent.device_now = 0.020
+    held = list(tracer._buf)
+    tracer.close()  # the flush waits for the events still out
+    unblocked = next(e for e in held if e.get("name") == "unblocked")
+    assert unblocked["dev_t1"] == pytest.approx(100.020)
+    assert unblocked["t1"] == 100.010  # no block_on: the host's close
+    events = obs.read_events(str(tmp_path / "t.jsonl"))
+    assert obs.validate_events(events) == []
+    assert [e["dev_t1"] for e in events if e["ev"] == "span"] == [
+        e["dev_t1"] for e in held if e["ev"] == "span"]
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +427,7 @@ def test_serve_metrics_prometheus_includes_both_registries():
 
 
 def test_trainer_emits_span_taxonomy(tmp_path):
+    from repro_torch.core.importance import PruningSchedule
     from repro_torch.data import datasets
     from repro_torch.models.mlp import SparseMLP, SparseMLPConfig
     from repro_torch.train.trainer import SequentialTrainer, TrainerConfig
@@ -336,20 +438,88 @@ def test_trainer_emits_span_taxonomy(tmp_path):
         epsilon=8, activation="all_relu", alpha=0.6, dropout=0.0,
         impl="element",
     )
-    tc = TrainerConfig(epochs=2, batch_size=32, lr=0.01, zeta=0.2, seed=0)
+    # pruning fires at epoch 1 (the last: no SET after it)
+    tc = TrainerConfig(epochs=2, batch_size=32, lr=0.01, zeta=0.2, seed=0,
+                       pruning=PruningSchedule(tau=1, period=1, percentile=5.0))
     path = str(tmp_path / "train.jsonl")
     with obs.trace_to(path, meta={"bench": "test"}):
-        SequentialTrainer(SparseMLP(cfg, seed=0, device="cpu"), data, tc).run()
+        trainer = SequentialTrainer(SparseMLP(cfg, seed=0, device="cpu"), data, tc)
+        trainer.epoch_end_hook = lambda t, epoch: None
+        history = trainer.run()
     events = obs.read_events(path)
     assert obs.validate_events(events) == []
-    span_names = {e["name"] for e in events if e["ev"] == "span"}
-    assert {"train.run", "train.epoch", "train.segment"} <= span_names
-    epochs = [e for e in events if e.get("name") == "train.epoch"]
+    assert events[0]["clock"] == "perf_counter"
+    spans = [e for e in events if e["ev"] == "span"]
+    assert not any("dev_t0" in e for e in spans)  # no card: no device times
+    by_name = {}
+    for e in spans:
+        by_name.setdefault(e["name"], []).append(e)
+    assert {"train.run", "train.epoch", "train.segment"} <= set(by_name)
+    assert not [e for e in events if e["ev"] == "point"]  # folded into the spans
+    epochs = by_name["train.epoch"]
     assert len(epochs) == 2
-    run_span = next(e for e in events if e.get("name") == "train.run")
+    (run_span,) = by_name["train.run"]
     assert all(e["parent"] == run_span["id"] for e in epochs)
-    segments = [e for e in events if e.get("name") == "train.segment"]
-    assert sorted(e["parent"] for e in segments) == sorted(e["id"] for e in epochs)
+    epoch_ids = sorted(e["id"] for e in epochs)
+    for phase in ("train.feed", "train.segment", "train.topology", "train.wait",
+                  "train.evaluate", "train.hook"):
+        assert sorted(e["parent"] for e in by_name[phase]) == epoch_ids, phase
+    (prepare,) = by_name["train.prepare"]
+    assert prepare["parent"] == run_span["id"]
+    # a CPU model: nothing crosses to a card, so every h2d_bytes reads 0
+    # (the bytes counted for a card: test_h2d_bytes_count_only_copies_to_a_card)
+    assert prepare["attrs"]["h2d_bytes"] == 0
+    assert [e["attrs"]["h2d_bytes"] for e in by_name["train.feed"]] == [0, 0]
+    topo = sorted(by_name["train.topology"], key=lambda e: e["t0"])
+    assert [(e["attrs"]["pruned"], e["attrs"]["evolved"], e["attrs"]["device"])
+            for e in topo] == [(False, True, True), (True, False, False)]
+    assert "n_params" not in topo[0]["attrs"]
+    assert topo[1]["attrs"]["n_params"] == history["n_params"][1]
+    evals = sorted(by_name["train.evaluate"], key=lambda e: e["t0"])
+    n_test = data.x_test.shape[0]
+    for e in evals:
+        assert e["attrs"]["rows"] == n_test and e["attrs"]["batches"] == -(-n_test // 512)
+        assert e["attrs"]["h2d_bytes"] == 0
+    assert [e["attrs"]["acc"] for e in evals] == history["test_acc"]
+    # the host topologies built in the run: each layer's at the SET sync
+    # before the hook and at the pruning, under their phases
+    builds = by_name["topology.build"]
+    parents = {e["id"]: e["name"] for e in spans}
+    assert {parents.get(e["parent"]) for e in builds} >= {"train.hook", "train.topology"}
+    assert all(e["attrs"]["nnz"] > 0 and e["attrs"]["sort_s"] >= 0
+               and e["attrs"]["unique_s"] >= 0 for e in builds)
+
+
+def test_h2d_bytes_count_only_copies_to_a_card(tmp_path):
+    """``h2d_bytes`` counts a host array's or CPU tensor's bytes only where
+    it is sent to a CUDA device: a value already on the target device (or
+    on any device but the host) and a CPU target count 0, so the count
+    falls when the evaluation's test set stays on the card."""
+    from repro_torch.data import datasets
+    from repro_torch.models.mlp import SparseMLP, SparseMLPConfig
+    from repro_torch.train.trainer import _h2d_nbytes, evaluate
+
+    x = np.zeros((3, 5), np.float32)
+    cuda = torch.device("cuda")
+    assert _h2d_nbytes(x, cuda) == 60
+    assert _h2d_nbytes(torch.zeros(3, 5, dtype=torch.int64), "cuda:0") == 120
+    assert _h2d_nbytes(x[:2], cuda) == 40  # a slice: its own bytes
+    assert _h2d_nbytes(x, "cpu") == _h2d_nbytes(torch.zeros(3), torch.device("cpu")) == 0
+    assert _h2d_nbytes(torch.zeros(3, device="meta"), cuda) == 0  # not on the host
+
+    data = datasets.load("fashionmnist", scale=0.02, seed=0)
+    cfg = SparseMLPConfig(layer_dims=(data.n_features, 32, data.n_classes), epsilon=8,
+                          dropout=0.0, impl="element")
+    model = SparseMLP(cfg, seed=0, device="cpu")
+    xt, yt = torch.as_tensor(data.x_test), torch.as_tensor(data.y_test)
+    path = str(tmp_path / "eval.jsonl")
+    with obs.trace_to(path):
+        acc_np = evaluate(model, data.x_test, data.y_test)
+        acc_t = evaluate(model, xt, yt)  # already on the model's device
+    evals = [e for e in obs.read_events(path) if e.get("name") == "train.evaluate"]
+    assert acc_np == acc_t
+    assert [e["attrs"]["h2d_bytes"] for e in evals] == [0, 0]
+    assert [e["attrs"]["acc"] for e in evals] == [acc_np, acc_t]
 
 
 def test_gateway_emits_request_and_queue_spans(tmp_path):

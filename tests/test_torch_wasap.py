@@ -764,5 +764,7 @@ def test_probed_trainer_records_both_phases(tmp_path):
     assert [s["extra"]["phase"] for s in snaps] == [1, 1, 2]
     assert all("churn_frac" in s["layers"][0] for s in snaps)
     spans = {e["name"] for e in obs.read_events(str(tmp_path / "t.jsonl")) if e["ev"] == "span"}
+    # and the trainer's evaluation and the host topologies, whose spans
+    # open where their work is done
     assert spans == {"wasap.run", "wasap.epoch", "wasap.sync_rounds", "wasap.worker_segments",
-                     "wasap.merge"}
+                     "wasap.merge", "train.evaluate", "topology.build"}

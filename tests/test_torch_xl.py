@@ -689,10 +689,14 @@ def test_probe_stats_match_the_reference(data, tmp_path):
     trainer = ttrainer.XLTrainer(tm, data, tc, plan)
     with obs.trace_to(str(tmp_path / "t.jsonl")), \
             timeline.timeline_to(tmp_path / "tl.jsonl", run_id="xl"):
-        trainer.run()
+        hist = trainer.run()
     snaps = timeline.snapshots(timeline.read_timeline(tmp_path / "tl.jsonl"), "xl")
     assert len(snaps) == 1 and len(snaps[0]["layers"]) == len(DIMS) - 1
-    spans = {e["name"] for e in obs.read_events(str(tmp_path / "t.jsonl")) if e["ev"] == "span"}
+    events = [e for e in obs.read_events(str(tmp_path / "t.jsonl")) if e["ev"] == "span"]
+    spans = {e["name"] for e in events}
     assert {"train.run", "train.epoch", "train.segment", "xl.train_step", "xl.forward",
-            "xl.probe"} <= spans
+            "xl.probe", "train.evaluate"} <= spans
+    (ev,) = [e for e in events if e["name"] == "train.evaluate"]
+    assert ev["attrs"]["acc"] == hist["test_acc"][0]
+    assert ev["attrs"]["rows"] == data.x_test.shape[0]
 
