@@ -27,7 +27,12 @@ Phases, one line each (any failure exits non-zero):
                    a pitch (a padded product's column slice); at the served
                    output layer (10 segments of 2,800 slots), kernel A's two
                    routes held bit-equal, and dropping a third of its slots
-                   after zeroing their values held bit-equal;
+                   after zeroing their values held bit-equal; at the
+                   full-width Table-4 output layer (2 segments of 500,000
+                   slots, batch 32 and 440, with and without the bias
+                   epilogue) one staged launch a call, bit-equal to the
+                   one-thread route and within 1e-4 of the plain
+                   version's f64 sum;
 4. block_kernels — kernels C, D and E against their plain versions at the
                    four layers of the full-width block model (batch 128 and
                    a ragged 100), at 8x8 and 32x16 tiles, on skewed
@@ -467,12 +472,16 @@ Phases, one line each (any failure exits non-zero):
                    loss) bit-equal to the in-core element forward and step
                    (kernel A with its fused epilogue, F with G's); 2 epochs
                    streamed (the main path: A, B, F and G launched exactly
-                   as the plan's shards say, by the wrappers' counters)
+                   as the plan's shards say, by the wrappers' counters, A
+                   on its staged route on the shards with a long segment)
                    against the in-core trainer (loss within rtol 1e-6, test
-                   accuracy and n_params equal); the allocator's peak over
-                   each run (``xl_memory``: the streamed one within the
-                   budget plus the port's extra buffers, and below the
-                   in-core one); 2 epochs with shard-wise SET, where after
+                   accuracy and n_params equal; the in-core run's output
+                   layer on kernel A's staged route once a step and an
+                   evaluation batch, by ``staged_launches``); the
+                   allocator's peak over each run (``xl_memory``: the
+                   streamed one within the budget plus the port's extra
+                   buffers, and below the in-core one); 2 epochs with
+                   shard-wise SET, where after
                    the evolution the invariants hold and the next streamed
                    step is bit-equal to an in-core step on the evolved
                    topology, and the run resumed from its epoch-0 streamed
@@ -562,6 +571,7 @@ from repro_torch.serve import (  # noqa: E402
 from repro_torch.train.trainer import (  # noqa: E402
     SequentialTrainer,
     TrainerConfig,
+    EVAL_BATCH,
     XLTrainer,
     evaluate,
     make_segment_fn,
@@ -654,6 +664,9 @@ class SmokeFailure(RuntimeError):
 # kernels A's and F's counts of launches with an epilogue, and with a mask
 SUB_COUNTS = {f"{name}.{sub}": (WRAPPERS[name], f"{sub}_launches")
               for name in ("coo_matmul_T", "coo_dw") for sub in ("epilogue", "mask")}
+# kernel A's launches on its staged route (a segment of COO_LONG_SEGMENT
+# slots or more)
+SUB_COUNTS["coo_matmul_T.staged"] = (WRAPPERS["coo_matmul_T"], "staged_launches")
 # kernel B's launches by its (features, batch) entry (the out-of-core stream)
 SUB_COUNTS["bias_all_relu.T"] = (all_relu_fused.bias_all_relu, "T_launches")
 # kernels D's and E's launches of their bf16 instances (the LM's training step)
@@ -663,7 +676,8 @@ SUB_COUNTS.update({f"{name}.bf16": (WRAPPERS[name], "bf16_launches")
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0, kernels A's and F's epilogue
-    and mask counts, kernel C's sub-counts and D's and E's too."""
+    and mask counts, A's staged ones, kernel C's sub-counts and D's and E's
+    too."""
     for fn in WRAPPERS.values():
         fn.launches = 0
     for fn, attr in SUB_COUNTS.values():
@@ -897,8 +911,9 @@ def phase_kernels(out: dict) -> str:
         check(not x.is_contiguous(), "a strided input expected")
         compare_b("full", x, normal(x.shape[-1]), 1)
     routes = kernel_a_bits(served, x_test, rng)
+    full_width_err = kernel_a_full_width_bits(rng, dev)
 
-    out.update(model=model, engine=engine, x_test=x_test,
+    out.update(model=model, engine=engine, x_test=x_test, a_routes=routes,
                err={k: err[(k, "served")] for k in ("coo_matmul_T", "bias_all_relu")})
     return (
         f"{n_checks} comparisons at dims {model.config.layer_dims} and served dims "
@@ -908,8 +923,10 @@ def phase_kernels(out: dict) -> str:
         f"+ bias) on both routes, with and without acc, max_abs_err to the plain version "
         f"{err[('epilogue', 'full')]:.3g} full, {err[('epilogue', 'served')]:.3g} served; "
         f"kernel A routes by layer {routes}; at the served output layer its two routes and "
-        f"its zero-slot elimination bit-equal at batch 1 and 128; kernel B bit-equal, "
-        f"contiguous and at a row pitch"
+        f"its zero-slot elimination bit-equal at batch 1 and 128; at the full-width output "
+        f"layer (2 x 500,000 slots, batch {XL_BATCH} and 440) one staged launch a call, "
+        f"bit-equal to the one-thread route, max_abs_err to the f64 sum {full_width_err:.3g} "
+        f"(rtol/atol {FULL_WIDTH_TOL}); kernel B bit-equal, contiguous and at a row pitch"
     )
 
 
@@ -945,6 +962,61 @@ def kernel_a_bits(served: SparseMLP, x_test: np.ndarray, rng: np.random.Generato
     return [sparsity.coo_route(int(np.diff(tp.col_ptr()).max())) for tp in served.topos]
 
 
+def full_width_output_layer(rng: np.random.Generator, dev: torch.device) -> dict:
+    """The Table-4 output layer at full width (500,000 -> 2 at epsilon 10 is
+    dense): in its canonical order, rows 0..499,999 in each of its two
+    segments, he-uniform values and a standard-normal bias."""
+    n_src, n = XL_DIMS[-2], XL_DIMS[-1]
+    lim = float(np.sqrt(6.0 / n_src))
+    return dict(
+        n_src=n_src, n=n,
+        gather=torch.arange(n_src, dtype=torch.int32, device=dev).repeat(n),
+        seg=torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(n_src),
+        vals=torch.as_tensor(rng.uniform(-lim, lim, n * n_src).astype(np.float32), device=dev),
+        bias=torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=dev),
+        seg_ptr=sparsity.offsets_to_device(np.arange(n + 1, dtype=np.int64) * n_src, dev))
+
+
+# Kernel A at the full-width output layer against the exact (f64) sum: one
+# f32 chain of 500,000 FMAs rounds at every slot and lands ~1.2e-5 from it
+# on average, up to ~1e-4 where the sum is large (|sum| ~1 here), past A's
+# 1e-5 for short segments; the relative term keeps ~3x of room there
+FULL_WIDTH_TOL = 1e-4
+
+
+def kernel_a_full_width_bits(rng: np.random.Generator, dev: torch.device) -> float:
+    """Kernel A at the Table-4 output layer (:func:`full_width_output_layer`),
+    at the training batch and the evaluation's last, with and without the
+    bias epilogue: one staged launch a call, the one-thread route's bits,
+    and within :data:`FULL_WIDTH_TOL` of the plain version's f64 sum.
+    Returns the largest error to that sum."""
+    fw = full_width_output_layer(rng, dev)
+    n_src, n, gather, seg, vals, seg_ptr = (fw[k] for k in
+                                            ("n_src", "n", "gather", "seg", "vals", "seg_ptr"))
+    err = 0.0
+    for batch in (XL_BATCH, 440):
+        srcT = torch.as_tensor(rng.standard_normal((n_src, batch)).astype(np.float32),
+                               device=dev)
+        exact = sparsity.coo_matmul_T_plain(srcT.double(), vals.double(), gather, seg, n)
+        for b in (None, fw["bias"]):  # epilogue 0, then 1 (+ bias)
+            reset_counts()
+            got = sparsity.coo_matmul_T(srcT, vals, gather, seg, n, seg_ptr=seg_ptr, bias=b)
+            staged = read_counts()["coo_matmul_T.staged"]
+            thread = sparsity._coo_matmul_T_cuda(srcT, vals, gather, seg, seg_ptr, n, None,
+                                                 sparsity.COO_THREAD, bias=b)
+            torch.cuda.synchronize()
+            check(staged == 1, f"the full-width output layer took kernel A's staged route "
+                               f"{staged} times in a call, batch {batch}")
+            check(torch.equal(got, thread),
+                  f"kernel A's two routes differ at the full-width output layer, batch {batch}")
+            want = sparsity.coo_epilogue(exact, None if b is None else b.double(), None)
+            torch.testing.assert_close(got.double(), want, rtol=FULL_WIDTH_TOL,
+                                       atol=FULL_WIDTH_TOL)
+            err = max(err, float((got.double() - want).abs().max()))
+        del srcT, exact
+    return err
+
+
 def phase_main(out: dict) -> str:
     model, engine, x_test = out["model"], out["engine"], out["x_test"]
     cfg = model.config
@@ -954,9 +1026,12 @@ def phase_main(out: dict) -> str:
     launches = read_counts()
     cap = engine.cfg.batch_buckets[-1]
     forwards = sum(-(-n // cap) for n in SIZES)
-    # one kernel A a layer, each with its epilogue; kernel B's pass is in it
-    want = dict(NO_LAUNCHES, **{"coo_matmul_T": forwards * cfg.n_layers,
-                                "coo_matmul_T.epilogue": forwards * cfg.n_layers})
+    # one kernel A a layer, each with its epilogue; kernel B's pass is in it;
+    # the layers whose longest segment is long on the staged route
+    want = dict(NO_LAUNCHES, **{
+        "coo_matmul_T": forwards * cfg.n_layers,
+        "coo_matmul_T.epilogue": forwards * cfg.n_layers,
+        "coo_matmul_T.staged": forwards * out["a_routes"].count(sparsity.COO_STAGED)})
     check(launches == want, f"launch counts {launches}, expected {want}")
     for n in SIZES:
         check(logits[n].shape == (n, cfg.layer_dims[-1]), f"logits shape {logits[n].shape}")
@@ -1382,7 +1457,7 @@ def trainer_for(model: SparseMLP, device_evolution: bool = False):
 def run_steps(trainer: SequentialTrainer):
     """The 3-epoch run's steps and evaluation batches."""
     return (TRAIN_EPOCHS * (len(trainer.data.x_train) // 128),
-            TRAIN_EPOCHS * -(-len(trainer.data.x_test) // 512))
+            TRAIN_EPOCHS * -(-len(trainer.data.x_test) // EVAL_BATCH))
 
 
 def block_launches(cfg, steps: int, evals: int) -> dict:
@@ -1398,11 +1473,14 @@ def element_launches(cfg, steps: int, evals: int) -> dict:
     hidden ones with the mask), A's dX on all but layer 0, F with its
     epilogue (G's work) on every layer (the hidden ones with All-ReLU's
     mask), no standalone G; an evaluation batch: A with its epilogue on
-    every layer."""
+    every layer. Of A's launches, the output layer's forward takes the
+    staged route: at these dims it is dense (10 segments of ~4,000 slots),
+    and every other product's segments stay far below COO_LONG_SEGMENT."""
     n_layers = cfg.n_layers
     return dict(NO_LAUNCHES, **{
         "coo_matmul_T": steps * (2 * n_layers - 1) + evals * n_layers,
         "coo_matmul_T.epilogue": (steps + evals) * n_layers,
+        "coo_matmul_T.staged": steps + evals,
         "coo_matmul_T.mask": steps * (n_layers - 1),
         "coo_dw": steps * n_layers, "coo_dw.epilogue": steps * n_layers,
         "coo_dw.mask": steps * (n_layers - 1)})
@@ -2067,7 +2145,7 @@ def wasap_launches(trainer: WASAPTrainer) -> dict:
     rounds = -(-min(ld.steps_per_epoch for ld in trainer.loaders) // h)
     steps = (wc.phase1_epochs * rounds * h * wc.n_workers
              + wc.phase2_epochs * sum(ld.steps_per_epoch for ld in trainer.loaders))
-    evals = (wc.phase1_epochs + 1) * -(-len(trainer.data.x_test) // 512)
+    evals = (wc.phase1_epochs + 1) * -(-len(trainer.data.x_test) // EVAL_BATCH)
     return element_launches(trainer.model.config, steps, evals)
 
 
@@ -4918,9 +4996,11 @@ def probe_launches(cfg) -> dict:
     """One probe's launches on the element model: a forward keeping z + bias
     (A with the bias epilogue a layer, B's All-ReLU on each hidden layer)
     and a backward (F with the bias's gradient a layer, G standalone on
-    each hidden layer, A's dX on all but layer 0)."""
+    each hidden layer, A's dX on all but layer 0); the output layer's
+    forward on A's staged route, as in :func:`element_launches`."""
     L = cfg.n_layers
-    return {"coo_matmul_T": 2 * L - 1, "coo_matmul_T.epilogue": L, "bias_all_relu": L - 1,
+    return {"coo_matmul_T": 2 * L - 1, "coo_matmul_T.epilogue": L,
+            "coo_matmul_T.staged": 1, "bias_all_relu": L - 1,
             "bias_all_relu.T": L - 1, "coo_dw": L, "coo_dw.epilogue": L, "all_relu_bwd": L - 1}
 
 
@@ -6365,17 +6445,35 @@ def xl_in_core_step_ms(cfg, core: SparseMLP, topo, xb, yb) -> float:
     return float(np.median(ts))
 
 
-def xl_launches_expected(plan, steps: int, eval_batches: int) -> dict:
+def xl_staged_shards(state, capacity: int) -> tuple:
+    """The streamed run's shards on kernel A's staged route (a window whose
+    longest segment reaches COO_LONG_SEGMENT slots): of the canonical
+    shards of every layer (the forward), and of the dual-order shards of
+    layers 1 and up (dX)."""
+    def staged(seg: np.ndarray) -> int:
+        return sum(sparsity.coo_route(int(np.bincount(seg[lo:hi] - seg[lo]).max()))
+                   == sparsity.COO_STAGED
+                   for lo, hi in topology.element_shard_bounds(len(seg), capacity))
+
+    return (sum(staged(st.cols) for st in state.layers),
+            sum(staged(st.rows[st.perm_r]) for st in state.layers[1:]))
+
+
+def xl_launches_expected(plan, steps: int, eval_batches: int, staged: tuple) -> dict:
     """The streamed run's launches: per forward, kernel A (xl_shard_acc) on
     every canonical shard and kernel B's (features, batch) pass on every
     layer; per step also A on every dual-order shard of layers 1 and up,
-    F (xl_shard_dw) on every canonical shard, and G once per layer."""
+    F (xl_shard_dw) on every canonical shard, and G once per layer. Of A's,
+    those on the shards of ``staged`` (:func:`xl_staged_shards`) are on its
+    staged route."""
     fwd = plan.n_shards_total
     dx = sum(lp.n_shards for lp in plan.layers[1:])
     n = plan.n_layers
     acc = (steps + eval_batches) * fwd + steps * dx
     return dict(NO_LAUNCHES, **{
-        "coo_matmul_T": acc, "xl_shard_acc": acc, "coo_dw": steps * fwd, "xl_shard_dw": steps * fwd,
+        "coo_matmul_T": acc, "xl_shard_acc": acc,
+        "coo_matmul_T.staged": (steps + eval_batches) * staged[0] + steps * staged[1],
+        "coo_dw": steps * fwd, "xl_shard_dw": steps * fwd,
         "bias_all_relu": (steps + eval_batches) * n, "bias_all_relu.T": (steps + eval_batches) * n,
         "all_relu_bwd": steps * n})
 
@@ -6406,6 +6504,7 @@ def phase_xl(out: dict) -> str:
 
     # one batch's logits and one step, streamed against in core
     state = xl.XLModelState.from_model(host_model, plan)
+    staged_shards = xl_staged_shards(state, plan.shard_capacity)
     ex = xl.StreamExecutor(state, CARD)
     logits = ex.logits(xb)
     core = SparseMLP.from_state(cfg, host_model.topos, host_model.values, host_model.biases,
@@ -6438,7 +6537,7 @@ def phase_xl(out: dict) -> str:
                streamed_base_bytes=base, plan_peak_device_bytes=plan.peak_device_bytes,
                budget_bytes=plan.budget_bytes, port_extra_bytes=tr.executor.port_extra_bytes,
                measured_peak_bytes=tr.executor.measured_peak_bytes)
-    want_launches = xl_launches_expected(plan, steps, eval_batches)
+    want_launches = xl_launches_expected(plan, steps, eval_batches, staged_shards)
     check(launches == want_launches, f"streamed run launches {launches}, expected {want_launches}")
     del tr
     torch.cuda.synchronize()
@@ -6448,8 +6547,17 @@ def phase_xl(out: dict) -> str:
     core_tr = SequentialTrainer(
         SparseMLP.from_state(cfg, host_model.topos, host_model.values, host_model.biases,
                              device=CARD), data, xl_train_config(False))
+    reset_counts()
     core_hist = core_tr.run()
     torch.cuda.synchronize()
+    # the output layer's forward is kernel A's one staged launch a step and
+    # an evaluation batch; every other product takes the one-thread route
+    staged = read_counts()["coo_matmul_T.staged"]
+    evaluated = sum(1 for acc in core_hist["test_acc"] if acc == acc)  # epochs that evaluated
+    want_staged = steps + evaluated * -(-len(data.x_test) // EVAL_BATCH)
+    check(staged == want_staged,
+          f"the in-core run launched kernel A's staged route {staged} times, expected "
+          f"{want_staged}")
     mem.update(in_core_peak_bytes=torch.cuda.max_memory_allocated() - base, in_core_base_bytes=base,
                card=out["smi"])
     print(json.dumps({"xl_memory": mem}))

@@ -660,6 +660,7 @@ def coo_matmul_T(
 coo_matmul_T.launches = 0  # kernel A launches, so a run can show it went through the kernel
 coo_matmul_T.epilogue_launches = 0  # of which with the bias (+ All-ReLU) epilogue
 coo_matmul_T.mask_launches = 0  # of which with the training epilogue (+ the mask)
+coo_matmul_T.staged_launches = 0  # of which on the staged route (COO_STAGED)
 
 _COO_MATMUL_T_ARGTYPES = [ctypes.c_void_p] * 8 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -802,6 +803,8 @@ def launch_coo_matmul_T(
     )
     build.check_launch(rc, "coo_matmul_T kernel")
     coo_matmul_T.launches += 1
+    if route == COO_STAGED:
+        coo_matmul_T.staged_launches += 1
     if mode:
         coo_matmul_T.epilogue_launches += 1
     if mask is not None:

@@ -27,9 +27,12 @@
 // least 4 bytes of srcT per slot and column read through L2, so bytes, never
 // the f32 units, bound a layer whose segments are short (the served hidden
 // layers: 19-73 slots on average). A long segment is bound by its chain's
-// latency: ~4.6 cycles per dependent FMA, so the served output layer's 2,800
-// slots are ~12,800 cycles (~6.5 us at 1.98 GHz) whatever the batch, against
-// a 0.5 us bytes bound.
+// latency, ~4.2 cycles per dependent FMA: the Table-4 output layer's
+// 500,000 slots are ~2.1 M cycles (~1.06 ms at 1.99 GHz) whatever the batch,
+// against a bytes bound of ~21 us at batch 32; the served output layer's
+// 2,800 slots ~6 us. Behind the chain, one SM gathers srcT rows at no more
+// than ~6.3 cycles a 128-byte row (cp.async, however much is in flight), so
+// a block stages 16 columns, 64 bytes a slot, not 32.
 //
 // Two routes, chosen by the wrapper from host ints (the longest segment,
 // core/sparsity.py::coo_route); the same code computes both chains:
@@ -40,21 +43,28 @@
 //     are one broadcast load; at B = 1 the lanes cover consecutive segments.
 //     Loads are issued kUnroll at a time ahead of the FMAs. Many warps hide
 //     the latency of short walks.
-//   * route 1, long segments: one block of 160 threads per (segment, 32-wide
-//     slice of the batch columns); at B = 128 the output layer's 10 segments
-//     make 40 blocks. Warp 0 runs the chains, one lane per batch column;
-//     warps 1-4 stage the segment through shared memory in chunks of 256
-//     slots, a ring of 4 stages (132 KB): the chunk's values (4-byte
-//     cp.async) and its gathered srcT rows (16-byte cp.async where B is a
-//     multiple of 4 and srcT is 16-byte aligned, else 4-byte). The loaders
-//     read each chunk's gather indices into registers one chunk ahead, so an
-//     index's latency is paid while the chunk before it is summed. The
-//     summing warp is the bottleneck: it issues in order, and its shared
-//     memory loads queue. It loads a run of 32 slots' operands in 16
-//     instructions (ldmatrix.x4 hands each lane its column's x of 4 slots;
-//     float4 broadcasts of 4 values) into one register block, each issued
-//     between two of the 32 FMAs of the run before, which use the other
-//     block. The FMA's dependent latency is ~4.6 cycles on the H100.
+//   * route 1, long segments: one block of 192 threads per (segment, 16-wide
+//     slice of the batch columns); at B = 32 the Table-4 output layer's 2
+//     segments make 4 blocks, at B = 128 the served one's 10 make 80. Warp 0
+//     runs the chains, lanes 0-15 one batch column each. Warps 1, 2, 3 and 5
+//     stage the segment through shared memory in chunks of 512 slots, a ring
+//     of 4 stages (~136 KB), each with a full and an empty mbarrier: the
+//     chunk's values (4-byte cp.async) and its gathered srcT rows (16-byte
+//     cp.async where B is a multiple of 4 and srcT is 16-byte aligned, else
+//     4-byte), the full barrier completing as every loader's copies land
+//     (cp.async.mbarrier.arrive). The summing warp waits for the stage it
+//     needs alone and frees it with one arrive; warp 4 leaves at once, so
+//     the summing warp has its SM sub-partition's scheduler to itself. The
+//     loaders hold the gather indices of 3 chunks in registers: a row's
+//     address needs its index, and with one chunk's indices in flight each
+//     chunk's copies waited for a global load. The summing warp issues in
+//     order. A full chunk is straight-line code: each run of 32 slots loads
+//     its operands in 16 instructions (ldmatrix.x4 hands each lane its
+//     column's x of 4 slots; float4 broadcasts of 4 values) among the 32
+//     FMAs of the run before, which the compiler spreads one or two FMAs
+//     apart, and the chunk's last run loads the next chunk's first. Over
+//     the chain's ~4.2 cycles a slot this leaves ~0.25 of loads and chunk
+//     turns and ~0.15 of waits for a stage to land (tools/block_span_probe.py).
 //
 // Segment offsets come from seg_ptr (n_segments + 1 int64 offsets); all
 // offset arithmetic is 64-bit. An empty segment yields acc, or exactly 0
@@ -113,6 +123,7 @@
 
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -177,27 +188,37 @@ coo_matmul_T_kernel(const float* __restrict__ srcT,
   store(sum, bias_s, slope, mode, out, mask, t);
 }
 
-// --- route 1: one block per (segment, 32 batch columns), staged ---------------
+// --- route 1: one block per (segment, 16 batch columns), staged ---------------
 
-constexpr int kCols = 32;                     // batch columns per block: warp 0's lanes
-constexpr int kLoaders = 128;                 // warps 1-4 copy
-constexpr int kStagedThreads = 32 + kLoaders;
-constexpr int kChunk = 256;                   // slots per stage
+constexpr int kCols = 16;                     // batch columns per block: warp 0's lanes 0-15
+constexpr int kLoaders = 128;                 // warps 1, 2, 3 and 5 copy
+constexpr int kStagedThreads = 6 * 32;        // warp 4 leaves at once
+constexpr int kChunk = 512;                   // slots per stage
 constexpr int kStagedStages = 4;
+constexpr int kIdxAhead = 3;                  // chunks of gather indices a loader holds
 constexpr int kRun = 32;                      // slots per register block of the summing lane
+constexpr int kRunsPerChunk = kChunk / kRun;
 constexpr int kStageFloats = kChunk * kCols + kChunk;  // rows, then values
-constexpr int kStagedSmemBytes = kStagedStages * kStageFloats * static_cast<int>(sizeof(float));
+// the stages, then a full and an empty mbarrier per stage
+constexpr int kStagedSmemBytes =
+    kStagedStages * (kStageFloats * static_cast<int>(sizeof(float)) + 2 * 8);
 // Each loader copies, per chunk, kIdx slots' rows: in 16-byte copies the
 // (slot, quad) pairs lt + kLoaders * i, in 4-byte copies whole slots lt + kLoaders * i.
 constexpr int kQuads = kCols / 4;
 constexpr int kIdxVec = kChunk * kQuads / kLoaders;
 constexpr int kIdxScalar = kChunk / kLoaders;
 static_assert(kChunk * kQuads % kLoaders == 0 && kLoaders % kQuads == 0, "vector mapping");
-static_assert(kChunk % kLoaders == 0 && kChunk % (2 * kRun) == 0, "scalar mapping, runs");
+static_assert(kChunk % kLoaders == 0 && kChunk % kRun == 0, "scalar mapping, runs");
 
 // v.x, v.y, v.z or v.w; k is a constant once the caller's loop is unrolled.
 __device__ __forceinline__ float component(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Arrive on the mbarrier once every cp.async this thread issued before has
+// landed (counted in the barrier's expected arrivals: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
 template <bool kVec>
@@ -215,151 +236,183 @@ coo_matmul_T_staged(const float* __restrict__ srcT,
                     int mode) {
   constexpr int kIdx = kVec ? kIdxVec : kIdxScalar;
   extern __shared__ __align__(16) float smem[];
+  const uint32_t full0 = sm90::smem_u32(smem + kStagedStages * kStageFloats);
+  const uint32_t empty0 = full0 + 8 * kStagedStages;
   const int64_t s = blockIdx.x;
   const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kCols;
   const int b_valid = batch - b0 < kCols ? static_cast<int>(batch - b0) : kCols;
   const int64_t lo = seg_ptr[s];
   const int64_t hi = seg_ptr[s + 1];
   const int n_chunks = static_cast<int>((hi - lo + kChunk - 1) / kChunk);
-  const int tid = threadIdx.x;
-  const bool loader = tid >= 32;
-  const int lt = tid - 32;
-
-  // the chunk-local slot of a loader's i-th copy (and its quad, 16-byte copies)
-  auto slot_of = [&](int i) { return kVec ? lt / kQuads + (kLoaders / kQuads) * i : lt + kLoaders * i; };
-  auto chunk_len = [&](int c) {
-    const int64_t left = hi - lo - static_cast<int64_t>(c) * kChunk;
-    return left < kChunk ? static_cast<int>(left) : kChunk;
-  };
-  int idx[kIdx];  // gather indices of the next chunk to copy
-  auto fetch_idx = [&](int c) {
-    const int n = chunk_len(c);
-    const int32_t* gc = gather + lo + static_cast<int64_t>(c) * kChunk;
-#pragma unroll
-    for (int i = 0; i < kIdx; ++i) idx[i] = slot_of(i) < n ? __ldg(gc + slot_of(i)) : 0;
-  };
-  auto copy = [&](int c) {
-    float* xs = smem + (c % kStagedStages) * kStageFloats;
-    float* vs = xs + kChunk * kCols;
-    const int n = chunk_len(c);
-    const float* vg = values + lo + static_cast<int64_t>(c) * kChunk;
-    for (int i = lt; i < n; i += kLoaders) tf32x3::cp_async4(vs + i, vg + i, 4);
-#pragma unroll
-    for (int i = 0; i < kIdx; ++i) {
-      const int jj = slot_of(i);
-      if (jj >= n) continue;
-      const float* row = srcT + static_cast<int64_t>(idx[i]) * batch + b0;
-      if constexpr (kVec) {
-        const int q = (lt % kQuads) * 4;
-        if (q < b_valid) tf32x3::cp_async16(xs + jj * kCols + q, row + q, 16);
-      } else {
-        for (int b = 0; b < b_valid; ++b) tf32x3::cp_async4(xs + jj * kCols + b, row + b, 4);
-      }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStagedStages; ++st) {
+      sm90::mbar_init(full0 + 8 * st, kLoaders);  // each loader's cp.async arrive
+      sm90::mbar_init(empty0 + 8 * st, 1);        // the summing warp's release
     }
-  };
-
-  if (loader) {
-    if (n_chunks > 0) fetch_idx(0);
-#pragma unroll
-    for (int st = 0; st < kStagedStages - 1; ++st) {
-      if (st < n_chunks) {
-        copy(st);
-        if (st + 1 < n_chunks) fetch_idx(st + 1);
-      }
-      tf32x3::cp_async_commit();
-    }
+    sm90::fence_barrier_init();
   }
+  __syncthreads();
 
-  const int lane = tid, b = tid;  // warp 0: one lane per batch column
-  const bool summer = tid < b_valid;
-  float sum = 0.0f;
-  if (summer && acc != nullptr) sum = acc[s * batch + b0 + b];
-  const float bias_s = summer && mode != 0 ? __ldg(bias + s) : 0.0f;  // a broadcast
-  for (int c = 0; c < n_chunks; ++c) {
-    if (loader) tf32x3::cp_async_wait<kStagedStages - 2>();  // chunk c has landed
-    __syncthreads();  // ... for every thread, and the stage of chunk c - 1 is free
-    if (loader) {
-      const int next = c + kStagedStages - 1;
-      if (next < n_chunks) {
-        copy(next);
-        if (next + 1 < n_chunks) fetch_idx(next + 1);
+  if (warp == 0) {
+    // The chains, lanes 0-15 one batch column each (lanes 16-31 sum copies
+    // of the same columns and store nothing), a full chunk in straight-line
+    // code as the note at the top says. The segment's short last chunk
+    // takes a loop whose reads past its end stay inside the stage and feed
+    // no FMA; lanes past the batch sum what they read and store nothing.
+    const int b = lane;
+    const bool summer = b < b_valid;
+    float sum = 0.0f;
+    if (summer && acc != nullptr) sum = acc[s * batch + b0 + b];
+    const float bias_s = summer && mode != 0 ? __ldg(bias + s) : 0.0f;  // a broadcast
+    const uint32_t xlane = sm90::smem_u32(smem) + ((lane / 8) * kCols + (lane % kQuads) * 4) * 4;
+    auto x_of = [&](int c) { return xlane + (c % kStagedStages) * kStageFloats * 4; };
+    auto v_of = [&](int c) {
+      return reinterpret_cast<const float4*>(smem + (c % kStagedStages) * kStageFloats +
+                                             kChunk * kCols);
+    };
+    uint32_t xa[kRun], xb[kRun];
+    float4 va[kRun / 4], vb[kRun / 4];
+    auto load = [&](uint32_t (&x)[kRun], float4 (&v)[kRun / 4], uint32_t xr, const float4* vr) {
+#pragma unroll
+      for (int q = 0; q < kRun / 4; ++q) {
+        v[q] = vr[q];
+        tf32x3::ldmatrix_x4(xr + 4 * q * kCols * 4, x[4 * q], x[4 * q + 1], x[4 * q + 2],
+                            x[4 * q + 3]);
       }
-      tf32x3::cp_async_commit();
-    } else {
-      // The chunk in runs of 32 slots, two register blocks in turn: run
-      // r + 1's operands load from shared memory while run r's FMAs issue.
-      // One ldmatrix gives each lane its column's x of 4 slots (lanes 8k to
-      // 8k + 7 point at the 8 quads of slot j + k's row); the values come as
-      // float4 broadcasts. A read past n stays inside the stage and feeds no
-      // FMA; lanes past the batch sum what they read and store nothing.
-      const float* stage = smem + (c % kStagedStages) * kStageFloats;
-      const uint32_t xrow = static_cast<uint32_t>(__cvta_generic_to_shared(stage)) +
-                            ((lane / 8) * kCols + (lane % 8) * 4) * 4;
-      const float4* vs = reinterpret_cast<const float4*>(stage + kChunk * kCols);
-      const int n = chunk_len(c);
-      uint32_t xa[kRun], xb[kRun];
-      float4 va[kRun / 4], vb[kRun / 4];
-      auto load = [&](uint32_t (&x)[kRun], float4 (&v)[kRun / 4], int j0) {
+    };
+    auto fma_run = [&](const uint32_t (&x)[kRun], const float4 (&v)[kRun / 4], int m) {
 #pragma unroll
-        for (int u = 0; u < kRun / 4; ++u) {
-          v[u] = vs[j0 / 4 + u];
-          tf32x3::ldmatrix_x4(xrow + (j0 + 4 * u) * kCols * 4, x[4 * u], x[4 * u + 1],
-                      x[4 * u + 2], x[4 * u + 3]);
+      for (int u = 0; u < kRun; ++u) {
+        if (u < m) sum = fmaf(__uint_as_float(x[u]), component(v[u / 4], u % 4), sum);
+      }
+    };
+    // A full run's FMAs with the next run's 16 loads written among them.
+    auto fma_load = [&](const uint32_t (&x)[kRun], const float4 (&v)[kRun / 4],
+                        uint32_t (&xn)[kRun], float4 (&vn)[kRun / 4], uint32_t xr,
+                        const float4* vr) {
+#pragma unroll
+      for (int u = 0; u < kRun; ++u) {
+        sum = fmaf(__uint_as_float(x[u]), component(v[u / 4], u % 4), sum);
+        const int q = u / 4;
+        if (u % 4 == 1) vn[q] = vr[q];
+        if (u % 4 == 3) {
+          tf32x3::ldmatrix_x4(xr + 4 * q * kCols * 4, xn[4 * q], xn[4 * q + 1], xn[4 * q + 2],
+                              xn[4 * q + 3]);
         }
-      };
-      auto fma_run = [&](const uint32_t (&x)[kRun], const float4 (&v)[kRun / 4], int j0) {
-        if (j0 + kRun <= n) {
+      }
+    };
+    auto wait_full = [&](int c) {
+      while (!sm90::mbar_try_wait(full0 + 8 * (c % kStagedStages), (c / kStagedStages) & 1)) {
+      }
+    };
+    auto release = [&](int c) {
+      __syncwarp();  // every lane's reads of the stage are done
+      if (lane == 0) sm90::mbar_arrive(empty0 + 8 * (c % kStagedStages));
+    };
+    if (n_chunks > 0) {
+      wait_full(0);
+      load(xa, va, x_of(0), v_of(0));  // run 0 of chunk c is in xa, va at each chunk's start
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      const uint32_t xs = x_of(c);
+      const float4* vs = v_of(c);
+      const int64_t left = hi - lo - static_cast<int64_t>(c) * kChunk;
+      if (left >= kChunk) {
 #pragma unroll
-          for (int u = 0; u < kRun; ++u) {
-            sum = fmaf(__uint_as_float(x[u]), component(v[u / 4], u % 4), sum);
-          }
+        for (int r = 0; r + 2 < kRunsPerChunk; r += 2) {
+          fma_load(xa, va, xb, vb, xs + (r + 1) * kRun * kCols * 4, vs + (r + 1) * kRun / 4);
+          fma_load(xb, vb, xa, va, xs + (r + 2) * kRun * kCols * 4, vs + (r + 2) * kRun / 4);
+        }
+        constexpr int kLast = kRunsPerChunk - 1;
+        fma_load(xa, va, xb, vb, xs + kLast * kRun * kCols * 4, vs + kLast * kRun / 4);
+        if (c + 1 < n_chunks) {
+          wait_full(c + 1);
+          fma_load(xb, vb, xa, va, x_of(c + 1), v_of(c + 1));
         } else {
-#pragma unroll
-          for (int u = 0; u < kRun; ++u) {
-            if (j0 + u < n) sum = fmaf(__uint_as_float(x[u]), component(v[u / 4], u % 4), sum);
-          }
+          fma_run(xb, vb, kRun);
         }
-      };
-      // A full run's FMAs with the next run's 16 loads among them: a warp
-      // issues in order, and loads placed ahead of the FMAs (where the
-      // compiler puts independent loads) would wait their turn in the
-      // shared-memory queue before the first FMA. Each load's address is
-      // tied to the FMA before it through z, a zero the compiler cannot see
-      // (batch < 2^62), so it issues in that FMA's shadow.
-      const uint32_t zero = static_cast<uint32_t>(batch >> 62);
-      auto fma_load = [&](const uint32_t (&x)[kRun], const float4 (&v)[kRun / 4],
-                          uint32_t (&xn)[kRun], float4 (&vn)[kRun / 4], int jn) {
-#pragma unroll
-        for (int u = 0; u < kRun; ++u) {
-          sum = fmaf(__uint_as_float(x[u]), component(v[u / 4], u % 4), sum);
-          const uint32_t z = __float_as_uint(sum) & zero;
-          const int q = u / 4;
-          if (u % 4 == 1) vn[q] = vs[jn / 4 + q + z];
-          if (u % 4 == 3) {
-            tf32x3::ldmatrix_x4(xrow + z + (jn + 4 * q) * kCols * 4, xn[4 * q], xn[4 * q + 1],
-                                xn[4 * q + 2], xn[4 * q + 3]);
-          }
+      } else {  // the segment's last chunk
+        const int n = static_cast<int>(left);
+        fma_run(xa, va, n);
+        for (int j = kRun; j < n; j += kRun) {
+          load(xa, va, xs + j * kCols * 4, vs + j / 4);
+          fma_run(xa, va, n - j);
         }
-      };
-      load(xa, va, 0);
-      for (int j = 0; j < n; j += 2 * kRun) {
-        if (j + 2 * kRun <= n) {  // two full runs
-          fma_load(xa, va, xb, vb, j + kRun);
-          if (j + 2 * kRun < kChunk) {
-            fma_load(xb, vb, xa, va, j + 2 * kRun);
-          } else {
-            fma_run(xb, vb, j + kRun);
-          }
-        } else {  // the chunk's tail
-          load(xb, vb, j + kRun);
-          fma_run(xa, va, j);
-          if (j + kRun < n) fma_run(xb, vb, j + kRun);
+      }
+      release(c);
+    }
+    if (summer) store(sum, bias_s, slope, mode, out, mask, s * batch + b0 + b);
+  } else if (warp != 4) {
+    // The loaders: each chunk into its stage once the summing warp has freed
+    // it, the values (4-byte cp.async) and the gathered srcT rows (16-byte
+    // where B is a multiple of 4 and srcT is 16-byte aligned, else 4-byte);
+    // the stage's full barrier completes when every loader's copies have
+    // landed. A row's address needs its gather index, a global load: the
+    // indices are read into registers kIdxAhead chunks ahead, so that no
+    // chunk's copies wait for their latency.
+    const int lt = (warp < 4 ? warp - 1 : 3) * 32 + lane;
+    // the chunk-local slot of a loader's i-th copy (and its quad, 16-byte copies)
+    auto slot_of = [&](int i) {
+      return kVec ? lt / kQuads + (kLoaders / kQuads) * i : lt + kLoaders * i;
+    };
+    auto chunk_len = [&](int c) {
+      const int64_t left = hi - lo - static_cast<int64_t>(c) * kChunk;
+      return left < kChunk ? static_cast<int>(left) : kChunk;
+    };
+    int idx[kIdxAhead][kIdx];  // gather indices of chunks c to c + kIdxAhead - 1
+    auto fetch_idx = [&](int c, int (&to)[kIdx]) {
+      const int n = chunk_len(c);
+      const int32_t* gc = gather + lo + static_cast<int64_t>(c) * kChunk;
+#pragma unroll
+      for (int i = 0; i < kIdx; ++i) to[i] = slot_of(i) < n ? __ldg(gc + slot_of(i)) : 0;
+    };
+    auto copy = [&](int c, const int (&from)[kIdx]) {
+      const int st = c % kStagedStages;
+      if (c >= kStagedStages) sm90::mbar_wait(empty0 + 8 * st, ((c / kStagedStages) + 1) & 1);
+      float* xs = smem + st * kStageFloats;
+      float* vs = xs + kChunk * kCols;
+      const int n = chunk_len(c);
+      const float* vg = values + lo + static_cast<int64_t>(c) * kChunk;
+      for (int i = lt; i < n; i += kLoaders) tf32x3::cp_async4(vs + i, vg + i, 4);
+#pragma unroll
+      for (int i = 0; i < kIdx; ++i) {
+        const int jj = slot_of(i);
+        if (jj >= n) continue;
+        const float* row = srcT + static_cast<int64_t>(from[i]) * batch + b0;
+        if constexpr (kVec) {
+          const int q = (lt % kQuads) * 4;
+          if (q < b_valid) tf32x3::cp_async16(xs + jj * kCols + q, row + q, 16);
+        } else {
+          for (int b = 0; b < b_valid; ++b) tf32x3::cp_async4(xs + jj * kCols + b, row + b, 4);
+        }
+      }
+      cp_async_arrive(full0 + 8 * st);
+    };
+#pragma unroll
+    for (int k = 0; k < kIdxAhead; ++k) {
+      if (k < n_chunks) fetch_idx(k, idx[k]);
+    }
+    for (int c0 = 0; c0 < n_chunks; c0 += kIdxAhead) {
+#pragma unroll
+      for (int k = 0; k < kIdxAhead; ++k) {
+        const int c = c0 + k;
+        if (c < n_chunks) {
+          copy(c, idx[k]);
+          if (c + kIdxAhead < n_chunks) fetch_idx(c + kIdxAhead, idx[k]);
         }
       }
     }
+    tf32x3::cp_async_wait<0>();
+    // The summing warp spins on its stages with no bound of its own: a bound
+    // in its loop cost the chain ~3 %. One loader waits, with sm90::mbar_wait's
+    // bound, for the last stage to be freed, so a stage that never lands
+    // fails the launch after 4 s instead of hanging the card.
+    if (lt == 0 && n_chunks > 0) {
+      const int last = n_chunks - 1;
+      sm90::mbar_wait(empty0 + 8 * (last % kStagedStages), (last / kStagedStages) & 1);
+    }
   }
-  if (loader) tf32x3::cp_async_wait<0>();
-  if (summer) store(sum, bias_s, slope, mode, out, mask, s * batch + b0 + b);
 }
 
 bool smem_set[2][64];
@@ -367,7 +420,7 @@ bool smem_set[2][64];
 }  // namespace
 
 // route: 0 = one thread per (segment, column), 1 = one staged block per
-// (segment, 32 columns). Both give the same bits. epilogue: 0 = none,
+// (segment, kCols columns). Both give the same bits. epilogue: 0 = none,
 // 1 = + bias, 2 = + bias then All-ReLU with slope, 3 = as 2 and the uint8
 // mask of v > 0 (n_segments x batch, like out); bias (n_segments f32) may be
 // null only for epilogue 0, mask only below epilogue 3.

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of kernels D's and E's bf16 instances
-// (bsmm_dx.cu, bsmm_dw.cu; the cluster parts E's alone), in inline PTX:
+// (bsmm_dx.cu, bsmm_dw.cu; the cluster parts E's alone; the mbarriers also
+// kernel A's staged route, coo_matmul_T.cu), in inline PTX:
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     wait on a phase's parity (trapping after 4 s instead of hanging);
 //   * TMA: 3-D tile loads into shared memory that complete on an mbarrier,

@@ -224,7 +224,10 @@ def make_eval_fn(config: SparseMLPConfig):
     return fwd
 
 
-def evaluate(model: SparseMLP, x: np.ndarray, y: np.ndarray, batch: int = 512, *,
+EVAL_BATCH = 512  # the rows of an evaluation batch, :func:`evaluate`'s default
+
+
+def evaluate(model: SparseMLP, x: np.ndarray, y: np.ndarray, batch: int = EVAL_BATCH, *,
              params=None, topo_arrays=None) -> float:
     """Accuracy on (x, y), counted on the device with one synchronisation.
     ``params``/``topo_arrays`` override the model's own views: the caller's

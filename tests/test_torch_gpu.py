@@ -7,10 +7,12 @@ so it runs on a machine that has only the port:
 
 Kernel A sums each segment in slot order, the plain version through
 ``index_add_`` (atomics on the card), so they are held at rtol/atol 1e-5;
-its two routes are held bit-equal to each other, and dropping zero-valued
-slots is held bit-equal (lossless compaction). Its epilogue (bias, then
-All-ReLU) is held bit-equal to kernel A followed by kernel B, on both
-routes. Kernel B does the plain version's f32 arithmetic and is held
+its two routes are held bit-equal to each other, also at the full-width
+Table-4 output layer (two segments of 500,000 slots, there within 1e-4 of
+the f64 sum: one f32 chain that long rounds further than 1e-5), and
+dropping zero-valued slots is held bit-equal (lossless compaction). Its
+epilogue (bias, then All-ReLU) is held bit-equal to kernel A followed by
+kernel B, on both routes. Kernel B does the plain version's f32 arithmetic and is held
 bit-equal, on contiguous rows and on rows at a pitch. Kernels C, D and E sum in
 another order than the plain versions' einsums (up to K = 4096 products per
 output, in 3xTF32 on the tensor cores, as accurate as f32), so they are held
@@ -223,6 +225,46 @@ def test_kernel_a_routes_give_the_same_bits(cuda, batch, with_acc):
     assert torch.equal(
         tsp._coo_matmul_T_cuda(src_u, v, g, seg, seg_ptr, n, acc, tsp.COO_STAGED),
         got[tsp.COO_THREAD])
+
+
+# the Table-4 output layer at full width: 500,000 -> 2 at epsilon 10 is
+# dense, two segments of 500,000 slots, the staged route's longest chains
+FULL_OUT = [500_000, 500_000]
+
+
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("batch", [32, 440])
+def test_kernel_a_full_width_output_layer_routes_bit_equal(cuda, batch, with_acc):
+    """The full-width output layer at the training batch and the
+    evaluation's last: kernel A takes the staged route, one launch counted
+    in ``staged_launches``, and gives the one-thread route's bits with
+    epilogue 0 and 1. Against the exact (f64) sum it is held at 1e-4: one
+    f32 chain of 500,000 FMAs rounds at every slot, ~1.2e-5 from the exact
+    sum on average and up to ~1e-4 where the sum is large, past A's 1e-5
+    for short segments."""
+    rng, gather, vals, srcT = _long_segments(FULL_OUT, batch, n_src=500_000)
+    n = len(FULL_OUT)
+    seg = torch.as_tensor(np.repeat(np.arange(n), FULL_OUT).astype(np.int32), device=cuda)
+    g, v = torch.as_tensor(gather, device=cuda), torch.as_tensor(vals, device=cuda)
+    src = torch.as_tensor(srcT, device=cuda)
+    bias = torch.as_tensor(rng.standard_normal((n,)).astype(np.float32), device=cuda)
+    acc = torch.as_tensor(rng.standard_normal((n, batch)).astype(np.float32),
+                          device=cuda) if with_acc else None
+    seg_ptr = tsp.offsets_to_device(_offsets(FULL_OUT), cuda)
+    assert tsp.coo_route(tsp._longest_segment(seg_ptr, len(gather), n)) == tsp.COO_STAGED
+    exact = tsp.coo_matmul_T_plain(src.double(), v.double(), g, seg, n,
+                                   acc=None if acc is None else acc.double())
+    for b in (None, bias):  # epilogue 0, then 1 (+ bias)
+        staged = tsp.coo_matmul_T.staged_launches
+        got = tsp.coo_matmul_T(src, v, g, seg, n, acc=acc, seg_ptr=seg_ptr, bias=b)
+        torch.cuda.synchronize()
+        assert tsp.coo_matmul_T.staged_launches == staged + 1
+        thread = tsp._coo_matmul_T_cuda(src, v, g, seg, seg_ptr, n, acc, tsp.COO_THREAD, bias=b)
+        torch.cuda.synchronize()
+        assert tsp.coo_matmul_T.staged_launches == staged + 1
+        assert torch.equal(got, thread)
+        want = tsp.coo_epilogue(exact, None if b is None else b.double(), None)
+        torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("batch", [1, 128])

@@ -9,18 +9,24 @@ It copies ``src/repro_torch/csrc/coo_matmul_T.cu`` and ``bsmm_dx.cu`` into
 them behind the kernels' own ctypes signatures on the shapes the main paths
 give them:
 
-    A   the served output layer (10 segments of 2,800 slots, 40 blocks at
-        batch 128, 10 at batch 1): per block, the summing warp's cycles in
-        its loop, per slot, and from entry to its first chunk;
+    A   the full-width Table-4 output layer (500,000 -> 2, dense: 2
+        segments of 500,000 slots) at batch 32 and 512 with the bias
+        epilogue, and the served output layer (10 segments of 2,800 slots)
+        at batch 1 and 128: per block, the summing warp's cycles per slot,
+        split into its waits for a stage to land and the rest (its FMAs,
+        shared-memory loads and barriers), beside the FMA chain's floor;
+        a loader's cycles and its waits for a free stage. At full width
+        also the real kernel's time (CUDA events) beside its bytes bound,
+        the chain's floor, the plain version's and ``torch.sparse.mm``'s;
     D   the full-width block model's layers 1-3 at batch 128: per block,
         cycles from entry to row_ptr read, to the first stage and the whole
         prologue (3 stages) issued, to the first compute (the first stage
         landed, the fourth issued), and in compute per 32-deep stage.
 
-It also times a chain of dependent FMAs on one warp (cycles per FMA and the
-clock rate), the floor under kernel A's long segments. Timings of the
-instrumented kernels (CUDA events) are printed beside them; the clock reads
-cost a few cycles each.
+The floor is a chain of dependent FMAs through the addend on one warp
+(cycles per FMA and the clock rate), as kernel A's chains run. Timings of
+the instrumented kernels (CUDA events) are printed beside them; the clock
+reads cost a few cycles each.
 
 ``bf16``: kernels D's and E's bf16 instances on Qwen1.5-0.5B's first-layer
 W_in (1024 -> 2816, 22 tiles) and W_out (2816 -> 1024, 15 tiles) at the LM
@@ -39,7 +45,9 @@ change:
 
 Nothing here is part of the port.
 
-    python3 tools/block_span_probe.py [f32] [bf16]   # from the repository root, on the card
+    python3 tools/block_span_probe.py [a] [f32] [bf16]   # from the repository root, on the card
+
+``a`` runs kernel A's part alone, ``f32`` kernels A's and D's.
 """
 import ctypes
 import json
@@ -94,7 +102,8 @@ CHAIN = r'''
 __global__ void chain(float* out, long long* cycles, int n) {
   float s = out[threadIdx.x], a = out[32 + threadIdx.x], b = out[64 + threadIdx.x];
   const long long t0 = clock64();
-  for (int i = 0; i < n; ++i) s = fmaf(s, a, b);
+#pragma unroll 32
+  for (int i = 0; i < n; ++i) s = fmaf(a, b, s);
   const long long t1 = clock64();
   out[threadIdx.x] = s;
   if (threadIdx.x == 0) cycles[0] = t1 - t0;
@@ -114,25 +123,31 @@ def sub(src: str, old: str, new: str) -> str:
 
 
 def probe_a(src: str) -> str:
-    """Slot 16*block: the summing warp (tid 0): total, first chunk, loop
-    cycles; slot +8: a loader (tid 32): total, first chunk, issue cycles."""
+    """Slot 16*block: the summing warp (tid 0): total cycles, its waits for
+    a stage to land, chunks; slot +8: a loader (tid 32): total cycles, its
+    waits for a free stage."""
     src = sub(src, "namespace {\n", "namespace {\n" + GLOBALS)
-    src = sub(src, "  extern __shared__ __align__(16) float smem[];\n  const int64_t s = blockIdx.x;",
-              "  extern __shared__ __align__(16) float smem[];\n  const long long c0 = clock64();\n"
-              "  long long c_first = 0, c_loop = 0;\n  const int64_t s = blockIdx.x;")
-    src = sub(src, "    __syncthreads();  // ... for every thread, and the stage of chunk c - 1 is free\n",
-              "    __syncthreads();  // ... for every thread, and the stage of chunk c - 1 is free\n"
-              "    const long long cb = clock64();\n    if (c == 0) c_first = cb - c0;\n")
-    src = sub(src, "      tf32x3::cp_async_commit();\n    } else {",
-              "      tf32x3::cp_async_commit();\n      c_loop += clock64() - cb;\n    } else {")
-    src = sub(src, "          if (j + kRun < n) fma_run(xb, vb, j + kRun);\n        }\n      }\n    }\n",
-              "          if (j + kRun < n) fma_run(xb, vb, j + kRun);\n        }\n      }\n"
-              "      asm volatile(\"\" :: \"f\"(sum));\n      c_loop += clock64() - cb;\n    }\n")
-    src = sub(src, "  if (summer) out[s * batch + b0 + b] = sum;\n}",
-              "  if (summer) out[s * batch + b0 + b] = sum;\n  if (tid == 0 || tid == 32) {\n"
-              "    long long* o = g_clk + 16 * ((blockIdx.x + gridDim.x * blockIdx.y) % 4096)"
-              " + (tid == 0 ? 0 : 8);\n"
-              "    o[0] = clock64() - c0; o[1] = c_first; o[2] = c_loop; o[3] = n_chunks;\n  }\n}")
+    src = sub(src, "    auto wait_full = [&](int c) {\n",
+              "    const long long c0 = clock64();\n    long long c_wait = 0;\n"
+              "    auto wait_full = [&](int c) {\n      const long long cw = clock64();\n")
+    src = sub(src, "(c / kStagedStages) & 1)) {\n      }\n",
+              "(c / kStagedStages) & 1)) {\n      }\n      c_wait += clock64() - cw;\n")
+    slot = "g_clk + 16 * ((blockIdx.x + gridDim.x * blockIdx.y) % 4096)"
+    src = sub(src, "    if (summer) store(sum, bias_s, slope, mode, out, mask, s * batch + b0 + b);\n",
+              "    if (summer) store(sum, bias_s, slope, mode, out, mask, s * batch + b0 + b);\n"
+              f"    if (lane == 0) {{\n      long long* o = {slot};\n"
+              "      o[0] = clock64() - c0; o[1] = c_wait; o[2] = n_chunks; o[3] = 1;\n    }\n")
+    src = sub(src, "    const int lt = (warp < 4 ? warp - 1 : 3) * 32 + lane;\n",
+              "    const int lt = (warp < 4 ? warp - 1 : 3) * 32 + lane;\n"
+              "    const long long l0 = clock64();\n    long long l_wait = 0;\n")
+    src = sub(src, "      if (c >= kStagedStages) sm90::mbar_wait(empty0 + 8 * st, ((c / kStagedStages) + 1) & 1);\n",
+              "      const long long lw = clock64();\n"
+              "      if (c >= kStagedStages) sm90::mbar_wait(empty0 + 8 * st, ((c / kStagedStages) + 1) & 1);\n"
+              "      l_wait += clock64() - lw;\n")
+    src = sub(src, "    tf32x3::cp_async_wait<0>();\n",
+              "    tf32x3::cp_async_wait<0>();\n"
+              f"    if (lt == 0) {{\n      long long* o = {slot} + 8;\n"
+              "      o[0] = clock64() - l0; o[1] = l_wait;\n    }\n")
     return src + READ
 
 
@@ -278,6 +293,83 @@ def bf16_spans(dev) -> None:
                     loop_bytes_a_cycle=loaded / (live[:, 1].max() * 1000.0))}), flush=True)
 
 
+def a_spans(dev, libs, stream) -> None:
+    """The ``A`` section of the module's doc."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(smi.strip(), flush=True)
+    med = lambda v: float(np.median(v))  # noqa: E731
+    run_chain = libs["chain"].run_chain
+    run_chain.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    buf, cyc = torch.ones(96, device=dev), torch.zeros(1, dtype=torch.int64, device=dev)
+    n = 500_000
+    ms = cs.device_ms(lambda: run_chain(buf.data_ptr(), cyc.data_ptr(), n, stream), reps=20)
+    per_fma, ghz = int(cyc.item()) / n, int(cyc.item()) / (ms * 1e6)
+    print(json.dumps({"fma_chain": dict(n=n, ms=ms, cycles_per_fma=per_fma, ghz=ghz)}))
+
+    cols = int(re.search(r"constexpr int kCols = (\d+);",
+                         (build.CSRC / "coo_matmul_T.cu").read_text()).group(1))
+    fa = libs["span_a"].coo_matmul_T_f32
+    fa.argtypes, fa.restype = tsp._COO_MATMUL_T_ARGTYPES, ctypes.c_int
+    rng = np.random.default_rng(0)
+
+    def spans_of(what, srcT, vals, gather, seg_ptr, bias, n_seg, slots):
+        batch = srcT.shape[1]
+        out = torch.empty((n_seg, batch), device=dev)
+        call = lambda: build.check_launch(fa(  # noqa: E731
+            srcT.data_ptr(), vals.data_ptr(), gather.data_ptr(), seg_ptr.data_ptr(), None,
+            None if bias is None else bias.data_ptr(), out.data_ptr(), None, n_seg, batch,
+            tsp.COO_STAGED, 0.0, 0 if bias is None else 1, 0, stream), "span_a")
+        ms = cs.device_ms(call, reps=20)
+        call()
+        blocks = n_seg * -(-batch // cols)
+        c = spans(libs["span_a"], 16 * blocks).reshape(blocks, 2, 8)
+        total, wait = med(c[:, 0, 0]) / slots, med(c[:, 0, 1]) / slots
+        row = dict(layer=what, batch=batch, instrumented_ms=ms, blocks=blocks, slots=slots,
+                   chunks=int(c[0, 0, 2]), summer_cycles_per_slot=total,
+                   summer_wait_per_slot=wait, summer_own_per_slot=total - wait,
+                   chain_floor_per_slot=per_fma, loader_cycles_per_slot=med(c[:, 1, 0]) / slots,
+                   loader_wait_per_slot=med(c[:, 1, 1]) / slots)
+        print(json.dumps({"a_spans": row}), flush=True)
+
+    # the full-width Table-4 output layer, as the smoke builds it
+    fw = cs.full_width_output_layer(rng, dev)
+    n_src, n_seg, gather, seg, vals, bias, seg_ptr = (
+        fw[k] for k in ("n_src", "n", "gather", "seg", "vals", "bias", "seg_ptr"))
+    nnz = n_seg * n_src
+    for batch in (32, 512):
+        srcT = torch.as_tensor(rng.standard_normal((n_src, batch)).astype(np.float32),
+                               device=dev)
+        spans_of("full_width", srcT, vals, gather, seg_ptr, bias, n_seg, n_src)
+        csr = torch.sparse_csr_tensor(seg_ptr, gather.long(), vals, (n_seg, n_src))
+        cs.reset_counts()
+        tsp.coo_matmul_T(srcT, vals, gather, seg, n_seg, seg_ptr=seg_ptr, bias=bias)
+        staged = cs.read_counts()["coo_matmul_T.staged"]
+        kernel_ms = cs.device_ms(lambda: tsp.coo_matmul_T(  # noqa: B023
+            srcT, vals, gather, seg, n_seg, seg_ptr=seg_ptr, bias=bias), reps=20)
+        print(json.dumps({"a_full_width": dict(
+            batch=batch, ms=kernel_ms, staged_launches_a_call=staged,
+            chain_floor_ms=n_src * per_fma / (ghz * 1e6),
+            plain_ms=cs.device_ms(lambda: tsp.coo_matmul_T_plain(  # noqa: B023
+                srcT, vals, gather, seg, n_seg, bias=bias), reps=3),
+            library_ms=cs.library_ms(lambda: torch.sparse.mm(csr, srcT)),  # noqa: B023
+            card=smi.strip(),
+            **cs.bound(4 * (srcT.numel() + 2 * nnz + n_seg * batch) + 8 * (n_seg + 1),
+                       2 * nnz * batch))}), flush=True)
+        del srcT, csr
+        torch.cuda.empty_cache()
+
+    engine = SparseInferenceEngine(cs.seeded_model("cuda"), compaction=cs.SCHEDULE)
+    host, vals = engine.model.topos[-1], engine.model.values[-1]
+    t = host.device_arrays(dev)
+    seg_ptr = tsp.registered_offsets(t.cols)
+    for batch in (1, 128):
+        srcT = torch.as_tensor(rng.standard_normal((host.in_dim, batch)).astype(np.float32),
+                               device=dev)
+        spans_of("served_output", srcT, vals, t.rows, seg_ptr, None, host.out_dim,
+                 int(np.diff(host.col_ptr()).max()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("block_span_probe: no CUDA device", file=sys.stderr)
@@ -287,47 +379,18 @@ def main() -> int:
     what = set(sys.argv[1:]) or {"f32", "bf16"}
     if "bf16" in what:
         bf16_spans(dev)
-    if "f32" not in what:
+    if not what & {"a", "f32"}:
         return 0
     libs = build_all({"span_a": probe_a((build.CSRC / "coo_matmul_T.cu").read_text()),
-                      "span_d": probe_d((build.CSRC / "bsmm_dx.cu").read_text()),
-                      "chain": CHAIN})
+                      "chain": CHAIN,
+                      **({"span_d": probe_d((build.CSRC / "bsmm_dx.cu").read_text())}
+                         if "f32" in what else {})})
     stream = torch.cuda.current_stream().cuda_stream
+    a_spans(dev, libs, stream)
+    if "f32" not in what:
+        return 0
     med = lambda v: float(np.median(v))  # noqa: E731
-
-    run_chain = libs["chain"].run_chain
-    run_chain.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    buf, cyc = torch.ones(96, device=dev), torch.zeros(1, dtype=torch.int64, device=dev)
-    n = 280_000
-    ms = cs.device_ms(lambda: run_chain(buf.data_ptr(), cyc.data_ptr(), n, stream), reps=20)
-    print(json.dumps({"fma_chain": dict(n=n, ms=ms, cycles_per_fma=int(cyc.item()) / n,
-                                        ghz=int(cyc.item()) / (ms * 1e6))}))
-
-    engine = SparseInferenceEngine(cs.seeded_model("cuda"), compaction=cs.SCHEDULE)
-    host, vals = engine.model.topos[-1], engine.model.values[-1]
-    t = host.device_arrays(dev)
-    seg_ptr = tsp.registered_offsets(t.cols)
-    fa = libs["span_a"].coo_matmul_T_f32
-    fa.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
     rng = np.random.default_rng(0)
-    for batch in (1, 128):
-        srcT = torch.as_tensor(rng.standard_normal((host.in_dim, batch)).astype(np.float32),
-                               device=dev)
-        out = torch.empty((host.out_dim, batch), device=dev)
-        call = lambda: fa(srcT.data_ptr(), vals.data_ptr(), t.rows.data_ptr(),  # noqa: E731
-                          seg_ptr.data_ptr(), None, out.data_ptr(), host.out_dim, batch,
-                          tsp.COO_STAGED, 0, stream)
-        ms = cs.device_ms(call)
-        call()
-        blocks = host.out_dim * -(-batch // 32)
-        c = spans(libs["span_a"], 16 * blocks).reshape(blocks, 2, 8)
-        slots = int(np.diff(host.col_ptr()).max())
-        print(json.dumps({"a_spans": dict(
-            batch=batch, ms=ms, blocks=blocks, slots=slots, chunks=int(c[0, 0, 3]),
-            summer_cycles=med(c[:, 0, 0]), summer_first_chunk=med(c[:, 0, 1]),
-            summer_loop=med(c[:, 0, 2]), summer_loop_per_slot=med(c[:, 0, 2]) / slots,
-            loader_first_chunk=med(c[:, 1, 1]), loader_issue=med(c[:, 1, 2]))}))
 
     model = cs.block_model(dev)
     x_train = cs.load("cifar10", scale=cs.TRAIN_SCALE).x_train
