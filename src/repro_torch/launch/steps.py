@@ -141,10 +141,13 @@ def _microbatched_grad(loss_fn: Callable, params, batch, microbatches: int):
 
 
 def make_train_step(model, *, lr: float = 1e-2, momentum: float = 0.9,
-                    microbatches: int = 1):
+                    microbatches: int = 1, weight_decay: float = 1e-4,
+                    inplace: bool = False):
     """The train step and its optimizer, ``(train_step, opt)``; momentum
-    SGD with weight decay 1e-4, gradients by :func:`_microbatched_grad`,
-    every metric kept on the device.
+    SGD with weight decay ``weight_decay``, gradients by
+    :func:`_microbatched_grad`, every metric kept on the device. With
+    ``inplace`` the optimizer writes the velocity and the parameters in
+    place (``MomentumSGD.inplace``): the returned trees are the given ones.
 
     A ``PatternLM``'s: ``train_step(params, opt_state, batch, topo) ->
     (params, opt_state, {"loss", "total"})``, with ``batch["tokens"]`` and
@@ -158,7 +161,7 @@ def make_train_step(model, *, lr: float = 1e-2, momentum: float = 0.9,
     d_model), ``batch["tokens"]`` and ``batch["labels"]`` (B, S): the
     encoder, the teacher-forced decoder, the logits cast to f32, then the
     mean NLL under ``log_softmax``."""
-    opt = MomentumSGD(momentum=momentum, weight_decay=1e-4)
+    opt = MomentumSGD(momentum=momentum, weight_decay=weight_decay, inplace=inplace)
 
     if isinstance(model, WhisperModel):
         loss_fn_w = whisper_loss_fn(model)

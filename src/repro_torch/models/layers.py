@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.all_relu import activation_fn, all_relu
 from repro_torch.core.sparsity import BlockMeta, BlockTopoArrays, BlockTopology
@@ -176,6 +177,7 @@ class AttnConfig:
     query_scale: Optional[float] = None    # default 1/sqrt(head_dim)
     kv_chunk: int = 1024
     causal_skip: bool = False              # perf: skip fully-masked kv chunks
+    rope: bool = True                      # False: no position encoding (Jamba)
 
 
 def init_attention(gen: torch.Generator, cfg: AttnConfig, dtype: torch.dtype,
@@ -257,7 +259,10 @@ def _online_softmax_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _causal_skip_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            cfg: AttnConfig, q_positions: torch.Tensor) -> torch.Tensor:
     """Exact-FLOPs causal attention: a Python loop over q chunks, each
-    attending only to its static KV prefix (plus window clipping)."""
+    attending only to its static KV prefix (plus window clipping). Where
+    autograd records, each q chunk runs under ``torch.utils.checkpoint``:
+    the backward keeps one chunk's scores at a time, not every chunk's
+    (memory, not numbers)."""
     Sq = q.shape[1]
     chunk = min(cfg.kv_chunk, Sq)
     n_q = -(-Sq // chunk)
@@ -273,9 +278,14 @@ def _causal_skip_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 msk &= kabs[None, :] > qpos[:, None] - cfg.window
             return msk
 
-        outs.append(_online_softmax_chunked(
-            q[:, q_lo:q_hi], k[:, kv_lo:q_hi], v[:, kv_lo:q_hi], mask_fn, cfg,
-            q_positions[q_lo:q_hi]))
+        def run(qc, kc, vc, _mask=mask_fn, _pos=q_positions[q_lo:q_hi]):
+            return _online_softmax_chunked(qc, kc, vc, _mask, cfg, _pos)
+
+        args = (q[:, q_lo:q_hi], k[:, kv_lo:q_hi], v[:, kv_lo:q_hi])
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            outs.append(checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False))
+        else:
+            outs.append(run(*args))
     return torch.cat(outs, dim=1)
 
 
@@ -318,8 +328,9 @@ def attention_fwd(
     q = q.reshape(B, -1, h, d)
     kx = kx.reshape(B, -1, kv, d)
     vx = vx.reshape(B, -1, kv, d)
-    q = apply_rope(q, positions, theta=cfg.rope_theta)
-    kx = apply_rope(kx, positions, theta=cfg.rope_theta)
+    if cfg.rope:
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        kx = apply_rope(kx, positions, theta=cfg.rope_theta)
 
     if mode == "decode":
         if cache is None:
@@ -546,8 +557,32 @@ def embedding_specs() -> Dict:
     return {"table": ("vocab", "embed")}
 
 
+class _Embed(torch.autograd.Function):
+    """``table[tokens]`` whose gradient sums every token's row in f32 and
+    rounds once to the table's dtype: a bf16 table's rows hit by thousands
+    of tokens (a Zipf stream's head) would otherwise accumulate in bf16."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.table_shape, dtype=torch.float32, device=g.device)
+        acc.index_add_(0, tokens.reshape(-1), g.reshape(-1, g.shape[-1]).float())
+        return acc.to(ctx.table_dtype), None
+
+
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    """The table's rows of ``tokens``. An f32 table is indexed as is; a
+    lower-precision one through :class:`_Embed`, whose gradient sums in f32."""
+    table = params["table"]
+    if table.dtype == torch.float32:
+        return table[tokens]
+    return _Embed.apply(table, tokens)
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,11 @@ tolerance against the sequential recurrence (``tests/test_model_numerics.py``:
 recomputes the chunk's (B, c, d_inner, d_state) intermediates instead of
 keeping them for every chunk.
 
+``dt_bc_norms`` adds Jamba's RMSNorms (learned weights, eps 1e-6)
+on dt, B and C after ``x_proj``, as ``JambaMambaMixer`` has them. The
+selective scan runs inside the ``lm.mamba.scan`` span (its forward, and
+remat's recompute of it; not its backward).
+
 ``softplus`` is the reference's ``jax.nn.softplus``, ``logaddexp(x, 0)``
 (``F.softplus`` switches to the identity above 20). The in and out
 projections are plain ``torch.matmul``, as the reference leaves them to XLA.
@@ -28,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import dense_init
+from repro_torch import obs
+from repro_torch.models.layers import dense_init, rmsnorm
 
 __all__ = ["MambaConfig", "init_mamba_block", "mamba_fwd", "mamba_decode_step",
            "init_mamba_state", "mamba_specs"]
@@ -44,6 +50,7 @@ class MambaConfig:
     d_conv: int = 4
     dt_rank: int = 0        # 0 -> d_model // 16
     chunk: int = 256
+    dt_bc_norms: bool = False  # RMSNorms on dt, B and C (Jamba)
 
     @property
     def rank(self) -> int:
@@ -55,7 +62,12 @@ def init_mamba_block(gen: torch.Generator, cfg: MambaConfig, dtype: torch.dtype,
     d, di, ds, r = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.rank
     a = torch.arange(1, ds + 1, dtype=torch.float32).expand(di, ds)
     out = (into or {}).get
+    norms = {}
+    if cfg.dt_bc_norms:  # unit-offset scales, as the model's other RMSNorms
+        norms = {name: torch.zeros((n,), dtype=dtype, device=device)
+                 for name, n in (("dt_norm", r), ("b_norm", ds), ("c_norm", ds))}
     return {
+        **norms,
         "in_proj": dense_init(gen, (d, 2 * di), d, dtype, device, out("in_proj")),
         "conv_w": dense_init(gen, (cfg.d_conv, di), cfg.d_conv, dtype, device, out("conv_w")),
         "conv_b": torch.zeros((di,), dtype=dtype, device=device),
@@ -68,9 +80,13 @@ def init_mamba_block(gen: torch.Generator, cfg: MambaConfig, dtype: torch.dtype,
     }
 
 
-def mamba_specs() -> Dict:
+def mamba_specs(cfg: Optional[MambaConfig] = None) -> Dict:
     """The logical-axis spec of :func:`init_mamba_block`'s parameters."""
+    norms = {}
+    if cfg is not None and cfg.dt_bc_norms:
+        norms = {"dt_norm": (None,), "b_norm": (None,), "c_norm": (None,)}
     return {
+        **norms,
         "in_proj": ("embed", "inner2"), "conv_w": (None, "inner"), "conv_b": ("inner",),
         "x_proj": ("inner", None), "dt_proj": (None, "inner"), "dt_bias": ("inner",),
         "a_log": ("inner", None), "d_skip": ("inner",), "out_proj": ("inner", "embed"),
@@ -159,11 +175,15 @@ def mamba_fwd(params: Params, x: torch.Tensor, cfg: MambaConfig,
 
     xdb = (xp @ params["x_proj"]).float()
     dt, Bc, Cc = torch.split(xdb, [r, ds, ds], dim=-1)
+    if cfg.dt_bc_norms:
+        dt, Bc, Cc = (rmsnorm({"scale": params[k]}, t)
+                      for k, t in (("dt_norm", dt), ("b_norm", Bc), ("c_norm", Cc)))
     delta = softplus(dt @ params["dt_proj"].float() + params["dt_bias"].float())
     A = -torch.exp(params["a_log"])
     h0 = (state["ssm"].float() if state
           else torch.zeros((B, di, ds), dtype=torch.float32, device=x.device))
-    y, hT = _ssm_chunked(xp.float(), delta, Bc, Cc, A, h0, cfg.chunk)
+    with obs.span("lm.mamba.scan"):
+        y, hT = _ssm_chunked(xp.float(), delta, Bc, Cc, A, h0, cfg.chunk)
     y = y + params["d_skip"] * xp.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]

@@ -8,6 +8,12 @@ An architecture is a repeating ``pattern`` of block kinds:
   'mamba'   Mamba-1 SSM block (no FFN)          (falcon-mamba)
   'rglru'   RG-LRU recurrent block + FFN        (recurrentgemma)
 
+:class:`HybridConfig`'s ``slot_ffn`` gives each pattern slot its own FFN
+kind (Jamba's period of 8: Mamba with a dense or an MoE FFN, attention
+without RoPE with a dense one); without it every attention and RG-LRU slot
+takes ``ffn`` and a Mamba slot none, as above. A slot whose FFN kind is
+``none`` has no ``ln2`` and no ``ffn`` leaves.
+
 ``n_layers = n_rep * len(pattern) + remainder``. The parameter tree is the
 reference's, so a checkpoint has the same leaf names in both packages:
 ``params["stack"][f"s{i}_{kind}"]`` holds each pattern slot's layers stacked
@@ -69,10 +75,10 @@ from repro_torch.models.griffin import (RGLRUConfig, init_rglru_block, init_rglr
                                         rglru_fwd, rglru_specs)
 from repro_torch.models.mamba import (MambaConfig, init_mamba_block, init_mamba_state,
                                       mamba_fwd, mamba_specs)
-from repro_torch.models.moe import MoEConfig, init_moe, moe_fwd, moe_specs
+from repro_torch.models.moe import MoEConfig, init_moe, moe_fwd, moe_specs, pooled_aux
 from repro_torch.tree import tree_flatten, tree_map
 
-__all__ = ["ModelConfig", "PatternLM", "chunked_softmax_xent"]
+__all__ = ["HybridConfig", "ModelConfig", "PatternLM", "chunked_softmax_xent"]
 
 Tree = Any
 DeviceLike = Optional[Union[str, torch.device]]
@@ -125,6 +131,17 @@ class ModelConfig:
     remat: str = "block"                       # block | none
     decode_window_cache: bool = True           # ring buffers for local layers
 
+    # :class:`HybridConfig`'s options, at the values every reference arch
+    # has; class attributes, not fields, so that a ``ModelConfig`` is the
+    # reference's field for field (``dataclasses.asdict``, checkpoints)
+    slot_ffn = None
+    rope = True
+    mamba_norms = False
+    moe_dropless = False
+    moe_held = None
+    moe_norm_topk = True
+    moe_aux_weight = 0.01
+
     # -- derived -------------------------------------------------------------
 
     @property
@@ -134,6 +151,13 @@ class ModelConfig:
     @property
     def remainder(self) -> int:
         return self.n_layers - self.n_rep * len(self.pattern)
+
+    def ffn_kind(self, slot: int) -> str:
+        """The FFN kind of pattern slot ``slot``: ``slot_ffn``'s, else
+        none for a Mamba slot and ``ffn`` for the others."""
+        if self.slot_ffn is not None:
+            return self.slot_ffn[slot]
+        return "none" if self.pattern[slot] == "mamba" else self.ffn
 
     def attn_cfg(self, kind: str) -> L.AttnConfig:
         theta = self.rope_theta
@@ -150,6 +174,7 @@ class ModelConfig:
             rope_theta=theta,
             kv_chunk=self.kv_chunk,
             causal_skip=self.causal_skip,
+            rope=self.rope,
         )
 
     def moe_cfg(self) -> MoEConfig:
@@ -160,6 +185,10 @@ class ModelConfig:
             d_ff=self.expert_d_ff,
             activation=self.activation,
             groups=self.moe_groups,
+            router_aux_weight=self.moe_aux_weight,
+            norm_topk_prob=self.moe_norm_topk,
+            dropless=self.moe_dropless,
+            held=self.moe_held,
         )
 
     def mamba_cfg(self) -> MambaConfig:
@@ -168,6 +197,7 @@ class ModelConfig:
             d_inner=self.d_inner,
             d_state=self.d_state,
             chunk=self.ssm_chunk,
+            dt_bc_norms=self.mamba_norms,
         )
 
     def rglru_cfg(self) -> RGLRUConfig:
@@ -184,6 +214,25 @@ class ModelConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class HybridConfig(ModelConfig):
+    """A ``ModelConfig`` with the options of the hybrids the reference has no
+    twin of (Jamba): ``slot_ffn`` each pattern slot's FFN kind (None: see
+    :meth:`ModelConfig.ffn_kind`); ``rope`` False for attention without
+    position encoding; ``mamba_norms`` the RMSNorms on Mamba's dt, B and C;
+    the MoE FFN's ``moe_dropless`` dispatch (with its pooled auxiliary
+    loss), ``moe_held`` share of the experts ([first, stop)),
+    ``moe_norm_topk`` renormalisation and ``moe_aux_weight``."""
+
+    slot_ffn: Optional[Tuple[str, ...]] = ModelConfig.slot_ffn
+    rope: bool = ModelConfig.rope
+    mamba_norms: bool = ModelConfig.mamba_norms
+    moe_dropless: bool = ModelConfig.moe_dropless
+    moe_held: Optional[Tuple[int, int]] = ModelConfig.moe_held
+    moe_norm_topk: bool = ModelConfig.moe_norm_topk
+    moe_aux_weight: float = ModelConfig.moe_aux_weight
+
+
 # ---------------------------------------------------------------------------
 # block init / fwd
 # ---------------------------------------------------------------------------
@@ -193,7 +242,7 @@ def _is_spec(x) -> bool:
     return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
 
 
-def _block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
+def _block_specs(cfg: ModelConfig, kind: str, ffn: str) -> Dict[str, Tree]:
     """The logical-axis specs of :func:`_init_block`'s parameters."""
     norm = L.rmsnorm_specs if cfg.norm == "rms" else L.layernorm_specs
     specs: Dict[str, Tree] = {"ln1": norm()}
@@ -205,15 +254,17 @@ def _block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
         if cfg.post_norms:
             specs["post_ffn"] = norm()
     elif kind == "mamba":
-        specs["mamba"] = mamba_specs()
-        return specs
+        specs["mamba"] = mamba_specs(cfg.mamba_cfg())
+        if ffn == "none":
+            return specs
+        specs["ln2"] = norm()
     elif kind == "rglru":
         specs["rglru"] = rglru_specs()
         specs["ln2"] = norm()
     else:
         raise ValueError(kind)
     specs["ffn"] = {"gated": L.gated_ffn_specs, "moe": moe_specs,
-                    "sparse": L.sparse_ffn_specs}[cfg.ffn]()
+                    "sparse": L.sparse_ffn_specs}[ffn]()
     return specs
 
 
@@ -224,16 +275,18 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Tree]:
     specs: Dict[str, Tree] = {"embed": L.embedding_specs(), "final_norm": norm()}
     if not cfg.tied_embeddings:
         specs["unembed"] = ("embed", "vocab")
+    P = len(cfg.pattern)
     specs["stack"] = {
-        f"s{s_idx}_{kind}": tree_map(lambda s: ("stack",) + s, _block_specs(cfg, kind),
+        f"s{s_idx}_{kind}": tree_map(lambda s: ("stack",) + s,
+                                     _block_specs(cfg, kind, cfg.ffn_kind(s_idx)),
                                      is_leaf=_is_spec)
         for s_idx, kind in enumerate(cfg.pattern) if cfg.n_rep}
-    specs["rest"] = [_block_specs(cfg, cfg.pattern[i % len(cfg.pattern)])
+    specs["rest"] = [_block_specs(cfg, cfg.pattern[i % P], cfg.ffn_kind(i % P))
                      for i in range(cfg.remainder)]
     return specs
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, ffn: str,
                 np_rng: np.random.Generator, device: torch.device, into=None):
     """Returns (params, topos | None, metas | None). ``into``: the views the
     dense draws are cast into (``layers.draw_stacked``), or None."""
@@ -254,22 +307,24 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
             params["post_ffn"] = norm()
     elif kind == "mamba":
         params["mamba"] = init_mamba_block(gen, cfg.mamba_cfg(), dtype, device, sub("mamba"))
-        return params, None, None
+        if ffn == "none":
+            return params, None, None
+        params["ln2"] = norm()
     elif kind == "rglru":
         params["rglru"] = init_rglru_block(gen, cfg.rglru_cfg(), dtype, device, sub("rglru"))
         params["ln2"] = norm()
     else:
         raise ValueError(kind)
     topos = metas = None
-    if cfg.ffn == "gated":
+    if ffn == "gated":
         params["ffn"] = L.init_gated_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device, sub("ffn"))
-    elif cfg.ffn == "moe":
+    elif ffn == "moe":
         params["ffn"] = init_moe(gen, cfg.moe_cfg(), dtype, device, sub("ffn"))
-    elif cfg.ffn == "sparse":
+    elif ffn == "sparse":
         params["ffn"], topos, metas = L.init_sparse_ffn(
             np_rng, cfg.d_model, cfg.d_ff, cfg.sparse_cfg(), dtype, device)
     else:
-        raise ValueError(cfg.ffn)
+        raise ValueError(ffn)
     return params, topos, metas
 
 
@@ -277,7 +332,7 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return L.rmsnorm(p, x) if cfg.norm == "rms" else L.layernorm(p, x)
 
 
-def _block_fwd(params, h: torch.Tensor, *, cfg: ModelConfig, kind: str,
+def _block_fwd(params, h: torch.Tensor, *, cfg: ModelConfig, kind: str, ffn: str,
                positions: torch.Tensor, layer_index: int, mode: str, cache,
                topo: Optional[Tuple[BlockTopoArrays, BlockTopoArrays]],
                metas, prefix_len: Optional[int], sparse_impl: str = "kernel",
@@ -298,7 +353,7 @@ def _block_fwd(params, h: torch.Tensor, *, cfg: ModelConfig, kind: str,
                 cache[name].copy_(t)
         new_cache = None if new_state is None else cache
         h = h + r
-        if kind == "mamba":
+        if ffn == "none":
             return h, new_cache, aux
     elif kind in ("global", "local"):
         a, new_cache = L.attention_fwd(
@@ -311,9 +366,9 @@ def _block_fwd(params, h: torch.Tensor, *, cfg: ModelConfig, kind: str,
     else:
         raise ValueError(kind)
     f_in = _norm(cfg, params["ln2"], h)
-    if cfg.ffn == "gated":
+    if ffn == "gated":
         f = L.gated_ffn_fwd(params["ffn"], f_in, cfg.activation)
-    elif cfg.ffn == "moe":
+    elif ffn == "moe":
         mcfg = cfg.moe_cfg()
         if moe_groups is not None:
             mcfg = dataclasses.replace(mcfg, groups=moe_groups)
@@ -395,8 +450,8 @@ class PatternLM:
             slot = f"s{s_idx}_{kind}"
             slot_topos = []
 
-            def draw(into, kind=kind, slot_topos=slot_topos):
-                pr, topos, metas = _init_block(gen, cfg, kind, np_rng, dev, into)
+            def draw(into, kind=kind, ffn=cfg.ffn_kind(s_idx), slot_topos=slot_topos):
+                pr, topos, metas = _init_block(gen, cfg, kind, ffn, np_rng, dev, into)
                 if topos is not None:
                     slot_topos.append(topos)
                     self.block_metas = metas
@@ -409,7 +464,8 @@ class PatternLM:
         params["stack"] = stack
         rest = []
         for i in range(cfg.remainder):
-            pr, topos, metas = _init_block(gen, cfg, cfg.pattern[i % P], np_rng, dev)
+            pr, topos, metas = _init_block(gen, cfg, cfg.pattern[i % P], cfg.ffn_kind(i % P),
+                                           np_rng, dev)
             rest.append(pr)
             if topos is not None:
                 self.topologies[f"rest{i}"] = [topos]
@@ -461,8 +517,8 @@ class PatternLM:
         return views
 
     def _layers(self, params, topo) -> List[tuple]:
-        """(kind, layer_index, where, layer params, layer topology) per
-        layer in order. Each stacked leaf is split into its repeats once
+        """(kind, ffn kind, layer_index, where, layer params, layer topology)
+        per layer in order. Each stacked leaf is split into its repeats once
         (``torch.unbind``). Where autograd does not record, memoized for the
         last (params, topo) pair: the same view objects on every call."""
         record = torch.is_grad_enabled()
@@ -481,11 +537,11 @@ class PatternLM:
         for r in range(cfg.n_rep):
             for s_idx, kind in enumerate(cfg.pattern):
                 slot = f"s{s_idx}_{kind}"
-                layers.append((kind, r * P + s_idx + 1, ("stack", slot, r), reps[slot][r],
-                               next(topos)))
+                layers.append((kind, cfg.ffn_kind(s_idx), r * P + s_idx + 1,
+                               ("stack", slot, r), reps[slot][r], next(topos)))
         for i in range(cfg.remainder):
-            layers.append((cfg.pattern[i % P], cfg.n_rep * P + i + 1, ("rest", i),
-                           params["rest"][i], next(topos)))
+            layers.append((cfg.pattern[i % P], cfg.ffn_kind(i % P), cfg.n_rep * P + i + 1,
+                           ("rest", i), params["rest"][i], next(topos)))
         self._views = None if record else (params, topo, layers)
         return layers
 
@@ -513,7 +569,9 @@ class PatternLM:
         K/V of prompt length, stacked as the reference's scan stacks them,
         for the engine to insert into its decode caches; a recurrent block
         returns no state, as in the reference). ``aux`` is the MoE auxiliary
-        loss summed over the layers in order (0 without an MoE FFN).
+        loss summed over the layers in order (0 without an MoE FFN; with
+        ``moe_dropless``, :func:`models.moe.pooled_aux` of the layers'
+        summed routing counts).
         ``moe_groups`` sets the MoE FFN's dispatch groups for this call
         (None: the config's ``moe_groups``): the serving engine's decode
         gives each slot its own, as the reference's vmap over the slots
@@ -540,12 +598,12 @@ class PatternLM:
         # the reference checkpoints its scan body (the stacked layers) in
         # train mode; the LM draws nothing random, so no RNG state is kept
         remat = cfg.remat == "block" and mode == "train" and torch.is_grad_enabled()
-        for kind, layer_index, where, lp, lt in self._layers(params, topo):
+        for kind, ffn, layer_index, where, lp, lt in self._layers(params, topo):
             cache = None
             if caches is not None:
                 cache = (tree_map(lambda a, r=where[2]: a[r], caches["stack"][where[1]])
                          if where[0] == "stack" else caches["rest"][where[1]])
-            block = dict(cfg=cfg, kind=kind, positions=positions, layer_index=layer_index,
+            block = dict(cfg=cfg, kind=kind, ffn=ffn, positions=positions, layer_index=layer_index,
                          mode=mode, cache=cache, topo=lt, metas=self.block_metas,
                          prefix_len=prefix_len, sparse_impl=self.sparse_impl,
                          moe_groups=moe_groups)
@@ -559,6 +617,8 @@ class PatternLM:
             if mode == "prefill" and (nc is not None or where[0] == "rest"):
                 collected.setdefault(where[1] if where[0] == "stack" else "rest", []).append(nc)
 
+        if aux.dim():  # a dropless MoE's routing counts
+            aux = pooled_aux(aux, cfg.moe_cfg())
         new_caches = None
         if mode == "decode":
             new_caches = caches

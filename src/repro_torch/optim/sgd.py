@@ -60,6 +60,10 @@ def replace_values_velocity(state: SGDState, new_values_vel: Sequence[torch.Tens
 class MomentumSGD:
     momentum: float = 0.9
     weight_decay: float = 0.0
+    # write the velocity and the parameters in place (the same bits): a
+    # model whose f32 velocity fills most of the card has no room for a
+    # second copy of it
+    inplace: bool = False
 
     def init(self, params: Params) -> SGDState:
         vel = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
@@ -75,6 +79,12 @@ class MomentumSGD:
             g = g.float() + wd * p.float()
             return mu * v - lr * g
 
+        if self.inplace:
+            for v, g, p in zip(tree_leaves(state.velocity), tree_leaves(grads),
+                               tree_leaves(params)):
+                v.mul_(mu).sub_(lr * (g.float() + wd * p.float()) if wd else lr * g.float())
+                p.copy_(p.float() + v)
+            return params, SGDState(velocity=state.velocity, step=state.step + 1)
         vel = tree_map(upd, state.velocity, grads, params)
         new_params = tree_map(lambda p, v: (p.float() + v).to(p.dtype), params, vel)
         return new_params, SGDState(velocity=vel, step=state.step + 1)
